@@ -1,0 +1,142 @@
+"""The port stands alone: importing ``wiki_grx_gym_tpu_torch`` and every
+submodule (and ``chip_smoke.py``) loads no ``jax*`` module and nothing of
+the JAX package; the entry points refuse ``device="cuda"`` without a card
+and refuse what is outside the slice."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "wiki_grx_gym_tpu_torch"
+
+
+def _modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _run(code):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(ROOT), env=env, timeout=300)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
+        "'flax', 'optax', 'orbax')) or m == 'wiki_grx_gym_tpu' or m.startswith('wiki_grx_gym_tpu.'))\n"
+        "print(json.dumps({'n': len(mods), 'bad': bad}))\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["n"] >= 20
+    assert out["bad"] == []
+
+
+def test_port_sources_do_not_import_jax():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax", "import flax", "import optax")), (f, s)
+            assert not (s.startswith(("import wiki_grx_gym_tpu", "from wiki_grx_gym_tpu"))
+                        and "wiki_grx_gym_tpu_torch" not in s), (f, s)
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; chip_smoke.py would run for real")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=str(ROOT), env=env, timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from wiki_grx_gym_tpu_torch import resolve_device
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        task_registry.make_env("GR1T1")   # the default device is cuda
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda c: setattr(c.terrain, "mesh_type", "heightfield"), "terrain"),
+    (lambda c: setattr(c.terrain, "mesh_type", "trimesh"), "terrain"),
+    (lambda c: setattr(c.commands, "heading_command", True), "heading"),
+    (lambda c: setattr(c.control, "control_type", "T"), "control_type"),
+    (lambda c: setattr(c.control, "control_type", "V"), "item 11"),
+])
+def test_env_refuses_outside_the_slice(mutate, match):
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = 2
+    mutate(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("task", ["GR1T1_full", "GR1T2_full"])
+def test_full_body_tasks_refused(task):
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        task_registry.make_env(task, env_cfg=cfg, device="cpu")
+
+
+def test_lstm_runner_refused():
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
+
+    cfg, train = task_registry.get_cfgs("GR1T1_lstm")
+    cfg.env.num_envs = 2
+    env, _ = task_registry.make_env("GR1T1_lstm", env_cfg=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        OnPolicyRunner(env, train, device="cpu")
+
+
+def test_kernel_path_refuses_unsupported_programs():
+    """On a CUDA tensor the wrapper launches K1 or raises: a reward term with
+    no lane form is refused when the program is built, and sizes the CUDA
+    source is not instantiated for are reported before any launch."""
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = 2
+    assert task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")[0] \
+        .decimation_op.kernel_support_error() is None
+    cfg.rewards.scales.collision = -1.0   # a term without a lane form
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="collision"):
+        env.decimation_op
+    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = 2
+    cfg.asset.self_collisions = 1         # no self-collision pairs: other sizes
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
+    assert "sizes" in env.decimation_op.kernel_support_error()

@@ -1,0 +1,104 @@
+"""Carry weights and state from the JAX package's formats into the port.
+
+- :func:`actor_critic_from_numpy`: JAX ``ActorCriticParams`` as numpy
+  (``actor``/``critic`` lists of ``(W (in, out), b)`` pairs plus ``std``)
+  into the port's ``ActorCritic`` (``nn.Linear`` keeps W as (out, in)).
+- :func:`load_actor_npz`: the actor of a ``policy.npz`` written by the JAX
+  ``export_policy_npz`` into the port's ``ActorCritic``.
+- :func:`env_state_from_numpy`: a JAX ``EnvState`` flattened to numpy into
+  the port's ``EnvState``. The port's ``rng`` is a ``torch.Generator``.
+
+Nothing here imports JAX: the inputs are plain numpy arrays and dicts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
+
+
+def _get(tree, key):
+    return tree[key] if isinstance(tree, dict) else getattr(tree, key)
+
+
+def _linears(seq):
+    return [m for m in seq if isinstance(m, torch.nn.Linear)]
+
+
+@torch.no_grad()
+def _fill_stack(linears, pairs):
+    if len(linears) != len(pairs):
+        raise ValueError(f"{len(pairs)} layers given, the network has {len(linears)}")
+    for lin, (w, b) in zip(linears, pairs):
+        w = torch.as_tensor(np.asarray(w, np.float32))
+        b = torch.as_tensor(np.asarray(b, np.float32))
+        if w.t().shape != lin.weight.shape or b.shape != lin.bias.shape:
+            raise ValueError(f"shape {tuple(w.shape)} does not fit {lin}")
+        lin.weight.copy_(w.t())
+        lin.bias.copy_(b)
+
+
+@torch.no_grad()
+def actor_critic_from_numpy(net, tree):
+    """Fill ``net`` (the port's ``ActorCritic``) from JAX params as numpy:
+    ``tree.actor``/``tree.critic`` lists of (W (in, out), b) and ``tree.std``
+    (attribute or dict access). Returns ``net``."""
+    _fill_stack(_linears(net.actor), _get(tree, "actor"))
+    _fill_stack(_linears(net.critic), _get(tree, "critic"))
+    net.std_param.copy_(torch.as_tensor(np.asarray(_get(tree, "std"), np.float32)))
+    return net
+
+
+@torch.no_grad()
+def load_actor_npz(net, path: str):
+    """Fill the actor and std of ``net`` from a ``policy.npz`` in the
+    ``export_policy_npz`` format (``actor_w{i}`` (in, out), ``actor_b{i}``,
+    ``std``). Returns ``net``."""
+    blob = np.load(path, allow_pickle=False)
+    n_layers = sum(1 for k in blob.files if k.startswith("actor_w"))
+    pairs = [(blob[f"actor_w{i}"], blob[f"actor_b{i}"]) for i in range(n_layers)]
+    _fill_stack(_linears(net.actor), pairs)
+    net.std_param.copy_(torch.as_tensor(np.asarray(blob["std"], np.float32)))
+    return net
+
+
+def env_state_from_numpy(d, device="cpu", generator: torch.Generator = None):
+    """A JAX ``EnvState`` flattened to numpy -> the port's ``EnvState``.
+
+    ``d`` maps every ``EnvState`` field name to a numpy array, with
+    ``physics`` and ``rand`` as dicts of their own fields. ``rng`` (a JAX
+    key) is not carried: the state gets ``generator`` (a fresh one on
+    ``device``, seeded 0, if None)."""
+    from wiki_grx_gym_tpu_torch.envs.legged_env import EnvState
+
+    t = lambda a: torch.as_tensor(np.array(a), device=device)
+    ph, rd = d["physics"], d["rand"]
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return EnvState(
+        physics=PhysicsState(**{k: t(ph[k]) for k in (
+            "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anchor")}),
+        rng=generator,
+        episode_length=t(np.asarray(d["episode_length"], np.int32)),
+        common_step=t(np.asarray(d["common_step"], np.int32)),
+        commands=t(d["commands"]),
+        actions=t(d["actions"]),
+        last_actions=t(d["last_actions"]),
+        last_last_actions=t(d["last_last_actions"]),
+        last_dof_vel=t(d["last_dof_vel"]),
+        torques=t(d["torques"]),
+        feet_air_time=t(d["feet_air_time"]),
+        feet_land_time=t(d["feet_land_time"]),
+        feet_contact_last=t(np.asarray(d["feet_contact_last"], bool)),
+        episode_sums=t(d["episode_sums"]),
+        rand=BodyRandomization(**{k: t(rd[k]) for k in (
+            "friction", "restitution", "base_mass_scale", "base_com_offset")}),
+        motor_strength=t(d["motor_strength"]),
+        env_origins=t(d["env_origins"]),
+        terrain_levels=t(np.asarray(d["terrain_levels"], np.int32)),
+        terrain_types=t(np.asarray(d["terrain_types"], np.int32)),
+        cmd_lin_vel_x_range=t(d["cmd_lin_vel_x_range"]),
+    )

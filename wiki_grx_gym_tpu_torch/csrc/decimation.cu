@@ -1,0 +1,902 @@
+// K1: the decimation kernel, one whole policy step per env, for Hopper (sm_90a).
+//
+// Replaces wiki_grx_gym_tpu/sim/pallas_step.py:PallasDecimation._kernel (the
+// Pallas TPU kernel over sim/scalarized.py:ScalarDecimation.run and
+// envs/post_lanes.py:LanePost.run). Per env it runs: the actuation-delay gate,
+// PD torques, `decimation` physics substeps (FK over the static tree, ground
+// contact with anchored stick friction, sphere-sphere self-collision, CRBA
+// mass matrix + RNEA bias, an unrolled (6+D)^2 Cholesky solve, semi-implicit
+// Euler), the feet accumulators, the final-state FK of the post bodies, and
+// the folded post-physics stage (24 reward terms of the GR1T1 lower limb,
+// termination, tilt, bad, contact filter, air/land trackers).
+//
+// What bounds it on this card: FP32 arithmetic. A policy step reads ~186 and
+// writes ~301 floats per env but does some 10^5 floating-point operations on
+// them, so the byte traffic is far below the operation count at the card's
+// 67 TFLOP/s FP32 / 3.35 TB/s balance. The design keeps every intermediate in
+// the thread (registers, spilling to local memory, which stays in L1/L2) and
+// touches device memory only to read the inputs once and write the outputs
+// once: one thread per env, component-major (C, N) float32 layout so that
+// the loads and stores of a warp coalesce, model constants in __constant__
+// memory (every thread of a warp reads the same address). It computes what
+// the TPU kernel computes; it does not carry over the TPU's (8, 128) env
+// tiling. A later PR can cut the spills (the per-env mass matrix, FK and
+// contact arrays exceed 255 registers) and fill more of the 132 SMs.
+//
+// Numerics: the statements follow the plain lane program in the same order
+// and association. Model constants that the lane program folds in float64 on
+// the host (d_t, d_ns, imp_cap, the composite subtree masses, the gravity
+// terms, the joint-limit gains) arrive folded the same way. max/min/clip
+// propagate NaN like torch.maximum/torch.clamp (CUDA's fmaxf/fminf do not),
+// so an exploded env stays NaN and its `bad` flag fires. jnp.where selects
+// are ternaries on values that are both computed.
+//
+// Interface (plain C, loaded with ctypes): k1_const_size, k1_set_constants,
+// k1_launch. k1_launch runs on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace k1 {
+
+struct GR1T1LowerLimb {
+  static constexpr int NB = 11;     // bodies
+  static constexpr int ND = 10;     // dofs
+  static constexpr int NP = 29;     // contact points
+  static constexpr int NF = 2;      // feet
+  static constexpr int NPAIR = 64;  // self-collision pairs
+  static constexpr int NR = 24;     // reward terms
+  static constexpr int NPOST = 3;   // post-FK bodies
+};
+
+constexpr int MAXG = 8;       // termination-group capacity
+constexpr int N_IN_GROUPS = 21;
+constexpr int N_OUT_GROUPS = 28;
+constexpr int THREADS = 64;
+
+enum InGroup {
+  IN_POS, IN_QUAT, IN_LIN, IN_ANG, IN_Q, IN_QD, IN_ANCHOR, IN_ACTIONS, IN_LAST_ACTIONS,
+  IN_MOTOR, IN_DELAY, IN_FRICTION, IN_RESTITUTION, IN_MASS_SCALE, IN_COM_OFFSET,
+  IN_LAST_QD, IN_COMMANDS, IN_LAST_LAST_ACTIONS, IN_FEET_AIR_TIME, IN_FEET_LAND_TIME,
+  IN_FEET_CONTACT_LAST
+};
+enum OutGroup {
+  OUT_POS, OUT_QUAT, OUT_LIN, OUT_ANG, OUT_Q, OUT_QD, OUT_ANCHOR, OUT_FORCE_SUM,
+  OUT_VXYZ_SUM, OUT_VRPY_SUM, OUT_TAU, OUT_POINT_FORCE, OUT_POST_QUAT, OUT_POST_REL,
+  OUT_REW_TERMS, OUT_BLV, OUT_BAV, OUT_PG, OUT_TERM_CONTACT, OUT_TILT, OUT_BAD,
+  OUT_FEET_CONTACT, OUT_CONTACT_FILT, OUT_FIRST_CONTACT, OUT_FEET_AIR_TIME,
+  OUT_FEET_LAND_TIME, OUT_FEET_HEIGHT, OUT_BHO
+};
+// reward term ids (sim/cuda_step.py:REWARD_IDS)
+enum Reward {
+  RW_ACTION_DIFF, RW_ACTION_DIFF_DIFF, RW_CMD_ANG_VEL_YAW, RW_CMD_BASE_HEIGHT,
+  RW_CMD_BASE_ORIENT, RW_CMD_LIN_VEL_X, RW_CMD_LIN_VEL_Y, RW_CMD_LIN_VEL_Z,
+  RW_CMD_TORSO_ORIENT, RW_DOF_ACC_NEW, RW_DOF_TOR_ANKLE_LIFT, RW_DOF_TOR_NEW,
+  RW_FEET_AIR_FORCE, RW_FEET_AIR_HEIGHT, RW_FEET_AIR_TIME, RW_FEET_LAND_TIME,
+  RW_FEET_SPEED_XY, RW_FEET_STUMBLE, RW_LIMITS_DOF_POS, RW_LIMITS_DOF_TOR,
+  RW_LIMITS_DOF_VEL, RW_ON_THE_AIR, RW_POSE_OFFSET, RW_STAND_STILL
+};
+
+// Field order and sizes mirror sim/cuda_step.py:_ModelConst.
+template <class S>
+struct ModelConst {
+  int parent[S::NB];
+  int point_body[S::NP];
+  int pair_i[S::NPAIR], pair_j[S::NPAIR];
+  int feet_body[S::NF];
+  int feet_start[S::NF], feet_count[S::NF];
+  int feet_pts[S::NP];
+  int post_body[S::NPOST];
+  int feet_slot[S::NF];
+  int n_term, term_start[MAXG], term_count[MAXG];
+  int term_pts[S::NP];
+  int torso_slot, forehead_slot;
+  int n_ankle_left, ankle_left[S::ND];
+  int n_ankle_right, ankle_right[S::ND];
+  int reward_id[S::NR];
+  int decimation, use_tangent, use_joint_limits, has_damp;
+  int in_off[N_IN_GROUPS], out_off[N_OUT_GROUPS];
+  float tree_pos[S::NB][3], tree_quat[S::NB][4], axis_unit[S::NB][3], axis[S::NB][3];
+  float mass[S::NB], com[S::NB][3], inertia[S::NB][3][3];
+  float grav_z[S::NB], cm_sub[S::NB];
+  float armature[S::ND];
+  float dof_lower[S::ND], dof_upper[S::ND], lim_k[S::ND], lim_damp[S::ND];
+  float point_offset[S::NP][3], point_radius[S::NP];
+  float pair_rsum[S::NPAIR];
+  float dt, stiffness, damping_ratio, sqrt_kpm, imp_cap, kt, d_t, k_self, d_ns,
+      slip_velocity, grav, gscale, ground_h;
+  float action_scale, p_gain[S::ND], d_gain[S::ND], default_q[S::ND],
+      torque_limit[S::ND], damp_coeff[S::ND];
+  float dt_policy, decimation_f, hscale, target_h;
+  float feet_offset[S::NF][3];
+  float torso_qoff[4], forehead_qoff[4];
+  float soft_lo[S::ND], soft_hi[S::ND], vel_soft[S::ND], tor_soft[S::ND];
+  float scale[S::NR], sigma[S::NR];
+  float swing_target, swing_half, swing_quarter, fat_target, fat_half, flt_max,
+      stumble_ratio;
+};
+
+using Sz = GR1T1LowerLimb;
+__constant__ ModelConst<Sz> c_model;
+
+// ---------------------------------------------------------------------------
+// lane algebra, NaN-propagating like torch.maximum / torch.clamp
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : (a < b ? b : a);
+}
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : (b < a ? b : a);
+}
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return nmin(nmax(x, lo), hi);
+}
+__device__ __forceinline__ float b2f(bool b) { return b ? 1.0f : 0.0f; }
+
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
+  float x = a[1] * b[2] - a[2] * b[1];
+  float y = a[2] * b[0] - a[0] * b[2];
+  float z = a[0] * b[1] - a[1] * b[0];
+  o[0] = x; o[1] = y; o[2] = z;
+}
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+__device__ __forceinline__ void qmul(const float* a, const float* b, float* o) {
+  float ax = a[0], ay = a[1], az = a[2], aw = a[3];
+  float bx = b[0], by = b[1], bz = b[2], bw = b[3];
+  o[0] = aw * bx + ax * bw + ay * bz - az * by;
+  o[1] = aw * by - ax * bz + ay * bw + az * bx;
+  o[2] = aw * bz + ax * by - ay * bx + az * bw;
+  o[3] = aw * bw - ax * bx - ay * by - az * bz;
+}
+// maths.quat_apply: (v + t*w) + q_xyz x t, t = 2 (q_xyz x v)
+__device__ __forceinline__ void qapply(const float* q, const float* v, float* o) {
+  float c[3], t[3], c2[3];
+  cross3(q, v, c);
+  t[0] = c[0] * 2.0f; t[1] = c[1] * 2.0f; t[2] = c[2] * 2.0f;
+  cross3(q, t, c2);
+  o[0] = (v[0] + t[0] * q[3]) + c2[0];
+  o[1] = (v[1] + t[1] * q[3]) + c2[1];
+  o[2] = (v[2] + t[2] * q[3]) + c2[2];
+}
+__device__ __forceinline__ void qrotinv(const float* q, const float* v, float* o) {
+  float qc[4] = {-q[0], -q[1], -q[2], q[3]};
+  qapply(qc, v, o);
+}
+__device__ __forceinline__ void q_from_angle_axis(float angle, const float* axis, float* o) {
+  float half = 0.5f * angle;
+  float s = sinf(half);
+  o[0] = axis[0] * s; o[1] = axis[1] * s; o[2] = axis[2] * s; o[3] = cosf(half);
+}
+__device__ __forceinline__ void m3vec(const float m[3][3], const float* v, float* o) {
+  for (int r = 0; r < 3; ++r) o[r] = m[r][0] * v[0] + m[r][1] * v[1] + m[r][2] * v[2];
+}
+
+// ---------------------------------------------------------------------------
+// forward kinematics (ScalarSubstep.fk)
+// ---------------------------------------------------------------------------
+
+template <class S>
+__device__ void fk(const float* quat0, const float* ang, const float* lin, const float* q,
+                   const float* qd, float quats[][4], float pos_rel[][3], float sub[][6],
+                   float tw[][6]) {
+  const ModelConst<S>& K = c_model;
+  for (int k = 0; k < 4; ++k) quats[0][k] = quat0[k];
+  for (int k = 0; k < 3; ++k) { pos_rel[0][k] = 0.0f; tw[0][k] = ang[k]; tw[0][3 + k] = lin[k]; }
+  for (int k = 0; k < 6; ++k) sub[0][k] = 0.0f;
+#pragma unroll 1
+  for (int i = 1; i < S::NB; ++i) {
+    const int p = K.parent[i];
+    float q_static[4], q_joint[4], v[3], a_w[3], c[3];
+    qmul(quats[p], K.tree_quat[i], q_static);
+    q_from_angle_axis(q[i - 1], K.axis_unit[i], q_joint);
+    qmul(q_static, q_joint, quats[i]);
+    qapply(quats[p], K.tree_pos[i], v);
+    for (int k = 0; k < 3; ++k) pos_rel[i][k] = pos_rel[p][k] + v[k];
+    qapply(quats[i], K.axis[i], a_w);
+    cross3(pos_rel[i], a_w, c);
+    for (int k = 0; k < 3; ++k) { sub[i][k] = a_w[k]; sub[i][3 + k] = c[k]; }
+    const float qdi = qd[i - 1];
+    for (int k = 0; k < 6; ++k) tw[i][k] = tw[p][k] + sub[i][k] * qdi;
+  }
+}
+
+// per-env state lanes
+template <class S>
+struct State {
+  float pos[3], quat[4], lin[3], ang[3], q[S::ND], qd[S::ND], anchor[S::NP][3];
+};
+
+// ---------------------------------------------------------------------------
+// one substep (ScalarSubstep.substep: limits -> fk -> contact -> dynamics ->
+// integrate). Leaves the pre-step kinematics and the point forces in the
+// caller's arrays for the feet accumulators.
+// ---------------------------------------------------------------------------
+
+template <class S>
+__device__ void substep(State<S>& st, const float* tau_in, const float* damp_in,
+                        float friction, float restitution, float mass_scale,
+                        const float* com_offset, float quats[][4], float pos_rel[][3],
+                        float sub[][6], float tw[][6], float forces[][3]) {
+  const ModelConst<S>& K = c_model;
+  constexpr int NB = S::NB, ND = S::ND, NP = S::NP, N6 = 6 + S::ND;
+  const float dt = K.dt;
+  float tau[ND], damp[ND];
+  for (int i = 0; i < ND; ++i) { tau[i] = tau_in[i]; damp[i] = damp_in[i]; }
+
+  // joint position limits
+  if (K.use_joint_limits) {
+    for (int i = 0; i < ND; ++i) {
+      float over = nmax(st.q[i] - K.dof_upper[i], 0.0f);
+      float under = nmax(K.dof_lower[i] - st.q[i], 0.0f);
+      float viol = b2f((over > 0.0f) | (under > 0.0f));
+      float lim_damp = K.lim_damp[i] * viol;
+      tau[i] = tau[i] + K.lim_k[i] * (under - over) - lim_damp * st.qd[i];
+      damp[i] = damp[i] + lim_damp;
+    }
+  }
+
+  fk<S>(st.quat, st.ang, st.lin, st.q, st.qd, quats, pos_rel, sub, tw);
+
+  // ---- contact: flat ground ----
+  float pts_pos[NP][3], pts_vel[NP][3], new_anchor[NP][3];
+  const float imp_cap = K.imp_cap;
+  const float mu = friction;
+  const float zeta = K.damping_ratio * clipf(1.0f - restitution, 0.05f, 1.0f);
+  const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, imp_cap);
+#pragma unroll 1
+  for (int p = 0; p < NP; ++p) {
+    const int b = K.point_body[p];
+    float v[3], rel[3], c[3], vel[3], pos[3];
+    qapply(quats[b], K.point_offset[p], v);
+    for (int k = 0; k < 3; ++k) rel[k] = pos_rel[b][k] + v[k];
+    cross3(&tw[b][0], rel, c);
+    for (int k = 0; k < 3; ++k) {
+      vel[k] = tw[b][3 + k] + c[k];
+      pos[k] = st.pos[k] + rel[k];
+      pts_pos[p][k] = pos[k];
+      pts_vel[p][k] = vel[k];
+    }
+    const float r = K.point_radius[p];
+    const float depth = nmin(K.ground_h - (pos[2] - r), 0.5f);
+    const bool active = depth > 0.0f;
+    float f_n = nmax(K.stiffness * depth - d_n * vel[2], 0.0f);
+    f_n = active ? f_n : 0.0f;
+    const float cone = mu * f_n;
+    float ftx, fty;
+    if (K.use_tangent) {
+      const float kt = K.kt;
+      const float* a = st.anchor[p];
+      float ex = clipf(pos[0] - a[0], -0.1f, 0.1f);
+      float ey = clipf(pos[1] - a[1], -0.1f, 0.1f);
+      ftx = -kt * ex - K.d_t * vel[0];
+      fty = -kt * ey - K.d_t * vel[1];
+      float mag = sqrtf(ftx * ftx + fty * fty);
+      float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
+      ftx = ftx * sc;
+      fty = fty * sc;
+      new_anchor[p][0] = active ? pos[0] + ftx / kt : pos[0];
+      new_anchor[p][1] = active ? pos[1] + fty / kt : pos[1];
+      new_anchor[p][2] = pos[2] + 0.0f;
+      ftx = active ? ftx : 0.0f;
+      fty = active ? fty : 0.0f;
+    } else {
+      float speed_t = sqrtf(vel[0] * vel[0] + vel[1] * vel[1]);
+      float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), imp_cap);
+      ftx = -k_t * vel[0];
+      fty = -k_t * vel[1];
+      for (int k = 0; k < 3; ++k) new_anchor[p][k] = st.anchor[p][k];
+    }
+    forces[p][0] = ftx; forces[p][1] = fty; forces[p][2] = f_n;
+  }
+
+  // ---- sphere-sphere self-collision ----
+#pragma unroll 1
+  for (int s = 0; s < S::NPAIR; ++s) {
+    const int i = K.pair_i[s], j = K.pair_j[s];
+    float d[3], n[3], rel_v[3];
+    for (int k = 0; k < 3; ++k) d[k] = pts_pos[i][k] - pts_pos[j][k];
+    float dist = sqrtf(nmax(dot3(d, d), 0.0f));
+    float inv = 1.0f / nmax(dist, 1e-6f);
+    for (int k = 0; k < 3; ++k) n[k] = d[k] * inv;
+    float pen = K.pair_rsum[s] - dist;
+    bool active = pen > 0.0f;
+    for (int k = 0; k < 3; ++k) rel_v[k] = pts_vel[i][k] - pts_vel[j][k];
+    float v_n = dot3(rel_v, n);
+    float f_mag = nmax(K.k_self * nmin(pen, 0.1f) - K.d_ns * v_n, 0.0f);
+    f_mag = active ? f_mag : 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      forces[i][k] = forces[i][k] + n[k] * f_mag;
+      forces[j][k] = forces[j][k] - n[k] * f_mag;
+    }
+  }
+
+  // ---- per-body external wrenches at the base origin ----
+  float ext_ang[NB][3], ext_lin[NB][3];
+  for (int b = 0; b < NB; ++b)
+    for (int k = 0; k < 3; ++k) { ext_ang[b][k] = 0.0f; ext_lin[b][k] = 0.0f; }
+#pragma unroll 1
+  for (int p = 0; p < NP; ++p) {
+    const int b = K.point_body[p];
+    float rel[3], c[3];
+    for (int k = 0; k < 3; ++k) rel[k] = pts_pos[p][k] - st.pos[k];
+    cross3(rel, forces[p], c);
+    for (int k = 0; k < 3; ++k) {
+      ext_ang[b][k] = ext_ang[b][k] + c[k];
+      ext_lin[b][k] = ext_lin[b][k] + forces[p][k];
+    }
+  }
+
+  // ---- dynamics (ScalarSubstep.dynamics) ----
+  float mass[NB], h[NB][3], io[NB][3][3], com_rel[NB][3];
+  for (int b = 0; b < NB; ++b) mass[b] = K.mass[b];
+  mass[0] = K.mass[0] * mass_scale;
+#pragma unroll 1
+  for (int b = 0; b < NB; ++b) {
+    const float* qb = quats[b];
+    float qx = qb[0], qy = qb[1], qz = qb[2], qw = qb[3];
+    float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+    float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+    float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+    float r[3][3] = {
+        {1.0f - 2.0f * (yy + zz), 2.0f * (xy - wz), 2.0f * (xz + wy)},
+        {2.0f * (xy + wz), 1.0f - 2.0f * (xx + zz), 2.0f * (yz - wx)},
+        {2.0f * (xz - wy), 2.0f * (yz + wx), 1.0f - 2.0f * (xx + yy)}};
+    float cl[3], v[3];
+    for (int k = 0; k < 3; ++k) cl[k] = (b == 0) ? K.com[0][k] + com_offset[k] : K.com[b][k];
+    qapply(qb, cl, v);
+    float* cr = com_rel[b];
+    for (int k = 0; k < 3; ++k) cr[k] = pos_rel[b][k] + v[k];
+    // R I R^T with I constant (_m3_sandwich_const)
+    float bm[3][3], iw[3][3];
+    for (int a = 0; a < 3; ++a)
+      for (int c = 0; c < 3; ++c)
+        bm[a][c] = r[a][0] * K.inertia[b][0][c] + r[a][1] * K.inertia[b][1][c] +
+                   r[a][2] * K.inertia[b][2][c];
+    for (int a = 0; a < 3; ++a)
+      for (int c = 0; c < 3; ++c)
+        iw[a][c] = bm[a][0] * r[c][0] + bm[a][1] * r[c][1] + bm[a][2] * r[c][2];
+    const float c2 = dot3(cr, cr);
+    const float m = mass[b];
+    for (int a = 0; a < 3; ++a)
+      for (int c = 0; c < 3; ++c)
+        io[b][a][c] = iw[a][c] + m * ((a == c ? c2 : 0.0f) - cr[a] * cr[c]);
+    for (int k = 0; k < 3; ++k) h[b][k] = cr[k] * m;
+  }
+
+  // gravity as an external force at each com
+  float e_ang[NB][3], e_lin[NB][3];
+  for (int b = 0; b < NB; ++b) {
+    float gz = (b == 0) ? mass[0] * K.grav * K.gscale : K.grav_z[b];
+    float gl[3] = {0.0f, 0.0f, gz};
+    float c[3];
+    cross3(com_rel[b], gl, c);
+    for (int k = 0; k < 3; ++k) {
+      e_ang[b][k] = c[k] + ext_ang[b][k];
+      e_lin[b][k] = gl[k] + ext_lin[b][k];
+    }
+  }
+
+  // bias accelerations
+  float bias[NB][6];
+  for (int k = 0; k < 6; ++k) bias[0][k] = 0.0f;
+#pragma unroll 1
+  for (int i = 1; i < NB; ++i) {
+    const int p = K.parent[i];
+    const float qdi = st.qd[i - 1];
+    float sqd[6], ca[3], c1[3], c2[3];
+    for (int k = 0; k < 6; ++k) sqd[k] = sub[i][k] * qdi;
+    cross3(&tw[i][0], &sqd[0], ca);
+    cross3(&tw[i][0], &sqd[3], c1);
+    cross3(&tw[i][3], &sqd[0], c2);
+    for (int k = 0; k < 3; ++k) {
+      bias[i][k] = bias[p][k] + ca[k];
+      bias[i][3 + k] = bias[p][3 + k] + (c1[k] + c2[k]);
+    }
+  }
+
+  // body forces, accumulated to the root
+  float f_acc[NB][6];
+#pragma unroll 1
+  for (int b = 0; b < NB; ++b) {
+    const float* w = &tw[b][0];
+    const float* v = &tw[b][3];
+    const float* ba_w = &bias[b][0];
+    const float* ba_v = &bias[b][3];
+    float t0[3], t1[3], l_mom[3], p_mom[3], ia_ang[3], ia_lin[3], c1[3], c2[3];
+    m3vec(io[b], w, t0);
+    cross3(h[b], v, t1);
+    for (int k = 0; k < 3; ++k) l_mom[k] = t0[k] + t1[k];
+    cross3(w, h[b], t1);
+    for (int k = 0; k < 3; ++k) p_mom[k] = v[k] * mass[b] + t1[k];
+    m3vec(io[b], ba_w, t0);
+    cross3(h[b], ba_v, t1);
+    for (int k = 0; k < 3; ++k) ia_ang[k] = t0[k] + t1[k];
+    cross3(ba_w, h[b], t1);
+    for (int k = 0; k < 3; ++k) ia_lin[k] = ba_v[k] * mass[b] + t1[k];
+    cross3(w, l_mom, c1);
+    cross3(v, p_mom, c2);
+    for (int k = 0; k < 3; ++k) f_acc[b][k] = (ia_ang[k] + (c1[k] + c2[k])) - e_ang[b][k];
+    cross3(w, p_mom, c1);
+    for (int k = 0; k < 3; ++k) f_acc[b][3 + k] = (ia_lin[k] + c1[k]) - e_lin[b][k];
+  }
+#pragma unroll 1
+  for (int i = NB - 1; i > 0; --i) {
+    const int p = K.parent[i];
+    for (int k = 0; k < 6; ++k) f_acc[p][k] = f_acc[p][k] + f_acc[i][k];
+  }
+  float c_full[N6];
+  for (int k = 0; k < 6; ++k) c_full[k] = f_acc[0][k];
+  for (int i = 0; i < ND; ++i) {
+    float s = 0.0f;
+    for (int k = 0; k < 6; ++k) s = s + sub[i + 1][k] * f_acc[i + 1][k];
+    c_full[6 + i] = s;
+  }
+
+  // CRBA composite inertias (subtree masses of bodies >= 1 come folded in
+  // float64 from the host, like the lane program's Python-float sums)
+  float cm0 = mass[0];
+#pragma unroll 1
+  for (int i = NB - 1; i > 0; --i) {
+    const int p = K.parent[i];
+    if (p == 0) cm0 = cm0 + K.cm_sub[i];
+    for (int k = 0; k < 3; ++k) h[p][k] = h[p][k] + h[i][k];
+    for (int a = 0; a < 3; ++a)
+      for (int c = 0; c < 3; ++c) io[p][a][c] = io[p][a][c] + io[i][a][c];
+  }
+  // (h and io now hold the composite ch and cio)
+  float f_crb[ND][6];
+#pragma unroll 1
+  for (int j = 0; j < ND; ++j) {
+    const int b = j + 1;
+    const float* sw = &sub[b][0];
+    const float* sv = &sub[b][3];
+    float t0[3], t1[3];
+    m3vec(io[b], sw, t0);
+    cross3(h[b], sv, t1);
+    for (int k = 0; k < 3; ++k) f_crb[j][k] = t0[k] + t1[k];
+    cross3(sw, h[b], t1);
+    for (int k = 0; k < 3; ++k) f_crb[j][3 + k] = sv[k] * K.cm_sub[b] + t1[k];
+  }
+
+  // lower triangle of M + ridge, packed row-major: L(i, j) = A[i*(i+1)/2 + j]
+  float A[N6 * (N6 + 1) / 2];
+#define L_(i, j) A[(i) * ((i) + 1) / 2 + (j)]
+  const float* ch0 = h[0];
+  const float nhx[3][3] = {{-0.0f, ch0[2], -ch0[1]},
+                           {-ch0[2], -0.0f, ch0[0]},
+                           {ch0[1], -ch0[0], -0.0f}};
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j <= i; ++j) L_(i, j) = io[0][i][j];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) L_(3 + i, j) = nhx[i][j];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j <= i; ++j) L_(3 + i, 3 + j) = (i == j ? cm0 : 0.0f) + 0.0f;
+  for (int i = 0; i < ND; ++i)
+    for (int j = 0; j < 6; ++j) L_(6 + i, j) = f_crb[i][j];
+  for (int i = 0; i < ND; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      // dof j is an ancestor-or-self of dof i
+      bool anc = false;
+      for (int b = i + 1; b > 0; b = K.parent[b]) anc = anc || (b - 1 == j);
+      float g = 0.0f;
+      if (anc) {
+        g = 0.0f;
+        for (int k = 0; k < 6; ++k) g = g + f_crb[i][k] * sub[j + 1][k];
+      }
+      if (i == j) {
+        g = g + K.armature[i];
+        g = g + dt * damp[i];
+      }
+      L_(6 + i, 6 + j) = g;
+    }
+  }
+  for (int i = 0; i < N6; ++i) L_(i, i) = L_(i, i) + 1e-6f;
+
+  // unrolled Cholesky, in place (ops/linalg semantics)
+  float rhs[N6];
+  for (int k = 0; k < 6; ++k) rhs[k] = -c_full[k];
+  for (int i = 0; i < ND; ++i) rhs[6 + i] = tau[i] - c_full[6 + i];
+#pragma unroll
+  for (int j = 0; j < N6; ++j) {
+    const float d = sqrtf(nmax(L_(j, j), 1e-12f));
+    const float inv_d = 1.0f / d;
+    L_(j, j) = d;
+#pragma unroll
+    for (int i = j + 1; i < N6; ++i) L_(i, j) = L_(i, j) * inv_d;
+#pragma unroll
+    for (int i = j + 1; i < N6; ++i)
+#pragma unroll
+      for (int k = j + 1; k <= i; ++k) L_(i, k) = L_(i, k) - L_(i, j) * L_(k, j);
+  }
+  float y[N6], x[N6];
+#pragma unroll
+  for (int i = 0; i < N6; ++i) {
+    float acc = rhs[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) acc = acc - L_(i, j) * y[j];
+    y[i] = acc / L_(i, i);
+  }
+#pragma unroll
+  for (int i = N6 - 1; i >= 0; --i) {
+    float acc = y[i];
+#pragma unroll
+    for (int j = i + 1; j < N6; ++j) acc = acc - L_(j, i) * x[j];
+    x[i] = acc / L_(i, i);
+  }
+#undef L_
+
+  // ---- semi-implicit Euler ----
+  float ang[3], lin[3], lin_acc[3], c[3];
+  for (int k = 0; k < 3; ++k) ang[k] = clipf(st.ang[k] + x[k] * dt, -100.0f, 100.0f);
+  cross3(st.ang, st.lin, c);
+  for (int k = 0; k < 3; ++k) lin_acc[k] = x[3 + k] + c[k];
+  for (int k = 0; k < 3; ++k) lin[k] = clipf(st.lin[k] + lin_acc[k] * dt, -100.0f, 100.0f);
+  for (int k = 0; k < 3; ++k) st.pos[k] = st.pos[k] + lin[k] * dt;
+
+  // quat_integrate: exact exponential map + renormalize
+  float angle = sqrtf(nmax(dot3(ang, ang), 0.0f));
+  float inv = 1.0f / nmax(angle, 1e-9f);
+  float axis[3] = {ang[0] * inv, ang[1] * inv, ang[2] * inv};
+  float dq[4], quat[4];
+  q_from_angle_axis(angle * dt, axis, dq);
+  qmul(dq, st.quat, quat);
+  float qn = sqrtf(nmax(quat[0] * quat[0] + quat[1] * quat[1] + quat[2] * quat[2] +
+                            quat[3] * quat[3],
+                        0.0f));
+  float qs = 1.0f / nmax(qn, 1e-9f);
+  for (int k = 0; k < 4; ++k) st.quat[k] = quat[k] * qs;
+  for (int k = 0; k < 3; ++k) { st.ang[k] = ang[k]; st.lin[k] = lin[k]; }
+  for (int i = 0; i < ND; ++i) {
+    st.qd[i] = clipf(st.qd[i] + x[6 + i] * dt, -100.0f, 100.0f);
+    st.q[i] = st.q[i] + st.qd[i] * dt;
+  }
+  for (int p = 0; p < NP; ++p)
+    for (int k = 0; k < 3; ++k) st.anchor[p][k] = new_anchor[p][k];
+}
+
+// ---------------------------------------------------------------------------
+// the kernel: one thread per env
+// ---------------------------------------------------------------------------
+
+template <class S>
+__global__ void __launch_bounds__(THREADS)
+decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const ModelConst<S>& K = c_model;
+  constexpr int NB = S::NB, ND = S::ND, NP = S::NP, NF = S::NF;
+
+  auto ld = [&](int group, int k) { return in[(size_t)(K.in_off[group] + k) * n + e]; };
+  auto st_ = [&](int group, int k, float v) { out[(size_t)(K.out_off[group] + k) * n + e] = v; };
+
+  State<S> st;
+  for (int k = 0; k < 3; ++k) { st.pos[k] = ld(IN_POS, k); st.lin[k] = ld(IN_LIN, k); st.ang[k] = ld(IN_ANG, k); }
+  for (int k = 0; k < 4; ++k) st.quat[k] = ld(IN_QUAT, k);
+  for (int i = 0; i < ND; ++i) { st.q[i] = ld(IN_Q, i); st.qd[i] = ld(IN_QD, i); }
+  for (int p = 0; p < NP; ++p)
+    for (int k = 0; k < 3; ++k) st.anchor[p][k] = ld(IN_ANCHOR, 3 * p + k);
+  float actions[ND], last_actions[ND], motor[ND], last_qd[ND];
+  for (int i = 0; i < ND; ++i) {
+    actions[i] = ld(IN_ACTIONS, i);
+    last_actions[i] = ld(IN_LAST_ACTIONS, i);
+    motor[i] = ld(IN_MOTOR, i);
+    last_qd[i] = ld(IN_LAST_QD, i);
+  }
+  const float delay = ld(IN_DELAY, 0);
+  const float friction = ld(IN_FRICTION, 0);
+  const float restitution = ld(IN_RESTITUTION, 0);
+  const float mass_scale = ld(IN_MASS_SCALE, 0);
+  float com_offset[3];
+  for (int k = 0; k < 3; ++k) com_offset[k] = ld(IN_COM_OFFSET, k);
+
+  float force_sum[NF], vxyz[NF][3], vrpy[NF][3];
+  for (int g = 0; g < NF; ++g) {
+    force_sum[g] = 0.0f;
+    for (int k = 0; k < 3; ++k) { vxyz[g][k] = 0.0f; vrpy[g][k] = 0.0f; }
+  }
+  float quats[NB][4], pos_rel[NB][3], sub[NB][6], tw[NB][6], forces[NP][3];
+  float taus[ND];
+
+#pragma unroll 1
+  for (int s = 0; s < K.decimation; ++s) {
+    const bool gate = (float)s < delay;
+    float damp[ND];
+    for (int d = 0; d < ND; ++d) {
+      const float use_act = gate ? last_actions[d] : actions[d];
+      const float scaled = use_act * K.action_scale;
+      const float t = K.p_gain[d] * (scaled + K.default_q[d] - st.q[d]) - K.d_gain[d] * st.qd[d];
+      const float lim = K.torque_limit[d];
+      taus[d] = clipf(t * motor[d], -lim, lim);
+      damp[d] = K.has_damp ? K.damp_coeff[d] * motor[d] : 0.0f;
+    }
+    substep<S>(st, taus, damp, friction, restitution, mass_scale, com_offset, quats,
+               pos_rel, sub, tw, forces);
+    for (int g = 0; g < NF; ++g) {
+      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+      for (int m = 0; m < cnt; ++m) {
+        const int p = K.feet_pts[p0 + m];
+        fx = fx + forces[p][0];
+        fy = fy + forces[p][1];
+        fz = fz + forces[p][2];
+      }
+      force_sum[g] = force_sum[g] + sqrtf(fx * fx + fy * fy + fz * fz);
+      const int b = K.feet_body[g];
+      float c[3];
+      cross3(&tw[b][0], pos_rel[b], c);
+      for (int k = 0; k < 3; ++k) {
+        vxyz[g][k] = vxyz[g][k] + fabsf(tw[b][3 + k] + c[k]);
+        vrpy[g][k] = vrpy[g][k] + fabsf(tw[b][k]);
+      }
+    }
+  }
+
+  // final-state FK of the post bodies
+  fk<S>(st.quat, st.ang, st.lin, st.q, st.qd, quats, pos_rel, sub, tw);
+  float post_quat[S::NPOST][4], post_rel[S::NPOST][3];
+  for (int s = 0; s < S::NPOST; ++s) {
+    const int b = K.post_body[s];
+    for (int k = 0; k < 4; ++k) post_quat[s][k] = quats[b][k];
+    for (int k = 0; k < 3; ++k) post_rel[s][k] = pos_rel[b][k] + 0.0f;
+  }
+
+  // ---- post-physics stage (LanePost.run) ----
+  float blv[3], bav[3], pg[3], torso_pg[3];
+  const float down[3] = {0.0f, 0.0f, -1.0f};
+  qrotinv(st.quat, st.lin, blv);
+  qrotinv(st.quat, st.ang, bav);
+  qrotinv(st.quat, down, pg);
+  if (K.torso_slot >= 0) {
+    float fq[4];
+    qmul(post_quat[K.torso_slot], K.torso_qoff, fq);
+    qrotinv(fq, down, torso_pg);
+  } else {
+    for (int k = 0; k < 3; ++k) torso_pg[k] = pg[k];
+  }
+
+  float feet_height[NF];
+  for (int f = 0; f < NF; ++f) {
+    const int s = K.feet_slot[f];
+    float v[3];
+    qapply(post_quat[s], K.feet_offset[f], v);
+    feet_height[f] = st.pos[2] + post_rel[s][2] + v[2];
+  }
+  float feet_force[NF][3];
+  for (int g = 0; g < NF; ++g) {
+    const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+    for (int k = 0; k < 3; ++k) {
+      float acc = 0.0f;
+      for (int m = 0; m < cnt; ++m) acc = acc + forces[K.feet_pts[p0 + m]][k];
+      feet_force[g][k] = acc;
+    }
+  }
+
+  bool feet_contact[NF], contact_filt[NF];
+  float first_contact[NF], fat[NF], flt[NF];
+  for (int f = 0; f < NF; ++f) {
+    const float fc_last = ld(IN_FEET_CONTACT_LAST, f);
+    const float fat_in = ld(IN_FEET_AIR_TIME, f);
+    feet_contact[f] = feet_force[f][2] > 1.0f;
+    contact_filt[f] = feet_contact[f] | (fc_last > 0.5f);
+    first_contact[f] = b2f((fat_in > 0.0f) & contact_filt[f]);
+    fat[f] = fat_in + K.dt_policy;
+    flt[f] = (ld(IN_FEET_LAND_TIME, f) + K.dt_policy) * b2f(feet_contact[f]);
+  }
+
+  bool term = false;
+  for (int g = 0; g < K.n_term; ++g) {
+    float gf[3];
+    for (int k = 0; k < 3; ++k) {
+      float acc = 0.0f;
+      for (int m = 0; m < K.term_count[g]; ++m) acc = acc + forces[K.term_pts[K.term_start[g] + m]][k];
+      gf[k] = acc;
+    }
+    term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
+  }
+  const bool tilt = fabsf(pg[2]) < 0.33f;
+  bool fin = isfinite((st.pos[0] + st.pos[1] + st.pos[2]) +
+                      (st.quat[0] + st.quat[1] + st.quat[2] + st.quat[3]));
+  for (int i = 0; i < ND; ++i) fin = fin & isfinite(st.q[i]) & isfinite(st.qd[i]);
+  const bool bad = !fin;
+  const float bho = clipf(st.pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
+
+  float cmd[3], lla[ND];
+  for (int k = 0; k < 3; ++k) cmd[k] = ld(IN_COMMANDS, k);
+  for (int i = 0; i < ND; ++i) lla[i] = ld(IN_LAST_LAST_ACTIONS, i);
+  const float cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
+  const float as = K.action_scale;
+
+  for (int r = 0; r < S::NR; ++r) {
+    const float sig = K.sigma[r];
+    float val = 0.0f;
+    switch (K.reward_id[r]) {
+      case RW_ACTION_DIFF: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_ACTION_DIFF_DIFF: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i)
+          err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - bav[2])); break;
+      case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
+      case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(pg[0]) + fabsf(pg[1]))); break;
+      case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - blv[0])); break;
+      case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - blv[1])); break;
+      case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(blv[2])); break;
+      case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(torso_pg[0]) + fabsf(torso_pg[1]))); break;
+      case RW_DOF_ACC_NEW: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + fabsf((st.qd[i] - last_qd[i]) / K.dt_policy);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_DOF_TOR_ANKLE_LIFT: {
+        float sl = 0.0f, sr = 0.0f;
+        for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
+        for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
+        const float lh = feet_height[0], rh = feet_height[1];
+        const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
+        const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
+        val = 1.0f - expf(sig * (err_l + err_r));
+      } break;
+      case RW_DOF_TOR_NEW: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_FEET_AIR_FORCE: {
+        float err = 0.0f;
+        for (int f = 0; f < NF; ++f)
+          err = err + fabsf(fat[f] - K.fat_half) * (force_sum[f] / K.decimation_f);
+        val = expf(sig * err) * cmd_active;
+      } break;
+      case RW_FEET_AIR_HEIGHT: {
+        float min_h = feet_height[0];
+        for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
+        float err = 0.0f;
+        for (int f = 0; f < NF; ++f) {
+          const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
+          const float mid = fabsf(fat[f] - K.fat_half);
+          err = err + mid * err_h;
+        }
+        val = expf(sig * err) * cmd_active;
+      } break;
+      case RW_FEET_AIR_TIME: {
+        float rew = 0.0f;
+        for (int f = 0; f < NF; ++f)
+          rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * first_contact[f];
+        val = rew * cmd_active;
+      } break;
+      case RW_FEET_LAND_TIME: {
+        float rew = 0.0f;
+        for (int f = 0; f < NF; ++f)
+          rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
+        val = rew * cmd_active;
+      } break;
+      case RW_FEET_SPEED_XY: {
+        float err = 0.0f;
+        for (int f = 0; f < NF; ++f) {
+          const float hq = feet_height[f];
+          const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
+          const float v0 = vxyz[f][0] / K.decimation_f, v1 = vxyz[f][1] / K.decimation_f;
+          err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
+        }
+        val = expf(sig * err);
+      } break;
+      case RW_FEET_STUMBLE: {
+        float rew = 0.0f;
+        for (int f = 0; f < NF; ++f) {
+          const float* fo = feet_force[f];
+          const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
+          rew = rew + (1.0f - expf(sig * err));
+        }
+        val = rew;
+      } break;
+      case RW_LIMITS_DOF_POS: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) {
+          const float lo = -nmin(st.q[i] - K.soft_lo[i], 0.0f);
+          const float hi = nmax(st.q[i] - K.soft_hi[i], 0.0f);
+          err = err + fabsf(lo + hi);
+        }
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_LIMITS_DOF_TOR: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_LIMITS_DOF_VEL: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(st.qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
+        val = 1.0f - expf(sig * err);
+      } break;
+      case RW_ON_THE_AIR: {
+        float n_contact = 0.0f;
+        for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(feet_contact[f]);
+        val = b2f(n_contact == 0.0f);
+      } break;
+      case RW_POSE_OFFSET: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
+        val = expf(sig * err);
+      } break;
+      case RW_STAND_STILL: {
+        float err = 0.0f;
+        for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
+        val = expf(sig * err) * (1.0f - cmd_active);
+      } break;
+      default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
+    }
+    st_(OUT_REW_TERMS, r, fin ? K.scale[r] * val : 0.0f);
+  }
+
+  // ---- outputs ----
+  for (int k = 0; k < 3; ++k) {
+    st_(OUT_POS, k, st.pos[k]); st_(OUT_LIN, k, st.lin[k]); st_(OUT_ANG, k, st.ang[k]);
+    st_(OUT_BLV, k, blv[k]); st_(OUT_BAV, k, bav[k]); st_(OUT_PG, k, pg[k]);
+  }
+  for (int k = 0; k < 4; ++k) st_(OUT_QUAT, k, st.quat[k]);
+  for (int i = 0; i < ND; ++i) {
+    st_(OUT_Q, i, st.q[i]); st_(OUT_QD, i, st.qd[i]); st_(OUT_TAU, i, taus[i]);
+  }
+  for (int p = 0; p < NP; ++p)
+    for (int k = 0; k < 3; ++k) {
+      st_(OUT_ANCHOR, 3 * p + k, st.anchor[p][k]);
+      st_(OUT_POINT_FORCE, 3 * p + k, forces[p][k]);
+    }
+  for (int f = 0; f < NF; ++f) {
+    st_(OUT_FORCE_SUM, f, force_sum[f]);
+    for (int k = 0; k < 3; ++k) {
+      st_(OUT_VXYZ_SUM, 3 * f + k, vxyz[f][k]);
+      st_(OUT_VRPY_SUM, 3 * f + k, vrpy[f][k]);
+    }
+    st_(OUT_FEET_CONTACT, f, b2f(feet_contact[f]));
+    st_(OUT_CONTACT_FILT, f, b2f(contact_filt[f]));
+    st_(OUT_FIRST_CONTACT, f, first_contact[f]);
+    st_(OUT_FEET_AIR_TIME, f, fat[f]);
+    st_(OUT_FEET_LAND_TIME, f, flt[f]);
+    st_(OUT_FEET_HEIGHT, f, feet_height[f]);
+  }
+  for (int s = 0; s < S::NPOST; ++s) {
+    for (int k = 0; k < 4; ++k) st_(OUT_POST_QUAT, 4 * s + k, post_quat[s][k]);
+    for (int k = 0; k < 3; ++k) st_(OUT_POST_REL, 3 * s + k, post_rel[s][k]);
+  }
+  st_(OUT_TERM_CONTACT, 0, b2f(term));
+  st_(OUT_TILT, 0, b2f(tilt));
+  st_(OUT_BAD, 0, b2f(bad));
+  st_(OUT_BHO, 0, bho);
+}
+
+}  // namespace k1
+
+extern "C" {
+
+int k1_const_size() { return (int)sizeof(k1::ModelConst<k1::Sz>); }
+
+// Copies the model constants into __constant__ memory, ordered on `stream`.
+int k1_set_constants(const void* host, int nbytes, void* stream) {
+  if (nbytes != (int)sizeof(k1::ModelConst<k1::Sz>)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyToSymbolAsync(k1::c_model, host, nbytes, 0,
+                                            cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  // the host struct may be reused or freed by the caller right after
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
+}
+
+// in: (C_in, n) float32, out: (C_out, n) float32, both contiguous on the device.
+int k1_launch(const float* in, float* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + k1::THREADS - 1) / k1::THREADS;
+  k1::decimation_kernel<k1::Sz><<<blocks, k1::THREADS, 0, (cudaStream_t)stream>>>(in, out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,873 @@
+"""Legged-robot RL environment, PyTorch port (plane terrain, post fold).
+
+Port of ``wiki_grx_gym_tpu/envs/legged_env.py`` for the path the GR1T1
+policy rollout runs: flat plane, commands without heading, P control, and
+the post-physics stage folded into the decimation kernel K1
+(``sim/cuda_step.py``). One ``step(state, actions)`` does:
+
+    clip actions (per-joint boxes)
+    draw the step's ONE uniform block U (delay, obs noise, commands,
+        resets, pushes are column slices of it; ``u=`` injects it)
+    command resampling on schedule
+    K1: delay gate -> PD torques -> 10 physics substeps -> rewards,
+        termination, feet trackers
+    episode sums, pushes, branchless resets, observations
+
+State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
+a ``torch.Generator`` that ``step`` draws from in place. Outside this path
+the env refuses with ``NotImplementedError`` naming the ROADMAP item:
+terrain other than ``plane``, heading commands, the 32-DOF full body and
+control types other than ``P``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from wiki_grx_gym_tpu_torch.device import resolve_device
+from wiki_grx_gym_tpu_torch.envs.base_config import class_to_dict
+from wiki_grx_gym_tpu_torch.models.robot import RobotModel
+from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
+from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
+from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
+from wiki_grx_gym_tpu_torch.utils import maths
+
+# the decimation kernel K1 is instantiated for models up to this many DOFs
+# in slice 1 (the 10-DOF lower limbs); the 32-DOF full body comes later
+_MAX_SLICE_DOF = 16
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Batched (num_envs, ...) environment state."""
+
+    physics: PhysicsState
+    rng: torch.Generator             # drawn from in place by step/reset
+    episode_length: torch.Tensor     # (N,) int32
+    common_step: torch.Tensor        # () int32, push-interval counter
+    commands: torch.Tensor           # (N, 3)
+    actions: torch.Tensor            # (N, A) current clipped actions
+    last_actions: torch.Tensor       # (N, A)
+    last_last_actions: torch.Tensor  # (N, A)
+    last_dof_vel: torch.Tensor       # (N, D)
+    torques: torch.Tensor            # (N, D) last applied torques
+    feet_air_time: torch.Tensor      # (N, F)
+    feet_land_time: torch.Tensor     # (N, F)
+    feet_contact_last: torch.Tensor  # (N, F) bool
+    episode_sums: torch.Tensor       # (N, R) per-reward episode sums
+    rand: BodyRandomization          # per-env scalars, (N,) leaves
+    motor_strength: torch.Tensor     # (N, D)
+    env_origins: torch.Tensor        # (N, 3)
+    terrain_levels: torch.Tensor     # (N,) int32
+    terrain_types: torch.Tensor      # (N,) int32
+    cmd_lin_vel_x_range: torch.Tensor  # (2,) command-curriculum state
+
+    def replace(self, **kw) -> "EnvState":
+        return dataclasses.replace(self, **kw)
+
+
+class StepOutput(NamedTuple):
+    obs: torch.Tensor
+    pri_obs: torch.Tensor
+    rew: torch.Tensor
+    reset: torch.Tensor
+    extras: Dict[str, Any]
+
+
+class LeggedEnv:
+    """Static env tables + step/reset functions on one device.
+
+    Name-to-index resolution, reward selection, gain matching and layout
+    checks happen here, once, on the host. Host constants are numpy float32
+    arrays (as the JAX env's); their device copies carry a ``_t`` suffix."""
+
+    def __init__(self, cfg, model: RobotModel, terrain=None, device="cuda"):
+        self.device = resolve_device(device)
+        if terrain is not None or cfg.terrain.mesh_type != "plane":
+            raise NotImplementedError(
+                f"terrain mesh_type {cfg.terrain.mesh_type!r}: the port runs the "
+                "flat plane only; terrain is ROADMAP queue 1 item 10"
+            )
+        if cfg.commands.heading_command:
+            raise NotImplementedError(
+                "commands.heading_command=True has no post fold; the heading "
+                "path is ROADMAP queue 1 item 11"
+            )
+        if cfg.control.control_type != "P":
+            raise NotImplementedError(
+                f"control_type {cfg.control.control_type!r}: the V and T control "
+                "modes are ROADMAP queue 1 item 11"
+            )
+        if model.num_dof > _MAX_SLICE_DOF:
+            raise NotImplementedError(
+                f"{model.num_dof}-DOF model: the 32-DOF full-body tasks are "
+                "ROADMAP queue 1 item 11"
+            )
+        self.cfg = cfg
+        if getattr(cfg.asset, "disable_gravity", False):
+            model = model.replace(gravity_scale=0.0)
+        self.model = model
+        self.terrain = None
+
+        c = cfg
+        self.num_envs = int(c.env.num_envs)
+        self.num_actions = int(c.env.num_actions)
+        self.num_dof = model.num_dof
+        assert self.num_actions == self.num_dof, (
+            f"num_actions {self.num_actions} != num_dof {self.num_dof}"
+        )
+        self.decimation = int(c.control.decimation)
+        self.sim_dt = float(c.sim.dt)
+        self.dt = self.sim_dt * self.decimation
+        self.max_episode_length_s = float(c.env.episode_length_s)
+        self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
+        self.resample_interval = int(c.commands.resampling_command_interval_s / self.dt)
+        self.push_interval = int(np.ceil(c.domain_rand.push_interval_s / self.dt))
+
+        # --- per-DOF constants ---
+        dof_names = model.dof_names
+        default_pos = np.zeros(self.num_dof, np.float32)
+        p_gains = np.zeros(self.num_dof, np.float32)
+        d_gains = np.zeros(self.num_dof, np.float32)
+        for i, name in enumerate(dof_names):
+            default_pos[i] = c.init_state.default_joint_angles[name]
+            for key, kp in c.control.stiffness.items():
+                if key in name:
+                    p_gains[i] = kp
+                    d_gains[i] = c.control.damping[key]
+        self.default_dof_pos = default_pos
+        self.p_gains = p_gains
+        self.d_gains = d_gains
+        self.torque_limits = model.dof_effort_limit.numpy()
+        self.dof_vel_limits = model.dof_vel_limit.numpy()
+
+        lo = model.dof_lower.numpy()
+        hi = model.dof_upper.numpy()
+        mid, rng_ = (lo + hi) / 2, hi - lo
+        soft = c.rewards.soft_dof_pos_limit
+        self.dof_pos_soft_lower = mid - 0.5 * rng_ * soft
+        self.dof_pos_soft_upper = mid + 0.5 * rng_ * soft
+
+        # --- action clip boxes ---
+        amax = np.array(
+            [self._match_by_name(c.normalization.actions_max, n) for n in dof_names],
+            np.float32,
+        )
+        amin = np.array(
+            [self._match_by_name(c.normalization.actions_min, n) for n in dof_names],
+            np.float32,
+        )
+        if getattr(c.normalization, "clip_margin_mode", "span") == "deg30":
+            margin = np.deg2rad(30.0) * np.ones_like(amax)
+        else:
+            margin = (np.abs(amax) + np.abs(amin)) * 0.01
+        # the deg30 margin is float64: round the boxes once, as jnp.asarray does
+        self.clip_actions_max = (amax + margin).astype(np.float32)
+        self.clip_actions_min = (amin - margin).astype(np.float32)
+
+        # --- named body/joint groups ---
+        self.feet_links = model.find_links(c.asset.foot_name)
+        assert len(self.feet_links) >= 1, "no feet found"
+        self.num_feet = len(self.feet_links)
+        self.feet_bodies = tuple(model.link_frame(l)[0] for l in self.feet_links)
+        self.feet_offsets = torch.stack(
+            [model.link_frame(l)[1] for l in self.feet_links]
+        ).numpy()  # (F, 3)
+
+        self.knee_dofs = model.find_dofs(c.asset.knee_name)
+        self.hip_roll_dofs = model.find_dofs(c.asset.hip_roll_name)
+        self.hip_yaw_dofs = model.find_dofs(c.asset.hip_yaw_name)
+        self.ankle_dofs = model.find_dofs(c.asset.ankle_name)
+
+        self.torso_frame = self._opt_frame(c.asset.torso_name + "_link")
+        self.forehead_frame = self._opt_frame(getattr(c.asset, "forehead_name", "") + "_link")
+
+        # --- contact groups: per-foot, termination links, penalized links ---
+        def link_points(link):
+            return tuple(
+                p for p in range(model.num_points)
+                if model.point_link[p] == model.link_names.index(link)
+            )
+
+        self.feet_point_groups = tuple(link_points(l) for l in self.feet_links)
+        term_links = []
+        for sub in c.asset.terminate_after_contacts_on:
+            term_links.extend(model.find_links(sub))
+        self.termination_links = tuple(
+            l for l in dict.fromkeys(term_links) if link_points(l)
+        )
+        self.termination_groups = tuple(link_points(l) for l in self.termination_links)
+        pen_links = []
+        for sub in c.asset.penalize_contacts_on:
+            pen_links.extend(model.find_links(sub))
+        self.penalized_links = tuple(l for l in dict.fromkeys(pen_links) if link_points(l))
+        self.penalized_groups = tuple(link_points(l) for l in self.penalized_links)
+
+        # --- self-collision candidate pairs (self_collisions == 0 = enabled) ---
+        if getattr(c.asset, "self_collisions", 0) == 0 and model.num_points:
+            self.self_pairs = self._build_self_pairs()
+        else:
+            self.self_pairs = ((), ())
+
+        # --- height measurement grid (plane: only its size is used) ---
+        self.measure_heights = bool(getattr(c.terrain, "measure_heights", True))
+        n_grid = len(c.terrain.measured_points_x) * len(c.terrain.measured_points_y)
+        self.num_height_points = n_grid if self.measure_heights else 1
+
+        self.contact_params = ContactParams(
+            stiffness=c.sim.contact_stiffness,
+            damping_ratio=c.sim.contact_damping_ratio,
+            point_mass=c.sim.contact_point_mass,
+            slip_velocity=c.sim.slip_velocity,
+            tangent_stiffness=getattr(c.sim, "contact_tangent_stiffness", 1.0e4),
+            joint_limit_violation=getattr(c.sim, "joint_limit_violation", 0.05),
+            self_collision_stiffness=getattr(c.sim, "contact_self_collision_stiffness", 1.0e5),
+        )
+
+        # --- reward selection: drop zero scales, multiply by dt ---
+        raw_scales = class_to_dict(c.rewards.scales)
+        self.reward_names: Tuple[str, ...] = tuple(
+            n for n, s in raw_scales.items() if s != 0 and n != "termination"
+        )
+        self.reward_scales = {n: raw_scales[n] * self.dt for n in self.reward_names}
+        self.termination_scale = (
+            raw_scales.get("termination", 0.0) * self.dt if raw_scales.get("termination") else 0.0
+        )
+        self.all_reward_names = self.reward_names + (
+            ("termination",) if "termination" in raw_scales and raw_scales["termination"] != 0 else ()
+        )
+
+        # --- observation noise vector ---
+        self.noise_scale_vec = self._build_noise_vec()
+        self.commands_scale = np.asarray(
+            [
+                c.normalization.obs_scales.lin_vel,
+                c.normalization.obs_scales.lin_vel,
+                c.normalization.obs_scales.ang_vel,
+            ],
+            np.float32,
+        )
+
+        assert self.obs_dim == c.env.num_obs, (self.obs_dim, c.env.num_obs)
+        if c.env.num_pri_obs is not None:
+            assert self.pri_obs_dim == c.env.num_pri_obs, (self.pri_obs_dim, c.env.num_pri_obs)
+
+        # --- env origins: a grid on the plane ---
+        self.custom_origins = False
+        cols = int(np.floor(np.sqrt(self.num_envs)))
+        rows = int(np.ceil(self.num_envs / cols))
+        xx, yy = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+        spacing = c.env.env_spacing
+        org = np.zeros((self.num_envs, 3), np.float32)
+        org[:, 0] = spacing * xx.flatten()[: self.num_envs]
+        org[:, 1] = spacing * yy.flatten()[: self.num_envs]
+        self._origins_np = org
+
+        # --- device copies of the constants the step reads ---
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        self.default_dof_pos_t = t(self.default_dof_pos)
+        self.clip_actions_min_t = t(self.clip_actions_min)
+        self.clip_actions_max_t = t(self.clip_actions_max)
+        self.noise_scale_vec_t = t(self.noise_scale_vec)
+        self.commands_scale_t = t(self.commands_scale)
+        self.init_pos_t = t(c.init_state.pos)
+        self.init_rot_t = t(c.init_state.rot)
+
+    # ------------------------------------------------------------------
+    # build helpers
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _match_by_name(table: dict, dof_name: str) -> float:
+        for key, val in table.items():
+            if key in dof_name:
+                return float(val)
+        raise KeyError(f"no action box for dof {dof_name!r}")
+
+    def _opt_frame(self, link_name):
+        try:
+            body, pos, quat = self.model.link_frame(link_name)
+            return (body, quat.numpy())
+        except KeyError:
+            return None
+
+    @property
+    def obs_dim(self) -> int:
+        return 3 + 3 + 3 + 3 * self.num_dof
+
+    @property
+    def pri_obs_dim(self) -> int:
+        return self.obs_dim + 3 + 1 + 2 * self.num_feet + self.num_height_points
+
+    def _build_noise_vec(self) -> np.ndarray:
+        c = self.cfg
+        ns, level = c.noise.noise_scales, c.noise.noise_level
+        os_ = c.normalization.obs_scales
+        v = np.zeros(self.obs_dim, np.float32)
+        v[0:3] = 0.0  # commands
+        v[3:6] = ns.ang_vel * level * os_.ang_vel
+        v[6:9] = ns.gravity * level * os_.gravity
+        d = self.num_dof
+        v[9: 9 + d] = ns.dof_pos * level * os_.dof_pos
+        v[9 + d: 9 + 2 * d] = ns.dof_vel * level * os_.dof_vel
+        v[9 + 2 * d: 9 + 3 * d] = ns.action * level * os_.action
+        return v
+
+    def _build_self_pairs(self):
+        """Static self-collision pair list: proxy spheres on different limbs
+        (different child subtrees of the base) that are separated by more
+        than 2 cm at the default pose. Computed in float32 like the JAX
+        env's, so a gap near the threshold falls on the same side."""
+        model = self.model
+
+        def limb_root(body):
+            while body > 0 and model.parent[body] != 0:
+                body = model.parent[body]
+            return body
+
+        kin = forward_kinematics(
+            model,
+            torch.tensor([0.0, 0.0, 0.0, 1.0]),
+            torch.zeros(3),
+            torch.zeros(3),
+            torch.from_numpy(self.default_dof_pos),
+            torch.zeros(model.num_dof),
+        )
+        pb = torch.tensor(model.point_body, dtype=torch.long)
+        pos = (
+            kin.pos_rel[pb] + maths.quat_apply(kin.quat[pb], model.point_offset)
+        ).numpy()
+        radius = model.point_radius.numpy()
+        pi, pj = [], []
+        for a in range(model.num_points):
+            for b in range(a + 1, model.num_points):
+                ba, bb = model.point_body[a], model.point_body[b]
+                if ba == 0 or bb == 0 or limb_root(ba) == limb_root(bb):
+                    continue
+                gap = np.linalg.norm(pos[a] - pos[b]) - (radius[a] + radius[b])
+                if gap > 0.02:
+                    pi.append(a)
+                    pj.append(b)
+        return (tuple(pi), tuple(pj))
+
+    @functools.cached_property
+    def _implicit_damping_const(self):
+        """(D,) actuator-damping coefficient solved implicitly by the physics
+        (``-d tau / d qd`` of the P law), or None."""
+        if not getattr(self.cfg.sim, "implicit_pd_damping", True):
+            return None
+        return np.asarray(self.d_gains)
+
+    @functools.cached_property
+    def post_fk_bodies(self):
+        """Bodies whose final-state FK the post stage consumes (feet +
+        orientation-reward frames), in the order K1 emits them."""
+        bodies = list(self.feet_bodies)
+        for fr in (self.torso_frame, self.forehead_frame):
+            if fr is not None and fr[0] not in bodies:
+                bodies.append(fr[0])
+        return tuple(bodies)
+
+    @functools.cached_property
+    def _post_slot(self):
+        return {b: i for i, b in enumerate(self.post_fk_bodies)}
+
+    @functools.cached_property
+    def decimation_op(self):
+        """K1: the decimation kernel's wrapper (``sim/cuda_step.py``)."""
+        from wiki_grx_gym_tpu_torch.envs.post_lanes import LanePost
+        from wiki_grx_gym_tpu_torch.sim.cuda_step import CudaDecimation
+        from wiki_grx_gym_tpu_torch.sim.scalarized import ScalarDecimation, ScalarSubstep
+
+        sub = ScalarSubstep(
+            self.model, self.contact_params, self.sim_dt, self.self_pairs,
+            terrain_mode="plane",
+        )
+        deci = ScalarDecimation(
+            sub, self.decimation, self.cfg.control.control_type,
+            self.cfg.control.action_scale, self.p_gains, self.d_gains,
+            self.default_dof_pos, self.torque_limits, self.feet_bodies,
+            self.feet_point_groups, post_bodies=self.post_fk_bodies,
+            damping_coeff=self._implicit_damping_const, post=LanePost(self),
+        )
+        return CudaDecimation(deci)
+
+    # ------------------------------------------------------------------
+    # init / reset
+    # ------------------------------------------------------------------
+
+    def make_generator(self, seed: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return g
+
+    def init_state(self, generator) -> EnvState:
+        """The initial (all-envs-reset) state, sampling the one-time per-env
+        body randomizations. ``generator``: a ``torch.Generator`` on the
+        env's device, or an int seed."""
+        if not isinstance(generator, torch.Generator):
+            generator = self.make_generator(generator)
+        g, dev = generator, self.device
+        c = self.cfg
+        n, d = self.num_envs, self.num_dof
+        dr = c.domain_rand
+        sample = lambda rng_, shape, dist: maths.sample_distribution(g, rng_, shape, dist, dev)
+
+        def bucketed(rng_, dist, num_buckets):
+            if num_buckets:
+                vals = sample(rng_, (int(num_buckets),), dist)
+                ids = torch.randint(0, int(num_buckets), (n,), generator=g, device=dev)
+                return vals[ids]
+            return sample(rng_, (n,), dist)
+
+        if dr.randomize_friction:
+            friction = bucketed(
+                dr.friction_range, getattr(dr, "friction_distribution", "uniform"),
+                getattr(dr, "friction_buckets", 64),
+            )
+        else:
+            friction = torch.ones(n, device=dev)
+        # the DR sample is the foot material's coefficient; the ground's is
+        # averaged in (IsaacGym's default friction combine mode)
+        ground_mu = float(
+            c.terrain.static_friction
+            if self.contact_params.tangent_stiffness > 0.0
+            else c.terrain.dynamic_friction
+        )
+        friction = 0.5 * (friction + ground_mu)
+        if dr.randomize_restitution:
+            restitution = bucketed(
+                dr.restitution_range, getattr(dr, "restitution_distribution", "uniform"),
+                getattr(dr, "restitution_buckets", 64),
+            )
+        else:
+            restitution = torch.zeros(n, device=dev)
+        mass_scale = (
+            sample(dr.multiply_base_mass_range, (n,),
+                   getattr(dr, "base_mass_distribution", "uniform"))
+            if dr.randomize_base_mass else torch.ones(n, device=dev)
+        )
+        com_dist = getattr(dr, "base_com_distribution", "uniform")
+        com_offset = (
+            torch.stack(
+                [
+                    sample(dr.add_base_com_range_x, (n,), com_dist),
+                    sample(dr.add_base_com_range_y, (n,), com_dist),
+                    sample(dr.add_base_com_range_z, (n,), com_dist),
+                ],
+                dim=-1,
+            )
+            if dr.randomize_base_com else torch.zeros((n, 3), device=dev)
+        )
+        motor_strength = (
+            sample(dr.multiply_motor_strength, (n, d),
+                   getattr(dr, "motor_strength_distribution", "uniform"))
+            if dr.randomize_motor_strength else torch.ones((n, d), device=dev)
+        )
+
+        origins = torch.as_tensor(self._origins_np, device=dev)
+        zeros = lambda *shape: torch.zeros(shape, device=dev)
+        phys = PhysicsState(
+            base_pos=self.init_pos_t.expand(n, 3) + origins,
+            base_quat=self.init_rot_t.expand(n, 4).clone(),
+            base_lin_vel=zeros(n, 3),
+            base_ang_vel=zeros(n, 3),
+            q=self.default_dof_pos_t.expand(n, d).clone(),
+            qd=zeros(n, d),
+            anchor=zeros(n, self.model.num_points, 3),
+        )
+        state = EnvState(
+            physics=phys,
+            rng=g,
+            episode_length=torch.zeros(n, dtype=torch.int32, device=dev),
+            common_step=torch.zeros((), dtype=torch.int32, device=dev),
+            commands=zeros(n, max(3, c.commands.num_commands)),
+            actions=zeros(n, self.num_actions),
+            last_actions=zeros(n, self.num_actions),
+            last_last_actions=zeros(n, self.num_actions),
+            last_dof_vel=zeros(n, d),
+            torques=zeros(n, d),
+            feet_air_time=zeros(n, self.num_feet),
+            feet_land_time=zeros(n, self.num_feet),
+            feet_contact_last=torch.zeros((n, self.num_feet), dtype=torch.bool, device=dev),
+            episode_sums=zeros(n, len(self.all_reward_names)),
+            rand=BodyRandomization(
+                friction=friction,
+                restitution=restitution,
+                base_mass_scale=mass_scale,
+                base_com_offset=com_offset,
+            ),
+            motor_strength=motor_strength,
+            env_origins=origins,
+            terrain_levels=torch.zeros(n, dtype=torch.int32, device=dev),
+            terrain_types=torch.zeros(n, dtype=torch.int32, device=dev),
+            cmd_lin_vel_x_range=torch.tensor(
+                c.commands.ranges.lin_vel_x, dtype=torch.float32, device=dev
+            ),
+        )
+        # force a full reset of every env; curricula do not advance here
+        done = torch.ones(n, dtype=torch.bool, device=dev)
+        return self._reset_where(state, done, update_curriculum=False)
+
+    def reset(self, state: EnvState) -> Tuple[EnvState, StepOutput]:
+        """Reset all envs, then step zero actions."""
+        n = self.num_envs
+        state = self._reset_where(state, torch.ones(n, dtype=torch.bool, device=self.device))
+        return self.step(state, torch.zeros((n, self.num_actions), device=self.device))
+
+    # ------------------------------------------------------------------
+    # step
+    # ------------------------------------------------------------------
+
+    def clip_actions(self, actions: torch.Tensor) -> torch.Tensor:
+        """Per-joint action boxes."""
+        return torch.clamp(actions, self.clip_actions_min_t, self.clip_actions_max_t)
+
+    @functools.cached_property
+    def _step_u_cols(self):
+        """Static column layout of the step's ONE U[0,1) block: every random
+        quantity of the step (delay, obs noise, command resample, resets,
+        pushes) is a slice of a single (n, K) uniform draw."""
+        c = self.cfg
+        widths = [
+            ("delay", 1 if c.control.actuation_delay else 0),
+            ("noise", self.obs_dim if c.noise.add_noise else 0),
+            ("cmd", 3),
+            ("reset", self._reset_u_width),
+            ("push", 2 if c.domain_rand.push_robots else 0),
+        ]
+        cols, off = {}, 0
+        for name, w in widths:
+            cols[name] = (off, w)
+            off += w
+        return cols, off
+
+    def step(self, state: EnvState, actions: torch.Tensor, u: torch.Tensor = None
+             ) -> Tuple[EnvState, StepOutput]:
+        """One policy step. ``u``: optional (n, K) U[0,1) block to use instead
+        of drawing it from ``state.rng`` (K from ``_step_u_cols``)."""
+        c = self.cfg
+        n = self.num_envs
+        cols, k_width = self._step_u_cols
+        if u is None:
+            u = torch.rand((n, k_width), generator=state.rng, device=self.device)
+
+        def u_of(name):
+            off, w = cols[name]
+            return u[:, off: off + w]
+
+        actions = self.clip_actions(actions)
+
+        # ---- actuation delay in substeps: N(mean, std) by inverse erf ----
+        if c.control.actuation_delay:
+            un = torch.clamp(u_of("delay"), 1e-7, 1.0 - 1e-7)
+            delay = c.control.actuation_delay_mean + c.control.actuation_delay_std * (
+                math.sqrt(2.0) * torch.special.erfinv(2.0 * un - 1.0)
+            )
+            delay = torch.clamp(delay, min=0.0)
+        else:
+            delay = torch.zeros((n, 1), device=self.device)
+
+        # command resampling on schedule, before the kernel (its post stage
+        # reads the commands)
+        episode_length = state.episode_length + 1
+        common_step = state.common_step + 1
+        resample = (episode_length % self.resample_interval) == 0
+        new_cmds = self._sample_commands(u_of("cmd"), n, state.cmd_lin_vel_x_range)
+        commands = torch.where(resample[:, None], new_cmds, state.commands)
+
+        extra = {
+            "commands": commands[:, :3],
+            "last_last_actions": state.last_last_actions,
+            "feet_air_time": state.feet_air_time,
+            "feet_land_time": state.feet_land_time,
+            "feet_contact_last": state.feet_contact_last.to(torch.float32),
+        }
+        phys, _, _, _, torques, point_force, _, _, post_out = self.decimation_op(
+            state.physics, actions, state.last_actions, state.motor_strength,
+            delay[:, 0], state.rand, last_qd=state.last_dof_vel, extra=extra,
+        )
+
+        time_out = episode_length > self.max_episode_length
+        hscale = c.normalization.obs_scales.height_measurements
+        target_h = c.rewards.base_height_target
+
+        # ---- post-physics, folded into K1: rewards, termination channels,
+        # feet trackers and base-frame quantities arrive as kernel outputs ----
+        base_lin_vel, base_ang_vel = post_out["blv"], post_out["bav"]
+        projected_gravity = post_out["pg"]
+        feet_contact = post_out["feet_contact"] > 0.5
+        contact_filt = post_out["contact_filt"] > 0.5
+        feet_air_time = post_out["feet_air_time_out"]
+        feet_land_time = post_out["feet_land_time_out"]
+        feet_height = post_out["feet_height"]
+        base_heights_offset = post_out["bho"][:, 0]
+        bad = post_out["bad"][:, 0] > 0.5
+        reset_buf = (
+            (post_out["term_contact"][:, 0] > 0.5)
+            | (post_out["tilt"][:, 0] > 0.5)
+            | time_out
+            | bad
+        )
+        # plane terrain: measured heights are identically zero
+        measured_heights = torch.zeros((n, self.num_height_points), device=self.device)
+        surround_heights_offset = (
+            torch.clamp(phys.base_pos[:, 2:3] - target_h, -1.0, 1.0) * hscale
+        ).expand(n, self.num_height_points)
+        # eval channel
+        feet_force = self._group_forces(point_force, self.feet_point_groups)
+
+        term_stack = post_out["rew_terms"]  # (N, R) == reward_names
+        if self.termination_scale:
+            term = (reset_buf & ~time_out).to(torch.float32) * self.termination_scale
+            term_stack = torch.cat([term_stack, term[:, None]], dim=1)
+        episode_sums = state.episode_sums + term_stack
+        rew_buf = torch.sum(term_stack[:, : len(self.reward_names)], dim=1)
+        if c.rewards.only_positive_rewards:
+            rew_buf = torch.clamp(rew_buf, min=0.0)
+        if self.termination_scale:
+            rew_buf = rew_buf + term_stack[:, len(self.reward_names)]
+
+        # ---- episode logging before the sums are cleared ----
+        done_f = reset_buf.to(torch.float32)
+        cnt = torch.clamp(torch.sum(done_f), min=1.0)
+        means = torch.sum(episode_sums * done_f[:, None], dim=0) / cnt / self.max_episode_length_s
+        episode_metrics = {
+            "rew_" + name: means[i] for i, name in enumerate(self.all_reward_names)
+        }
+        if c.commands.curriculum:
+            episode_metrics["max_command_x"] = state.cmd_lin_vel_x_range[1]
+        extras = {
+            "time_outs": (
+                time_out if getattr(c.env, "send_timeouts", True)
+                else torch.zeros_like(time_out)
+            ),
+            "episode": episode_metrics,
+            "done_count": torch.sum(done_f),
+            # per-env raw metric channels, accumulated by the runner
+            "episode_done_sums": episode_sums * done_f[:, None],   # (N, R)
+            "ep_len_done": torch.where(reset_buf, episode_length, 0).to(torch.float32),
+            # named eval channels (play's logger reads them)
+            "base_lin_vel": base_lin_vel,
+            "base_ang_vel": base_ang_vel,
+            "feet_contact_force": feet_force,
+        }
+
+        # random pushes via the base velocity; visible from the next step on
+        if c.domain_rand.push_robots:
+            do_push = (common_step % self.push_interval) == 0
+            mx = c.domain_rand.max_push_vel_xy
+            push_vel = -mx + 2.0 * mx * u_of("push")
+            pushed = torch.cat([push_vel, phys.base_lin_vel[:, 2:]], dim=1)
+            phys = phys.replace(base_lin_vel=torch.where(do_push, pushed, phys.base_lin_vel))
+
+        # ---- state writeback + branchless resets ----
+        state = state.replace(
+            physics=phys,
+            episode_length=episode_length,
+            common_step=common_step,
+            commands=commands,
+            actions=actions,
+            torques=torques,
+            episode_sums=episode_sums,
+            feet_air_time=feet_air_time,
+            feet_land_time=feet_land_time,
+        )
+        state = self._reset_where(state, reset_buf, u=u_of("reset"), update_curriculum=True)
+
+        # record "last" values; reset envs keep zeros from _reset_where
+        not_done = ~reset_buf
+        nd1 = not_done[:, None].to(torch.float32)
+        state = state.replace(
+            last_actions=state.actions * nd1,
+            last_last_actions=state.actions * nd1,
+            last_dof_vel=state.physics.qd * nd1,
+            feet_air_time=state.feet_air_time * (~contact_filt) * nd1,
+            feet_contact_last=feet_contact & not_done[:, None],
+        )
+
+        # ---- observations from the post-reset state ----
+        obs, pri_obs = self._observations(
+            state, u_of("noise"), commands=state.commands, measured_cache=(
+                measured_heights, base_heights_offset, surround_heights_offset,
+                feet_contact, feet_height, base_lin_vel, base_ang_vel, projected_gravity,
+            ),
+            reset_buf=reset_buf,
+        )
+        return state, StepOutput(obs=obs, pri_obs=pri_obs, rew=rew_buf, reset=reset_buf, extras=extras)
+
+    # ------------------------------------------------------------------
+    # helpers used by step
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _group_forces(point_force: torch.Tensor, groups) -> torch.Tensor:
+        """(N, P, 3) point forces -> (N, G, 3) per-group sums."""
+        cols = []
+        for g in groups:
+            if len(g) == 1:
+                cols.append(point_force[:, g[0]])
+            else:
+                cols.append(torch.sum(point_force[:, list(g)], dim=1))
+        if not cols:
+            return point_force.new_zeros((point_force.shape[0], 0, 3))
+        return torch.stack(cols, dim=1)
+
+    def _sample_commands(self, u3, n, x_range=None):
+        """Uniform command resampling from a (n, 3) U[0,1) block; small
+        commands snap to zero. ``x_range`` carries command-curriculum state."""
+        c = self.cfg.commands
+        r = c.ranges
+        if x_range is None:
+            x_range = torch.tensor(r.lin_vel_x, dtype=torch.float32, device=self.device)
+        cx = x_range[0] + u3[:, 0] * (x_range[1] - x_range[0])
+        cy = r.lin_vel_y[0] + u3[:, 1] * (r.lin_vel_y[1] - r.lin_vel_y[0])
+        cyaw = r.ang_vel_yaw[0] + u3[:, 2] * (r.ang_vel_yaw[1] - r.ang_vel_yaw[0])
+        cmds = torch.stack([cx, cy, cyaw], dim=-1)
+        width = max(3, c.num_commands)
+        if cmds.shape[1] < width:
+            cmds = torch.cat([cmds, cmds.new_zeros((n, width - cmds.shape[1]))], dim=-1)
+        keep = (torch.linalg.vector_norm(cmds[:, :2], dim=1) > 0.1)[:, None]
+        return torch.cat([cmds[:, :2] * keep.to(torch.float32), cmds[:, 2:]], dim=1)
+
+    @functools.cached_property
+    def _reset_u_width(self) -> int:
+        """Columns of the reset path's uniform block: q[d], xy[2], yaw[1],
+        vel6[6], cmds[3], level[1]."""
+        return self.num_dof + 13
+
+    def _reset_where(self, state: EnvState, done: torch.Tensor, u=None,
+                     update_curriculum: bool = False) -> EnvState:
+        """Branchless reset of done envs. ``u``: optional
+        (n, _reset_u_width) U[0,1) block; drawn from ``state.rng`` if None."""
+        c = self.cfg
+        n, d = self.num_envs, self.num_dof
+        if u is None:
+            u = torch.rand((n, self._reset_u_width), generator=state.rng, device=self.device)
+        u_q = u[:, :d]
+        u_yaw = u[:, d + 2]
+        u_vel = u[:, d + 3: d + 9]
+        u_cmd = u[:, d + 9: d + 12]
+
+        # command curriculum: widen lin_vel_x when the tracking reward of the
+        # resetting envs clears 80% of its max
+        if (
+            update_curriculum
+            and c.commands.curriculum
+            and "tracking_lin_vel" in self.reward_names
+        ):
+            i = self.reward_names.index("tracking_lin_vel")
+            cnt = torch.clamp(torch.sum(done.to(torch.float32)), min=1.0)
+            mean_track = torch.sum(state.episode_sums[:, i] * done) / cnt / self.max_episode_length
+            grow = mean_track > 0.8 * self.reward_scales["tracking_lin_vel"]
+            lo, hi = state.cmd_lin_vel_x_range[0], state.cmd_lin_vel_x_range[1]
+            mx = c.commands.max_curriculum
+            new_range = torch.stack(
+                [torch.clamp(lo - 0.5, -mx, 0.0), torch.clamp(hi + 0.5, 0.0, mx)]
+            )
+            state = state.replace(
+                cmd_lin_vel_x_range=torch.where(grow, new_range, state.cmd_lin_vel_x_range)
+            )
+
+        # dof state
+        if c.domain_rand.randomize_init_dof_pos:
+            q_new = (0.5 + u_q) * self.default_dof_pos_t
+        else:
+            q_new = self.default_dof_pos_t.expand(n, d)
+
+        # root state
+        pos_new = self.init_pos_t + state.env_origins
+        yaw = -2.0 * np.pi + 4.0 * np.pi * u_yaw
+        zero = torch.zeros_like(yaw)
+        quat_new = maths.quat_from_euler_xyz(zero, zero, yaw)
+        if c.domain_rand.randomize_init_base_velocity:
+            vel6 = -0.5 + u_vel
+        else:
+            vel6 = torch.zeros((n, 6), device=self.device)
+
+        cmds_new = self._sample_commands(u_cmd, n, state.cmd_lin_vel_x_range)
+
+        m = done
+        m1 = m[:, None]
+
+        def w(new, old):
+            return torch.where(torch.reshape(m, m.shape + (1,) * (old.dim() - 1)), new, old)
+
+        phys = state.physics
+        phys = PhysicsState(
+            base_pos=w(pos_new, phys.base_pos),
+            base_quat=w(quat_new, phys.base_quat),
+            base_lin_vel=w(vel6[:, :3], phys.base_lin_vel),
+            base_ang_vel=w(vel6[:, 3:], phys.base_ang_vel),
+            q=w(q_new, phys.q),
+            qd=w(torch.zeros_like(phys.qd), phys.qd),
+            anchor=w(torch.zeros_like(phys.anchor), phys.anchor),
+        )
+        return state.replace(
+            physics=phys,
+            commands=torch.where(m1, cmds_new, state.commands),
+            last_actions=torch.where(m1, 0.0, state.last_actions),
+            last_last_actions=torch.where(m1, 0.0, state.last_last_actions),
+            last_dof_vel=torch.where(m1, 0.0, state.last_dof_vel),
+            feet_air_time=torch.where(m1, 0.0, state.feet_air_time),
+            feet_land_time=torch.where(m1, 0.0, state.feet_land_time),
+            feet_contact_last=torch.where(m1, False, state.feet_contact_last),
+            episode_length=torch.where(m, 0, state.episode_length),
+            episode_sums=torch.where(m1, 0.0, state.episode_sums),
+        )
+
+    def _observations(self, state, u_noise, commands, measured_cache, reset_buf):
+        """Observation profiles; recomputes base-frame quantities for envs
+        that were just reset."""
+        c = self.cfg
+        n = self.num_envs
+        (mh, bho, sho, feet_contact, feet_height, blv, bav, pg) = measured_cache
+
+        phys = state.physics
+        blv2 = maths.quat_rotate_inverse(phys.base_quat, phys.base_lin_vel)
+        bav2 = maths.quat_rotate_inverse(phys.base_quat, phys.base_ang_vel)
+        g = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(n, 3)
+        pg2 = maths.quat_rotate_inverse(phys.base_quat, g)
+        r1 = reset_buf[:, None]
+        blv = torch.where(r1, blv2, blv)
+        bav = torch.where(r1, bav2, bav)
+        pg = torch.where(r1, pg2, pg)
+
+        os_ = c.normalization.obs_scales
+        dof_pos_offset = phys.q - self.default_dof_pos_t
+        obs = torch.cat(
+            [
+                commands[:, :3] * self.commands_scale_t,
+                bav * os_.ang_vel,
+                pg * os_.gravity,
+                dof_pos_offset * os_.dof_pos,
+                phys.qd * os_.dof_vel,
+                state.actions * os_.action,
+            ],
+            dim=-1,
+        )
+        pri_obs = torch.cat(
+            [
+                obs,
+                blv * os_.lin_vel,
+                bho[:, None] * os_.height_measurements,
+                feet_contact.to(torch.float32),
+                feet_height * os_.height_measurements,
+                sho * os_.height_measurements,
+            ],
+            dim=-1,
+        )
+        if c.noise.add_noise:
+            obs = obs + (2.0 * u_noise - 1.0) * self.noise_scale_vec_t
+        clip = c.normalization.clip_observations
+        # stale channels of a just-reset (exploded) env must not leak
+        # non-finite values into the network
+        obs = torch.nan_to_num(torch.clamp(obs, -clip, clip))
+        pri_obs = torch.nan_to_num(torch.clamp(pri_obs, -clip, clip))
+        return obs, pri_obs

@@ -1,0 +1,152 @@
+"""Actor-critic MLP (port of ``wiki_grx_gym_tpu/learn/networks.py``).
+
+Separate actor and critic MLP stacks ([512, 256, 128] ELU for GR1T1), a
+learnable per-dim raw std (not log-std), and torch-default ``nn.Linear``
+initialization drawn from an explicit generator. Matrix products stay
+``torch.matmul`` (``nn.Linear``), as the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+_ACTIVATIONS = {
+    "elu": nn.ELU,
+    "relu": nn.ReLU,
+    "selu": nn.SELU,
+    "lrelu": nn.LeakyReLU,
+    "tanh": nn.Tanh,
+    "sigmoid": nn.Sigmoid,
+}
+
+
+def get_activation(name):
+    if name in (None, "none"):
+        return nn.Identity()
+    if name not in _ACTIVATIONS:
+        raise NotImplementedError(f"activation {name!r} is not ported")
+    return _ACTIVATIONS[name]()
+
+
+def make_mlp(in_dim: int, hidden: Sequence[int], out_dim: int, activation: str,
+             out_activation=None) -> nn.Sequential:
+    dims = [in_dim] + list(hidden) + [out_dim]
+    layers = []
+    for i in range(len(dims) - 1):
+        layers.append(nn.Linear(dims[i], dims[i + 1]))
+        if i < len(dims) - 2:
+            layers.append(get_activation(activation))
+    if out_activation:
+        layers.append(get_activation(out_activation))
+    return nn.Sequential(*layers)
+
+
+class ActorCritic(nn.Module):
+    """Actor and critic MLPs plus the learnable std."""
+
+    def __init__(self, num_actor_input, num_critic_input, num_actions, policy_cfg,
+                 generator: torch.Generator = None):
+        super().__init__()
+        if getattr(policy_cfg, "rnn_type", None):
+            raise NotImplementedError("recurrent policies are ROADMAP queue 1 item 12")
+        self.num_actor_input = num_actor_input
+        self.num_critic_input = num_critic_input
+        self.num_actions = num_actions
+        self.actor_hidden = list(policy_cfg.actor_hidden_dims)
+        self.critic_hidden = list(policy_cfg.critic_hidden_dims)
+        self.actor = make_mlp(num_actor_input, self.actor_hidden, num_actions,
+                              policy_cfg.activation, policy_cfg.actor_output_activation)
+        self.critic = make_mlp(num_critic_input, self.critic_hidden, 1,
+                               policy_cfg.activation, policy_cfg.critic_output_activation)
+        self.fused = (
+            self.actor_hidden == self.critic_hidden
+            and not policy_cfg.actor_output_activation
+            and not policy_cfg.critic_output_activation
+        )
+        self.fixed_std = bool(policy_cfg.fixed_std)
+        self.init_noise_std = float(policy_cfg.init_noise_std)
+        self.noise_std_floor = float(getattr(policy_cfg, "noise_std_floor", 0.0))
+        if (getattr(policy_cfg, "compute_dtype", "float32") or "float32") != "float32":
+            raise NotImplementedError("bf16 policy matmuls are not ported")
+        self.std_param = nn.Parameter(self.init_noise_std * torch.ones(num_actions))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        """torch.nn.Linear default init (kaiming-uniform(a=sqrt(5)) for W,
+        U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for b) from ``generator``."""
+        for lin in self.linears():
+            bound = 1.0 / math.sqrt(lin.in_features)
+            for p in (lin.weight, lin.bias):
+                u = torch.rand(p.shape, generator=generator, device=p.device, dtype=p.dtype)
+                p.copy_(-bound + 2.0 * bound * u)
+        self.std_param.fill_(self.init_noise_std)
+
+    def linears(self):
+        return [m for m in self.actor if isinstance(m, nn.Linear)] + [
+            m for m in self.critic if isinstance(m, nn.Linear)
+        ]
+
+    # ---- distribution ops ----
+
+    def action_mean(self, obs):
+        return self.actor(obs)
+
+    def std(self):
+        if self.fixed_std:
+            return torch.full((self.num_actions,), self.init_noise_std,
+                              device=self.std_param.device)
+        if self.noise_std_floor > 0.0:
+            return torch.clamp(self.std_param, min=self.noise_std_floor)
+        return self.std_param
+
+    def act(self, obs, noise):
+        """Sample actions with the given standard-normal ``noise`` (N, A);
+        returns (actions, log_prob, mean, std)."""
+        mean = self.action_mean(obs)
+        std = self.std().expand_as(mean)
+        actions = mean + std * noise
+        return actions, self.log_prob(mean, std, actions), mean, std
+
+    @staticmethod
+    def log_prob(mean, std, actions):
+        var = torch.square(std)
+        lp = -0.5 * (torch.square(actions - mean) / var + _LOG_2PI) - torch.log(std)
+        return torch.sum(lp, dim=-1)
+
+    @staticmethod
+    def entropy(std):
+        return torch.sum(0.5 + 0.5 * _LOG_2PI + torch.log(std), dim=-1)
+
+    def act_inference(self, obs):
+        return self.action_mean(obs)
+
+    def evaluate(self, critic_obs):
+        return torch.squeeze(self.critic(critic_obs), dim=-1)
+
+    def joint_mean_value(self, obs, critic_obs):
+        """Actor mean and critic value as one stacked batched-matmul trunk
+        (same math as the two stacks; used where ``algorithm.fused_trunk``
+        selects it)."""
+        if not self.fused:
+            return self.action_mean(obs), self.evaluate(critic_obs)
+        act = self.actor[1]
+        la = [m for m in self.actor if isinstance(m, nn.Linear)]
+        lc = [m for m in self.critic if isinstance(m, nn.Linear)]
+        x = torch.stack([act(la[0](obs)), act(lc[0](critic_obs))])
+        for a_l, c_l in zip(la[1:-1], lc[1:-1]):
+            w = torch.stack([a_l.weight.t(), c_l.weight.t()])
+            b = torch.stack([a_l.bias, c_l.bias])
+            x = act(torch.bmm(x, w) + b[:, None, :])
+        a = self.num_actions
+        wo, wv = la[-1].weight.t(), lc[-1].weight.t()
+        w_out = torch.stack([wo, torch.nn.functional.pad(wv, (0, a - 1))])
+        b_out = torch.stack([la[-1].bias, torch.nn.functional.pad(lc[-1].bias, (0, a - 1))])
+        y = torch.bmm(x, w_out) + b_out[:, None, :]
+        return y[0], y[1][:, 0]

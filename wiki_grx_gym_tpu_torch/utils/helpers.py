@@ -1,0 +1,61 @@
+"""CLI arguments + seeding + policy-archive helpers (port of
+``wiki_grx_gym_tpu/utils/helpers.py``)."""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description="wiki-grx-gym PyTorch port")
+    parser.add_argument("--task", type=str, default="GR1T1")
+    parser.add_argument("--resume", action="store_true", default=False)
+    parser.add_argument("--experiment_name", type=str, default=None)
+    parser.add_argument("--run_name", type=str, default=None)
+    parser.add_argument("--load_run", type=str, default=None)
+    parser.add_argument("--checkpoint", type=int, default=None)
+    parser.add_argument("--headless", action="store_true", default=True)
+    parser.add_argument("--num_envs", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--max_iterations", type=int, default=None)
+    # port additions
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain lane program")
+    parser.add_argument("--policy", type=str, default=None,
+                        help="play.py: policy.npz to run (the export_policy_npz format)")
+    parser.add_argument("--steps", type=int, default=500, help="play.py: policy steps")
+    return parser.parse_args(argv)
+
+
+def set_seed(seed: int) -> int:
+    """Seed the host RNGs and torch's default generators."""
+    if seed == -1:
+        seed = np.random.randint(0, 10000)
+    print(f"Setting seed: {seed}")
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
+
+
+def load_policy_npz(path: str):
+    """Numpy-only policy loader for deployment targets."""
+    blob = np.load(path, allow_pickle=False)
+    n_layers = sum(1 for k in blob.files if k.startswith("actor_w"))
+    weights = [(blob[f"actor_w{i}"], blob[f"actor_b{i}"]) for i in range(n_layers)]
+
+    def elu(x):
+        return np.where(x > 0, x, np.expm1(x))
+
+    def policy(obs):
+        x = np.asarray(obs, np.float32)
+        for w, b in weights[:-1]:
+            x = elu(x @ w + b)
+        w, b = weights[-1]
+        return x @ w + b
+
+    return policy

@@ -5,11 +5,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase's exception is swallowed):
+Phases (any failure exits non-zero and prints no result; no phase's
+exception is swallowed; the checks of phases 5-7 are collected and reported
+together after phase 7):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the decimation kernel K1 (``csrc/decimation.cu``) with nvcc into
-   ``build/kernels``; print the build time and ptxas' register/spill report.
+2. Build the kernels with nvcc into ``build/kernels``, one nvcc per source,
+   all started together: K1 (``csrc/decimation.cu``), K2
+   (``csrc/ppo_grads.cu``) and K3 (``csrc/ppo_update.cu``); print the build
+   times and ptxas' register/spill report of each kernel.
 3. K1 against its plain PyTorch version (the lane program) on the card:
    4096 envs of the GR1T1 training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
@@ -28,9 +32,62 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 4. The slice: ``OnPolicyRunner(...).init_state()`` and one 64-step rollout
    at 4096 envs (K1 must launch exactly 64 times; all outputs finite), then
    the port's ``play`` loop for 20 steps from a seeded ``policy.npz``.
-5. Print the kernels' JSON line, the card line, and the final ok line.
+5. K2 against its plain version (``FusedPPOGrad.grads_plain``) on one
+   full-width GR1T1 minibatch (10480 rows) of the phase-4 rollout buffer
+   (4096 envs, GAE, the block shuffle): with float32 operands, where only
+   the order of the sums differs (loss and aux rtol 1e-5; each gradient leaf
+   rtol 1e-3 with atol 2e-5 x the leaf's largest |value|), and with bf16,
+   the main path's type, where a sum taken in another order can also round
+   a hidden activation or a backward gradient to the neighbouring bf16 value
+   (loss and aux rtol 1e-4; each leaf rtol 1e-2 with atol 1e-3 x its
+   largest |value|). Two aux values are means of terms that cancel, so
+   their rtol applies to the size of the terms: the surrogate (and the
+   loss) to its value plus the mean |advantage| (the ratio is ~1), the KL
+   to its value plus an atol of 4 x A x 2^-24 (each row sums A terms of
+   ~0.5 that cancel to ~1e-5, each rounded to float32 in another order or
+   FMA contraction). Prints the largest difference per leaf. The check
+   runs at the rollout's params, where the ratio is ~1 and nothing clips,
+   and again at the params after phase 6a's epoch (the plain version's),
+   where rows clip and the KL is more than its constant; the share of
+   clipped rows there is printed.
+6. K3 against its plain version (``update_scan_plain``), from the same
+   buffer and params, one epoch (25 steps, every minibatch once). (a)
+   float32 operands: the two trajectories stay at float32 summation noise,
+   so update (final minus initial params), m and v agree to 1e-4 in L2,
+   each param to 0.05 x LR, the final LR to rtol 1e-6, the metric means as
+   K2's f32 aux; this also holds the adaptive LR sharply. (b) bf16
+   operands, the main path's type, at a fixed LR: in bf16 a KL near the
+   adaptive thresholds flips a step's 1.5x LR change by rounding alone, so
+   the adaptive LR (held in (a)) is switched off here. A hidden activation
+   rounded to the neighbouring bf16 value moves the gradient of the
+   entries at the noise level, and Adam moves such an entry by about LR
+   whichever its sign, from the first step on. The plain version run again
+   with another row tile (1024, 2048: only the order of its sums changes)
+   spreads as much. So the kernel is held to the plain version within the
+   stated tolerance plus 3x the larger of those two spreads: update, m and
+   v 1% in L2, each param 0.05 x LR, the metric means rtol 1e-3; the LR
+   stays exactly the same. Over the whole update (8 epochs, 200 steps)
+   correct runs drift apart chaotically, so the kernel's 200-step update
+   is compared with the plain version's (both from the timing runs of
+   phase 8) and the distance is printed, not checked.
+7. The slice: ``OnPolicyRunner.learn(2)`` on the GR1T1 config at 4096 envs
+   with ``log_dir`` under ``build/``: finite losses, K3 launched once per
+   iteration, K2's chain 200 times per iteration, K1 64 times per iteration
+   (+1 for the initial step), and ``model_2.pt`` loads back bit-identical.
+   Prints each iteration's time split into collection and update, the
+   training env-steps/s and the peak memory; then one more iteration under
+   torch.profiler: device time by kernel (K1, K2's chain, K3's step, the
+   rest), the device's busy share, and the device launches of each of
+   K2's and K3's kernels, counted by the profiler (each must be a whole
+   multiple of the iteration's grad steps); the kernels' JSON line takes
+   K2's launches per grad step and the update's launches from these counts.
+8. Times K2 per grad step and K3 per update (CUDA events) beside their plain
+   versions and bounds; prints the kernels' JSON line (K1, K2, K3), the card
+   line, and the final ok line.
 """
 
+import copy
+import ctypes
 import json
 import math
 import os
@@ -44,15 +101,37 @@ ROLLOUT_STEPS = 64
 PLAY_STEPS = 20
 FP32_PEAK = 67e12      # H100 SXM FP32 FLOP/s outside the tensor cores (data sheet;
                        # an FMA counts as two operations)
+BF16_TC_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
+TRAIN_ITERS = 2
+# K2 vs plain: (loss/aux rtol, leaf rtol, leaf atol as a fraction of the leaf's largest |value|)
+K2_TOL = {"float32": (1e-5, 1e-3, 2e-5), "bfloat16": (1e-4, 1e-2, 1e-3)}
+# K3 vs plain, one bf16 epoch: stated L2 share of update, m and v (plus 3x the
+# plain version's spread over these row tiles)
+K3_BF16_TOL = 0.01
+K3_FLOOR_TILES = (1024, 2048)
+# the kernels of K2's chain and of K3's step (csrc/ppo_grads.cu, csrc/ppo_update.cu)
+KERNEL_NAMES = {"K1": ("decimation_kernel",),
+                "K2": ("gemm_kernel", "loss_rows", "loss_reduce", "wgrad_reduce", "cast_params"),
+                "K3": ("k3_norm", "k3_adam")}
 RTOL, ATOL, ATOL_FORCE = 1e-4, 1e-4, 1e-2
 FORCE_GROUPS = ("force_sum", "point_force")   # contact forces, newtons
 BOOL_GROUPS = ("post/term_contact", "post/tilt", "post/bad", "post/feet_contact",
                "post/contact_filt", "post/first_contact")
 
 
+FAILURES = []
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def fail(msg):
+    """Record a failed check of phases 5-7; main exits non-zero after the
+    last phase (so one run reports every check) and prints no result."""
+    FAILURES.append(msg)
+    log("FAIL:", msg)
 
 
 def card_line():
@@ -145,6 +224,395 @@ def cuda_ms(fn, reps, warmup=1):
     return t0.elapsed_time(t1) / reps
 
 
+def weight_counts(fused):
+    """(all weights, weights of the two input layers) of the actor-critic."""
+    dims = [fused.actor_dims, fused.critic_dims]
+    total = sum(a * b for d in dims for a, b in zip(d[:-1], d[1:]))
+    return total, sum(d[0] * d[1] for d in dims)
+
+
+def k2_work(fused, op_bytes):
+    """Operations and bytes of one K2 call at these shapes: forward, weight
+    gradient and input gradient (none for the input layers) products, two
+    operations per multiply-add; each input read once (the minibatch's
+    obs||critic_obs in the operand type, its f32 scalars, the f32 params),
+    each output written once (the f32 gradient)."""
+    w, w_in = weight_counts(fused)
+    r = fused.rows
+    ops = 2 * r * w + 2 * r * w + 2 * r * (w - w_in)
+    n = fused.net.num_params
+    nbytes = (r * (fused.obs_dim + fused.cobs_dim) * op_bytes + r * (3 * fused.act_dim + 4) * 4
+              + 2 * n * 4)
+    return ops, nbytes
+
+
+def leaf_diffs(net, got, want):
+    """Per layout leaf: (name, max |diff|, max |want|)."""
+    out = []
+    for name, off, shape in net.layout:
+        n = math.prod(shape)
+        a, b = got[off: off + n], want[off: off + n]
+        out.append((name, float((a - b).abs().max()), float(b.abs().max())))
+    return out
+
+
+def clip_shares(fused, p, bufs, mb):
+    """Shares of minibatch ``mb``'s rows whose probability ratio, and whose
+    value change, lie outside the clip range at params ``p`` (float32
+    forwards): how much of K2's clip branches a check at ``p`` reaches."""
+    import torch
+
+    actor, critic, std = fused.net.leaves(p)
+
+    def mlp(x, layers):
+        for i, (w, b) in enumerate(layers):
+            x = x @ w.t() + b
+            if i < len(layers) - 1:
+                x = torch.nn.functional.elu(x)
+        return x
+
+    A, clip = fused.act_dim, fused.clip_param
+    fs = bufs["fscal"][mb]
+    mean = mlp(bufs["obs"][mb].float(), actor)
+    value = mlp(bufs["cobs"][mb].float(), critic)[:, 0]
+    logp = (-0.5 * (((fs[:, :A] - mean) / std) ** 2).sum(1)
+            - (0.5 * A * math.log(2.0 * math.pi) + torch.log(std).sum()))
+    ratio = torch.exp(logp - fs[:, A])
+    return (float(((ratio - 1.0).abs() > clip).float().mean()),
+            float(((value - fs[:, 3 * A + 1]).abs() > clip).float().mean()))
+
+
+def ppo_phases(runner, rs, batch, dev):
+    """Phases 5, 6 and 8's kernel timings: K2 and K3 against their plain
+    versions on the phase-4 rollout buffer. Returns the K2 and K3 rows of
+    the kernels' JSON line (launches filled in from the training run)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPO
+
+    alg = runner.alg
+    net = runner.net
+    t_len, n = batch.rewards.shape
+    with torch.no_grad():
+        last = net.evaluate(rs.critic_obs)
+    returns, adv = alg.compute_returns(batch, last)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    perm = alg.draw_perm(t_len, n, gen, dev)
+    _, cfg32 = task_registry.get_cfgs("GR1T1")
+    cfg32.algorithm.storage_dtype = "float32"
+    algs = {"bfloat16": alg, "float32": PPO(net, cfg32.algorithm)}
+    p0 = net.params_flat.clone()
+    setups = {}
+    for name, a in algs.items():
+        w, f, rows = a._pack_shuffle(batch, returns, adv, perm)
+        fused = a._get_fused(rows)
+        setups[name] = (fused, fused.split_buffers(w, f, batch.obs.shape[-1]))
+    fused16, bufs16 = setups["bfloat16"]
+    rows = fused16.rows
+    log(f"[ppo] buffer: {t_len} steps x {n} envs, {alg.num_mini_batches} minibatches of {rows} rows, "
+        f"{alg.num_learning_epochs} epochs, path {alg.path}")
+    assert rows == 10480 and fused16.op_dtype == torch.bfloat16
+
+    # ---- phase 5: K2 vs plain ----
+    k2_err = {}
+
+    def k2_check(p, at):
+        for name, (fused, bufs) in setups.items():
+            loss_tol, rtol, atol_frac = K2_TOL[name]
+            ok = True
+            A = fused.act_dim
+            for mb in (0, alg.num_mini_batches - 1):
+                lk, gk, ak = fused.grads(p, bufs, mb)
+                lp, gp, ap = fused.grads_plain(p, bufs, mb)
+                torch.cuda.synchronize()
+                adv_scale = float(bufs["fscal"][mb][:, 3 * A + 3].abs().mean())
+                extra = {"loss": adv_scale, "surrogate_loss": adv_scale, "value_loss": 0.0,
+                         "kl": 4.0 * A * 2.0**-24 / loss_tol}
+                line = []
+                for key, x, y in [("loss", lk, lp)] + [(k, ak[k], ap[k]) for k in ak]:
+                    x, y = float(x), float(y)
+                    lim = loss_tol * (abs(y) + extra[key])
+                    good = abs(x - y) <= lim and math.isfinite(x)
+                    ok &= good
+                    line.append(f"{key} {x:.6e} vs {y:.6e} |diff| {abs(x - y):.2e} (limit {lim:.2e}) {good}")
+                worst = 0.0
+                diffs = leaf_diffs(net, gk, gp)
+                for leaf, d, scale in diffs:
+                    lim = rtol * scale + atol_frac * scale
+                    good = d <= lim and math.isfinite(d)
+                    ok &= good
+                    worst = max(worst, d / max(scale, 1e-30))
+                    log(f"[K2 vs plain] {at} {name:8s} mb {mb:2d} {leaf:16s} max|diff| {d:.3e} "
+                        f"(leaf max {scale:.3e}, {d / max(scale, 1e-30):.2e} of it; limit {lim:.3e}) {good}")
+                log(f"[K2 vs plain] {at} {name} mb {mb}: " + "; ".join(line) +
+                    f"; largest leaf diff {worst:.2e} of the leaf's max")
+                k2_err[name] = max(k2_err.get(name, 0.0), max(d for _, d, _ in diffs))
+            if not ok:
+                fail(f"K2 disagrees with its plain version ({name} operands, {at})")
+
+    k2_check(p0, "at p0")
+
+    # ---- phase 6: K3 vs plain ----
+    steps = alg.num_learning_epochs * alg.num_mini_batches
+    st0 = alg.init(p0.clone())
+    args0 = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate)
+    nrm = lambda x: float(torch.linalg.vector_norm(x))
+    mkeys = ("value_loss", "surrogate_loss", "kl")
+
+    def dist(x, y):
+        """Distances of two update_scan results: update (final minus
+        initial params), m and v as shares of y's in L2; largest |param|
+        difference; |difference| of each metric mean."""
+        d = {"update": nrm(x[0] - y[0]) / nrm(y[0] - p0), "m": nrm(x[1] - y[1]) / nrm(y[1]),
+             "v": nrm(x[2] - y[2]) / nrm(y[2]), "pmax": float((x[0] - y[0]).abs().max())}
+        d.update({k: abs(float(x[4][k]) - float(y[4][k])) for k in mkeys})
+        return d
+
+    def report(tag, k, pl, d, lim):
+        good = all(math.isfinite(v) and v <= lim[key] for key, v in d.items()) and \
+            all(bool(torch.isfinite(t).all()) for t in k[:3])
+        log(f"[K3 vs plain] {tag}: " + ", ".join(f"{key} {d[key]:.3e} (limit {lim[key]:.3e})" for key in d)
+            + f"; lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; metrics "
+            + ", ".join(f"{key} {float(k[4][key]):.6e} vs {float(pl[4][key]):.6e}" for key in mkeys)
+            + f"; {good}")
+        return good
+
+    # 6a: float32 operands, one epoch (every minibatch once): the
+    # trajectories stay at float32 summation noise, so the check is sharp
+    fused32, bufs32 = setups["float32"]
+    f1 = copy.copy(fused32)
+    f1.num_epochs = 1
+    k = f1.update_scan(*args0, bufs32)
+    pl = f1.update_scan_plain(*args0, bufs32)
+    torch.cuda.synchronize()
+    A = fused32.act_dim
+    adv_scale = float(bufs32["fscal"][..., 3 * A + 3].abs().mean())
+    d = dist(k, pl)
+    lim = {"update": 1e-4, "m": 1e-4, "v": 1e-4, "pmax": 0.05 * float(pl[3]),
+           "value_loss": 1e-5 * abs(float(pl[4]["value_loss"])),
+           "surrogate_loss": 1e-5 * (abs(float(pl[4]["surrogate_loss"])) + adv_scale),
+           "kl": 1e-5 * abs(float(pl[4]["kl"])) + 4.0 * A * 2.0**-24}
+    good = report(f"float32, {f1.num_mini_batches} steps", k, pl, d, lim)
+    good &= abs(float(k[3]) - float(pl[3])) <= 1e-6 * abs(float(pl[3]))
+    k3_err = {"float32": d["pmax"]}
+    if not good:
+        fail("K3 disagrees with its plain version (float32 operands, one epoch)")
+
+    # phase 5 again, at the params after that epoch: rows clip and the KL
+    # is more than its constant, so K2's clip and tie branches are compared
+    p1 = pl[0]
+    share = [clip_shares(fused32, p1, bufs32, mb) for mb in (0, alg.num_mini_batches - 1)]
+    log("[K2 vs plain] after one epoch: rows outside the ratio clip range "
+        + ", ".join(f"{100 * r:.2f}%" for r, _ in share) + "; outside the value clip range "
+        + ", ".join(f"{100 * v:.2f}%" for _, v in share) + " (minibatches 0, last)")
+    k2_check(p1, "after one epoch")
+    log(f"[K2 vs plain] largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}")
+
+    # 6b: bf16 operands (the main path's type), one epoch at a fixed LR,
+    # against the plain version and the plain version's own spread over a
+    # change of its row tile (the order of its sums)
+    f1 = copy.copy(fused16)
+    f1.num_epochs = 1
+    f1.adaptive_lr = False
+    k = f1.update_scan(*args0, bufs16)
+    pl = f1.update_scan_plain(*args0, bufs16)
+    spread = []
+    for tile in K3_FLOOR_TILES:
+        fz = copy.copy(f1)
+        fz.tile, fz.n_tiles = tile, -(-rows // tile)
+        spread.append(fz.update_scan_plain(*args0, bufs16))
+    torch.cuda.synchronize()
+    floors = [dist(z, pl) for z in spread]
+    floor = {key: max(f[key] for f in floors) for key in floors[0]}
+    log(f"[K3 vs plain] bf16 plain version against itself with row tiles "
+        + ", ".join(map(str, K3_FLOOR_TILES)) + ": " + ", ".join(f"{key} {v:.3e}" for key, v in floor.items())
+        + "; lr " + ", ".join(f"{float(z[3]):.6e}" for z in spread))
+    d = dist(k, pl)
+    lr_p = float(pl[3])
+    stated = {"update": K3_BF16_TOL, "m": K3_BF16_TOL, "v": K3_BF16_TOL, "pmax": 0.05 * lr_p,
+              **{key: 1e-3 * abs(float(pl[4][key])) for key in mkeys}}
+    lim = {key: stated[key] + 3.0 * floor[key] for key in stated}
+    good = report(f"bfloat16, {f1.num_mini_batches} steps (limits: stated + 3 x the plain version's spread)",
+                  k, pl, d, lim)
+    # params move by at most about LR a step: the largest param difference
+    # in units of the final LR x steps
+    log(f"[K3 vs plain] bfloat16 largest param diff {d['pmax'] / (lr_p * f1.num_mini_batches):.3e} "
+        f"(limit {lim['pmax'] / (lr_p * f1.num_mini_batches):.3e}) x the final LR x {f1.num_mini_batches} steps")
+    lr_good = float(k[3]) == lr_p == float(st0.learning_rate)
+    k3_err["bfloat16"] = d["pmax"]
+    if not (good and lr_good):
+        fail("K3 disagrees with its plain version (bf16 operands, one epoch)")
+
+    # ---- phase 8 (timing): K2 per grad step, K3 per update, and their plain versions ----
+    lib2 = fused_update._lib("k2")
+    args16, keep = fused16._k2_context(p0, bufs16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def k2_launch():
+        err = lib2.k2_step(ctypes.addressof(args16), 0, stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+
+    k2_ms = cuda_ms(k2_launch, reps=20, warmup=2)
+    k2_plain_ms = cuda_ms(lambda: fused16.grads_plain(p0, bufs16, 0), reps=3, warmup=1)
+    args = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate, bufs16)
+    whole = [fused16.update_scan(*args)]   # also the warm-up
+    k3_ms = cuda_ms(lambda: fused16.update_scan(*args), reps=2, warmup=0)
+    k3_plain_ms = cuda_ms(lambda: whole.append(fused16.update_scan_plain(*args)), reps=1, warmup=0)
+    del keep
+    d = dist(*whole)
+    log(f"[K3 vs plain] bf16 whole update, {steps} steps (printed, not checked: correct runs drift apart): "
+        + ", ".join(f"{key} {v:.3e}" for key, v in d.items())
+        + f"; lr {float(whole[0][3]):.6e} vs {float(whole[1][3]):.6e}")
+    if not all(bool(torch.isfinite(t).all()) for t in whole[0][:4]):
+        fail(f"K3's whole {steps}-step update is not finite")
+    ops, nbytes = k2_work(fused16, 2)
+    k2_bound_tc = max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3
+    k2_bound_fp32 = max(ops / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+    P = net.num_params
+    opt_bytes = 7 * 4 * P
+    k3_ops = steps * ops
+    k3_bytes = (alg.num_mini_batches * nbytes - alg.num_mini_batches * 2 * P * 4) + 6 * 4 * P
+    k3_bound_tc = max(k3_ops / BF16_TC_PEAK, k3_bytes / HBM_RATE) * 1e3
+    k3_bound_fp32 = max(k3_ops / FP32_PEAK, k3_bytes / HBM_RATE) * 1e3
+    opt_ms = (k3_ms - steps * k2_ms) / steps
+    log(f"[K2] {k2_ms:.4f} ms per grad step ({rows} rows, bf16 operands); "
+        f"plain {k2_plain_ms:.3f} ms; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
+        f"{k2_bound_tc:.4f} ms at the bf16 tensor-core peak, {k2_bound_fp32:.4f} ms at the FP32 peak; "
+        f"achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    log(f"[K3] {k3_ms:.3f} ms per update ({steps} steps); plain {k3_plain_ms:.1f} ms; "
+        f"bound {k3_bound_tc:.3f} ms (bf16 tensor cores), "
+        f"{k3_bound_fp32:.3f} ms (FP32); optimizer step {opt_ms:.4f} ms per step (K3 minus 200 x K2), "
+        f"its bytes {opt_bytes / 1e6:.2f} MB = {opt_bytes / HBM_RATE * 1e6:.2f} us at {HBM_RATE / 1e12} TB/s")
+    k2_row = {
+        "name": "K2 PPO minibatch loss + gradients (GR1T1, 10480 rows, bf16 operands)",
+        "route": "cuda", "source": "wiki_grx_gym_tpu_torch/csrc/ppo_grads.cu",
+        "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:348",
+        "launches": None, "max_abs_err": k2_err["bfloat16"], "max_abs_err_f32": k2_err["float32"],
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_tc, "bound_by": "operations",
+        "bound_ms_fp32": k2_bound_fp32, "library_ms": None, "gflop": ops / 1e9, "bytes": nbytes,
+        "kernel_launches_per_call": None, "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
+        "ptxas": kbuild.BUILD_INFO["k2_ppo_grads"].get("ptxas", []),
+    }
+    k3_row = {
+        "name": "K3 whole PPO update (8 x 25 K2 steps + clip/Adam/adaptive LR, GR1T1)",
+        "route": "cuda", "source": "wiki_grx_gym_tpu_torch/csrc/ppo_update.cu",
+        "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:511",
+        "launches": None, "max_abs_err": k3_err["bfloat16"], "max_abs_err_f32": k3_err["float32"],
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_tc, "bound_by": "operations",
+        "bound_ms_fp32": k3_bound_fp32, "library_ms": None, "optimizer_step_ms": opt_ms,
+        "optimizer_step_bound_ms": opt_bytes / HBM_RATE * 1e3,
+        "kernel_launches_per_update": None,
+        "build_s": kbuild.BUILD_INFO["k3_ppo_update"].get("seconds"),
+        "ptxas": kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", []),
+    }
+    return k2_row, k3_row
+
+
+def train_phase(dev):
+    """Phase 7: ``learn(2)`` at 4096 envs through the entry points a user
+    calls; the launch counts are set to 0 just before and read just after."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, train_cfg = task_registry.make_alg_runner(
+        env, "GR1T1", train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train"))
+    assert runner.alg.path == "mega"
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = runner.learn(TRAIN_ITERS, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": TRAIN_ITERS * steps, "k3": TRAIN_ITERS}
+    if launches != want:
+        fail(f"training launched {launches}, expected {want}")
+    for h in runner.log_history:
+        m = h["metrics"]
+        if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
+            fail(f"iteration {h['it']}: non-finite losses {m}")
+        log(f"[train] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
+            f"update {h['update_s']:.3f} s (+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
+            f"host); {h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate "
+            f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, lr {m['lr']:.3e}, reward {m['mean_step_reward']:.4f}")
+    ck = os.path.join(runner.log_dir, f"model_{TRAIN_ITERS}.pt")
+    loaded = runner.load(ck).ppo
+    same = all(getattr(loaded, k).dtype == getattr(state.ppo, k).dtype
+               and torch.equal(getattr(loaded, k), getattr(state.ppo, k))
+               for k in ("params", "m", "v", "count", "learning_rate"))
+    if not same:
+        fail(f"checkpoint {ck} does not load back bit-identical")
+    log(f"[train] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
+        f"{os.path.basename(ck)} loads back bit-identical: {same}")
+    hist = runner.log_history
+
+    # where an iteration's time goes: one more under torch.profiler (after
+    # the launch counts were read; the profiler slows the host side)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = dict(LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.iteration(state)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    grad_steps = LAUNCHES["k2"] - before["k2"]
+    updates = LAUNCHES["k3"] - before["k3"]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    of = lambda names: [e for e in kern if any(n in e.key for n in names)]
+    by = {g: sum(dev_us(e) for e in of(names)) / 1e3 for g, names in KERNEL_NAMES.items()}
+    total_ms = sum(dev_us(e) for e in kern) / 1e3
+    by["other"] = total_ms - sum(by.values())
+    iter_ms = 1e3 * sum(h["elapsed_s"] for h in hist) / len(hist)
+    # device launches of each kernel of K2's chain and K3's step in this iteration
+    counts = {n: sum(e.count for e in of((n,))) for g in ("K2", "K3") for n in KERNEL_NAMES[g]}
+    profile_out = {"wall_ms": prof_s * 1e3, "device_ms": total_ms, "by_kernel_ms": by,
+                   "busy_share_of_unprofiled_iteration": total_ms / iter_ms,
+                   "grad_steps": grad_steps, "updates": updates, "kernel_launches": counts,
+                   "k2_kernel_launches_per_grad_step": None, "kernel_launches_per_update": None}
+    if total_ms > 0:
+        log(f"[train profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
+            f"{total_ms:.1f} ms in {sum(e.count for e in kern)} launches: "
+            + ", ".join(f"{g} {v:.1f} ms" for g, v in by.items())
+            + f"; device busy {100 * total_ms / iter_ms:.1f}% of the unprofiled iteration's {iter_ms:.1f} ms")
+        k2n = sum(counts[n] for n in KERNEL_NAMES["K2"])
+        k3n = sum(counts[n] for n in KERNEL_NAMES["K3"])
+        log(f"[train profile] {updates} update(s), {grad_steps} grad steps; device launches "
+            + ", ".join(f"{n} {c}" for n, c in counts.items())
+            + f": K2's chain {k2n / max(grad_steps, 1):g} a grad step, K3's step {k3n / max(grad_steps, 1):g}, "
+            f"{(k2n + k3n) / max(updates, 1):g} an update")
+        if updates != 1 or grad_steps == 0 or any(c == 0 or c % grad_steps for c in counts.values()):
+            fail(f"the profiled iteration ran {updates} update(s) of {grad_steps} grad steps, "
+                 f"but launched {counts}")
+        else:
+            profile_out["k2_kernel_launches_per_grad_step"] = k2n // grad_steps
+            profile_out["kernel_launches_per_update"] = k2n + k3n
+    else:
+        log("[train profile] the profiler saw no device time; device busy share and kernel "
+            "launches not measured")
+    return {
+        "launches": launches, "iters": TRAIN_ITERS, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
+        "iteration_s": [h["elapsed_s"] for h in hist], "collection_s": [h["collection_s"] for h in hist],
+        "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
+        "profile": profile_out,
+    }
+
+
 def main():
     import torch
 
@@ -163,14 +631,30 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # ---- phase 2: build K1 ----
+    # ---- phase 2: build K1, K2, K3: one nvcc per source, all started together ----
+    from concurrent.futures import ThreadPoolExecutor
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
     t0 = time.perf_counter()
-    cuda_step.build_library()
+    jobs = {
+        "k1_decimation": (cuda_step._SOURCE, cuda_step.NVCC_FLAGS),
+        "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
+        "k3_ppo_update": (fused_update.K3_SOURCE, fused_update.FLAGS),
+    }
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(kbuild.build, name, src, flags) for name, (src, flags) in jobs.items()}
+        for f in futs.values():
+            f.result()
     build_s = time.perf_counter() - t0
+    for name in jobs:
+        info = kbuild.BUILD_INFO[name]
+        log(f"[build] {name}: nvcc {info.get('seconds', 0.0):.1f} s")
+        for line in info.get("ptxas", []):
+            log(f"[build] {name} ptxas:", line)
+    log(f"[build] all three built in {build_s:.1f} s")
     ptxas = cuda_step.BUILD_INFO.get("ptxas", [])
-    log(f"[build] K1 built in {build_s:.1f} s ({cuda_step.BUILD_INFO.get('seconds', 0.0):.1f} s nvcc)")
-    for line in ptxas:
-        log("[build] ptxas:", line)
 
     # ---- phase 3: K1 against its plain version, 4096 envs ----
     cfg, _ = task_registry.get_cfgs("GR1T1")
@@ -344,6 +828,17 @@ def main():
     else:
         log("[profile] the profiler saw no device time; device busy share not measured")
 
+    # ---- phases 5-8: the learner ----
+    ppo_rows = ppo_phases(runner, rs, batch, dev)
+    del batch, acc, rs
+    torch.cuda.empty_cache()
+    train = train_phase(dev)
+    k2_row, k3_row = ppo_rows
+    k2_row["launches"] = train["launches"]["k2"]
+    k3_row["launches"] = train["launches"]["k3"]
+    k2_row["kernel_launches_per_call"] = train["profile"]["k2_kernel_launches_per_grad_step"]
+    k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
+
     kernels = [{
         "name": "K1 decimation (GR1T1 lower limb, plane, post fold)",
         "route": "cuda",
@@ -367,7 +862,12 @@ def main():
         "rollout_env_steps_per_s": steps_per_s,
         "rollout_launches": rollout_launches,
         "peak_mem_gib": peak_gib,
-    }]
+        "train_launches": train["launches"]["k1"],
+    }, k2_row, k3_row]
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
+    if FAILURES:
+        log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
+        return 1
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

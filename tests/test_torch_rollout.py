@@ -14,6 +14,17 @@ rollout and the play loop.
   its tolerances: rtol 1e-4 / atol 1e-5, widened at each step by 3x the
   port's float32 noise floor (the port's rollout run again in float64 from
   the same state, noise and U).
+- Iteration: the same T=3 rollout carried through the port's whole
+  ``OnPolicyRunner.iteration`` (rollout, last values, GAE, one PPO update on
+  the default ``mega`` path, i.e. K3's plain version with bf16 operands)
+  against the JAX pieces (``compute_returns`` and ``PPO.update`` with the
+  whole-update kernel forced, interpreter mode, bf16 storage), 2 epochs x 2
+  minibatches, the block permutation computed in JAX from the update key.
+  Returns and advantages are held as the rollout buffers are; metrics and LR
+  at rtol 1e-3 (the rollout's float32 floor feeds the loss); params at atol
+  2 x LR x steps element by element (an entry whose gradient is at the
+  noise level may step either way: Adam moves it ~LR per step), and the
+  whole update, port against JAX, within 2% in L2.
 - Play: the port's ``scripts/play.py`` loop for a few steps on the CPU from a
   ``policy.npz`` written by the JAX ``export_policy_npz``."""
 
@@ -24,12 +35,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.flatten_util import ravel_pytree
 
 from test_torch_env import N, as_float64, assert_close_widened, jax_state_to_numpy, make_envs
 from wiki_grx_gym_tpu.learn.networks import ActorCritic as JaxActorCritic
 from wiki_grx_gym_tpu.learn.runner import OnPolicyRunner as JaxRunner
 from wiki_grx_gym_tpu.utils.helpers import export_policy_npz, load_policy_npz
-from wiki_grx_gym_tpu_torch.convert import actor_critic_from_numpy, env_state_from_numpy
+from wiki_grx_gym_tpu.learn.ppo import Transition as JaxTransition
+from wiki_grx_gym_tpu_torch.convert import (actor_critic_from_numpy, env_state_from_numpy,
+                                            flat_to_jax_order)
 from wiki_grx_gym_tpu_torch.envs import task_registry as torch_registry
 from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner, RunnerState
@@ -152,9 +166,13 @@ def rollouts(nets):
     jnet, params, _ = nets
     jenv, tenv = make_envs()
     _, jtrain = jax_registry.get_cfgs("GR1T1")
-    jtrain.runner.num_steps_per_env = T
     _, ttrain = torch_registry.get_cfgs("GR1T1")
-    ttrain.runner.num_steps_per_env = T
+    for cfg in (jtrain, ttrain):
+        cfg.runner.num_steps_per_env = T
+        # 12 samples (3 steps x 4 envs) fill 2 minibatches, not GR1T1's 25
+        cfg.algorithm.num_mini_batches = 2
+        cfg.algorithm.num_learning_epochs = 2
+    jtrain.algorithm.fused_update = True   # the whole-update kernel, as on the TPU
     jrun = JaxRunner(jenv, jtrain)
     trun = OnPolicyRunner(tenv, ttrain, device="cpu")
     actor_critic_from_numpy(trun.net, _params_numpy(params))
@@ -179,6 +197,28 @@ def rollouts(nets):
                      rng=torch.Generator().manual_seed(0))
     tout = trun.rollout(ts, noise=noise, u=blocks)
 
+    # one whole iteration: the port's runner against the JAX pieces
+    k_update = jax.random.PRNGKey(13)
+    jst = jrun.alg.init(params)
+    jb = JaxTransition(**{k: jnp.asarray(v) for k, v in jout[4].items()})
+    jret, jadv = jrun.alg.compute_returns(jb, jnet.evaluate(params, jout[2]))
+    jst2, jmetrics = jrun.alg.update(jst, jb, jret, jadv, k_update)
+    _, n_blocks, used, _ = trun.alg.shuffle_geometry(T, N)
+    perm = np.asarray(jax.random.permutation(k_update, n_blocks)[:used])
+    assert trun.alg.path == "mega"
+    ts_it = ts.replace(env_state=env_state_from_numpy(jax_state_to_numpy(js)),
+                       rng=torch.Generator().manual_seed(0),
+                       ppo=trun.alg.init(trun.net.params_flat.clone()))
+    p0 = trun.net.params_flat.clone()
+    tst_it, tmetrics = trun.iteration(ts_it, noise=noise, u=blocks, perm=perm)
+    tb = tout[1]
+    last = trun.net.evaluate(tout[0].critic_obs)
+    tret, tadv = trun.alg.compute_returns(tb, last)
+    iteration = dict(jax=(jst2, jmetrics, np.asarray(jret), np.asarray(jadv)),
+                     port=(tst_it, tmetrics, tret.numpy(), tadv.numpy()),
+                     p0=p0, lr=float(jst.learning_rate), steps=4, net=trun.net)
+    trun.net.bind(p0)
+
     # the same rollout in float64: the port's float32 noise floor
     trun.net = copy.deepcopy(trun.net).double()
     ts64 = RunnerState(env_state=env_state_from_numpy(as_float64(jax_state_to_numpy(js))),
@@ -187,13 +227,16 @@ def rollouts(nets):
                        rng=torch.Generator().manual_seed(0))
     tout64 = trun.rollout(ts64, noise=noise.double(), u=blocks.double())
     assert tout64[0].obs.dtype == torch.float64
-    return jout, tout, tout64
+    last64 = trun.net.evaluate(tout64[0].critic_obs)
+    ret64, adv64 = trun.alg.compute_returns(tout64[1], last64)
+    iteration["port64"] = (ret64.numpy(), adv64.numpy())
+    return jout, tout, tout64, iteration
 
 
 @pytest.mark.parametrize("field", ["obs", "critic_obs", "actions", "rewards", "values",
                                    "log_prob", "mu", "sigma", "dones"])
 def test_transition_buffer_matches(rollouts, field):
-    (_, _, _, _, jb), (_, tb, _), (_, tb64, _) = rollouts
+    (_, _, _, _, jb), (_, tb, _), (_, tb64, _), _ = rollouts
     got, want = getattr(tb, field).numpy(), jb[field]
     assert got.shape == want.shape == (T, N) + got.shape[2:]
     if field == "dones":
@@ -206,12 +249,12 @@ def test_transition_buffer_matches(rollouts, field):
 
 @pytest.mark.parametrize("name", ["rew", "done", "ep_sums", "ep_len_done"])
 def test_rollout_accumulators_match(rollouts, name):
-    (_, _, _, ja, _), (_, _, ta), (_, _, ta64) = rollouts
+    (_, _, _, ja, _), (_, _, ta), (_, _, ta64), _ = rollouts
     assert_close_widened(ta[name].numpy(), np.asarray(ja[name]), ta64[name].numpy(), err_msg=name)
 
 
 def test_rollout_end_state_matches(rollouts):
-    (js, jo, jc, _, _), (ts, _, _), (ts64, _, _) = rollouts
+    (js, jo, jc, _, _), (ts, _, _), (ts64, _, _), _ = rollouts
     assert_close_widened(ts.obs.numpy(), np.asarray(jo), ts64.obs.numpy(), err_msg="obs")
     assert_close_widened(ts.critic_obs.numpy(), np.asarray(jc), ts64.critic_obs.numpy(),
                          err_msg="critic_obs")
@@ -219,6 +262,33 @@ def test_rollout_end_state_matches(rollouts):
                          ts64.env_state.physics.q.numpy(), err_msg="q")
     np.testing.assert_array_equal(ts.env_state.episode_length.numpy(),
                                   np.asarray(js.episode_length))
+
+
+@pytest.mark.parametrize("which", ["returns", "advantages"])
+def test_iteration_gae_matches(rollouts, which):
+    it = rollouts[3]
+    i = 2 if which == "returns" else 3
+    got, want, f64 = it["port"][i], it["jax"][i], it["port64"][i - 2]
+    for t in range(T):
+        assert_close_widened(got[t], want[t], f64[t], err_msg=f"{which} step {t}")
+
+
+def test_iteration_update_matches(rollouts):
+    it = rollouts[3]
+    (jst2, jm, _, _), (tst, tm, _, _) = it["jax"], it["port"]
+    for k in ("value_loss", "surrogate_loss", "kl", "lr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, err_msg=k)
+    for k in ("mean_step_reward", "done_count", "mean_action_std"):
+        assert np.isfinite(float(tm[k]))
+    assert int(tst.ppo.count) == it["steps"]
+    lr, steps, net = it["lr"], it["steps"], it["net"]
+    want = np.asarray(ravel_pytree(jst2.params)[0])
+    got = flat_to_jax_order(net, tst.ppo.params)
+    start = flat_to_jax_order(net, it["p0"])
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 * lr * steps)
+    d_got, d_want = got - start, want - start
+    assert np.linalg.norm(d_want) > 0
+    assert np.linalg.norm(d_got - d_want) <= 0.02 * np.linalg.norm(d_want)
 
 
 # ---------------------------------------------------------------------------

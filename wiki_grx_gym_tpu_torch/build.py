@@ -1,0 +1,81 @@
+"""nvcc builds of the port's CUDA sources, and the kernels' launch counts.
+
+Each kernel source in ``csrc/`` is compiled by :func:`build` on its own,
+with its own flags, into a shared library with a plain C interface that its
+wrapper loads with ``ctypes``. Libraries go to the checkout's
+``build/kernels`` directory (listed in .gitignore), named by the library
+name and a hash of the source and the flags, so a changed source or flag set
+builds anew and an unchanged one is reused.
+
+``LAUNCHES`` holds one count per kernel (``k1`` decimation, ``k2`` PPO
+gradient chain, ``k3`` whole PPO update). Each wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
+# sm_90a keeps wgmma/setmaxnreg available to later kernels; -Xptxas -v prints
+# each kernel's registers and spills (kept in BUILD_INFO)
+BASE_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
+
+# per library name: path, nvcc seconds, ptxas register/spill lines, command
+BUILD_INFO: Dict[str, dict] = {}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and on PATH)")
+    return found
+
+
+def library_path(name: str, source: Path, flags: Sequence[str]) -> Path:
+    tag = hashlib.sha1(Path(source).read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build(name: str, source: Path, flags: Sequence[str]) -> Path:
+    """Compile ``source`` with ``flags`` into ``build/kernels/lib<name>_<tag>.so``
+    unless that file exists. Records the build in ``BUILD_INFO[name]``;
+    raises with nvcc's output if the build fails."""
+    info = BUILD_INFO.setdefault(name, {})
+    out = library_path(name, source, flags)
+    if out.exists():
+        info.setdefault("path", str(out))
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd: List[str] = [nvcc(), *flags, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    ptxas = [l.strip() for l in (res.stdout + res.stderr).splitlines()
+             if "registers" in l or "spill" in l or "Compiling entry" in l]
+    info.update(path=str(out), seconds=secs, ptxas=ptxas, cmd=" ".join(cmd))
+    return out

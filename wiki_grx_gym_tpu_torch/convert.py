@@ -7,6 +7,11 @@
   ``export_policy_npz`` into the port's ``ActorCritic``.
 - :func:`env_state_from_numpy`: a JAX ``EnvState`` flattened to numpy into
   the port's ``EnvState``. The port's ``rng`` is a ``torch.Generator``.
+- :func:`ppo_state_from_numpy`: JAX params plus the raveled optax Adam
+  ``mu``/``nu``, the count and the learning rate into the port's
+  ``PPOState``. :func:`flat_from_jax_order` and :func:`flat_to_jax_order`
+  convert one flat vector between JAX's ``ravel_pytree`` order (W (in, out))
+  and the port's layout (W (out, in)); the leaves and offsets are the same.
 
 Nothing here imports JAX: the inputs are plain numpy arrays and dicts.
 """
@@ -62,6 +67,59 @@ def load_actor_npz(net, path: str):
     _fill_stack(_linears(net.actor), pairs)
     net.std_param.copy_(torch.as_tensor(np.asarray(blob["std"], np.float32)))
     return net
+
+
+def _jax_leaf_vector(tree):
+    """JAX ``ActorCriticParams`` as numpy -> its ``ravel_pytree`` vector."""
+    leaves = []
+    for stack in ("actor", "critic"):
+        for w, b in _get(tree, stack):
+            leaves += [np.asarray(w, np.float32).reshape(-1), np.asarray(b, np.float32).reshape(-1)]
+    leaves.append(np.asarray(_get(tree, "std"), np.float32).reshape(-1))
+    return np.concatenate(leaves)
+
+
+def _reorder(net, vec, to_port: bool):
+    vec = np.asarray(vec, np.float32).reshape(-1)
+    if vec.shape != (net.num_params,):
+        raise ValueError(f"expected {net.num_params} values, got {vec.shape[0]}")
+    out = np.empty_like(vec)
+    for _, off, shape in net.layout:
+        x = vec[off: off + int(np.prod(shape))]
+        if len(shape) == 2:   # port (out, in) <-> JAX (in, out)
+            x = (x.reshape(shape[1], shape[0]) if to_port else x.reshape(shape)).T.reshape(-1)
+        out[off: off + x.size] = x
+    return out
+
+
+def flat_from_jax_order(net, vec):
+    """A ``ravel_pytree`` vector of JAX ``ActorCriticParams`` (or of a tree
+    shaped like it: Adam moments, gradients) -> numpy in ``net.layout``."""
+    return _reorder(net, vec, to_port=True)
+
+
+def flat_to_jax_order(net, flat):
+    """The inverse of :func:`flat_from_jax_order` (numpy or a tensor in)."""
+    if isinstance(flat, torch.Tensor):
+        flat = flat.detach().cpu().numpy()
+    return _reorder(net, flat, to_port=False)
+
+
+def ppo_state_from_numpy(net, params, mu, nu, count, lr, device="cpu"):
+    """The port's ``PPOState`` from the JAX side's numpy pieces: ``params``
+    (``ActorCriticParams`` as numpy, attribute or dict access), the raveled
+    optax Adam moments ``mu``/``nu`` (``PPO._opt_state_pieces``), the Adam
+    count and the live learning rate."""
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPOState
+
+    t = lambda a: torch.as_tensor(np.array(a), device=device)
+    return PPOState(
+        params=t(flat_from_jax_order(net, _jax_leaf_vector(params))),
+        m=t(flat_from_jax_order(net, mu)),
+        v=t(flat_from_jax_order(net, nu)),
+        count=t(np.asarray(count, np.int32).reshape(())),
+        learning_rate=t(np.asarray(lr, np.float32).reshape(())),
+    )
 
 
 def env_state_from_numpy(d, device="cpu", generator: torch.Generator = None):

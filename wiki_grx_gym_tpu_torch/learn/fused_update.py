@@ -1,0 +1,626 @@
+"""K2 and K3, the PPO update kernels: wrapper, plain versions and dispatch.
+
+Counterpart of ``wiki_grx_gym_tpu/learn/fused_update.py:FusedPPOGrad``:
+
+- ``grads`` (K2): one minibatch's clipped-PPO loss and its gradient with
+  respect to every parameter: both MLP forwards, the loss, and the
+  hand-derived backward with JAX's tie conventions (0.5 at ``max``/``clip``
+  ties). CUDA source ``csrc/ppo_grads.cu``; replaces
+  ``FusedPPOGrad.grads`` (``pallas_call`` at fused_update.py:462).
+- ``update_scan`` (K3): the whole update, epochs x minibatches of K2 steps,
+  each followed by the entropy/std-gradient finalisation, the adaptive-KL
+  learning rate, the NaN-loss skip, clip by global norm, Adam with the
+  carried count and K3's own bias correction ``1 - exp(c log b)``, and the
+  std floor. CUDA source ``csrc/ppo_update.cu`` (the optimizer step; the
+  gradients come from K2's chain); replaces ``FusedPPOGrad.update_scan``
+  (``pallas_call`` at fused_update.py:708).
+
+Parameters, Adam moments and gradients are flat float32 vectors in the
+layout of ``networks.ActorCritic.layout`` (ravel_pytree leaf order, W stored
+(out, in)). The minibatch buffers are those of ``PPO._pack_shuffle``:
+``(MB, rows, O+P)`` obs||critic_obs and ``(MB, rows, 3A+4)`` f32 scalars
+(actions | log_prob | mu | sigma | values | returns | advantages).
+
+Dispatch is by the device of the parameters: CPU tensors run the plain
+versions (``grads_plain``, ``update_scan_plain``: literal translations of
+the TPU kernel's tile program and optimizer step), CUDA tensors launch the
+kernels (built with nvcc at first use, ``build.build``) or raise. The plain
+versions run on any device; on the card they are the kernels' reference.
+
+``LAUNCHES["k2"]`` counts K2 gradient chains (one per grad step, in ``grads``
+and inside ``update_scan``), ``LAUNCHES["k3"]`` counts whole updates.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Dict
+
+import torch
+
+from wiki_grx_gym_tpu_torch import build as _build
+from wiki_grx_gym_tpu_torch.build import LAUNCHES
+
+_LOG_2PI = math.log(2.0 * math.pi)
+MAX_LAYERS = 8     # per MLP (csrc/ppo_grads.cu MAXL)
+MAX_ACT = 32       # action dims (csrc/ppo_grads.cu MAXA)
+WGRAD_ROWS = 640   # rows per split of K2's weight-gradient reduction
+K3_BLOCKS = 216    # blocks of K3's norm and Adam passes over the flat vector
+
+# K2 and K3 each build into their own library; unlike K1 they may contract
+# into FMA (their plain version on the card is GPU PyTorch, which does)
+FLAGS = list(_build.BASE_FLAGS)
+K2_SOURCE = _build.CSRC / "ppo_grads.cu"
+K3_SOURCE = _build.CSRC / "ppo_update.cu"
+
+
+def _elu(z):
+    # exp(z) - 1, not expm1: the TPU kernel's form (fused_update.py:56-60)
+    return torch.where(z > 0, z, torch.exp(z) - 1.0)
+
+
+def _elu_grad_from_h(h):
+    return torch.where(h > 0, torch.ones_like(h), h + 1.0)
+
+
+def _max_grad(a, b):
+    """d max(a, b) / da with JAX's tie convention (0.5 at a == b)."""
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    return torch.where(a > b, one, torch.where(a < b, zero, 0.5 * one))
+
+
+def _clip_grad(x, lo, hi):
+    """d clip(x, lo, hi) / dx: 1 interior, 0 outside, 0.5 at the boundary."""
+    one = torch.ones_like(x)
+    return torch.where((x > lo) & (x < hi), one,
+                       torch.where((x == lo) | (x == hi), 0.5 * one, 0.0 * one))
+
+
+def _jmax(a, b):
+    """jnp.maximum: NaN-propagating (torch.maximum is too)."""
+    return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype, device=a.device))
+
+
+def _jclip(x, lo, hi):
+    """jnp.clip = minimum(maximum(x, lo), hi), NaN-propagating."""
+    return torch.minimum(_jmax(x, lo), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# kernel libraries (ctypes; structs mirror csrc/ppo_grads.cu and ppo_update.cu)
+# ---------------------------------------------------------------------------
+
+_I, _F, _L, _P = ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p
+
+
+class _K2Args(ctypes.Structure):
+    _fields_ = [
+        ("rows", _I), ("act_dim", _I), ("n_actor", _I), ("n_critic", _I),
+        ("actor_dims", _I * (MAX_LAYERS + 1)), ("critic_dims", _I * (MAX_LAYERS + 1)),
+        ("op_bf16", _I), ("fixed_std", _I), ("clipped_vl", _I), ("wgrad_splits", _I),
+        ("wgrad_rows", _I), ("loss_blocks", _I),
+        ("clip_param", _F), ("init_noise_std", _F), ("coef_scale", _F),
+        ("gval_scale", _F), ("logp_const", _F), ("lo", _F), ("hi", _F), ("pad0", _F),
+        ("obs_ld", _L), ("obs_mb_stride", _L), ("cobs_ld", _L), ("cobs_mb_stride", _L),
+        ("fs_ld", _L), ("fs_mb_stride", _L),
+        ("w_off", _L * (2 * MAX_LAYERS)), ("b_off", _L * (2 * MAX_LAYERS)),
+        ("std_off", _L), ("n_params", _L),
+        ("obs", _P), ("cobs", _P), ("fscal", _P), ("p", _P), ("p_op", _P),
+        ("g", _P), ("aux", _P), ("h", _P * (2 * MAX_LAYERS)),
+        ("mean", _P), ("value", _P), ("gbuf", _P * 4), ("part", _P), ("loss_part", _P),
+    ]
+
+
+class _K3Args(ctypes.Structure):
+    _fields_ = [
+        ("n", _L), ("std_off", _L),
+        ("p", _P), ("m", _P), ("v", _P), ("g", _P), ("aux", _P), ("state", _P),
+        ("count0", _P), ("part", _P), ("step", _P),
+        ("act_dim", _I), ("fixed_std", _I), ("adaptive", _I), ("nblocks", _I),
+        ("rows_f", _F), ("value_loss_coef", _F), ("entropy_coef", _F), ("ent_const", _F),
+        ("ent_fixed", _F), ("kl_hi", _F), ("kl_lo", _F), ("lr_min", _F), ("lr_max", _F),
+        ("max_grad_norm", _F), ("b1", _F), ("b2", _F), ("omb1", _F), ("omb2", _F),
+        ("log_b1", _F), ("log_b2", _F), ("eps", _F), ("std_floor", _F),
+    ]
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB_LOCK = threading.Lock()
+# per kernel: library name, source, argument struct (its size is checked
+# against the library's <kernel>_args_size())
+_KERNELS = {"k2": ("k2_ppo_grads", K2_SOURCE, _K2Args), "k3": ("k3_ppo_update", K3_SOURCE, _K3Args)}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _LIB_LOCK:
+        if name not in _LIBS:
+            lib_name, source, struct = _KERNELS[name]
+            lib = ctypes.CDLL(str(_build.build(lib_name, source, FLAGS)))
+            step, size = getattr(lib, f"{name}_step"), getattr(lib, f"{name}_args_size")
+            step.argtypes, step.restype = [_P, _I, _P], _I
+            size.argtypes, size.restype = [], _I
+            if size() != ctypes.sizeof(struct):
+                raise RuntimeError(f"{name} argument struct: kernel {size()} bytes, "
+                                   f"wrapper {ctypes.sizeof(struct)}")
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+class FusedPPOGrad:
+    """Static spec captured at construction (layer dims, loss and optimizer
+    constants, batch geometry), as ``FusedPPOGrad`` of the JAX package."""
+
+    def __init__(
+        self,
+        net,                    # learn.networks.ActorCritic (MLP, elu, no out act)
+        clip_param: float,
+        value_loss_coef: float,
+        entropy_coef: float,
+        use_clipped_value_loss: bool,
+        rows: int,
+        num_mini_batches: int,
+        num_epochs: int = 1,
+        tile: int = 512,        # row tile of the plain version (the TPU kernel's)
+        op_dtype=torch.bfloat16,
+        max_grad_norm: float = 1.0,
+        adam_b1: float = 0.9,
+        adam_b2: float = 0.999,
+        adam_eps: float = 1e-8,
+        adaptive_lr: bool = True,
+        desired_kl: float = 0.01,
+        lr_min: float = 1e-5,
+        lr_max: float = 1e-2,
+    ):
+        self.net = net
+        self.obs_dim = int(net.num_actor_input)
+        self.cobs_dim = int(net.num_critic_input)
+        self.act_dim = int(net.num_actions)
+        self.actor_dims = [self.obs_dim] + list(net.actor_hidden) + [self.act_dim]
+        self.critic_dims = [self.cobs_dim] + list(net.critic_hidden) + [1]
+        self.fixed_std = bool(net.fixed_std)
+        self.init_noise_std = float(net.init_noise_std)
+        self.std_floor = 0.0 if self.fixed_std else float(net.noise_std_floor)
+        self.clip_param = float(clip_param)
+        self.value_loss_coef = float(value_loss_coef)
+        self.entropy_coef = float(entropy_coef)
+        self.use_clipped_value_loss = bool(use_clipped_value_loss)
+        self.rows = int(rows)
+        self.num_mini_batches = int(num_mini_batches)
+        self.num_epochs = int(num_epochs)
+        self.tile = int(min(tile, max(8, rows)))
+        self.n_tiles = -(-self.rows // self.tile)
+        if op_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"op_dtype must be float32 or bfloat16, got {op_dtype}")
+        self.op_dtype = op_dtype
+        self.max_grad_norm = float(max_grad_norm)
+        self.adam_b1 = float(adam_b1)
+        self.adam_b2 = float(adam_b2)
+        self.adam_eps = float(adam_eps)
+        self.adaptive_lr = bool(adaptive_lr)
+        self.desired_kl = float(desired_kl)
+        self.lr_min = float(lr_min)
+        self.lr_max = float(lr_max)
+        self.std_off = net.layout[-1][1]
+
+    @staticmethod
+    def supported(net, extra_loss_fn) -> bool:
+        """The kernels cover the reference MLP path: elu hidden activations,
+        linear heads, no calculate_other_loss hook."""
+        return (
+            extra_loss_fn is None
+            and getattr(net, "actor_hidden", None) is not None
+            and net.activation == "elu"
+            and not net.actor_out_act
+            and not net.critic_out_act
+        )
+
+    def split_buffers(self, shuf_w, shuf_f, obs_dim: int):
+        """The update's shuffle buffers as the kernels' operands: obs and
+        critic_obs are views into the wide ``(MB, rows, O+P)`` buffer (no
+        copy); the f32 fields stay packed ``(MB, rows, 3A+4)``."""
+        mb = self.num_mini_batches
+        w = shuf_w.reshape(mb, self.rows, -1)
+        return dict(obs=w[..., :obs_dim], cobs=w[..., obs_dim:],
+                    fscal=shuf_f.reshape(mb, self.rows, -1))
+
+    # ------------------------------------------------------------------
+    # plain version: the TPU kernel's tile program, literally
+    # ------------------------------------------------------------------
+
+    def _rnd(self, x):
+        """Round to the operand dtype and back (a cast to op, as the TPU
+        kernel's ``.astype(op)``); the products then run in float32 on values
+        the operand dtype holds exactly, i.e. op operands with f32 sums."""
+        if self.op_dtype == torch.float32:
+            return x.to(torch.float32)
+        return x.to(self.op_dtype).to(torch.float32)
+
+    def _op_leaves(self, p):
+        """Weights cast to the operand dtype once per call; biases and std f32."""
+        actor, critic, std = self.net.leaves(p)
+        rw = lambda pairs: [(self._rnd(w), b) for w, b in pairs]
+        return rw(actor), rw(critic), std
+
+    def _tile_body(self, t, data, aW, cW, std_p, g_leaves):
+        """One batch tile of ``_tile_body`` (fused_update.py:200): forward
+        both MLPs, the loss, the backward; accumulates into ``g_leaves``
+        (views into the flat gradient). Returns (surr_sum, vl_sum, kl_sum)."""
+        T, A, B = self.tile, self.act_dim, float(self.rows)
+        dev = std_p.device
+        obs_mb, cobs_mb, fs_mb = data
+        r0, r1 = t * T, min((t + 1) * T, self.rows)
+
+        def tile_of(x):   # rows [r0, r1) padded to T
+            x = x[r0:r1]
+            return torch.cat([x, x.new_zeros((T - x.shape[0],) + x.shape[1:])]) if x.shape[0] < T else x
+
+        mask = (torch.arange(T, device=dev) + t * T < self.rows)[:, None]
+
+        def clean(x, fill=0.0):
+            return torch.where(mask, x, torch.full_like(x, fill))
+
+        obs_t = self._rnd(clean(tile_of(obs_mb)))
+        cobs_t = self._rnd(clean(tile_of(cobs_mb)))
+        fs = tile_of(fs_mb).to(torch.float32)
+        actions = clean(fs[:, 0:A])
+        old_logp = clean(fs[:, A:A + 1])
+        old_mu = clean(fs[:, A + 1:2 * A + 1])
+        old_sigma = clean(fs[:, 2 * A + 1:3 * A + 1], 1.0)
+        old_values = clean(fs[:, 3 * A + 1:3 * A + 2])
+        returns = clean(fs[:, 3 * A + 2:3 * A + 3])
+        adv = clean(fs[:, 3 * A + 3:3 * A + 4])
+
+        def fwd(x, layers):
+            hs, z = [x], None
+            for li, (w, b) in enumerate(layers):
+                z = hs[-1] @ w.t() + b               # W (out, in): x W^T
+                if li < len(layers) - 1:
+                    hs.append(self._rnd(_elu(z)))
+            return hs, z
+
+        h_a, mean = fwd(obs_t, aW)
+        h_c, value = fwd(cobs_t, cW)
+
+        if self.fixed_std:
+            std = torch.full((1, A), self.init_noise_std, device=dev)
+        else:
+            std = std_p.reshape(1, A)
+        var = std * std
+
+        diff = actions - mean
+        logp = (-0.5 * torch.sum(diff * diff / var, dim=1, keepdim=True)
+                - (0.5 * A * _LOG_2PI + torch.sum(torch.log(std))))
+        ratio = torch.exp(logp - old_logp)
+        lo, hi = 1.0 - self.clip_param, 1.0 + self.clip_param
+        ratio_c = _jclip(ratio, lo, hi)
+        surr1 = -adv * ratio
+        surr2 = -adv * ratio_c
+        surr = torch.maximum(surr1, surr2)
+        kl_row = torch.sum(
+            torch.log(std / old_sigma + 1e-5)
+            + (old_sigma * old_sigma + (old_mu - mean) ** 2) / (2.0 * var)
+            - 0.5,
+            dim=1, keepdim=True,
+        )
+
+        e = value - returns
+        if self.use_clipped_value_loss:
+            vdelta = value - old_values
+            ec = old_values + _jclip(vdelta, -self.clip_param, self.clip_param) - returns
+            e2, ec2 = e * e, ec * ec
+            vl = torch.maximum(e2, ec2)
+            gm = _max_grad(e2, ec2)
+            gv_raw = gm * (2.0 * e) + (1.0 - gm) * (
+                2.0 * ec * _clip_grad(vdelta, -self.clip_param, self.clip_param))
+        else:
+            vl = e * e
+            gv_raw = 2.0 * e
+
+        gm_s = _max_grad(surr1, surr2)
+        d_ratio = gm_s * (-adv) + (1.0 - gm_s) * (-adv * _clip_grad(ratio, lo, hi))
+        zero = torch.zeros((), device=dev)
+        coef = torch.where(mask, d_ratio * ratio * (1.0 / B), zero)
+        g_mean = coef * (diff / var)
+        g_val = torch.where(mask, gv_raw * (self.value_loss_coef / B), zero)
+
+        ga, gc, g_std = g_leaves
+        if not self.fixed_std:
+            g_std += torch.sum(coef * (diff * diff / var - 1.0) / std, dim=0)
+
+        def bwd(g_out, hs, layers, d_layers):
+            g = self._rnd(g_out)
+            for li in range(len(layers) - 1, -1, -1):
+                w, _ = layers[li]
+                dw, db = d_layers[li]
+                dw += g.t() @ hs[li]                 # (out, in)
+                db += torch.sum(g, dim=0)
+                if li > 0:
+                    gx = g @ w
+                    g = self._rnd(gx * _elu_grad_from_h(hs[li]))
+
+        bwd(g_mean, h_a, aW, ga)
+        bwd(g_val, h_c, cW, gc)
+
+        s = lambda x: torch.sum(torch.where(mask, x, zero))
+        return s(surr), s(vl), s(kl_row)
+
+    def _raw_grads_plain(self, p, bufs, mb_index):
+        """The tile loop of K2: flat raw gradient (std part without the
+        entropy term) and the (surr, vl, kl) sums."""
+        g = torch.zeros_like(p)
+        ga, gc, g_std = self.net.leaves(g)
+        aW, cW, std_p = self._op_leaves(p)
+        data = (bufs["obs"][mb_index], bufs["cobs"][mb_index], bufs["fscal"][mb_index])
+        sums = torch.zeros(3, device=p.device)
+        for t in range(self.n_tiles):
+            ss, sv, sk = self._tile_body(t, data, aW, cW, std_p, (ga, gc, g_std))
+            sums = sums + torch.stack([ss, sv, sk])
+        return g, sums
+
+    def _entropy(self, std):
+        if self.fixed_std:
+            return torch.tensor(
+                self.act_dim * (0.5 + 0.5 * _LOG_2PI) + self.act_dim * math.log(self.init_noise_std),
+                device=std.device)
+        return torch.sum(0.5 + 0.5 * _LOG_2PI + torch.log(std))
+
+    def _finalize_grads(self, p, g, sums):
+        """``grads`` after the kernel (fused_update.py:478-505): means, the
+        std gradient's entropy term, the loss."""
+        B = float(self.rows)
+        surr_mean, vl_mean, kl_mean = sums[0] / B, sums[1] / B, sums[2] / B
+        std = p[self.std_off:]
+        g_std = g[self.std_off:]
+        if self.fixed_std:
+            g_std.zero_()
+        else:
+            g_std.copy_(g_std - self.entropy_coef / std)
+        loss = surr_mean + self.value_loss_coef * vl_mean - self.entropy_coef * self._entropy(std)
+        return loss, g, {"value_loss": vl_mean, "surrogate_loss": surr_mean, "kl": kl_mean}
+
+    def grads_plain(self, p, bufs, mb_index: int):
+        """Plain version of :meth:`grads`, on any device."""
+        g, sums = self._raw_grads_plain(p, bufs, mb_index)
+        return self._finalize_grads(p, g, sums)
+
+    def update_scan_plain(self, p, m, v, count, lr, bufs):
+        """Plain version of :meth:`update_scan` (``_update_kernel`` :511 with
+        ``_finalize_step`` :579-657), on any device."""
+        p, m, v = p.clone(), m.clone(), v.clone()
+        lr = lr.to(torch.float32).clone()
+        B = float(self.rows)
+        steps = self.num_epochs * self.num_mini_batches
+        b1, b2 = self.adam_b1, self.adam_b2
+        sums = torch.zeros(3, device=p.device)   # vl, surr, kl over steps
+        for s in range(steps):
+            g, st = self._raw_grads_plain(p, bufs, s % self.num_mini_batches)
+            surr_mean, vl_mean, kl_mean = st[0] / B, st[1] / B, st[2] / B
+            std = p[self.std_off:]
+            ent = self._entropy(std)
+            if not self.fixed_std:
+                g[self.std_off:] += -self.entropy_coef / std
+            loss = surr_mean + self.value_loss_coef * vl_mean - self.entropy_coef * ent
+            if self.adaptive_lr:
+                lr_dn = _jmax(lr / 1.5, self.lr_min)
+                lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
+                lr = torch.where(kl_mean > self.desired_kl * 2.0, lr_dn,
+                                 torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0),
+                                             lr_up, lr))
+            okf = torch.where(torch.isfinite(loss), 1.0, 0.0)
+            gsq = 0.0
+            for _, off, shape in self.net.layout:
+                gsq = gsq + torch.sum(torch.square(g[off: off + math.prod(shape)] * okf))
+            gnorm = torch.sqrt(gsq)
+            gscale = okf * torch.where(gnorm < self.max_grad_norm, 1.0, self.max_grad_norm / gnorm)
+            c = (count + s + 1).to(torch.float32)
+            # K3's bias correction (fused_update.py:624-625), not optax's 1 - b**c
+            bc1 = 1.0 - torch.exp(c * float(math.log(b1)))
+            bc2 = 1.0 - torch.exp(c * float(math.log(b2)))
+            gg = g * gscale
+            m = b1 * m + (1.0 - b1) * gg
+            v = b2 * v + (1.0 - b2) * (gg * gg)
+            p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.adam_eps)
+            if self.std_floor > 0.0:
+                p[self.std_off:] = _jmax(p[self.std_off:], self.std_floor)
+            sums = sums + torch.stack([vl_mean, surr_mean, kl_mean])
+        n = float(steps)
+        metrics = {"value_loss": sums[0] / n, "surrogate_loss": sums[1] / n,
+                   "kl": sums[2] / n, "lr": lr}
+        return p, m, v, lr, metrics
+
+    # ------------------------------------------------------------------
+    # kernel path
+    # ------------------------------------------------------------------
+
+    def _k2_context(self, p, bufs):
+        """Check the operands, allocate K2's scratch and fill its argument
+        struct. Returns (struct, the tensors it points into)."""
+        if p.device.type != "cuda":
+            raise RuntimeError(f"K2 runs on CUDA tensors, got device {p.device}")
+        dev, op = p.device, self.op_dtype
+        net = self.net
+        if p.dtype != torch.float32 or p.shape != (net.num_params,) or not p.is_contiguous():
+            raise ValueError(f"params must be a contiguous float32 ({net.num_params},) tensor")
+        if self.act_dim > MAX_ACT or max(len(self.actor_dims), len(self.critic_dims)) - 1 > MAX_LAYERS:
+            raise NotImplementedError(
+                f"K2 takes at most {MAX_LAYERS} layers and {MAX_ACT} actions")
+        mb, rows = self.num_mini_batches, self.rows
+        keep = {"p": p}
+
+        def operand(name, feat):
+            x = bufs[name]
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, params on {dev}")
+            if x.dim() != 3 or tuple(x.shape) != (mb, rows, feat):
+                raise ValueError(f"{name} must be ({mb}, {rows}, {feat}), got {tuple(x.shape)}")
+            if x.dtype != op:   # the TPU kernel's .astype(op) on the data
+                x = x.to(op)
+            if x.stride(-1) != 1:
+                x = x.contiguous()
+            keep[name] = x
+            return x
+
+        obs = operand("obs", self.obs_dim)
+        cobs = operand("cobs", self.cobs_dim)
+        fs = bufs["fscal"]
+        A = self.act_dim
+        if fs.dtype != torch.float32 or tuple(fs.shape) != (mb, rows, 3 * A + 4) or fs.stride(-1) != 1 \
+                or fs.device != dev:
+            raise ValueError(f"fscal must be float32 ({mb}, {rows}, {3 * A + 4}) on {dev}")
+        keep["fscal"] = fs
+
+        a = _K2Args()
+        a.rows, a.act_dim = rows, A
+        a.n_actor, a.n_critic = len(self.actor_dims) - 1, len(self.critic_dims) - 1
+        for i, d in enumerate(self.actor_dims):
+            a.actor_dims[i] = d
+        for i, d in enumerate(self.critic_dims):
+            a.critic_dims[i] = d
+        a.op_bf16 = int(op == torch.bfloat16)
+        a.fixed_std = int(self.fixed_std)
+        a.clipped_vl = int(self.use_clipped_value_loss)
+        a.wgrad_rows = WGRAD_ROWS
+        a.wgrad_splits = -(-rows // WGRAD_ROWS)
+        a.loss_blocks = -(-rows // 256)
+        B = float(rows)
+        a.clip_param = self.clip_param
+        a.init_noise_std = self.init_noise_std
+        a.coef_scale = 1.0 / B
+        a.gval_scale = self.value_loss_coef / B
+        a.logp_const = 0.5 * A * _LOG_2PI
+        a.lo, a.hi = 1.0 - self.clip_param, 1.0 + self.clip_param
+        a.obs_ld, a.obs_mb_stride = obs.stride(1), obs.stride(0)
+        a.cobs_ld, a.cobs_mb_stride = cobs.stride(1), cobs.stride(0)
+        a.fs_ld, a.fs_mb_stride = fs.stride(1), fs.stride(0)
+        # offsets by layer: the actor's layers, then the critic's (layout order)
+        for i, (name, off, _) in enumerate(net.layout[:-1]):
+            (a.w_off if name.endswith("weight") else a.b_off)[i // 2] = off
+        a.std_off = self.std_off
+        a.n_params = net.num_params
+
+        e = lambda *shape, dtype=op: torch.empty(shape, dtype=dtype, device=dev)
+        keep["p_op"] = e(net.num_params) if op == torch.bfloat16 else p
+        keep["g"] = e(net.num_params, dtype=torch.float32)
+        keep["aux"] = e(4, dtype=torch.float32)
+        keep["mean"] = e(rows, A, dtype=torch.float32)
+        keep["value"] = e(rows, dtype=torch.float32)
+        ha = [e(rows, w) for w in self.actor_dims[1:-1]]
+        hc = [e(rows, w) for w in self.critic_dims[1:-1]]
+        keep["h"] = ha + hc
+        gw = max(self.actor_dims[1:-1] + self.critic_dims[1:-1] + [A, 1])
+        keep["gbuf"] = [e(rows, gw) for _ in range(4)]
+        dims = list(zip(self.actor_dims[:-1], self.actor_dims[1:])) + \
+            list(zip(self.critic_dims[:-1], self.critic_dims[1:]))
+        keep["part"] = e(a.wgrad_splits * max(o * (i + 1) for i, o in dims), dtype=torch.float32)
+        keep["loss_part"] = e(a.loss_blocks * (A + 3), dtype=torch.float32)
+
+        a.obs, a.cobs, a.fscal = obs.data_ptr(), cobs.data_ptr(), fs.data_ptr()
+        a.p, a.p_op = p.data_ptr(), keep["p_op"].data_ptr()
+        a.g, a.aux = keep["g"].data_ptr(), keep["aux"].data_ptr()
+        # hidden activations: the actor's in slots [0, nA-1), the critic's from MAX_LAYERS
+        for i, h in enumerate(ha):
+            a.h[i] = h.data_ptr()
+        for i, h in enumerate(hc):
+            a.h[MAX_LAYERS + i] = h.data_ptr()
+        a.mean, a.value = keep["mean"].data_ptr(), keep["value"].data_ptr()
+        for i, gb in enumerate(keep["gbuf"]):
+            a.gbuf[i] = gb.data_ptr()
+        a.part, a.loss_part = keep["part"].data_ptr(), keep["loss_part"].data_ptr()
+        return a, keep
+
+    def _k2_launch(self, lib, args, mb_index: int, dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            err = lib.k2_step(ctypes.addressof(args), int(mb_index), stream)
+        _check(err, "K2 launch")
+        LAUNCHES["k2"] += 1
+
+    def grads(self, p, bufs, mb_index: int):
+        """Gradient of ``PPO._minibatch_loss`` for minibatch ``mb_index``.
+
+        ``p``: flat float32 params. ``bufs``: dict from :meth:`split_buffers`.
+        Returns (loss, flat float32 gradient, aux dict of 0-d tensors)."""
+        if p.device.type == "cpu":
+            return self.grads_plain(p, bufs, mb_index)
+        if p.device.type != "cuda":
+            raise RuntimeError(f"K2 runs on CUDA tensors, got device {p.device}")
+        if not 0 <= int(mb_index) < self.num_mini_batches:
+            raise IndexError(f"minibatch {mb_index} of {self.num_mini_batches}")
+        lib = _lib("k2")
+        args, keep = self._k2_context(p, bufs)
+        self._k2_launch(lib, args, mb_index, p.device)
+        return self._finalize_grads(p, keep["g"], keep["aux"][:3])
+
+    def update_scan(self, p, m, v, count, lr, bufs):
+        """The whole PPO update. ``p``, ``m``, ``v``: flat float32 params and
+        Adam moments; ``count``: the Adam step count (int32 0-d tensor);
+        ``lr``: the live learning rate (float32 0-d tensor). Returns
+        (p', m', v', lr_final, metric means); the inputs are not modified.
+        On the card nothing is read back to the host."""
+        if p.device.type == "cpu":
+            return self.update_scan_plain(p, m, v, count, lr, bufs)
+        if p.device.type != "cuda":
+            raise RuntimeError(f"K3 runs on CUDA tensors, got device {p.device}")
+        dev = p.device
+        for name, x in (("m", m), ("v", v)):
+            if x.dtype != torch.float32 or x.shape != p.shape or x.device != dev:
+                raise ValueError(f"{name} must be float32 {tuple(p.shape)} on {dev}")
+        if count.dtype != torch.int32 or count.numel() != 1 or count.device != dev:
+            raise ValueError("count must be a one-element int32 tensor on the params' device")
+        if lr.numel() != 1 or lr.device != dev:
+            raise ValueError("lr must be a one-element tensor on the params' device")
+        lib2, lib3 = _lib("k2"), _lib("k3")
+        p2, m2, v2 = p.clone(), m.contiguous().clone(), v.contiguous().clone()
+        args2, keep = self._k2_context(p2, bufs)
+        count0 = count.reshape(1).contiguous()
+        state = torch.zeros(16, dtype=torch.float32, device=dev)
+        state[0] = lr.reshape(()).to(torch.float32)
+        part = torch.empty(K3_BLOCKS, dtype=torch.float32, device=dev)
+        step = torch.empty(4, dtype=torch.float32, device=dev)
+
+        b = _K3Args()
+        b.n, b.std_off = self.net.num_params, self.std_off
+        b.p, b.m, b.v, b.g = p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), keep["g"].data_ptr()
+        b.aux, b.state, b.count0 = keep["aux"].data_ptr(), state.data_ptr(), count0.data_ptr()
+        b.part, b.step = part.data_ptr(), step.data_ptr()
+        b.act_dim, b.fixed_std = self.act_dim, int(self.fixed_std)
+        b.adaptive, b.nblocks = int(self.adaptive_lr), K3_BLOCKS
+        b.rows_f = float(self.rows)
+        b.value_loss_coef, b.entropy_coef = self.value_loss_coef, self.entropy_coef
+        b.ent_const = 0.5 + 0.5 * _LOG_2PI
+        b.ent_fixed = (self.act_dim * (0.5 + 0.5 * _LOG_2PI)
+                       + self.act_dim * math.log(self.init_noise_std))
+        b.kl_hi, b.kl_lo = self.desired_kl * 2.0, self.desired_kl / 2.0
+        b.lr_min, b.lr_max = self.lr_min, self.lr_max
+        b.max_grad_norm = self.max_grad_norm
+        b.b1, b.b2 = self.adam_b1, self.adam_b2
+        b.omb1, b.omb2 = 1.0 - self.adam_b1, 1.0 - self.adam_b2
+        b.log_b1, b.log_b2 = math.log(self.adam_b1), math.log(self.adam_b2)
+        b.eps, b.std_floor = self.adam_eps, self.std_floor
+
+        steps = self.num_epochs * self.num_mini_batches
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(steps):
+            self._k2_launch(lib2, args2, s % self.num_mini_batches, dev)
+            with torch.cuda.device(dev):
+                err = lib3.k3_step(ctypes.addressof(b), s, stream)
+            _check(err, "K3 step")
+        LAUNCHES["k3"] += 1
+        out = state[(steps & 1) * 8:(steps & 1) * 8 + 4]
+        n = float(steps)
+        lr_final = out[0].clone()
+        metrics = {"value_loss": out[1] / n, "surrogate_loss": out[2] / n,
+                   "kl": out[3] / n, "lr": lr_final}
+        return p2, m2, v2, lr_final, metrics

@@ -4,6 +4,16 @@ Separate actor and critic MLP stacks ([512, 256, 128] ELU for GR1T1), a
 learnable per-dim raw std (not log-std), and torch-default ``nn.Linear``
 initialization drawn from an explicit generator. Matrix products stay
 ``torch.matmul`` (``nn.Linear``), as the JAX package left them to XLA.
+
+**Flat parameter buffer.** Every parameter lives in one contiguous float32
+buffer, ``params_flat``; the ``nn.Linear`` weights and biases and
+``std_param`` are views into it, so the PPO kernels and the optimizer
+address each leaf by offset (``layout``). The leaves are ordered as JAX's
+``ravel_pytree(ActorCriticParams)`` orders them: actor W0, b0, W1, b1, ...,
+then the critic's, then std. **Weights are stored (out, in)**, as
+``nn.Linear`` keeps them; JAX stores them (in, out), so ``convert.py``
+transposes. :meth:`ActorCritic.bind` points the views at another flat
+buffer (the optimizer's new params) without copying.
 """
 
 from __future__ import annotations
@@ -60,6 +70,9 @@ class ActorCritic(nn.Module):
         self.num_actions = num_actions
         self.actor_hidden = list(policy_cfg.actor_hidden_dims)
         self.critic_hidden = list(policy_cfg.critic_hidden_dims)
+        self.activation = policy_cfg.activation
+        self.actor_out_act = policy_cfg.actor_output_activation
+        self.critic_out_act = policy_cfg.critic_output_activation
         self.actor = make_mlp(num_actor_input, self.actor_hidden, num_actions,
                               policy_cfg.activation, policy_cfg.actor_output_activation)
         self.critic = make_mlp(num_critic_input, self.critic_hidden, 1,
@@ -74,8 +87,58 @@ class ActorCritic(nn.Module):
         self.noise_std_floor = float(getattr(policy_cfg, "noise_std_floor", 0.0))
         if (getattr(policy_cfg, "compute_dtype", "float32") or "float32") != "float32":
             raise NotImplementedError("bf16 policy matmuls are not ported")
-        self.std_param = nn.Parameter(self.init_noise_std * torch.ones(num_actions))
+        # the flat buffer: (name, offset, shape) per leaf, ravel_pytree order
+        self.layout = []
+        off = 0
+        for stack, lins in (("actor", self._linears(self.actor)),
+                            ("critic", self._linears(self.critic))):
+            for i, lin in enumerate(lins):
+                for kind in ("weight", "bias"):
+                    shape = tuple(getattr(lin, kind).shape)
+                    self.layout.append((f"{stack}.{i}.{kind}", off, shape))
+                    off += math.prod(shape)
+                    del lin._parameters[kind]   # becomes a view into params_flat
+        self.layout.append(("std", off, (num_actions,)))
+        self.num_params = off + num_actions
+        self.register_buffer("params_flat", torch.zeros(self.num_params))
+        self._bind_views()
         self.reset_parameters(generator)
+
+    @staticmethod
+    def _linears(seq):
+        return [m for m in seq if isinstance(m, nn.Linear)]
+
+    def _bind_views(self):
+        flat = self.params_flat
+        leaves = iter(self.layout)
+        for lin in self.linears():
+            for kind in ("weight", "bias"):
+                _, off, shape = next(leaves)
+                setattr(lin, kind, flat[off: off + math.prod(shape)].view(shape))
+        _, off, shape = next(leaves)
+        self.std_param = flat[off: off + shape[0]]
+
+    def _apply(self, fn, recurse=True):
+        # .to()/.double() move params_flat; the views follow it
+        super()._apply(fn, recurse)
+        self._bind_views()
+        return self
+
+    def bind(self, flat: torch.Tensor):
+        """Make ``flat`` (shape ``(num_params,)``, this module's device and
+        dtype) the parameter buffer; the layer views point into it."""
+        if flat.shape != (self.num_params,) or not flat.is_contiguous():
+            raise ValueError(f"expected a contiguous ({self.num_params},) buffer, got {tuple(flat.shape)}")
+        self.params_flat = flat
+        self._bind_views()
+
+    def leaves(self, flat: torch.Tensor):
+        """``flat`` cut into the (actor pairs, critic pairs, std) views of this
+        layout: ``([(W (out, in), b), ...], [(W, b), ...], std)``."""
+        views = [flat[off: off + math.prod(shape)].view(shape) for _, off, shape in self.layout]
+        na = len(self._linears(self.actor))
+        pairs = list(zip(views[:-1:2], views[1:-1:2]))
+        return pairs[:na], pairs[na:], views[-1]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator = None):
@@ -89,9 +152,7 @@ class ActorCritic(nn.Module):
         self.std_param.fill_(self.init_noise_std)
 
     def linears(self):
-        return [m for m in self.actor if isinstance(m, nn.Linear)] + [
-            m for m in self.critic if isinstance(m, nn.Linear)
-        ]
+        return self._linears(self.actor) + self._linears(self.critic)
 
     # ---- distribution ops ----
 

@@ -1,0 +1,339 @@
+"""PPO: GAE, the minibatch shuffle and the update (port of
+``wiki_grx_gym_tpu/learn/ppo.py``).
+
+Semantics are the JAX package's, which mirror ``rsl_rl``'s PPO: timeout
+bootstrapping in the rollout, GAE with advantage normalisation, the clipped
+surrogate + clipped value loss + entropy bonus, the adaptive-KL learning
+rate, the NaN-loss skip, clip by global norm and Adam.
+
+``update`` has the JAX package's three paths, chosen by the same config keys:
+
+- **mega** (``fused_mega=True``, the default): the whole update as K3
+  (``FusedPPOGrad.update_scan``, ``learn/fused_update.py``);
+- **step** (``fused_mega=False``): K2 per grad step
+  (``FusedPPOGrad.grads``), then clip and Adam in plain torch;
+- **xla** (``fused_update=False``): ``torch.autograd`` of
+  :meth:`PPO._minibatch_loss`, with the same clip and Adam.
+
+``fused_update="auto"`` selects the kernel paths wherever
+``FusedPPOGrad.supported`` holds (MLP, ELU, no extra loss), on any device:
+CPU tensors run the kernels' plain versions. Each path mirrors its own JAX
+counterpart, including where they differ: the step and xla paths use
+optax's clip ``(g / norm) * max`` and bias correction ``1 - b**count``, K3
+its own ``g * (max / norm)`` and ``1 - exp(count log b)``; the xla loss
+differentiates through ``max(std, floor)``, the kernels use the raw std.
+
+Clip by global norm and Adam are written out with optax's formulas (``eps``
+outside the sqrt, ``eps_root`` 0, the count carried across updates); no
+``torch.optim``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad, _jclip, _jmax
+
+_INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass
+class PPOState:
+    params: torch.Tensor          # (P,) float32, networks.ActorCritic.layout
+    m: torch.Tensor               # (P,) Adam first moment
+    v: torch.Tensor               # (P,) Adam second moment
+    count: torch.Tensor           # () int32 Adam step count
+    learning_rate: torch.Tensor   # () float32, adapted by KL
+
+    def replace(self, **kw) -> "PPOState":
+        return dataclasses.replace(self, **kw)
+
+
+class PPO:
+    def __init__(self, net, alg_cfg, extra_loss_fn=None, perm_groups: int = 1,
+                 shuffle_block: int = 16):
+        if extra_loss_fn is not None:
+            raise NotImplementedError("extra loss terms (the symmetry loss) are ROADMAP queue 1 item 13")
+        if int(perm_groups) > 1:
+            raise NotImplementedError(
+                "permutation_groups > 1 (group-local shuffles for multi-device runs) "
+                "is ROADMAP queue 1 item 14")
+        if str(getattr(alg_cfg, "update_dtype", "float32") or "float32") != "float32":
+            raise NotImplementedError("update_dtype='bfloat16' is ROADMAP queue 1 item 16")
+        if bool(getattr(alg_cfg, "remat_update", False)):
+            raise NotImplementedError("remat_update is ROADMAP queue 1 item 16")
+        self.net = net
+        self.cfg = alg_cfg
+        self.std_floor = 0.0 if net.fixed_std else float(net.noise_std_floor)
+        self.shuffle_block = int(shuffle_block)
+        self.gamma = float(alg_cfg.gamma)
+        self.lam = float(alg_cfg.lam)
+        self.clip_param = float(alg_cfg.clip_param)
+        self.value_loss_coef = float(alg_cfg.value_loss_coef)
+        self.entropy_coef = float(alg_cfg.entropy_coef)
+        self.num_learning_epochs = int(alg_cfg.num_learning_epochs)
+        self.num_mini_batches = int(alg_cfg.num_mini_batches)
+        self.desired_kl = float(alg_cfg.desired_kl)
+        self.adaptive = alg_cfg.schedule == "adaptive"
+        self.lr_init = float(alg_cfg.learning_rate)
+        self.lr_min = float(alg_cfg.learning_rate_min)
+        self.lr_max = float(alg_cfg.learning_rate_max)
+        self.max_grad_norm = float(alg_cfg.max_grad_norm)
+        self.use_clipped_value_loss = bool(alg_cfg.use_clipped_value_loss)
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+        sd = str(getattr(alg_cfg, "storage_dtype", "bfloat16") or "float32")
+        self.storage_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[sd]
+        fu = getattr(alg_cfg, "fused_update", "auto")
+        if fu == "auto" or fu:
+            fu = FusedPPOGrad.supported(net, extra_loss_fn)
+        self.fused_update = bool(fu)
+        self.fused_mega = bool(getattr(alg_cfg, "fused_mega", True))
+        self.fused_update_tile = int(getattr(alg_cfg, "fused_update_tile", 512) or 512)
+        self._fused_cache: Dict[int, FusedPPOGrad] = {}
+
+    @property
+    def path(self) -> str:
+        if not self.fused_update:
+            return "xla"
+        return "mega" if self.fused_mega else "step"
+
+    def init(self, params: torch.Tensor) -> PPOState:
+        z = torch.zeros_like(params)
+        return PPOState(params=params, m=z, v=z.clone(),
+                        count=torch.zeros((), dtype=torch.int32, device=params.device),
+                        learning_rate=torch.tensor(self.lr_init, dtype=torch.float32,
+                                                   device=params.device))
+
+    # ------------------------------------------------------------------
+
+    def compute_returns(self, batch, last_values):
+        """GAE (ppo.py:207). ``batch`` leaves are (T, N, ...). A reverse loop
+        over T (the JAX package evaluates the same recurrence as a parallel
+        prefix scan). Returns (returns, normalized advantages), each (T, N)."""
+        not_terminal = 1.0 - batch.dones.to(torch.float32)
+        next_values = torch.cat([batch.values[1:], last_values[None]], dim=0)
+        delta = batch.rewards + not_terminal * self.gamma * next_values - batch.values
+        coeff = not_terminal * (self.gamma * self.lam)
+        adv_raw = torch.empty_like(delta)
+        acc = torch.zeros_like(delta[0])
+        for t in range(delta.shape[0] - 1, -1, -1):
+            acc = delta[t] + coeff[t] * acc
+            adv_raw[t] = acc
+        returns = adv_raw + batch.values
+        # jnp.std is the population std: correction=0, not torch's default 1
+        adv = (adv_raw - adv_raw.mean()) / (adv_raw.std(correction=0) + 1e-8)
+        return returns, adv
+
+    # ------------------------------------------------------------------
+
+    def _mlp(self, pairs, x):
+        for w, b in pairs[:-1]:
+            x = torch.nn.functional.elu(x @ w.t() + b)
+        w, b = pairs[-1]
+        return x @ w.t() + b
+
+    def _minibatch_loss(self, flat, mb):
+        """The loss of ``ppo.py:_minibatch_loss`` (update_dtype float32) as a
+        function of the flat params, for torch.autograd. ``torch.maximum``/
+        ``minimum`` give 0.5 at ties as ``jnp.maximum``/``clip`` do; a
+        ``torch.clamp`` would give 1 at the boundary."""
+        net = self.net
+        actor, critic, std_p = net.leaves(flat)
+        mean = self._mlp(actor, mb["obs"].to(torch.float32))
+        value = self._mlp(critic, mb["critic_obs"].to(torch.float32))[:, 0]
+        if net.fixed_std:
+            std1 = torch.full_like(std_p, net.init_noise_std)
+        elif self.std_floor > 0.0:
+            std1 = _jmax(std_p, self.std_floor)   # networks.py:148-153: gradient 0.5 at a tie
+        else:
+            std1 = std_p
+        std = std1.expand_as(mean)
+        logp = net.log_prob(mean, std, mb["actions"])
+        entropy = net.entropy(std)
+
+        old_mu, old_sigma = mb["mu"], mb["sigma"]
+        kl = torch.sum(
+            torch.log(std / old_sigma + 1e-5)
+            + (torch.square(old_sigma) + torch.square(old_mu - mean)) / (2.0 * torch.square(std))
+            - 0.5,
+            dim=-1,
+        )
+        kl_mean = torch.mean(kl).detach()
+
+        ratio = torch.exp(logp - mb["log_prob"])
+        adv = mb["advantages"]
+        surrogate = -adv * ratio
+        surrogate_clipped = -adv * _jclip(ratio, 1.0 - self.clip_param, 1.0 + self.clip_param)
+        surrogate_loss = torch.mean(torch.maximum(surrogate, surrogate_clipped))
+
+        if self.use_clipped_value_loss:
+            value_clipped = mb["values"] + _jclip(value - mb["values"], -self.clip_param,
+                                                  self.clip_param)
+            value_loss = torch.mean(torch.maximum(torch.square(value - mb["returns"]),
+                                                  torch.square(value_clipped - mb["returns"])))
+        else:
+            value_loss = torch.mean(torch.square(mb["returns"] - value))
+
+        loss = (surrogate_loss + self.value_loss_coef * value_loss
+                - self.entropy_coef * torch.mean(entropy))
+        aux = {"value_loss": value_loss.detach(), "surrogate_loss": surrogate_loss.detach(),
+               "kl": kl_mean}
+        return loss, aux
+
+    def _adapt_lr(self, lr, kl_mean):
+        """ppo.py:291 (rsl_rl ppo.py:207-213), on device scalars."""
+        if not self.adaptive:
+            return lr
+        lr_down = _jmax(lr / 1.5, self.lr_min)
+        lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
+        return torch.where(
+            kl_mean > self.desired_kl * 2.0, lr_down,
+            torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0), lr_up, lr),
+        )
+
+    def _project_std(self, flat):
+        """ppo.py:650: the learnable std projected to its floor after each
+        optimizer step (in place on ``flat``, a fresh tensor of this step)."""
+        if self.std_floor > 0.0:
+            off = self.net.layout[-1][1]
+            flat[off:] = _jmax(flat[off:], self.std_floor)
+        return flat
+
+    def _optax_step(self, p, m, v, count, lr, g):
+        """optax.clip_by_global_norm(max) + optax.adam(lr, 0.9, 0.999, 1e-8)
+        on one flat vector, formula for formula."""
+        gnorm = torch.sqrt(torch.sum(g * g))
+        g = torch.where(gnorm < self.max_grad_norm, g, (g / gnorm) * self.max_grad_norm)
+        count = torch.where(count < _INT32_MAX, count + 1, count)
+        m = (1 - self.b1) * g + self.b1 * m
+        v = (1 - self.b2) * (g * g) + self.b2 * v
+        c = count.to(torch.float32)
+        mu_hat = m / (1 - torch.pow(torch.tensor(self.b1, device=c.device), c))
+        nu_hat = v / (1 - torch.pow(torch.tensor(self.b2, device=c.device), c))
+        upd = mu_hat / (torch.sqrt(nu_hat + 0.0) + self.eps)
+        return p + upd * (-lr), m, v, count
+
+    # ------------------------------------------------------------------
+
+    def shuffle_geometry(self, t: int, n: int) -> Tuple[int, int, int, int]:
+        """(block, n_blocks, used blocks, rows per minibatch) of the block
+        shuffle (ppo.py:322-332): ``shuffle_block`` consecutive envs at one
+        timestep, cut to a divisor of N that leaves every minibatch a block;
+        the ``n_blocks - used`` leftover blocks are dropped."""
+        b = max(1, min(self.shuffle_block, n))
+        while b > 1 and ((n % b) or (t * (n // b)) < self.num_mini_batches):
+            b -= 1
+        n_blocks = t * (n // b)
+        mb_blocks = n_blocks // self.num_mini_batches
+        if mb_blocks == 0:
+            raise ValueError(f"{n_blocks} sample blocks cannot fill {self.num_mini_batches} minibatches")
+        return b, n_blocks, mb_blocks * self.num_mini_batches, mb_blocks * b
+
+    def _pack_shuffle(self, batch, returns, advantages, perm):
+        """Pack the nine rollout fields into the update's two buffers,
+        shuffled once by the block permutation ``perm`` (ppo.py:303): the
+        matmul inputs ``(MB, rows, O+P)`` in ``storage_dtype`` and the
+        ratio/KL-critical scalars ``(MB, rows, 3A+4)`` in f32, in the lane
+        order actions | log_prob | mu | sigma | values | returns | advantages."""
+        t, n = batch.rewards.shape
+        b, n_blocks, used, rows = self.shuffle_geometry(t, n)
+        perm = torch.as_tensor(perm, device=batch.rewards.device).to(torch.long)
+        if perm.shape != (used,):
+            raise ValueError(f"perm must hold {used} block indices, got {tuple(perm.shape)}")
+        col = lambda x: x[..., None]
+        wide = torch.cat([batch.obs.to(self.storage_dtype),
+                          batch.critic_obs.to(self.storage_dtype)], dim=-1)
+        f32 = torch.cat([batch.actions, col(batch.log_prob), batch.mu, batch.sigma,
+                         col(batch.values), col(returns), col(advantages)],
+                        dim=-1).to(torch.float32)
+
+        def shuffle(x):
+            f = x.shape[-1]
+            return x.reshape(n_blocks, b, f)[perm].reshape(self.num_mini_batches, rows, f)
+
+        return shuffle(wide), shuffle(f32), rows
+
+    def draw_perm(self, t: int, n: int, generator: torch.Generator, device) -> torch.Tensor:
+        """One block permutation per update (base_storage.py:169), cut to
+        the used blocks: ``randperm(n_blocks)[:used]``."""
+        _, n_blocks, used, _ = self.shuffle_geometry(t, n)
+        return torch.randperm(n_blocks, generator=generator, device=device)[:used]
+
+    def update(self, ppo_state: PPOState, batch, returns, advantages,
+               generator: Optional[torch.Generator] = None, perm=None):
+        """Epochs x minibatches over the block-shuffled batch (ppo.py:400).
+
+        ``perm``: optional block permutation (``used`` indices), instead of
+        drawing one from ``generator``. Returns (new PPOState, metric means:
+        value_loss, surrogate_loss, kl, lr); the inputs are not modified."""
+        t, n = batch.rewards.shape
+        if perm is None:
+            if generator is None:
+                raise ValueError("update needs a generator or a permutation")
+            perm = self.draw_perm(t, n, generator, batch.rewards.device)
+        shuf_w, shuf_f, rows = self._pack_shuffle(batch, returns, advantages, perm)
+        obs_dim = batch.obs.shape[-1]
+        if self.fused_update:
+            fused = self._get_fused(rows)
+            bufs = fused.split_buffers(shuf_w, shuf_f, obs_dim)
+            if self.fused_mega:
+                s = ppo_state
+                p2, m2, v2, lr, metrics = fused.update_scan(s.params, s.m, s.v, s.count,
+                                                            s.learning_rate, bufs)
+                steps = self.num_learning_epochs * self.num_mini_batches
+                return PPOState(params=p2, m=m2, v=v2, count=s.count + steps,
+                                learning_rate=lr), metrics
+            return self._run_epochs(ppo_state, lambda p, i: fused.grads(p, bufs, i))
+
+        a = batch.actions.shape[-1]
+
+        def grad_fn(p, i):
+            fs = shuf_f[i]
+            mb = {"obs": shuf_w[i, :, :obs_dim], "critic_obs": shuf_w[i, :, obs_dim:],
+                  "actions": fs[:, :a], "log_prob": fs[:, a], "mu": fs[:, a + 1:2 * a + 1],
+                  "sigma": fs[:, 2 * a + 1:3 * a + 1], "values": fs[:, 3 * a + 1],
+                  "returns": fs[:, 3 * a + 2], "advantages": fs[:, 3 * a + 3]}
+            with torch.enable_grad():
+                pr = p.detach().requires_grad_(True)
+                loss, aux = self._minibatch_loss(pr, mb)
+                (g,) = torch.autograd.grad(loss, pr)
+            return loss.detach(), g, aux
+
+        return self._run_epochs(ppo_state, grad_fn)
+
+    def _get_fused(self, rows: int) -> FusedPPOGrad:
+        if rows not in self._fused_cache:
+            # f32 operands when the whole update is stored f32 (the exact
+            # check), else bf16 (ppo.py:468-474; update_dtype bf16 is refused)
+            op = torch.float32 if self.storage_dtype == torch.float32 else torch.bfloat16
+            self._fused_cache[rows] = FusedPPOGrad(
+                self.net, clip_param=self.clip_param, value_loss_coef=self.value_loss_coef,
+                entropy_coef=self.entropy_coef, use_clipped_value_loss=self.use_clipped_value_loss,
+                rows=rows, num_mini_batches=self.num_mini_batches,
+                num_epochs=self.num_learning_epochs, tile=self.fused_update_tile, op_dtype=op,
+                max_grad_norm=self.max_grad_norm, adaptive_lr=self.adaptive,
+                desired_kl=self.desired_kl, lr_min=self.lr_min, lr_max=self.lr_max,
+            )
+        return self._fused_cache[rows]
+
+    def _run_epochs(self, ppo_state: PPOState, grad_fn):
+        """The per-grad-step loop of the step and xla paths (ppo.py:600,
+        :664): gradient, adaptive-KL LR from this minibatch's KL, NaN-loss
+        skip, clip + Adam, std projection. ``grad_fn(p, i)`` -> (loss, flat
+        gradient, aux) for minibatch ``i``."""
+        p, m, v = ppo_state.params, ppo_state.m, ppo_state.v
+        count, lr = ppo_state.count, ppo_state.learning_rate
+        hist = []
+        for s in range(self.num_learning_epochs * self.num_mini_batches):
+            loss, g, aux = grad_fn(p, s % self.num_mini_batches)
+            lr = self._adapt_lr(lr, aux["kl"])
+            g = torch.where(torch.isfinite(loss), g, torch.zeros_like(g))   # NaN-loss skip
+            p, m, v, count = self._optax_step(p, m, v, count, lr, g)
+            p = self._project_std(p)
+            hist.append(torch.stack([aux["value_loss"], aux["surrogate_loss"], aux["kl"]]))
+        means = torch.stack(hist).mean(dim=0)
+        metrics = {"value_loss": means[0], "surrogate_loss": means[1], "kl": means[2], "lr": lr}
+        return PPOState(params=p, m=m, v=v, count=count, learning_rate=lr), metrics

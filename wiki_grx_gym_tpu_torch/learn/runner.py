@@ -1,21 +1,28 @@
-"""On-policy runner, rollout half (port of ``wiki_grx_gym_tpu/learn/runner.py``).
+"""On-policy runner (port of ``wiki_grx_gym_tpu/learn/runner.py``).
 
-Slice 1 ports what collects experience and runs a policy: the constructor's
-rollout fields, ``init_state``, ``rollout`` (the JAX ``_rollout`` scan as a
-Python loop over T steps filling a preallocated ``Transition`` buffer and
-the per-env accumulators) and ``get_inference_policy``. ``learn``, GAE, the
-PPO update and checkpoints are slice 2.
+One training iteration (:meth:`OnPolicyRunner.iteration`, the counterpart of
+the JAX ``_iteration``) is: the rollout (a Python loop over T steps filling
+a preallocated ``Transition`` buffer and the per-env accumulators), the last
+values, GAE, the PPO update (``learn/ppo.py``; K3 on the default path) and
+the metrics dict with the JAX package's keys. ``learn`` runs iterations,
+logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
+the reference's run-dir layout; ``load`` restores one exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import os
+import statistics
+import time
+from collections import deque
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from wiki_grx_gym_tpu_torch.device import resolve_device
 from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
+from wiki_grx_gym_tpu_torch.learn.ppo import PPO, PPOState
 
 
 class Transition(NamedTuple):
@@ -37,14 +44,15 @@ class RunnerState:
     env_state: object          # EnvState
     obs: torch.Tensor          # (N, O)
     critic_obs: torch.Tensor   # (N, OP)
-    rng: torch.Generator       # action-noise generator
+    rng: torch.Generator       # action-noise and shuffle generator
+    ppo: Optional[PPOState] = None
 
     def replace(self, **kw) -> "RunnerState":
         return dataclasses.replace(self, **kw)
 
 
 class OnPolicyRunner:
-    def __init__(self, env, train_cfg, device="cuda"):
+    def __init__(self, env, train_cfg, device="cuda", log_dir: Optional[str] = None):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, runner asked for {self.device}")
@@ -52,14 +60,24 @@ class OnPolicyRunner:
         self.cfg = train_cfg.runner
         self.alg_cfg = train_cfg.algorithm
         self.policy_cfg = train_cfg.policy
+        self.log_dir = log_dir
         self.num_steps_per_env = int(self.cfg.num_steps_per_env)
+        self.save_interval = int(self.cfg.save_interval)
         self.seed = int(getattr(train_cfg, "seed", 1))
 
         pcn = str(getattr(self.cfg, "policy_class_name", "ActorCritic"))
         if pcn not in ("ActorCritic", "ActorCriticMLP", "ActorCriticRecurrent"):
             raise ValueError(f"unknown policy_class_name {pcn!r}")
+        acn = str(getattr(self.alg_cfg, "algorithm_class_name", "PPO"))
+        if acn != "PPO":
+            raise ValueError(f"unknown algorithm_class_name {acn!r}")
+        scn = str(getattr(self.alg_cfg, "storage_class", "RolloutStorage"))
+        if scn != "RolloutStorage":
+            raise ValueError(f"unknown storage_class {scn!r}")
         if pcn == "ActorCriticRecurrent" or getattr(self.policy_cfg, "rnn_type", None):
             raise NotImplementedError("recurrent policies are ROADMAP queue 1 item 12")
+        if float(getattr(self.alg_cfg, "symmetry_coef", 0.0)) > 0.0:
+            raise NotImplementedError("the symmetry loss (symmetry_coef > 0) is ROADMAP queue 1 item 13")
         num_pri_obs = env.pri_obs_dim if env.cfg.env.num_pri_obs else env.obs_dim
         self.gamma = float(self.alg_cfg.gamma)
         self.fused_trunk = bool(getattr(self.alg_cfg, "fused_trunk", False))
@@ -69,6 +87,24 @@ class OnPolicyRunner:
             env.obs_dim, num_pri_obs, env.num_actions, self.policy_cfg,
         ).to(self.device)
         self.net.reset_parameters(g)
+        # 0 = auto: the device count of the run, which is 1 here
+        pg = int(getattr(self.alg_cfg, "permutation_groups", 0) or 0) or 1
+        self.alg = PPO(self.net, self.alg_cfg, perm_groups=pg,
+                       shuffle_block=int(getattr(self.alg_cfg, "shuffle_block", 16) or 16))
+        if not getattr(env, "reward_names", ("_",)):
+            print("WARNING: env has ZERO active reward terms (all scales are 0) "
+                  "— training will not learn anything. Check cfg.rewards.scales.", flush=True)
+
+        self.writer = None
+        self.current_learning_iteration = 0
+        self.lenbuffer = deque(maxlen=100)
+        self.last_timing: Dict[str, float] = {}
+        self.log_history = []   # per iteration: its index, time, fps, timing and metrics
+        self._loaded_state: Optional[RunnerState] = None   # set by load()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
 
@@ -87,7 +123,8 @@ class OnPolicyRunner:
             )
         zeros = torch.zeros((env.num_envs, env.num_actions), device=self.device)
         env_state, out = env.step(env_state, zeros)
-        return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run)
+        return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run,
+                           ppo=self.alg.init(self.net.params_flat))
 
     @torch.no_grad()
     def rollout(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
@@ -144,6 +181,154 @@ class OnPolicyRunner:
             obs, critic_obs = out.obs, out.pri_obs
         new_state = state.replace(env_state=env_state, obs=obs, critic_obs=critic_obs)
         return new_state, buf, acc
+
+    # ------------------------------------------------------------------
+    # one training iteration (the JAX _iteration, runner.py:256)
+    # ------------------------------------------------------------------
+
+    def iteration(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
+                  u: Optional[torch.Tensor] = None, perm=None):
+        """Rollout, last values, GAE, PPO update. ``noise``/``u`` as for
+        :meth:`rollout`; ``perm``: the update's block permutation instead of
+        one drawn from ``state.rng``. Returns (new state, metrics dict of 0-d
+        tensors with the JAX package's keys); the times of collection and
+        update land in ``last_timing``."""
+        env, net, alg = self.env, self.net, self.alg
+        net.bind(state.ppo.params)
+        t0 = time.perf_counter()
+        rs, batch, acc = self.rollout(state, noise=noise, u=u)
+        with torch.no_grad():
+            last_values = net.evaluate(rs.critic_obs)
+        returns, advantages = alg.compute_returns(batch, last_values)
+        self._sync()
+        t1 = time.perf_counter()
+        ppo, update_metrics = alg.update(state.ppo, batch, returns, advantages,
+                                         generator=state.rng, perm=perm)
+        net.bind(ppo.params)
+        self._sync()
+        self.last_timing = {"collection_s": t1 - t0, "update_s": time.perf_counter() - t1}
+
+        # per-reward episode means over done envs (runner.py:284-301)
+        total_done = torch.clamp(torch.sum(acc["done"]), min=1.0)
+        ep_metrics = {
+            name: torch.sum(acc["ep_sums"][:, i]) / total_done / env.max_episode_length_s
+            for i, name in enumerate(env.all_reward_names)
+        }
+        if env.custom_origins and env.cfg.terrain.curriculum:
+            ep_metrics["terrain_level"] = torch.mean(rs.env_state.terrain_levels.to(torch.float32))
+        if env.cfg.commands.curriculum:
+            ep_metrics["max_command_x"] = rs.env_state.cmd_lin_vel_x_range[1]
+        with torch.no_grad():
+            std_mean = torch.mean(net.std())
+        metrics = {
+            "mean_step_reward": torch.sum(acc["rew"]) / (self.num_steps_per_env * env.num_envs),
+            "done_count": torch.sum(acc["done"]),
+            "mean_ep_len_done": torch.sum(acc["ep_len_done"]) / total_done,
+            "mean_action_std": std_mean,
+            **{f"episode/{k}": v for k, v in ep_metrics.items()},
+            **update_metrics,
+        }
+        return rs.replace(ppo=ppo), metrics
+
+    # ------------------------------------------------------------------
+    # host loop (on_policy_runner.learn; runner.py:312)
+    # ------------------------------------------------------------------
+
+    def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = True,
+              state: Optional[RunnerState] = None) -> RunnerState:
+        """Train for ``num_learning_iterations`` iterations; checkpoints every
+        ``save_interval`` iterations and at the end when ``log_dir`` is set."""
+        if state is None:
+            state = self._loaded_state   # the resume path (task_registry.make_alg_runner)
+        if state is None:
+            state = self.init_state(init_at_random_ep_len)
+        if self.log_dir is not None and self.writer is None:
+            os.makedirs(self.log_dir, exist_ok=True)
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                print("tensorboard is not installed: no event files are written", flush=True)
+                self.writer = False
+            else:
+                self.writer = SummaryWriter(log_dir=self.log_dir, flush_secs=10)
+
+        steps_per_iter = self.num_steps_per_env * self.env.num_envs
+        start_iter = self.current_learning_iteration
+        for it in range(start_iter, start_iter + num_learning_iterations):
+            t0 = time.perf_counter()
+            state, metrics = self.iteration(state)
+            self._sync()
+            elapsed = time.perf_counter() - t0
+            metrics = {k: float(v) for k, v in metrics.items()}
+            self.current_learning_iteration = it + 1
+            self._log(it, metrics, elapsed, steps_per_iter)
+            if self.log_dir is not None and (it + 1) % self.save_interval == 0:
+                self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"), state)
+        if self.log_dir is not None:
+            self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"),
+                      state)
+        return state
+
+    def _log(self, it: int, m: Dict[str, float], elapsed: float, steps_per_iter: int):
+        # Perf/total_fps: the reference's FPS, env steps of the iteration over
+        # its wall time (ended by a synchronize on the card)
+        fps = steps_per_iter / elapsed
+        self.log_history.append(dict(it=it, elapsed_s=elapsed, fps=fps, **self.last_timing,
+                                     metrics=m))
+        if m["done_count"] > 0:
+            self.lenbuffer.append(m["mean_ep_len_done"])
+        if self.writer:
+            w = self.writer
+            w.add_scalar("Loss/value_function", m["value_loss"], it)
+            w.add_scalar("Loss/surrogate", m["surrogate_loss"], it)
+            w.add_scalar("Loss/learning_rate", m["lr"], it)
+            w.add_scalar("Loss/kl_mean", m["kl"], it)
+            w.add_scalar("Policy/mean_noise_std", m["mean_action_std"], it)
+            w.add_scalar("Perf/total_fps", fps, it)
+            w.add_scalar("Perf/iteration_time", elapsed, it)
+            w.add_scalar("Perf/collection_time", self.last_timing["collection_s"], it)
+            w.add_scalar("Perf/learning_time", self.last_timing["update_s"], it)
+            w.add_scalar("Train/mean_reward", m["mean_step_reward"], it)
+            if self.lenbuffer:
+                w.add_scalar("Train/mean_episode_length", statistics.mean(self.lenbuffer), it)
+            for k, v in m.items():
+                if k.startswith("episode/"):
+                    w.add_scalar("Episode/" + k.split("/", 1)[1], v, it)
+        print(
+            f"it {it:5d} | fps {fps:9.0f} | rew {m['mean_step_reward']:7.3f} "
+            f"| vloss {m['value_loss']:7.3f} | sloss {m['surrogate_loss']:7.4f} "
+            f"| kl {m['kl']:6.4f} | lr {m['lr']:.2e} "
+            f"| std {m['mean_action_std']:5.3f} | dones {m['done_count']:6.0f}",
+            flush=True,
+        )
+
+    # ------------------------------------------------------------------
+    # checkpoints (runner.py:395/:407): model_<it>.pt
+    # ------------------------------------------------------------------
+
+    def save(self, path: str, state: RunnerState):
+        ppo = state.ppo
+        torch.save({
+            "params": ppo.params.detach().cpu(), "m": ppo.m.cpu(), "v": ppo.v.cpu(),
+            "count": ppo.count.cpu(), "learning_rate": ppo.learning_rate.cpu(),
+            "iter": self.current_learning_iteration,
+        }, path)
+
+    def load(self, path: str, state: Optional[RunnerState] = None, load_optimizer: bool = True):
+        """Restore params, LR (and with ``load_optimizer`` m, v and the count)
+        and the iteration from ``path``; the next ``learn`` resumes from it."""
+        ck = torch.load(path, map_location=self.device, weights_only=True)
+        if state is None:
+            state = self.init_state()
+        ppo = state.ppo.replace(params=ck["params"].contiguous(),
+                                learning_rate=ck["learning_rate"])
+        if load_optimizer:
+            ppo = ppo.replace(m=ck["m"], v=ck["v"], count=ck["count"])
+        self.current_learning_iteration = int(ck["iter"])
+        self.net.bind(ppo.params)
+        state = state.replace(ppo=ppo)
+        self._loaded_state = state
+        return state
 
     def get_inference_policy(self):
         """Deterministic policy: obs -> action mean."""

@@ -17,37 +17,30 @@ Dispatch is by the device of the tensors it is given:
   ``LanePost.run``) runs instead. :meth:`CudaDecimation.plain` runs that
   program on any device; it is the kernel's reference on the card.
 
-``LAUNCHES["k1"]`` counts the kernel launches of all wrappers; it adds one
-where the kernel is launched and nowhere else.
+``LAUNCHES["k1"]`` (shared with the other kernels, ``build.LAUNCHES``)
+counts the kernel launches of all wrappers; it adds one where the kernel is
+launched and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
+from wiki_grx_gym_tpu_torch import build as _build
+from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts  # noqa: F401
 from wiki_grx_gym_tpu_torch.sim.scalarized import ScalarDecimation
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCE = _CSRC / "decimation.cu"
-# build outputs live in the checkout's build/ directory (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+_SOURCE = _build.CSRC / "decimation.cu"
+_LIB_NAME = "k1_decimation"
+NVCC_FLAGS = _build.BASE_FLAGS + [
     # no contraction of a*b+c into FMA: the kernel rounds as the plain lane
     # program does, op by op (the tolerance of the kernel-vs-plain check
     # then covers only library differences of sin/cos/exp/sqrt)
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # the sizes the kernel is instantiated for (csrc/decimation.cu, GR1T1 lower limb)
@@ -120,52 +113,16 @@ def _offsets(schema):
 # build + load
 # ---------------------------------------------------------------------------
 
-LAUNCHES = {"k1": 0}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 _LIB = None
 _LIB_LOCK = threading.Lock()
-BUILD_INFO = {}
+BUILD_INFO = _build.BUILD_INFO.setdefault(_LIB_NAME, {})
 
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and on PATH)")
-    return found
-
-
-def build_library() -> Path:
+def build_library():
     """Compile ``csrc/decimation.cu`` into a shared library (once per source
-    and flag set). Records the build time and ptxas' register/spill report
-    in ``BUILD_INFO``."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libk1_decimation_{tag}.so"
-    if out.exists():
-        BUILD_INFO.setdefault("path", str(out))
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    ptxas = [l.strip() for l in (res.stdout + res.stderr).splitlines()
-             if "registers" in l or "spill" in l]
-    BUILD_INFO.update(path=str(out), seconds=secs, ptxas=ptxas, cmd=" ".join(cmd))
-    return out
+    and flag set; ``build.build``). The build time and ptxas' register/spill
+    report land in ``BUILD_INFO``."""
+    return _build.build(_LIB_NAME, _SOURCE, NVCC_FLAGS)
 
 
 def _load():

@@ -2,13 +2,15 @@
 
 ``make_env`` resolves the compiled robot spec from the port's own copy of the
 resources and returns a :class:`LeggedEnv` on the requested device (default
-``"cuda"``). ``make_alg_runner`` and the checkpoint path helpers wait for the
-learner (slice 2).
+``"cuda"``); ``make_alg_runner`` builds the PPO runner on the env's device,
+with the reference's log layout ``logs/<experiment_name>/<date>_<run_name>``,
+and resumes from a ``model_<it>.pt`` checkpoint found by ``get_load_path``.
 """
 
 from __future__ import annotations
 
 import os
+from datetime import datetime
 from typing import Dict, Tuple, Type
 
 from wiki_grx_gym_tpu_torch.envs.base_config import LeggedRobotCfg, LeggedRobotCfgPPO
@@ -48,6 +50,60 @@ class TaskRegistry:
         model = load_robot(os.path.join(RESOURCES, env_cfg.asset.file + ".json"))
         env = task_class(env_cfg, model, device=device)
         return env, env_cfg
+
+    def make_alg_runner(self, env, name: str, args=None, train_cfg=None, log_root="default"):
+        """Build the PPO runner on ``env.device``. ``log_root="default"`` is
+        ``logs/<experiment_name>`` under the checkout; None writes nothing.
+        Returns (runner, train_cfg)."""
+        from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
+
+        if train_cfg is None:
+            _, train_cfg = self.get_cfgs(name)
+        if args is not None:
+            update_cfg_from_args(None, train_cfg, args)
+        if log_root == "default":
+            log_root = os.path.join(ROOT_DIR, "logs", train_cfg.runner.experiment_name)
+        log_dir = None if log_root is None else os.path.join(
+            log_root, datetime.now().strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name)
+        rcn = str(getattr(train_cfg, "runner_class_name", "OnPolicyRunner"))
+        if rcn != "OnPolicyRunner":
+            raise ValueError(f"unknown runner_class_name {rcn!r}")
+        runner = OnPolicyRunner(env, train_cfg, device=env.device, log_dir=log_dir)
+        if train_cfg.runner.resume:
+            resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
+                                        checkpoint=train_cfg.runner.checkpoint)
+            print(f"Loading model from: {resume_path}")
+            runner.load(resume_path)
+        return runner, train_cfg
+
+
+def get_load_path(root, load_run=-1, checkpoint=-1):
+    """The latest run and checkpoint, or the ones named (helpers.py:108-130):
+    runs are the directories under ``root``, checkpoints ``model_<it>.pt``."""
+    try:
+        runs = sorted(
+            (x for x in os.listdir(root) if os.path.isdir(os.path.join(root, x))),
+            key=lambda x: os.path.getmtime(os.path.join(root, x)),
+        )
+        if "exported" in runs:
+            runs.remove("exported")
+        last_run = os.path.join(root, runs[-1])
+    except (IndexError, FileNotFoundError):
+        raise ValueError(f"No runs in this directory: {root}")
+    load_run = last_run if load_run == -1 else os.path.join(root, load_run)
+    if checkpoint == -1:
+        models = [f for f in os.listdir(load_run) if "model" in f]
+        models.sort(key=lambda m: f"{m:0>15}")
+        if not models:
+            raise ValueError(f"No checkpoints in run directory: {load_run}")
+        model = models[-1]
+    else:
+        model = f"model_{checkpoint}.pt"
+        if not os.path.isfile(os.path.join(load_run, model)):
+            available = sorted(f for f in os.listdir(load_run) if f.startswith("model_"))
+            raise ValueError(f"Checkpoint {checkpoint!r} not found in {load_run}; "
+                             f"available: {available}")
+    return os.path.join(load_run, model)
 
 
 def update_cfg_from_args(env_cfg, cfg_train, args):

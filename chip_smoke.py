@@ -13,7 +13,8 @@ together after phase 7):
 2. Build the kernels with nvcc into ``build/kernels``, one nvcc per source,
    all started together: K1 (``csrc/decimation.cu``), K2
    (``csrc/ppo_grads.cu``) and K3 (``csrc/ppo_update.cu``); print the build
-   times and ptxas' register/spill report of each kernel.
+   times and ptxas' register/spill report of each kernel, and the count of
+   HGMMA (wgmma) instructions in K2's SASS (``cuobjdump -sass``): 0 fails.
 3. K1 against its plain PyTorch version (the lane program) on the card:
    4096 envs of the GR1T1 training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
@@ -32,7 +33,13 @@ together after phase 7):
 4. The slice: ``OnPolicyRunner(...).init_state()`` and one 64-step rollout
    at 4096 envs (K1 must launch exactly 64 times; all outputs finite), then
    the port's ``play`` loop for 20 steps from a seeded ``policy.npz``.
-5. K2 against its plain version (``FusedPPOGrad.grads_plain``) on one
+5. K2's tensor-core GEMM alone (``gemm_check``: the main path's ``wg_gemm``
+   with an f32 output and no epilogue) against the float64 product of the
+   same bf16 values at every main-path shape (22 products) and at ragged row
+   counts 1, 63, 65 and 200: each entry within K x 2^-23 x sum |a b| (the
+   products are exact in f32). ``pack_params``' packed bf16 weights must
+   equal its plain version ``pack_weights``' bit for bit. Then
+   K2 against its plain version (``FusedPPOGrad.grads_plain``) on one
    full-width GR1T1 minibatch (10480 rows) of the phase-4 rollout buffer
    (4096 envs, GAE, the block shuffle): with float32 operands, where only
    the order of the sums differs (loss and aux rtol 1e-5; each gradient leaf
@@ -49,7 +56,14 @@ together after phase 7):
    runs at the rollout's params, where the ratio is ~1 and nothing clips,
    and again at the params after phase 6a's epoch (the plain version's),
    where rows clip and the KL is more than its constant; the share of
-   clipped rows there is printed.
+   clipped rows there is printed. K2 and its plain version sum in another
+   order (in bf16 a few activations then round the other way), and a row
+   whose ratio (or value change) sits that close to a clip bound takes the
+   other branch of the loss in one of them: its whole gradient term then
+   differs (one such row moves a bf16 leaf by up to ~4% of its largest
+   value). Such rows, found from K2's own mean and value and the plain
+   version's, are counted (at most 10 of the 10480) and taken out of both
+   before the comparison (advantage 0, old value = the plain value).
 6. K3 against its plain version (``update_scan_plain``), from the same
    buffer and params, one epoch (25 steps, every minibatch once). (a)
    float32 operands: the two trajectories stay at float32 summation noise,
@@ -66,10 +80,17 @@ together after phase 7):
    spreads as much. So the kernel is held to the plain version within the
    stated tolerance plus 3x the larger of those two spreads: update, m and
    v 1% in L2, each param 0.05 x LR, the metric means rtol 1e-3; the LR
-   stays exactly the same. Over the whole update (8 epochs, 200 steps)
-   correct runs drift apart chaotically, so the kernel's 200-step update
-   is compared with the plain version's (both from the timing runs of
-   phase 8) and the distance is printed, not checked.
+   stays exactly the same. (c) The whole bf16 update (8 epochs, 200 steps,
+   adaptive LR on), which two correct programs cannot share (their
+   trajectories drift ~10-20% apart), is checked step by step from the
+   kernel's own state (``whole_update_check``): at every 4th step and the
+   last, the plain version runs the kernel's step from the same params,
+   moments, count and LR, in bf16 within 6b's limits and, every 4th step,
+   in float32 operands within 1e-4 of the step in L2 (rows on another
+   branch of the loss taken out of both, as in 5); then the
+   whole-update call must equal the composition of its 200 one-step calls
+   bit for bit in p, m, v and the LR. The 200-step distance to the plain
+   version's whole update is printed, not checked.
 7. The slice: ``OnPolicyRunner.learn(2)`` on the GR1T1 config at 4096 envs
    with ``log_dir`` under ``build/``: finite losses, K3 launched once per
    iteration, K2's chain 200 times per iteration, K1 64 times per iteration
@@ -81,9 +102,13 @@ together after phase 7):
    K2's and K3's kernels, counted by the profiler (each must be a whole
    multiple of the iteration's grad steps); the kernels' JSON line takes
    K2's launches per grad step and the update's launches from these counts.
-8. Times K2 per grad step and K3 per update (CUDA events) beside their plain
-   versions and bounds; prints the kernels' JSON line (K1, K2, K3), the card
-   line, and the final ok line.
+8. Times K2 per grad step, K3's optimizer step alone and K3 per update
+   (CUDA events) beside their plain versions and bounds, K2's launches one
+   by one (torch.profiler), a cuBLAS yardstick for K2 (``torch.matmul`` of
+   the same 22 products on bf16 operands, GEMMs only, captured in one CUDA
+   graph and timed by its replays; the port never calls it) and the
+   update's wall time beside 200 x (K2 + K3 step) of kernel time; prints the kernels' JSON line (K1, K2, K3), the card line, and the
+   final ok line.
 """
 
 import copy
@@ -110,10 +135,29 @@ K2_TOL = {"float32": (1e-5, 1e-3, 2e-5), "bfloat16": (1e-4, 1e-2, 1e-3)}
 # plain version's spread over these row tiles)
 K3_BF16_TOL = 0.01
 K3_FLOOR_TILES = (1024, 2048)
+# phases 5 and 6c: rows of a 10480-row minibatch that may take another branch
+# of the loss in the kernel than in its plain version (0.1%; neutralize_flips)
+MAX_FLIPS = 10
+
+
+def plain_variants(fused):
+    """Copies of ``fused`` whose plain versions differ from it only in the
+    order of their sums (row tiles K3_FLOOR_TILES): their distance from the
+    plain version is its own spread."""
+    out = []
+    for tile in K3_FLOOR_TILES:
+        f = copy.copy(fused)
+        f.tile, f.n_tiles = tile, -(-fused.rows // tile)
+        out.append(f)
+    return out
+# 6c, float32 operands: one grad step's update, m and v within this share in L2
+F32_STEP_TOL = 1e-4
 # the kernels of K2's chain and of K3's step (csrc/ppo_grads.cu, csrc/ppo_update.cu)
+# (the main path's bf16 chain; the f32 chain's SIMT kernels run only in checks)
 KERNEL_NAMES = {"K1": ("decimation_kernel",),
-                "K2": ("gemm_kernel", "loss_rows", "loss_reduce", "wgrad_reduce", "cast_params"),
+                "K2": ("pack_params", "wg_gemm", "loss_rows", "k2_reduce"),
                 "K3": ("k3_norm", "k3_adam")}
+HGMMA_COUNT = [None]   # HGMMA instructions in K2's SASS (phase 2)
 RTOL, ATOL, ATOL_FORCE = 1e-4, 1e-4, 1e-2
 FORCE_GROUPS = ("force_sum", "point_force")   # contact forces, newtons
 BOOL_GROUPS = ("post/term_contact", "post/tilt", "post/bad", "post/feet_contact",
@@ -282,6 +326,304 @@ def clip_shares(fused, p, bufs, mb):
             float(((value - fs[:, 3 * A + 1]).abs() > clip).float().mean()))
 
 
+def loss_branches(fused, p, fs, mean, value):
+    """Per row, the branches the loss takes (csrc/ppo_grads.cu loss_rows,
+    in float64 from the given forward outputs): the ratio below / inside /
+    above the clip range (-1, 0, 1), the value change likewise, and whether
+    the unclipped value loss is the larger outside the value clip range."""
+    import torch
+
+    A, clip = fused.act_dim, fused.clip_param
+    fs, mean, value = fs.double(), mean.double(), value.double()
+    std = (torch.full((A,), fused.init_noise_std, dtype=torch.float64, device=fs.device) if fused.fixed_std
+           else p[fused.std_off:].double())
+    logp = (-0.5 * (((fs[:, :A] - mean) / std) ** 2).sum(1)
+            - (0.5 * A * math.log(2.0 * math.pi) + torch.log(std).sum()))
+    ratio = torch.exp(logp - fs[:, A])
+    rb = (ratio > 1.0 + clip).int() - (ratio < 1.0 - clip).int()
+    old_v, ret = fs[:, 3 * A + 1], fs[:, 3 * A + 2]
+    vdelta = value - old_v
+    vb = (vdelta > clip).int() - (vdelta < -clip).int()
+    e2, ec2 = (value - ret) ** 2, (old_v + vdelta.clamp(-clip, clip) - ret) ** 2
+    vmax = (e2 > ec2) & (vb != 0) if fused.use_clipped_value_loss else torch.zeros_like(vb, dtype=torch.bool)
+    return rb, vb, vmax
+
+
+def neutralize_flips(fused, p, bufs, mb):
+    """K2's forward and its plain version's sum in another order (in bf16 a
+    few activations then round the other way), and a row whose ratio or
+    value change sits that close to a clip bound takes the other branch of
+    the loss in one of them: its whole gradient term then differs. Those
+    rows of minibatch ``mb`` are found from K2's own forward outputs (its
+    mean and value) and the plain version's, and taken out of both: their
+    advantage set to 0 (no surrogate gradient) and their old value set to
+    the plain version's value (no value clip). Returns (the buffers with
+    those rows changed, the count of such rows)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
+    args, keep = fused._k2_context(p, bufs)
+    fused._k2_launch(fused_update._lib("k2"), args, mb, p.device)
+    aw, cw, _ = fused._op_leaves(p)
+
+    def fwd(x, layers):
+        x = fused._rnd(x.float())
+        for i, (w, b) in enumerate(layers):
+            z = x @ w.t() + b
+            if i < len(layers) - 1:
+                x = fused._rnd(fused_update._elu(z))
+        return z
+
+    mean_p, value_p = fwd(bufs["obs"][mb], aw), fwd(bufs["cobs"][mb], cw)[:, 0]
+    fs = bufs["fscal"][mb]
+    rk, vk, mk = loss_branches(fused, p, fs, keep["mean"], keep["value"])
+    rp, vp, mp = loss_branches(fused, p, fs, mean_p, value_p)
+    rflip, vflip = rk != rp, (vk != vp) | (mk != mp)
+    A = fused.act_dim
+    fs2 = bufs["fscal"].clone()
+    fs2[mb, rflip, 3 * A + 3] = 0.0
+    fs2[mb, vflip, 3 * A + 1] = value_p[vflip]
+    return dict(bufs, fscal=fs2), int((rflip | vflip).sum())
+
+
+def pack_check(fused, p, bufs):
+    """K2's ``pack_params`` (the first kernel of a bf16 grad step) against
+    its plain version ``pack_weights``: the packed bf16 weights, pads and
+    gaps included, bit for bit."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
+    args, keep = fused._k2_context(p, bufs)
+    fused._k2_launch(fused_update._lib("k2"), args, 0, p.device)
+    want = fused_update.pack_weights(p, fused.net.layout, fused.q_layout, fused.q_total)
+    return bool(torch.equal(keep["q"], want))
+
+
+def k2_launch_profile(k2_launch):
+    """Device time of each kernel launch of one K2 grad step (the last of
+    three under torch.profiler), in launch order: [(kernel, ms), ...]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k2_launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            k2_launch()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    first = [i for i, e in enumerate(ev) if e.name.startswith("pack_params")]
+    if not first:
+        log(f"[K2 profile] {len(ev)} device kernels in 3 grad steps, none of them pack_params: "
+            + ", ".join(e.name[:40] for e in ev) + "; per-launch times not measured")
+        return None
+    out = [(e.name.split("(")[0], e.time_range.elapsed_us() / 1e3) for e in ev[first[-1]:]]
+    log(f"[K2 profile] one grad step, {len(out)} launches, {sum(t for _, t in out):.4f} ms of kernel time: "
+        + ", ".join(f"{n} {t * 1e3:.1f} us" for n, t in out))
+    return out
+
+
+def cublas_yardstick(fused, dev):
+    """The library call for K2's products: torch.matmul (cuBLAS) on bf16
+    operands at the main path's shapes, the same products as K2's
+    tensor-core chain (forward, input and weight gradients of both MLPs),
+    GEMMs only (no epilogue, loss or reduction). The 22 calls are captured
+    once in a CUDA graph and its replays timed with CUDA events, so the
+    time is the device's, not the host's issue of 22 Python calls. The port
+    never calls it."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+    prods = []
+    for kind, M, N, K, _ in fused.gemm_shapes():
+        if kind == 0:
+            a, b = rnd(M, K), rnd(N, K)
+            prods.append(lambda a=a, b=b: a @ b.t())
+        elif kind == 1:
+            a, b = rnd(M, K), rnd(K, N)
+            prods.append(lambda a=a, b=b: a @ b)
+        else:
+            a, b = rnd(K, M), rnd(K, N)
+            prods.append(lambda a=a, b=b: a.t() @ b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # cuBLAS sets up its handle and workspace outside the capture
+        for _ in range(3):
+            [f() for f in prods]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in prods]
+    ms = cuda_ms(graph.replay, reps=50, warmup=3)
+    del graph, outs
+    # cuBLAS keeps a workspace per stream (here the side and capture streams)
+    # until told otherwise: free them, so phase 7's peak memory is the port's
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return ms
+
+
+def gemm_checks(fused, dev):
+    """Phase 5's sharp check of K2's tensor-core GEMM (``gemm_check``: the
+    main path's wg_gemm, f32 output, no epilogue) against the float64
+    product of the same bf16 values, at every main-path shape and at ragged
+    row counts 1, 63, 65 and 200 (input layers, K = 39 and 168 padded, and a
+    hidden input gradient). Products of bf16 values are exact in f32, so
+    each entry must lie within K x 2^-23 x sum |a b|. Returns the largest
+    |error| / limit."""
+    import numpy as np
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn.fused_update import gemm_check, gemm_check_plain
+
+    cases = fused.gemm_shapes()
+    for rows in (1, 63, 65, 200):
+        cases += [c for c in fused.gemm_shapes(rows) if c[4].endswith(" 0 forward")
+                  or c[4].endswith(" 0 weight gradient") or c[4] == "actor 2 input gradient"]
+    rng = np.random.RandomState(11)
+    worst, bad = 0.0, []
+    for kind, M, N, K, label in cases:
+        shapes = {0: ((M, K), (N, K)), 1: ((M, K), (K, N)), 2: ((K, M), (K, N))}[kind]
+        a, b = [torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev).to(torch.bfloat16) for sh in shapes]
+        c = gemm_check(kind, a, b)
+        err = (c.double() - gemm_check_plain(kind, a, b)).abs()
+        ratio = float((err / (K * 2.0**-23 * gemm_check_plain(kind, a.abs(), b.abs()))).max())
+        good = math.isfinite(ratio) and ratio <= 1.0 and bool(torch.isfinite(c).all())
+        worst = max(worst, ratio)
+        if not good:
+            bad.append(f"{label} {M}x{N}x{K}")
+        log(f"[K2 GEMM] {label:26s} M {M:5d} N {N:4d} K {K:5d}: largest |error| {float(err.max()):.3e}, "
+            f"{ratio:.3e} of its limit K x 2^-23 x sum|ab|; {good}")
+    log(f"[K2 GEMM] {len(cases)} products, largest |error| / limit {worst:.3e}")
+    if bad:
+        fail(f"K2's tensor-core GEMM disagrees with float64 at {bad}")
+    return worst
+
+
+def one_step(fused):
+    """A copy of ``fused`` that runs one grad step: one minibatch, one epoch."""
+    f = copy.copy(fused)
+    f.num_mini_batches, f.num_epochs = 1, 1
+    return f
+
+
+def step_dist(x, y, base):
+    """Distances of two one-step results from the same params ``base``:
+    update, m and v as shares of y's in L2; largest |param| difference."""
+    import torch
+
+    nrm = lambda t: float(torch.linalg.vector_norm(t))
+    return {"update": nrm(x[0] - y[0]) / max(nrm(y[0] - base), 1e-30),
+            "m": nrm(x[1] - y[1]) / max(nrm(y[1]), 1e-30),
+            "v": nrm(x[2] - y[2]) / max(nrm(y[2]), 1e-30),
+            "pmax": float((x[0] - y[0]).abs().max())}
+
+
+def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
+    """Phase 6c. The kernel drives the whole bf16 update (every epoch and
+    minibatch, adaptive LR on) one grad step at a time: a one-step
+    ``FusedPPOGrad`` fed minibatch ``s % MB``'s slice, Adam count
+    ``count0 + s`` and the LR the kernel carried out of step s - 1. At every
+    4th step and the last, the plain version runs the same step from the
+    kernel's state: in bf16 within the stated tolerance plus 3x the plain
+    version's own one-step spread (``plain_variants``, as in 6b), and at
+    every 4th step also in float32 operands, sharply (update, m and v 1e-4
+    in L2, the same LR). In both, the rows that take another branch of the
+    loss in the two are taken out of both (``neutralize_flips``, as in
+    phase 5). Then the whole-update call must equal the composition of its
+    one-step calls bit for bit in p, m, v and the final LR. Returns the
+    whole-update result."""
+    import torch
+
+    mbs = fused16.num_mini_batches
+    steps = fused16.num_epochs * mbs
+    one16, one32 = one_step(fused16), one_step(fused32)
+    sl = lambda bufs, k: {key: x[k:k + 1] for key, x in bufs.items()}
+    p, m, v, count0, lr = args0
+    sampled = sorted(set(range(0, steps, 4)) | {steps - 1})
+    worst16 = {"update": 0.0, "m": 0.0, "v": 0.0, "pmax_lr": 0.0}
+    worst32 = {"update": 0.0, "m": 0.0, "v": 0.0}
+    bad16, bad32 = [], []
+    max_flips = max_flips32 = 0
+    rows = fused16.rows
+    for s in range(steps):
+        cnt = count0 + s
+        k = s % mbs
+        nxt = one16.update_scan(p, m, v, cnt, lr, sl(bufs16, k))
+        if s in sampled:
+            # rows the kernel and the plain version send down different
+            # branches of the loss are taken out of both for the comparison
+            # (the trajectory goes on with the kernel's own step)
+            used, flips = neutralize_flips(one16, p, sl(bufs16, k), 0)
+            ks = one16.update_scan(p, m, v, cnt, lr, used) if flips else nxt
+            pl = one16.update_scan_plain(p, m, v, cnt, lr, used)
+            spread = [fz.update_scan_plain(p, m, v, cnt, lr, used) for fz in plain_variants(one16)]
+            floors = [step_dist(z, pl, p) for z in spread]
+            floor = {key: max(f[key] for f in floors) for key in floors[0]}
+            d = step_dist(ks, pl, p)
+            lr_p = float(pl[3])
+            stated = {"update": K3_BF16_TOL, "m": K3_BF16_TOL, "v": K3_BF16_TOL, "pmax": 0.05 * lr_p}
+            lim = {key: stated[key] + 3.0 * floor[key] for key in stated}
+            lr_ok = float(ks[3]) in [lr_p] + [float(z[3]) for z in spread]
+            fin = all(bool(torch.isfinite(t).all()) for t in nxt[:4])
+            ok = fin and lr_ok and flips <= MAX_FLIPS and all(d[key] <= lim[key] for key in lim)
+            max_flips = max(max_flips, flips)
+            for key in ("update", "m", "v"):
+                worst16[key] = max(worst16[key], d[key] / lim[key])
+            worst16["pmax_lr"] = max(worst16["pmax_lr"], d["pmax"] / lr_p)
+            if not ok:
+                bad16.append(s)
+            log(f"[6c] step {s:3d} mb {k:2d} bf16: " + ", ".join(
+                f"{key} {d[key]:.3e} (limit {lim[key]:.3e}, spread {floor[key]:.3e})" for key in lim)
+                + f"; lr {float(ks[3]):.6e} vs {lr_p:.6e}; rows on another branch {flips}; {ok}")
+            if s % 4 == 0:
+                used32, flips32 = neutralize_flips(one32, p, sl(bufs32, k), 0)
+                k32 = one32.update_scan(p, m, v, cnt, lr, used32)
+                p32 = one32.update_scan_plain(p, m, v, cnt, lr, used32)
+                d32 = step_dist(k32, p32, p)
+                ok32 = flips32 <= MAX_FLIPS and abs(float(k32[3]) - float(p32[3])) <= 1e-6 * abs(float(p32[3])) \
+                    and all(d32[key] <= F32_STEP_TOL for key in ("update", "m", "v"))
+                for key in worst32:
+                    worst32[key] = max(worst32[key], d32[key])
+                max_flips32 = max(max_flips32, flips32)
+                if not ok32:
+                    bad32.append(s)
+                log(f"[6c] step {s:3d} mb {k:2d} f32:  " + ", ".join(
+                    f"{key} {d32[key]:.3e}" for key in ("update", "m", "v", "pmax"))
+                    + f" (limit {F32_STEP_TOL:g} in L2); lr {float(k32[3]):.6e} vs {float(p32[3]):.6e}; "
+                    f"rows on another branch {flips32}; {ok32}")
+        p, m, v, lr = nxt[0], nxt[1], nxt[2], nxt[3]
+    log(f"[6c] {len(sampled)} bf16 steps checked, worst share of the limit: "
+        + ", ".join(f"{key} {val:.3f}" for key, val in worst16.items() if key != "pmax_lr")
+        + f"; largest param diff {worst16['pmax_lr']:.2f} x LR; at most {max_flips} rows on another branch "
+        f"of the loss (limit {MAX_FLIPS}); failed at steps {bad16}")
+    log(f"[6c] {len([s for s in sampled if s % 4 == 0])} f32 steps checked, worst: "
+        + ", ".join(f"{key} {val:.3e}" for key, val in worst32.items())
+        + f"; at most {max_flips32} rows on another branch of the loss; failed at steps {bad32}")
+    if bad16:
+        fail(f"6c: the kernel's bf16 step disagrees with the plain version's at steps {bad16}")
+    if bad32:
+        fail(f"6c: the kernel's f32 step disagrees with the plain version's at steps {bad32}")
+    k3_err["bfloat16_step"] = worst16["pmax_lr"]
+
+    whole = fused16.update_scan(*args0, bufs16)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(a.reshape(-1), b.reshape(-1)))
+            for name, a, b in (("p", whole[0], p), ("m", whole[1], m), ("v", whole[2], v),
+                               ("lr", whole[3], lr))}
+    log(f"[6c] whole {steps}-step update vs the composition of its {steps} one-step calls, "
+        f"bit for bit: {same}; lr {float(whole[3]):.6e} vs {float(lr):.6e}")
+    if not all(same.values()):
+        fail(f"6c: the whole update differs from its one-step composition: {same}")
+    return whole
+
+
 def ppo_phases(runner, rs, batch, dev):
     """Phases 5, 6 and 8's kernel timings: K2 and K3 against their plain
     versions on the phase-4 rollout buffer. Returns the K2 and K3 rows of
@@ -325,9 +667,19 @@ def ppo_phases(runner, rs, batch, dev):
             loss_tol, rtol, atol_frac = K2_TOL[name]
             ok = True
             A = fused.act_dim
+            if name == "bfloat16":
+                same = pack_check(fused, p, bufs)
+                ok &= same
+                log(f"[K2 vs plain] {at} pack_params' bf16 weights equal pack_weights' bit for bit: {same}")
             for mb in (0, alg.num_mini_batches - 1):
-                lk, gk, ak = fused.grads(p, bufs, mb)
-                lp, gp, ap = fused.grads_plain(p, bufs, mb)
+                # rows that K2 and its plain version send down different
+                # branches of the loss are taken out of both (counted)
+                used, flips = neutralize_flips(fused, p, bufs, mb)
+                ok &= flips <= MAX_FLIPS
+                log(f"[K2 vs plain] {at} {name} mb {mb:2d}: {flips} rows take another branch of the loss "
+                    f"in K2 than in the plain version (limit {MAX_FLIPS}); taken out of both")
+                lk, gk, ak = fused.grads(p, used, mb)
+                lp, gp, ap = fused.grads_plain(p, used, mb)
                 torch.cuda.synchronize()
                 adv_scale = float(bufs["fscal"][mb][:, 3 * A + 3].abs().mean())
                 extra = {"loss": adv_scale, "surrogate_loss": adv_scale, "value_loss": 0.0,
@@ -354,6 +706,7 @@ def ppo_phases(runner, rs, batch, dev):
             if not ok:
                 fail(f"K2 disagrees with its plain version ({name} operands, {at})")
 
+    gemm_worst = gemm_checks(fused16, dev)
     k2_check(p0, "at p0")
 
     # ---- phase 6: K3 vs plain ----
@@ -421,9 +774,7 @@ def ppo_phases(runner, rs, batch, dev):
     k = f1.update_scan(*args0, bufs16)
     pl = f1.update_scan_plain(*args0, bufs16)
     spread = []
-    for tile in K3_FLOOR_TILES:
-        fz = copy.copy(f1)
-        fz.tile, fz.n_tiles = tile, -(-rows // tile)
+    for fz in plain_variants(f1):
         spread.append(fz.update_scan_plain(*args0, bufs16))
     torch.cuda.synchronize()
     floors = [dist(z, pl) for z in spread]
@@ -447,26 +798,48 @@ def ppo_phases(runner, rs, batch, dev):
     if not (good and lr_good):
         fail("K3 disagrees with its plain version (bf16 operands, one epoch)")
 
+    # 6c: the whole bf16 update (adaptive LR on), step by step from the
+    # kernel's own state, and that update against the whole-update call
+    whole_k = whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err)
+
     # ---- phase 8 (timing): K2 per grad step, K3 per update, and their plain versions ----
-    lib2 = fused_update._lib("k2")
+    lib2, lib3 = fused_update._lib("k2"), fused_update._lib("k3")
     args16, keep = fused16._k2_context(p0, bufs16)
     stream = torch.cuda.current_stream().cuda_stream
 
     def k2_launch():
-        err = lib2.k2_step(ctypes.addressof(args16), 0, stream)
-        if err:
-            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+        fused16._k2_launch(lib2, args16, 0, dev)
 
-    k2_ms = cuda_ms(k2_launch, reps=20, warmup=2)
+    k2_ms = cuda_ms(k2_launch, reps=50, warmup=3)
     k2_plain_ms = cuda_ms(lambda: fused16.grads_plain(p0, bufs16, 0), reps=3, warmup=1)
+    k2_launch_ms = k2_launch_profile(k2_launch)
+    # K3's optimizer step alone, on K2's gradient (copies of the state)
+    b3, _ = fused16._k3_context(p0.clone(), st0.m.clone(), st0.v.clone(), st0.count, st0.learning_rate, keep)
+    k3_calls = [0]
+
+    def k3_launch():
+        err = lib3.k3_step(ctypes.addressof(b3), k3_calls[0] & 1, stream)
+        k3_calls[0] += 1
+        if err:
+            raise RuntimeError(f"K3 step failed: CUDA error {err}")
+
+    k3_step_ms = cuda_ms(k3_launch, reps=50, warmup=2)
+    library_ms = cublas_yardstick(fused16, dev)
     args = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate, bufs16)
-    whole = [fused16.update_scan(*args)]   # also the warm-up
+    whole = [whole_k]
     k3_ms = cuda_ms(lambda: fused16.update_scan(*args), reps=2, warmup=0)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused16.update_scan(*args)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
     k3_plain_ms = cuda_ms(lambda: whole.append(fused16.update_scan_plain(*args)), reps=1, warmup=0)
-    del keep
+    del keep, b3
     d = dist(*whole)
-    log(f"[K3 vs plain] bf16 whole update, {steps} steps (printed, not checked: correct runs drift apart): "
-        + ", ".join(f"{key} {v:.3e}" for key, v in d.items())
+    log(f"[K3 vs plain] bf16 whole update, {steps} steps (printed, not checked: correct runs drift apart; "
+        f"6c checks it step by step): " + ", ".join(f"{key} {v:.3e}" for key, v in d.items())
         + f"; lr {float(whole[0][3]):.6e} vs {float(whole[1][3]):.6e}")
     if not all(bool(torch.isfinite(t).all()) for t in whole[0][:4]):
         fail(f"K3's whole {steps}-step update is not finite")
@@ -480,22 +853,33 @@ def ppo_phases(runner, rs, batch, dev):
     k3_bound_tc = max(k3_ops / BF16_TC_PEAK, k3_bytes / HBM_RATE) * 1e3
     k3_bound_fp32 = max(k3_ops / FP32_PEAK, k3_bytes / HBM_RATE) * 1e3
     opt_ms = (k3_ms - steps * k2_ms) / steps
-    log(f"[K2] {k2_ms:.4f} ms per grad step ({rows} rows, bf16 operands); "
-        f"plain {k2_plain_ms:.3f} ms; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
-        f"{k2_bound_tc:.4f} ms at the bf16 tensor-core peak, {k2_bound_fp32:.4f} ms at the FP32 peak; "
-        f"achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    log(f"[K2] {k2_ms:.4f} ms per grad step ({rows} rows, bf16 operands, tensor cores; PR 2's SIMT chain "
+        f"2.71-2.73 ms); plain {k2_plain_ms:.3f} ms; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
+        f"{k2_bound_tc:.4f} ms at the bf16 tensor-core peak ({100 * k2_bound_tc / k2_ms:.1f}% of it reached), "
+        f"{k2_bound_fp32:.4f} ms at the FP32 peak; achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+        f"cuBLAS yardstick (torch.matmul, the same {len(fused16.gemm_shapes())} products on bf16 operands, "
+        f"GEMMs only, one CUDA graph replay) {library_ms:.4f} ms")
     log(f"[K3] {k3_ms:.3f} ms per update ({steps} steps); plain {k3_plain_ms:.1f} ms; "
         f"bound {k3_bound_tc:.3f} ms (bf16 tensor cores), "
         f"{k3_bound_fp32:.3f} ms (FP32); optimizer step {opt_ms:.4f} ms per step (K3 minus 200 x K2), "
-        f"its bytes {opt_bytes / 1e6:.2f} MB = {opt_bytes / HBM_RATE * 1e6:.2f} us at {HBM_RATE / 1e12} TB/s")
+        f"{k3_step_ms:.4f} ms alone, its bytes {opt_bytes / 1e6:.2f} MB = {opt_bytes / HBM_RATE * 1e6:.2f} us "
+        f"at {HBM_RATE / 1e12} TB/s")
+    dev_ms = steps * (k2_ms + k3_step_ms)
+    log(f"[K3] update wall time (host clock to a synchronize) " + ", ".join(f"{w:.2f}" for w in walls)
+        + f" ms vs {steps} x (K2 {k2_ms:.4f} + K3 step {k3_step_ms:.4f}) = {dev_ms:.2f} ms of kernel time: "
+        + ("the host keeps up" if min(walls) <= 1.1 * dev_ms else "host-bound (the card waits for launches)"))
     k2_row = {
         "name": "K2 PPO minibatch loss + gradients (GR1T1, 10480 rows, bf16 operands)",
         "route": "cuda", "source": "wiki_grx_gym_tpu_torch/csrc/ppo_grads.cu",
         "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:348",
         "launches": None, "max_abs_err": k2_err["bfloat16"], "max_abs_err_f32": k2_err["float32"],
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_tc, "bound_by": "operations",
-        "bound_ms_fp32": k2_bound_fp32, "library_ms": None, "gflop": ops / 1e9, "bytes": nbytes,
-        "kernel_launches_per_call": None, "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
+        "bound_ms_fp32": k2_bound_fp32, "library_ms": library_ms,
+        "library": "torch.matmul (cuBLAS) of the same bf16 products, GEMMs only, one CUDA graph replay; "
+                   "not used by the port",
+        "gflop": ops / 1e9, "bytes": nbytes, "kernel_launches_per_grad_step": None,
+        "launch_ms": k2_launch_ms, "hgmma_in_sass": HGMMA_COUNT[0], "gemm_err_share_of_limit": gemm_worst,
+        "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
         "ptxas": kbuild.BUILD_INFO["k2_ppo_grads"].get("ptxas", []),
     }
     k3_row = {
@@ -505,7 +889,8 @@ def ppo_phases(runner, rs, batch, dev):
         "launches": None, "max_abs_err": k3_err["bfloat16"], "max_abs_err_f32": k3_err["float32"],
         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_tc, "bound_by": "operations",
         "bound_ms_fp32": k3_bound_fp32, "library_ms": None, "optimizer_step_ms": opt_ms,
-        "optimizer_step_bound_ms": opt_bytes / HBM_RATE * 1e3,
+        "optimizer_step_alone_ms": k3_step_ms, "optimizer_step_bound_ms": opt_bytes / HBM_RATE * 1e3,
+        "update_wall_ms": walls, "update_kernel_ms": dev_ms,
         "kernel_launches_per_update": None,
         "build_s": kbuild.BUILD_INFO["k3_ppo_update"].get("seconds"),
         "ptxas": kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", []),
@@ -545,7 +930,8 @@ def train_phase(dev):
         if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
             fail(f"iteration {h['it']}: non-finite losses {m}")
         log(f"[train] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
-            f"update {h['update_s']:.3f} s (+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
+            f"update {h['update_s']:.3f} s (PR 2's SIMT K2: 0.551-0.557 s) "
+            f"(+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
             f"host); {h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate "
             f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, lr {m['lr']:.3e}, reward {m['mean_step_reward']:.4f}")
     ck = os.path.join(runner.log_dir, f"model_{TRAIN_ITERS}.pt")
@@ -654,6 +1040,14 @@ def main():
         for line in info.get("ptxas", []):
             log(f"[build] {name} ptxas:", line)
     log(f"[build] all three built in {build_s:.1f} s")
+    # K2's products must run on the tensor cores: count wgmma's SASS (HGMMA)
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", kbuild.BUILD_INFO["k2_ppo_grads"]["path"]],
+                          capture_output=True, text=True, timeout=120)
+    HGMMA_COUNT[0] = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    log(f"[build] k2_ppo_grads SASS: {HGMMA_COUNT[0]} HGMMA instructions (cuobjdump rc {sass.returncode})")
+    if not HGMMA_COUNT[0]:
+        raise SystemExit("K2's SASS holds no HGMMA instruction: its products do not run on the tensor cores")
     ptxas = cuda_step.BUILD_INFO.get("ptxas", [])
 
     # ---- phase 3: K1 against its plain version, 4096 envs ----
@@ -836,7 +1230,7 @@ def main():
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
     k3_row["launches"] = train["launches"]["k3"]
-    k2_row["kernel_launches_per_call"] = train["profile"]["k2_kernel_launches_per_grad_step"]
+    k2_row["kernel_launches_per_grad_step"] = train["profile"]["k2_kernel_launches_per_grad_step"]
     k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
 
     kernels = [{

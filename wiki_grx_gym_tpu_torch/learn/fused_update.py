@@ -27,6 +27,15 @@ the TPU kernel's tile program and optimizer step), CUDA tensors launch the
 kernels (built with nvcc at first use, ``build.build``) or raise. The plain
 versions run on any device; on the card they are the kernels' reference.
 
+K2 has two chains. bf16 operands (the main path) run on the tensor cores
+(TMA + wgmma): the wrapper repacks the obs buffers into zero-padded
+TMA-addressable copies once per ``_k2_context`` (``repack_rows``), the
+kernel packs the weights the same way each step (``packed_layout``, plain
+version ``pack_weights``), and ``k2_prepare`` encodes the tensor maps and
+the launch plan once. float32 operands (the exact check) run the SIMT
+chain. ``gemm_check`` runs the tensor-core GEMM alone (f32 out, no
+epilogue), for the sharp per-product checks on the card.
+
 ``LAUNCHES["k2"]`` counts K2 gradient chains (one per grad step, in ``grads``
 and inside ``update_scan``), ``LAUNCHES["k3"]`` counts whole updates.
 """
@@ -47,6 +56,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 MAX_LAYERS = 8     # per MLP (csrc/ppo_grads.cu MAXL)
 MAX_ACT = 32       # action dims (csrc/ppo_grads.cu MAXA)
 WGRAD_ROWS = 640   # rows per split of K2's weight-gradient reduction
+LOSS_ROWS = 64     # rows per block of K2's loss kernel (csrc/ppo_grads.cu LOSS_THREADS)
 K3_BLOCKS = 216    # blocks of K3's norm and Adam passes over the flat vector
 
 # K2 and K3 each build into their own library; unlike K1 they may contract
@@ -106,10 +116,14 @@ class _K2Args(ctypes.Structure):
         ("obs_ld", _L), ("obs_mb_stride", _L), ("cobs_ld", _L), ("cobs_mb_stride", _L),
         ("fs_ld", _L), ("fs_mb_stride", _L),
         ("w_off", _L * (2 * MAX_LAYERS)), ("b_off", _L * (2 * MAX_LAYERS)),
-        ("std_off", _L), ("n_params", _L),
-        ("obs", _P), ("cobs", _P), ("fscal", _P), ("p", _P), ("p_op", _P),
+        ("std_off", _L),
+        ("obs", _P), ("cobs", _P), ("fscal", _P), ("p", _P),
         ("g", _P), ("aux", _P), ("h", _P * (2 * MAX_LAYERS)),
         ("mean", _P), ("value", _P), ("gbuf", _P * 4), ("part", _P), ("loss_part", _P),
+        ("gtop", _P * 2), ("gtop_ld", _I * 2), ("loss_w", _I), ("mb_count", _I),
+        ("q_off", _L * (2 * MAX_LAYERS)), ("part_off", _L * (2 * MAX_LAYERS)),
+        ("bsum_off", _L * (2 * MAX_LAYERS)), ("q_ld", _I * (2 * MAX_LAYERS)),
+        ("q_total", _L), ("q", _P), ("gin", _P * (2 * MAX_LAYERS)), ("bsum", _P), ("plan", _P),
     ]
 
 
@@ -141,6 +155,11 @@ def _lib(name: str) -> ctypes.CDLL:
             step, size = getattr(lib, f"{name}_step"), getattr(lib, f"{name}_args_size")
             step.argtypes, step.restype = [_P, _I, _P], _I
             size.argtypes, size.restype = [], _I
+            if name == "k2":
+                for fn in (lib.k2_prepare, lib.k2_release):
+                    fn.argtypes, fn.restype = [_P], _I
+                lib.k2_gemm_check.argtypes = [_I, _P, _L, _P, _L, _P, _I, _I, _I, _P]
+                lib.k2_gemm_check.restype = _I
             if size() != ctypes.sizeof(struct):
                 raise RuntimeError(f"{name} argument struct: kernel {size()} bytes, "
                                    f"wrapper {ctypes.sizeof(struct)}")
@@ -151,6 +170,114 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+class _Plan:
+    """Owns the launch plan ``k2_prepare`` built for one argument struct
+    (its tensor maps point into the tensors of the same context)."""
+
+    def __init__(self, lib, args):
+        self.lib, self.args, self.addr = lib, args, ctypes.addressof(args)
+        _check(lib.k2_prepare(self.addr), "K2 prepare")
+
+    def __del__(self):
+        self.lib.k2_release(self.addr)
+
+
+# ---------------------------------------------------------------------------
+# operand layouts of K2's tensor-core chain (plain torch; the CPU tests hold
+# them, the kernels read them)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def packed_layout(layer_dims):
+    """Where each layer's W (out, in) lies in K2's packed bf16 copy of the
+    weights: ``([(offset, row stride), ...], total)`` in elements. Each row is
+    padded to a multiple of 16 (32 B, one wgmma k-step) and each matrix starts
+    128-B aligned, so every row is 16-B aligned as TMA needs."""
+    out, cur = [], 0
+    for din, dout in layer_dims:
+        ld = _round_up(din, 16)
+        off = _round_up(cur, 64)
+        out.append((off, ld))
+        cur = off + dout * ld
+    return out, _round_up(cur, 64)
+
+
+def pack_weights(p, layout, q_layout, q_total):
+    """Plain version of K2's ``pack_params``: the weights of the flat f32
+    params ``p`` (``layout``: networks.ActorCritic.layout) in bf16 at the
+    packed offsets, zero everywhere else."""
+    q = torch.zeros(q_total, dtype=torch.bfloat16, device=p.device)
+    weights = [(off, shape) for name, off, shape in layout if name.endswith("weight")]
+    for (off, (dout, din)), (qo, ld) in zip(weights, q_layout):
+        q[qo: qo + dout * ld].view(dout, ld)[:, :din] = p[off: off + dout * din].view(dout, din)
+    return q
+
+
+def repack_rows(x, width: int):
+    """``(MB, rows, f)`` obs (a strided view into the shuffle buffer) as a
+    contiguous bf16 ``(MB, rows, width)`` buffer, zero beyond column f: the
+    layout TMA reads (16-B aligned rows)."""
+    mb, rows, f = x.shape
+    out = torch.zeros((mb, rows, width), dtype=torch.bfloat16, device=x.device)
+    out[..., :f] = x
+    return out
+
+
+GEMM_KINDS = ("forward", "input_gradient", "weight_gradient")
+
+
+def gemm_check_plain(kind: int, a, b):
+    """Plain version of ``k2_gemm_check``: the product of the bf16 values in
+    float64. kind 0: a (M, K) b (N, K)^T; 1: a (M, K) b (K, N); 2: a (K, M)^T
+    b (K, N)."""
+    a, b = a.double(), b.double()
+    return {0: lambda: a @ b.t(), 1: lambda: a @ b, 2: lambda: a.t() @ b}[kind]()
+
+
+def gemm_check(kind: int, a, b):
+    """One product of K2's tensor-core GEMM (``wg_gemm`` through
+    ``k2_gemm_check``: the main path's kernel, f32 output, no epilogue) on
+    bf16 operands laid out as the main path lays them (see
+    :func:`gemm_check_plain`). CPU tensors take the plain version."""
+    if a.device.type == "cpu":
+        return gemm_check_plain(kind, a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise RuntimeError(f"K2's GEMM runs on CUDA tensors, got {a.device} and {b.device}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError("gemm_check takes two 2-D bf16 tensors")
+    if kind == 0:
+        (M, K), N = a.shape, b.shape[0]
+        ok = b.shape[1] == K
+    elif kind == 1:
+        (M, K), N = a.shape, b.shape[1]
+        ok = b.shape[0] == K
+    elif kind == 2:
+        (K, M), N = a.shape, b.shape[1]
+        ok = b.shape[0] == K
+    else:
+        raise ValueError(f"kind must be 0, 1 or 2, got {kind}")
+    if not ok:
+        raise ValueError(f"{GEMM_KINDS[kind]}: shapes {tuple(a.shape)} and {tuple(b.shape)} do not chain")
+
+    def padded(x):   # rows 16-B aligned, as TMA needs; the padding is never read
+        out = torch.zeros((x.shape[0], _round_up(x.shape[1], 8)), dtype=x.dtype, device=x.device)
+        out[:, :x.shape[1]] = x
+        return out
+
+    a, b = padded(a), padded(b)
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    lib = _lib("k2")
+    with torch.cuda.device(a.device):
+        err = lib.k2_gemm_check(kind, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), c.data_ptr(),
+                                M, N, K, torch.cuda.current_stream(a.device).cuda_stream)
+    _check(err, "K2 GEMM check")
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +340,25 @@ class FusedPPOGrad:
         self.lr_min = float(lr_min)
         self.lr_max = float(lr_max)
         self.std_off = net.layout[-1][1]
+        # K2's packed bf16 weights (the tensor-core chain's operand layout)
+        self.layer_dims = list(zip(self.actor_dims[:-1], self.actor_dims[1:])) + \
+            list(zip(self.critic_dims[:-1], self.critic_dims[1:]))
+        self.q_layout, self.q_total = packed_layout(self.layer_dims)
+
+    def gemm_shapes(self, rows=None):
+        """The tensor-core products of one bf16 grad step, as
+        ``(kind, M, N, K, label)`` for :func:`gemm_check` (kind 0 forward,
+        1 input gradient, 2 weight gradient) at ``rows`` rows (default: the
+        minibatch's)."""
+        r = self.rows if rows is None else int(rows)
+        out = []
+        for mlp, dims in (("actor", self.actor_dims), ("critic", self.critic_dims)):
+            for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+                out.append((0, r, dout, din, f"{mlp} {l} forward"))
+                if l > 0:
+                    out.append((1, r, din, dout, f"{mlp} {l} input gradient"))
+                out.append((2, dout, din, r, f"{mlp} {l} weight gradient"))
+        return out
 
     @staticmethod
     def supported(net, extra_loss_fn) -> bool:
@@ -446,10 +592,13 @@ class FusedPPOGrad:
 
     def _k2_context(self, p, bufs):
         """Check the operands, allocate K2's scratch and fill its argument
-        struct. Returns (struct, the tensors it points into)."""
+        struct; for bf16 operands also repack the obs buffers for TMA and
+        build the launch plan (tensor maps). Returns (struct, the tensors it
+        points into)."""
         if p.device.type != "cuda":
             raise RuntimeError(f"K2 runs on CUDA tensors, got device {p.device}")
         dev, op = p.device, self.op_dtype
+        bf = op == torch.bfloat16
         net = self.net
         if p.dtype != torch.float32 or p.shape != (net.num_params,) or not p.is_contiguous():
             raise ValueError(f"params must be a contiguous float32 ({net.num_params},) tensor")
@@ -465,10 +614,12 @@ class FusedPPOGrad:
                 raise ValueError(f"{name} is on {x.device}, params on {dev}")
             if x.dim() != 3 or tuple(x.shape) != (mb, rows, feat):
                 raise ValueError(f"{name} must be ({mb}, {rows}, {feat}), got {tuple(x.shape)}")
-            if x.dtype != op:   # the TPU kernel's .astype(op) on the data
-                x = x.to(op)
-            if x.stride(-1) != 1:
-                x = x.contiguous()
+            if bf:   # TMA-addressable: contiguous, rows padded to 16 columns with zeros
+                x = repack_rows(x, _round_up(feat, 16))
+            else:
+                x = x.to(op)   # the TPU kernel's .astype(op) on the data
+                if x.stride(-1) != 1:
+                    x = x.contiguous()
             keep[name] = x
             return x
 
@@ -488,12 +639,14 @@ class FusedPPOGrad:
             a.actor_dims[i] = d
         for i, d in enumerate(self.critic_dims):
             a.critic_dims[i] = d
-        a.op_bf16 = int(op == torch.bfloat16)
+        a.op_bf16 = int(bf)
         a.fixed_std = int(self.fixed_std)
         a.clipped_vl = int(self.use_clipped_value_loss)
         a.wgrad_rows = WGRAD_ROWS
         a.wgrad_splits = -(-rows // WGRAD_ROWS)
-        a.loss_blocks = -(-rows // 256)
+        a.loss_blocks = -(-rows // LOSS_ROWS)
+        a.loss_w = 2 * A + 4 if bf else A + 3
+        a.mb_count = mb
         B = float(rows)
         a.clip_param = self.clip_param
         a.init_noise_std = self.init_noise_std
@@ -508,26 +661,25 @@ class FusedPPOGrad:
         for i, (name, off, _) in enumerate(net.layout[:-1]):
             (a.w_off if name.endswith("weight") else a.b_off)[i // 2] = off
         a.std_off = self.std_off
-        a.n_params = net.num_params
 
         e = lambda *shape, dtype=op: torch.empty(shape, dtype=dtype, device=dev)
-        keep["p_op"] = e(net.num_params) if op == torch.bfloat16 else p
         keep["g"] = e(net.num_params, dtype=torch.float32)
         keep["aux"] = e(4, dtype=torch.float32)
         keep["mean"] = e(rows, A, dtype=torch.float32)
         keep["value"] = e(rows, dtype=torch.float32)
-        ha = [e(rows, w) for w in self.actor_dims[1:-1]]
-        hc = [e(rows, w) for w in self.critic_dims[1:-1]]
+        # the bf16 chain's activations and input gradients: rows 16-B aligned
+        # (csrc/ppo_grads.cu act_ld; the pad columns are never read)
+        act_ld = (lambda w: _round_up(w, 8)) if bf else (lambda w: w)
+        ha = [e(rows, act_ld(w)) for w in self.actor_dims[1:-1]]
+        hc = [e(rows, act_ld(w)) for w in self.critic_dims[1:-1]]
         keep["h"] = ha + hc
-        gw = max(self.actor_dims[1:-1] + self.critic_dims[1:-1] + [A, 1])
-        keep["gbuf"] = [e(rows, gw) for _ in range(4)]
-        dims = list(zip(self.actor_dims[:-1], self.actor_dims[1:])) + \
-            list(zip(self.critic_dims[:-1], self.critic_dims[1:]))
-        keep["part"] = e(a.wgrad_splits * max(o * (i + 1) for i, o in dims), dtype=torch.float32)
-        keep["loss_part"] = e(a.loss_blocks * (A + 3), dtype=torch.float32)
+        keep["loss_part"] = e(a.loss_blocks * a.loss_w, dtype=torch.float32)
+        # per layer slot: (MLP k, layer l, in, out); actor slots first (layout order)
+        slots = [(k, l, din, dout) for k, dims in enumerate((self.actor_dims, self.critic_dims))
+                 for l, (din, dout) in enumerate(zip(dims[:-1], dims[1:]))]
 
         a.obs, a.cobs, a.fscal = obs.data_ptr(), cobs.data_ptr(), fs.data_ptr()
-        a.p, a.p_op = p.data_ptr(), keep["p_op"].data_ptr()
+        a.p = p.data_ptr()
         a.g, a.aux = keep["g"].data_ptr(), keep["aux"].data_ptr()
         # hidden activations: the actor's in slots [0, nA-1), the critic's from MAX_LAYERS
         for i, h in enumerate(ha):
@@ -535,9 +687,48 @@ class FusedPPOGrad:
         for i, h in enumerate(hc):
             a.h[MAX_LAYERS + i] = h.data_ptr()
         a.mean, a.value = keep["mean"].data_ptr(), keep["value"].data_ptr()
-        for i, gb in enumerate(keep["gbuf"]):
-            a.gbuf[i] = gb.data_ptr()
-        a.part, a.loss_part = keep["part"].data_ptr(), keep["loss_part"].data_ptr()
+        a.loss_part = keep["loss_part"].data_ptr()
+
+        if not bf:
+            # f32 chain: ping-pong backward gradients, one layer's partials at a time
+            gw = max(self.actor_dims[1:-1] + self.critic_dims[1:-1] + [A, 1])
+            keep["gbuf"] = [e(rows, gw) for _ in range(4)]
+            for i, gb in enumerate(keep["gbuf"]):
+                a.gbuf[i] = gb.data_ptr()
+            a.gtop[0], a.gtop[1] = a.gbuf[0], a.gbuf[2]
+            a.gtop_ld[0], a.gtop_ld[1] = A, 1
+            keep["part"] = e(a.wgrad_splits * max(o * (i + 1) for _, _, i, o in slots), dtype=torch.float32)
+            a.part = keep["part"].data_ptr()
+            return a, keep
+
+        # bf16 chain: packed weights, every layer's gradients and partials kept
+        # until the one reduction at the end
+        a.q_total = self.q_total
+        for i, (off, ld) in enumerate(self.q_layout):
+            a.q_off[i], a.q_ld[i] = off, ld
+        keep["q"] = e(self.q_total)
+        a.q = keep["q"].data_ptr()
+        keep["gtop"] = [e(rows, _round_up(A, 8)), e(rows, 8)]
+        for k, t in enumerate(keep["gtop"]):
+            a.gtop[k], a.gtop_ld[k] = t.data_ptr(), t.stride(0)
+        keep["gin"] = []
+        part_n = bsum_n = 0
+        row_tiles = -(-rows // 64)   # wg_gemm's output rows per tile
+        for i, (k, l, din, dout) in enumerate(slots):
+            if l >= 1:   # the gradient at this layer's input
+                t = e(rows, act_ld(din))
+                keep["gin"].append(t)
+                a.gin[k * MAX_LAYERS + l] = t.data_ptr()
+            a.part_off[i] = part_n
+            part_n += _round_up(a.wgrad_splits * din * dout, 4)   # 16-B aligned layers
+            nl = len(self.actor_dims if k == 0 else self.critic_dims) - 1
+            if l < nl - 1:   # bias partials, written by the input gradient of layer l + 1
+                a.bsum_off[i] = bsum_n
+                bsum_n += row_tiles * dout
+        keep["part"] = e(part_n, dtype=torch.float32)
+        keep["bsum"] = e(max(bsum_n, 1), dtype=torch.float32)
+        a.part, a.bsum = keep["part"].data_ptr(), keep["bsum"].data_ptr()
+        keep["plan"] = _Plan(_lib("k2"), a)
         return a, keep
 
     def _k2_launch(self, lib, args, mb_index: int, dev):
@@ -563,6 +754,39 @@ class FusedPPOGrad:
         self._k2_launch(lib, args, mb_index, p.device)
         return self._finalize_grads(p, keep["g"], keep["aux"][:3])
 
+    def _k3_context(self, p2, m2, v2, count, lr, keep):
+        """K3's argument struct over the update's p, m, v (updated in place)
+        and K2's gradient and row sums in ``keep``. Returns (struct, the
+        LR/metric state: two 8-float slots, step s reads slot s & 1)."""
+        dev = p2.device
+        count0 = count.reshape(1).contiguous()
+        state = torch.zeros(16, dtype=torch.float32, device=dev)
+        state[0] = lr.reshape(()).to(torch.float32)
+        part = torch.empty(K3_BLOCKS, dtype=torch.float32, device=dev)
+        step = torch.empty(4, dtype=torch.float32, device=dev)
+        keep.update(count0=count0, state=state, k3_part=part, k3_step=step)
+
+        b = _K3Args()
+        b.n, b.std_off = self.net.num_params, self.std_off
+        b.p, b.m, b.v, b.g = p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), keep["g"].data_ptr()
+        b.aux, b.state, b.count0 = keep["aux"].data_ptr(), state.data_ptr(), count0.data_ptr()
+        b.part, b.step = part.data_ptr(), step.data_ptr()
+        b.act_dim, b.fixed_std = self.act_dim, int(self.fixed_std)
+        b.adaptive, b.nblocks = int(self.adaptive_lr), K3_BLOCKS
+        b.rows_f = float(self.rows)
+        b.value_loss_coef, b.entropy_coef = self.value_loss_coef, self.entropy_coef
+        b.ent_const = 0.5 + 0.5 * _LOG_2PI
+        b.ent_fixed = (self.act_dim * (0.5 + 0.5 * _LOG_2PI)
+                       + self.act_dim * math.log(self.init_noise_std))
+        b.kl_hi, b.kl_lo = self.desired_kl * 2.0, self.desired_kl / 2.0
+        b.lr_min, b.lr_max = self.lr_min, self.lr_max
+        b.max_grad_norm = self.max_grad_norm
+        b.b1, b.b2 = self.adam_b1, self.adam_b2
+        b.omb1, b.omb2 = 1.0 - self.adam_b1, 1.0 - self.adam_b2
+        b.log_b1, b.log_b2 = math.log(self.adam_b1), math.log(self.adam_b2)
+        b.eps, b.std_floor = self.adam_eps, self.std_floor
+        return b, state
+
     def update_scan(self, p, m, v, count, lr, bufs):
         """The whole PPO update. ``p``, ``m``, ``v``: flat float32 params and
         Adam moments; ``count``: the Adam step count (int32 0-d tensor);
@@ -584,32 +808,7 @@ class FusedPPOGrad:
         lib2, lib3 = _lib("k2"), _lib("k3")
         p2, m2, v2 = p.clone(), m.contiguous().clone(), v.contiguous().clone()
         args2, keep = self._k2_context(p2, bufs)
-        count0 = count.reshape(1).contiguous()
-        state = torch.zeros(16, dtype=torch.float32, device=dev)
-        state[0] = lr.reshape(()).to(torch.float32)
-        part = torch.empty(K3_BLOCKS, dtype=torch.float32, device=dev)
-        step = torch.empty(4, dtype=torch.float32, device=dev)
-
-        b = _K3Args()
-        b.n, b.std_off = self.net.num_params, self.std_off
-        b.p, b.m, b.v, b.g = p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), keep["g"].data_ptr()
-        b.aux, b.state, b.count0 = keep["aux"].data_ptr(), state.data_ptr(), count0.data_ptr()
-        b.part, b.step = part.data_ptr(), step.data_ptr()
-        b.act_dim, b.fixed_std = self.act_dim, int(self.fixed_std)
-        b.adaptive, b.nblocks = int(self.adaptive_lr), K3_BLOCKS
-        b.rows_f = float(self.rows)
-        b.value_loss_coef, b.entropy_coef = self.value_loss_coef, self.entropy_coef
-        b.ent_const = 0.5 + 0.5 * _LOG_2PI
-        b.ent_fixed = (self.act_dim * (0.5 + 0.5 * _LOG_2PI)
-                       + self.act_dim * math.log(self.init_noise_std))
-        b.kl_hi, b.kl_lo = self.desired_kl * 2.0, self.desired_kl / 2.0
-        b.lr_min, b.lr_max = self.lr_min, self.lr_max
-        b.max_grad_norm = self.max_grad_norm
-        b.b1, b.b2 = self.adam_b1, self.adam_b2
-        b.omb1, b.omb2 = 1.0 - self.adam_b1, 1.0 - self.adam_b2
-        b.log_b1, b.log_b2 = math.log(self.adam_b1), math.log(self.adam_b2)
-        b.eps, b.std_floor = self.adam_eps, self.std_floor
-
+        b, state = self._k3_context(p2, m2, v2, count, lr, keep)
         steps = self.num_epochs * self.num_mini_batches
         stream = torch.cuda.current_stream(dev).cuda_stream
         for s in range(steps):

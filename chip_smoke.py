@@ -15,6 +15,8 @@ together after phase 7):
    (``csrc/ppo_grads.cu``) and K3 (``csrc/ppo_update.cu``); print the build
    times and ptxas' register/spill report of each kernel, and the count of
    HGMMA (wgmma) instructions in K2's SASS (``cuobjdump -sass``): 0 fails.
+   For K1's team kernel its lanes an env, envs a block, shared memory a
+   block and resident blocks an SM (``k1_occupancy``) are printed.
 3. K1 against its plain PyTorch version (the lane program) on the card:
    4096 envs of the GR1T1 training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
@@ -28,11 +30,18 @@ together after phase 7):
    tolerance each output must still lie within it plus 3x the float32 noise
    floor of the plain program on that output group (its float32 result
    against float64 on the same input, largest over the envs without a
-   boolean flip). Times K1 per launch (CUDA events), the plain version, and
-   computes K1's bound.
+   boolean flip). Then the team kernel (the main path's) against the
+   one-thread kernel (``decimation_kernel``, kept as its reference) on the
+   same packed input: 0 differing output lanes of all 4096 envs, compared
+   bit for bit (NaN lanes by bit pattern). Times both kernels per launch
+   (CUDA events, 50 launches, and again in turns), the wrapper and the plain
+   version, and computes K1's bound; the team kernel must be faster than the
+   one-thread kernel.
 4. The slice: ``OnPolicyRunner(...).init_state()`` and one 64-step rollout
    at 4096 envs (K1 must launch exactly 64 times; all outputs finite), then
-   the port's ``play`` loop for 20 steps from a seeded ``policy.npz``.
+   the port's ``play`` loop for 20 steps from a seeded ``policy.npz``. One
+   more rollout under torch.profiler: device time by kernel; a K1 device
+   time of 0 under the team kernel's name fails.
 5. K2's tensor-core GEMM alone (``gemm_check``: the main path's ``wg_gemm``
    with an f32 output and no epilogue) against the float64 product of the
    same bf16 values at every main-path shape (22 products) and at ragged row
@@ -98,7 +107,8 @@ together after phase 7):
    Prints each iteration's time split into collection and update, the
    training env-steps/s and the peak memory; then one more iteration under
    torch.profiler: device time by kernel (K1, K2's chain, K3's step, the
-   rest), the device's busy share, and the device launches of each of
+   rest; K1's 0 while K1 launched fails), the device's busy share, and the
+   device launches of each of
    K2's and K3's kernels, counted by the profiler (each must be a whole
    multiple of the iteration's grad steps); the kernels' JSON line takes
    K2's launches per grad step and the update's launches from these counts.
@@ -154,7 +164,7 @@ def plain_variants(fused):
 F32_STEP_TOL = 1e-4
 # the kernels of K2's chain and of K3's step (csrc/ppo_grads.cu, csrc/ppo_update.cu)
 # (the main path's bf16 chain; the f32 chain's SIMT kernels run only in checks)
-KERNEL_NAMES = {"K1": ("decimation_kernel",),
+KERNEL_NAMES = {"K1": ("decimation_team_kernel",),
                 "K2": ("pack_params", "wg_gemm", "loss_rows", "k2_reduce"),
                 "K3": ("k3_norm", "k3_adam")}
 HGMMA_COUNT = [None]   # HGMMA instructions in K2's SASS (phase 2)
@@ -196,28 +206,6 @@ def groups(res):
     return {k: v.double().reshape(v.shape[0], -1) for k, v in g.items()}
 
 
-def decimation_inputs(env, state, gen, dtype=None):
-    """The arguments env.step hands K1, on fresh random actions and delays."""
-    import torch
-
-    n = env.num_envs
-    actions = env.clip_actions(0.3 * torch.randn(n, env.num_actions, device=env.device, generator=gen))
-    delay = 3.0 * torch.rand(n, device=env.device, generator=gen)
-    extra = {
-        "commands": state.commands[:, :3], "last_last_actions": state.last_last_actions,
-        "feet_air_time": state.feet_air_time, "feet_land_time": state.feet_land_time,
-        "feet_contact_last": state.feet_contact_last.to(torch.float32),
-    }
-    c = (lambda x: x.to(dtype)) if dtype is not None else (lambda x: x)
-    phys = state.physics.replace(**{k: c(getattr(state.physics, k)) for k in (
-        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anchor")})
-    rand = state.rand.replace(**{k: c(getattr(state.rand, k)) for k in (
-        "friction", "restitution", "base_mass_scale", "base_com_offset")})
-    args = (phys, c(actions), c(state.last_actions), c(state.motor_strength), c(delay), rand)
-    kw = dict(last_qd=c(state.last_dof_vel), extra={k: c(v) for k, v in extra.items()})
-    return args, kw
-
-
 def count_plain_ops():
     """Floating-point operations of the plain lane program per env and
     policy step: every elementwise arithmetic, comparison and select op run
@@ -227,6 +215,7 @@ def count_plain_ops():
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
 
     skip = ("view", "stack", "cat", "clone", "copy", "zeros", "ones", "empty", "full",
             "select", "slice", "unsqueeze", "squeeze", "expand", "_to_copy", "lift",
@@ -247,10 +236,37 @@ def count_plain_ops():
     cfg.env.num_envs = 1
     env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
     state = env.init_state(0)
-    args, kw = decimation_inputs(env, state, torch.Generator().manual_seed(0))
+    args, kw = cuda_step.decimation_inputs(env, state, torch.Generator().manual_seed(0))
     with Count():
         env.decimation_op.plain(*args, **kw)
     return Count.ops
+
+
+def ptxas_summary(lines):
+    """ptxas' report (-Xptxas -v) per kernel: {name: {registers, spill_stores,
+    spill_loads}}, a team kernel named by its lanes an env and envs a block."""
+    import re
+
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            shape = re.search(r"Li(\d+)ELi(\d+)E", mangled)
+            name = (f"decimation_team_kernel<{shape.group(1)}, {shape.group(2)}>"
+                    if "decimation_team_kernel" in mangled and shape
+                    else "decimation_kernel" if "decimation_kernel" in mangled else mangled)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -982,6 +998,9 @@ def train_phase(dev):
             + ", ".join(f"{n} {c}" for n, c in counts.items())
             + f": K2's chain {k2n / max(grad_steps, 1):g} a grad step, K3's step {k3n / max(grad_steps, 1):g}, "
             f"{(k2n + k3n) / max(updates, 1):g} an update")
+        if by["K1"] == 0 and LAUNCHES["k1"] > before["k1"]:
+            fail(f"the training profile attributes no device time to {KERNEL_NAMES['K1']} though K1 "
+                 f"launched {LAUNCHES['k1'] - before['k1']} times")
         if updates != 1 or grad_steps == 0 or any(c == 0 or c % grad_steps for c in counts.values()):
             fail(f"the profiled iteration ran {updates} update(s) of {grad_steps} grad steps, "
                  f"but launched {counts}")
@@ -1049,23 +1068,23 @@ def main():
     if not HGMMA_COUNT[0]:
         raise SystemExit("K2's SASS holds no HGMMA instruction: its products do not run on the tensor cores")
     ptxas = cuda_step.BUILD_INFO.get("ptxas", [])
+    k1_kernels = ptxas_summary(ptxas)
+    for name, r in k1_kernels.items():
+        log(f"[build] K1 {name}: {r['registers']} registers, {r['spill_stores']} B spill stores, "
+            f"{r['spill_loads']} B spill loads")
+    k1_team = cuda_step.team_occupancy()
+    log(f"[build] K1 team kernel: {k1_team['threads_per_env']} lanes an env, {k1_team['envs_per_block']} "
+        f"envs a block, {k1_team['smem_bytes_per_block']} B of shared memory a block, "
+        f"{k1_team['blocks_per_sm']} blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
     # ---- phase 3: K1 against its plain version, 4096 envs ----
-    cfg, _ = task_registry.get_cfgs("GR1T1")
-    cfg.env.num_envs = N_ENVS
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    state = env.init_state(gen)
-    for _ in range(8):   # reachable states: the robots land on their feet
-        state, _ = env.step(state, 0.3 * torch.randn(env.num_envs, env.num_actions, device=dev,
-                                                       generator=gen))
+    env, state = cuda_step.reachable_state(N_ENVS, dev)
     op = env.decimation_op
     gen_in = torch.Generator(device=dev)
     gen_in.manual_seed(1)
-    args, kw = decimation_inputs(env, state, gen_in)
+    args, kw = cuda_step.decimation_inputs(env, state, gen_in)
     gen_in.manual_seed(1)
-    args64, kw64 = decimation_inputs(env, state, gen_in, dtype=torch.float64)
+    args64, kw64 = cuda_step.decimation_inputs(env, state, gen_in, dtype=torch.float64)
     k = groups(op(*args, **kw))
     p = groups(op.plain(*args, **kw))
     p64 = groups(op.plain(*args64, **kw64))
@@ -1105,18 +1124,27 @@ def main():
     if div_frac > 1e-3 or not widened_ok:
         raise SystemExit("K1 disagrees with its plain version")
 
-    # timing: K1 alone on packed buffers, the wrapper, and the plain version
-    lib = cuda_step._load()
+    # the team kernel against the one-thread kernel on the same packed
+    # input: every output lane bit for bit
     comp = op._pack(*args[:6], kw["last_qd"], kw["extra"])
-    out = torch.empty((op.c_out, N_ENVS), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((op.c_out, N_ENVS), -7.0, dtype=torch.float32, device=dev)
+    ref = torch.empty_like(out)
+    op.launch_packed(comp, ref, kernel="thread")
+    op.launch_packed(comp, out)
+    torch.cuda.synchronize()
+    differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    log(f"[K1 team vs thread] {op.c_out} x {N_ENVS} output lanes, bit for bit (NaN lanes by bit pattern; "
+        f"{int(torch.isnan(ref).sum())} NaN lanes): {differ} differing lanes")
+    if differ:
+        raise SystemExit(f"the team kernel differs from the one-thread kernel in {differ} output lanes")
 
-    def launch():
-        err = lib.k1_launch(comp.data_ptr(), out.data_ptr(), N_ENVS, stream)
-        if err:
-            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-
-    k1_ms = cuda_ms(launch, reps=50, warmup=3)
+    # timing: both kernels alone on packed buffers (CUDA events, in turns),
+    # the wrapper, and the plain version
+    team = lambda: op.launch_packed(comp, out)
+    thread = lambda: op.launch_packed(comp, ref, kernel="thread")
+    k1_ms = cuda_ms(team, reps=50, warmup=3)
+    thread_ms = cuda_ms(thread, reps=50, warmup=3)
+    turns = [cuda_ms(thread, reps=50, warmup=1), cuda_ms(team, reps=50, warmup=1)]
     wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
     plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=2, warmup=1)
     ops_per_env = count_plain_ops()
@@ -1128,13 +1156,17 @@ def main():
     # K1 is built with --fmad=false: no FMA pairing, so its attainable rate
     # for these ops is half the peak
     ops_ms_no_fma = 2.0 * ops_ms
-    log(f"[K1] {k1_ms:.4f} ms/launch at {N_ENVS} envs (wrapper incl. pack/unpack "
-        f"{wrapper_ms:.4f} ms); plain {plain_ms:.2f} ms; ops/env/step {ops_per_env}; "
-        f"bound {bound_ms:.4f} ms by {bound_by} (ops {ops_ms:.4f} ms, {ops_ms_no_fma:.4f} ms "
-        f"without FMA pairing; bytes {bytes_ms:.4f} ms)")
+    log(f"[K1] team kernel {k1_ms:.4f} ms/launch at {N_ENVS} envs, then {turns[1]:.4f}; one-thread kernel "
+        f"{thread_ms:.4f}, then {turns[0]:.4f} ms; wrapper incl. pack/unpack {wrapper_ms:.4f} ms; plain "
+        f"{plain_ms:.2f} ms; ops/env/step {ops_per_env}; bound {bound_ms:.4f} ms by {bound_by} (ops "
+        f"{ops_ms:.4f} ms, {ops_ms_no_fma:.4f} ms without FMA pairing; bytes {bytes_ms:.4f} ms); the team "
+        f"kernel reaches {100 * ops_ms_no_fma / k1_ms:.1f}% of the no-FMA bound")
+    if not k1_ms < thread_ms:
+        raise SystemExit(f"the team kernel ({k1_ms:.4f} ms) is not faster than the one-thread kernel "
+                         f"({thread_ms:.4f} ms)")
 
     # ---- phase 4: the slice's main path ----
-    del env, state, op, comp, out, args, kw, args64, kw64, k, p, p64
+    del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
     torch.cuda.empty_cache()
     cfg, train_cfg = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = N_ENVS
@@ -1210,7 +1242,7 @@ def main():
     kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=dev_us, reverse=True)
     dev_total_ms = sum(dev_us(e) for e in kern) / 1e3
-    k1_dev_ms = sum(dev_us(e) for e in kern if "decimation_kernel" in e.key) / 1e3
+    k1_dev_ms = sum(dev_us(e) for e in kern if any(n in e.key for n in KERNEL_NAMES["K1"])) / 1e3
     if dev_total_ms > 0:
         log(f"[profile] rollout under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
             f"{dev_total_ms:.1f} ms in {sum(e.count for e in kern)} launches "
@@ -1221,6 +1253,9 @@ def main():
             log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:90]}")
     else:
         log("[profile] the profiler saw no device time; device busy share not measured")
+    if dev_total_ms > 0 and k1_dev_ms == 0:
+        raise SystemExit(f"the rollout profile attributes no device time to {KERNEL_NAMES['K1']} "
+                         f"though K1 launched {rollout_launches} times in a rollout")
 
     # ---- phases 5-8: the learner ----
     ppo_rows = ppo_phases(runner, rs, batch, dev)
@@ -1242,6 +1277,8 @@ def main():
         "max_abs_err": max_abs_err,
         "max_abs_err_forces": force_err,
         "ms": k1_ms,
+        "ms_thread_kernel": thread_ms,
+        "ms_in_turns": {"thread": turns[0], "team": turns[1]},
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1253,6 +1290,9 @@ def main():
         "bytes": bytes_moved,
         "build_s": build_s,
         "ptxas": ptxas,
+        "kernels_ptxas": k1_kernels,
+        **k1_team,
+        "team_vs_thread_differing_lanes": differ,
         "rollout_env_steps_per_s": steps_per_s,
         "rollout_launches": rollout_launches,
         "peak_mem_gib": peak_gib,

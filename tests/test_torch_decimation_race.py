@@ -1,0 +1,62 @@
+"""K1's team kernel on the CPU under ThreadSanitizer: no race, and bit for
+bit the one-thread kernel.
+
+The kernels of ``csrc/decimation.cu`` are compiled for the host with g++
+(``csrc/host/k1_host.cpp``: each GPU thread of a block a std::thread;
+``__syncthreads`` and ``__syncwarp(mask)`` barriers over the block's and the
+mask's threads; shuffles that order no memory, ``csrc/host/cuda_runtime.h``)
+with ``-fsanitize=thread``, and run by the program that runs them on the card
+under compute-sanitizer (``csrc/k1_sanitize.cpp``; ``scripts/sanitize_k1.py
+--host``) on reachable GR1T1 states. ThreadSanitizer reports every pair of
+accesses to one address, one of them a write, that no barrier orders (a
+missing ``__syncwarp``), and the team kernel must equal the one-thread
+kernel in every output bit (both from one compiler, without contraction).
+At 1, 8 and 61 envs: one team alone in a block, one full block, and eight
+blocks of which the last holds 5 envs (a half-used warp). A copy with the
+barrier before the back substitution taken out must be caught.
+
+Needs g++ with ThreadSanitizer; no card.
+"""
+
+import shutil
+
+import pytest
+
+from wiki_grx_gym_tpu_torch import build as kbuild
+from wiki_grx_gym_tpu_torch.scripts import sanitize_k1
+
+pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
+
+
+def run_case(exe, out_dir, n):
+    const, inp, c_out = sanitize_k1.write_case(n, out_dir)
+    rc, text = sanitize_k1.run([exe, const, inp, n, c_out], timeout=600)
+    if any("FATAL: ThreadSanitizer" in line for line in text):
+        pytest.skip("ThreadSanitizer cannot start here: " + " ".join(text[:3]))
+    return rc, text
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("k1_host")
+    return sanitize_k1.build_host(out_dir), out_dir
+
+
+@pytest.mark.parametrize("n", [1, 8, 61])
+def test_team_kernel_has_no_race_and_equals_the_thread_kernel(host, n):
+    exe, out_dir = host
+    rc, text = run_case(exe, out_dir, n)
+    report = "\n".join(text)
+    assert rc == 0 and "ThreadSanitizer" not in report, report[-6000:]
+    assert f"{n} envs, 301 x {n} output lanes, 0 differ" in report, report[-2000:]
+
+
+def test_a_missing_barrier_is_caught(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kbuild.CSRC, csrc)
+    src = (csrc / "decimation.cu").read_text()
+    barrier = "    __syncwarp(mask);\n    // back substitution on one lane\n"
+    assert src.count(barrier) == 1
+    (csrc / "decimation.cu").write_text(src.replace(barrier, "    // back substitution on one lane\n"))
+    rc, text = run_case(sanitize_k1.build_host(tmp_path, csrc), tmp_path, 8)
+    assert rc != 0 and any("WARNING: ThreadSanitizer: data race" in line for line in text), "\n".join(text)

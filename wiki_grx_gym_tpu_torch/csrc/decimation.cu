@@ -10,18 +10,46 @@
 // the folded post-physics stage (24 reward terms of the GR1T1 lower limb,
 // termination, tilt, bad, contact filter, air/land trackers).
 //
-// What bounds it on this card: FP32 arithmetic. A policy step reads ~186 and
-// writes ~301 floats per env but does some 10^5 floating-point operations on
-// them, so the byte traffic is far below the operation count at the card's
-// 67 TFLOP/s FP32 / 3.35 TB/s balance. The design keeps every intermediate in
-// the thread (registers, spilling to local memory, which stays in L1/L2) and
-// touches device memory only to read the inputs once and write the outputs
-// once: one thread per env, component-major (C, N) float32 layout so that
-// the loads and stores of a warp coalesce, model constants in __constant__
-// memory (every thread of a warp reads the same address). It computes what
-// the TPU kernel computes; it does not carry over the TPU's (8, 128) env
-// tiling. A later PR can cut the spills (the per-env mass matrix, FK and
-// contact arrays exceed 255 registers) and fill more of the 132 SMs.
+// Two kernels compute it. decimation_team_kernel is the main path's:
+//
+// - Lane mapping. One env runs on a team of T = 16 lanes of one warp (two
+//   envs a warp; the only barrier is __syncwarp on the team's half), E = 8
+//   envs a block. Lane l takes dof l (torques, joint limits, the joint
+//   update), contact points and self-collision pairs l, l + 16, ..., body l
+//   (the contact wrench over its points, world inertia, gravity wrench, body
+//   force), row l of the (6+D)^2 mass matrix, which it keeps in registers
+//   through the Cholesky (other rows' entries by shuffle), and reward terms
+//   l, l + 16. FK and the bias recursion go down the tree level by level or
+//   one component a lane, the sums to the root one component a lane; the
+//   back substitution, the base's integration and the post stage's scalars
+//   run on lane 0.
+// - Shared memory. Each block copies the model constants (~5.2 KB) into
+//   shared memory once, since lanes read them at different indices, and
+//   stages its envs' inputs and outputs there so that device memory is read
+//   and written one component row at a time. An env's working set is 5.2 KB
+//   (TeamEnv: the state, FK, contact and the composite dynamics, the phases'
+//   short-lived arrays in one union); 8 envs and the constants take 47 KB, so
+//   4 blocks (16 warps) an SM and the 4096 envs of the main path in one wave.
+// - What bounds it: one env's chain of dependent steps, not FP32 throughput
+//   or bytes. 4096 envs fill only 16 warps an SM, so little latency is
+//   hidden; the tree (5 levels), the 16 Cholesky columns (a square root and
+//   two true divisions each), the serial back substitution and the sums
+//   kept in serial order are sequential in each of the 10 substeps.
+//   scripts/profile_k1.py times it phase by phase.
+// - Barriers: tests/test_torch_decimation_race.py compiles the kernels for
+//   the CPU (csrc/host/, K1_KERNELS_ONLY) and runs them under
+//   ThreadSanitizer, which finds any shared-memory access pair that no
+//   __syncwarp or __syncthreads orders.
+//
+// decimation_kernel runs one thread per env (model constants in
+// __constant__ memory, every intermediate in the thread: 255 registers and
+// spills). It stays as the team kernel's reference: the team kernel
+// computes every output with the same float operations in the same order
+// and association (the serial sums keep their order through lists the
+// wrapper builds: per point its pairs, per body its points, the ancestors of
+// each dof), so the two agree bit for bit in every output lane
+// (chip_smoke.py phase 3, tests/test_torch_decimation_cuda.py). Only checks
+// and timings launch it.
 //
 // Numerics: the statements follow the plain lane program in the same order
 // and association. Model constants that the lane program folds in float64 on
@@ -32,8 +60,11 @@
 // are ternaries on values that are both computed.
 //
 // Interface (plain C, loaded with ctypes): k1_const_size, k1_set_constants,
-// k1_launch. k1_launch runs on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// k1_launch (the team kernel), k1_launch_thread (the one-thread kernel),
+// k1_occupancy (the team kernel's shape, shared memory and blocks per SM).
+// Only the main path's team shape (T = 16, E = 8) is instantiated; the
+// kernel stays templated on T and E for a later choice. A launch runs on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,12 +79,17 @@ struct GR1T1LowerLimb {
   static constexpr int NPAIR = 64;  // self-collision pairs
   static constexpr int NR = 24;     // reward terms
   static constexpr int NPOST = 3;   // post-FK bodies
+  static constexpr int NIN = 186;   // input components (sim/cuda_step.py:_schema)
+  static constexpr int NOUT = 301;  // output components
 };
 
 constexpr int MAXG = 8;       // termination-group capacity
 constexpr int N_IN_GROUPS = 21;
 constexpr int N_OUT_GROUPS = 28;
-constexpr int THREADS = 64;
+constexpr int THREADS = 64;   // the one-thread kernel's block
+// The team kernel's shape: lanes per env and envs per block (PERF.md
+// records the times of the other shapes tried).
+constexpr int TEAM_T = 16, TEAM_E = 8;
 
 enum InGroup {
   IN_POS, IN_QUAT, IN_LIN, IN_ANG, IN_Q, IN_QD, IN_ANCHOR, IN_ACTIONS, IN_LAST_ACTIONS,
@@ -97,6 +133,11 @@ struct ModelConst {
   int reward_id[S::NR];
   int decimation, use_tangent, use_joint_limits, has_damp;
   int in_off[N_IN_GROUPS], out_off[N_OUT_GROUPS];
+  // the team kernel's schedule (built by the wrapper, sim/cuda_step.py:team_lists)
+  int pt_pair_start[S::NP + 1], pt_pair[2 * S::NPAIR];  // per point: 2 s + (1 if it is pair s's j)
+  int body_pt_start[S::NB + 1], body_pts[S::NP];        // per body: its points, ascending
+  int n_levels, level_start[S::NB], level_body[S::NB];  // bodies >= 1 by depth in the tree
+  int anc_mask[S::ND];  // bit j of row i: dof j is an ancestor-or-self of dof i
   float tree_pos[S::NB][3], tree_quat[S::NB][4], axis_unit[S::NB][3], axis[S::NB][3];
   float mass[S::NB], com[S::NB][3], inertia[S::NB][3][3];
   float grav_z[S::NB], cm_sub[S::NB];
@@ -119,6 +160,7 @@ struct ModelConst {
 
 using Sz = GR1T1LowerLimb;
 __constant__ ModelConst<Sz> c_model;
+__device__ ModelConst<Sz> g_model;  // the same bytes; each team-kernel block copies it to shared memory
 
 // ---------------------------------------------------------------------------
 // lane algebra, NaN-propagating like torch.maximum / torch.clamp
@@ -875,7 +917,850 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
   st_(OUT_BHO, 0, bho);
 }
 
+// ---------------------------------------------------------------------------
+// the team kernel: T lanes of one warp per env, the env's arrays in shared
+// memory. Every value is computed by the same float operations in the same
+// order as in decimation_kernel above; only who computes it changes.
+// ---------------------------------------------------------------------------
+
+// post-stage values of one env (written by lane 0, read by the reward lanes)
+template <class S>
+struct TeamPost {
+  float blv[3], bav[3], pg[3], torso_pg[3];
+  float feet_height[S::NF], feet_force[S::NF][3], fat[S::NF], flt[S::NF], first_contact[S::NF];
+  float cmd_active, bho;
+  int feet_contact[S::NF], contact_filt[S::NF], term, tilt, fin;
+};
+
+// One env's working set. Odd row strides (5, 3, 7, 9 floats) put the rows
+// that the lanes of a team read at once in different banks. `u` holds what
+// lives in one phase only: FK's joint quaternions, the contact phase's point
+// velocities and pair forces, the dynamics arrays, the staged outputs.
+template <class S>
+struct TeamEnv {
+  static constexpr int N6 = 6 + S::ND;
+  static constexpr int INP = (S::NIN + 15) / 32 * 32 + 16;  // = 16 (mod 32) words
+  float in[INP];  // the inputs; the state (pos ... anchor) is updated in place
+  float taus[S::ND], tau[S::ND], damp[S::ND];
+  float quats[S::NB][5], pos_rel[S::NB][3], sub[S::NB][7], tw[S::NB][7];
+  float pts_pos[S::NP][3], forces[S::NP][3];
+  float force_sum[S::NF], vxyz[S::NF][3], vrpy[S::NF][3];
+  float Ls[N6 * (N6 + 1) / 2], yacc[N6], y[N6], x[N6];
+  TeamPost<S> post;
+  union {
+    float qj[S::NB][5];
+    struct { float pts_vel[S::NP][3], nf[S::NPAIR][3]; } c;
+    struct {
+      float e_ang[S::NB][3], e_lin[S::NB][3], h[S::NB][3], io[S::NB][9], bias[S::NB][7],
+          f_acc[S::NB][7], f_crb[S::ND][7];
+    } d;
+    float outb[S::NOUT];
+  } u;
+};
+
+template <class S>
+__host__ __device__ constexpr int team_const_bytes() { return (int)((sizeof(ModelConst<S>) + 15) / 16 * 16); }
+template <class S, int E>
+__host__ __device__ constexpr int team_smem_bytes() { return team_const_bytes<S>() + E * (int)sizeof(TeamEnv<S>); }
+
+// m3vec on a row-major 3x3 stored as 9 floats
+__device__ __forceinline__ void m3vec9(const float* m, const float* v, float* o) {
+  for (int r = 0; r < 3; ++r) o[r] = m[3 * r] * v[0] + m[3 * r + 1] * v[1] + m[3 * r + 2] * v[2];
+}
+
+// FK over the static tree (fk<S> above), by the team: joint quaternions per
+// body lane, then the tree level by level (a level's bodies on their own
+// lanes).
+template <class S, int T>
+__device__ __forceinline__ void team_fk(const ModelConst<S>& K, TeamEnv<S>& V, const float* quat0, const float* ang,
+                        const float* lin, const float* q, const float* qd, int l, unsigned mask) {
+  constexpr int NB = S::NB;
+  if (l == 0) {
+    for (int k = 0; k < 4; ++k) V.quats[0][k] = quat0[k];
+    for (int k = 0; k < 3; ++k) { V.pos_rel[0][k] = 0.0f; V.tw[0][k] = ang[k]; V.tw[0][3 + k] = lin[k]; }
+    for (int k = 0; k < 6; ++k) V.sub[0][k] = 0.0f;
+  }
+  for (int i = 1 + l; i < NB; i += T) q_from_angle_axis(q[i - 1], K.axis_unit[i], V.u.qj[i]);
+  __syncwarp(mask);
+  for (int L = 0; L < K.n_levels; ++L) {
+    for (int m = K.level_start[L] + l; m < K.level_start[L + 1]; m += T) {
+      const int i = K.level_body[m], p = K.parent[i];
+      float q_static[4], v[3], a_w[3], c[3];
+      qmul(V.quats[p], K.tree_quat[i], q_static);
+      qmul(q_static, V.u.qj[i], V.quats[i]);
+      qapply(V.quats[p], K.tree_pos[i], v);
+      for (int k = 0; k < 3; ++k) V.pos_rel[i][k] = V.pos_rel[p][k] + v[k];
+      qapply(V.quats[i], K.axis[i], a_w);
+      cross3(V.pos_rel[i], a_w, c);
+      for (int k = 0; k < 3; ++k) { V.sub[i][k] = a_w[k]; V.sub[i][3 + k] = c[k]; }
+      const float qdi = qd[i - 1];
+      for (int k = 0; k < 6; ++k) V.tw[i][k] = V.tw[p][k] + V.sub[i][k] * qdi;
+    }
+    __syncwarp(mask);
+  }
+}
+
+// one reward term (the switch of decimation_kernel, on the team's arrays)
+template <class S>
+__device__ float team_reward(int r, const ModelConst<S>& K, const TeamEnv<S>& V, const float* actions,
+                             const float* last_actions, const float* lla, const float* q,
+                             const float* qd, const float* last_qd, const float* cmd) {
+  constexpr int ND = S::ND, NF = S::NF;
+  const TeamPost<S>& P = V.post;
+  const float* taus = V.taus;
+  const float* feet_height = P.feet_height;
+  const float* fat = P.fat;
+  const float* flt = P.flt;
+  const float sig = K.sigma[r];
+  const float as = K.action_scale;
+  const float cmd_active = P.cmd_active;
+  const float bho = P.bho;
+  float val = 0.0f;
+  switch (K.reward_id[r]) {
+    case RW_ACTION_DIFF: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_ACTION_DIFF_DIFF: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i)
+        err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - P.bav[2])); break;
+    case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
+    case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(P.pg[0]) + fabsf(P.pg[1]))); break;
+    case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - P.blv[0])); break;
+    case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - P.blv[1])); break;
+    case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(P.blv[2])); break;
+    case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(P.torso_pg[0]) + fabsf(P.torso_pg[1]))); break;
+    case RW_DOF_ACC_NEW: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + fabsf((qd[i] - last_qd[i]) / K.dt_policy);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_DOF_TOR_ANKLE_LIFT: {
+      float sl = 0.0f, sr = 0.0f;
+      for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
+      for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
+      const float lh = feet_height[0], rh = feet_height[1];
+      const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
+      const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
+      val = 1.0f - expf(sig * (err_l + err_r));
+    } break;
+    case RW_DOF_TOR_NEW: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_FEET_AIR_FORCE: {
+      float err = 0.0f;
+      for (int f = 0; f < NF; ++f)
+        err = err + fabsf(fat[f] - K.fat_half) * (V.force_sum[f] / K.decimation_f);
+      val = expf(sig * err) * cmd_active;
+    } break;
+    case RW_FEET_AIR_HEIGHT: {
+      float min_h = feet_height[0];
+      for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
+      float err = 0.0f;
+      for (int f = 0; f < NF; ++f) {
+        const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
+        const float mid = fabsf(fat[f] - K.fat_half);
+        err = err + mid * err_h;
+      }
+      val = expf(sig * err) * cmd_active;
+    } break;
+    case RW_FEET_AIR_TIME: {
+      float rew = 0.0f;
+      for (int f = 0; f < NF; ++f)
+        rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * P.first_contact[f];
+      val = rew * cmd_active;
+    } break;
+    case RW_FEET_LAND_TIME: {
+      float rew = 0.0f;
+      for (int f = 0; f < NF; ++f)
+        rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
+      val = rew * cmd_active;
+    } break;
+    case RW_FEET_SPEED_XY: {
+      float err = 0.0f;
+      for (int f = 0; f < NF; ++f) {
+        const float hq = feet_height[f];
+        const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
+        const float v0 = V.vxyz[f][0] / K.decimation_f, v1 = V.vxyz[f][1] / K.decimation_f;
+        err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
+      }
+      val = expf(sig * err);
+    } break;
+    case RW_FEET_STUMBLE: {
+      float rew = 0.0f;
+      for (int f = 0; f < NF; ++f) {
+        const float* fo = P.feet_force[f];
+        const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
+        rew = rew + (1.0f - expf(sig * err));
+      }
+      val = rew;
+    } break;
+    case RW_LIMITS_DOF_POS: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) {
+        const float lo = -nmin(q[i] - K.soft_lo[i], 0.0f);
+        const float hi = nmax(q[i] - K.soft_hi[i], 0.0f);
+        err = err + fabsf(lo + hi);
+      }
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_LIMITS_DOF_TOR: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_LIMITS_DOF_VEL: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
+      val = 1.0f - expf(sig * err);
+    } break;
+    case RW_ON_THE_AIR: {
+      float n_contact = 0.0f;
+      for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(P.feet_contact[f]);
+      val = b2f(n_contact == 0.0f);
+    } break;
+    case RW_POSE_OFFSET: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + fabsf(q[i] - K.default_q[i]);
+      val = expf(sig * err);
+    } break;
+    case RW_STAND_STILL: {
+      float err = 0.0f;
+      for (int i = 0; i < ND; ++i) err = err + fabsf(q[i] - K.default_q[i]);
+      val = expf(sig * err) * (1.0f - cmd_active);
+    } break;
+    default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
+  }
+  return P.fin ? K.scale[r] * val : 0.0f;
+}
+
+template <int T>
+__device__ __forceinline__ unsigned team_mask(int tid) {
+  return T == 32 ? 0xffffffffu : ((1u << T) - 1u) << ((tid & 31) / T * T);
+}
+
+// Launch bounds: T * E threads, and enough blocks for 16 warps an SM, so at
+// most 128 registers a thread.
+template <class S, int T, int E>
+__global__ void __launch_bounds__(T * E, 512 / (T * E))
+decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __restrict__ in,
+                       float* __restrict__ out, int n) {
+  constexpr int NB = S::NB, ND = S::ND, NP = S::NP, NF = S::NF, N6 = 6 + S::ND, NT = T * E;
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  ModelConst<S>& K = *reinterpret_cast<ModelConst<S>*>(k1_smem);
+  TeamEnv<S>* envs = reinterpret_cast<TeamEnv<S>*>(k1_smem + team_const_bytes<S>());
+  const int tid = threadIdx.x, l = tid % T, team = tid / T;
+  const int e0 = blockIdx.x * E;
+  const unsigned mask = team_mask<T>(tid);
+
+  // the block's constants and inputs into shared memory; a team past the
+  // last env runs on zeros and stores nothing
+  {
+    const int* src = reinterpret_cast<const int*>(model);
+    int* dst = reinterpret_cast<int*>(&K);
+    for (int i = tid; i < (int)(sizeof(ModelConst<S>) / 4); i += NT) dst[i] = src[i];
+  }
+  for (int idx = tid; idx < S::NIN * E; idx += NT) {
+    const int c = idx / E, j = idx % E;
+    envs[j].in[c] = (e0 + j < n) ? in[(size_t)c * n + e0 + j] : 0.0f;
+  }
+  __syncthreads();
+
+  TeamEnv<S>& V = envs[team];
+  float* const pos = V.in + K.in_off[IN_POS];
+  float* const quat = V.in + K.in_off[IN_QUAT];
+  float* const lin = V.in + K.in_off[IN_LIN];
+  float* const ang = V.in + K.in_off[IN_ANG];
+  float* const q = V.in + K.in_off[IN_Q];
+  float* const qd = V.in + K.in_off[IN_QD];
+  float* const anchor = V.in + K.in_off[IN_ANCHOR];
+  const float* const actions = V.in + K.in_off[IN_ACTIONS];
+  const float* const last_actions = V.in + K.in_off[IN_LAST_ACTIONS];
+  const float* const motor = V.in + K.in_off[IN_MOTOR];
+  const float* const com_offset = V.in + K.in_off[IN_COM_OFFSET];
+  const float delay = V.in[K.in_off[IN_DELAY]];
+  const float friction = V.in[K.in_off[IN_FRICTION]];
+  const float restitution = V.in[K.in_off[IN_RESTITUTION]];
+  const float mass_scale = V.in[K.in_off[IN_MASS_SCALE]];
+  const float dt = K.dt;
+#define TLS(i, j) V.Ls[(i) * ((i) + 1) / 2 + (j)]
+
+  for (int g = l; g < NF; g += T) {
+    V.force_sum[g] = 0.0f;
+    for (int k = 0; k < 3; ++k) { V.vxyz[g][k] = 0.0f; V.vrpy[g][k] = 0.0f; }
+  }
+
+  for (int s = 0; s < K.decimation; ++s) {
+    // PD torques and the joint limits, per dof lane
+    const bool gate = (float)s < delay;
+    for (int d = l; d < ND; d += T) {
+      const float use_act = gate ? last_actions[d] : actions[d];
+      const float scaled = use_act * K.action_scale;
+      const float t = K.p_gain[d] * (scaled + K.default_q[d] - q[d]) - K.d_gain[d] * qd[d];
+      const float lim = K.torque_limit[d];
+      const float tq = clipf(t * motor[d], -lim, lim);
+      V.taus[d] = tq;
+      float tau = tq;
+      float damp = K.has_damp ? K.damp_coeff[d] * motor[d] : 0.0f;
+      if (K.use_joint_limits) {
+        float over = nmax(q[d] - K.dof_upper[d], 0.0f);
+        float under = nmax(K.dof_lower[d] - q[d], 0.0f);
+        float viol = b2f((over > 0.0f) | (under > 0.0f));
+        float lim_damp = K.lim_damp[d] * viol;
+        tau = tau + K.lim_k[d] * (under - over) - lim_damp * qd[d];
+        damp = damp + lim_damp;
+      }
+      V.tau[d] = tau;
+      V.damp[d] = damp;
+    }
+    team_fk<S, T>(K, V, quat, ang, lin, q, qd, l, mask);
+
+    // ground contact, per point lane; the anchors are updated in place.
+    // A lane's points are computed first and stored after, so that the
+    // compiler may overlap them.
+    {
+      constexpr int RP = (NP + T - 1) / T;
+      const float imp_cap = K.imp_cap;
+      const float mu = friction;
+      const float zeta = K.damping_ratio * clipf(1.0f - restitution, 0.05f, 1.0f);
+      const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, imp_cap);
+      float pw[RP][3], vel[RP][3], fo[RP][3], na[RP][3];
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr) {
+        const int p = l + rr * T;
+        if (p < NP) {
+          const int b = K.point_body[p];
+          float v[3], rel[3], c[3];
+          qapply(V.quats[b], K.point_offset[p], v);
+          for (int k = 0; k < 3; ++k) rel[k] = V.pos_rel[b][k] + v[k];
+          cross3(&V.tw[b][0], rel, c);
+          for (int k = 0; k < 3; ++k) {
+            vel[rr][k] = V.tw[b][3 + k] + c[k];
+            pw[rr][k] = pos[k] + rel[k];
+          }
+          const float r = K.point_radius[p];
+          const float depth = nmin(K.ground_h - (pw[rr][2] - r), 0.5f);
+          const bool active = depth > 0.0f;
+          float f_n = nmax(K.stiffness * depth - d_n * vel[rr][2], 0.0f);
+          f_n = active ? f_n : 0.0f;
+          const float cone = mu * f_n;
+          float ftx, fty;
+          const float* a = anchor + 3 * p;
+          if (K.use_tangent) {
+            const float kt = K.kt;
+            float ex = clipf(pw[rr][0] - a[0], -0.1f, 0.1f);
+            float ey = clipf(pw[rr][1] - a[1], -0.1f, 0.1f);
+            ftx = -kt * ex - K.d_t * vel[rr][0];
+            fty = -kt * ey - K.d_t * vel[rr][1];
+            float mag = sqrtf(ftx * ftx + fty * fty);
+            float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
+            ftx = ftx * sc;
+            fty = fty * sc;
+            na[rr][0] = active ? pw[rr][0] + ftx / kt : pw[rr][0];
+            na[rr][1] = active ? pw[rr][1] + fty / kt : pw[rr][1];
+            na[rr][2] = pw[rr][2] + 0.0f;
+            ftx = active ? ftx : 0.0f;
+            fty = active ? fty : 0.0f;
+          } else {
+            float speed_t = sqrtf(vel[rr][0] * vel[rr][0] + vel[rr][1] * vel[rr][1]);
+            float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), imp_cap);
+            ftx = -k_t * vel[rr][0];
+            fty = -k_t * vel[rr][1];
+            for (int k = 0; k < 3; ++k) na[rr][k] = a[k];
+          }
+          fo[rr][0] = ftx; fo[rr][1] = fty; fo[rr][2] = f_n;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr) {
+        const int p = l + rr * T;
+        if (p < NP) {
+          for (int k = 0; k < 3; ++k) {
+            V.pts_pos[p][k] = pw[rr][k];
+            V.u.c.pts_vel[p][k] = vel[rr][k];
+            V.forces[p][k] = fo[rr][k];
+            anchor[3 * p + k] = na[rr][k];
+          }
+        }
+      }
+    }
+    __syncwarp(mask);
+
+    // self-collision: each pair's force per pair lane (computed first,
+    // stored after), then each point lane adds its pairs' terms in
+    // ascending pair order (the serial loop's)
+    {
+      constexpr int RS = (S::NPAIR + T - 1) / T;
+      float nfv[RS][3];
+#pragma unroll
+      for (int rr = 0; rr < RS; ++rr) {
+        const int sp = l + rr * T;
+        if (sp < S::NPAIR) {
+          const int i = K.pair_i[sp], j = K.pair_j[sp];
+          float d[3], nrm[3], rel_v[3];
+          for (int k = 0; k < 3; ++k) d[k] = V.pts_pos[i][k] - V.pts_pos[j][k];
+          float dist = sqrtf(nmax(dot3(d, d), 0.0f));
+          float inv = 1.0f / nmax(dist, 1e-6f);
+          for (int k = 0; k < 3; ++k) nrm[k] = d[k] * inv;
+          float pen = K.pair_rsum[sp] - dist;
+          bool active = pen > 0.0f;
+          for (int k = 0; k < 3; ++k) rel_v[k] = V.u.c.pts_vel[i][k] - V.u.c.pts_vel[j][k];
+          float v_n = dot3(rel_v, nrm);
+          float f_mag = nmax(K.k_self * nmin(pen, 0.1f) - K.d_ns * v_n, 0.0f);
+          f_mag = active ? f_mag : 0.0f;
+          for (int k = 0; k < 3; ++k) nfv[rr][k] = nrm[k] * f_mag;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RS; ++rr) {
+        const int sp = l + rr * T;
+        if (sp < S::NPAIR)
+          for (int k = 0; k < 3; ++k) V.u.c.nf[sp][k] = nfv[rr][k];
+      }
+    }
+    __syncwarp(mask);
+    for (int p = l; p < NP; p += T) {
+      float f0 = V.forces[p][0], f1 = V.forces[p][1], f2 = V.forces[p][2];
+      for (int m = K.pt_pair_start[p]; m < K.pt_pair_start[p + 1]; ++m) {
+        const int code = K.pt_pair[m];
+        const float* nf = V.u.c.nf[code >> 1];
+        if (code & 1) {
+          f0 = f0 - nf[0]; f1 = f1 - nf[1]; f2 = f2 - nf[2];
+        } else {
+          f0 = f0 + nf[0]; f1 = f1 + nf[1]; f2 = f2 + nf[2];
+        }
+      }
+      V.forces[p][0] = f0; V.forces[p][1] = f1; V.forces[p][2] = f2;
+    }
+    __syncwarp(mask);
+
+    // per body lane: the contact wrench (its points in ascending order),
+    // world inertia, gravity wrench and the bias-acceleration increment
+    for (int b = l; b < NB; b += T) {
+      float ea[3] = {0.0f, 0.0f, 0.0f}, el[3] = {0.0f, 0.0f, 0.0f};
+      for (int m = K.body_pt_start[b]; m < K.body_pt_start[b + 1]; ++m) {
+        const int p = K.body_pts[m];
+        float rel[3], c[3];
+        for (int k = 0; k < 3; ++k) rel[k] = V.pts_pos[p][k] - pos[k];
+        cross3(rel, V.forces[p], c);
+        for (int k = 0; k < 3; ++k) {
+          ea[k] = ea[k] + c[k];
+          el[k] = el[k] + V.forces[p][k];
+        }
+      }
+      const float m_b = (b == 0) ? K.mass[0] * mass_scale : K.mass[b];
+      const float* qb = V.quats[b];
+      float qx = qb[0], qy = qb[1], qz = qb[2], qw = qb[3];
+      float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+      float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+      float wx = qw * qx, wy = qw * qy, wz = qw * qz;
+      float r[3][3] = {
+          {1.0f - 2.0f * (yy + zz), 2.0f * (xy - wz), 2.0f * (xz + wy)},
+          {2.0f * (xy + wz), 1.0f - 2.0f * (xx + zz), 2.0f * (yz - wx)},
+          {2.0f * (xz - wy), 2.0f * (yz + wx), 1.0f - 2.0f * (xx + yy)}};
+      float cl[3], v[3], cr[3];
+      for (int k = 0; k < 3; ++k) cl[k] = (b == 0) ? K.com[0][k] + com_offset[k] : K.com[b][k];
+      qapply(qb, cl, v);
+      for (int k = 0; k < 3; ++k) cr[k] = V.pos_rel[b][k] + v[k];
+      float bm[3][3], iw[3][3];
+      for (int a = 0; a < 3; ++a)
+        for (int c = 0; c < 3; ++c)
+          bm[a][c] = r[a][0] * K.inertia[b][0][c] + r[a][1] * K.inertia[b][1][c] +
+                     r[a][2] * K.inertia[b][2][c];
+      for (int a = 0; a < 3; ++a)
+        for (int c = 0; c < 3; ++c)
+          iw[a][c] = bm[a][0] * r[c][0] + bm[a][1] * r[c][1] + bm[a][2] * r[c][2];
+      const float c2 = dot3(cr, cr);
+      for (int a = 0; a < 3; ++a)
+        for (int c = 0; c < 3; ++c)
+          V.u.d.io[b][3 * a + c] = iw[a][c] + m_b * ((a == c ? c2 : 0.0f) - cr[a] * cr[c]);
+      for (int k = 0; k < 3; ++k) V.u.d.h[b][k] = cr[k] * m_b;
+      float gz = (b == 0) ? m_b * K.grav * K.gscale : K.grav_z[b];
+      float gl[3] = {0.0f, 0.0f, gz};
+      float c[3];
+      cross3(cr, gl, c);
+      for (int k = 0; k < 3; ++k) {
+        V.u.d.e_ang[b][k] = c[k] + ea[k];
+        V.u.d.e_lin[b][k] = gl[k] + el[k];
+      }
+      if (b == 0) {
+        for (int k = 0; k < 6; ++k) V.u.d.bias[0][k] = 0.0f;
+      } else {
+        const float qdi = qd[b - 1];
+        float sqd[6], ca[3], c1[3], c2v[3];
+        for (int k = 0; k < 6; ++k) sqd[k] = V.sub[b][k] * qdi;
+        cross3(&V.tw[b][0], &sqd[0], ca);
+        cross3(&V.tw[b][0], &sqd[3], c1);
+        cross3(&V.tw[b][3], &sqd[0], c2v);
+        for (int k = 0; k < 3; ++k) {
+          V.u.d.bias[b][k] = ca[k];
+          V.u.d.bias[b][3 + k] = c1[k] + c2v[k];
+        }
+      }
+    }
+    __syncwarp(mask);
+    // bias accelerations down the tree: one lane per component walks the
+    // bodies in index order (each parent before its children, as in fk);
+    // the value just written is kept in a register for its first child
+    for (int k = l; k < 6; k += T) {
+      float last = 0.0f;
+      int last_i = -1;
+      for (int i = 1; i < NB; ++i) {
+        const int p = K.parent[i];
+        const float v = (p == last_i ? last : V.u.d.bias[p][k]) + V.u.d.bias[i][k];
+        V.u.d.bias[i][k] = v;
+        last = v;
+        last_i = i;
+      }
+    }
+    __syncwarp(mask);
+
+    // body forces, per body lane
+    for (int b = l; b < NB; b += T) {
+      const float m_b = (b == 0) ? K.mass[0] * mass_scale : K.mass[b];
+      const float* w = &V.tw[b][0];
+      const float* v = &V.tw[b][3];
+      const float* ba_w = &V.u.d.bias[b][0];
+      const float* ba_v = &V.u.d.bias[b][3];
+      const float* hb = V.u.d.h[b];
+      float t0[3], t1[3], l_mom[3], p_mom[3], ia_ang[3], ia_lin[3], c1[3], c2[3];
+      m3vec9(V.u.d.io[b], w, t0);
+      cross3(hb, v, t1);
+      for (int k = 0; k < 3; ++k) l_mom[k] = t0[k] + t1[k];
+      cross3(w, hb, t1);
+      for (int k = 0; k < 3; ++k) p_mom[k] = v[k] * m_b + t1[k];
+      m3vec9(V.u.d.io[b], ba_w, t0);
+      cross3(hb, ba_v, t1);
+      for (int k = 0; k < 3; ++k) ia_ang[k] = t0[k] + t1[k];
+      cross3(ba_w, hb, t1);
+      for (int k = 0; k < 3; ++k) ia_lin[k] = ba_v[k] * m_b + t1[k];
+      cross3(w, l_mom, c1);
+      cross3(v, p_mom, c2);
+      for (int k = 0; k < 3; ++k) V.u.d.f_acc[b][k] = (ia_ang[k] + (c1[k] + c2[k])) - V.u.d.e_ang[b][k];
+      cross3(w, p_mom, c1);
+      for (int k = 0; k < 3; ++k) V.u.d.f_acc[b][3 + k] = (ia_lin[k] + c1[k]) - V.u.d.e_lin[b][k];
+    }
+    __syncwarp(mask);
+
+    // the RNEA sums to the root and the CRBA composite sums, one lane per
+    // component (6 of f_acc, 3 of h, 9 of io), each in the serial order of
+    // the bodies; the entry written last stays in a register for the next
+    // step that reads it. Every lane folds the root's composite mass.
+    float cm0 = K.mass[0] * mass_scale;
+    {
+      constexpr int NCH = 18, RND = (NCH + T - 1) / T;
+      float* col[RND];
+      int stride[RND], last_i[RND];
+      float last[RND];
+#pragma unroll
+      for (int rr = 0; rr < RND; ++rr) {
+        const int c = l + rr * T;
+        col[rr] = c < 6 ? &V.u.d.f_acc[0][c] : c < 9 ? &V.u.d.h[0][c - 6] : &V.u.d.io[0][c < NCH ? c - 9 : 0];
+        stride[rr] = c < 6 ? 7 : c < 9 ? 3 : 9;
+        last_i[rr] = -1;
+        last[rr] = 0.0f;
+      }
+      for (int i = NB - 1; i > 0; --i) {
+        const int p = K.parent[i];
+        if (p == 0) cm0 = cm0 + K.cm_sub[i];
+#pragma unroll
+        for (int rr = 0; rr < RND; ++rr) {
+          if (l + rr * T < NCH) {
+            float* cc = col[rr];
+            const float vi = i == last_i[rr] ? last[rr] : cc[i * stride[rr]];
+            const float vp = p == last_i[rr] ? last[rr] : cc[p * stride[rr]];
+            const float v = vp + vi;
+            cc[p * stride[rr]] = v;
+            last[rr] = v;
+            last_i[rr] = p;
+          }
+        }
+      }
+    }
+    __syncwarp(mask);
+
+    // right-hand side and the composite-inertia columns, per dof lane
+    for (int k = l; k < 6; k += T) V.yacc[k] = -V.u.d.f_acc[0][k];
+    for (int j = l; j < ND; j += T) {
+      const int b = j + 1;
+      float sacc = 0.0f;
+      for (int k = 0; k < 6; ++k) sacc = sacc + V.sub[b][k] * V.u.d.f_acc[b][k];
+      V.yacc[6 + j] = V.tau[j] - sacc;
+      const float* sw = &V.sub[b][0];
+      const float* sv = &V.sub[b][3];
+      const float* hb = V.u.d.h[b];
+      float t0[3], t1[3];
+      m3vec9(V.u.d.io[b], sw, t0);
+      cross3(hb, sv, t1);
+      for (int k = 0; k < 3; ++k) V.u.d.f_crb[j][k] = t0[k] + t1[k];
+      cross3(sw, hb, t1);
+      for (int k = 0; k < 3; ++k) V.u.d.f_crb[j][3 + k] = sv[k] * K.cm_sub[b] + t1[k];
+    }
+    __syncwarp(mask);
+
+    // The lower triangle of M + ridge, and its Cholesky factorisation with
+    // the forward substitution folded in. Lane l holds rows i = l + r T in
+    // registers (row[r][k] = L(i, k)) and reads another row's column entry
+    // with a shuffle. At column j every lane takes d and 1/d from the
+    // column's diagonal, scales its own entry (raw times 1/d, as the serial
+    // loop does) and updates L(i, k) for j < k <= i with the other rows'
+    // scaled entries, which they share by shuffle: each entry sees
+    // the same subtractions, of the same products, in the same order as in
+    // the serial loops. The factor goes to Ls for the back substitution.
+    {
+      constexpr int RPL = (N6 + T - 1) / T;
+      float row[RPL][N6], yacc[RPL];
+      // each entry as in the serial fill, by selects (every lane runs every
+      // row kind's code for its own row, clamped, and keeps its own kind's)
+      const float* ch0 = V.u.d.h[0];
+#pragma unroll
+      for (int r = 0; r < RPL; ++r) {
+        const int i = l + r * T;
+        const int i3 = i < 3 ? i : 2, ii = i < 3 ? 0 : i < 6 ? i - 3 : 2;
+        const int jr = i < 6 ? 0 : i < N6 ? i - 6 : ND - 1;  // this row's dof
+        float fc[6];
+        for (int k = 0; k < 6; ++k) fc[k] = V.u.d.f_crb[jr][k];
+        const unsigned anc = (unsigned)K.anc_mask[jr];
+#pragma unroll
+        for (int j = 0; j < N6; ++j) {
+          float v;
+          if (j < 3) {
+            const float nh = j == 0 ? (ii == 0 ? -0.0f : ii == 1 ? -ch0[2] : ch0[1])
+                           : j == 1 ? (ii == 0 ? ch0[2] : ii == 1 ? -0.0f : -ch0[0])
+                                    : (ii == 0 ? -ch0[1] : ii == 1 ? ch0[0] : -0.0f);
+            v = i < 3 ? V.u.d.io[0][3 * i3 + j] : i < 6 ? nh : fc[j];
+          } else if (j < 6) {
+            v = i < 6 ? (ii == j - 3 ? cm0 : 0.0f) + 0.0f : fc[j];
+          } else {
+            const int jj = j - 6;
+            float dot = 0.0f;
+            for (int k = 0; k < 6; ++k) dot = dot + fc[k] * V.sub[jj + 1][k];
+            float g = ((anc >> jj) & 1u) ? dot : 0.0f;
+            const float gd = (g + K.armature[jr]) + dt * V.damp[jr];
+            v = jr == jj ? gd : g;
+          }
+          if (i == j) v = v + 1e-6f;
+          row[r][j] = (i < N6 && j <= i) ? v : 0.0f;
+        }
+        yacc[r] = i < N6 ? V.yacc[i] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < N6; ++j) {
+        const float d = sqrtf(nmax(__shfl_sync(mask, row[j / T][j], j % T, T), 1e-12f));
+        const float inv_d = 1.0f / d;
+        const float yj = __shfl_sync(mask, yacc[j / T], j % T, T) / d;
+        float lij[RPL];
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) lij[r] = row[r][j] * inv_d;
+        // L(k, j) is lane k's own scaled entry. Entries above the diagonal
+        // (k > i) are updated too but never read.
+#pragma unroll
+        for (int k = j + 1; k < N6; ++k) {
+          const float lkj = __shfl_sync(mask, lij[k / T], k % T, T);
+#pragma unroll
+          for (int r = 0; r < RPL; ++r) row[r][k] = row[r][k] - lij[r] * lkj;
+        }
+#pragma unroll
+        for (int r = 0; r < RPL; ++r) {
+          const int i = l + r * T;
+          if (i == j) {
+            TLS(j, j) = d;
+            V.y[j] = yj;
+          } else if (i > j && i < N6) {
+            TLS(i, j) = lij[r];
+            yacc[r] = yacc[r] - lij[r] * yj;
+          }
+        }
+      }
+    }
+    __syncwarp(mask);
+    // back substitution on one lane
+    if (l == 0) {
+      float x[N6];
+#pragma unroll
+      for (int i = N6 - 1; i >= 0; --i) {
+        float acc = V.y[i];
+#pragma unroll
+        for (int j = i + 1; j < N6; ++j) acc = acc - TLS(j, i) * x[j];
+        x[i] = acc / TLS(i, i);
+      }
+#pragma unroll
+      for (int i = 0; i < N6; ++i) V.x[i] = x[i];
+    }
+    __syncwarp(mask);
+
+    // semi-implicit Euler: the base on lane 0, the joints per dof lane
+    if (l == 0) {
+      const float* x = V.x;
+      float angn[3], linn[3], lin_acc[3], c[3];
+      for (int k = 0; k < 3; ++k) angn[k] = clipf(ang[k] + x[k] * dt, -100.0f, 100.0f);
+      cross3(ang, lin, c);
+      for (int k = 0; k < 3; ++k) lin_acc[k] = x[3 + k] + c[k];
+      for (int k = 0; k < 3; ++k) linn[k] = clipf(lin[k] + lin_acc[k] * dt, -100.0f, 100.0f);
+      for (int k = 0; k < 3; ++k) pos[k] = pos[k] + linn[k] * dt;
+      float angle = sqrtf(nmax(dot3(angn, angn), 0.0f));
+      float inv = 1.0f / nmax(angle, 1e-9f);
+      float axis[3] = {angn[0] * inv, angn[1] * inv, angn[2] * inv};
+      float dq[4], qn4[4];
+      q_from_angle_axis(angle * dt, axis, dq);
+      qmul(dq, quat, qn4);
+      float qn = sqrtf(nmax(qn4[0] * qn4[0] + qn4[1] * qn4[1] + qn4[2] * qn4[2] +
+                                qn4[3] * qn4[3],
+                            0.0f));
+      float qs = 1.0f / nmax(qn, 1e-9f);
+      for (int k = 0; k < 4; ++k) quat[k] = qn4[k] * qs;
+      for (int k = 0; k < 3; ++k) { ang[k] = angn[k]; lin[k] = linn[k]; }
+    }
+    for (int i = l; i < ND; i += T) {
+      qd[i] = clipf(qd[i] + V.x[6 + i] * dt, -100.0f, 100.0f);
+      q[i] = q[i] + qd[i] * dt;
+    }
+
+    // feet accumulators, per foot lane (pre-step kinematics, final forces)
+    for (int g = l; g < NF; g += T) {
+      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+      for (int m = 0; m < cnt; ++m) {
+        const int p = K.feet_pts[p0 + m];
+        fx = fx + V.forces[p][0];
+        fy = fy + V.forces[p][1];
+        fz = fz + V.forces[p][2];
+      }
+      V.force_sum[g] = V.force_sum[g] + sqrtf(fx * fx + fy * fy + fz * fz);
+      const int b = K.feet_body[g];
+      float c[3];
+      cross3(&V.tw[b][0], V.pos_rel[b], c);
+      for (int k = 0; k < 3; ++k) {
+        V.vxyz[g][k] = V.vxyz[g][k] + fabsf(V.tw[b][3 + k] + c[k]);
+        V.vrpy[g][k] = V.vrpy[g][k] + fabsf(V.tw[b][k]);
+      }
+    }
+    __syncwarp(mask);
+  }
+
+  // final-state FK of the post bodies
+  team_fk<S, T>(K, V, quat, ang, lin, q, qd, l, mask);
+
+  // ---- post-physics stage (LanePost.run): the env's scalars on lane 0 ----
+  const float* const cmd = V.in + K.in_off[IN_COMMANDS];
+  const float* const lla = V.in + K.in_off[IN_LAST_LAST_ACTIONS];
+  const float* const last_qd = V.in + K.in_off[IN_LAST_QD];
+  TeamPost<S>& P = V.post;
+  if (l == 0) {
+    const float down[3] = {0.0f, 0.0f, -1.0f};
+    qrotinv(quat, lin, P.blv);
+    qrotinv(quat, ang, P.bav);
+    qrotinv(quat, down, P.pg);
+    if (K.torso_slot >= 0) {
+      float fq[4];
+      qmul(V.quats[K.post_body[K.torso_slot]], K.torso_qoff, fq);
+      qrotinv(fq, down, P.torso_pg);
+    } else {
+      for (int k = 0; k < 3; ++k) P.torso_pg[k] = P.pg[k];
+    }
+    for (int f = 0; f < NF; ++f) {
+      const int b = K.post_body[K.feet_slot[f]];
+      float v[3];
+      qapply(V.quats[b], K.feet_offset[f], v);
+      P.feet_height[f] = pos[2] + (V.pos_rel[b][2] + 0.0f) + v[2];
+    }
+    for (int g = 0; g < NF; ++g) {
+      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+      for (int k = 0; k < 3; ++k) {
+        float acc = 0.0f;
+        for (int m = 0; m < cnt; ++m) acc = acc + V.forces[K.feet_pts[p0 + m]][k];
+        P.feet_force[g][k] = acc;
+      }
+    }
+    const float* fc_last = V.in + K.in_off[IN_FEET_CONTACT_LAST];
+    const float* fat_in = V.in + K.in_off[IN_FEET_AIR_TIME];
+    const float* flt_in = V.in + K.in_off[IN_FEET_LAND_TIME];
+    for (int f = 0; f < NF; ++f) {
+      const bool fc = P.feet_force[f][2] > 1.0f;
+      const bool filt = fc | (fc_last[f] > 0.5f);
+      P.feet_contact[f] = fc;
+      P.contact_filt[f] = filt;
+      P.first_contact[f] = b2f((fat_in[f] > 0.0f) & filt);
+      P.fat[f] = fat_in[f] + K.dt_policy;
+      P.flt[f] = (flt_in[f] + K.dt_policy) * b2f(fc);
+    }
+    bool term = false;
+    for (int g = 0; g < K.n_term; ++g) {
+      float gf[3];
+      for (int k = 0; k < 3; ++k) {
+        float acc = 0.0f;
+        for (int m = 0; m < K.term_count[g]; ++m) acc = acc + V.forces[K.term_pts[K.term_start[g] + m]][k];
+        gf[k] = acc;
+      }
+      term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
+    }
+    P.term = term;
+    P.tilt = fabsf(P.pg[2]) < 0.33f;
+    bool fin = isfinite((pos[0] + pos[1] + pos[2]) + (quat[0] + quat[1] + quat[2] + quat[3]));
+    for (int i = 0; i < ND; ++i) fin = fin & isfinite(q[i]) & isfinite(qd[i]);
+    P.fin = fin;
+    P.bho = clipf(pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
+    P.cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
+  }
+  __syncwarp(mask);
+
+  // ---- outputs, staged per env, then stored by the block per component row ----
+  float* const ob = V.u.outb;
+  auto put = [&](int group, int k, float v) { ob[K.out_off[group] + k] = v; };
+  for (int r = l; r < S::NR; r += T)
+    put(OUT_REW_TERMS, r, team_reward<S>(r, K, V, actions, last_actions, lla, q, qd, last_qd, cmd));
+  for (int k = l; k < 3; k += T) {
+    put(OUT_POS, k, pos[k]); put(OUT_LIN, k, lin[k]); put(OUT_ANG, k, ang[k]);
+    put(OUT_BLV, k, P.blv[k]); put(OUT_BAV, k, P.bav[k]); put(OUT_PG, k, P.pg[k]);
+  }
+  for (int k = l; k < 4; k += T) put(OUT_QUAT, k, quat[k]);
+  for (int i = l; i < ND; i += T) { put(OUT_Q, i, q[i]); put(OUT_QD, i, qd[i]); put(OUT_TAU, i, V.taus[i]); }
+  for (int c = l; c < 3 * NP; c += T) {
+    put(OUT_ANCHOR, c, anchor[c]);
+    put(OUT_POINT_FORCE, c, V.forces[c / 3][c % 3]);
+  }
+  for (int f = l; f < NF; f += T) {
+    put(OUT_FORCE_SUM, f, V.force_sum[f]);
+    for (int k = 0; k < 3; ++k) {
+      put(OUT_VXYZ_SUM, 3 * f + k, V.vxyz[f][k]);
+      put(OUT_VRPY_SUM, 3 * f + k, V.vrpy[f][k]);
+    }
+    put(OUT_FEET_CONTACT, f, b2f(P.feet_contact[f]));
+    put(OUT_CONTACT_FILT, f, b2f(P.contact_filt[f]));
+    put(OUT_FIRST_CONTACT, f, P.first_contact[f]);
+    put(OUT_FEET_AIR_TIME, f, P.fat[f]);
+    put(OUT_FEET_LAND_TIME, f, P.flt[f]);
+    put(OUT_FEET_HEIGHT, f, P.feet_height[f]);
+  }
+  for (int c = l; c < 4 * S::NPOST; c += T) put(OUT_POST_QUAT, c, V.quats[K.post_body[c / 4]][c % 4]);
+  for (int c = l; c < 3 * S::NPOST; c += T) put(OUT_POST_REL, c, V.pos_rel[K.post_body[c / 3]][c % 3] + 0.0f);
+  if (l == 0) {
+    put(OUT_TERM_CONTACT, 0, b2f(P.term));
+    put(OUT_TILT, 0, b2f(P.tilt));
+    put(OUT_BAD, 0, b2f(!P.fin));
+    put(OUT_BHO, 0, P.bho);
+  }
+#undef TLS
+  __syncthreads();
+  for (int idx = tid; idx < S::NOUT * E; idx += NT) {
+    const int c = idx / E, j = idx % E;
+    if (e0 + j < n) out[(size_t)c * n + e0 + j] = envs[j].u.outb[c];
+  }
+}
+
 }  // namespace k1
+
+// The host side: the C interface and the launches. The host-compiled copy
+// of the kernels (csrc/host/k1_host.cpp) defines K1_KERNELS_ONLY and brings
+// its own.
+#ifndef K1_KERNELS_ONLY
 
 extern "C" {
 
@@ -887,16 +1772,75 @@ int k1_set_constants(const void* host, int nbytes, void* stream) {
   cudaError_t err = cudaMemcpyToSymbolAsync(k1::c_model, host, nbytes, 0,
                                             cudaMemcpyHostToDevice, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyToSymbolAsync(k1::g_model, host, nbytes, 0, cudaMemcpyHostToDevice,
+                                (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   // the host struct may be reused or freed by the caller right after
   return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }
 
-// in: (C_in, n) float32, out: (C_out, n) float32, both contiguous on the device.
+}  // extern "C"
+
+namespace k1 {
+
+struct TeamSetup {
+  cudaError_t err;
+  const ModelConst<Sz>* model;  // device address of g_model
+};
+
+// Done once: allow the dynamic shared memory above 48 KB, find the
+// constants' device address.
+template <int T, int E>
+const TeamSetup& team_setup() {
+  static const TeamSetup s = [] {
+    TeamSetup r{cudaSuccess, nullptr};
+    r.err = cudaFuncSetAttribute(decimation_team_kernel<Sz, T, E>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, team_smem_bytes<Sz, E>());
+    if (r.err == cudaSuccess) r.err = cudaGetSymbolAddress((void**)&r.model, g_model);
+    return r;
+  }();
+  return s;
+}
+
+}  // namespace k1
+
+extern "C" {
+
+// in: (C_in, n) float32, out: (C_out, n) float32, both contiguous on the
+// device. The main path's kernel.
 int k1_launch(const float* in, float* out, int n, void* stream) {
+  using namespace k1;
+  if (n <= 0) return (int)cudaSuccess;
+  const TeamSetup& s = team_setup<TEAM_T, TEAM_E>();
+  if (s.err != cudaSuccess) return (int)s.err;
+  decimation_team_kernel<Sz, TEAM_T, TEAM_E>
+      <<<(n + TEAM_E - 1) / TEAM_E, TEAM_T * TEAM_E, team_smem_bytes<Sz, TEAM_E>(), (cudaStream_t)stream>>>(
+          s.model, in, out, n);
+  return (int)cudaGetLastError();
+}
+
+// The one-thread-per-env kernel, kept as the team kernel's bit-for-bit
+// reference (chip_smoke.py phase 3, tests/test_torch_decimation_cuda.py).
+int k1_launch_thread(const float* in, float* out, int n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + k1::THREADS - 1) / k1::THREADS;
   k1::decimation_kernel<k1::Sz><<<blocks, k1::THREADS, 0, (cudaStream_t)stream>>>(in, out, n);
   return (int)cudaGetLastError();
 }
 
+// The team kernel's lanes per env, envs per block, dynamic shared memory per
+// block and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int k1_occupancy(int* threads_per_env, int* envs_per_block, int* smem_bytes, int* blocks_per_sm) {
+  using namespace k1;
+  const TeamSetup& s = team_setup<TEAM_T, TEAM_E>();
+  if (s.err != cudaSuccess) return (int)s.err;
+  *threads_per_env = TEAM_T;
+  *envs_per_block = TEAM_E;
+  *smem_bytes = team_smem_bytes<Sz, TEAM_E>();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, decimation_team_kernel<Sz, TEAM_T, TEAM_E>, TEAM_T * TEAM_E, *smem_bytes);
+}
+
 }  // extern "C"
+
+#endif  // K1_KERNELS_ONLY

@@ -1,0 +1,62 @@
+// K1's kernels (csrc/decimation.cu) compiled for the host CPU with the
+// built-ins of csrc/host/cuda_runtime.h, behind the same C interface
+// (k1_const_size, k1_set_constants, k1_launch, k1_launch_thread), so that
+// csrc/k1_sanitize.cpp runs on it unchanged. The team kernel runs block by
+// block, each GPU thread of a block a std::thread; the one-thread kernel
+// runs env by env on the caller's thread. tests/test_torch_decimation_race.py
+// builds it with -fsanitize=thread:
+//
+//   g++ -std=c++17 -O1 -g -fsanitize=thread -ffp-contract=off -pthread \
+//       -I csrc/host csrc/host/k1_host.cpp csrc/k1_sanitize.cpp -o k1_host
+#define K1_KERNELS_ONLY
+#include "../decimation.cu"
+
+#include <thread>
+#include <vector>
+
+namespace k1 {
+// the dynamic shared memory of the block that runs
+alignas(16) unsigned char k1_smem[team_smem_bytes<Sz, TEAM_E>()];
+}  // namespace k1
+
+extern "C" {
+
+int k1_const_size() { return (int)sizeof(k1::ModelConst<k1::Sz>); }
+
+int k1_set_constants(const void* host, int nbytes, void*) {
+  if (nbytes != k1_const_size()) return cudaErrorInvalidValue;
+  std::memcpy(&k1::c_model, host, nbytes);
+  std::memcpy(&k1::g_model, host, nbytes);
+  return cudaSuccess;
+}
+
+int k1_launch(const float* in, float* out, int n, void*) {
+  using namespace k1;
+  constexpr int NT = TEAM_T * TEAM_E;
+  for (int b = 0; b < (n + TEAM_E - 1) / TEAM_E; ++b) {
+    k1_host::g_block.reset(NT);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < NT; ++t)
+      threads.emplace_back([=] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        blockDim.x = NT;
+        decimation_team_kernel<Sz, TEAM_T, TEAM_E>(&g_model, in, out, n);
+      });
+    for (auto& th : threads) th.join();
+  }
+  return cudaSuccess;
+}
+
+int k1_launch_thread(const float* in, float* out, int n, void*) {
+  using namespace k1;
+  blockDim.x = THREADS;
+  for (int e = 0; e < n; ++e) {
+    blockIdx.x = e / THREADS;
+    threadIdx.x = e % THREADS;
+    decimation_kernel<Sz>(in, out, n);
+  }
+  return cudaSuccess;
+}
+
+}  // extern "C"

@@ -1,0 +1,126 @@
+"""K1's team kernel checked for races and memory errors, on the card or on the CPU.
+
+Both ways run the host program ``csrc/k1_sanitize.cpp``: it reads K1's model
+constants and a packed input (files this script writes for reachable GR1T1
+states, made on the CPU), launches the team kernel and the one-thread
+kernel on the same input, and requires every output bit to agree. No
+PyTorch is in the checked process.
+
+- On the card (default): the program is linked against K1's library
+  (built with line info) and run under compute-sanitizer's memcheck,
+  racecheck (shared-memory hazards), synccheck (barriers and their masks)
+  and initcheck (reads of unwritten device memory).
+- ``--host``: the kernels are compiled for the CPU with g++
+  (``csrc/host/k1_host.cpp``: each GPU thread a std::thread, the barriers
+  and shuffles of ``csrc/host/cuda_runtime.h``) under ThreadSanitizer, which
+  reports every pair of accesses to the same memory, one a write, that no
+  barrier orders. Needs no card.
+
+The default env counts are 64 (eight full blocks) and 61 (a ragged last
+block with a half-used warp). Any error a tool reports, or a differing bit,
+fails the script. Logs go to ``build/k1_sanitize``.
+
+    python -m wiki_grx_gym_tpu_torch.scripts.sanitize_k1 [--host] [--envs 64 61]
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from wiki_grx_gym_tpu_torch import build as kbuild
+from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+OUT_DIR = kbuild.BUILD_DIR.parent / "k1_sanitize"
+HOST_FLAGS = ["-std=c++17", "-O1", "-g", "-fsanitize=thread", "-ffp-contract=off", "-pthread"]
+
+
+def sanitizer() -> str:
+    cuda = Path(kbuild.nvcc()).resolve().parents[1]
+    for cand in (cuda / "bin" / "compute-sanitizer", cuda / "compute-sanitizer" / "compute-sanitizer"):
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("compute-sanitizer")
+    if not found:
+        raise RuntimeError("compute-sanitizer not found beside nvcc or on PATH")
+    return found
+
+
+def build_harness() -> Path:
+    """K1's library with -lineinfo, and the host program linked against it."""
+    lib = kbuild.build("k1_decimation_lineinfo", cuda_step._SOURCE, cuda_step.NVCC_FLAGS + ["-lineinfo"])
+    exe = OUT_DIR / "k1_sanitize"
+    cmd = [kbuild.nvcc(), "-std=c++17", "-O2", "-o", str(exe), str(kbuild.CSRC / "k1_sanitize.cpp"),
+           str(lib), "-Xlinker", f"-rpath,{lib.parent}"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building the sanitizer harness failed:\n{res.stdout}\n{res.stderr}")
+    return exe
+
+
+def build_host(out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
+    """The program with K1's kernels compiled for the CPU under
+    ThreadSanitizer (from the sources in ``csrc``)."""
+    exe = out_dir / "k1_host_tsan"
+    cmd = ["g++", *HOST_FLAGS, "-I", str(csrc / "host"), str(csrc / "host" / "k1_host.cpp"),
+           str(csrc / "k1_sanitize.cpp"), "-o", str(exe)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building K1 for the host failed:\n{res.stdout}\n{res.stderr}")
+    return exe
+
+
+def write_case(n: int, out_dir: Path = OUT_DIR):
+    """(constants file, input file, C_out): the files of
+    ``csrc/k1_sanitize.cpp`` for ``n`` reachable envs, made on the CPU."""
+    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"))
+    const = cuda_step._make_constants(op.deci, op.in_off, op.out_off, op.c_in, op.c_out)
+    const_path, in_path = out_dir / f"constants_{n}.bin", out_dir / f"input_{n}.bin"
+    const_path.write_bytes(bytes(const))
+    in_path.write_bytes(comp.numpy().tobytes())
+    return const_path, in_path, op.c_out
+
+
+def run(cmd, timeout=900):
+    """(return code, output lines) of one checked run."""
+    res = subprocess.run([str(c) for c in cmd], capture_output=True, text=True, timeout=timeout)
+    return res.returncode, (res.stdout + res.stderr).strip().splitlines()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--envs", type=int, nargs="+", default=[64, 61])
+    ap.add_argument("--host", action="store_true", help="ThreadSanitizer on the CPU instead of the card")
+    args = ap.parse_args(argv)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if args.host:
+        exe, checks = build_host(), [("threadsanitizer", [])]
+    else:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip()
+        print("card:", card, flush=True)
+        exe, tool_exe = build_harness(), sanitizer()
+        checks = [(tool, [tool_exe, "--tool", tool, "--error-exitcode", "99"]) for tool in TOOLS]
+    failed = []
+    for n in args.envs:
+        case = write_case(n)
+        for name, prefix in checks:
+            rc, text = run([*prefix, exe, *case[:2], n, case[2]])
+            (OUT_DIR / f"{name}_{n}.log").write_text("\n".join(text) + "\n")
+            summary = [l for l in text if "SUMMARY" in l or "k1_sanitize" in l]
+            print(f"{name} at {n} envs: rc {rc}; " + " | ".join(summary), flush=True)
+            if rc != 0:
+                failed.append(f"{name} at {n} envs")
+                print("\n".join(text[-40:]), flush=True)
+    if failed:
+        raise SystemExit(f"failed: {', '.join(failed)} (logs in {OUT_DIR})")
+    print(f"{', '.join(name for name, _ in checks)}: clean at {args.envs} envs")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,17 @@ the folded post-physics stage (``envs/post_lanes.LanePost``).
 Dispatch is by the device of the tensors it is given:
 
 - CUDA tensors: the inputs are packed component-major into one contiguous
-  ``(C_in, N)`` float32 tensor in the order of :func:`_schema`, the kernel
-  of ``csrc/decimation.cu`` writes ``(C_out, N)``, and the outputs are
-  sliced back out. The kernel is built with ``nvcc`` at first use
-  (:func:`build_library`); a failed build or launch raises.
+  ``(C_in, N)`` float32 tensor in the order of :func:`_schema`, the team
+  kernel of ``csrc/decimation.cu`` (16 lanes an env) writes ``(C_out, N)``,
+  and the outputs are sliced back out. The kernels are built with ``nvcc``
+  at first use (:func:`build_library`); a failed build or launch raises.
+  The model constants include the team kernel's schedule
+  (:func:`team_lists`). :meth:`CudaDecimation.launch_packed` also runs the
+  one-thread-per-env kernel, the team kernel's bit-for-bit reference, for
+  checks and timings only; :func:`team_occupancy` reports the team kernel's
+  shape and occupancy, and :func:`reachable_state`,
+  :func:`decimation_inputs` and :func:`reachable_case` make the inputs
+  those checks run on.
 - CPU tensors: the plain lane program (``ScalarDecimation.run`` +
   ``LanePost.run``) runs instead. :meth:`CudaDecimation.plain` runs that
   program on any device; it is the kernel's reference on the card.
@@ -44,7 +51,7 @@ NVCC_FLAGS = _build.BASE_FLAGS + [
 ]
 
 # the sizes the kernel is instantiated for (csrc/decimation.cu, GR1T1 lower limb)
-SIZES = dict(NB=11, ND=10, NP=29, NF=2, NPAIR=64, NR=24, NPOST=3)
+SIZES = dict(NB=11, ND=10, NP=29, NF=2, NPAIR=64, NR=24, NPOST=3, NIN=186, NOUT=301)
 _MAXG = 8          # termination groups capacity
 
 # reward terms that have a CUDA implementation (ids match csrc/decimation.cu)
@@ -134,10 +141,12 @@ def _load():
             lib.k1_const_size.restype = ctypes.c_int
             lib.k1_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.k1_set_constants.restype = ctypes.c_int
-            lib.k1_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.k1_launch.restype = ctypes.c_int
+            launch = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            for fn in (lib.k1_launch, lib.k1_launch_thread):
+                fn.argtypes = launch
+                fn.restype = ctypes.c_int
+            lib.k1_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.k1_occupancy.restype = ctypes.c_int
             if lib.k1_const_size() != ctypes.sizeof(_ModelConst):
                 raise RuntimeError(
                     f"constant struct size mismatch: kernel {lib.k1_const_size()} "
@@ -175,6 +184,11 @@ class _ModelConst(ctypes.Structure):
         ("decimation", _I), ("use_tangent", _I), ("use_joint_limits", _I),
         ("has_damp", _I),
         ("in_off", _I * len(IN_GROUPS)), ("out_off", _I * len(OUT_GROUPS)),
+        # the team kernel's schedule (team_lists)
+        ("pt_pair_start", _I * (_S["NP"] + 1)), ("pt_pair", _I * (2 * _S["NPAIR"])),
+        ("body_pt_start", _I * (_S["NB"] + 1)), ("body_pts", _I * _S["NP"]),
+        ("n_levels", _I), ("level_start", _I * _S["NB"]), ("level_body", _I * _S["NB"]),
+        ("anc_mask", _I * _S["ND"]),
         # floats: tree + inertia
         ("tree_pos", _F * (_S["NB"] * 3)), ("tree_quat", _F * (_S["NB"] * 4)),
         ("axis_unit", _F * (_S["NB"] * 3)), ("axis", _F * (_S["NB"] * 3)),
@@ -225,6 +239,49 @@ def _composite_masses(parent, mass):
     return cm
 
 
+def team_lists(sub) -> dict:
+    """The team kernel's schedule for a ``ScalarSubstep``, as flat lists
+    (``ModelConst`` fields of ``csrc/decimation.cu``):
+
+    - ``pt_pair_start`` / ``pt_pair``: for each point, the self-collision
+      pairs it is in, in ascending pair order, each as ``2 s + 1`` where the
+      point is pair s's j (its force is subtracted) and ``2 s`` where it is
+      the i (added): the order in which the serial pair loop updates it;
+    - ``body_pt_start`` / ``body_pts``: for each body, its contact points in
+      ascending order (the serial wrench loop's);
+    - ``n_levels`` / ``level_start`` / ``level_body``: the bodies >= 1 by
+      depth in the tree, so that a level's parents are all in earlier ones;
+    - ``anc_mask``: per dof i, bit j set where dof j is an ancestor-or-self
+      of dof i (dof d moves body d + 1)."""
+    npair = len(sub.self_pairs)
+    per_point = [[] for _ in range(sub.np_)]
+    for s, (i, j) in enumerate(sub.self_pairs):
+        per_point[i].append(2 * s)
+        per_point[j].append(2 * s + 1)
+    per_body = [[p for p in range(sub.np_) if sub.point_body[p] == b] for b in range(sub.nb)]
+    depth = [0] * sub.nb
+    for i in range(1, sub.nb):
+        depth[i] = depth[sub.parent[i]] + 1
+    levels = [[i for i in range(1, sub.nb) if depth[i] == d] for d in range(1, max(depth) + 1)]
+    anc = []
+    for i in range(sub.nd):
+        m, b = 0, i + 1
+        while b > 0:
+            m |= 1 << (b - 1)
+            b = sub.parent[b]
+        anc.append(m)
+    starts = lambda groups: [sum(len(g) for g in groups[:k]) for k in range(len(groups) + 1)]
+    flat = lambda groups: [x for g in groups for x in g]
+    out = dict(
+        pt_pair_start=starts(per_point), pt_pair=flat(per_point),
+        body_pt_start=starts(per_body), body_pts=flat(per_body),
+        n_levels=len(levels), level_start=starts(levels), level_body=flat(levels),
+        anc_mask=anc,
+    )
+    assert len(out["pt_pair"]) == 2 * npair
+    return out
+
+
 def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out) -> _ModelConst:
     sub, post = deci.sub, deci.post
     c = sub.contact
@@ -232,6 +289,10 @@ def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out) -> _Mo
     nb, nd, np_ = sub.nb, sub.nd, sub.np_
     # ints
     _fill(k.parent, [max(p, 0) for p in sub.parent])
+    lists = team_lists(sub)
+    k.n_levels = lists.pop("n_levels")
+    for name, values in lists.items():
+        _fill(getattr(k, name), values)
     _fill(k.point_body, sub.point_body)
     _fill(k.pair_i, [i for i, _ in sub.self_pairs])
     _fill(k.pair_j, [j for _, j in sub.self_pairs])
@@ -380,7 +441,8 @@ class CudaDecimation:
         if self.post is None:
             return "the kernel implements the post-fold program only"
         sizes = dict(NB=s.nb, ND=s.nd, NP=s.np_, NF=self.nf, NPAIR=len(s.self_pairs),
-                     NR=len(self.post.reward_names), NPOST=self.npost)
+                     NR=len(self.post.reward_names), NPOST=self.npost, NIN=self.c_in,
+                     NOUT=self.c_out)
         if sizes != SIZES:
             return f"the kernel is instantiated for sizes {SIZES}, this model has {sizes}"
         missing = [n for n in self.post.reward_names if n not in REWARD_IDS]
@@ -431,14 +493,31 @@ class CudaDecimation:
         return comp
 
     def _launch(self, phys, actions, last_actions, motor, delay, rand, last_qd, extra):
+        n = actions.shape[0]
+        comp = self._pack(phys, actions, last_actions, motor, delay, rand, last_qd, extra)
+        out = torch.empty((self.c_out, n), dtype=torch.float32, device=actions.device)
+        self.launch_packed(comp, out)
+        LAUNCHES["k1"] += 1
+        return self._unpack(out, phys, n)
+
+    def launch_packed(self, comp, out, kernel="team"):
+        """One launch on packed buffers, ``comp`` (C_in, N) -> ``out``
+        (C_out, N), both contiguous float32 on the card: the team kernel
+        (``kernel="team"``, the main path's), or the one-thread kernel
+        (``kernel="thread"``), the team kernel's bit-for-bit reference. The main path reaches it
+        through ``__call__`` only, which counts the launch; checks and
+        timings call it directly, uncounted."""
         why = self.kernel_support_error()
         if why is not None:
             raise NotImplementedError(f"K1 on CUDA: {why}")
+        n = comp.shape[1]
+        if (comp.shape != (self.c_in, n) or out.shape != (self.c_out, n)
+                or comp.dtype != torch.float32 or out.dtype != torch.float32
+                or not (comp.is_contiguous() and out.is_contiguous())
+                or comp.device.type != "cuda" or out.device != comp.device):
+            raise ValueError("K1 takes contiguous float32 (C_in, N) and (C_out, N) CUDA buffers")
         lib = _load()
-        n = actions.shape[0]
-        dev = actions.device
-        comp = self._pack(phys, actions, last_actions, motor, delay, rand, last_qd, extra)
-        out = torch.empty((self.c_out, n), dtype=torch.float32, device=dev)
+        dev = comp.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             if self._const is None:
@@ -452,11 +531,14 @@ class CudaDecimation:
                 if err != 0:
                     raise RuntimeError(f"k1_set_constants failed: CUDA error {err}")
                 _CONST_OWNER[0] = self
-            err = lib.k1_launch(comp.data_ptr(), out.data_ptr(), n, stream)
+            if kernel == "thread":
+                err = lib.k1_launch_thread(comp.data_ptr(), out.data_ptr(), n, stream)
+            elif kernel == "team":
+                err = lib.k1_launch(comp.data_ptr(), out.data_ptr(), n, stream)
+            else:
+                raise ValueError(f"unknown K1 kernel {kernel!r}")
         if err != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-        LAUNCHES["k1"] += 1
-        return self._unpack(out, phys, n)
 
     def _unpack(self, flat, phys, n):
         def take(name):
@@ -540,3 +622,66 @@ class CudaDecimation:
             None,
             post_out,
         )
+
+
+def team_occupancy():
+    """The team kernel's lanes per env, envs per block, dynamic shared
+    memory per block in bytes, and resident blocks per SM on the current
+    card."""
+    lib = _load()
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.k1_occupancy(*[ctypes.byref(v) for v in vals])
+    if err != 0:
+        raise RuntimeError(f"k1_occupancy failed: CUDA error {err}")
+    return dict(zip(("threads_per_env", "envs_per_block", "smem_bytes_per_block", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def reachable_state(n, device, steps=8, seed=0):
+    """(env, state): the GR1T1 training env at ``n`` envs, ``steps`` policy
+    steps after ``init_state`` with random actions (the robots land on their
+    feet), everything drawn from ``seed``. The states K1 is checked and timed
+    on."""
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = n
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = env.init_state(gen)
+    for _ in range(steps):
+        state, _ = env.step(state, 0.3 * torch.randn(n, env.num_actions, device=device, generator=gen))
+    return env, state
+
+
+def decimation_inputs(env, state, gen, dtype=None):
+    """(args, kwargs) that ``env.step`` hands K1 from ``state``, on fresh
+    random actions and delays drawn from ``gen``; every float cast to
+    ``dtype`` if given."""
+    n = env.num_envs
+    actions = env.clip_actions(0.3 * torch.randn(n, env.num_actions, device=env.device, generator=gen))
+    delay = 3.0 * torch.rand(n, device=env.device, generator=gen)
+    extra = {
+        "commands": state.commands[:, :3], "last_last_actions": state.last_last_actions,
+        "feet_air_time": state.feet_air_time, "feet_land_time": state.feet_land_time,
+        "feet_contact_last": state.feet_contact_last.to(torch.float32),
+    }
+    c = (lambda x: x.to(dtype)) if dtype is not None else (lambda x: x)
+    phys = state.physics.replace(**{k: c(getattr(state.physics, k)) for k in (
+        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anchor")})
+    rand = state.rand.replace(**{k: c(getattr(state.rand, k)) for k in (
+        "friction", "restitution", "base_mass_scale", "base_com_offset")})
+    args = (phys, c(actions), c(state.last_actions), c(state.motor_strength), c(delay), rand)
+    kw = dict(last_qd=c(state.last_dof_vel), extra={k: c(v) for k, v in extra.items()})
+    return args, kw
+
+
+def reachable_case(n, device):
+    """(decimation op, packed (C_in, n) input, the wrapper's positional
+    arguments, its keyword arguments) on :func:`reachable_state` with fresh
+    random actions and delays (seed 1)."""
+    env, state = reachable_state(n, device)
+    args, kw = decimation_inputs(env, state, torch.Generator(device=device).manual_seed(1))
+    op = env.decimation_op
+    return op, op._pack(*args, kw["last_qd"], kw["extra"]), args, kw

@@ -16,7 +16,10 @@ together after phase 7):
    times and ptxas' register/spill report of each kernel, and the count of
    HGMMA (wgmma) instructions in K2's SASS (``cuobjdump -sass``): 0 fails.
    For K1's team kernel its lanes an env, envs a block, shared memory a
-   block and resident blocks an SM (``k1_occupancy``) are printed.
+   block and resident blocks an SM (``k1_occupancy``) are printed; for
+   K3's ``k3_fused_step`` its registers and spills, its grid barrier (a
+   cooperative launch) and the blocks the card holds at once (fewer than
+   216 fails).
 3. K1 against its plain PyTorch version (the lane program) on the card:
    4096 envs of the GR1T1 training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
@@ -99,7 +102,19 @@ together after phase 7):
    branch of the loss taken out of both, as in 5); then the
    whole-update call must equal the composition of its 200 one-step calls
    bit for bit in p, m, v and the LR. The 200-step distance to the plain
-   version's whole update is printed, not checked.
+   version's whole update is printed, not checked. Every ``update_scan``
+   call of 6a-6c runs through the update's CUDA graph (captured at the
+   first call for each shape and step count, replayed after copying the
+   inputs in), so 6c's bit-for-bit composition also checks that the graph
+   replays the right minibatch, count and LR sequence. (d) K3's fused step
+   (``k3_step``, one cooperative launch: the main path's) against PR 2's
+   two-launch step (``k3_step_ref``: ``k3_norm`` + ``k3_adam``, kept as its
+   reference) on K2's bf16 gradient at full width, bit for bit in p, m, v,
+   g, the LR/metric state slots, the partial sums and the step record (NaN
+   lanes by bit pattern): at the rollout's params (Adam from zero), at the
+   params after 6a's epoch (rows clip, the KL moves the LR down), with a
+   gradient entry and the surrogate sum set to NaN (a NaN row: the NaN-loss
+   path), and with the surrogate sum alone NaN (ok = 0, finite gradient).
 7. The slice: ``OnPolicyRunner.learn(2)`` on the GR1T1 config at 4096 envs
    with ``log_dir`` under ``build/``: finite losses, K3 launched once per
    iteration, K2's chain 200 times per iteration, K1 64 times per iteration
@@ -110,19 +125,32 @@ together after phase 7):
    rest; K1's 0 while K1 launched fails), the device's busy share, and the
    device launches of each of
    K2's and K3's kernels, counted by the profiler (each must be a whole
-   multiple of the iteration's grad steps); the kernels' JSON line takes
-   K2's launches per grad step and the update's launches from these counts.
-8. Times K2 per grad step, K3's optimizer step alone and K3 per update
-   (CUDA events) beside their plain versions and bounds, K2's launches one
-   by one (torch.profiler), a cuBLAS yardstick for K2 (``torch.matmul`` of
-   the same 22 products on bf16 operands, GEMMs only, captured in one CUDA
-   graph and timed by its replays; the port never calls it) and the
-   update's wall time beside 200 x (K2 + K3 step) of kernel time; prints the kernels' JSON line (K1, K2, K3), the card line, and the
-   final ok line.
+   multiple of the iteration's grad steps, and K3 one ``k3_fused_step`` a
+   grad step; a ``k3_norm`` or ``k3_adam`` fails); the host's launch calls
+   inside ``FusedPPOGrad.update_scan`` (one ``cudaGraphLaunch`` an update,
+   beside the input copies) and the captured graph's kernel nodes (all, and
+   the cooperative ones) are counted too. Where the profiler sees no kernel
+   inside the graph, the node count stands for the device launches, and the
+   output says so. The kernels' JSON line takes K2's launches per grad step
+   and the update's launches from these counts.
+8. Times K2 per grad step, K3's fused step alone beside its reference pair
+   (CUDA events, 50 steps each, and again in turns; the fused step must be
+   the faster) and K3 per update (graph replays) beside their plain
+   versions and bounds, K2's launches one by one (torch.profiler), a cuBLAS
+   yardstick for K2 (``torch.matmul`` of the same 22 products on bf16
+   operands, GEMMs only, captured in one CUDA graph and timed by its
+   replays), an Adam yardstick for K3's step (PyTorch's fused Adam with
+   ``clip_grad_norm_(foreach=True)`` on one 436,885-entry f32 vector, one
+   CUDA graph replay: not the same function, it lacks K3's LR rule and bias
+   correction; the port never calls either yardstick), the update graph's
+   capture and instantiation time, and the update's wall time beside 200 x
+   (K2 + K3 step) of kernel time; prints the kernels' JSON line (K1, K2,
+   K3), the card line, and the final ok line.
 """
 
 import copy
 import ctypes
+import gc
 import json
 import math
 import os
@@ -166,7 +194,9 @@ F32_STEP_TOL = 1e-4
 # (the main path's bf16 chain; the f32 chain's SIMT kernels run only in checks)
 KERNEL_NAMES = {"K1": ("decimation_team_kernel",),
                 "K2": ("pack_params", "wg_gemm", "loss_rows", "k2_reduce"),
-                "K3": ("k3_norm", "k3_adam")}
+                "K3": ("k3_fused_step",)}
+K3_REFERENCE_NAMES = ("k3_norm", "k3_adam")   # PR 2's step: never on the main path
+K3_BARRIER = "cooperative launch (cudaLaunchAttributeCooperative, cooperative_groups::this_grid().sync())"
 HGMMA_COUNT = [None]   # HGMMA instructions in K2's SASS (phase 2)
 RTOL, ATOL, ATOL_FORCE = 1e-4, 1e-4, 1e-2
 FORCE_GROUPS = ("force_sum", "point_force")   # contact forces, newtons
@@ -640,6 +670,78 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     return whole
 
 
+def k3_fused_check(fused, state, bufs, mb, s, tag, nan=None):
+    """Phase 6d. K3's fused step (``k3_step``: one cooperative launch, the
+    main path's) against PR 2's two-launch step (``k3_step_ref``: k3_norm +
+    k3_adam, its reference) on K2's gradient of minibatch ``mb`` at the
+    params of ``state`` = (p, m, v, count, lr), as grad step ``s`` of an
+    update: bit for bit in p, m, v, g, the LR/metric state slots, the
+    partial sums and the step record (NaN lanes by bit pattern). ``nan``:
+    "grad" sets one gradient entry and the surrogate sum to NaN (a NaN row:
+    the NaN-loss path), "loss" the surrogate sum alone (ok = 0 with a finite
+    gradient). Returns the count of differing words."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
+    p, m, v, count, lr = state
+    args, keep = fused._k2_context(p, bufs)
+    fused._k2_launch(fused_update._lib("k2"), args, mb, p.device)
+    if nan == "grad":
+        keep["g"][keep["g"].numel() // 2] = float("nan")
+    if nan in ("grad", "loss"):
+        keep["aux"][0] = float("nan")
+    out = {name: fused_update.k3_step_once(fused, p, m, v, keep["g"], keep["aux"], count, lr, s,
+                                           reference=name == "reference")
+           for name in ("fused", "reference")}
+    torch.cuda.synchronize()
+    bits = lambda t: t.reshape(-1).view(torch.int32)
+    f, r = out["fused"], out["reference"]
+    differ = {n: int((bits(f[n]) != bits(r[n])).sum()) for n in f}
+    lr_in, lr_out = float(lr), float(f["state"][((s + 1) & 1) * 8])
+    log(f"[6d] {tag}: fused step vs reference pair at step {s}, bit for bit: "
+        + ", ".join(f"{n} {d}" for n, d in differ.items()) + f" differing words; lr {lr_in:.6e} -> "
+        f"{lr_out:.6e}; ok {float(f['step'][0]):g}; NaN entries in p {int(torch.isnan(f['p']).sum())}; "
+        f"|update| max {float((f['p'] - p).abs().nan_to_num(0.0).max()):.3e}")
+    total = sum(differ.values())
+    if total:
+        fail(f"6d ({tag}): K3's fused step differs from its reference pair in {differ}")
+    return total
+
+
+def adam_yardstick(n, dev):
+    """A yardstick for K3's step that the port never calls: PyTorch's fused
+    Adam (``torch.optim.Adam(fused=True, capturable=True)``) after
+    ``clip_grad_norm_(foreach=True)`` on one ``n``-entry f32 vector,
+    captured once in a CUDA graph and timed by its replays (CUDA events).
+    Not the same function: it lacks K3's loss finalisation, LR rule and
+    bias correction."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    p = torch.nn.Parameter(0.1 * torch.randn(n, generator=gen, device=dev))
+    p.grad = torch.randn(n, generator=gen, device=dev)
+    opt = torch.optim.Adam([p], lr=1e-4, fused=True, capturable=True)
+
+    def step():
+        torch.nn.utils.clip_grad_norm_([p], 1.0, foreach=True)
+        opt.step()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # the optimizer's state is made outside the capture
+        for _ in range(3):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    ms = cuda_ms(graph.replay, reps=50, warmup=3)
+    del graph, opt, p
+    return ms
+
+
 def ppo_phases(runner, rs, batch, dev):
     """Phases 5, 6 and 8's kernel timings: K2 and K3 against their plain
     versions on the phase-4 rollout buffer. Returns the K2 and K3 rows of
@@ -781,6 +883,15 @@ def ppo_phases(runner, rs, batch, dev):
     k2_check(p1, "after one epoch")
     log(f"[K2 vs plain] largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}")
 
+    # 6d: K3's fused step against its reference pair, bit for bit, on K2's
+    # bf16 gradient at full width
+    last = alg.num_mini_batches - 1
+    state1 = (p1, pl[1], pl[2], st0.count + f1.num_mini_batches, pl[3])
+    k3_differ = (k3_fused_check(fused16, args0, bufs16, 0, 0, "at p0")
+                 + k3_fused_check(fused16, state1, bufs16, last, 1, "after one epoch")
+                 + k3_fused_check(fused16, state1, bufs16, 0, 2, "NaN gradient entry and loss", nan="grad")
+                 + k3_fused_check(fused16, state1, bufs16, 0, 3, "NaN loss, finite gradient", nan="loss"))
+
     # 6b: bf16 operands (the main path's type), one epoch at a fixed LR,
     # against the plain version and the plain version's own spread over a
     # change of its row tile (the order of its sums)
@@ -829,30 +940,49 @@ def ppo_phases(runner, rs, batch, dev):
     k2_ms = cuda_ms(k2_launch, reps=50, warmup=3)
     k2_plain_ms = cuda_ms(lambda: fused16.grads_plain(p0, bufs16, 0), reps=3, warmup=1)
     k2_launch_ms = k2_launch_profile(k2_launch)
-    # K3's optimizer step alone, on K2's gradient (copies of the state)
-    b3, _ = fused16._k3_context(p0.clone(), st0.m.clone(), st0.v.clone(), st0.count, st0.learning_rate, keep)
+    # K3's optimizer step alone, on K2's gradient (copies of the state): the
+    # fused step (the main path's) and its reference pair, in the same call
+    p3, m3, v3 = p0.clone(), st0.m.clone(), st0.v.clone()   # the struct points into these
+    b3 = fused16._k3_context(p3, m3, v3, keep)
+    keep["count0"].copy_(st0.count.reshape(1))
+    keep["state"][0] = keep["state"][8] = st0.learning_rate
     k3_calls = [0]
 
-    def k3_launch():
-        err = lib3.k3_step(ctypes.addressof(b3), k3_calls[0] & 1, stream)
-        k3_calls[0] += 1
-        if err:
-            raise RuntimeError(f"K3 step failed: CUDA error {err}")
+    def k3_launcher(step):
+        def launch():
+            fused_update._check(step(ctypes.addressof(b3), k3_calls[0] & 1, stream), "K3 step")
+            k3_calls[0] += 1
+        return launch
 
-    k3_step_ms = cuda_ms(k3_launch, reps=50, warmup=2)
+    fused_step, ref_pair = k3_launcher(lib3.k3_step), k3_launcher(lib3.k3_step_ref)
+    k3_step_ms = cuda_ms(fused_step, reps=50, warmup=2)
+    k3_ref_ms = cuda_ms(ref_pair, reps=50, warmup=2)
+    k3_turns = {"reference": cuda_ms(ref_pair, reps=50, warmup=1), "fused": cuda_ms(fused_step, reps=50, warmup=1)}
+    log(f"[K3 step] fused step {k3_step_ms:.5f} ms, then {k3_turns['fused']:.5f} ms; reference pair "
+        f"{k3_ref_ms:.5f} ms, then {k3_turns['reference']:.5f} ms (CUDA events, 50 steps each)")
+    if not (k3_step_ms < k3_ref_ms and k3_turns["fused"] < k3_turns["reference"]):
+        fail(f"K3's fused step ({k3_step_ms:.5f}, {k3_turns['fused']:.5f} ms) is not faster than its "
+             f"reference pair ({k3_ref_ms:.5f}, {k3_turns['reference']:.5f} ms)")
     library_ms = cublas_yardstick(fused16, dev)
+    adam_ms = adam_yardstick(net.num_params, dev)
     args = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate, bufs16)
+    ctx = fused16.update_graph(dev, bufs16)   # captured by 6c's whole-update call
+    log(f"[K3 graph] {steps}-step update captured in {ctx.capture_ms:.1f} ms, instantiated in "
+        f"{ctx.instantiate_ms:.1f} ms (once per process and shape); kernel nodes {ctx.nodes['kernels']}, "
+        f"cooperative {ctx.nodes['cooperative']}")
+    if ctx.nodes["cooperative"] != steps:
+        fail(f"the update's graph holds {ctx.nodes['cooperative']} cooperative kernel nodes, not {steps}")
     whole = [whole_k]
-    k3_ms = cuda_ms(lambda: fused16.update_scan(*args), reps=2, warmup=0)
+    k3_ms = cuda_ms(lambda: fused16.update_scan(*args), reps=5, warmup=1)
     walls = []
-    for _ in range(2):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fused16.update_scan(*args)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     k3_plain_ms = cuda_ms(lambda: whole.append(fused16.update_scan_plain(*args)), reps=1, warmup=0)
-    del keep, b3
+    del keep, b3, p3, m3, v3
     d = dist(*whole)
     log(f"[K3 vs plain] bf16 whole update, {steps} steps (printed, not checked: correct runs drift apart; "
         f"6c checks it step by step): " + ", ".join(f"{key} {v:.3e}" for key, v in d.items())
@@ -868,18 +998,19 @@ def ppo_phases(runner, rs, batch, dev):
     k3_bytes = (alg.num_mini_batches * nbytes - alg.num_mini_batches * 2 * P * 4) + 6 * 4 * P
     k3_bound_tc = max(k3_ops / BF16_TC_PEAK, k3_bytes / HBM_RATE) * 1e3
     k3_bound_fp32 = max(k3_ops / FP32_PEAK, k3_bytes / HBM_RATE) * 1e3
-    opt_ms = (k3_ms - steps * k2_ms) / steps
     log(f"[K2] {k2_ms:.4f} ms per grad step ({rows} rows, bf16 operands, tensor cores; PR 2's SIMT chain "
         f"2.71-2.73 ms); plain {k2_plain_ms:.3f} ms; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound "
         f"{k2_bound_tc:.4f} ms at the bf16 tensor-core peak ({100 * k2_bound_tc / k2_ms:.1f}% of it reached), "
         f"{k2_bound_fp32:.4f} ms at the FP32 peak; achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s; "
         f"cuBLAS yardstick (torch.matmul, the same {len(fused16.gemm_shapes())} products on bf16 operands, "
         f"GEMMs only, one CUDA graph replay) {library_ms:.4f} ms")
-    log(f"[K3] {k3_ms:.3f} ms per update ({steps} steps); plain {k3_plain_ms:.1f} ms; "
+    log(f"[K3] {k3_ms:.3f} ms per update ({steps} steps, one graph replay); plain {k3_plain_ms:.1f} ms; "
         f"bound {k3_bound_tc:.3f} ms (bf16 tensor cores), "
-        f"{k3_bound_fp32:.3f} ms (FP32); optimizer step {opt_ms:.4f} ms per step (K3 minus 200 x K2), "
-        f"{k3_step_ms:.4f} ms alone, its bytes {opt_bytes / 1e6:.2f} MB = {opt_bytes / HBM_RATE * 1e6:.2f} us "
-        f"at {HBM_RATE / 1e12} TB/s")
+        f"{k3_bound_fp32:.3f} ms (FP32); optimizer step {k3_step_ms:.5f} ms alone (reference pair "
+        f"{k3_ref_ms:.5f} ms), its bytes {opt_bytes / 1e6:.2f} MB = {opt_bytes / HBM_RATE * 1e6:.2f} us at "
+        f"{HBM_RATE / 1e12} TB/s ({100 * opt_bytes / HBM_RATE * 1e3 / k3_step_ms:.1f}% of it reached); Adam "
+        f"yardstick (torch fused Adam + clip_grad_norm_, one CUDA graph replay, not the same function) "
+        f"{adam_ms:.5f} ms")
     dev_ms = steps * (k2_ms + k3_step_ms)
     log(f"[K3] update wall time (host clock to a synchronize) " + ", ".join(f"{w:.2f}" for w in walls)
         + f" ms vs {steps} x (K2 {k2_ms:.4f} + K3 step {k3_step_ms:.4f}) = {dev_ms:.2f} ms of kernel time: "
@@ -904,9 +1035,16 @@ def ppo_phases(runner, rs, batch, dev):
         "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:511",
         "launches": None, "max_abs_err": k3_err["bfloat16"], "max_abs_err_f32": k3_err["float32"],
         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_tc, "bound_by": "operations",
-        "bound_ms_fp32": k3_bound_fp32, "library_ms": None, "optimizer_step_ms": opt_ms,
-        "optimizer_step_alone_ms": k3_step_ms, "optimizer_step_bound_ms": opt_bytes / HBM_RATE * 1e3,
+        "bound_ms_fp32": k3_bound_fp32, "library_ms": None, "optimizer_step_alone_ms": k3_step_ms,
+        "ms_reference_pair": k3_ref_ms, "ms_in_turns": k3_turns,
+        "optimizer_step_bound_ms": opt_bytes / HBM_RATE * 1e3, "adam_yardstick_ms": adam_ms,
+        "adam_yardstick": "torch.optim.Adam(fused=True, capturable=True) + clip_grad_norm_(foreach=True) on "
+                          "one f32 vector of the params' size, one CUDA graph replay; not the same function, "
+                          "not used by the port",
+        "barrier": K3_BARRIER, "fused_vs_reference_differing_words": k3_differ,
         "update_wall_ms": walls, "update_kernel_ms": dev_ms,
+        "graph_capture_ms": ctx.capture_ms, "graph_instantiate_ms": ctx.instantiate_ms,
+        "graph_kernel_nodes": ctx.nodes, "host_launches_per_update": None,
         "kernel_launches_per_update": None,
         "build_s": kbuild.BUILD_INFO["k3_ppo_update"].get("seconds"),
         "ptxas": kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", []),
@@ -983,10 +1121,36 @@ def train_phase(dev):
     iter_ms = 1e3 * sum(h["elapsed_s"] for h in hist) / len(hist)
     # device launches of each kernel of K2's chain and K3's step in this iteration
     counts = {n: sum(e.count for e in of((n,))) for g in ("K2", "K3") for n in KERNEL_NAMES[g]}
+    ref_counts = {n: sum(e.count for e in of((n,))) for n in K3_REFERENCE_NAMES}
+    # the host's launch and copy calls inside the update (FusedPPOGrad.update_scan's range)
+    events = prof.events()
+    ranges = [e for e in events if e.name == "FusedPPOGrad.update_scan" and e.device_type == DeviceType.CPU]
+    calls = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+             and any(k in e.name for k in ("Launch", "Memcpy", "Memset"))]
+    inside = [e.name for e in calls if any(r.time_range.start <= e.time_range.start
+                                           and e.time_range.end <= r.time_range.end for r in ranges)]
+    host = {name: inside.count(name) for name in sorted(set(inside))}
+    graph_launches = host.get("cudaGraphLaunch", 0)
+    nodes = [ctx.nodes for f in runner.alg._fused_cache.values() for ctx in f._graphs.values()]
+    log(f"[train profile] host calls inside {len(ranges)} update(s): {host or 'none seen'}; the update graph's "
+        f"kernel nodes {nodes}")
     profile_out = {"wall_ms": prof_s * 1e3, "device_ms": total_ms, "by_kernel_ms": by,
                    "busy_share_of_unprofiled_iteration": total_ms / iter_ms,
                    "grad_steps": grad_steps, "updates": updates, "kernel_launches": counts,
-                   "k2_kernel_launches_per_grad_step": None, "kernel_launches_per_update": None}
+                   "reference_pair_launches": ref_counts, "host_calls_in_update": host,
+                   "graph_kernel_nodes": nodes, "kernel_launches_from": None,
+                   "k2_kernel_launches_per_grad_step": None, "kernel_launches_per_update": None,
+                   "host_launches_per_update": None}
+    if len(ranges) != 1 or len(nodes) != 1:
+        fail(f"the profiled iteration ran {len(ranges)} update(s) over {len(nodes)} update graph(s), not 1")
+    elif host:
+        profile_out["host_launches_per_update"] = graph_launches
+        if graph_launches != 1:
+            fail(f"the host issued {graph_launches} graph launches in the update, not 1")
+    else:
+        log("[train profile] the profiler recorded no host launch call: host launches per update not measured")
+    if any(ref_counts.values()):
+        fail(f"the main path launched K3's reference pair: {ref_counts}")
     if total_ms > 0:
         log(f"[train profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
             f"{total_ms:.1f} ms in {sum(e.count for e in kern)} launches: "
@@ -1001,9 +1165,20 @@ def train_phase(dev):
         if by["K1"] == 0 and LAUNCHES["k1"] > before["k1"]:
             fail(f"the training profile attributes no device time to {KERNEL_NAMES['K1']} though K1 "
                  f"launched {LAUNCHES['k1'] - before['k1']} times")
-        if updates != 1 or grad_steps == 0 or any(c == 0 or c % grad_steps for c in counts.values()):
+        if k2n + k3n == 0 and grad_steps and len(nodes) == 1:
+            # the profiler sees no kernel inside the graph: its kernel nodes stand for the launches
+            log(f"[train profile] the profiler saw no kernel of K2 or K3 inside the update's graph; the graph's "
+                f"kernel nodes stand for its device launches: {nodes[0]}")
+            k3n = nodes[0]["cooperative"]
+            k2n = nodes[0]["kernels"] - k3n
+            profile_out["kernel_launches_from"] = "graph kernel nodes"
+        else:
+            profile_out["kernel_launches_from"] = "profiler"
+        if updates != 1 or grad_steps == 0 or k3n != grad_steps or k2n == 0 or k2n % grad_steps or (
+                profile_out["kernel_launches_from"] == "profiler"
+                and any(c == 0 or c % grad_steps for c in counts.values())):
             fail(f"the profiled iteration ran {updates} update(s) of {grad_steps} grad steps, "
-                 f"but launched {counts}")
+                 f"but launched {counts} (K2 {k2n}, K3 {k3n})")
         else:
             profile_out["k2_kernel_launches_per_grad_step"] = k2n // grad_steps
             profile_out["kernel_launches_per_update"] = k2n + k3n
@@ -1076,6 +1251,16 @@ def main():
     log(f"[build] K1 team kernel: {k1_team['threads_per_env']} lanes an env, {k1_team['envs_per_block']} "
         f"envs a block, {k1_team['smem_bytes_per_block']} B of shared memory a block, "
         f"{k1_team['blocks_per_sm']} blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    k3_kernels = {name: r for name, r in ptxas_summary(kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", [])).items()
+                  if "k3_" in name}
+    for name, r in k3_kernels.items():
+        log(f"[build] K3 {name}: {r.get('registers')} registers, {r.get('spill_stores')} B spill stores, "
+            f"{r.get('spill_loads')} B spill loads")
+    if not k3_kernels:
+        log("[build] K3: no ptxas report (the library was built before this run)")
+    k3_resident = fused_update.k3_coresident(dev)   # raises below K3_BLOCKS
+    log(f"[build] K3 k3_fused_step: grid barrier by {K3_BARRIER}; {fused_update.K3_BLOCKS} blocks of 256 "
+        f"threads, {k3_resident} co-resident on this card")
 
     # ---- phase 3: K1 against its plain version, 4096 envs ----
     env, state = cuda_step.reachable_state(N_ENVS, dev)
@@ -1259,7 +1444,9 @@ def main():
 
     # ---- phases 5-8: the learner ----
     ppo_rows = ppo_phases(runner, rs, batch, dev)
-    del batch, acc, rs
+    # the checks' runner and its update graphs go before phase 7 measures its peak memory
+    del batch, acc, rs, runner, env
+    gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(dev)
     k2_row, k3_row = ppo_rows
@@ -1267,6 +1454,10 @@ def main():
     k3_row["launches"] = train["launches"]["k3"]
     k2_row["kernel_launches_per_grad_step"] = train["profile"]["k2_kernel_launches_per_grad_step"]
     k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
+    k3_row["kernel_launches_from"] = train["profile"]["kernel_launches_from"]
+    k3_row["host_launches_per_update"] = train["profile"]["host_launches_per_update"]
+    k3_row["kernels_ptxas"] = k3_kernels
+    k3_row["coresident_blocks"] = k3_resident
 
     kernels = [{
         "name": "K1 decimation (GR1T1 lower limb, plane, post fold)",

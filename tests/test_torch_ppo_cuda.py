@@ -10,7 +10,14 @@ f32 output, no epilogue) against the float64 product of the same bf16
 values at every GR1T1 main-path shape and at ragged row counts, and the
 whole update against the composition of its one-step calls, bit for bit,
 and K2's packed bf16 weights (``pack_params``) against their plain version
-``pack_weights``, bit for bit.
+``pack_weights``, bit for bit. K3's fused step (``k3_step``, one cooperative
+launch: the main path's) against PR 2's two-launch step (``k3_step_ref``,
+its reference) bit for bit in p, m, v, g, the LR/metric slots, the partial
+sums and the step record, at GR1T1's size and in the small cases (fixed
+std, std floor, NaN loss). The update's CUDA graph: a second call with new
+tensors at new addresses gives the bits of a fresh ``FusedPPOGrad``'s first
+call on them (the graph re-reads its inputs), and a one-step copy made after
+a whole-update graph exists runs one step of its own.
 
 Needs a CUDA card (the kernels have no CPU mode; on the CPU the plain
 versions are held to the JAX package by test_torch_ppo_grads.py and
@@ -43,7 +50,7 @@ import torch
 from wiki_grx_gym_tpu_torch.build import LAUNCHES
 from wiki_grx_gym_tpu_torch.envs import task_registry
 from wiki_grx_gym_tpu_torch.learn.fused_update import (
-    FusedPPOGrad, _lib, gemm_check, gemm_check_plain, pack_weights)
+    FusedPPOGrad, _lib, gemm_check, gemm_check_plain, k3_step_once, pack_weights)
 from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
 
 pytestmark = pytest.mark.gpu
@@ -61,7 +68,7 @@ def cuda():
 
 
 def make(dev, rows, fixed_std=False, floor=0.0, clipped_vl=True, nan_row=None, seed=0,
-         op=torch.float32, hidden=(64, 32)):
+         op=torch.float32, hidden=(64, 32), A=A):
     """(fused, flat params, buffers) for these hidden widths on ``dev``."""
     _, train_cfg = task_registry.get_cfgs("GR1T1")
     pc = train_cfg.policy
@@ -237,3 +244,93 @@ def test_k2_packed_weights_match_pack_weights(cuda, hidden):
     want = pack_weights(p, fused.net.layout, fused.q_layout, fused.q_total)
     torch.cuda.synchronize()
     assert torch.equal(keep["q"], want)
+
+
+# K3's fused step against its reference pair: GR1T1's size (436,885
+# parameters, 10 actions, bf16 K2 gradient) and the small cases
+K3_STEP_CASES = {
+    "gr1t1": dict(rows=1000, hidden=(512, 256, 128), A=10, op=torch.bfloat16),
+    "fixed_std": dict(rows=200, fixed_std=True),
+    "std_floor": dict(rows=200, floor=0.3),
+    "nan_loss": dict(rows=200, nan_row=5),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_STEP_CASES))
+def test_k3_fused_step_equals_its_reference_pair(cuda, case):
+    fused, p, bufs = make(cuda, **K3_STEP_CASES[case])
+    if case == "gr1t1":
+        assert fused.net.num_params == 436885
+    rng = np.random.RandomState(1)
+    n = p.numel()
+    m = torch.from_numpy((1e-3 * rng.randn(n)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy((1e-6 * rng.rand(n)).astype(np.float32)).to(cuda)
+    count, lr = torch.tensor(5, dtype=torch.int32, device=cuda), torch.tensor(1e-3, device=cuda)
+    args, keep = fused._k2_context(p, bufs)
+    fused._k2_launch(_lib("k2"), args, 0, cuda)
+    for s in (0, 1):
+        got = k3_step_once(fused, p, m, v, keep["g"], keep["aux"], count, lr, s)
+        ref = k3_step_once(fused, p, m, v, keep["g"], keep["aux"], count, lr, s, reference=True)
+        torch.cuda.synchronize()
+        for key in got:
+            same = got[key].view(torch.int32) == ref[key].view(torch.int32)
+            assert bool(same.all()), f"{case} step {s}: {key} differs in {int((~same).sum())} words"
+        nan = case == "nan_loss"
+        assert float(got["step"][0]) == (0.0 if nan else 1.0)
+        assert bool(torch.isnan(got["p"]).all()) == nan and (nan or bool(torch.isfinite(got["p"]).all()))
+        if case == "std_floor":
+            assert float(got["p"][fused.std_off:].min()) >= 0.3
+
+
+@pytest.mark.parametrize("op", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_graph_rereads_its_inputs(cuda, op):
+    """A second update through the same graph, from new tensors at new
+    addresses, gives the bits of a fresh FusedPPOGrad's first update on
+    them."""
+    fused, p, bufs = make(cuda, rows=200, op=op)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    fused.update_scan(p, m, v, torch.tensor(3, dtype=torch.int32, device=cuda), torch.tensor(1e-3, device=cuda),
+                      bufs)
+    _, p2, bufs2 = make(cuda, rows=200, op=op, seed=1)
+    rng = np.random.RandomState(2)
+    m2 = torch.from_numpy((1e-3 * rng.randn(p2.numel())).astype(np.float32)).to(cuda)
+    v2 = torch.from_numpy((1e-6 * rng.rand(p2.numel())).astype(np.float32)).to(cuda)
+    args2 = (p2, m2, v2, torch.tensor(11, dtype=torch.int32, device=cuda), torch.tensor(2e-3, device=cuda), bufs2)
+    before = dict(LAUNCHES)
+    second = fused.update_scan(*args2)
+    steps = fused.num_epochs * fused.num_mini_batches
+    assert LAUNCHES["k2"] == before["k2"] + steps and LAUNCHES["k3"] == before["k3"] + 1
+    assert len(fused._graphs) == 1
+    first = make(cuda, rows=200, op=op)[0].update_scan(*args2)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("p", "m", "v", "lr"), second[:4], first[:4]):
+        assert torch.equal(x, y), name
+    for key in second[4]:
+        assert torch.equal(second[4][key], first[4][key]), key
+    assert not torch.equal(second[0], p2)
+
+
+def test_k3_one_step_copy_after_a_whole_update_graph(cuda):
+    """chip_smoke.py 6c's one-step copies share the whole update's graph
+    cache: a copy made after the 4-step graph exists runs one step of its
+    own (its own graph, one K3 node), equal to a fresh one-step instance's."""
+    import copy
+
+    fused, p, bufs = make(cuda, rows=200, op=torch.bfloat16)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    count, lr = torch.tensor(3, dtype=torch.int32, device=cuda), torch.tensor(1e-3, device=cuda)
+    fused.update_scan(p, m, v, count, lr, bufs)
+    one = copy.copy(fused)
+    one.num_mini_batches, one.num_epochs = 1, 1
+    first = {n: x[:1] for n, x in bufs.items()}
+    before = dict(LAUNCHES)
+    got = one.update_scan(p, m, v, count, lr, first)
+    assert LAUNCHES["k2"] == before["k2"] + 1 and LAUNCHES["k3"] == before["k3"] + 1
+    assert len(fused._graphs) == 2
+    assert sorted(ctx.nodes["cooperative"] for ctx in fused._graphs.values()) == [1, 4]
+    fresh = make(cuda, rows=200, op=torch.bfloat16)[0]
+    fresh.num_mini_batches, fresh.num_epochs = 1, 1
+    want = fresh.update_scan(p, m, v, count, lr, first)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("p", "m", "v", "lr"), got[:4], want[:4]):
+        assert torch.equal(x, y), name

@@ -11,9 +11,6 @@
 #define K1_KERNELS_ONLY
 #include "../decimation.cu"
 
-#include <thread>
-#include <vector>
-
 namespace k1 {
 // the dynamic shared memory of the block that runs
 alignas(16) unsigned char k1_smem[team_smem_bytes<Sz, TEAM_E>()];
@@ -32,19 +29,9 @@ int k1_set_constants(const void* host, int nbytes, void*) {
 
 int k1_launch(const float* in, float* out, int n, void*) {
   using namespace k1;
-  constexpr int NT = TEAM_T * TEAM_E;
-  for (int b = 0; b < (n + TEAM_E - 1) / TEAM_E; ++b) {
-    k1_host::g_block.reset(NT);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < NT; ++t)
-      threads.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = NT;
-        decimation_team_kernel<Sz, TEAM_T, TEAM_E>(&g_model, in, out, n);
-      });
-    for (auto& th : threads) th.join();
-  }
+  // one block at a time: they share k1_smem
+  cuda_host::launch((n + TEAM_E - 1) / TEAM_E, TEAM_T * TEAM_E, 0, false,
+                    [=] { decimation_team_kernel<Sz, TEAM_T, TEAM_E>(&g_model, in, out, n); });
   return cudaSuccess;
 }
 

@@ -67,7 +67,8 @@
 //
 // Host interface (ctypes): k2_args_size(), k2_prepare(K2Args*) (the bf16
 // chain's tensor maps and launch plan, once per set of buffers),
-// k2_release(K2Args*), k2_step(const K2Args*, int mb, cudaStream_t) and
+// k2_release(K2Args*), k2_step(const K2Args*, int mb, cudaStream_t),
+// k2_load() (every kernel loaded, before a graph capture) and
 // k2_gemm_check(kind, a, lda, b, ldb, c, M, N, K, stream) (one tensor-core
 // product, f32 out, no epilogue), each returning a cudaError_t.
 
@@ -1052,6 +1053,24 @@ static int run_tc(const K2Args& a, int mb, cudaStream_t st) {
     }
     k2_reduce<<<pl->red.blocks, RED_THREADS, 0, st>>>(pl->red);
     LAUNCH_CHECK();
+    return 0;
+}
+
+// Loads every kernel of both chains (cudaFuncGetAttributes loads a function
+// that the lazy module loader has not loaded yet), so that none is loaded
+// for the first time while a stream is captured into a CUDA graph.
+extern "C" int k2_load() {
+    const void* fns[] = {
+        (const void*)gemm_kernel<float, EPI_HIDDEN>, (const void*)gemm_kernel<float, EPI_OUT>,
+        (const void*)gemm_kernel<float, EPI_DGRAD>, (const void*)gemm_kernel<float, EPI_PARTIAL>,
+        (const void*)wgrad_reduce, (const void*)loss_rows<float>, (const void*)loss_reduce,
+        (const void*)pack_params, (const void*)wg_gemm<0, 0>, (const void*)wg_gemm<0, 1>,
+        (const void*)wg_gemm<1, 1>, (const void*)loss_rows<bf16>, (const void*)k2_reduce,
+    };
+    for (const void* f : fns) {
+        cudaFuncAttributes attr;
+        if (const cudaError_t e = cudaFuncGetAttributes(&attr, f)) return (int)e;
+    }
     return 0;
 }
 

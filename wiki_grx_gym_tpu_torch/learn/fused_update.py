@@ -11,9 +11,14 @@ Counterpart of ``wiki_grx_gym_tpu/learn/fused_update.py:FusedPPOGrad``:
   each followed by the entropy/std-gradient finalisation, the adaptive-KL
   learning rate, the NaN-loss skip, clip by global norm, Adam with the
   carried count and K3's own bias correction ``1 - exp(c log b)``, and the
-  std floor. CUDA source ``csrc/ppo_update.cu`` (the optimizer step; the
-  gradients come from K2's chain); replaces ``FusedPPOGrad.update_scan``
-  (``pallas_call`` at fused_update.py:708).
+  std floor. CUDA source ``csrc/ppo_update.cu`` (the optimizer step, one
+  cooperative launch ``k3_fused_step`` a grad step; the gradients come from
+  K2's chain); replaces ``FusedPPOGrad.update_scan`` (``pallas_call`` at
+  fused_update.py:708). The update's steps x (K2's chain + K3's step) are
+  captured once into a CUDA graph (``_UpdateGraph``, cached on the
+  ``FusedPPOGrad`` by device, operand type, rows, buffer shapes, step count
+  and every constant the kernels take) and replayed per update: one host
+  launch an update.
 
 Parameters, Adam moments and gradients are flat float32 vectors in the
 layout of ``networks.ActorCritic.layout`` (ravel_pytree leaf order, W stored
@@ -22,22 +27,27 @@ layout of ``networks.ActorCritic.layout`` (ravel_pytree leaf order, W stored
 (actions | log_prob | mu | sigma | values | returns | advantages).
 
 Dispatch is by the device of the parameters: CPU tensors run the plain
-versions (``grads_plain``, ``update_scan_plain``: literal translations of
-the TPU kernel's tile program and optimizer step), CUDA tensors launch the
-kernels (built with nvcc at first use, ``build.build``) or raise. The plain
-versions run on any device; on the card they are the kernels' reference.
+versions (``grads_plain``, ``update_scan_plain`` with its optimizer step
+``_k3_step_plain``: literal translations of the TPU kernel's tile program
+and optimizer step), CUDA tensors launch the kernels (built with nvcc at
+first use, ``build.build``) or raise: a failed capture, a refused
+cooperative launch or too few co-resident blocks raises, nothing falls back
+to launches one by one. The plain versions run on any device; on the card
+they are the kernels' reference.
 
 K2 has two chains. bf16 operands (the main path) run on the tensor cores
 (TMA + wgmma): the wrapper repacks the obs buffers into zero-padded
-TMA-addressable copies once per ``_k2_context`` (``repack_rows``), the
-kernel packs the weights the same way each step (``packed_layout``, plain
-version ``pack_weights``), and ``k2_prepare`` encodes the tensor maps and
-the launch plan once. float32 operands (the exact check) run the SIMT
-chain. ``gemm_check`` runs the tensor-core GEMM alone (f32 out, no
-epilogue), for the sharp per-product checks on the card.
+TMA-addressable copies (``repack_rows``; an update's graph copies each
+update's buffers into its own), the kernel packs the weights the same way
+each step (``packed_layout``, plain version ``pack_weights``), and
+``k2_prepare`` encodes the tensor maps and the launch plan once. float32
+operands (the exact check) run the SIMT chain. ``gemm_check`` runs the
+tensor-core GEMM alone (f32 out, no epilogue), for the sharp per-product
+checks on the card.
 
 ``LAUNCHES["k2"]`` counts K2 gradient chains (one per grad step, in ``grads``
-and inside ``update_scan``), ``LAUNCHES["k3"]`` counts whole updates.
+and inside ``update_scan``: a replay adds its steps), ``LAUNCHES["k3"]``
+counts whole updates (graph replays).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+import time
 from typing import Dict
 
 import torch
@@ -57,7 +68,7 @@ MAX_LAYERS = 8     # per MLP (csrc/ppo_grads.cu MAXL)
 MAX_ACT = 32       # action dims (csrc/ppo_grads.cu MAXA)
 WGRAD_ROWS = 640   # rows per split of K2's weight-gradient reduction
 LOSS_ROWS = 64     # rows per block of K2's loss kernel (csrc/ppo_grads.cu LOSS_THREADS)
-K3_BLOCKS = 216    # blocks of K3's norm and Adam passes over the flat vector
+K3_BLOCKS = 216    # blocks of K3's step over the flat vector (all co-resident)
 
 # K2 and K3 each build into their own library; unlike K1 they may contract
 # into FMA (their plain version on the card is GPU PyTorch, which does)
@@ -158,8 +169,13 @@ def _lib(name: str) -> ctypes.CDLL:
             if name == "k2":
                 for fn in (lib.k2_prepare, lib.k2_release):
                     fn.argtypes, fn.restype = [_P], _I
+                lib.k2_load.argtypes, lib.k2_load.restype = [], _I
                 lib.k2_gemm_check.argtypes = [_I, _P, _L, _P, _L, _P, _I, _I, _I, _P]
                 lib.k2_gemm_check.restype = _I
+            else:
+                lib.k3_step_ref.argtypes, lib.k3_step_ref.restype = [_P, _I, _P], _I
+                lib.k3_coresident.argtypes, lib.k3_coresident.restype = [_P], _I
+                lib.k3_graph_nodes.argtypes, lib.k3_graph_nodes.restype = [_P, _P, _P], _I
             if size() != ctypes.sizeof(struct):
                 raise RuntimeError(f"{name} argument struct: kernel {size()} bytes, "
                                    f"wrapper {ctypes.sizeof(struct)}")
@@ -170,6 +186,61 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+_CORESIDENT: Dict[int, int] = {}
+
+
+def k3_coresident(dev) -> int:
+    """Blocks of ``k3_fused_step`` that can be resident at once on ``dev``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x SMs; 0 where the
+    card refuses cooperative launches). Raises below ``K3_BLOCKS``: the
+    step's grid barrier needs every block resident."""
+    idx = torch.device(dev).index or 0
+    if idx not in _CORESIDENT:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _check(_lib("k3").k3_coresident(ctypes.addressof(n)), "K3 occupancy query")
+        _CORESIDENT[idx] = n.value
+    if _CORESIDENT[idx] < K3_BLOCKS:
+        raise RuntimeError(f"K3's step needs {K3_BLOCKS} co-resident blocks of a cooperative launch; "
+                           f"{torch.cuda.get_device_name(idx)} holds {_CORESIDENT[idx]}")
+    return _CORESIDENT[idx]
+
+
+def k3_step_once(fused, p, m, v, g, aux, count, lr, s=0, reference=False):
+    """One K3 optimizer step alone on the card, for checks and timings (the
+    update runs it inside its graph): the fused step ``k3_step`` or, with
+    ``reference``, its reference pair ``k3_step_ref`` (k3_norm + k3_adam),
+    over copies of p, m, v and of K2's gradient ``g``, with K2's row sums
+    ``aux``, as grad step ``s`` of an update from Adam count ``count`` with
+    the live LR ``lr`` in the slot step s reads, and there running metric
+    sums (vl, surr, kl) of (0.5, -0.25, 0.125), so that a check sees the
+    step add to them. Returns the step's buffers: p, m, v, g, state (both
+    slots), part (the blocks' partial sums), step (ok, surr, vl, kl)."""
+    out = {"p": p.clone(), "m": m.clone(), "v": v.clone(), "g": g.clone(), "aux": aux}
+    b = fused._k3_context(out["p"], out["m"], out["v"], out)
+    out["count0"].copy_(count.reshape(1))
+    slot = (s & 1) * 8
+    out["state"][slot] = lr.reshape(())
+    out["state"][slot + 1: slot + 4] = torch.tensor([0.5, -0.25, 0.125])
+    lib = _lib("k3")
+    step = lib.k3_step_ref if reference else lib.k3_step
+    with torch.cuda.device(p.device):
+        _check(step(ctypes.addressof(b), int(s), torch.cuda.current_stream(p.device).cuda_stream),
+               "K3 reference pair" if reference else "K3 step")
+    return {"p": out["p"], "m": out["m"], "v": out["v"], "g": out["g"], "state": out["state"],
+            "part": out["k3_part"], "step": out["k3_step"]}
+
+
+def graph_kernel_nodes(graph) -> Dict[str, int]:
+    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``): all of them, and the cooperative ones (K3's
+    steps; K2's chain launches none)."""
+    kernels, coop = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_lib("k3").k3_graph_nodes(graph.raw_cuda_graph(), ctypes.addressof(kernels), ctypes.addressof(coop)),
+           "counting the graph's nodes")
+    return {"kernels": kernels.value, "cooperative": coop.value}
 
 
 class _Plan:
@@ -219,13 +290,16 @@ def pack_weights(p, layout, q_layout, q_total):
     return q
 
 
-def repack_rows(x, width: int):
+def repack_rows(x, width: int, dtype=torch.bfloat16, out=None):
     """``(MB, rows, f)`` obs (a strided view into the shuffle buffer) as a
-    contiguous bf16 ``(MB, rows, width)`` buffer, zero beyond column f: the
-    layout TMA reads (16-B aligned rows)."""
+    contiguous ``(MB, rows, width)`` buffer of ``dtype``, zero beyond column
+    f: for bf16 with width a multiple of 8, the layout TMA reads (16-B
+    aligned rows). Written into ``out`` (made so by an earlier call) when
+    given."""
     mb, rows, f = x.shape
-    out = torch.zeros((mb, rows, width), dtype=torch.bfloat16, device=x.device)
-    out[..., :f] = x
+    if out is None:
+        out = torch.zeros((mb, rows, width), dtype=dtype, device=x.device)
+    out[..., :f].copy_(x)
     return out
 
 
@@ -344,6 +418,8 @@ class FusedPPOGrad:
         self.layer_dims = list(zip(self.actor_dims[:-1], self.actor_dims[1:])) + \
             list(zip(self.critic_dims[:-1], self.critic_dims[1:]))
         self.q_layout, self.q_total = packed_layout(self.layer_dims)
+        # the updates' CUDA graphs (update_graph); copies share this dict
+        self._graphs: Dict[tuple, "_UpdateGraph"] = {}
 
     def gemm_shapes(self, rows=None):
         """The tensor-core products of one bf16 grad step, as
@@ -541,46 +617,57 @@ class FusedPPOGrad:
         g, sums = self._raw_grads_plain(p, bufs, mb_index)
         return self._finalize_grads(p, g, sums)
 
+    def _k3_step_plain(self, p, m, v, g, sums, count, lr):
+        """Plain version of K3's optimizer step (``_finalize_step``
+        :579-657; the kernel ``k3_fused_step``), on any device. ``g``: K2's
+        raw flat gradient (the std part without the entropy term); ``sums``:
+        its (surr, vl, kl) row sums; ``count``: the Adam count before this
+        step; ``lr``: the live learning rate (0-d float32). Returns (p', m',
+        v', lr', this step's (vl, surr, kl) means); the inputs are not
+        modified."""
+        B = float(self.rows)
+        b1, b2 = self.adam_b1, self.adam_b2
+        surr_mean, vl_mean, kl_mean = sums[0] / B, sums[1] / B, sums[2] / B
+        std = p[self.std_off:]
+        ent = self._entropy(std)
+        g = g.clone()
+        if not self.fixed_std:
+            g[self.std_off:] += -self.entropy_coef / std
+        loss = surr_mean + self.value_loss_coef * vl_mean - self.entropy_coef * ent
+        if self.adaptive_lr:
+            lr_dn = _jmax(lr / 1.5, self.lr_min)
+            lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
+            lr = torch.where(kl_mean > self.desired_kl * 2.0, lr_dn,
+                             torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0),
+                                         lr_up, lr))
+        okf = torch.where(torch.isfinite(loss), 1.0, 0.0)
+        gsq = 0.0
+        for _, off, shape in self.net.layout:
+            gsq = gsq + torch.sum(torch.square(g[off: off + math.prod(shape)] * okf))
+        gnorm = torch.sqrt(gsq)
+        gscale = okf * torch.where(gnorm < self.max_grad_norm, 1.0, self.max_grad_norm / gnorm)
+        c = (count + 1).to(torch.float32)
+        # K3's bias correction (fused_update.py:624-625), not optax's 1 - b**c
+        bc1 = 1.0 - torch.exp(c * float(math.log(b1)))
+        bc2 = 1.0 - torch.exp(c * float(math.log(b2)))
+        gg = g * gscale
+        m = b1 * m + (1.0 - b1) * gg
+        v = b2 * v + (1.0 - b2) * (gg * gg)
+        p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.adam_eps)
+        if self.std_floor > 0.0:
+            p[self.std_off:] = _jmax(p[self.std_off:], self.std_floor)
+        return p, m, v, lr, torch.stack([vl_mean, surr_mean, kl_mean])
+
     def update_scan_plain(self, p, m, v, count, lr, bufs):
         """Plain version of :meth:`update_scan` (``_update_kernel`` :511 with
         ``_finalize_step`` :579-657), on any device."""
-        p, m, v = p.clone(), m.clone(), v.clone()
         lr = lr.to(torch.float32).clone()
-        B = float(self.rows)
         steps = self.num_epochs * self.num_mini_batches
-        b1, b2 = self.adam_b1, self.adam_b2
         sums = torch.zeros(3, device=p.device)   # vl, surr, kl over steps
         for s in range(steps):
             g, st = self._raw_grads_plain(p, bufs, s % self.num_mini_batches)
-            surr_mean, vl_mean, kl_mean = st[0] / B, st[1] / B, st[2] / B
-            std = p[self.std_off:]
-            ent = self._entropy(std)
-            if not self.fixed_std:
-                g[self.std_off:] += -self.entropy_coef / std
-            loss = surr_mean + self.value_loss_coef * vl_mean - self.entropy_coef * ent
-            if self.adaptive_lr:
-                lr_dn = _jmax(lr / 1.5, self.lr_min)
-                lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
-                lr = torch.where(kl_mean > self.desired_kl * 2.0, lr_dn,
-                                 torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0),
-                                             lr_up, lr))
-            okf = torch.where(torch.isfinite(loss), 1.0, 0.0)
-            gsq = 0.0
-            for _, off, shape in self.net.layout:
-                gsq = gsq + torch.sum(torch.square(g[off: off + math.prod(shape)] * okf))
-            gnorm = torch.sqrt(gsq)
-            gscale = okf * torch.where(gnorm < self.max_grad_norm, 1.0, self.max_grad_norm / gnorm)
-            c = (count + s + 1).to(torch.float32)
-            # K3's bias correction (fused_update.py:624-625), not optax's 1 - b**c
-            bc1 = 1.0 - torch.exp(c * float(math.log(b1)))
-            bc2 = 1.0 - torch.exp(c * float(math.log(b2)))
-            gg = g * gscale
-            m = b1 * m + (1.0 - b1) * gg
-            v = b2 * v + (1.0 - b2) * (gg * gg)
-            p = p - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.adam_eps)
-            if self.std_floor > 0.0:
-                p[self.std_off:] = _jmax(p[self.std_off:], self.std_floor)
-            sums = sums + torch.stack([vl_mean, surr_mean, kl_mean])
+            p, m, v, lr, means = self._k3_step_plain(p, m, v, g, st, count + s, lr)
+            sums = sums + means
         n = float(steps)
         metrics = {"value_loss": sums[0] / n, "surrogate_loss": sums[1] / n,
                    "kl": sums[2] / n, "lr": lr}
@@ -590,9 +677,40 @@ class FusedPPOGrad:
     # kernel path
     # ------------------------------------------------------------------
 
+    def _k2_operands(self, bufs, dev, out=None):
+        """The minibatch buffers as K2 reads them: obs and critic obs copied
+        into contiguous buffers of the operand type (the TPU kernel's
+        ``.astype(op)`` on the data; bf16 rows zero-padded to 16 columns, as
+        TMA reads them), the f32 scalars as given. With ``out`` (the
+        operands of an earlier call) every buffer, the scalars too, is
+        copied into ``out``'s. Checks shapes, types and devices."""
+        mb, rows, A = self.num_mini_batches, self.rows, self.act_dim
+        bf = self.op_dtype == torch.bfloat16
+        ops = {}
+        for name, feat in (("obs", self.obs_dim), ("cobs", self.cobs_dim)):
+            x = bufs[name]
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, params on {dev}")
+            if x.dim() != 3 or tuple(x.shape) != (mb, rows, feat):
+                raise ValueError(f"{name} must be ({mb}, {rows}, {feat}), got {tuple(x.shape)}")
+            ops[name] = repack_rows(x, _round_up(feat, 16) if bf else feat, self.op_dtype,
+                                    None if out is None else out[name])
+        fs = bufs["fscal"]
+        if fs.dtype != torch.float32 or tuple(fs.shape) != (mb, rows, 3 * A + 4) or fs.stride(-1) != 1 \
+                or fs.device != dev:
+            raise ValueError(f"fscal must be float32 ({mb}, {rows}, {3 * A + 4}) on {dev}")
+        ops["fscal"] = fs if out is None else out["fscal"].copy_(fs)
+        return ops
+
     def _k2_context(self, p, bufs):
-        """Check the operands, allocate K2's scratch and fill its argument
-        struct; for bf16 operands also repack the obs buffers for TMA and
+        """K2's argument struct over params ``p`` and the operands of
+        ``bufs`` (:meth:`_k2_operands`). Returns (struct, the tensors it
+        points into)."""
+        return self._k2_args(p, self._k2_operands(bufs, p.device))
+
+    def _k2_args(self, p, ops):
+        """Check the params, allocate K2's scratch and fill its argument
+        struct over ``p`` and the operands ``ops``; for bf16 operands also
         build the launch plan (tensor maps). Returns (struct, the tensors it
         points into)."""
         if p.device.type != "cuda":
@@ -606,31 +724,9 @@ class FusedPPOGrad:
             raise NotImplementedError(
                 f"K2 takes at most {MAX_LAYERS} layers and {MAX_ACT} actions")
         mb, rows = self.num_mini_batches, self.rows
-        keep = {"p": p}
-
-        def operand(name, feat):
-            x = bufs[name]
-            if x.device != dev:
-                raise ValueError(f"{name} is on {x.device}, params on {dev}")
-            if x.dim() != 3 or tuple(x.shape) != (mb, rows, feat):
-                raise ValueError(f"{name} must be ({mb}, {rows}, {feat}), got {tuple(x.shape)}")
-            if bf:   # TMA-addressable: contiguous, rows padded to 16 columns with zeros
-                x = repack_rows(x, _round_up(feat, 16))
-            else:
-                x = x.to(op)   # the TPU kernel's .astype(op) on the data
-                if x.stride(-1) != 1:
-                    x = x.contiguous()
-            keep[name] = x
-            return x
-
-        obs = operand("obs", self.obs_dim)
-        cobs = operand("cobs", self.cobs_dim)
-        fs = bufs["fscal"]
+        keep = dict(ops, p=p)
+        obs, cobs, fs = ops["obs"], ops["cobs"], ops["fscal"]
         A = self.act_dim
-        if fs.dtype != torch.float32 or tuple(fs.shape) != (mb, rows, 3 * A + 4) or fs.stride(-1) != 1 \
-                or fs.device != dev:
-            raise ValueError(f"fscal must be float32 ({mb}, {rows}, {3 * A + 4}) on {dev}")
-        keep["fscal"] = fs
 
         a = _K2Args()
         a.rows, a.act_dim = rows, A
@@ -754,25 +850,16 @@ class FusedPPOGrad:
         self._k2_launch(lib, args, mb_index, p.device)
         return self._finalize_grads(p, keep["g"], keep["aux"][:3])
 
-    def _k3_context(self, p2, m2, v2, count, lr, keep):
-        """K3's argument struct over the update's p, m, v (updated in place)
-        and K2's gradient and row sums in ``keep``. Returns (struct, the
-        LR/metric state: two 8-float slots, step s reads slot s & 1)."""
-        dev = p2.device
-        count0 = count.reshape(1).contiguous()
-        state = torch.zeros(16, dtype=torch.float32, device=dev)
-        state[0] = lr.reshape(()).to(torch.float32)
-        part = torch.empty(K3_BLOCKS, dtype=torch.float32, device=dev)
-        step = torch.empty(4, dtype=torch.float32, device=dev)
-        keep.update(count0=count0, state=state, k3_part=part, k3_step=step)
-
+    def _k3_args(self, ptrs, nblocks: int = K3_BLOCKS):
+        """K3's argument struct: this spec's constants, and the device
+        addresses in ``ptrs`` (p, m, v, g, aux, state, count0, part, step;
+        a field left out stays null)."""
         b = _K3Args()
+        for name, addr in ptrs.items():
+            setattr(b, name, addr)
         b.n, b.std_off = self.net.num_params, self.std_off
-        b.p, b.m, b.v, b.g = p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), keep["g"].data_ptr()
-        b.aux, b.state, b.count0 = keep["aux"].data_ptr(), state.data_ptr(), count0.data_ptr()
-        b.part, b.step = part.data_ptr(), step.data_ptr()
         b.act_dim, b.fixed_std = self.act_dim, int(self.fixed_std)
-        b.adaptive, b.nblocks = int(self.adaptive_lr), K3_BLOCKS
+        b.adaptive, b.nblocks = int(self.adaptive_lr), nblocks
         b.rows_f = float(self.rows)
         b.value_loss_coef, b.entropy_coef = self.value_loss_coef, self.entropy_coef
         b.ent_const = 0.5 + 0.5 * _LOG_2PI
@@ -785,41 +872,149 @@ class FusedPPOGrad:
         b.omb1, b.omb2 = 1.0 - self.adam_b1, 1.0 - self.adam_b2
         b.log_b1, b.log_b2 = math.log(self.adam_b1), math.log(self.adam_b2)
         b.eps, b.std_floor = self.adam_eps, self.std_floor
-        return b, state
+        return b
+
+    def _k3_context(self, p2, m2, v2, keep):
+        """K3's argument struct over the update's p, m, v (updated in place)
+        and K2's gradient and row sums in ``keep``, into which it puts K3's
+        own buffers: ``count0`` (the Adam count at the update's start, int32
+        [1]), ``state`` (the LR/metric state: two 8-float slots, step s reads
+        slot s & 1; the caller fills count0 and state[0] = lr, the rest 0),
+        ``k3_part`` and ``k3_step`` (the step record: ok, surr, vl, kl).
+        Checks that the card holds K3's blocks at once."""
+        dev = p2.device
+        k3_coresident(dev)
+        keep.update(count0=torch.zeros(1, dtype=torch.int32, device=dev),
+                    state=torch.zeros(16, dtype=torch.float32, device=dev),
+                    k3_part=torch.zeros(K3_BLOCKS, dtype=torch.float32, device=dev),
+                    k3_step=torch.zeros(4, dtype=torch.float32, device=dev))
+        return self._k3_args(dict(
+            p=p2.data_ptr(), m=m2.data_ptr(), v=v2.data_ptr(), g=keep["g"].data_ptr(),
+            aux=keep["aux"].data_ptr(), state=keep["state"].data_ptr(), count0=keep["count0"].data_ptr(),
+            part=keep["k3_part"].data_ptr(), step=keep["k3_step"].data_ptr()))
+
+    def _graph_key(self, dev, bufs):
+        """What an update's CUDA graph bakes in: the device, the operand
+        type, rows, minibatches and epochs (the step count), the buffer
+        shapes, and every constant of K2's and K3's argument structs."""
+        dev = torch.device(dev)
+        if dev.index is None:
+            dev = torch.device(dev.type, torch.cuda.current_device())
+        spec = (self.obs_dim, self.cobs_dim, self.act_dim, tuple(self.actor_dims), tuple(self.critic_dims),
+                self.fixed_std, self.init_noise_std, self.std_floor, self.clip_param, self.value_loss_coef,
+                self.entropy_coef, self.use_clipped_value_loss, self.max_grad_norm, self.adam_b1,
+                self.adam_b2, self.adam_eps, self.adaptive_lr, self.desired_kl, self.lr_min, self.lr_max)
+        return (dev, self.op_dtype, self.rows, self.num_mini_batches, self.num_epochs,
+                tuple(tuple(bufs[k].shape) for k in ("obs", "cobs", "fscal")), spec)
+
+    def update_graph(self, dev, bufs):
+        """The update's persistent context and CUDA graph for these buffers
+        (:class:`_UpdateGraph`), made at first use. The cache is one dict
+        that copies of this ``FusedPPOGrad`` share, keyed by
+        :meth:`_graph_key`."""
+        key = self._graph_key(dev, bufs)
+        if key not in self._graphs:
+            self._graphs[key] = _UpdateGraph(self, dev, bufs)
+        return self._graphs[key]
 
     def update_scan(self, p, m, v, count, lr, bufs):
         """The whole PPO update. ``p``, ``m``, ``v``: flat float32 params and
         Adam moments; ``count``: the Adam step count (int32 0-d tensor);
         ``lr``: the live learning rate (float32 0-d tensor). Returns
         (p', m', v', lr_final, metric means); the inputs are not modified.
-        On the card nothing is read back to the host."""
+        On the card the inputs are copied into the update's context and its
+        CUDA graph replayed (captured at the first call for these shapes);
+        nothing is read back to the host."""
         if p.device.type == "cpu":
             return self.update_scan_plain(p, m, v, count, lr, bufs)
         if p.device.type != "cuda":
             raise RuntimeError(f"K3 runs on CUDA tensors, got device {p.device}")
         dev = p.device
-        for name, x in (("m", m), ("v", v)):
-            if x.dtype != torch.float32 or x.shape != p.shape or x.device != dev:
-                raise ValueError(f"{name} must be float32 {tuple(p.shape)} on {dev}")
+        for name, x in (("p", p), ("m", m), ("v", v)):
+            if x.dtype != torch.float32 or x.shape != (self.net.num_params,) or x.device != dev:
+                raise ValueError(f"{name} must be float32 ({self.net.num_params},) on {dev}")
         if count.dtype != torch.int32 or count.numel() != 1 or count.device != dev:
             raise ValueError("count must be a one-element int32 tensor on the params' device")
         if lr.numel() != 1 or lr.device != dev:
             raise ValueError("lr must be a one-element tensor on the params' device")
-        lib2, lib3 = _lib("k2"), _lib("k3")
-        p2, m2, v2 = p.clone(), m.contiguous().clone(), v.contiguous().clone()
-        args2, keep = self._k2_context(p2, bufs)
-        b, state = self._k3_context(p2, m2, v2, count, lr, keep)
-        steps = self.num_epochs * self.num_mini_batches
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for s in range(steps):
-            self._k2_launch(lib2, args2, s % self.num_mini_batches, dev)
-            with torch.cuda.device(dev):
-                err = lib3.k3_step(ctypes.addressof(b), s, stream)
-            _check(err, "K3 step")
+        ctx = self.update_graph(dev, bufs)
+        # the named range lets a profile count the host's launch calls in an update
+        with torch.cuda.device(dev), torch.profiler.record_function("FusedPPOGrad.update_scan"):
+            if ctx.graph is None:
+                ctx.capture(self)
+            ctx.stage(self, p, m, v, count, lr, bufs)
+            ctx.graph.replay()
+        LAUNCHES["k2"] += ctx.steps
         LAUNCHES["k3"] += 1
-        out = state[(steps & 1) * 8:(steps & 1) * 8 + 4]
-        n = float(steps)
+        return ctx.results()
+
+
+class _UpdateGraph:
+    """One update of a ``FusedPPOGrad`` on the card, as a CUDA graph over
+    buffers it owns: the working p, m, v; K2's operands (repacked obs and
+    critic obs, the f32 scalars), scratch, argument struct and launch plan
+    (tensor maps encoded once); K3's argument struct, count, LR/metric state,
+    partial sums and step record. The graph and the structs bake these
+    addresses in, so the context keeps every one of them alive as long as
+    the graph. :meth:`stage` copies an update's inputs in; the graph, steps
+    x (K2's chain on minibatch s % MB, K3's fused step s), is captured at the
+    first :meth:`capture` (no tensor is allocated during the capture) and
+    replayed per update."""
+
+    def __init__(self, fused, dev, bufs):
+        self.dev = dev
+        self.steps = fused.num_epochs * fused.num_mini_batches
+        n = fused.net.num_params
+        self.p, self.m, self.v = (torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3))
+        ops = fused._k2_operands(bufs, dev)
+        ops["fscal"] = ops["fscal"].clone(memory_format=torch.contiguous_format)
+        self.ops = ops
+        self.args2, self.keep = fused._k2_args(self.p, ops)
+        self.args3 = fused._k3_context(self.p, self.m, self.v, self.keep)
+        self.graph = None
+        self.capture_ms = self.instantiate_ms = None
+        self.nodes = None   # the captured graph's kernel nodes (graph_kernel_nodes)
+
+    def stage(self, fused, p, m, v, count, lr, bufs):
+        """Copy one update's inputs into the context (on the current stream)."""
+        self.p.copy_(p)
+        self.m.copy_(m)
+        self.v.copy_(v)
+        self.keep["count0"].copy_(count.reshape(1))
+        state = self.keep["state"]
+        state.zero_()
+        state[:1].copy_(lr.reshape(1))
+        fused._k2_operands(bufs, self.dev, out=self.ops)
+
+    def capture(self, fused):
+        """Capture the update of ``fused`` into a CUDA graph and
+        instantiate it; raises if any launch, the capture or the
+        instantiation fails. Nothing runs on the card."""
+        lib2, lib3 = _lib("k2"), _lib("k3")
+        a2, a3 = ctypes.addressof(self.args2), ctypes.addressof(self.args3)
+        mb = fused.num_mini_batches
+        # no kernel may be loaded for the first time inside the capture (K3's
+        # step was loaded by k3_coresident)
+        _check(lib2.k2_load(), "loading K2's kernels")
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            t0 = time.perf_counter()
+            stream = torch.cuda.current_stream(self.dev).cuda_stream   # the capture stream
+            for s in range(self.steps):
+                _check(lib2.k2_step(a2, s % mb, stream), f"K2 launch (capture, step {s})")
+                _check(lib3.k3_step(a3, s, stream), f"K3 step (capture, step {s})")
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        self.capture_ms, self.instantiate_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+        self.nodes = graph_kernel_nodes(graph)
+        self.graph = graph
+
+    def results(self):
+        """(p', m', v', lr_final, metric means) of the last replay, as new
+        tensors (the next replay overwrites the context)."""
+        s = self.steps
+        out = self.keep["state"][(s & 1) * 8:(s & 1) * 8 + 4]
         lr_final = out[0].clone()
-        metrics = {"value_loss": out[1] / n, "surrogate_loss": out[2] / n,
-                   "kl": out[3] / n, "lr": lr_final}
-        return p2, m2, v2, lr_final, metrics
+        metrics = {"value_loss": out[1] / s, "surrogate_loss": out[2] / s, "kl": out[3] / s, "lr": lr_final}
+        return self.p.clone(), self.m.clone(), self.v.clone(), lr_final, metrics

@@ -6,22 +6,26 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result; no phase's
-exception is swallowed; the checks of phases 5-7 are collected and reported
-together after phase 7):
+exception is swallowed; the checks of phases 5-9 are collected and reported
+together after phase 9):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the kernels with nvcc into ``build/kernels``, one nvcc per source,
-   all started together: K1 (``csrc/decimation.cu``), K2
-   (``csrc/ppo_grads.cu``) and K3 (``csrc/ppo_update.cu``); print the build
-   times and ptxas' register/spill report of each kernel, and the count of
-   HGMMA (wgmma) instructions in K2's SASS (``cuobjdump -sass``): 0 fails.
-   For K1's team kernel its lanes an env, envs a block, shared memory a
-   block and resident blocks an SM (``k1_occupancy``) are printed; for
+2. Build the kernels with nvcc into ``build/kernels``, one nvcc per
+   library, all started together: K1 (``csrc/decimation.cu``) once for each
+   of its size sets (``K1_SETS``: the GR1T1 lower limb, the 32-DOF GR1T1
+   full body, the lower limb without self-collision pairs; each with its
+   team shape, ``sim/cuda_step.py:team_shape``), K2 (``csrc/ppo_grads.cu``)
+   and K3 (``csrc/ppo_update.cu``); print the build times and ptxas'
+   register/spill report of each kernel, and the count of HGMMA (wgmma)
+   instructions in K2's SASS (``cuobjdump -sass``): 0 fails. For each of
+   K1's team kernels its lanes an env, envs a block, shared memory a block
+   and resident blocks an SM (``k1_occupancy``) are printed; for
    K3's ``k3_fused_step`` its registers and spills, its grid barrier (a
    cooperative launch) and the blocks the card holds at once (fewer than
    216 fails).
-3. K1 against its plain PyTorch version (the lane program) on the card:
-   4096 envs of the GR1T1 training config (noise, domain randomization,
+3. For each of K1's size sets (the GR1T1 lower limb first), K1 against its
+   plain PyTorch version (the lane program) on the card:
+   4096 envs of the set's training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
    steps with random actions), one policy step through each. Every float
    output must agree within rtol 1e-4 / atol 1e-4 (atol 1e-2 N for the
@@ -38,8 +42,8 @@ together after phase 7):
    same packed input: 0 differing output lanes of all 4096 envs, compared
    bit for bit (NaN lanes by bit pattern). Times both kernels per launch
    (CUDA events, 50 launches, and again in turns), the wrapper and the plain
-   version, and computes K1's bound; the team kernel must be faster than the
-   one-thread kernel.
+   version, and computes K1's bound; for the lower limb the team kernel
+   must be faster than the one-thread kernel.
 4. The slice: ``OnPolicyRunner(...).init_state()`` and one 64-step rollout
    at 4096 envs (K1 must launch exactly 64 times; all outputs finite), then
    the port's ``play`` loop for 20 steps from a seeded ``policy.npz``. One
@@ -144,8 +148,23 @@ together after phase 7):
    CUDA graph replay: not the same function, it lacks K3's LR rule and bias
    correction; the port never calls either yardstick), the update graph's
    capture and instantiation time, and the update's wall time beside 200 x
-   (K2 + K3 step) of kernel time; prints the kernels' JSON line (K1, K2,
-   K3), the card line, and the final ok line.
+   (K2 + K3 step) of kernel time.
+9. The 32-DOF full body (``GR1T1_full``: obs 105, critic obs 234, 32
+   actions, std floor 0.10, entropy coefficient 0), through the same entry
+   points at 4096 envs: one rollout, then phase 5's GEMM check and K2
+   against its plain version (at the rollout's params and after one
+   epoch, the branch-flip rule included; each bf16 leaf's limit gains 3x
+   the plain version's own spread over row tiles, as in 6b, with the
+   stated verdict printed beside it), K3 over one float32 epoch step by
+   step from the kernel's state against the plain version's step (6c's
+   float32 rule) and its fused step against its reference pair bit for bit
+   (6d), K2's time per grad step beside its plain version,
+   bound and the cuBLAS yardstick; then phase 7 on ``GR1T1_full`` (K1 64,
+   K2's chain 200 and K3 once an iteration, K2's 11 device launches a grad
+   step, finite losses, the checkpoint loads back bit-identical); then one
+   64-step rollout of the no-pairs config (K1 launched 64 times). Prints the
+   kernels' JSON line (K1 for each size set, K2 at both widths, K3), the
+   card line, and the final ok line.
 """
 
 import copy
@@ -196,6 +215,7 @@ KERNEL_NAMES = {"K1": ("decimation_team_kernel",),
                 "K2": ("pack_params", "wg_gemm", "loss_rows", "k2_reduce"),
                 "K3": ("k3_fused_step",)}
 K3_REFERENCE_NAMES = ("k3_norm", "k3_adam")   # PR 2's step: never on the main path
+K2_LAUNCHES_PER_STEP = 11   # K2's bf16 chain a grad step (csrc/ppo_grads.cu)
 K3_BARRIER = "cooperative launch (cudaLaunchAttributeCooperative, cooperative_groups::this_grid().sync())"
 HGMMA_COUNT = [None]   # HGMMA instructions in K2's SASS (phase 2)
 RTOL, ATOL, ATOL_FORCE = 1e-4, 1e-4, 1e-2
@@ -212,7 +232,7 @@ def log(*a):
 
 
 def fail(msg):
-    """Record a failed check of phases 5-7; main exits non-zero after the
+    """Record a failed check of phases 5-9; main exits non-zero after the
     last phase (so one run reports every check) and prints no result."""
     FAILURES.append(msg)
     log("FAIL:", msg)
@@ -236,15 +256,14 @@ def groups(res):
     return {k: v.double().reshape(v.shape[0], -1) for k, v in g.items()}
 
 
-def count_plain_ops():
+def count_plain_ops(task="GR1T1", mutate=None):
     """Floating-point operations of the plain lane program per env and
-    policy step: every elementwise arithmetic, comparison and select op run
-    at N=1 counts one per output element (views, copies and stacking do not
-    count)."""
+    policy step of ``task``'s training config (``mutate`` applied): every
+    elementwise arithmetic, comparison and select op run at N=1 counts one
+    per output element (views, copies and stacking do not count)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from wiki_grx_gym_tpu_torch.envs import task_registry
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
     skip = ("view", "stack", "cat", "clone", "copy", "zeros", "ones", "empty", "full",
@@ -262,41 +281,12 @@ def count_plain_ops():
                 Count.ops += out.numel()
             return out
 
-    cfg, _ = task_registry.get_cfgs("GR1T1")
-    cfg.env.num_envs = 1
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
+    env = cuda_step.task_env(task, 1, "cpu", mutate)
     state = env.init_state(0)
     args, kw = cuda_step.decimation_inputs(env, state, torch.Generator().manual_seed(0))
     with Count():
         env.decimation_op.plain(*args, **kw)
     return Count.ops
-
-
-def ptxas_summary(lines):
-    """ptxas' report (-Xptxas -v) per kernel: {name: {registers, spill_stores,
-    spill_loads}}, a team kernel named by its lanes an env and envs a block."""
-    import re
-
-    out, name = {}, None
-    for line in lines:
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            mangled = m.group(1)
-            shape = re.search(r"Li(\d+)ELi(\d+)E", mangled)
-            name = (f"decimation_team_kernel<{shape.group(1)}, {shape.group(2)}>"
-                    if "decimation_team_kernel" in mangled and shape
-                    else "decimation_kernel" if "decimation_kernel" in mangled else mangled)
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-    return out
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -742,19 +732,17 @@ def adam_yardstick(n, dev):
     return ms
 
 
-def ppo_phases(runner, rs, batch, dev):
-    """Phases 5, 6 and 8's kernel timings: K2 and K3 against their plain
-    versions on the phase-4 rollout buffer. Returns the K2 and K3 rows of
-    the kernels' JSON line (launches filled in from the training run)."""
+def learner_setups(runner, rs, batch, task, dev):
+    """K2/K3's inputs from one rollout buffer of ``runner`` (``task``'s
+    training config): GAE, the block shuffle, and for each operand type (the
+    config's bf16 storage, and float32) the ``FusedPPOGrad`` and its
+    minibatch buffers. Returns {type name: (fused, buffers)}."""
     import torch
 
-    from wiki_grx_gym_tpu_torch import build as kbuild
     from wiki_grx_gym_tpu_torch.envs import task_registry
-    from wiki_grx_gym_tpu_torch.learn import fused_update
     from wiki_grx_gym_tpu_torch.learn.ppo import PPO
 
-    alg = runner.alg
-    net = runner.net
+    alg, net = runner.alg, runner.net
     t_len, n = batch.rewards.shape
     with torch.no_grad():
         last = net.evaluate(rs.critic_obs)
@@ -762,70 +750,166 @@ def ppo_phases(runner, rs, batch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     perm = alg.draw_perm(t_len, n, gen, dev)
-    _, cfg32 = task_registry.get_cfgs("GR1T1")
+    _, cfg32 = task_registry.get_cfgs(task)
     cfg32.algorithm.storage_dtype = "float32"
     algs = {"bfloat16": alg, "float32": PPO(net, cfg32.algorithm)}
-    p0 = net.params_flat.clone()
     setups = {}
     for name, a in algs.items():
         w, f, rows = a._pack_shuffle(batch, returns, adv, perm)
         fused = a._get_fused(rows)
         setups[name] = (fused, fused.split_buffers(w, f, batch.obs.shape[-1]))
+    fused16 = setups["bfloat16"][0]
+    log(f"[ppo {task}] buffer: {t_len} steps x {n} envs, {alg.num_mini_batches} minibatches of {fused16.rows} "
+        f"rows, {alg.num_learning_epochs} epochs, path {alg.path}; widths obs {fused16.obs_dim}, critic obs "
+        f"{fused16.cobs_dim}, actions {fused16.act_dim}, {net.num_params} params")
+    assert fused16.rows == 10480 and fused16.op_dtype == torch.bfloat16
+    return setups
+
+
+def k2_check(setups, net, alg, p, at, k2_err, tag="", bf16_spread=False):
+    """Phase 5: K2 against its plain version (``FusedPPOGrad.grads_plain``)
+    at params ``p``, for each operand type, on the first and last
+    minibatch; rows on another branch of the loss are taken out of both
+    (``neutralize_flips``). The largest leaf difference per type goes into
+    ``k2_err``. With ``bf16_spread`` each bf16 leaf's limit gains 3x the
+    plain version's own spread over row tiles (``plain_variants``), as 6b
+    holds the bf16 epoch: a hidden activation rounded to the neighbouring
+    bf16 value moves a row's log-probability, the more the more actions,
+    and after an epoch the rows' gradient terms largely cancel, so a
+    leaf's largest value is small beside that motion; the stated verdict
+    is printed beside it."""
+    import torch
+
+    for name, (fused, bufs) in setups.items():
+        loss_tol, rtol, atol_frac = K2_TOL[name]
+        ok = True
+        A = fused.act_dim
+        if name == "bfloat16":
+            same = pack_check(fused, p, bufs)
+            ok &= same
+            log(f"[K2 vs plain]{tag} {at} pack_params' bf16 weights equal pack_weights' bit for bit: {same}")
+        for mb in (0, alg.num_mini_batches - 1):
+            # rows that K2 and its plain version send down different
+            # branches of the loss are taken out of both (counted)
+            used, flips = neutralize_flips(fused, p, bufs, mb)
+            ok &= flips <= MAX_FLIPS
+            log(f"[K2 vs plain]{tag} {at} {name} mb {mb:2d}: {flips} rows take another branch of the loss "
+                f"in K2 than in the plain version (limit {MAX_FLIPS}); taken out of both")
+            lk, gk, ak = fused.grads(p, used, mb)
+            lp, gp, ap = fused.grads_plain(p, used, mb)
+            torch.cuda.synchronize()
+            adv_scale = float(bufs["fscal"][mb][:, 3 * A + 3].abs().mean())
+            extra = {"loss": adv_scale, "surrogate_loss": adv_scale, "value_loss": 0.0,
+                     "kl": 4.0 * A * 2.0**-24 / loss_tol}
+            line = []
+            for key, x, y in [("loss", lk, lp)] + [(k, ak[k], ap[k]) for k in ak]:
+                x, y = float(x), float(y)
+                lim = loss_tol * (abs(y) + extra[key])
+                good = abs(x - y) <= lim and math.isfinite(x)
+                ok &= good
+                line.append(f"{key} {x:.6e} vs {y:.6e} |diff| {abs(x - y):.2e} (limit {lim:.2e}) {good}")
+            worst = 0.0
+            diffs = leaf_diffs(net, gk, gp)
+            spread = {}
+            if bf16_spread and name == "bfloat16":
+                for fz in plain_variants(fused):
+                    for leaf, d, _ in leaf_diffs(net, fz.grads_plain(p, used, mb)[1], gp):
+                        spread[leaf] = max(spread.get(leaf, 0.0), d)
+            for leaf, d, scale in diffs:
+                stated = rtol * scale + atol_frac * scale
+                lim = stated + 3.0 * spread.get(leaf, 0.0)
+                good = d <= lim and math.isfinite(d)
+                ok &= good
+                worst = max(worst, d / max(scale, 1e-30))
+                widened = (f"; plain spread {spread[leaf]:.3e}, within the stated limit {stated:.3e}: "
+                           f"{d <= stated}" if leaf in spread else "")
+                log(f"[K2 vs plain]{tag} {at} {name:8s} mb {mb:2d} {leaf:16s} max|diff| {d:.3e} "
+                    f"(leaf max {scale:.3e}, {d / max(scale, 1e-30):.2e} of it; limit {lim:.3e}{widened}) {good}")
+            log(f"[K2 vs plain]{tag} {at} {name} mb {mb}: " + "; ".join(line) +
+                f"; largest leaf diff {worst:.2e} of the leaf's max")
+            k2_err[name] = max(k2_err.get(name, 0.0), max(d for _, d, _ in diffs))
+        if not ok:
+            fail(f"K2{tag} disagrees with its plain version ({name} operands, {at})")
+
+
+def k3_steps_f32(setups, args0, tag):
+    """Phase 9's check of K3 at a width: one float32 epoch driven by the
+    kernel one grad step at a time (a one-step ``FusedPPOGrad`` fed
+    minibatch s's slice, Adam count ``count0 + s`` and the LR the kernel
+    carried out of step s - 1); at every 4th step and the last the plain
+    version runs the same step from the kernel's state, rows on another
+    branch of the loss taken out of both (``neutralize_flips``): update, m
+    and v within ``F32_STEP_TOL`` in L2 plus 3x the plain version's own
+    spread over row tiles (``plain_variants``, as 6b holds the bf16 epoch:
+    an entry whose gradient sums to noise level moves by about LR whichever
+    its sign, most at Adam's first step), the same LR. Over a whole epoch
+    two correct trajectories part further, so the epoch's distance to the
+    plain version's epoch is printed, not checked. Returns the kernel's
+    state after the epoch and the largest |param| difference of a checked
+    step."""
+    import torch
+
+    fused32, bufs32 = setups["float32"]
+    one = one_step(fused32)
+    sl = lambda k: {key: x[k:k + 1] for key, x in bufs32.items()}
+    p, m, v, count0, lr = args0
+    mbs = fused32.num_mini_batches
+    worst, bad, max_flips = {"update": 0.0, "m": 0.0, "v": 0.0, "pmax": 0.0}, [], 0
+    for s in range(mbs):
+        nxt = one.update_scan(p, m, v, count0 + s, lr, sl(s))
+        if s % 4 == 0 or s == mbs - 1:
+            used, flips = neutralize_flips(one, p, sl(s), 0)
+            k = one.update_scan(p, m, v, count0 + s, lr, used) if flips else nxt
+            pl = one.update_scan_plain(p, m, v, count0 + s, lr, used)
+            floors = [step_dist(fz.update_scan_plain(p, m, v, count0 + s, lr, used), pl, p)
+                      for fz in plain_variants(one)]
+            lim = {key: F32_STEP_TOL + 3.0 * max(f[key] for f in floors) for key in ("update", "m", "v")}
+            d = step_dist(k, pl, p)
+            ok = flips <= MAX_FLIPS and all(d[key] <= lim[key] for key in lim) \
+                and abs(float(k[3]) - float(pl[3])) <= 1e-6 * abs(float(pl[3])) \
+                and all(bool(torch.isfinite(t).all()) for t in k[:4])
+            max_flips = max(max_flips, flips)
+            for key in worst:
+                worst[key] = max(worst[key], d[key])
+            if not ok:
+                bad.append(s)
+            log(f"[K3 steps] {tag} step {s:2d} f32: " + ", ".join(
+                f"{key} {d[key]:.3e} (limit {lim[key]:.3e})" for key in lim) + f", pmax {d['pmax']:.3e}; "
+                f"lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; rows on another branch {flips}; {ok}")
+        p, m, v, lr = nxt[0], nxt[1], nxt[2], nxt[3]
+    f1 = copy.copy(fused32)
+    f1.num_epochs = 1
+    whole = f1.update_scan_plain(*args0, bufs32)
+    nrm = lambda t: float(torch.linalg.vector_norm(t))
+    log(f"[K3 steps] {tag} worst of the checked steps: " + ", ".join(f"{key} {val:.3e}" for key, val in worst.items())
+        + f"; at most {max_flips} rows on another branch; failed at steps {bad}; the kernel's epoch against the plain "
+        f"version's (printed, not checked): update {nrm(p - whole[0]) / nrm(whole[0] - args0[0]):.3e}, "
+        f"m {nrm(m - whole[1]) / nrm(whole[1]):.3e} in L2")
+    if bad:
+        fail(f"K3 {tag}: the kernel's f32 step disagrees with the plain version's at steps {bad}")
+    return p, m, v, lr, worst["pmax"]
+
+
+def ppo_phases(runner, rs, batch, dev):
+    """Phases 5, 6 and 8's kernel timings: K2 and K3 against their plain
+    versions on the phase-4 rollout buffer. Returns the K2 and K3 rows of
+    the kernels' JSON line (launches filled in from the training run)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
+    alg = runner.alg
+    net = runner.net
+    p0 = net.params_flat.clone()
+    setups = learner_setups(runner, rs, batch, "GR1T1", dev)
     fused16, bufs16 = setups["bfloat16"]
     rows = fused16.rows
-    log(f"[ppo] buffer: {t_len} steps x {n} envs, {alg.num_mini_batches} minibatches of {rows} rows, "
-        f"{alg.num_learning_epochs} epochs, path {alg.path}")
-    assert rows == 10480 and fused16.op_dtype == torch.bfloat16
 
     # ---- phase 5: K2 vs plain ----
     k2_err = {}
-
-    def k2_check(p, at):
-        for name, (fused, bufs) in setups.items():
-            loss_tol, rtol, atol_frac = K2_TOL[name]
-            ok = True
-            A = fused.act_dim
-            if name == "bfloat16":
-                same = pack_check(fused, p, bufs)
-                ok &= same
-                log(f"[K2 vs plain] {at} pack_params' bf16 weights equal pack_weights' bit for bit: {same}")
-            for mb in (0, alg.num_mini_batches - 1):
-                # rows that K2 and its plain version send down different
-                # branches of the loss are taken out of both (counted)
-                used, flips = neutralize_flips(fused, p, bufs, mb)
-                ok &= flips <= MAX_FLIPS
-                log(f"[K2 vs plain] {at} {name} mb {mb:2d}: {flips} rows take another branch of the loss "
-                    f"in K2 than in the plain version (limit {MAX_FLIPS}); taken out of both")
-                lk, gk, ak = fused.grads(p, used, mb)
-                lp, gp, ap = fused.grads_plain(p, used, mb)
-                torch.cuda.synchronize()
-                adv_scale = float(bufs["fscal"][mb][:, 3 * A + 3].abs().mean())
-                extra = {"loss": adv_scale, "surrogate_loss": adv_scale, "value_loss": 0.0,
-                         "kl": 4.0 * A * 2.0**-24 / loss_tol}
-                line = []
-                for key, x, y in [("loss", lk, lp)] + [(k, ak[k], ap[k]) for k in ak]:
-                    x, y = float(x), float(y)
-                    lim = loss_tol * (abs(y) + extra[key])
-                    good = abs(x - y) <= lim and math.isfinite(x)
-                    ok &= good
-                    line.append(f"{key} {x:.6e} vs {y:.6e} |diff| {abs(x - y):.2e} (limit {lim:.2e}) {good}")
-                worst = 0.0
-                diffs = leaf_diffs(net, gk, gp)
-                for leaf, d, scale in diffs:
-                    lim = rtol * scale + atol_frac * scale
-                    good = d <= lim and math.isfinite(d)
-                    ok &= good
-                    worst = max(worst, d / max(scale, 1e-30))
-                    log(f"[K2 vs plain] {at} {name:8s} mb {mb:2d} {leaf:16s} max|diff| {d:.3e} "
-                        f"(leaf max {scale:.3e}, {d / max(scale, 1e-30):.2e} of it; limit {lim:.3e}) {good}")
-                log(f"[K2 vs plain] {at} {name} mb {mb}: " + "; ".join(line) +
-                    f"; largest leaf diff {worst:.2e} of the leaf's max")
-                k2_err[name] = max(k2_err.get(name, 0.0), max(d for _, d, _ in diffs))
-            if not ok:
-                fail(f"K2 disagrees with its plain version ({name} operands, {at})")
-
     gemm_worst = gemm_checks(fused16, dev)
-    k2_check(p0, "at p0")
+    k2_check(setups, net, alg, p0, "at p0", k2_err)
 
     # ---- phase 6: K3 vs plain ----
     steps = alg.num_learning_epochs * alg.num_mini_batches
@@ -880,13 +964,13 @@ def ppo_phases(runner, rs, batch, dev):
     log("[K2 vs plain] after one epoch: rows outside the ratio clip range "
         + ", ".join(f"{100 * r:.2f}%" for r, _ in share) + "; outside the value clip range "
         + ", ".join(f"{100 * v:.2f}%" for _, v in share) + " (minibatches 0, last)")
-    k2_check(p1, "after one epoch")
+    k2_check(setups, net, alg, p1, "after one epoch", k2_err)
     log(f"[K2 vs plain] largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}")
 
     # 6d: K3's fused step against its reference pair, bit for bit, on K2's
     # bf16 gradient at full width
     last = alg.num_mini_batches - 1
-    state1 = (p1, pl[1], pl[2], st0.count + f1.num_mini_batches, pl[3])
+    state1 = (p1, pl[1], pl[2], st0.count + alg.num_mini_batches, pl[3])
     k3_differ = (k3_fused_check(fused16, args0, bufs16, 0, 0, "at p0")
                  + k3_fused_check(fused16, state1, bufs16, last, 1, "after one epoch")
                  + k3_fused_check(fused16, state1, bufs16, 0, 2, "NaN gradient entry and loss", nan="grad")
@@ -1052,19 +1136,20 @@ def ppo_phases(runner, rs, batch, dev):
     return k2_row, k3_row
 
 
-def train_phase(dev):
-    """Phase 7: ``learn(2)`` at 4096 envs through the entry points a user
-    calls; the launch counts are set to 0 just before and read just after."""
+def train_phase(dev, task="GR1T1"):
+    """Phase 7: ``learn(2)`` on ``task``'s training config at 4096 envs
+    through the entry points a user calls; the launch counts are set to 0
+    just before and read just after."""
     import torch
 
     from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
-    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg, train_cfg = task_registry.get_cfgs(task)
     cfg.env.num_envs = N_ENVS
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
     runner, train_cfg = task_registry.make_alg_runner(
-        env, "GR1T1", train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train"))
+        env, task, train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", task))
     assert runner.alg.path == "mega"
     steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
     torch.cuda.synchronize()
@@ -1078,13 +1163,13 @@ def train_phase(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": TRAIN_ITERS * steps, "k3": TRAIN_ITERS}
     if launches != want:
-        fail(f"training launched {launches}, expected {want}")
+        fail(f"{task}: training launched {launches}, expected {want}")
     for h in runner.log_history:
         m = h["metrics"]
         if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
             fail(f"iteration {h['it']}: non-finite losses {m}")
-        log(f"[train] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
-            f"update {h['update_s']:.3f} s (PR 2's SIMT K2: 0.551-0.557 s) "
+        log(f"[train {task}] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
+            f"update {h['update_s']:.3f} s "
             f"(+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
             f"host); {h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate "
             f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, lr {m['lr']:.3e}, reward {m['mean_step_reward']:.4f}")
@@ -1095,7 +1180,7 @@ def train_phase(dev):
                for k in ("params", "m", "v", "count", "learning_rate"))
     if not same:
         fail(f"checkpoint {ck} does not load back bit-identical")
-    log(f"[train] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
+    log(f"[train {task}] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
         f"{os.path.basename(ck)} loads back bit-identical: {same}")
     hist = runner.log_history
 
@@ -1132,7 +1217,7 @@ def train_phase(dev):
     host = {name: inside.count(name) for name in sorted(set(inside))}
     graph_launches = host.get("cudaGraphLaunch", 0)
     nodes = [ctx.nodes for f in runner.alg._fused_cache.values() for ctx in f._graphs.values()]
-    log(f"[train profile] host calls inside {len(ranges)} update(s): {host or 'none seen'}; the update graph's "
+    log(f"[train {task} profile] host calls inside {len(ranges)} update(s): {host or 'none seen'}; the update graph's "
         f"kernel nodes {nodes}")
     profile_out = {"wall_ms": prof_s * 1e3, "device_ms": total_ms, "by_kernel_ms": by,
                    "busy_share_of_unprofiled_iteration": total_ms / iter_ms,
@@ -1148,17 +1233,17 @@ def train_phase(dev):
         if graph_launches != 1:
             fail(f"the host issued {graph_launches} graph launches in the update, not 1")
     else:
-        log("[train profile] the profiler recorded no host launch call: host launches per update not measured")
+        log(f"[train {task} profile] the profiler recorded no host launch call: host launches per update not measured")
     if any(ref_counts.values()):
         fail(f"the main path launched K3's reference pair: {ref_counts}")
     if total_ms > 0:
-        log(f"[train profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
+        log(f"[train {task} profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
             f"{total_ms:.1f} ms in {sum(e.count for e in kern)} launches: "
             + ", ".join(f"{g} {v:.1f} ms" for g, v in by.items())
             + f"; device busy {100 * total_ms / iter_ms:.1f}% of the unprofiled iteration's {iter_ms:.1f} ms")
         k2n = sum(counts[n] for n in KERNEL_NAMES["K2"])
         k3n = sum(counts[n] for n in KERNEL_NAMES["K3"])
-        log(f"[train profile] {updates} update(s), {grad_steps} grad steps; device launches "
+        log(f"[train {task} profile] {updates} update(s), {grad_steps} grad steps; device launches "
             + ", ".join(f"{n} {c}" for n, c in counts.items())
             + f": K2's chain {k2n / max(grad_steps, 1):g} a grad step, K3's step {k3n / max(grad_steps, 1):g}, "
             f"{(k2n + k3n) / max(updates, 1):g} an update")
@@ -1167,7 +1252,7 @@ def train_phase(dev):
                  f"launched {LAUNCHES['k1'] - before['k1']} times")
         if k2n + k3n == 0 and grad_steps and len(nodes) == 1:
             # the profiler sees no kernel inside the graph: its kernel nodes stand for the launches
-            log(f"[train profile] the profiler saw no kernel of K2 or K3 inside the update's graph; the graph's "
+            log(f"[train {task} profile] the profiler saw no kernel of K2 or K3 inside the update's graph; the graph's "
                 f"kernel nodes stand for its device launches: {nodes[0]}")
             k3n = nodes[0]["cooperative"]
             k2n = nodes[0]["kernels"] - k3n
@@ -1179,11 +1264,13 @@ def train_phase(dev):
                 and any(c == 0 or c % grad_steps for c in counts.values())):
             fail(f"the profiled iteration ran {updates} update(s) of {grad_steps} grad steps, "
                  f"but launched {counts} (K2 {k2n}, K3 {k3n})")
+        elif k2n != K2_LAUNCHES_PER_STEP * grad_steps:
+            fail(f"{task}: K2's chain launched {k2n / grad_steps:g} kernels a grad step, not {K2_LAUNCHES_PER_STEP}")
         else:
             profile_out["k2_kernel_launches_per_grad_step"] = k2n // grad_steps
             profile_out["kernel_launches_per_update"] = k2n + k3n
     else:
-        log("[train profile] the profiler saw no device time; device busy share and kernel "
+        log(f"[train {task} profile] the profiler saw no device time; device busy share and kernel "
             "launches not measured")
     return {
         "launches": launches, "iters": TRAIN_ITERS, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
@@ -1191,6 +1278,282 @@ def train_phase(dev):
         "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
         "profile": profile_out,
     }
+
+
+def no_self_collision(cfg):
+    """The GR1T1 config with self-collision off (no pairs): the reference's
+    ``ref_equiv_subset`` bench config (bench.py:98-102)."""
+    cfg.asset.self_collisions = 1
+
+
+# K1's size sets: (task, config change, what it is). Each builds its own
+# library (sim/cuda_step.py:team_shape, nvcc_flags).
+K1_SETS = {
+    "GR1T1": ("GR1T1", None, "GR1T1 lower limb, plane, post fold"),
+    "GR1T1_full": ("GR1T1_full", None, "GR1T1 full body, 32 DOF, plane, post fold"),
+    "GR1T1_no_pairs": ("GR1T1", no_self_collision, "GR1T1 lower limb without self-collision pairs"),
+}
+
+
+def k1_phase(dev, task, mutate, label, require_faster):
+    """Phase 3 for one K1 size set: the kernel against its plain version on
+    4096 reachable envs of ``task``'s training config (``mutate`` applied),
+    the team kernel against the one-thread kernel bit for bit, both timed,
+    the plain version timed, and the bound. Any failure stops the script.
+    Returns the numbers of the kernels' JSON row."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    tag = f"[K1 {task}{'' if mutate is None else ', ' + mutate.__name__}]"
+    env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate)
+    op = env.decimation_op
+    log(f"{tag} sizes {op.sizes._asdict()}, team {op.team[0]} lanes x {op.team[1]} envs")
+    gen_in = torch.Generator(device=dev)
+    gen_in.manual_seed(1)
+    args, kw = cuda_step.decimation_inputs(env, state, gen_in)
+    gen_in.manual_seed(1)
+    args64, kw64 = cuda_step.decimation_inputs(env, state, gen_in, dtype=torch.float64)
+    k = groups(op(*args, **kw))
+    p = groups(op.plain(*args, **kw))
+    p64 = groups(op.plain(*args64, **kw64))
+    torch.cuda.synchronize()
+    flips = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+    for name in BOOL_GROUPS:
+        flips |= (k[name] != p[name]).any(dim=1)
+    keep = ~flips
+    over = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)   # over the stated tolerance
+    widened_ok, max_abs_err = True, 0.0
+    for name in k:
+        if name in BOOL_GROUPS:
+            continue
+        a, b, b64 = k[name], p[name], p64[name]
+        if not (torch.isfinite(a[keep]).all() and torch.isfinite(b[keep]).all()):
+            raise SystemExit(f"{tag} K1 vs plain: {name} has non-finite values")
+        err = (a - b).abs()
+        atol = ATOL_FORCE if name in FORCE_GROUPS else ATOL
+        stated = atol + RTOL * b.abs()
+        floor = float((b - b64)[keep].abs().max())
+        env_over = (err > stated).any(dim=1) & keep
+        over |= env_over
+        good = bool((err[keep] <= stated[keep] + 3.0 * floor).all())
+        widened_ok &= good
+        rel = float((err[keep] / (b[keep].abs() + 1e-6)).max())
+        if name not in FORCE_GROUPS:
+            max_abs_err = max(max_abs_err, float(err[keep].max()))
+        log(f"{tag} vs plain {name:26s} max_abs {float(err[keep].max()):.3e} max_rel {rel:.3e} "
+            f"envs over rtol {RTOL:g}/atol {atol:g}: {int(env_over.sum())}; "
+            f"f32 noise floor {floor:.3e}; within stated + 3 x floor {good}")
+    divergent = flips | over
+    div_frac = float(divergent.float().mean())
+    same = torch.ones(N_ENVS, dtype=torch.bool, device=dev)
+    for name in k:
+        same &= ((k[name] == p[name]) | (k[name].isnan() & p[name].isnan())).all(dim=1)
+    log(f"{tag} vs plain, {N_ENVS} envs: boolean lanes differ in {int(flips.sum())}, float lanes "
+        f"over the stated tolerance in {int(over.sum())}; together {int(divergent.sum())} envs "
+        f"({100 * div_frac:.3f}%, limit 0.1%); every output equal in {int(same.sum())} envs")
+    force_err = max(float((k[g] - p[g])[keep].abs().max()) for g in FORCE_GROUPS)
+    if div_frac > 1e-3 or not widened_ok:
+        raise SystemExit(f"{tag} K1 disagrees with its plain version")
+
+    # the team kernel against the one-thread kernel on the same packed
+    # input: every output lane bit for bit
+    comp = op._pack(*args[:6], kw["last_qd"], kw["extra"])
+    out = torch.full((op.c_out, N_ENVS), -7.0, dtype=torch.float32, device=dev)
+    ref = torch.empty_like(out)
+    op.launch_packed(comp, ref, kernel="thread")
+    op.launch_packed(comp, out)
+    torch.cuda.synchronize()
+    differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    log(f"{tag} team vs thread: {op.c_out} x {N_ENVS} output lanes, bit for bit (NaN lanes by bit "
+        f"pattern; {int(torch.isnan(ref).sum())} NaN lanes): {differ} differing lanes")
+    if differ:
+        raise SystemExit(f"{tag} the team kernel differs from the one-thread kernel in {differ} output lanes")
+
+    # timing: both kernels alone on packed buffers (CUDA events, in turns),
+    # the wrapper, and the plain version
+    team = lambda: op.launch_packed(comp, out)
+    thread = lambda: op.launch_packed(comp, ref, kernel="thread")
+    k1_ms = cuda_ms(team, reps=50, warmup=3)
+    thread_ms = cuda_ms(thread, reps=50, warmup=3)
+    turns = [cuda_ms(thread, reps=50, warmup=1), cuda_ms(team, reps=50, warmup=1)]
+    wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=2, warmup=1)
+    ops_per_env = count_plain_ops(task, mutate)
+    bytes_moved = (op.c_in + op.c_out) * 4 * N_ENVS
+    ops_ms = ops_per_env * N_ENVS / FP32_PEAK * 1e3
+    bytes_ms = bytes_moved / HBM_RATE * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    # K1 is built with --fmad=false: no FMA pairing, so its attainable rate
+    # for these ops is half the peak
+    ops_ms_no_fma = 2.0 * ops_ms
+    log(f"{tag} team kernel {k1_ms:.4f} ms/launch at {N_ENVS} envs, then {turns[1]:.4f}; one-thread kernel "
+        f"{thread_ms:.4f}, then {turns[0]:.4f} ms; wrapper incl. pack/unpack {wrapper_ms:.4f} ms; plain "
+        f"{plain_ms:.2f} ms; ops/env/step {ops_per_env}; bound {bound_ms:.4f} ms by {bound_by} (ops "
+        f"{ops_ms:.4f} ms, {ops_ms_no_fma:.4f} ms without FMA pairing; bytes {bytes_ms:.4f} ms); the team "
+        f"kernel reaches {100 * ops_ms_no_fma / k1_ms:.1f}% of the no-FMA bound")
+    if require_faster and not k1_ms < thread_ms:
+        raise SystemExit(f"{tag} the team kernel ({k1_ms:.4f} ms) is not faster than the one-thread kernel "
+                         f"({thread_ms:.4f} ms)")
+    info = kbuild.BUILD_INFO[cuda_step.library_name(op.sizes, op.team)]
+    row = {
+        "name": f"K1 decimation ({label})",
+        "route": "cuda",
+        "source": "wiki_grx_gym_tpu_torch/csrc/decimation.cu",
+        "replaces": "wiki_grx_gym_tpu/sim/pallas_step.py:149",
+        "launches": None,
+        "max_abs_err": max_abs_err,
+        "max_abs_err_forces": force_err,
+        "ms": k1_ms,
+        "ms_thread_kernel": thread_ms,
+        "ms_in_turns": {"thread": turns[0], "team": turns[1]},
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_ms_no_fma": max(ops_ms_no_fma, bytes_ms),
+        "library_ms": None,
+        "wrapper_ms": wrapper_ms,
+        "envs": N_ENVS,
+        "sizes": op.sizes._asdict(),
+        "ops_per_env_step": ops_per_env,
+        "bytes": bytes_moved,
+        "build_s": info.get("seconds"),
+        "ptxas": info.get("ptxas", []),
+        "kernels_ptxas": kbuild.ptxas_summary(info.get("ptxas", [])),
+        **cuda_step.team_occupancy(op),
+        "team_vs_thread_differing_lanes": differ,
+        "divergent_envs": int(divergent.sum()),
+        "envs_equal_to_plain": int(same.sum()),
+    }
+    del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def full_body_ppo_phase(dev):
+    """Phase 9: K2 at the full-body widths (GR1T1_full: obs 105, critic obs
+    234, 32 actions, std floor 0.10, entropy coefficient 0) on one 64-step
+    rollout buffer at 4096 envs: the tensor-core GEMM against float64 at
+    every product's shape (as in phase 5), K2 against its plain version at
+    the rollout's params and after one epoch under phase 5's rule (the
+    branch-flip rule included; bf16 leaves within the stated limit plus 3x
+    the plain version's spread, ``k2_check``), K3 step by step over that
+    float32 epoch
+    against its plain version (``k3_steps_f32``) and its fused step against
+    its reference pair bit for bit (6d), and K2's time per grad step beside
+    its plain version, its bound and the cuBLAS yardstick of the same 22
+    products. Returns the K2 row of the kernels' JSON line."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+    from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
+
+    task = "GR1T1_full"
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    runner = OnPolicyRunner(env, train_cfg, device=dev)
+    rs = runner.init_state()
+    rs, batch, acc = runner.rollout(rs)
+    torch.cuda.synchronize()
+    for name, v in list(batch._asdict().items()) + list(acc.items()):
+        if name != "dones" and not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"{task} rollout output {name} is not finite")
+    assert batch.obs.shape == (ROLLOUT_STEPS, N_ENVS, 105), batch.obs.shape
+    assert batch.critic_obs.shape == (ROLLOUT_STEPS, N_ENVS, 234), batch.critic_obs.shape
+    assert batch.actions.shape == (ROLLOUT_STEPS, N_ENVS, 32), batch.actions.shape
+    net, alg = runner.net, runner.alg
+    log(f"[ppo {task}] {net.num_params} params; std floor {net.noise_std_floor}, entropy coefficient "
+        f"{alg.entropy_coef}; rollout mean reward {float(acc['rew'].mean()) / ROLLOUT_STEPS:.4f}")
+    p0 = net.params_flat.clone()
+    setups = learner_setups(runner, rs, batch, task, dev)
+    fused16, bufs16 = setups["bfloat16"]
+    k2_err, tag = {}, f" {task}"
+    gemm_worst = gemm_checks(fused16, dev)
+    k2_check(setups, net, alg, p0, "at p0", k2_err, tag, bf16_spread=True)
+    st0 = alg.init(p0.clone())
+    args0 = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate)
+    p1, m1, v1, lr1, k3_pmax = k3_steps_f32(setups, args0, task)
+    k2_check(setups, net, alg, p1, "after one epoch", k2_err, tag, bf16_spread=True)
+    log(f"[K2 vs plain]{tag} largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}; "
+        f"K3's f32 steps largest param diff {k3_pmax:.3e}")
+    # K3's fused step against its reference pair, bit for bit, at this width
+    state1 = (p1, m1, v1, st0.count + alg.num_mini_batches, lr1)
+    k3_differ = (k3_fused_check(fused16, args0, bufs16, 0, 0, f"{task} at p0")
+                 + k3_fused_check(fused16, state1, bufs16, alg.num_mini_batches - 1, 1, f"{task} after one epoch"))
+
+    lib2 = fused_update._lib("k2")
+    args16, keep = fused16._k2_context(p0, bufs16)
+    k2_launch = lambda: fused16._k2_launch(lib2, args16, 0, dev)
+    k2_ms = cuda_ms(k2_launch, reps=50, warmup=3)
+    k2_plain_ms = cuda_ms(lambda: fused16.grads_plain(p0, bufs16, 0), reps=3, warmup=1)
+    library_ms = cublas_yardstick(fused16, dev)
+    ops, nbytes = k2_work(fused16, 2)
+    bound_tc = max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3
+    bound_fp32 = max(ops / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+    log(f"[K2{tag}] {k2_ms:.4f} ms per grad step ({fused16.rows} rows, bf16 operands, tensor cores); plain "
+        f"{k2_plain_ms:.3f} ms; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; bound {bound_tc:.4f} ms at the "
+        f"bf16 tensor-core peak ({100 * bound_tc / k2_ms:.1f}% of it reached), {bound_fp32:.4f} ms at the FP32 "
+        f"peak; achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s; cuBLAS yardstick (torch.matmul, the same "
+        f"{len(fused16.gemm_shapes())} products on bf16 operands, GEMMs only, one CUDA graph replay) "
+        f"{library_ms:.4f} ms")
+    row = {
+        "name": "K2 PPO minibatch loss + gradients (GR1T1_full, 10480 rows, obs 105, critic obs 234, "
+                "32 actions, bf16 operands)",
+        "route": "cuda", "source": "wiki_grx_gym_tpu_torch/csrc/ppo_grads.cu",
+        "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:348",
+        "launches": None, "max_abs_err": k2_err["bfloat16"], "max_abs_err_f32": k2_err["float32"],
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_tc, "bound_by": "operations",
+        "bound_ms_fp32": bound_fp32, "library_ms": library_ms,
+        "library": "torch.matmul (cuBLAS) of the same bf16 products, GEMMs only, one CUDA graph replay; "
+                   "not used by the port",
+        "gflop": ops / 1e9, "bytes": nbytes, "kernel_launches_per_grad_step": None,
+        "gemm_err_share_of_limit": gemm_worst, "k3_f32_step_max_abs_err": k3_pmax,
+        "k3_fused_vs_reference_differing_words": k3_differ,
+        "params": net.num_params, "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
+    }
+    del keep, args16, setups, fused16, bufs16, batch, acc, rs, runner, env
+    return row
+
+
+def drive_rollout(dev, task, mutate):
+    """One 64-step rollout of ``task``'s training config (``mutate``
+    applied) at 4096 envs through ``OnPolicyRunner``, the launch counts set
+    to 0 just before and read just after: every output finite, K1 launched
+    once a step. Returns K1's launches."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
+
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    mutate(cfg)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    runner = OnPolicyRunner(env, train_cfg, device=dev)
+    rs = runner.init_state()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rs, batch, acc = runner.rollout(rs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = LAUNCHES["k1"]
+    for name, v in list(batch._asdict().items()) + list(acc.items()):
+        if name != "dones" and not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"{task} ({mutate.__name__}) rollout output {name} is not finite")
+    log(f"[rollout {task}, {mutate.__name__}] {ROLLOUT_STEPS} steps x {N_ENVS} envs in {secs:.3f} s; "
+        f"K1 launches {launches}; mean reward {float(acc['rew'].mean()) / ROLLOUT_STEPS:.4f}")
+    if launches != ROLLOUT_STEPS:
+        raise SystemExit(f"K1 launched {launches} times in a {ROLLOUT_STEPS}-step rollout of {task} "
+                         f"({mutate.__name__})")
+    return launches
 
 
 def main():
@@ -1218,11 +1581,14 @@ def main():
     from wiki_grx_gym_tpu_torch.learn import fused_update
 
     t0 = time.perf_counter()
-    jobs = {
-        "k1_decimation": (cuda_step._SOURCE, cuda_step.NVCC_FLAGS),
+    jobs = {}
+    for task, mutate, _ in K1_SETS.values():
+        op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
+        jobs[cuda_step.library_name(op.sizes, op.team)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes, op.team))
+    jobs.update({
         "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
         "k3_ppo_update": (fused_update.K3_SOURCE, fused_update.FLAGS),
-    }
+    })
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(kbuild.build, name, src, flags) for name, (src, flags) in jobs.items()}
         for f in futs.values():
@@ -1233,7 +1599,7 @@ def main():
         log(f"[build] {name}: nvcc {info.get('seconds', 0.0):.1f} s")
         for line in info.get("ptxas", []):
             log(f"[build] {name} ptxas:", line)
-    log(f"[build] all three built in {build_s:.1f} s")
+    log(f"[build] all {len(jobs)} libraries built in {build_s:.1f} s (one nvcc each, started together)")
     # K2's products must run on the tensor cores: count wgmma's SASS (HGMMA)
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", kbuild.BUILD_INFO["k2_ppo_grads"]["path"]],
@@ -1242,16 +1608,17 @@ def main():
     log(f"[build] k2_ppo_grads SASS: {HGMMA_COUNT[0]} HGMMA instructions (cuobjdump rc {sass.returncode})")
     if not HGMMA_COUNT[0]:
         raise SystemExit("K2's SASS holds no HGMMA instruction: its products do not run on the tensor cores")
-    ptxas = cuda_step.BUILD_INFO.get("ptxas", [])
-    k1_kernels = ptxas_summary(ptxas)
-    for name, r in k1_kernels.items():
-        log(f"[build] K1 {name}: {r['registers']} registers, {r['spill_stores']} B spill stores, "
-            f"{r['spill_loads']} B spill loads")
-    k1_team = cuda_step.team_occupancy()
-    log(f"[build] K1 team kernel: {k1_team['threads_per_env']} lanes an env, {k1_team['envs_per_block']} "
-        f"envs a block, {k1_team['smem_bytes_per_block']} B of shared memory a block, "
-        f"{k1_team['blocks_per_sm']} blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
-    k3_kernels = {name: r for name, r in ptxas_summary(kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", [])).items()
+    for set_name, (task, mutate, _) in K1_SETS.items():
+        op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
+        lib = cuda_step.library_name(op.sizes, op.team)
+        for name, r in kbuild.ptxas_summary(kbuild.BUILD_INFO[lib].get("ptxas", [])).items():
+            log(f"[build] K1 {set_name} {name}: {r.get('registers')} registers, {r.get('spill_stores')} B spill "
+                f"stores, {r.get('spill_loads')} B spill loads")
+        occ = cuda_step.team_occupancy(op)
+        log(f"[build] K1 {set_name} team kernel: {occ['threads_per_env']} lanes an env, {occ['envs_per_block']} "
+            f"envs a block, {occ['smem_bytes_per_block']} B of shared memory a block, "
+            f"{occ['blocks_per_sm']} blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    k3_kernels = {name: r for name, r in kbuild.ptxas_summary(kbuild.BUILD_INFO["k3_ppo_update"].get("ptxas", [])).items()
                   if "k3_" in name}
     for name, r in k3_kernels.items():
         log(f"[build] K3 {name}: {r.get('registers')} registers, {r.get('spill_stores')} B spill stores, "
@@ -1262,97 +1629,10 @@ def main():
     log(f"[build] K3 k3_fused_step: grid barrier by {K3_BARRIER}; {fused_update.K3_BLOCKS} blocks of 256 "
         f"threads, {k3_resident} co-resident on this card")
 
-    # ---- phase 3: K1 against its plain version, 4096 envs ----
-    env, state = cuda_step.reachable_state(N_ENVS, dev)
-    op = env.decimation_op
-    gen_in = torch.Generator(device=dev)
-    gen_in.manual_seed(1)
-    args, kw = cuda_step.decimation_inputs(env, state, gen_in)
-    gen_in.manual_seed(1)
-    args64, kw64 = cuda_step.decimation_inputs(env, state, gen_in, dtype=torch.float64)
-    k = groups(op(*args, **kw))
-    p = groups(op.plain(*args, **kw))
-    p64 = groups(op.plain(*args64, **kw64))
-    torch.cuda.synchronize()
-    flips = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
-    for name in BOOL_GROUPS:
-        flips |= (k[name] != p[name]).any(dim=1)
-    keep = ~flips
-    over = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)   # over the stated tolerance
-    widened_ok, max_abs_err = True, 0.0
-    for name in k:
-        if name in BOOL_GROUPS:
-            continue
-        a, b, b64 = k[name], p[name], p64[name]
-        if not (torch.isfinite(a[keep]).all() and torch.isfinite(b[keep]).all()):
-            raise SystemExit(f"K1 vs plain: {name} has non-finite values")
-        err = (a - b).abs()
-        atol = ATOL_FORCE if name in FORCE_GROUPS else ATOL
-        stated = atol + RTOL * b.abs()
-        floor = float((b - b64)[keep].abs().max())
-        env_over = (err > stated).any(dim=1) & keep
-        over |= env_over
-        good = bool((err[keep] <= stated[keep] + 3.0 * floor).all())
-        widened_ok &= good
-        rel = float((err[keep] / (b[keep].abs() + 1e-6)).max())
-        if name not in FORCE_GROUPS:
-            max_abs_err = max(max_abs_err, float(err[keep].max()))
-        log(f"[K1 vs plain] {name:26s} max_abs {float(err[keep].max()):.3e} max_rel {rel:.3e} "
-            f"envs over rtol {RTOL:g}/atol {atol:g}: {int(env_over.sum())}; "
-            f"f32 noise floor {floor:.3e}; within stated + 3 x floor {good}")
-    divergent = flips | over
-    div_frac = float(divergent.float().mean())
-    log(f"[K1 vs plain] {N_ENVS} envs: boolean lanes differ in {int(flips.sum())}, float lanes "
-        f"over the stated tolerance in {int(over.sum())}; together {int(divergent.sum())} envs "
-        f"({100 * div_frac:.3f}%, limit 0.1%)")
-    force_err = max(float((k[g] - p[g])[keep].abs().max()) for g in FORCE_GROUPS)
-    if div_frac > 1e-3 or not widened_ok:
-        raise SystemExit("K1 disagrees with its plain version")
-
-    # the team kernel against the one-thread kernel on the same packed
-    # input: every output lane bit for bit
-    comp = op._pack(*args[:6], kw["last_qd"], kw["extra"])
-    out = torch.full((op.c_out, N_ENVS), -7.0, dtype=torch.float32, device=dev)
-    ref = torch.empty_like(out)
-    op.launch_packed(comp, ref, kernel="thread")
-    op.launch_packed(comp, out)
-    torch.cuda.synchronize()
-    differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
-    log(f"[K1 team vs thread] {op.c_out} x {N_ENVS} output lanes, bit for bit (NaN lanes by bit pattern; "
-        f"{int(torch.isnan(ref).sum())} NaN lanes): {differ} differing lanes")
-    if differ:
-        raise SystemExit(f"the team kernel differs from the one-thread kernel in {differ} output lanes")
-
-    # timing: both kernels alone on packed buffers (CUDA events, in turns),
-    # the wrapper, and the plain version
-    team = lambda: op.launch_packed(comp, out)
-    thread = lambda: op.launch_packed(comp, ref, kernel="thread")
-    k1_ms = cuda_ms(team, reps=50, warmup=3)
-    thread_ms = cuda_ms(thread, reps=50, warmup=3)
-    turns = [cuda_ms(thread, reps=50, warmup=1), cuda_ms(team, reps=50, warmup=1)]
-    wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
-    plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=2, warmup=1)
-    ops_per_env = count_plain_ops()
-    bytes_moved = (op.c_in + op.c_out) * 4 * N_ENVS
-    ops_ms = ops_per_env * N_ENVS / FP32_PEAK * 1e3
-    bytes_ms = bytes_moved / HBM_RATE * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    # K1 is built with --fmad=false: no FMA pairing, so its attainable rate
-    # for these ops is half the peak
-    ops_ms_no_fma = 2.0 * ops_ms
-    log(f"[K1] team kernel {k1_ms:.4f} ms/launch at {N_ENVS} envs, then {turns[1]:.4f}; one-thread kernel "
-        f"{thread_ms:.4f}, then {turns[0]:.4f} ms; wrapper incl. pack/unpack {wrapper_ms:.4f} ms; plain "
-        f"{plain_ms:.2f} ms; ops/env/step {ops_per_env}; bound {bound_ms:.4f} ms by {bound_by} (ops "
-        f"{ops_ms:.4f} ms, {ops_ms_no_fma:.4f} ms without FMA pairing; bytes {bytes_ms:.4f} ms); the team "
-        f"kernel reaches {100 * ops_ms_no_fma / k1_ms:.1f}% of the no-FMA bound")
-    if not k1_ms < thread_ms:
-        raise SystemExit(f"the team kernel ({k1_ms:.4f} ms) is not faster than the one-thread kernel "
-                         f"({thread_ms:.4f} ms)")
+    # ---- phase 3: K1 against its plain version, 4096 envs, each size set ----
+    k1_rows = {name: k1_phase(dev, *K1_SETS[name], require_faster=name == "GR1T1") for name in K1_SETS}
 
     # ---- phase 4: the slice's main path ----
-    del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
-    torch.cuda.empty_cache()
     cfg, train_cfg = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = N_ENVS
     env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
@@ -1449,6 +1729,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train = train_phase(dev)
+
+    # ---- phase 9: the 32-DOF full body: K2 at its widths, learn(2); the no-pairs rollout ----
+    k2_full_row = full_body_ppo_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full = train_phase(dev, "GR1T1_full")
+    no_pairs_launches = drive_rollout(dev, "GR1T1", no_self_collision)
+
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
     k3_row["launches"] = train["launches"]["k3"]
@@ -1459,37 +1747,17 @@ def main():
     k3_row["kernels_ptxas"] = k3_kernels
     k3_row["coresident_blocks"] = k3_resident
 
-    kernels = [{
-        "name": "K1 decimation (GR1T1 lower limb, plane, post fold)",
-        "route": "cuda",
-        "source": "wiki_grx_gym_tpu_torch/csrc/decimation.cu",
-        "replaces": "wiki_grx_gym_tpu/sim/pallas_step.py:149",
-        "launches": main_path_launches,
-        "max_abs_err": max_abs_err,
-        "max_abs_err_forces": force_err,
-        "ms": k1_ms,
-        "ms_thread_kernel": thread_ms,
-        "ms_in_turns": {"thread": turns[0], "team": turns[1]},
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "bound_ms_no_fma": max(ops_ms_no_fma, bytes_ms),
-        "library_ms": None,
-        "wrapper_ms": wrapper_ms,
-        "envs": N_ENVS,
-        "ops_per_env_step": ops_per_env,
-        "bytes": bytes_moved,
-        "build_s": build_s,
-        "ptxas": ptxas,
-        "kernels_ptxas": k1_kernels,
-        **k1_team,
-        "team_vs_thread_differing_lanes": differ,
-        "rollout_env_steps_per_s": steps_per_s,
-        "rollout_launches": rollout_launches,
-        "peak_mem_gib": peak_gib,
-        "train_launches": train["launches"]["k1"],
-    }, k2_row, k3_row]
+    k1_row = dict(k1_rows["GR1T1"], launches=main_path_launches, build_all_s=build_s,
+                  rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
+                  peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"])
+    k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
+    k1_no_pairs_row = dict(k1_rows["GR1T1_no_pairs"], launches=no_pairs_launches,
+                           launches_from="one 64-step rollout of the no-pairs config")
+    k2_full_row["launches"] = train_full["launches"]["k2"]
+    k2_full_row["kernel_launches_per_grad_step"] = train_full["profile"]["k2_kernel_launches_per_grad_step"]
+    kernels = [k1_row, k1_full_row, k1_no_pairs_row, k2_row, k2_full_row, k3_row]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
+    log(json.dumps({"train_GR1T1_full": {k: v for k, v in train_full.items() if k != "launches"}}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

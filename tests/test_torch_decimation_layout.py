@@ -89,11 +89,11 @@ def test_ancestor_masks_match_the_substep(sub, lists):
 
 
 def test_constant_struct_has_no_padding_and_holds_the_lists(sub, lists):
-    fields = cuda_step._ModelConst._fields_
-    assert ctypes.sizeof(cuda_step._ModelConst) == sum(ctypes.sizeof(t) for _, t in fields)
     cfg, _ = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
     op = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")[0].decimation_op
+    struct = cuda_step.const_struct(op.sizes)
+    assert ctypes.sizeof(struct) == sum(ctypes.sizeof(t) for _, t in struct._fields_)
     k = cuda_step._make_constants(op.deci, op.in_off, op.out_off, op.c_in, op.c_out)
     assert k.n_levels == lists["n_levels"]
     for name, values in lists.items():

@@ -24,6 +24,7 @@ import pytest
 
 from wiki_grx_gym_tpu_torch import build as kbuild
 from wiki_grx_gym_tpu_torch.scripts import sanitize_k1
+from wiki_grx_gym_tpu_torch.sim import cuda_step
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
 
@@ -39,7 +40,8 @@ def run_case(exe, out_dir, n):
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("k1_host")
-    return sanitize_k1.build_host(out_dir), out_dir
+    op = cuda_step.task_env("GR1T1", 1, "cpu").decimation_op
+    return sanitize_k1.build_host(op, out_dir), out_dir
 
 
 @pytest.mark.parametrize("n", [1, 8, 61])
@@ -58,5 +60,6 @@ def test_a_missing_barrier_is_caught(tmp_path):
     barrier = "    __syncwarp(mask);\n    // back substitution on one lane\n"
     assert src.count(barrier) == 1
     (csrc / "decimation.cu").write_text(src.replace(barrier, "    // back substitution on one lane\n"))
-    rc, text = run_case(sanitize_k1.build_host(tmp_path, csrc), tmp_path, 8)
+    op = cuda_step.task_env("GR1T1", 1, "cpu").decimation_op
+    rc, text = run_case(sanitize_k1.build_host(op, tmp_path, csrc), tmp_path, 8)
     assert rc != 0 and any("WARNING: ThreadSanitizer: data race" in line for line in text), "\n".join(text)

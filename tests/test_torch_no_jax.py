@@ -102,10 +102,15 @@ def test_env_refuses_outside_the_slice(mutate, match):
 
 @pytest.mark.parametrize("task", ["GR1T1_full", "GR1T2_full"])
 def test_full_body_tasks_refused(task):
+    """The 32-DOF tasks build (K1 takes up to 32 dofs); what stays outside
+    the slice is refused for them as for the lower limb: heading commands."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     cfg, _ = task_registry.get_cfgs(task)
     cfg.env.num_envs = 2
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
+    assert env.num_dof == 32 and env.obs_dim == 105
+    cfg.commands.heading_command = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         task_registry.make_env(task, env_cfg=cfg, device="cpu")
 
@@ -122,21 +127,29 @@ def test_lstm_runner_refused():
 
 
 def test_kernel_path_refuses_unsupported_programs():
-    """On a CUDA tensor the wrapper launches K1 or raises: a reward term with
-    no lane form is refused when the program is built, and sizes the CUDA
-    source is not instantiated for are reported before any launch."""
+    """On a CUDA tensor the wrapper launches K1 or raises. K1 is built for
+    each program's sizes, so the full-body tasks, GR1T2 and GR1T1 without
+    self-collision pairs (other sizes than the GR1T1 lower limb's) all have
+    a kernel; a reward term with no lane form is refused when the program
+    is built."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
+    def no_pairs(c):
+        c.asset.self_collisions = 1
+
+    for task, mutate in [("GR1T1", None), ("GR1T1_full", None), ("GR1T2_full", None), ("GR1T2", None),
+                         ("GR1T1", no_pairs)]:
+        cfg, _ = task_registry.get_cfgs(task)
+        cfg.env.num_envs = 2
+        if mutate is not None:
+            mutate(cfg)
+        op = task_registry.make_env(task, env_cfg=cfg, device="cpu")[0].decimation_op
+        assert op.kernel_support_error() is None, (task, mutate)
+        if mutate is not None:
+            assert op.sizes.NPAIR == 0
     cfg, _ = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
-    assert task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")[0] \
-        .decimation_op.kernel_support_error() is None
     cfg.rewards.scales.collision = -1.0   # a term without a lane form
     env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="collision"):
         env.decimation_op
-    cfg, _ = task_registry.get_cfgs("GR1T1")
-    cfg.env.num_envs = 2
-    cfg.asset.self_collisions = 1         # no self-collision pairs: other sizes
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
-    assert "sizes" in env.decimation_op.kernel_support_error()

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -78,4 +79,29 @@ def build(name: str, source: Path, flags: Sequence[str]) -> Path:
     ptxas = [l.strip() for l in (res.stdout + res.stderr).splitlines()
              if "registers" in l or "spill" in l or "Compiling entry" in l]
     info.update(path=str(out), seconds=secs, ptxas=ptxas, cmd=" ".join(cmd))
+    return out
+
+
+def ptxas_summary(lines) -> Dict[str, dict]:
+    """ptxas' report (-Xptxas -v) per kernel: {name: {registers, spill_stores,
+    spill_loads}}, K1's team kernel named by its lanes an env and envs a block."""
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            shape = re.search(r"Li(\d+)ELi(\d+)E", mangled)
+            name = (f"decimation_team_kernel<{shape.group(1)}, {shape.group(2)}>"
+                    if "decimation_team_kernel" in mangled and shape
+                    else "decimation_kernel" if "decimation_kernel" in mangled else mangled)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
     return out

@@ -7,35 +7,47 @@
 // contact with anchored stick friction, sphere-sphere self-collision, CRBA
 // mass matrix + RNEA bias, an unrolled (6+D)^2 Cholesky solve, semi-implicit
 // Euler), the feet accumulators, the final-state FK of the post bodies, and
-// the folded post-physics stage (24 reward terms of the GR1T1 lower limb,
+// the folded post-physics stage (the GR1T1 family's reward terms,
 // termination, tilt, bad, contact filter, air/land trackers).
+//
+// One library is built per model's sizes (struct Sizes: bodies, dofs,
+// contact points, pairs, reward terms, input and output widths) and team
+// shape, from -D flags (sim/cuda_step.py:nvcc_flags); the GR1T1 and GR1T2
+// lower limbs share one size set, the 32-DOF full bodies another, a config
+// with self-collision off (no pairs) a third.
 //
 // Two kernels compute it. decimation_team_kernel is the main path's:
 //
-// - Lane mapping. One env runs on a team of T = 16 lanes of one warp (two
-//   envs a warp; the only barrier is __syncwarp on the team's half), E = 8
-//   envs a block. Lane l takes dof l (torques, joint limits, the joint
-//   update), contact points and self-collision pairs l, l + 16, ..., body l
-//   (the contact wrench over its points, world inertia, gravity wrench, body
-//   force), row l of the (6+D)^2 mass matrix, which it keeps in registers
-//   through the Cholesky (other rows' entries by shuffle), and reward terms
-//   l, l + 16. FK and the bias recursion go down the tree level by level or
-//   one component a lane, the sums to the root one component a lane; the
-//   back substitution, the base's integration and the post stage's scalars
-//   run on lane 0.
-// - Shared memory. Each block copies the model constants (~5.2 KB) into
-//   shared memory once, since lanes read them at different indices, and
-//   stages its envs' inputs and outputs there so that device memory is read
-//   and written one component row at a time. An env's working set is 5.2 KB
-//   (TeamEnv: the state, FK, contact and the composite dynamics, the phases'
-//   short-lived arrays in one union); 8 envs and the constants take 47 KB, so
-//   4 blocks (16 warps) an SM and the 4096 envs of the main path in one wave.
+// - Lane mapping. One env runs on a team of T lanes of one warp (the only
+//   barrier is __syncwarp on the team's lanes), E envs a block: 16 x 8 for
+//   the 10-DOF lower limb, 32 x 4 for the 32-DOF body (sim/cuda_step.py:
+//   team_shape; PERF.md records the shapes measured). Lane l takes dofs l,
+//   l + T, ... (torques, joint limits, the joint update), contact points and
+//   self-collision pairs l, l + T, ..., bodies l, l + T, ... (the contact
+//   wrench over its points, world inertia, gravity wrench, body force),
+//   rows l, l + T, ... of the (6+D)^2 mass matrix, which it keeps in
+//   registers through the Cholesky (other rows' entries by shuffle), and
+//   reward terms l, l + T, .... FK and the bias recursion go down the tree
+//   level by level or one component a lane, the sums to the root one
+//   component a lane; the back substitution, the base's integration and the
+//   post stage's scalars run on lane 0.
+// - Shared memory. Each block copies the model constants (5.2 KB for the
+//   lower limb, 13 KB for the full body) into shared memory once, since
+//   lanes read them at different indices, and stages its envs' inputs and
+//   outputs there so that device memory is read and written one component
+//   row at a time. An env's working set (TeamEnv: the state, FK, contact and
+//   the composite dynamics, the phases' short-lived arrays in one union) is
+//   5.2 KB for the lower limb (8 envs and the constants: 47 KB, 4 blocks or
+//   16 warps an SM, the main path's 4096 envs in one wave) and 14 KB for the
+//   full body (4 envs and the constants: 68 KB, 3 blocks or 12 warps an SM).
+//   The launch bounds ask for the blocks that shared memory allows
+//   (team_min_blocks), which sets the registers a thread may take.
 // - What bounds it: one env's chain of dependent steps, not FP32 throughput
-//   or bytes. 4096 envs fill only 16 warps an SM, so little latency is
-//   hidden; the tree (5 levels), the 16 Cholesky columns (a square root and
-//   two true divisions each), the serial back substitution and the sums
-//   kept in serial order are sequential in each of the 10 substeps.
-//   scripts/profile_k1.py times it phase by phase.
+//   or bytes. 4096 envs fill at most 16 warps an SM, so little latency is
+//   hidden; the tree (5 levels for the lower limb), the 6 + D Cholesky
+//   columns (a square root and two true divisions each), the serial back
+//   substitution and the sums kept in serial order are sequential in each
+//   of the 10 substeps. scripts/profile_k1.py times it phase by phase.
 // - Barriers: tests/test_torch_decimation_race.py compiles the kernels for
 //   the CPU (csrc/host/, K1_KERNELS_ONLY) and runs them under
 //   ThreadSanitizer, which finds any shared-memory access pair that no
@@ -62,34 +74,50 @@
 // Interface (plain C, loaded with ctypes): k1_const_size, k1_set_constants,
 // k1_launch (the team kernel), k1_launch_thread (the one-thread kernel),
 // k1_occupancy (the team kernel's shape, shared memory and blocks per SM).
-// Only the main path's team shape (T = 16, E = 8) is instantiated; the
-// kernel stays templated on T and E for a later choice. A launch runs on the
-// caller's stream, allocates nothing and returns cudaGetLastError().
+// One team shape (TEAM_T x TEAM_E) is instantiated per library. A launch
+// runs on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The model's sizes and the team kernel's shape come from the build, one
+// library per distinct set (sim/cuda_step.py:nvcc_flags passes them as -D
+// flags, and build.library_path names the library by its flags).
+#if !defined(K1_NB) || !defined(K1_ND) || !defined(K1_NP) || !defined(K1_NF) || !defined(K1_NPAIR) || \
+    !defined(K1_NR) || !defined(K1_NPOST) || !defined(K1_NIN) || !defined(K1_NOUT) ||                 \
+    !defined(K1_TEAM_T) || !defined(K1_TEAM_E)
+#error "K1 is built for one model's sizes: define K1_NB ... K1_NOUT, K1_TEAM_T and K1_TEAM_E"
+#endif
+
 namespace k1 {
 
-struct GR1T1LowerLimb {
-  static constexpr int NB = 11;     // bodies
-  static constexpr int ND = 10;     // dofs
-  static constexpr int NP = 29;     // contact points
-  static constexpr int NF = 2;      // feet
-  static constexpr int NPAIR = 64;  // self-collision pairs
-  static constexpr int NR = 24;     // reward terms
-  static constexpr int NPOST = 3;   // post-FK bodies
-  static constexpr int NIN = 186;   // input components (sim/cuda_step.py:_schema)
-  static constexpr int NOUT = 301;  // output components
+struct Sizes {
+  static constexpr int NB = K1_NB;        // bodies
+  static constexpr int ND = K1_ND;        // dofs
+  static constexpr int NP = K1_NP;        // contact points
+  static constexpr int NF = K1_NF;        // feet
+  static constexpr int NPAIR = K1_NPAIR;  // self-collision pairs (0: self-collision off)
+  static constexpr int NR = K1_NR;        // reward terms
+  static constexpr int NPOST = K1_NPOST;  // post-FK bodies
+  static constexpr int NIN = K1_NIN;      // input components (sim/cuda_step.py:_schema)
+  static constexpr int NOUT = K1_NOUT;    // output components
 };
+static_assert(Sizes::ND >= 1 && Sizes::ND <= 32, "anc_mask holds one bit a dof in 32 bits");
+
+// an array's capacity for a count that may be 0 (no zero-length arrays;
+// the loops run to the count)
+__host__ __device__ constexpr int cap(int n) { return n > 0 ? n : 1; }
 
 constexpr int MAXG = 8;       // termination-group capacity
 constexpr int N_IN_GROUPS = 21;
 constexpr int N_OUT_GROUPS = 28;
 constexpr int THREADS = 64;   // the one-thread kernel's block
-// The team kernel's shape: lanes per env and envs per block (PERF.md
-// records the times of the other shapes tried).
-constexpr int TEAM_T = 16, TEAM_E = 8;
+// The team kernel's shape: lanes per env and envs per block
+// (sim/cuda_step.py:team_shape; PERF.md records the shapes tried).
+constexpr int TEAM_T = K1_TEAM_T, TEAM_E = K1_TEAM_E;
+static_assert(TEAM_T == 8 || TEAM_T == 16 || TEAM_T == 32, "a team is a power-of-two part of a warp");
+static_assert(TEAM_E >= 1 && TEAM_T * TEAM_E % 32 == 0 && TEAM_T * TEAM_E <= 512, "whole warps a block");
 
 enum InGroup {
   IN_POS, IN_QUAT, IN_LIN, IN_ANG, IN_Q, IN_QD, IN_ANCHOR, IN_ACTIONS, IN_LAST_ACTIONS,
@@ -119,7 +147,7 @@ template <class S>
 struct ModelConst {
   int parent[S::NB];
   int point_body[S::NP];
-  int pair_i[S::NPAIR], pair_j[S::NPAIR];
+  int pair_i[cap(S::NPAIR)], pair_j[cap(S::NPAIR)];
   int feet_body[S::NF];
   int feet_start[S::NF], feet_count[S::NF];
   int feet_pts[S::NP];
@@ -130,21 +158,21 @@ struct ModelConst {
   int torso_slot, forehead_slot;
   int n_ankle_left, ankle_left[S::ND];
   int n_ankle_right, ankle_right[S::ND];
-  int reward_id[S::NR];
+  int reward_id[cap(S::NR)];
   int decimation, use_tangent, use_joint_limits, has_damp;
   int in_off[N_IN_GROUPS], out_off[N_OUT_GROUPS];
   // the team kernel's schedule (built by the wrapper, sim/cuda_step.py:team_lists)
-  int pt_pair_start[S::NP + 1], pt_pair[2 * S::NPAIR];  // per point: 2 s + (1 if it is pair s's j)
-  int body_pt_start[S::NB + 1], body_pts[S::NP];        // per body: its points, ascending
-  int n_levels, level_start[S::NB], level_body[S::NB];  // bodies >= 1 by depth in the tree
-  int anc_mask[S::ND];  // bit j of row i: dof j is an ancestor-or-self of dof i
+  int pt_pair_start[S::NP + 1], pt_pair[cap(2 * S::NPAIR)];  // per point: 2 s + (1 if it is pair s's j)
+  int body_pt_start[S::NB + 1], body_pts[S::NP];             // per body: its points, ascending
+  int n_levels, level_start[S::NB], level_body[S::NB];       // bodies >= 1 by depth in the tree
+  unsigned anc_mask[S::ND];  // bit j of row i: dof j is an ancestor-or-self of dof i
   float tree_pos[S::NB][3], tree_quat[S::NB][4], axis_unit[S::NB][3], axis[S::NB][3];
   float mass[S::NB], com[S::NB][3], inertia[S::NB][3][3];
   float grav_z[S::NB], cm_sub[S::NB];
   float armature[S::ND];
   float dof_lower[S::ND], dof_upper[S::ND], lim_k[S::ND], lim_damp[S::ND];
   float point_offset[S::NP][3], point_radius[S::NP];
-  float pair_rsum[S::NPAIR];
+  float pair_rsum[cap(S::NPAIR)];
   float dt, stiffness, damping_ratio, sqrt_kpm, imp_cap, kt, d_t, k_self, d_ns,
       slip_velocity, grav, gscale, ground_h;
   float action_scale, p_gain[S::ND], d_gain[S::ND], default_q[S::ND],
@@ -153,12 +181,12 @@ struct ModelConst {
   float feet_offset[S::NF][3];
   float torso_qoff[4], forehead_qoff[4];
   float soft_lo[S::ND], soft_hi[S::ND], vel_soft[S::ND], tor_soft[S::ND];
-  float scale[S::NR], sigma[S::NR];
+  float scale[cap(S::NR)], sigma[cap(S::NR)];
   float swing_target, swing_half, swing_quarter, fat_target, fat_half, flt_max,
       stumble_ratio;
 };
 
-using Sz = GR1T1LowerLimb;
+using Sz = Sizes;
 __constant__ ModelConst<Sz> c_model;
 __device__ ModelConst<Sz> g_model;  // the same bytes; each team-kernel block copies it to shared memory
 
@@ -949,7 +977,7 @@ struct TeamEnv {
   TeamPost<S> post;
   union {
     float qj[S::NB][5];
-    struct { float pts_vel[S::NP][3], nf[S::NPAIR][3]; } c;
+    struct { float pts_vel[S::NP][3], nf[cap(S::NPAIR)][3]; } c;
     struct {
       float e_ang[S::NB][3], e_lin[S::NB][3], h[S::NB][3], io[S::NB][9], bias[S::NB][7],
           f_acc[S::NB][7], f_crb[S::ND][7];
@@ -962,6 +990,15 @@ template <class S>
 __host__ __device__ constexpr int team_const_bytes() { return (int)((sizeof(ModelConst<S>) + 15) / 16 * 16); }
 template <class S, int E>
 __host__ __device__ constexpr int team_smem_bytes() { return team_const_bytes<S>() + E * (int)sizeof(TeamEnv<S>); }
+// The blocks an SM can hold: at most 16 warps, and as many as its 228 KB of
+// shared memory hold (1 KB of it reserved a block). The launch bounds ask
+// for that many, so the registers a thread may take follow the size set.
+template <class S, int T, int E>
+__host__ __device__ constexpr int team_min_blocks() {
+  return 233472 / (team_smem_bytes<S, E>() + 1024) < 512 / (T * E)
+             ? 233472 / (team_smem_bytes<S, E>() + 1024)
+             : 512 / (T * E);
+}
 
 // m3vec on a row-major 3x3 stored as 9 floats
 __device__ __forceinline__ void m3vec9(const float* m, const float* v, float* o) {
@@ -1146,10 +1183,11 @@ __device__ __forceinline__ unsigned team_mask(int tid) {
   return T == 32 ? 0xffffffffu : ((1u << T) - 1u) << ((tid & 31) / T * T);
 }
 
-// Launch bounds: T * E threads, and enough blocks for 16 warps an SM, so at
-// most 128 registers a thread.
+// Launch bounds: T * E threads, and the blocks an SM holds by warps and by
+// shared memory (team_min_blocks): the GR1T1 lower limb at 16 x 8 gets 4
+// blocks (16 warps), so at most 128 registers a thread.
 template <class S, int T, int E>
-__global__ void __launch_bounds__(T * E, 512 / (T * E))
+__global__ void __launch_bounds__(T * E, team_min_blocks<S, T, E>())
 decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __restrict__ in,
                        float* __restrict__ out, int n) {
   constexpr int NB = S::NB, ND = S::ND, NP = S::NP, NF = S::NF, N6 = 6 + S::ND, NT = T * E;
@@ -1298,7 +1336,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
     // ascending pair order (the serial loop's)
     {
       constexpr int RS = (S::NPAIR + T - 1) / T;
-      float nfv[RS][3];
+      float nfv[cap(RS)][3];
 #pragma unroll
       for (int rr = 0; rr < RS; ++rr) {
         const int sp = l + rr * T;
@@ -1527,7 +1565,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
         const int jr = i < 6 ? 0 : i < N6 ? i - 6 : ND - 1;  // this row's dof
         float fc[6];
         for (int k = 0; k < 6; ++k) fc[k] = V.u.d.f_crb[jr][k];
-        const unsigned anc = (unsigned)K.anc_mask[jr];
+        const unsigned anc = K.anc_mask[jr];
 #pragma unroll
         for (int j = 0; j < N6; ++j) {
           float v;
@@ -1783,6 +1821,16 @@ int k1_set_constants(const void* host, int nbytes, void* stream) {
 
 namespace k1 {
 
+static_assert(team_smem_bytes<Sz, TEAM_E>() <= 232448, "the team shape's shared memory exceeds a block's 227 KB");
+static_assert(team_min_blocks<Sz, TEAM_T, TEAM_E>() >= 1, "no block of this team shape fits an SM");
+
+// Internal linkage: a process loads one library per size set, and the
+// static below must be each library's own. (A static local of a function
+// template or inline function is one symbol across every library loaded,
+// whatever their load flags, so two size sets with the same team shape
+// would share the first one's constants address.)
+namespace {
+
 struct TeamSetup {
   cudaError_t err;
   const ModelConst<Sz>* model;  // device address of g_model
@@ -1790,17 +1838,18 @@ struct TeamSetup {
 
 // Done once: allow the dynamic shared memory above 48 KB, find the
 // constants' device address.
-template <int T, int E>
 const TeamSetup& team_setup() {
   static const TeamSetup s = [] {
     TeamSetup r{cudaSuccess, nullptr};
-    r.err = cudaFuncSetAttribute(decimation_team_kernel<Sz, T, E>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, team_smem_bytes<Sz, E>());
+    r.err = cudaFuncSetAttribute(decimation_team_kernel<Sz, TEAM_T, TEAM_E>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, team_smem_bytes<Sz, TEAM_E>());
     if (r.err == cudaSuccess) r.err = cudaGetSymbolAddress((void**)&r.model, g_model);
     return r;
   }();
   return s;
 }
+
+}  // namespace
 
 }  // namespace k1
 
@@ -1811,7 +1860,7 @@ extern "C" {
 int k1_launch(const float* in, float* out, int n, void* stream) {
   using namespace k1;
   if (n <= 0) return (int)cudaSuccess;
-  const TeamSetup& s = team_setup<TEAM_T, TEAM_E>();
+  const TeamSetup& s = team_setup();
   if (s.err != cudaSuccess) return (int)s.err;
   decimation_team_kernel<Sz, TEAM_T, TEAM_E>
       <<<(n + TEAM_E - 1) / TEAM_E, TEAM_T * TEAM_E, team_smem_bytes<Sz, TEAM_E>(), (cudaStream_t)stream>>>(
@@ -1832,7 +1881,7 @@ int k1_launch_thread(const float* in, float* out, int n, void* stream) {
 // block and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 int k1_occupancy(int* threads_per_env, int* envs_per_block, int* smem_bytes, int* blocks_per_sm) {
   using namespace k1;
-  const TeamSetup& s = team_setup<TEAM_T, TEAM_E>();
+  const TeamSetup& s = team_setup();
   if (s.err != cudaSuccess) return (int)s.err;
   *threads_per_env = TEAM_T;
   *envs_per_block = TEAM_E;

@@ -4,9 +4,10 @@
 // csrc/k1_sanitize.cpp runs on it unchanged. The team kernel runs block by
 // block, each GPU thread of a block a std::thread; the one-thread kernel
 // runs env by env on the caller's thread. tests/test_torch_decimation_race.py
-// builds it with -fsanitize=thread:
+// builds it with -fsanitize=thread, for one model's sizes and team shape (the
+// -D flags of sim/cuda_step.py:size_defines, e.g. -DK1_NB=11 ... -DK1_TEAM_E=8):
 //
-//   g++ -std=c++17 -O1 -g -fsanitize=thread -ffp-contract=off -pthread \
+//   g++ -std=c++17 -O1 -g -fsanitize=thread -ffp-contract=off -pthread <-D flags> \
 //       -I csrc/host csrc/host/k1_host.cpp csrc/k1_sanitize.cpp -o k1_host
 #define K1_KERNELS_ONLY
 #include "../decimation.cu"

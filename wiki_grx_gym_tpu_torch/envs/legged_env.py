@@ -16,8 +16,8 @@ the post-physics stage folded into the decimation kernel K1
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
 a ``torch.Generator`` that ``step`` draws from in place. Outside this path
 the env refuses with ``NotImplementedError`` naming the ROADMAP item:
-terrain other than ``plane``, heading commands, the 32-DOF full body and
-control types other than ``P``.
+terrain other than ``plane``, heading commands, models of more than
+``MAX_DOF`` (32) dofs and control types other than ``P``.
 """
 
 from __future__ import annotations
@@ -34,14 +34,10 @@ from wiki_grx_gym_tpu_torch.device import resolve_device
 from wiki_grx_gym_tpu_torch.envs.base_config import class_to_dict
 from wiki_grx_gym_tpu_torch.models.robot import RobotModel
 from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
+from wiki_grx_gym_tpu_torch.sim.cuda_step import MAX_DOF
 from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
 from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
 from wiki_grx_gym_tpu_torch.utils import maths
-
-# the decimation kernel K1 is instantiated for models up to this many DOFs
-# in slice 1 (the 10-DOF lower limbs); the 32-DOF full body comes later
-_MAX_SLICE_DOF = 16
-
 
 @dataclasses.dataclass
 class EnvState:
@@ -104,10 +100,10 @@ class LeggedEnv:
                 f"control_type {cfg.control.control_type!r}: the V and T control "
                 "modes are ROADMAP queue 1 item 11"
             )
-        if model.num_dof > _MAX_SLICE_DOF:
+        if model.num_dof > MAX_DOF:
             raise NotImplementedError(
-                f"{model.num_dof}-DOF model: the 32-DOF full-body tasks are "
-                "ROADMAP queue 1 item 11"
+                f"{model.num_dof}-DOF model: the decimation kernel K1 takes at most "
+                f"{MAX_DOF} dofs (ROADMAP queue 2, K1)"
             )
         self.cfg = cfg
         if getattr(cfg.asset, "disable_gravity", False):

@@ -18,6 +18,7 @@ import torch
 
 from wiki_grx_gym_tpu_torch.sim.scalarized import (
     _clip,
+    _div,
     _dot,
     _maximum,
     _minimum,
@@ -198,7 +199,7 @@ class LanePost:
             commands=extra["commands"],
             blv=blv, bav=bav, pg=pg, torso_pg=torso_pg, forehead_pg=forehead_pg,
             q=state["q"], qd=state["qd"],
-            dof_acc=[(state["qd"][i] - last_dof_vel[i]) / self.dt
+            dof_acc=[_div(state["qd"][i] - last_dof_vel[i], self.dt)
                      for i in range(self.nd)],
             tau=acc["tau"],
             actions=actions, last_actions=last_actions,
@@ -209,8 +210,8 @@ class LanePost:
             feet_land_time=feet_land_time,
             feet_height=feet_height,
             feet_force=feet_force,
-            avg_force=[acc["force_sum"][f] / self.decimation for f in range(self.nf)],
-            avg_vxyz=[[acc["vxyz_sum"][f][k] / self.decimation for k in range(3)]
+            avg_force=[_div(acc["force_sum"][f], self.decimation) for f in range(self.nf)],
+            avg_vxyz=[[_div(acc["vxyz_sum"][f][k], self.decimation) for k in range(3)]
                       for f in range(self.nf)],
             bho=bho,
             base_height=state["pos"][2],
@@ -353,7 +354,7 @@ class LanePost:
         err = 0.0
         for f in range(self.nf):
             h = ctx["feet_height"][f]
-            closeness = torch.abs(h - quarter) * (h < quarter) / quarter
+            closeness = _div(torch.abs(h - quarter) * (h < quarter), quarter)
             v = ctx["avg_vxyz"][f]
             err = err + _norm2(v[0], v[1]) * closeness
         return torch.exp(sig * err)

@@ -2,14 +2,15 @@
 
 Applies the same eval overrides (<= 50 envs, no noise, no domain
 randomization, no pushes), builds the env and runner on the requested
-device (default ``cuda``) and rolls the deterministic policy, logging the
-tracking channels of one robot.
+device (default ``cuda``), loads the latest ``model_<it>.pt`` of the
+experiment's runs (or the one ``--load_run``/``--checkpoint`` name) through
+``get_load_path`` and ``runner.load``, exports the actor to
+``<log root>/exported/policies/policy.npz`` in the deploy format
+(``utils/helpers.py:export_policy_npz``) and rolls the deterministic policy,
+logging the tracking channels of one robot. ``--policy <npz>`` plays a
+``policy.npz`` instead of a checkpoint (and exports nothing).
 
-Until the port's runner has checkpoints (slice 2), the actor comes from a
-``policy.npz`` in the format the JAX package's ``export_policy_npz``
-writes (by default ``logs/<experiment>/exported/policies/policy.npz``, where
-the JAX ``play`` exports it). Export and plots wait for slice 2.
-
+    python -m wiki_grx_gym_tpu_torch.scripts.play --task GR1T1 [--load_run R] [--checkpoint C]
     python -m wiki_grx_gym_tpu_torch.scripts.play --task GR1T1 --policy policy.npz
 """
 
@@ -22,13 +23,15 @@ import torch
 from wiki_grx_gym_tpu_torch.convert import load_actor_npz
 from wiki_grx_gym_tpu_torch.envs import task_registry
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
-from wiki_grx_gym_tpu_torch.utils.helpers import get_args, set_seed
-from wiki_grx_gym_tpu_torch.utils.task_registry import ROOT_DIR
+from wiki_grx_gym_tpu_torch.utils.helpers import export_policy_npz, get_args, set_seed
+from wiki_grx_gym_tpu_torch.utils.task_registry import ROOT_DIR, get_load_path, update_cfg_from_args
 
 
-def play(args, num_steps: int = None, device=None):
+def play(args, num_steps: int = None, device=None, log_root="default", export: bool = True):
     """Returns a dict of per-step logged channels (lists of floats) and the
-    per-step total reward of the logged robot."""
+    per-step total reward of the logged robot. ``log_root``: the directory
+    of the experiment's runs (``logs/<experiment_name>`` under the checkout
+    by default)."""
     num_steps = int(num_steps if num_steps is not None else getattr(args, "steps", 500))
     device = device or getattr(args, "device", "cuda")
     env_cfg, train_cfg = task_registry.get_cfgs(args.task)
@@ -47,16 +50,26 @@ def play(args, num_steps: int = None, device=None):
 
     train_cfg.seed = set_seed(args.seed if args.seed is not None else train_cfg.seed)
     env, env_cfg = task_registry.make_env(args.task, args=args, env_cfg=env_cfg, device=device)
+    update_cfg_from_args(None, train_cfg, args)
     runner = OnPolicyRunner(env, train_cfg, device=device)
+    if log_root == "default":
+        log_root = os.path.join(ROOT_DIR, "logs", train_cfg.runner.experiment_name)
 
-    path = getattr(args, "policy", None) or os.path.join(
-        ROOT_DIR, "logs", train_cfg.runner.experiment_name, "exported", "policies", "policy.npz"
-    )
-    print(f"Loading policy from: {path}")
-    load_actor_npz(runner.net, path)
+    if getattr(args, "policy", None):
+        print(f"Loading policy from: {args.policy}")
+        load_actor_npz(runner.net, args.policy)
+        state = runner.init_state()
+    else:
+        path = get_load_path(log_root, train_cfg.runner.load_run, train_cfg.runner.checkpoint)
+        print(f"Loading policy from: {path}")
+        state = runner.load(path)
+        if export:
+            export_dir = os.path.join(log_root, "exported", "policies")
+            os.makedirs(export_dir, exist_ok=True)
+            export_policy_npz(runner.net, os.path.join(export_dir, "policy.npz"))
+            print(f"Exported policy to {export_dir}/policy.npz")
     policy = runner.get_inference_policy()
 
-    state = runner.init_state()
     env_state, obs = state.env_state, state.obs
     robot_index = min(int(getattr(env.cfg.viewer, "ref_env", 0)), env.num_envs - 1)
     knees = [i for i, nm in enumerate(env.model.dof_names) if "knee" in nm]

@@ -77,10 +77,11 @@ def instrumented_source():
     return HEAD + "\n".join(out) + "\n" + TAIL, labels
 
 
-def load_instrumented(path):
-    """The instrumented library, its entries declared; each returns a CUDA
-    error code."""
-    lib = ctypes.CDLL(str(kbuild.build("k1_profiled", path, cuda_step.NVCC_FLAGS)))
+def load_instrumented(path, op):
+    """The instrumented library for ``op``'s sizes and team shape, its
+    entries declared; each returns a CUDA error code."""
+    name = "k1_profiled_" + cuda_step.library_name(op.sizes, op.team)
+    lib = ctypes.CDLL(str(kbuild.build(name, path, cuda_step.nvcc_flags(op.sizes, op.team))))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, _INT
@@ -119,10 +120,10 @@ def main(argv=None):
     kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = kbuild.BUILD_DIR / "decimation_profiled.cu"
     path.write_text(src)
-    lib = load_instrumented(path)
+    op, comp_all, _, _ = cuda_step.reachable_case(max(args.envs), dev)
+    lib = load_instrumented(path, op)
     khz = _INT()
     check(lib.k1p_clock_khz, ctypes.byref(khz))
-    op, comp_all, _, _ = cuda_step.reachable_case(max(args.envs), dev)
     stream = torch.cuda.current_stream()
     for n in args.envs:
         comp = comp_all[:, :n].contiguous()

@@ -1,10 +1,11 @@
 """K1's team kernel checked for races and memory errors, on the card or on the CPU.
 
 Both ways run the host program ``csrc/k1_sanitize.cpp``: it reads K1's model
-constants and a packed input (files this script writes for reachable GR1T1
-states, made on the CPU), launches the team kernel and the one-thread
-kernel on the same input, and requires every output bit to agree. No
-PyTorch is in the checked process.
+constants and a packed input (files this script writes for reachable states
+of the task's training env, made on the CPU), launches the team kernel and
+the one-thread kernel on the same input, and requires every output bit to
+agree. K1 is built for the task's sizes and team shape. No PyTorch is in
+the checked process.
 
 - On the card (default): the program is linked against K1's library
   (built with line info) and run under compute-sanitizer's memcheck,
@@ -16,11 +17,12 @@ PyTorch is in the checked process.
   reports every pair of accesses to the same memory, one a write, that no
   barrier orders. Needs no card.
 
-The default env counts are 64 (eight full blocks) and 61 (a ragged last
-block with a half-used warp). Any error a tool reports, or a differing bit,
-fails the script. Logs go to ``build/k1_sanitize``.
+The default env counts are 64 (eight full blocks of the lower limb's 16 x 8
+shape) and 61 (a ragged last block with a half-used warp). Any error a tool
+reports, or a differing bit, fails the script. Logs go to
+``build/k1_sanitize``.
 
-    python -m wiki_grx_gym_tpu_torch.scripts.sanitize_k1 [--host] [--envs 64 61]
+    python -m wiki_grx_gym_tpu_torch.scripts.sanitize_k1 [--host] [--task GR1T1_full] [--envs 64 61]
 """
 
 from __future__ import annotations
@@ -51,10 +53,12 @@ def sanitizer() -> str:
     return found
 
 
-def build_harness() -> Path:
-    """K1's library with -lineinfo, and the host program linked against it."""
-    lib = kbuild.build("k1_decimation_lineinfo", cuda_step._SOURCE, cuda_step.NVCC_FLAGS + ["-lineinfo"])
-    exe = OUT_DIR / "k1_sanitize"
+def build_harness(op) -> Path:
+    """K1's library for ``op``'s sizes with -lineinfo, and the host program
+    linked against it."""
+    lib = kbuild.build(cuda_step.library_name(op.sizes, op.team) + "_lineinfo", cuda_step._SOURCE,
+                       cuda_step.nvcc_flags(op.sizes, op.team) + ["-lineinfo"])
+    exe = OUT_DIR / f"k1_sanitize_{op.sizes.ND}dof"
     cmd = [kbuild.nvcc(), "-std=c++17", "-O2", "-o", str(exe), str(kbuild.CSRC / "k1_sanitize.cpp"),
            str(lib), "-Xlinker", f"-rpath,{lib.parent}"]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -63,11 +67,13 @@ def build_harness() -> Path:
     return exe
 
 
-def build_host(out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
-    """The program with K1's kernels compiled for the CPU under
-    ThreadSanitizer (from the sources in ``csrc``)."""
-    exe = out_dir / "k1_host_tsan"
-    cmd = ["g++", *HOST_FLAGS, "-I", str(csrc / "host"), str(csrc / "host" / "k1_host.cpp"),
+def build_host(op, out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
+    """The program with K1's kernels, for ``op``'s sizes and team shape,
+    compiled for the CPU under ThreadSanitizer (from the sources in
+    ``csrc``)."""
+    exe = out_dir / f"k1_host_tsan_{cuda_step.library_name(op.sizes, op.team)}"
+    cmd = ["g++", *HOST_FLAGS, *cuda_step.size_defines(op.sizes, op.team), "-I", str(csrc / "host"),
+           str(csrc / "host" / "k1_host.cpp"),
            str(csrc / "k1_sanitize.cpp"), "-o", str(exe)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -75,12 +81,13 @@ def build_host(out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
     return exe
 
 
-def write_case(n: int, out_dir: Path = OUT_DIR):
+def write_case(n: int, out_dir: Path = OUT_DIR, task: str = "GR1T1", steps: int = 8):
     """(constants file, input file, C_out): the files of
-    ``csrc/k1_sanitize.cpp`` for ``n`` reachable envs, made on the CPU."""
-    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"))
+    ``csrc/k1_sanitize.cpp`` for ``n`` envs of ``task``, ``steps`` policy
+    steps after init (``cuda_step.reachable_case``), made on the CPU."""
+    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"), task=task, steps=steps)
     const = cuda_step._make_constants(op.deci, op.in_off, op.out_off, op.c_in, op.c_out)
-    const_path, in_path = out_dir / f"constants_{n}.bin", out_dir / f"input_{n}.bin"
+    const_path, in_path = out_dir / f"constants_{task}_{n}.bin", out_dir / f"input_{task}_{n}.bin"
     const_path.write_bytes(bytes(const))
     in_path.write_bytes(comp.numpy().tobytes())
     return const_path, in_path, op.c_out
@@ -95,23 +102,25 @@ def run(cmd, timeout=900):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, nargs="+", default=[64, 61])
+    ap.add_argument("--task", default="GR1T1", help="the training env whose sizes K1 is built for")
     ap.add_argument("--host", action="store_true", help="ThreadSanitizer on the CPU instead of the card")
     args = ap.parse_args(argv)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    op = cuda_step.task_env(args.task, 1, "cpu").decimation_op
     if args.host:
-        exe, checks = build_host(), [("threadsanitizer", [])]
+        exe, checks = build_host(op), [("threadsanitizer", [])]
     else:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, check=True).stdout.strip()
         print("card:", card, flush=True)
-        exe, tool_exe = build_harness(), sanitizer()
+        exe, tool_exe = build_harness(op), sanitizer()
         checks = [(tool, [tool_exe, "--tool", tool, "--error-exitcode", "99"]) for tool in TOOLS]
     failed = []
     for n in args.envs:
-        case = write_case(n)
+        case = write_case(n, task=args.task)
         for name, prefix in checks:
             rc, text = run([*prefix, exe, *case[:2], n, case[2]])
-            (OUT_DIR / f"{name}_{n}.log").write_text("\n".join(text) + "\n")
+            (OUT_DIR / f"{name}_{args.task}_{n}.log").write_text("\n".join(text) + "\n")
             summary = [l for l in text if "SUMMARY" in l or "k1_sanitize" in l]
             print(f"{name} at {n} envs: rc {rc}; " + " | ".join(summary), flush=True)
             if rc != 0:

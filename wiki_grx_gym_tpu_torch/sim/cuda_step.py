@@ -10,11 +10,14 @@ Dispatch is by the device of the tensors it is given:
 
 - CUDA tensors: the inputs are packed component-major into one contiguous
   ``(C_in, N)`` float32 tensor in the order of :func:`_schema`, the team
-  kernel of ``csrc/decimation.cu`` (16 lanes an env) writes ``(C_out, N)``,
-  and the outputs are sliced back out. The kernels are built with ``nvcc``
-  at first use (:func:`build_library`); a failed build or launch raises.
-  The model constants include the team kernel's schedule
-  (:func:`team_lists`). :meth:`CudaDecimation.launch_packed` also runs the
+  kernel of ``csrc/decimation.cu`` (a team of lanes an env) writes
+  ``(C_out, N)``, and the outputs are sliced back out. The kernels are built
+  with ``nvcc`` at first use, one library per program's sizes
+  (:class:`K1Sizes`, :func:`program_sizes`) and team shape
+  (:func:`team_shape`), passed as -D flags (:func:`nvcc_flags`,
+  :func:`build_library`); a failed build or launch raises. The model
+  constants (:func:`const_struct` of the sizes) include the team kernel's
+  schedule (:func:`team_lists`). :meth:`CudaDecimation.launch_packed` also runs the
   one-thread-per-env kernel, the team kernel's bit-for-bit reference, for
   checks and timings only; :func:`team_occupancy` reports the team kernel's
   shape and occupancy, and :func:`reachable_state`,
@@ -32,8 +35,10 @@ launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +47,6 @@ from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts  # noqa: 
 from wiki_grx_gym_tpu_torch.sim.scalarized import ScalarDecimation
 
 _SOURCE = _build.CSRC / "decimation.cu"
-_LIB_NAME = "k1_decimation"
 NVCC_FLAGS = _build.BASE_FLAGS + [
     # no contraction of a*b+c into FMA: the kernel rounds as the plain lane
     # program does, op by op (the tolerance of the kernel-vs-plain check
@@ -50,8 +54,53 @@ NVCC_FLAGS = _build.BASE_FLAGS + [
     "--fmad=false",
 ]
 
-# the sizes the kernel is instantiated for (csrc/decimation.cu, GR1T1 lower limb)
-SIZES = dict(NB=11, ND=10, NP=29, NF=2, NPAIR=64, NR=24, NPOST=3, NIN=186, NOUT=301)
+
+class K1Sizes(NamedTuple):
+    """The sizes a K1 library is built for (``csrc/decimation.cu`` struct
+    ``Sizes``): bodies, dofs, contact points, feet, self-collision pairs,
+    reward terms, post-FK bodies, input and output components."""
+
+    NB: int
+    ND: int
+    NP: int
+    NF: int
+    NPAIR: int
+    NR: int
+    NPOST: int
+    NIN: int
+    NOUT: int
+
+
+# the team kernel's shape (lanes an env, envs a block) per model: 16 x 8 up
+# to 16 dofs; for the 32-DOF body the fastest of the shapes
+# scripts/k1_shapes.py measured (PERF.md section 6)
+TEAM_SHAPE_SMALL = (16, 8)
+TEAM_SHAPE_FULL_BODY = (32, 4)
+MAX_DOF = 32   # anc_mask holds one bit a dof
+
+
+def team_shape(sizes: K1Sizes):
+    """(T, E): lanes an env and envs a block of the team kernel for these sizes."""
+    return TEAM_SHAPE_SMALL if sizes.ND <= 16 else TEAM_SHAPE_FULL_BODY
+
+
+def size_defines(sizes: K1Sizes, team) -> list:
+    """The sizes and the team shape as the -D flags ``csrc/decimation.cu`` reads."""
+    return [f"-DK1_{k}={v}" for k, v in sizes._asdict().items()] + [
+        f"-DK1_TEAM_T={team[0]}", f"-DK1_TEAM_E={team[1]}"]
+
+
+def nvcc_flags(sizes: K1Sizes, team) -> list:
+    """nvcc's flags for one K1 library."""
+    return NVCC_FLAGS + size_defines(sizes, team)
+
+
+def library_name(sizes: K1Sizes, team) -> str:
+    """The name of the library of one size set and team shape
+    (``build.BUILD_INFO`` key; the file name adds a hash of the flags)."""
+    return "k1_decimation_" + "_".join(map(str, sizes)) + f"_{team[0]}x{team[1]}"
+
+
 _MAXG = 8          # termination groups capacity
 
 # reward terms that have a CUDA implementation (ids match csrc/decimation.cu)
@@ -120,23 +169,24 @@ def _offsets(schema):
 # build + load
 # ---------------------------------------------------------------------------
 
-_LIB = None
+_LIBS = {}   # (sizes, team) -> the loaded library
 _LIB_LOCK = threading.Lock()
-BUILD_INFO = _build.BUILD_INFO.setdefault(_LIB_NAME, {})
 
 
-def build_library():
-    """Compile ``csrc/decimation.cu`` into a shared library (once per source
-    and flag set; ``build.build``). The build time and ptxas' register/spill
-    report land in ``BUILD_INFO``."""
-    return _build.build(_LIB_NAME, _SOURCE, NVCC_FLAGS)
+def build_library(sizes: K1Sizes, team=None):
+    """Compile ``csrc/decimation.cu`` for one size set and team shape into a
+    shared library (once per source and flag set; ``build.build``). The
+    build time and ptxas' register/spill report land in
+    ``build.BUILD_INFO[library_name(sizes, team)]``."""
+    team = team or team_shape(sizes)
+    return _build.build(library_name(sizes, team), _SOURCE, nvcc_flags(sizes, team))
 
 
-def _load():
-    global _LIB
+def _load(sizes: K1Sizes, team):
+    key = (sizes, tuple(team))
     with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
+        if key not in _LIBS:
+            lib = ctypes.CDLL(str(build_library(sizes, team)))
             lib.k1_const_size.argtypes = []
             lib.k1_const_size.restype = ctypes.c_int
             lib.k1_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -147,78 +197,88 @@ def _load():
                 fn.restype = ctypes.c_int
             lib.k1_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
             lib.k1_occupancy.restype = ctypes.c_int
-            if lib.k1_const_size() != ctypes.sizeof(_ModelConst):
+            want = ctypes.sizeof(const_struct(sizes))
+            if lib.k1_const_size() != want:
                 raise RuntimeError(
                     f"constant struct size mismatch: kernel {lib.k1_const_size()} "
-                    f"bytes, wrapper {ctypes.sizeof(_ModelConst)}"
+                    f"bytes, wrapper {want}"
                 )
-            _LIB = lib
-    return _LIB
+            _LIBS[key] = lib
+    return _LIBS[key]
 
 
 # ---------------------------------------------------------------------------
 # model constants (mirrors struct ModelConst in csrc/decimation.cu)
 # ---------------------------------------------------------------------------
 
-_S = SIZES
-_I, _F = ctypes.c_int, ctypes.c_float
+_I, _U, _F = ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
 
-class _ModelConst(ctypes.Structure):
-    _fields_ = [
+def _cap(n: int) -> int:
+    """An array's capacity for a count that may be 0 (decimation.cu ``cap``)."""
+    return max(n, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def const_struct(sizes: K1Sizes):
+    """The ctypes mirror of ``ModelConst<Sizes>`` for one size set."""
+    nb, nd, np_, nf = sizes.NB, sizes.ND, sizes.NP, sizes.NF
+    npair, nr, npost = _cap(sizes.NPAIR), _cap(sizes.NR), sizes.NPOST
+    fields = [
         # ints
-        ("parent", _I * _S["NB"]),
-        ("point_body", _I * _S["NP"]),
-        ("pair_i", _I * _S["NPAIR"]), ("pair_j", _I * _S["NPAIR"]),
-        ("feet_body", _I * _S["NF"]),
-        ("feet_start", _I * _S["NF"]), ("feet_count", _I * _S["NF"]),
-        ("feet_pts", _I * _S["NP"]),
-        ("post_body", _I * _S["NPOST"]),
-        ("feet_slot", _I * _S["NF"]),
+        ("parent", _I * nb),
+        ("point_body", _I * np_),
+        ("pair_i", _I * npair), ("pair_j", _I * npair),
+        ("feet_body", _I * nf),
+        ("feet_start", _I * nf), ("feet_count", _I * nf),
+        ("feet_pts", _I * np_),
+        ("post_body", _I * npost),
+        ("feet_slot", _I * nf),
         ("n_term", _I), ("term_start", _I * _MAXG), ("term_count", _I * _MAXG),
-        ("term_pts", _I * _S["NP"]),
+        ("term_pts", _I * np_),
         ("torso_slot", _I), ("forehead_slot", _I),
-        ("n_ankle_left", _I), ("ankle_left", _I * _S["ND"]),
-        ("n_ankle_right", _I), ("ankle_right", _I * _S["ND"]),
-        ("reward_id", _I * _S["NR"]),
+        ("n_ankle_left", _I), ("ankle_left", _I * nd),
+        ("n_ankle_right", _I), ("ankle_right", _I * nd),
+        ("reward_id", _I * nr),
         ("decimation", _I), ("use_tangent", _I), ("use_joint_limits", _I),
         ("has_damp", _I),
         ("in_off", _I * len(IN_GROUPS)), ("out_off", _I * len(OUT_GROUPS)),
         # the team kernel's schedule (team_lists)
-        ("pt_pair_start", _I * (_S["NP"] + 1)), ("pt_pair", _I * (2 * _S["NPAIR"])),
-        ("body_pt_start", _I * (_S["NB"] + 1)), ("body_pts", _I * _S["NP"]),
-        ("n_levels", _I), ("level_start", _I * _S["NB"]), ("level_body", _I * _S["NB"]),
-        ("anc_mask", _I * _S["ND"]),
+        ("pt_pair_start", _I * (np_ + 1)), ("pt_pair", _I * _cap(2 * sizes.NPAIR)),
+        ("body_pt_start", _I * (nb + 1)), ("body_pts", _I * np_),
+        ("n_levels", _I), ("level_start", _I * nb), ("level_body", _I * nb),
+        ("anc_mask", _U * nd),
         # floats: tree + inertia
-        ("tree_pos", _F * (_S["NB"] * 3)), ("tree_quat", _F * (_S["NB"] * 4)),
-        ("axis_unit", _F * (_S["NB"] * 3)), ("axis", _F * (_S["NB"] * 3)),
-        ("mass", _F * _S["NB"]), ("com", _F * (_S["NB"] * 3)),
-        ("inertia", _F * (_S["NB"] * 9)),
-        ("grav_z", _F * _S["NB"]), ("cm_sub", _F * _S["NB"]),
-        ("armature", _F * _S["ND"]),
-        ("dof_lower", _F * _S["ND"]), ("dof_upper", _F * _S["ND"]),
-        ("lim_k", _F * _S["ND"]), ("lim_damp", _F * _S["ND"]),
-        ("point_offset", _F * (_S["NP"] * 3)), ("point_radius", _F * _S["NP"]),
-        ("pair_rsum", _F * _S["NPAIR"]),
+        ("tree_pos", _F * (nb * 3)), ("tree_quat", _F * (nb * 4)),
+        ("axis_unit", _F * (nb * 3)), ("axis", _F * (nb * 3)),
+        ("mass", _F * nb), ("com", _F * (nb * 3)),
+        ("inertia", _F * (nb * 9)),
+        ("grav_z", _F * nb), ("cm_sub", _F * nb),
+        ("armature", _F * nd),
+        ("dof_lower", _F * nd), ("dof_upper", _F * nd),
+        ("lim_k", _F * nd), ("lim_damp", _F * nd),
+        ("point_offset", _F * (np_ * 3)), ("point_radius", _F * np_),
+        ("pair_rsum", _F * npair),
         # contact + integration scalars
         ("dt", _F), ("stiffness", _F), ("damping_ratio", _F), ("sqrt_kpm", _F),
         ("imp_cap", _F), ("kt", _F), ("d_t", _F),
         ("k_self", _F), ("d_ns", _F), ("slip_velocity", _F), ("grav", _F),
         ("gscale", _F), ("ground_h", _F),
         # control
-        ("action_scale", _F), ("p_gain", _F * _S["ND"]), ("d_gain", _F * _S["ND"]),
-        ("default_q", _F * _S["ND"]), ("torque_limit", _F * _S["ND"]),
-        ("damp_coeff", _F * _S["ND"]),
+        ("action_scale", _F), ("p_gain", _F * nd), ("d_gain", _F * nd),
+        ("default_q", _F * nd), ("torque_limit", _F * nd),
+        ("damp_coeff", _F * nd),
         # post stage
         ("dt_policy", _F), ("decimation_f", _F), ("hscale", _F), ("target_h", _F),
-        ("feet_offset", _F * (_S["NF"] * 3)),
+        ("feet_offset", _F * (nf * 3)),
         ("torso_qoff", _F * 4), ("forehead_qoff", _F * 4),
-        ("soft_lo", _F * _S["ND"]), ("soft_hi", _F * _S["ND"]),
-        ("vel_soft", _F * _S["ND"]), ("tor_soft", _F * _S["ND"]),
-        ("scale", _F * _S["NR"]), ("sigma", _F * _S["NR"]),
+        ("soft_lo", _F * nd), ("soft_hi", _F * nd),
+        ("vel_soft", _F * nd), ("tor_soft", _F * nd),
+        ("scale", _F * nr), ("sigma", _F * nr),
         ("swing_target", _F), ("swing_half", _F), ("swing_quarter", _F),
         ("fat_target", _F), ("fat_half", _F), ("flt_max", _F), ("stumble_ratio", _F),
     ]
+    return type(f"ModelConst_{'_'.join(map(str, sizes))}", (ctypes.Structure,), {"_fields_": fields})
 
 
 def _fill(arr, values):
@@ -282,10 +342,18 @@ def team_lists(sub) -> dict:
     return out
 
 
-def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out) -> _ModelConst:
+def program_sizes(deci: ScalarDecimation, c_in: int, c_out: int) -> K1Sizes:
+    """The sizes of one post-fold program (the K1 library it runs on)."""
+    s = deci.sub
+    return K1Sizes(NB=s.nb, ND=s.nd, NP=s.np_, NF=len(deci.feet_bodies), NPAIR=len(s.self_pairs),
+                   NR=len(deci.post.reward_names), NPOST=len(deci.post_bodies), NIN=c_in, NOUT=c_out)
+
+
+def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out):
+    """The filled ``ModelConst`` of one program (``const_struct`` of its sizes)."""
     sub, post = deci.sub, deci.post
     c = sub.contact
-    k = _ModelConst()
+    k = const_struct(program_sizes(deci, c_in, c_out))()
     nb, nd, np_ = sub.nb, sub.nd, sub.np_
     # ints
     _fill(k.parent, [max(p, 0) for p in sub.parent])
@@ -405,15 +473,17 @@ def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out) -> _Mo
 # the wrapper
 # ---------------------------------------------------------------------------
 
-_CONST_OWNER = [None]   # the wrapper whose constants sit in __constant__ memory
+_CONST_OWNER = {}   # per library: the wrapper whose constants sit in its __constant__ memory
 
 
 class CudaDecimation:
     """Callable wrapper: (batched tensors in) -> K1 -> (batched tensors out).
 
     The kernel path supports what the CUDA source implements: plane
-    terrain, P control, the post fold, and the GR1T1 lower-limb sizes
-    (``SIZES``); anything else raises on a CUDA tensor."""
+    terrain, P control, the post fold and up to ``MAX_DOF`` dofs; anything
+    else raises on a CUDA tensor. The kernel is built for this program's
+    sizes (``sizes``) and team shape (``team``), one library per distinct
+    set, at first use."""
 
     def __init__(self, deci: ScalarDecimation):
         self.deci = deci
@@ -431,20 +501,18 @@ class CudaDecimation:
         )
         self.in_off, self.c_in = _offsets(self.in_schema)
         self.out_off, self.c_out = _offsets(self.out_schema)
+        self.sizes = program_sizes(deci, self.c_in, self.c_out) if self.post is not None else None
+        self.team = team_shape(self.sizes) if self.sizes is not None else None
         self._const = None
 
     # -- what the kernel implements ------------------------------------------
 
     def kernel_support_error(self):
         """None if the CUDA kernel implements this program, else why not."""
-        d, s = self.deci, self.deci.sub
         if self.post is None:
             return "the kernel implements the post-fold program only"
-        sizes = dict(NB=s.nb, ND=s.nd, NP=s.np_, NF=self.nf, NPAIR=len(s.self_pairs),
-                     NR=len(self.post.reward_names), NPOST=self.npost, NIN=self.c_in,
-                     NOUT=self.c_out)
-        if sizes != SIZES:
-            return f"the kernel is instantiated for sizes {SIZES}, this model has {sizes}"
+        if self.sizes.ND > MAX_DOF:
+            return f"{self.sizes.ND} dofs: the kernel's ancestor masks hold {MAX_DOF}"
         missing = [n for n in self.post.reward_names if n not in REWARD_IDS]
         if missing:
             return f"reward terms without a CUDA implementation: {missing}"
@@ -516,7 +584,7 @@ class CudaDecimation:
                 or not (comp.is_contiguous() and out.is_contiguous())
                 or comp.device.type != "cuda" or out.device != comp.device):
             raise ValueError("K1 takes contiguous float32 (C_in, N) and (C_out, N) CUDA buffers")
-        lib = _load()
+        lib = _load(self.sizes, self.team)
         dev = comp.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -524,13 +592,14 @@ class CudaDecimation:
                 self._const = _make_constants(
                     self.deci, self.in_off, self.out_off, self.c_in, self.c_out
                 )
-            if _CONST_OWNER[0] is not self:
+            key = (self.sizes, tuple(self.team))
+            if _CONST_OWNER.get(key) is not self:
                 err = lib.k1_set_constants(
                     ctypes.addressof(self._const), ctypes.sizeof(self._const), stream
                 )
                 if err != 0:
                     raise RuntimeError(f"k1_set_constants failed: CUDA error {err}")
-                _CONST_OWNER[0] = self
+                _CONST_OWNER[key] = self
             if kernel == "thread":
                 err = lib.k1_launch_thread(comp.data_ptr(), out.data_ptr(), n, stream)
             elif kernel == "team":
@@ -624,11 +693,11 @@ class CudaDecimation:
         )
 
 
-def team_occupancy():
+def team_occupancy(op: CudaDecimation):
     """The team kernel's lanes per env, envs per block, dynamic shared
     memory per block in bytes, and resident blocks per SM on the current
-    card."""
-    lib = _load()
+    card, for the library ``op`` launches."""
+    lib = _load(op.sizes, op.team)
     vals = [ctypes.c_int() for _ in range(4)]
     err = lib.k1_occupancy(*[ctypes.byref(v) for v in vals])
     if err != 0:
@@ -637,16 +706,25 @@ def team_occupancy():
                     (v.value for v in vals)))
 
 
-def reachable_state(n, device, steps=8, seed=0):
-    """(env, state): the GR1T1 training env at ``n`` envs, ``steps`` policy
-    steps after ``init_state`` with random actions (the robots land on their
-    feet), everything drawn from ``seed``. The states K1 is checked and timed
-    on."""
+def task_env(task, n, device, mutate=None):
+    """The training env of ``task`` at ``n`` envs on ``device``;
+    ``mutate(cfg)`` changes the config first. Its ``decimation_op`` names
+    the K1 library (sizes and team shape) the task runs on."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
-    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg, _ = task_registry.get_cfgs(task)
     cfg.env.num_envs = n
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=device)
+    if mutate is not None:
+        mutate(cfg)
+    return task_registry.make_env(task, env_cfg=cfg, device=device)[0]
+
+
+def reachable_state(n, device, steps=8, seed=0, task="GR1T1", mutate=None):
+    """(env, state): :func:`task_env` at ``n`` envs, ``steps`` policy steps
+    after ``init_state`` with random actions (the robots land on their
+    feet), everything drawn from ``seed``. The states K1 is checked and
+    timed on."""
+    env = task_env(task, n, device, mutate)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = env.init_state(gen)
@@ -677,11 +755,12 @@ def decimation_inputs(env, state, gen, dtype=None):
     return args, kw
 
 
-def reachable_case(n, device):
+def reachable_case(n, device, **how):
     """(decimation op, packed (C_in, n) input, the wrapper's positional
-    arguments, its keyword arguments) on :func:`reachable_state` with fresh
-    random actions and delays (seed 1)."""
-    env, state = reachable_state(n, device)
+    arguments, its keyword arguments) on :func:`reachable_state` (``how``:
+    its ``steps``, ``task``, ``mutate``) with fresh random actions and delays
+    (seed 1)."""
+    env, state = reachable_state(n, device, **how)
     args, kw = decimation_inputs(env, state, torch.Generator(device=device).manual_seed(1))
     op = env.decimation_op
     return op, op._pack(*args, kw["last_qd"], kw["extra"]), args, kw

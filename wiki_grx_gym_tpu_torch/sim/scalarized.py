@@ -50,6 +50,15 @@ def _maximum(a, b):
     return torch.maximum(a, b)
 
 
+def _div(a, c: float):
+    """``a / c`` for a Python float ``c``, a true division on every device.
+    PyTorch on CUDA turns a division by a Python scalar into a
+    multiplication by the scalar's float32 reciprocal, which can round to
+    the neighbouring value; a 0-d tensor divisor keeps the division (the
+    kernel's and the CPU's)."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
 def _minimum(a, b):
     """``jnp.minimum`` on lanes and Python floats (NaN propagates)."""
     if isinstance(b, (int, float)):
@@ -268,8 +277,8 @@ class ScalarSubstep:
                 sc = _minimum(1.0, cone / _maximum(mag, 1e-9))
                 ftx, fty = ftx * sc, fty * sc
                 new_a = [
-                    torch.where(active, pos[0] + ftx / kt, pos[0]),
-                    torch.where(active, pos[1] + fty / kt, pos[1]),
+                    torch.where(active, pos[0] + _div(ftx, kt), pos[0]),
+                    torch.where(active, pos[1] + _div(fty, kt), pos[1]),
                     pos[2] + torch.zeros_like(pos[2]),
                 ]
                 ftx = torch.where(active, ftx, 0.0)

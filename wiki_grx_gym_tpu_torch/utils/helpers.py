@@ -1,5 +1,6 @@
 """CLI arguments + seeding + policy-archive helpers (port of
-``wiki_grx_gym_tpu/utils/helpers.py``)."""
+``wiki_grx_gym_tpu/utils/helpers.py``: ``export_policy_npz`` writes and
+``load_policy_npz`` reads the deploy ``.npz``)."""
 
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ def get_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain lane program")
     parser.add_argument("--policy", type=str, default=None,
-                        help="play.py: policy.npz to run (the export_policy_npz format)")
+                        help="play.py: policy.npz to run (the export_policy_npz format) instead of "
+                             "the run's latest checkpoint")
     parser.add_argument("--steps", type=int, default=500, help="play.py: policy steps")
     return parser.parse_args(argv)
 
@@ -40,6 +42,20 @@ def set_seed(seed: int) -> int:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return seed
+
+
+def export_policy_npz(net, path: str) -> None:
+    """Deploy-format export of the port's ``ActorCritic`` (the format of the
+    JAX package's ``export_policy_npz``): the actor's weights as
+    ``actor_w{i}`` (in, out) and ``actor_b{i}``, the raw ``std`` parameter
+    and ``activation`` "elu", float32, in one ``.npz``."""
+    blob = {}
+    for i, lin in enumerate(m for m in net.actor if isinstance(m, torch.nn.Linear)):
+        blob[f"actor_w{i}"] = lin.weight.detach().cpu().numpy().T.astype(np.float32)
+        blob[f"actor_b{i}"] = lin.bias.detach().cpu().numpy().astype(np.float32)
+    blob["std"] = net.std_param.detach().cpu().numpy().astype(np.float32)
+    blob["activation"] = np.asarray("elu")
+    np.savez(path, **blob)
 
 
 def load_policy_npz(path: str):

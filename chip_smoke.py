@@ -78,8 +78,11 @@ together after phase 9):
    other branch of the loss in one of them: its whole gradient term then
    differs (one such row moves a bf16 leaf by up to ~4% of its largest
    value). Such rows, found from K2's own mean and value and the plain
-   version's, are counted (at most 10 of the 10480) and taken out of both
-   before the comparison (advantage 0, old value = the plain value).
+   version's (its forward row tile by row tile, as it computes it), are
+   counted (at most 10 of the 10480) and taken out of both before the
+   comparison (advantage 0, old value = the plain value). A planted fault
+   must fail every leaf's check: K2's gradient with that leaf scaled by
+   1.05.
 6. K3 against its plain version (``update_scan_plain``), from the same
    buffer and params, one epoch (25 steps, every minibatch once). (a)
    float32 operands: the two trajectories stay at float32 summation noise,
@@ -152,13 +155,16 @@ together after phase 9):
 9. The 32-DOF full body (``GR1T1_full``: obs 105, critic obs 234, 32
    actions, std floor 0.10, entropy coefficient 0), through the same entry
    points at 4096 envs: one rollout, then phase 5's GEMM check and K2
-   against its plain version (at the rollout's params and after one
-   epoch, the branch-flip rule included; each bf16 leaf's limit gains 3x
-   the plain version's own spread over row tiles, as in 6b, with the
-   stated verdict printed beside it), K3 over one float32 epoch step by
-   step from the kernel's state against the plain version's step (6c's
-   float32 rule) and its fused step against its reference pair bit for bit
-   (6d), K2's time per grad step beside its plain version,
+   against its plain version under phase 5's rule (at the rollout's params
+   and after one epoch, the branch-flip rule and the planted fault
+   included), K3 over one float32 epoch step by step from the kernel's
+   state against the plain version's step (6c's float32 rule plus 3x the plain version's spread over row
+   tiles, the rows on another branch in those row tiles taken out too; K3
+   fed K2's gradient with its largest leaf scaled by 1.05 must fail those
+   limits at every checked step), the update's one-epoch CUDA graph in bf16
+   (adaptive LR on) equal to the composition of its 25 one-step calls bit
+   for bit (6c's last check), K3's fused step against its reference pair
+   bit for bit (6d), K2's time per grad step beside its plain version,
    bound and the cuBLAS yardstick; then phase 7 on ``GR1T1_full`` (K1 64,
    K2's chain 200 and K3 once an iteration, K2's 11 device launches a grad
    step, finite losses, the checkpoint loads back bit-identical); then one
@@ -195,6 +201,10 @@ K3_FLOOR_TILES = (1024, 2048)
 # phases 5 and 6c: rows of a 10480-row minibatch that may take another branch
 # of the loss in the kernel than in its plain version (0.1%; neutralize_flips)
 MAX_FLIPS = 10
+# phases 5 and 9: a planted fault every check of K2's leaves, and phase 9's
+# K3 step check (widened by the plain version's spread), must fail: a
+# gradient leaf off by this factor
+FAULT_SCALE = 1.05
 
 
 def plain_variants(fused):
@@ -385,42 +395,62 @@ def loss_branches(fused, p, fs, mean, value):
     return rb, vb, vmax
 
 
-def neutralize_flips(fused, p, bufs, mb):
+def plain_forward(fused, p, bufs, mb):
+    """The plain version's forward outputs (mean, value) on minibatch ``mb``
+    at params ``p``, row tile by row tile as ``grads_plain`` computes them
+    (the same products on the same tile shapes, so the same roundings)."""
+    import torch
+
+    aw, cw, _ = fused._op_leaves(p)
+    T = fused.tile
+
+    def tile_of(x, t):
+        x = x[t * T:(t + 1) * T]
+        return torch.cat([x, x.new_zeros((T - x.shape[0],) + x.shape[1:])]) if x.shape[0] < T else x
+
+    means, values = [], []
+    for t in range(fused.n_tiles):
+        means.append(fused._mlp_forward(fused._rnd(tile_of(bufs["obs"][mb], t)), aw)[1])
+        values.append(fused._mlp_forward(fused._rnd(tile_of(bufs["cobs"][mb], t)), cw)[1][:, 0])
+    return torch.cat(means)[:fused.rows], torch.cat(values)[:fused.rows]
+
+
+def neutralize_flips(fused, p, bufs, mb, variants=()):
     """K2's forward and its plain version's sum in another order (in bf16 a
     few activations then round the other way), and a row whose ratio or
     value change sits that close to a clip bound takes the other branch of
     the loss in one of them: its whole gradient term then differs. Those
     rows of minibatch ``mb`` are found from K2's own forward outputs (its
-    mean and value) and the plain version's, and taken out of both: their
-    advantage set to 0 (no surrogate gradient) and their old value set to
-    the plain version's value (no value clip). Returns (the buffers with
-    those rows changed, the count of such rows)."""
+    mean and value) and the plain version's (``plain_forward``), and taken
+    out of both: their advantage set to 0 (no surrogate gradient) and their
+    old value set to the plain version's value (no value clip). Rows on
+    another branch in one of the plain ``variants`` (other row tiles, whose
+    distance from the plain version is its own spread) than in K2 are
+    taken out too. Returns (the buffers with those rows changed, the count
+    of rows on another branch in K2 than in the plain version, the count of
+    rows taken out)."""
     import torch
 
     from wiki_grx_gym_tpu_torch.learn import fused_update
 
     args, keep = fused._k2_context(p, bufs)
     fused._k2_launch(fused_update._lib("k2"), args, mb, p.device)
-    aw, cw, _ = fused._op_leaves(p)
-
-    def fwd(x, layers):
-        x = fused._rnd(x.float())
-        for i, (w, b) in enumerate(layers):
-            z = x @ w.t() + b
-            if i < len(layers) - 1:
-                x = fused._rnd(fused_update._elu(z))
-        return z
-
-    mean_p, value_p = fwd(bufs["obs"][mb], aw), fwd(bufs["cobs"][mb], cw)[:, 0]
     fs = bufs["fscal"][mb]
     rk, vk, mk = loss_branches(fused, p, fs, keep["mean"], keep["value"])
-    rp, vp, mp = loss_branches(fused, p, fs, mean_p, value_p)
-    rflip, vflip = rk != rp, (vk != vp) | (mk != mp)
+    outs = [plain_forward(f, p, bufs, mb) for f in (fused, *variants)]
+    rflip, vflip = [], []
+    for mean, value in outs:
+        rp, vp, mp = loss_branches(fused, p, fs, mean, value)
+        rflip.append(rk != rp)
+        vflip.append((vk != vp) | (mk != mp))
+    flips = int((rflip[0] | vflip[0]).sum())
+    rflip, vflip = torch.stack(rflip).any(0), torch.stack(vflip).any(0)
+    value_p = outs[0][1]
     A = fused.act_dim
     fs2 = bufs["fscal"].clone()
     fs2[mb, rflip, 3 * A + 3] = 0.0
     fs2[mb, vflip, 3 * A + 1] = value_p[vflip]
-    return dict(bufs, fscal=fs2), int((rflip | vflip).sum())
+    return dict(bufs, fscal=fs2), flips, int((rflip | vflip).sum())
 
 
 def pack_check(fused, p, bufs):
@@ -596,10 +626,11 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
             # rows the kernel and the plain version send down different
             # branches of the loss are taken out of both for the comparison
             # (the trajectory goes on with the kernel's own step)
-            used, flips = neutralize_flips(one16, p, sl(bufs16, k), 0)
-            ks = one16.update_scan(p, m, v, cnt, lr, used) if flips else nxt
+            variants = plain_variants(one16)
+            used, flips, taken = neutralize_flips(one16, p, sl(bufs16, k), 0, variants)
+            ks = one16.update_scan(p, m, v, cnt, lr, used) if taken else nxt
             pl = one16.update_scan_plain(p, m, v, cnt, lr, used)
-            spread = [fz.update_scan_plain(p, m, v, cnt, lr, used) for fz in plain_variants(one16)]
+            spread = [fz.update_scan_plain(p, m, v, cnt, lr, used) for fz in variants]
             floors = [step_dist(z, pl, p) for z in spread]
             floor = {key: max(f[key] for f in floors) for key in floors[0]}
             d = step_dist(ks, pl, p)
@@ -617,9 +648,10 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
                 bad16.append(s)
             log(f"[6c] step {s:3d} mb {k:2d} bf16: " + ", ".join(
                 f"{key} {d[key]:.3e} (limit {lim[key]:.3e}, spread {floor[key]:.3e})" for key in lim)
-                + f"; lr {float(ks[3]):.6e} vs {lr_p:.6e}; rows on another branch {flips}; {ok}")
+                + f"; lr {float(ks[3]):.6e} vs {lr_p:.6e}; rows on another branch {flips} (taken out, "
+                f"with the row tiles' {taken}); {ok}")
             if s % 4 == 0:
-                used32, flips32 = neutralize_flips(one32, p, sl(bufs32, k), 0)
+                used32, flips32, _ = neutralize_flips(one32, p, sl(bufs32, k), 0)
                 k32 = one32.update_scan(p, m, v, cnt, lr, used32)
                 p32 = one32.update_scan_plain(p, m, v, cnt, lr, used32)
                 d32 = step_dist(k32, p32, p)
@@ -649,15 +681,22 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     k3_err["bfloat16_step"] = worst16["pmax_lr"]
 
     whole = fused16.update_scan(*args0, bufs16)
+    same_as_composition(whole, (p, m, v, lr), steps, "GR1T1")
+    return whole
+
+
+def same_as_composition(whole, composed, steps, tag):
+    """6c's last check: a whole-update call's (p, m, v, LR) equal those of
+    the composition of its ``steps`` one-step calls, bit for bit."""
+    import torch
+
     torch.cuda.synchronize()
     same = {name: bool(torch.equal(a.reshape(-1), b.reshape(-1)))
-            for name, a, b in (("p", whole[0], p), ("m", whole[1], m), ("v", whole[2], v),
-                               ("lr", whole[3], lr))}
-    log(f"[6c] whole {steps}-step update vs the composition of its {steps} one-step calls, "
-        f"bit for bit: {same}; lr {float(whole[3]):.6e} vs {float(lr):.6e}")
+            for name, a, b in zip(("p", "m", "v", "lr"), whole[:4], composed)}
+    log(f"[6c] {tag}: whole {steps}-step update vs the composition of its {steps} one-step calls, "
+        f"bit for bit: {same}; lr {float(whole[3]):.6e} vs {float(composed[3]):.6e}")
     if not all(same.values()):
-        fail(f"6c: the whole update differs from its one-step composition: {same}")
-    return whole
+        fail(f"6c ({tag}): the whole update differs from its one-step composition: {same}")
 
 
 def k3_fused_check(fused, state, bufs, mb, s, tag, nan=None):
@@ -766,18 +805,13 @@ def learner_setups(runner, rs, batch, task, dev):
     return setups
 
 
-def k2_check(setups, net, alg, p, at, k2_err, tag="", bf16_spread=False):
+def k2_check(setups, net, alg, p, at, k2_err, tag=""):
     """Phase 5: K2 against its plain version (``FusedPPOGrad.grads_plain``)
     at params ``p``, for each operand type, on the first and last
     minibatch; rows on another branch of the loss are taken out of both
     (``neutralize_flips``). The largest leaf difference per type goes into
-    ``k2_err``. With ``bf16_spread`` each bf16 leaf's limit gains 3x the
-    plain version's own spread over row tiles (``plain_variants``), as 6b
-    holds the bf16 epoch: a hidden activation rounded to the neighbouring
-    bf16 value moves a row's log-probability, the more the more actions,
-    and after an epoch the rows' gradient terms largely cancel, so a
-    leaf's largest value is small beside that motion; the stated verdict
-    is printed beside it."""
+    ``k2_err``. A planted fault must fail: K2's gradient with one leaf
+    scaled by ``FAULT_SCALE`` fails that leaf's limit, for every leaf."""
     import torch
 
     for name, (fused, bufs) in setups.items():
@@ -791,7 +825,7 @@ def k2_check(setups, net, alg, p, at, k2_err, tag="", bf16_spread=False):
         for mb in (0, alg.num_mini_batches - 1):
             # rows that K2 and its plain version send down different
             # branches of the loss are taken out of both (counted)
-            used, flips = neutralize_flips(fused, p, bufs, mb)
+            used, flips, _ = neutralize_flips(fused, p, bufs, mb)
             ok &= flips <= MAX_FLIPS
             log(f"[K2 vs plain]{tag} {at} {name} mb {mb:2d}: {flips} rows take another branch of the loss "
                 f"in K2 than in the plain version (limit {MAX_FLIPS}); taken out of both")
@@ -810,26 +844,47 @@ def k2_check(setups, net, alg, p, at, k2_err, tag="", bf16_spread=False):
                 line.append(f"{key} {x:.6e} vs {y:.6e} |diff| {abs(x - y):.2e} (limit {lim:.2e}) {good}")
             worst = 0.0
             diffs = leaf_diffs(net, gk, gp)
-            spread = {}
-            if bf16_spread and name == "bfloat16":
-                for fz in plain_variants(fused):
-                    for leaf, d, _ in leaf_diffs(net, fz.grads_plain(p, used, mb)[1], gp):
-                        spread[leaf] = max(spread.get(leaf, 0.0), d)
-            for leaf, d, scale in diffs:
-                stated = rtol * scale + atol_frac * scale
-                lim = stated + 3.0 * spread.get(leaf, 0.0)
+            uncaught = []
+            for (leaf, d, scale), (_, off, shape) in zip(diffs, net.layout):
+                lim = rtol * scale + atol_frac * scale
                 good = d <= lim and math.isfinite(d)
                 ok &= good
                 worst = max(worst, d / max(scale, 1e-30))
-                widened = (f"; plain spread {spread[leaf]:.3e}, within the stated limit {stated:.3e}: "
-                           f"{d <= stated}" if leaf in spread else "")
+                n = math.prod(shape)
+                fault = float((FAULT_SCALE * gk[off: off + n] - gp[off: off + n]).abs().max())
+                if not fault > lim:
+                    uncaught.append(leaf)
                 log(f"[K2 vs plain]{tag} {at} {name:8s} mb {mb:2d} {leaf:16s} max|diff| {d:.3e} "
-                    f"(leaf max {scale:.3e}, {d / max(scale, 1e-30):.2e} of it; limit {lim:.3e}{widened}) {good}")
+                    f"(leaf max {scale:.3e}, {d / max(scale, 1e-30):.2e} of it; limit {lim:.3e}; x{FAULT_SCALE} "
+                    f"fault {fault:.3e}, caught {fault > lim}) {good}")
             log(f"[K2 vs plain]{tag} {at} {name} mb {mb}: " + "; ".join(line) +
                 f"; largest leaf diff {worst:.2e} of the leaf's max")
+            if uncaught:
+                fail(f"K2{tag} ({at}, {name}, mb {mb}): a leaf's gradient scaled by {FAULT_SCALE} passes its "
+                     f"limit in {uncaught}")
             k2_err[name] = max(k2_err.get(name, 0.0), max(d for _, d, _ in diffs))
         if not ok:
             fail(f"K2{tag} disagrees with its plain version ({name} operands, {at})")
+
+
+def k3_fault(one, state, bufs, want, lim):
+    """A planted fault for a one-step check of K3: K3's fused step
+    (``k3_step_once``) fed K2's gradient of ``bufs`` with its largest leaf
+    scaled by ``FAULT_SCALE``, from ``state`` = (p, m, v, count, lr). It
+    must be over ``lim`` against the plain step ``want`` in update, m or v.
+    (A scale of the whole gradient is no such fault: the norm clip takes it
+    out.) Returns (the leaf, its distances, caught)."""
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
+    p, m, v, count, lr = state
+    args, keep = one._k2_context(p, bufs)
+    one._k2_launch(fused_update._lib("k2"), args, 0, p.device)
+    leaf, off, shape = max(one.net.layout, key=lambda e: math.prod(e[2]))
+    g = keep["g"].clone()
+    g[off: off + math.prod(shape)] *= FAULT_SCALE
+    r = fused_update.k3_step_once(one, p, m, v, g, keep["aux"], count, lr, 0)
+    d = step_dist((r["p"], r["m"], r["v"]), want, p)
+    return leaf, d, any(d[key] > lim[key] for key in lim)
 
 
 def k3_steps_f32(setups, args0, tag):
@@ -838,13 +893,16 @@ def k3_steps_f32(setups, args0, tag):
     minibatch s's slice, Adam count ``count0 + s`` and the LR the kernel
     carried out of step s - 1); at every 4th step and the last the plain
     version runs the same step from the kernel's state, rows on another
-    branch of the loss taken out of both (``neutralize_flips``): update, m
-    and v within ``F32_STEP_TOL`` in L2 plus 3x the plain version's own
-    spread over row tiles (``plain_variants``, as 6b holds the bf16 epoch:
-    an entry whose gradient sums to noise level moves by about LR whichever
-    its sign, most at Adam's first step), the same LR. Over a whole epoch
-    two correct trajectories part further, so the epoch's distance to the
-    plain version's epoch is printed, not checked. Returns the kernel's
+    branch of the loss taken out of both (``neutralize_flips``, with the
+    row tiles' own): update, m and v within ``F32_STEP_TOL`` in L2 plus 3x
+    the plain version's own spread over row tiles (``plain_variants``, as
+    6b holds the bf16 epoch: an entry whose gradient sums to noise level
+    moves by about LR whichever its sign, most at Adam's first step), the
+    same LR; and at each such step K3 fed a gradient off by
+    ``FAULT_SCALE`` in its largest leaf (``k3_fault``) must fail those
+    limits. Over a whole
+    epoch two correct trajectories part further, so the epoch's distance to
+    the plain version's epoch is printed, not checked. Returns the kernel's
     state after the epoch and the largest |param| difference of a checked
     step."""
     import torch
@@ -858,13 +916,14 @@ def k3_steps_f32(setups, args0, tag):
     for s in range(mbs):
         nxt = one.update_scan(p, m, v, count0 + s, lr, sl(s))
         if s % 4 == 0 or s == mbs - 1:
-            used, flips = neutralize_flips(one, p, sl(s), 0)
-            k = one.update_scan(p, m, v, count0 + s, lr, used) if flips else nxt
+            variants = plain_variants(one)
+            used, flips, taken = neutralize_flips(one, p, sl(s), 0, variants)
+            k = one.update_scan(p, m, v, count0 + s, lr, used) if taken else nxt
             pl = one.update_scan_plain(p, m, v, count0 + s, lr, used)
-            floors = [step_dist(fz.update_scan_plain(p, m, v, count0 + s, lr, used), pl, p)
-                      for fz in plain_variants(one)]
+            floors = [step_dist(fz.update_scan_plain(p, m, v, count0 + s, lr, used), pl, p) for fz in variants]
             lim = {key: F32_STEP_TOL + 3.0 * max(f[key] for f in floors) for key in ("update", "m", "v")}
             d = step_dist(k, pl, p)
+            leaf, fd, caught = k3_fault(one, (p, m, v, count0 + s, lr), used, pl, lim)
             ok = flips <= MAX_FLIPS and all(d[key] <= lim[key] for key in lim) \
                 and abs(float(k[3]) - float(pl[3])) <= 1e-6 * abs(float(pl[3])) \
                 and all(bool(torch.isfinite(t).all()) for t in k[:4])
@@ -875,7 +934,13 @@ def k3_steps_f32(setups, args0, tag):
                 bad.append(s)
             log(f"[K3 steps] {tag} step {s:2d} f32: " + ", ".join(
                 f"{key} {d[key]:.3e} (limit {lim[key]:.3e})" for key in lim) + f", pmax {d['pmax']:.3e}; "
-                f"lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; rows on another branch {flips}; {ok}")
+                f"lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; rows on another branch {flips} (taken out, with "
+                f"the row tiles' {taken}); {ok}")
+            log(f"[K3 steps] {tag} step {s:2d} f32, K3 fed K2's gradient with {leaf} x{FAULT_SCALE}: " + ", ".join(
+                f"{key} {fd[key]:.3e}" for key in lim) + f"; caught {caught}")
+            if not caught:
+                fail(f"K3 {tag}: at step {s} a gradient off by x{FAULT_SCALE} in {leaf} passes the "
+                     f"spread-widened limit")
         p, m, v, lr = nxt[0], nxt[1], nxt[2], nxt[3]
     f1 = copy.copy(fused32)
     f1.num_epochs = 1
@@ -888,6 +953,20 @@ def k3_steps_f32(setups, args0, tag):
     if bad:
         fail(f"K3 {tag}: the kernel's f32 step disagrees with the plain version's at steps {bad}")
     return p, m, v, lr, worst["pmax"]
+
+
+def composition_check(fused, bufs, args0, tag):
+    """6c's last check over one epoch (``same_as_composition``): the
+    update's CUDA graph for the epoch (every minibatch once, adaptive LR
+    on) against its one-step calls, each fed minibatch s's slice, Adam
+    count ``count0 + s`` and the LR of the step before."""
+    one = one_step(fused)
+    p, m, v, count0, lr = args0
+    for s in range(fused.num_mini_batches):
+        p, m, v, lr = one.update_scan(p, m, v, count0 + s, lr, {key: x[s:s + 1] for key, x in bufs.items()})[:4]
+    f1 = copy.copy(fused)
+    f1.num_epochs = 1
+    same_as_composition(f1.update_scan(*args0, bufs), (p, m, v, lr), fused.num_mini_batches, tag)
 
 
 def ppo_phases(runner, rs, batch, dev):
@@ -1397,7 +1476,7 @@ def k1_phase(dev, task, mutate, label, require_faster):
     if require_faster and not k1_ms < thread_ms:
         raise SystemExit(f"{tag} the team kernel ({k1_ms:.4f} ms) is not faster than the one-thread kernel "
                          f"({thread_ms:.4f} ms)")
-    info = kbuild.BUILD_INFO[cuda_step.library_name(op.sizes, op.team)]
+    info = kbuild.BUILD_INFO[cuda_step.library_name(op.sizes)]
     row = {
         "name": f"K1 decimation ({label})",
         "route": "cuda",
@@ -1421,7 +1500,7 @@ def k1_phase(dev, task, mutate, label, require_faster):
         "bytes": bytes_moved,
         "build_s": info.get("seconds"),
         "ptxas": info.get("ptxas", []),
-        "kernels_ptxas": kbuild.ptxas_summary(info.get("ptxas", [])),
+        "kernels_ptxas": cuda_step.ptxas_report(op.sizes),
         **cuda_step.team_occupancy(op),
         "team_vs_thread_differing_lanes": differ,
         "divergent_envs": int(divergent.sum()),
@@ -1439,11 +1518,11 @@ def full_body_ppo_phase(dev):
     rollout buffer at 4096 envs: the tensor-core GEMM against float64 at
     every product's shape (as in phase 5), K2 against its plain version at
     the rollout's params and after one epoch under phase 5's rule (the
-    branch-flip rule included; bf16 leaves within the stated limit plus 3x
-    the plain version's spread, ``k2_check``), K3 step by step over that
-    float32 epoch
-    against its plain version (``k3_steps_f32``) and its fused step against
-    its reference pair bit for bit (6d), and K2's time per grad step beside
+    branch-flip rule and the planted fault included, ``k2_check``), K3 step by step over that float32 epoch against its
+    plain version (``k3_steps_f32``), the one-epoch bf16 update graph
+    against its one-step composition bit for bit (``composition_check``),
+    K3's fused step against its reference pair bit for bit (6d), and K2's
+    time per grad step beside
     its plain version, its bound and the cuBLAS yardstick of the same 22
     products. Returns the K2 row of the kernels' JSON line."""
     import torch
@@ -1475,11 +1554,12 @@ def full_body_ppo_phase(dev):
     fused16, bufs16 = setups["bfloat16"]
     k2_err, tag = {}, f" {task}"
     gemm_worst = gemm_checks(fused16, dev)
-    k2_check(setups, net, alg, p0, "at p0", k2_err, tag, bf16_spread=True)
+    k2_check(setups, net, alg, p0, "at p0", k2_err, tag)
     st0 = alg.init(p0.clone())
     args0 = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate)
     p1, m1, v1, lr1, k3_pmax = k3_steps_f32(setups, args0, task)
-    k2_check(setups, net, alg, p1, "after one epoch", k2_err, tag, bf16_spread=True)
+    composition_check(fused16, bufs16, args0, f"{task}, bf16 operands, one epoch")
+    k2_check(setups, net, alg, p1, "after one epoch", k2_err, tag)
     log(f"[K2 vs plain]{tag} largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}; "
         f"K3's f32 steps largest param diff {k3_pmax:.3e}")
     # K3's fused step against its reference pair, bit for bit, at this width
@@ -1584,7 +1664,7 @@ def main():
     jobs = {}
     for task, mutate, _ in K1_SETS.values():
         op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
-        jobs[cuda_step.library_name(op.sizes, op.team)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes, op.team))
+        jobs[cuda_step.library_name(op.sizes)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes))
     jobs.update({
         "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
         "k3_ppo_update": (fused_update.K3_SOURCE, fused_update.FLAGS),
@@ -1610,8 +1690,7 @@ def main():
         raise SystemExit("K2's SASS holds no HGMMA instruction: its products do not run on the tensor cores")
     for set_name, (task, mutate, _) in K1_SETS.items():
         op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
-        lib = cuda_step.library_name(op.sizes, op.team)
-        for name, r in kbuild.ptxas_summary(kbuild.BUILD_INFO[lib].get("ptxas", [])).items():
+        for name, r in cuda_step.ptxas_report(op.sizes).items():
             log(f"[build] K1 {set_name} {name}: {r.get('registers')} registers, {r.get('spill_stores')} B spill "
                 f"stores, {r.get('spill_loads')} B spill loads")
         occ = cuda_step.team_occupancy(op)

@@ -83,17 +83,13 @@ def build(name: str, source: Path, flags: Sequence[str]) -> Path:
 
 
 def ptxas_summary(lines) -> Dict[str, dict]:
-    """ptxas' report (-Xptxas -v) per kernel: {name: {registers, spill_stores,
-    spill_loads}}, K1's team kernel named by its lanes an env and envs a block."""
+    """ptxas' report (-Xptxas -v) per kernel: {mangled name: {registers,
+    spill_stores, spill_loads}}."""
     out, name = {}, None
     for line in lines:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            mangled = m.group(1)
-            shape = re.search(r"Li(\d+)ELi(\d+)E", mangled)
-            name = (f"decimation_team_kernel<{shape.group(1)}, {shape.group(2)}>"
-                    if "decimation_team_kernel" in mangled and shape
-                    else "decimation_kernel" if "decimation_kernel" in mangled else mangled)
+            name = m.group(1)
             out[name] = {}
             continue
         if name is None:

@@ -90,7 +90,12 @@
 #error "K1 is built for one model's sizes: define K1_NB ... K1_NOUT, K1_TEAM_T and K1_TEAM_E"
 #endif
 
+// Every name of the device code has internal linkage (the unnamed namespace):
+// a process may load one library per size set, and two size sets must share
+// no symbol, neither the constants nor a kernel or a static of a template
+// (`Sizes` has one name whatever its sizes).
 namespace k1 {
+namespace {
 
 struct Sizes {
   static constexpr int NB = K1_NB;        // bodies
@@ -1793,6 +1798,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   }
 }
 
+}  // namespace
 }  // namespace k1
 
 // The host side: the C interface and the launches. The host-compiled copy
@@ -1820,16 +1826,10 @@ int k1_set_constants(const void* host, int nbytes, void* stream) {
 }  // extern "C"
 
 namespace k1 {
+namespace {
 
 static_assert(team_smem_bytes<Sz, TEAM_E>() <= 232448, "the team shape's shared memory exceeds a block's 227 KB");
 static_assert(team_min_blocks<Sz, TEAM_T, TEAM_E>() >= 1, "no block of this team shape fits an SM");
-
-// Internal linkage: a process loads one library per size set, and the
-// static below must be each library's own. (A static local of a function
-// template or inline function is one symbol across every library loaded,
-// whatever their load flags, so two size sets with the same team shape
-// would share the first one's constants address.)
-namespace {
 
 struct TeamSetup {
   cudaError_t err;

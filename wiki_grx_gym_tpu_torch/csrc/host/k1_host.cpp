@@ -10,11 +10,22 @@
 //   g++ -std=c++17 -O1 -g -fsanitize=thread -ffp-contract=off -pthread <-D flags> \
 //       -I csrc/host csrc/host/k1_host.cpp csrc/k1_sanitize.cpp -o k1_host
 #define K1_KERNELS_ONLY
+
+// the dynamic shared memory of the block that runs: declared before the
+// kernels so that the team kernel's `extern __shared__` names this variable
+// of the same unnamed namespace
+namespace k1 {
+namespace {
+extern unsigned char k1_smem[];
+}  // namespace
+}  // namespace k1
+
 #include "../decimation.cu"
 
 namespace k1 {
-// the dynamic shared memory of the block that runs
+namespace {
 alignas(16) unsigned char k1_smem[team_smem_bytes<Sz, TEAM_E>()];
+}  // namespace
 }  // namespace k1
 
 extern "C" {

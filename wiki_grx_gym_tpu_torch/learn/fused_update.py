@@ -475,6 +475,16 @@ class FusedPPOGrad:
         rw = lambda pairs: [(self._rnd(w), b) for w, b in pairs]
         return rw(actor), rw(critic), std
 
+    def _mlp_forward(self, x, layers):
+        """One MLP's forward on a tile at the TPU kernel's rounding points:
+        (the inputs of each layer, the last layer's output)."""
+        hs, z = [x], None
+        for li, (w, b) in enumerate(layers):
+            z = hs[-1] @ w.t() + b               # W (out, in): x W^T
+            if li < len(layers) - 1:
+                hs.append(self._rnd(_elu(z)))
+        return hs, z
+
     def _tile_body(self, t, data, aW, cW, std_p, g_leaves):
         """One batch tile of ``_tile_body`` (fused_update.py:200): forward
         both MLPs, the loss, the backward; accumulates into ``g_leaves``
@@ -504,16 +514,8 @@ class FusedPPOGrad:
         returns = clean(fs[:, 3 * A + 2:3 * A + 3])
         adv = clean(fs[:, 3 * A + 3:3 * A + 4])
 
-        def fwd(x, layers):
-            hs, z = [x], None
-            for li, (w, b) in enumerate(layers):
-                z = hs[-1] @ w.t() + b               # W (out, in): x W^T
-                if li < len(layers) - 1:
-                    hs.append(self._rnd(_elu(z)))
-            return hs, z
-
-        h_a, mean = fwd(obs_t, aW)
-        h_c, value = fwd(cobs_t, cW)
+        h_a, mean = self._mlp_forward(obs_t, aW)
+        h_c, value = self._mlp_forward(cobs_t, cW)
 
         if self.fixed_std:
             std = torch.full((1, A), self.init_noise_std, device=dev)

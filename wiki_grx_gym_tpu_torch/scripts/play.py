@@ -27,7 +27,7 @@ from wiki_grx_gym_tpu_torch.utils.helpers import export_policy_npz, get_args, se
 from wiki_grx_gym_tpu_torch.utils.task_registry import ROOT_DIR, get_load_path, update_cfg_from_args
 
 
-def play(args, num_steps: int = None, device=None, log_root="default", export: bool = True):
+def play(args, num_steps: int = None, device=None, log_root="default"):
     """Returns a dict of per-step logged channels (lists of floats) and the
     per-step total reward of the logged robot. ``log_root``: the directory
     of the experiment's runs (``logs/<experiment_name>`` under the checkout
@@ -63,11 +63,10 @@ def play(args, num_steps: int = None, device=None, log_root="default", export: b
         path = get_load_path(log_root, train_cfg.runner.load_run, train_cfg.runner.checkpoint)
         print(f"Loading policy from: {path}")
         state = runner.load(path)
-        if export:
-            export_dir = os.path.join(log_root, "exported", "policies")
-            os.makedirs(export_dir, exist_ok=True)
-            export_policy_npz(runner.net, os.path.join(export_dir, "policy.npz"))
-            print(f"Exported policy to {export_dir}/policy.npz")
+        export_dir = os.path.join(log_root, "exported", "policies")
+        os.makedirs(export_dir, exist_ok=True)
+        export_policy_npz(runner.net, os.path.join(export_dir, "policy.npz"))
+        print(f"Exported policy to {export_dir}/policy.npz")
     policy = runner.get_inference_policy()
 
     env_state, obs = state.env_state, state.obs

@@ -80,8 +80,8 @@ def instrumented_source():
 def load_instrumented(path, op):
     """The instrumented library for ``op``'s sizes and team shape, its
     entries declared; each returns a CUDA error code."""
-    name = "k1_profiled_" + cuda_step.library_name(op.sizes, op.team)
-    lib = ctypes.CDLL(str(kbuild.build(name, path, cuda_step.nvcc_flags(op.sizes, op.team))))
+    name = "k1_profiled_" + cuda_step.library_name(op.sizes)
+    lib = ctypes.CDLL(str(kbuild.build(name, path, cuda_step.nvcc_flags(op.sizes))))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, _INT

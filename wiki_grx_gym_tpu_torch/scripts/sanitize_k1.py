@@ -56,8 +56,8 @@ def sanitizer() -> str:
 def build_harness(op) -> Path:
     """K1's library for ``op``'s sizes with -lineinfo, and the host program
     linked against it."""
-    lib = kbuild.build(cuda_step.library_name(op.sizes, op.team) + "_lineinfo", cuda_step._SOURCE,
-                       cuda_step.nvcc_flags(op.sizes, op.team) + ["-lineinfo"])
+    lib = kbuild.build(cuda_step.library_name(op.sizes) + "_lineinfo", cuda_step._SOURCE,
+                       cuda_step.nvcc_flags(op.sizes) + ["-lineinfo"])
     exe = OUT_DIR / f"k1_sanitize_{op.sizes.ND}dof"
     cmd = [kbuild.nvcc(), "-std=c++17", "-O2", "-o", str(exe), str(kbuild.CSRC / "k1_sanitize.cpp"),
            str(lib), "-Xlinker", f"-rpath,{lib.parent}"]
@@ -71,8 +71,8 @@ def build_host(op, out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
     """The program with K1's kernels, for ``op``'s sizes and team shape,
     compiled for the CPU under ThreadSanitizer (from the sources in
     ``csrc``)."""
-    exe = out_dir / f"k1_host_tsan_{cuda_step.library_name(op.sizes, op.team)}"
-    cmd = ["g++", *HOST_FLAGS, *cuda_step.size_defines(op.sizes, op.team), "-I", str(csrc / "host"),
+    exe = out_dir / f"k1_host_tsan_{cuda_step.library_name(op.sizes)}"
+    cmd = ["g++", *HOST_FLAGS, *cuda_step.size_defines(op.sizes), "-I", str(csrc / "host"),
            str(csrc / "host" / "k1_host.cpp"),
            str(csrc / "k1_sanitize.cpp"), "-o", str(exe)]
     res = subprocess.run(cmd, capture_output=True, text=True)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 import threading
 from typing import NamedTuple
 
@@ -72,8 +73,8 @@ class K1Sizes(NamedTuple):
 
 
 # the team kernel's shape (lanes an env, envs a block) per model: 16 x 8 up
-# to 16 dofs; for the 32-DOF body the fastest of the shapes
-# scripts/k1_shapes.py measured (PERF.md section 6)
+# to 16 dofs; for the 32-DOF body the fastest of the shapes measured on the
+# H100 (PERF.md section 6)
 TEAM_SHAPE_SMALL = (16, 8)
 TEAM_SHAPE_FULL_BODY = (32, 4)
 MAX_DOF = 32   # anc_mask holds one bit a dof
@@ -84,21 +85,39 @@ def team_shape(sizes: K1Sizes):
     return TEAM_SHAPE_SMALL if sizes.ND <= 16 else TEAM_SHAPE_FULL_BODY
 
 
-def size_defines(sizes: K1Sizes, team) -> list:
-    """The sizes and the team shape as the -D flags ``csrc/decimation.cu`` reads."""
+def size_defines(sizes: K1Sizes) -> list:
+    """The sizes and their team shape as the -D flags ``csrc/decimation.cu`` reads."""
+    team = team_shape(sizes)
     return [f"-DK1_{k}={v}" for k, v in sizes._asdict().items()] + [
         f"-DK1_TEAM_T={team[0]}", f"-DK1_TEAM_E={team[1]}"]
 
 
-def nvcc_flags(sizes: K1Sizes, team) -> list:
+def nvcc_flags(sizes: K1Sizes) -> list:
     """nvcc's flags for one K1 library."""
-    return NVCC_FLAGS + size_defines(sizes, team)
+    return NVCC_FLAGS + size_defines(sizes)
 
 
-def library_name(sizes: K1Sizes, team) -> str:
-    """The name of the library of one size set and team shape
+def library_name(sizes: K1Sizes) -> str:
+    """The name of the library of one size set and its team shape
     (``build.BUILD_INFO`` key; the file name adds a hash of the flags)."""
+    team = team_shape(sizes)
     return "k1_decimation_" + "_".join(map(str, sizes)) + f"_{team[0]}x{team[1]}"
+
+
+def kernel_name(mangled: str) -> str:
+    """A K1 kernel's readable name from its mangled one (ptxas' report):
+    the team kernel with its lanes an env and envs a block."""
+    shape = re.search(r"Li(\d+)ELi(\d+)E", mangled)
+    if "decimation_team_kernel" in mangled and shape:
+        return f"decimation_team_kernel<{shape.group(1)}, {shape.group(2)}>"
+    return "decimation_kernel" if "decimation_kernel" in mangled else mangled
+
+
+def ptxas_report(sizes: K1Sizes) -> dict:
+    """ptxas' registers and spills per kernel of the library for these sizes,
+    by readable name (empty when the library was built before this process)."""
+    lines = _build.BUILD_INFO.get(library_name(sizes), {}).get("ptxas", [])
+    return {kernel_name(m): r for m, r in _build.ptxas_summary(lines).items()}
 
 
 _MAXG = 8          # termination groups capacity
@@ -169,24 +188,22 @@ def _offsets(schema):
 # build + load
 # ---------------------------------------------------------------------------
 
-_LIBS = {}   # (sizes, team) -> the loaded library
+_LIBS = {}   # sizes -> the loaded library
 _LIB_LOCK = threading.Lock()
 
 
-def build_library(sizes: K1Sizes, team=None):
-    """Compile ``csrc/decimation.cu`` for one size set and team shape into a
-    shared library (once per source and flag set; ``build.build``). The
-    build time and ptxas' register/spill report land in
-    ``build.BUILD_INFO[library_name(sizes, team)]``."""
-    team = team or team_shape(sizes)
-    return _build.build(library_name(sizes, team), _SOURCE, nvcc_flags(sizes, team))
+def build_library(sizes: K1Sizes):
+    """Compile ``csrc/decimation.cu`` for one size set and its team shape
+    into a shared library (once per source and flag set; ``build.build``).
+    The build time and ptxas' register/spill report land in
+    ``build.BUILD_INFO[library_name(sizes)]``."""
+    return _build.build(library_name(sizes), _SOURCE, nvcc_flags(sizes))
 
 
-def _load(sizes: K1Sizes, team):
-    key = (sizes, tuple(team))
+def _load(sizes: K1Sizes):
     with _LIB_LOCK:
-        if key not in _LIBS:
-            lib = ctypes.CDLL(str(build_library(sizes, team)))
+        if sizes not in _LIBS:
+            lib = ctypes.CDLL(str(build_library(sizes)))
             lib.k1_const_size.argtypes = []
             lib.k1_const_size.restype = ctypes.c_int
             lib.k1_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -203,8 +220,8 @@ def _load(sizes: K1Sizes, team):
                     f"constant struct size mismatch: kernel {lib.k1_const_size()} "
                     f"bytes, wrapper {want}"
                 )
-            _LIBS[key] = lib
-    return _LIBS[key]
+            _LIBS[sizes] = lib
+    return _LIBS[sizes]
 
 
 # ---------------------------------------------------------------------------
@@ -584,7 +601,7 @@ class CudaDecimation:
                 or not (comp.is_contiguous() and out.is_contiguous())
                 or comp.device.type != "cuda" or out.device != comp.device):
             raise ValueError("K1 takes contiguous float32 (C_in, N) and (C_out, N) CUDA buffers")
-        lib = _load(self.sizes, self.team)
+        lib = _load(self.sizes)
         dev = comp.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -592,14 +609,13 @@ class CudaDecimation:
                 self._const = _make_constants(
                     self.deci, self.in_off, self.out_off, self.c_in, self.c_out
                 )
-            key = (self.sizes, tuple(self.team))
-            if _CONST_OWNER.get(key) is not self:
+            if _CONST_OWNER.get(self.sizes) is not self:
                 err = lib.k1_set_constants(
                     ctypes.addressof(self._const), ctypes.sizeof(self._const), stream
                 )
                 if err != 0:
                     raise RuntimeError(f"k1_set_constants failed: CUDA error {err}")
-                _CONST_OWNER[key] = self
+                _CONST_OWNER[self.sizes] = self
             if kernel == "thread":
                 err = lib.k1_launch_thread(comp.data_ptr(), out.data_ptr(), n, stream)
             elif kernel == "team":
@@ -697,7 +713,7 @@ def team_occupancy(op: CudaDecimation):
     """The team kernel's lanes per env, envs per block, dynamic shared
     memory per block in bytes, and resident blocks per SM on the current
     card, for the library ``op`` launches."""
-    lib = _load(op.sizes, op.team)
+    lib = _load(op.sizes)
     vals = [ctypes.c_int() for _ in range(4)]
     err = lib.k1_occupancy(*[ctypes.byref(v) for v in vals])
     if err != 0:

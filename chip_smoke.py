@@ -12,9 +12,12 @@ together after phase 9):
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the kernels with nvcc into ``build/kernels``, one nvcc per
    library, all started together: K1 (``csrc/decimation.cu``) once for each
-   of its size sets (``K1_SETS``: the GR1T1 lower limb, the 32-DOF GR1T1
-   full body, the lower limb without self-collision pairs; each with its
-   team shape, ``sim/cuda_step.py:team_shape``), K2 (``csrc/ppo_grads.cu``)
+   of its programs (``K1_SETS``: the GR1T1 lower limb, the 32-DOF GR1T1
+   full body, the lower limb without self-collision pairs, all on the plane
+   with the post fold; and without the fold the lower limb on heightfield
+   terrain (``local_plane``), on trimesh terrain (``local_plane_walls``) and
+   on the plane with heading commands; each with its team shape,
+   ``sim/cuda_step.py:team_shape``), K2 (``csrc/ppo_grads.cu``)
    and K3 (``csrc/ppo_update.cu``); print the build times and ptxas'
    register/spill report of each kernel, and the count of HGMMA (wgmma)
    instructions in K2's SASS (``cuobjdump -sass``): 0 fails. For each of
@@ -23,11 +26,15 @@ together after phase 9):
    K3's ``k3_fused_step`` its registers and spills, its grid barrier (a
    cooperative launch) and the blocks the card holds at once (fewer than
    216 fails).
-3. For each of K1's size sets (the GR1T1 lower limb first), K1 against its
+3. For each of K1's programs (the GR1T1 lower limb first), K1 against its
    plain PyTorch version (the lane program) on the card:
    4096 envs of the set's training config (noise, domain randomization,
    pushes, actuation delay on), reachable states (``init_state`` + a few
-   steps with random actions), one policy step through each. Every float
+   steps with random actions; on terrain the robots start anywhere within
+   3.5 m of their cells' origins, 16 steps, and K1 reads the ground lanes
+   the env samples), one policy step through each. On trimesh the envs with
+   a riser wall in contact and with a tread force suppressed inside a
+   riser solid are counted at the step's start; none fails. Every float
    output must agree within rtol 1e-4 / atol 1e-4 (atol 1e-2 N for the
    contact forces), in all but at most 0.1% of the envs: ten stiff substeps
    amplify last-bit rounding differences, and in a few chaotic envs they
@@ -168,9 +175,16 @@ together after phase 9):
    bound and the cuBLAS yardstick; then phase 7 on ``GR1T1_full`` (K1 64,
    K2's chain 200 and K3 once an iteration, K2's 11 device launches a grad
    step, finite losses, the checkpoint loads back bit-identical); then one
-   64-step rollout of the no-pairs config (K1 launched 64 times). Prints the
-   kernels' JSON line (K1 for each size set, K2 at both widths, K3), the
-   card line, and the final ok line.
+   64-step rollout of the no-pairs config (K1 launched 64 times).
+10. Terrain training: phase 7 on GR1T1 with ``mesh_type`` heightfield and
+   trimesh and the curriculum on (the config's 10 x 20 grid; the post
+   stage outside K1, K1's ``local_plane`` and ``local_plane_walls``
+   programs): K1 64, K2's chain 200 and K3 once an iteration, and the final
+   state's ground planes and measured heights finite and non-zero on the
+   rough rows; then one 64-step rollout with heading commands (K1's plane
+   program without the fold, launched 64 times). Prints the kernels' JSON
+   line (K1 for each program, K2 at both widths, K3), the card line, and the
+   final ok line.
 """
 
 import copy
@@ -237,8 +251,15 @@ BOOL_GROUPS = ("post/term_contact", "post/tilt", "post/bad", "post/feet_contact"
 FAILURES = []
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase_done(name):
+    log(f"[time] {name} done at {time.perf_counter() - T0:.1f} s")
 
 
 def fail(msg):
@@ -257,12 +278,16 @@ def card_line():
 
 
 def groups(res):
-    """Every output group of the K1 wrapper's return tuple, float64."""
+    """Every output group of the K1 wrapper's return tuple, float64 (the
+    final-state point positions in the terrain modes, the post stage's
+    outputs in the post-fold program)."""
     g = {f: getattr(res[0], f) for f in ("base_pos", "base_quat", "base_lin_vel",
                                          "base_ang_vel", "q", "qd", "anchor")}
     g.update(force_sum=res[1], vxyz_sum=res[2], vrpy_sum=res[3], tau=res[4],
              point_force=res[5], post_rel=res[6][0], post_quat=res[6][1])
-    g.update({"post/" + k: v for k, v in res[8].items()})
+    if res[7] is not None:
+        g["point_pos"] = res[7]
+    g.update({"post/" + k: v for k, v in (res[8] or {}).items()})
     return {k: v.double().reshape(v.shape[0], -1) for k, v in g.items()}
 
 
@@ -1215,20 +1240,27 @@ def ppo_phases(runner, rs, batch, dev):
     return k2_row, k3_row
 
 
-def train_phase(dev, task="GR1T1"):
-    """Phase 7: ``learn(2)`` on ``task``'s training config at 4096 envs
-    through the entry points a user calls; the launch counts are set to 0
-    just before and read just after."""
+def train_phase(dev, task="GR1T1", mutate=None):
+    """Phase 7: ``learn(2)`` on ``task``'s training config (``mutate``
+    applied) at 4096 envs through the entry points a user calls; the launch
+    counts are set to 0 just before and read just after. On terrain the
+    final state's ground planes and measured heights must be finite and
+    non-zero in some envs on the rough rows (levels above 0)."""
     import torch
 
     from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
+    name = task if mutate is None else f"{task}_{mutate.__name__}"
     cfg, train_cfg = task_registry.get_cfgs(task)
     cfg.env.num_envs = N_ENVS
+    if mutate is not None:
+        mutate(cfg)
+    t0 = time.perf_counter()
     env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    make_s = time.perf_counter() - t0
     runner, train_cfg = task_registry.make_alg_runner(
-        env, task, train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", task))
+        env, task, train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", name))
     assert runner.alg.path == "mega"
     steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
     torch.cuda.synchronize()
@@ -1240,14 +1272,29 @@ def train_phase(dev, task="GR1T1"):
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    terrain = None
+    if env.terrain is not None:
+        es = state.env_state
+        rough = es.terrain_levels > 0
+        gp, mh = es.ground_plane, es.measured_cache
+        terrain = {"env_build_s": make_s, "terrain_mode": env.terrain_mode, "rough_envs": int(rough.sum()),
+                   "rough_envs_nonzero_planes": int((gp[rough] != 0).any(-1).any(-1).sum()),
+                   "rough_envs_nonzero_measured": int((mh[rough] != 0).any(-1).sum()),
+                   "planes_finite": bool(torch.isfinite(gp).all()), "measured_finite": bool(torch.isfinite(mh).all()),
+                   "mean_terrain_level": float(es.terrain_levels.float().mean())}
+        log(f"[train {name}] env with its {env.terrain.shape[0]} x {env.terrain.shape[1]} terrain built in "
+            f"{make_s:.2f} s; after learn: {terrain}")
+        if not (terrain["planes_finite"] and terrain["measured_finite"] and terrain["rough_envs_nonzero_planes"]
+                and terrain["rough_envs_nonzero_measured"]):
+            fail(f"{name}: the ground planes or measured heights are not finite, or zero on every rough row: {terrain}")
     want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": TRAIN_ITERS * steps, "k3": TRAIN_ITERS}
     if launches != want:
-        fail(f"{task}: training launched {launches}, expected {want}")
+        fail(f"{name}: training launched {launches}, expected {want}")
     for h in runner.log_history:
         m = h["metrics"]
         if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
             fail(f"iteration {h['it']}: non-finite losses {m}")
-        log(f"[train {task}] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
+        log(f"[train {name}] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
             f"update {h['update_s']:.3f} s "
             f"(+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
             f"host); {h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate "
@@ -1259,7 +1306,7 @@ def train_phase(dev, task="GR1T1"):
                for k in ("params", "m", "v", "count", "learning_rate"))
     if not same:
         fail(f"checkpoint {ck} does not load back bit-identical")
-    log(f"[train {task}] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
+    log(f"[train {name}] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
         f"{os.path.basename(ck)} loads back bit-identical: {same}")
     hist = runner.log_history
 
@@ -1296,7 +1343,7 @@ def train_phase(dev, task="GR1T1"):
     host = {name: inside.count(name) for name in sorted(set(inside))}
     graph_launches = host.get("cudaGraphLaunch", 0)
     nodes = [ctx.nodes for f in runner.alg._fused_cache.values() for ctx in f._graphs.values()]
-    log(f"[train {task} profile] host calls inside {len(ranges)} update(s): {host or 'none seen'}; the update graph's "
+    log(f"[train {name} profile] host calls inside {len(ranges)} update(s): {host or 'none seen'}; the update graph's "
         f"kernel nodes {nodes}")
     profile_out = {"wall_ms": prof_s * 1e3, "device_ms": total_ms, "by_kernel_ms": by,
                    "busy_share_of_unprofiled_iteration": total_ms / iter_ms,
@@ -1312,17 +1359,17 @@ def train_phase(dev, task="GR1T1"):
         if graph_launches != 1:
             fail(f"the host issued {graph_launches} graph launches in the update, not 1")
     else:
-        log(f"[train {task} profile] the profiler recorded no host launch call: host launches per update not measured")
+        log(f"[train {name} profile] the profiler recorded no host launch call: host launches per update not measured")
     if any(ref_counts.values()):
         fail(f"the main path launched K3's reference pair: {ref_counts}")
     if total_ms > 0:
-        log(f"[train {task} profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
+        log(f"[train {name} profile] one iteration under the profiler {prof_s * 1e3:.1f} ms wall; device kernels "
             f"{total_ms:.1f} ms in {sum(e.count for e in kern)} launches: "
             + ", ".join(f"{g} {v:.1f} ms" for g, v in by.items())
             + f"; device busy {100 * total_ms / iter_ms:.1f}% of the unprofiled iteration's {iter_ms:.1f} ms")
         k2n = sum(counts[n] for n in KERNEL_NAMES["K2"])
         k3n = sum(counts[n] for n in KERNEL_NAMES["K3"])
-        log(f"[train {task} profile] {updates} update(s), {grad_steps} grad steps; device launches "
+        log(f"[train {name} profile] {updates} update(s), {grad_steps} grad steps; device launches "
             + ", ".join(f"{n} {c}" for n, c in counts.items())
             + f": K2's chain {k2n / max(grad_steps, 1):g} a grad step, K3's step {k3n / max(grad_steps, 1):g}, "
             f"{(k2n + k3n) / max(updates, 1):g} an update")
@@ -1331,7 +1378,7 @@ def train_phase(dev, task="GR1T1"):
                  f"launched {LAUNCHES['k1'] - before['k1']} times")
         if k2n + k3n == 0 and grad_steps and len(nodes) == 1:
             # the profiler sees no kernel inside the graph: its kernel nodes stand for the launches
-            log(f"[train {task} profile] the profiler saw no kernel of K2 or K3 inside the update's graph; the graph's "
+            log(f"[train {name} profile] the profiler saw no kernel of K2 or K3 inside the update's graph; the graph's "
                 f"kernel nodes stand for its device launches: {nodes[0]}")
             k3n = nodes[0]["cooperative"]
             k2n = nodes[0]["kernels"] - k3n
@@ -1344,18 +1391,18 @@ def train_phase(dev, task="GR1T1"):
             fail(f"the profiled iteration ran {updates} update(s) of {grad_steps} grad steps, "
                  f"but launched {counts} (K2 {k2n}, K3 {k3n})")
         elif k2n != K2_LAUNCHES_PER_STEP * grad_steps:
-            fail(f"{task}: K2's chain launched {k2n / grad_steps:g} kernels a grad step, not {K2_LAUNCHES_PER_STEP}")
+            fail(f"{name}: K2's chain launched {k2n / grad_steps:g} kernels a grad step, not {K2_LAUNCHES_PER_STEP}")
         else:
             profile_out["k2_kernel_launches_per_grad_step"] = k2n // grad_steps
             profile_out["kernel_launches_per_update"] = k2n + k3n
     else:
-        log(f"[train {task} profile] the profiler saw no device time; device busy share and kernel "
+        log(f"[train {name} profile] the profiler saw no device time; device busy share and kernel "
             "launches not measured")
     return {
         "launches": launches, "iters": TRAIN_ITERS, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
         "iteration_s": [h["elapsed_s"] for h in hist], "collection_s": [h["collection_s"] for h in hist],
         "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
-        "profile": profile_out,
+        "profile": profile_out, "terrain": terrain,
     }
 
 
@@ -1365,30 +1412,75 @@ def no_self_collision(cfg):
     cfg.asset.self_collisions = 1
 
 
-# K1's size sets: (task, config change, what it is). Each builds its own
-# library (sim/cuda_step.py:team_shape, nvcc_flags).
+def heightfield(cfg):
+    """The GR1T1 config on heightfield terrain with the curriculum on, as
+    the reference bench's ``heightfield`` cell (bench.py:95-97, 165-169):
+    the 10 x 20 grid of the config, K1's ``local_plane`` program."""
+    cfg.terrain.mesh_type = "heightfield"
+    cfg.terrain.curriculum = True
+
+
+def trimesh(cfg):
+    """The GR1T1 config on trimesh terrain (stair risers as walls), as the
+    reference bench's ``trimesh`` cell: K1's ``local_plane_walls`` program."""
+    cfg.terrain.mesh_type = "trimesh"
+    cfg.terrain.curriculum = True
+
+
+def heading(cfg):
+    """The GR1T1 config with heading commands (a 4th command, the heading
+    target) on the plane: K1's plane program without the post fold."""
+    cfg.commands.heading_command = True
+    cfg.commands.num_commands = 4
+
+
+# K1's programs: (task, config change, what it is, spread). Each builds its
+# own library (sim/cuda_step.py:team_shape, nvcc_flags). ``spread``: on
+# terrain, phase 3's reachable states start anywhere within that many meters
+# of the cell's origin (cuda_step.reachable_state), so that feet land on
+# stairs, slopes and stones and touch riser walls.
 K1_SETS = {
-    "GR1T1": ("GR1T1", None, "GR1T1 lower limb, plane, post fold"),
-    "GR1T1_full": ("GR1T1_full", None, "GR1T1 full body, 32 DOF, plane, post fold"),
-    "GR1T1_no_pairs": ("GR1T1", no_self_collision, "GR1T1 lower limb without self-collision pairs"),
+    "GR1T1": ("GR1T1", None, "GR1T1 lower limb, plane, post fold", None),
+    "GR1T1_full": ("GR1T1_full", None, "GR1T1 full body, 32 DOF, plane, post fold", None),
+    "GR1T1_no_pairs": ("GR1T1", no_self_collision, "GR1T1 lower limb without self-collision pairs", None),
+    "GR1T1_heightfield": ("GR1T1", heightfield, "GR1T1 lower limb, heightfield (local_plane), no post fold", 3.5),
+    "GR1T1_trimesh": ("GR1T1", trimesh, "GR1T1 lower limb, trimesh (local_plane_walls), no post fold", 3.5),
+    "GR1T1_heading": ("GR1T1", heading, "GR1T1 lower limb, plane, heading commands, no post fold", None),
 }
+TERRAIN_STEPS = 16   # phase 3's policy steps from init on terrain (the drop from 0.3 m lands)
 
 
-def k1_phase(dev, task, mutate, label, require_faster):
-    """Phase 3 for one K1 size set: the kernel against its plain version on
-    4096 reachable envs of ``task``'s training config (``mutate`` applied),
-    the team kernel against the one-thread kernel bit for bit, both timed,
-    the plain version timed, and the bound. Any failure stops the script.
-    Returns the numbers of the kernels' JSON row."""
+def k1_phase(dev, task, mutate, label, spread, require_faster):
+    """Phase 3 for one K1 program: the kernel against its plain version on
+    4096 reachable envs of ``task``'s training config (``mutate`` applied;
+    on terrain the ground lanes the env samples), the team kernel against
+    the one-thread kernel bit for bit, both timed, the plain version timed,
+    and the bound; on trimesh the envs with a riser wall in contact and with
+    a tread force suppressed are counted (none fails). Any failure stops the
+    script. Returns the numbers of the kernels' JSON row."""
     import torch
 
     from wiki_grx_gym_tpu_torch import build as kbuild
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
     tag = f"[K1 {task}{'' if mutate is None else ', ' + mutate.__name__}]"
-    env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate)
+    env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate, spread=spread,
+                                           steps=8 if spread is None else TERRAIN_STEPS)
     op = env.decimation_op
-    log(f"{tag} sizes {op.sizes._asdict()}, team {op.team[0]} lanes x {op.team[1]} envs")
+    log(f"{tag} sizes {op.sizes._asdict()}, team {op.team[0]} lanes x {op.team[1]} envs; terrain mode "
+        f"{env.terrain_mode}, post fold {op.post is not None}")
+    walls = None
+    if env.riser_mode:
+        active, inside = cuda_step.wall_contacts(env, state, state.ground_plane)
+        walls = {"envs_with_wall_contact": int(active.any(1).sum()),
+                 "envs_with_tread_suppressed": int(inside.any(1).sum()),
+                 "points_with_wall_contact": int(active.sum()), "points_with_tread_suppressed": int(inside.sum())}
+        log(f"{tag} ground lanes sampled by the env at the step's start: {walls['envs_with_wall_contact']} envs "
+            f"({walls['points_with_wall_contact']} points) with a riser wall in contact, "
+            f"{walls['envs_with_tread_suppressed']} envs ({walls['points_with_tread_suppressed']} points) with the "
+            f"tread force suppressed inside a riser solid")
+        if not (walls["envs_with_wall_contact"] and walls["envs_with_tread_suppressed"]):
+            raise SystemExit(f"{tag} the riser-wall branches of the contact are dead in these states: {walls}")
     gen_in = torch.Generator(device=dev)
     gen_in.manual_seed(1)
     args, kw = cuda_step.decimation_inputs(env, state, gen_in)
@@ -1400,7 +1492,8 @@ def k1_phase(dev, task, mutate, label, require_faster):
     torch.cuda.synchronize()
     flips = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
     for name in BOOL_GROUPS:
-        flips |= (k[name] != p[name]).any(dim=1)
+        if name in k:   # the post fold's
+            flips |= (k[name] != p[name]).any(dim=1)
     keep = ~flips
     over = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)   # over the stated tolerance
     widened_ok, max_abs_err = True, 0.0
@@ -1438,7 +1531,7 @@ def k1_phase(dev, task, mutate, label, require_faster):
 
     # the team kernel against the one-thread kernel on the same packed
     # input: every output lane bit for bit
-    comp = op._pack(*args[:6], kw["last_qd"], kw["extra"])
+    comp = op._pack(*args, **kw)
     out = torch.full((op.c_out, N_ENVS), -7.0, dtype=torch.float32, device=dev)
     ref = torch.empty_like(out)
     op.launch_packed(comp, ref, kernel="thread")
@@ -1458,7 +1551,9 @@ def k1_phase(dev, task, mutate, label, require_faster):
     thread_ms = cuda_ms(thread, reps=50, warmup=3)
     turns = [cuda_ms(thread, reps=50, warmup=1), cuda_ms(team, reps=50, warmup=1)]
     wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
-    plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=2, warmup=1)
+    # the plain version ran twice above (against the kernel, and in float64):
+    # one timed call, no warm-up
+    plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=1, warmup=0)
     ops_per_env = count_plain_ops(task, mutate)
     bytes_moved = (op.c_in + op.c_out) * 4 * N_ENVS
     ops_ms = ops_per_env * N_ENVS / FP32_PEAK * 1e3
@@ -1505,6 +1600,9 @@ def k1_phase(dev, task, mutate, label, require_faster):
         "team_vs_thread_differing_lanes": differ,
         "divergent_envs": int(divergent.sum()),
         "envs_equal_to_plain": int(same.sum()),
+        "terrain_mode": env.terrain_mode,
+        "post_fold": op.post is not None,
+        "wall_contacts": walls,
     }
     del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
     gc.collect()
@@ -1662,8 +1760,9 @@ def main():
 
     t0 = time.perf_counter()
     jobs = {}
-    for task, mutate, _ in K1_SETS.values():
-        op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
+    k1_ops = {name: cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
+              for name, (task, mutate, _, _) in K1_SETS.items()}
+    for op in k1_ops.values():
         jobs[cuda_step.library_name(op.sizes)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes))
     jobs.update({
         "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
@@ -1688,8 +1787,7 @@ def main():
     log(f"[build] k2_ppo_grads SASS: {HGMMA_COUNT[0]} HGMMA instructions (cuobjdump rc {sass.returncode})")
     if not HGMMA_COUNT[0]:
         raise SystemExit("K2's SASS holds no HGMMA instruction: its products do not run on the tensor cores")
-    for set_name, (task, mutate, _) in K1_SETS.items():
-        op = cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
+    for set_name, op in k1_ops.items():
         for name, r in cuda_step.ptxas_report(op.sizes).items():
             log(f"[build] K1 {set_name} {name}: {r.get('registers')} registers, {r.get('spill_stores')} B spill "
                 f"stores, {r.get('spill_loads')} B spill loads")
@@ -1708,9 +1806,12 @@ def main():
     log(f"[build] K3 k3_fused_step: grid barrier by {K3_BARRIER}; {fused_update.K3_BLOCKS} blocks of 256 "
         f"threads, {k3_resident} co-resident on this card")
 
+    phase_done("phase 2")
     # ---- phase 3: K1 against its plain version, 4096 envs, each size set ----
     k1_rows = {name: k1_phase(dev, *K1_SETS[name], require_faster=name == "GR1T1") for name in K1_SETS}
+    del k1_ops
 
+    phase_done("phase 3")
     # ---- phase 4: the slice's main path ----
     cfg, train_cfg = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = N_ENVS
@@ -1801,6 +1902,7 @@ def main():
         raise SystemExit(f"the rollout profile attributes no device time to {KERNEL_NAMES['K1']} "
                          f"though K1 launched {rollout_launches} times in a rollout")
 
+    phase_done("phase 4")
     # ---- phases 5-8: the learner ----
     ppo_rows = ppo_phases(runner, rs, batch, dev)
     # the checks' runner and its update graphs go before phase 7 measures its peak memory
@@ -1809,12 +1911,21 @@ def main():
     torch.cuda.empty_cache()
     train = train_phase(dev)
 
+    phase_done("phases 5-8")
     # ---- phase 9: the 32-DOF full body: K2 at its widths, learn(2); the no-pairs rollout ----
     k2_full_row = full_body_ppo_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     train_full = train_phase(dev, "GR1T1_full")
     no_pairs_launches = drive_rollout(dev, "GR1T1", no_self_collision)
+
+    phase_done("phase 9")
+    # ---- phase 10: terrain training (heightfield, trimesh); the heading rollout ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_terrain = {m.__name__: train_phase(dev, "GR1T1", m) for m in (heightfield, trimesh)}
+    heading_launches = drive_rollout(dev, "GR1T1", heading)
+    phase_done("phase 10")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -1832,11 +1943,17 @@ def main():
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
     k1_no_pairs_row = dict(k1_rows["GR1T1_no_pairs"], launches=no_pairs_launches,
                            launches_from="one 64-step rollout of the no-pairs config")
+    k1_terrain_rows = [dict(k1_rows[f"GR1T1_{m}"], launches=train_terrain[m]["launches"]["k1"],
+                            launches_from=f"learn({TRAIN_ITERS}) on {m}") for m in ("heightfield", "trimesh")]
+    k1_heading_row = dict(k1_rows["GR1T1_heading"], launches=heading_launches,
+                          launches_from="one 64-step rollout with heading commands")
     k2_full_row["launches"] = train_full["launches"]["k2"]
     k2_full_row["kernel_launches_per_grad_step"] = train_full["profile"]["k2_kernel_launches_per_grad_step"]
-    kernels = [k1_row, k1_full_row, k1_no_pairs_row, k2_row, k2_full_row, k3_row]
+    kernels = [k1_row, k1_full_row, k1_no_pairs_row, *k1_terrain_rows, k1_heading_row, k2_row, k2_full_row, k3_row]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(json.dumps({"train_GR1T1_full": {k: v for k, v in train_full.items() if k != "launches"}}))
+    for m, tr in train_terrain.items():
+        log(json.dumps({f"train_GR1T1_{m}": {k: v for k, v in tr.items() if k != "launches"}}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

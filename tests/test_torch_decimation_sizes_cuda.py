@@ -9,7 +9,12 @@ actions, 512 envs):
   team shape (``TEAM_SHAPE_FULL_BODY``);
 - GR1T1 with self-collision off (``asset.self_collisions = 1``): no pairs,
   so every pair array of the kernel has capacity 1 and its loops run 0
-  times.
+  times;
+- the programs without the post fold: GR1T1 on heightfield terrain
+  (``local_plane``, the ground planes the env samples), on trimesh terrain
+  (``local_plane_walls``, with ground lanes planted so that riser walls
+  push, hold a point's center and pass below, ``cuda_step.planted_planes``)
+  and on the plane with heading commands (3 x 3 curriculum grids).
 
 Each is held against its plain version (the lane program, the same
 inputs) under chip_smoke.py phase 3's rule: rtol 1e-4 / atol 1e-4 (1e-2 N
@@ -46,7 +51,10 @@ def no_self_collision(cfg):
 
 
 SETS = {"GR1T1_full": dict(task="GR1T1_full"),
-        "GR1T1_no_pairs": dict(task="GR1T1", mutate=no_self_collision)}
+        "GR1T1_no_pairs": dict(task="GR1T1", mutate=no_self_collision),
+        "GR1T1_heightfield": dict(task="GR1T1", mutate=cuda_step.terrain_config("heightfield", 3, 3)),
+        "GR1T1_trimesh": dict(task="GR1T1", mutate=cuda_step.terrain_config("trimesh", 3, 3), planted=True),
+        "GR1T1_heading": dict(task="GR1T1", mutate=cuda_step.heading_config)}
 
 
 @pytest.fixture(scope="module", params=sorted(SETS))
@@ -56,14 +64,18 @@ def case(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 has no CPU mode")
     dev = torch.device("cuda")
-    env, state = cuda_step.reachable_state(N, dev, **SETS[request.param])
+    how = dict(SETS[request.param])
+    planted = how.pop("planted", False)
+    env, state = cuda_step.reachable_state(N, dev, **how)
+    if planted:
+        state = state.replace(ground_plane=cuda_step.planted_planes(env, state, env.riser_mode))
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     args, kw = cuda_step.decimation_inputs(env, state, gen)
     gen.manual_seed(1)
     args64, kw64 = cuda_step.decimation_inputs(env, state, gen, dtype=torch.float64)
     op = env.decimation_op
-    comp = op._pack(*args, kw["last_qd"], kw["extra"])
+    comp = op._pack(*args, **kw)
     return request.param, op, comp, (args, kw), (args64, kw64)
 
 
@@ -72,7 +84,9 @@ def groups(res):
                                          "q", "qd", "anchor")}
     g.update(force_sum=res[1], vxyz_sum=res[2], vrpy_sum=res[3], tau=res[4], point_force=res[5],
              post_rel=res[6][0], post_quat=res[6][1])
-    g.update(res[8])
+    if res[7] is not None:
+        g["point_pos"] = res[7]
+    g.update(res[8] or {})
     return {k: v.double().reshape(v.shape[0], -1) for k, v in g.items()}
 
 
@@ -88,8 +102,11 @@ def test_sizes_are_the_set_s(case):
     if name == "GR1T1_full":
         assert (op.sizes.ND, op.sizes.NPAIR, op.c_out) == (32, 240, 374)
         assert op.team == cuda_step.TEAM_SHAPE_FULL_BODY
-    else:
+    elif name == "GR1T1_no_pairs":
         assert (op.sizes.ND, op.sizes.NPAIR) == (10, 0)
+    else:
+        program = {"GR1T1_heightfield": (1, 3), "GR1T1_trimesh": (2, 9), "GR1T1_heading": (0, 0)}[name]
+        assert (op.sizes.TERRAIN, op.plane_lanes, op.sizes.FOLD, op.post) == (*program, 0, None)
     assert op.kernel_support_error() is None
 
 
@@ -98,7 +115,8 @@ def test_kernel_within_tolerance_of_its_plain_version(case):
     k, p, p64 = groups(op(*args, **kw)), groups(op.plain(*args, **kw)), groups(op.plain(*args64, **kw64))
     flips = torch.zeros(N, dtype=torch.bool, device=args[1].device)
     for name in BOOL_GROUPS:
-        flips |= (k[name] != p[name]).any(dim=1)
+        if name in k:   # the post fold's
+            flips |= (k[name] != p[name]).any(dim=1)
     keep, over = ~flips, torch.zeros_like(flips)
     for name in k:
         if name in BOOL_GROUPS:

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from wiki_grx_gym_tpu_torch.sim import cuda_step
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "wiki_grx_gym_tpu_torch"
 
@@ -84,13 +86,17 @@ def test_entry_points_refuse_cuda_without_a_card():
 
 
 @pytest.mark.parametrize("mutate,match", [
-    (lambda c: setattr(c.terrain, "mesh_type", "heightfield"), "terrain"),
-    (lambda c: setattr(c.terrain, "mesh_type", "trimesh"), "terrain"),
-    (lambda c: setattr(c.commands, "heading_command", True), "heading"),
     (lambda c: setattr(c.control, "control_type", "T"), "control_type"),
     (lambda c: setattr(c.control, "control_type", "V"), "item 11"),
+    (lambda c: (cuda_step.terrain_config("heightfield", 2, 2)(c),
+                setattr(c.control, "control_type", "V")), "item 11"),
+    (lambda c: (cuda_step.terrain_config("trimesh", 2, 2)(c),
+                setattr(c.control, "control_type", "T")), "item 11"),
+    (lambda c: (cuda_step.heading_config(c), setattr(c.control, "control_type", "V")), "item 11"),
 ])
 def test_env_refuses_outside_the_slice(mutate, match):
+    """The V and T control modes stay outside the slice, on the plane, on
+    terrain and with heading commands (ROADMAP queue 1 item 11 part 2)."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     cfg, _ = task_registry.get_cfgs("GR1T1")
@@ -102,15 +108,19 @@ def test_env_refuses_outside_the_slice(mutate, match):
 
 @pytest.mark.parametrize("task", ["GR1T1_full", "GR1T2_full"])
 def test_full_body_tasks_refused(task):
-    """The 32-DOF tasks build (K1 takes up to 32 dofs); what stays outside
-    the slice is refused for them as for the lower limb: heading commands."""
+    """The 32-DOF tasks build (K1 takes up to 32 dofs), with heading
+    commands too; what stays outside the slice is refused for them as for
+    the lower limb: the V and T control modes."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     cfg, _ = task_registry.get_cfgs(task)
     cfg.env.num_envs = 2
     env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
     assert env.num_dof == 32 and env.obs_dim == 105
-    cfg.commands.heading_command = True
+    cuda_step.heading_config(cfg)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
+    assert not env._post_fold and env.decimation_op.kernel_support_error() is None
+    cfg.control.control_type = "V"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         task_registry.make_env(task, env_cfg=cfg, device="cpu")
 
@@ -128,25 +138,38 @@ def test_lstm_runner_refused():
 
 def test_kernel_path_refuses_unsupported_programs():
     """On a CUDA tensor the wrapper launches K1 or raises. K1 is built for
-    each program's sizes, so the full-body tasks, GR1T2 and GR1T1 without
-    self-collision pairs (other sizes than the GR1T1 lower limb's) all have
-    a kernel; a reward term with no lane form is refused when the program
-    is built."""
+    each program's sizes, terrain mode and fold, so the full-body tasks,
+    GR1T2 and GR1T1 without self-collision pairs (other sizes than the
+    GR1T1 lower limb's), and GR1T1 on heightfield and trimesh terrain and
+    with heading commands (programs without the post fold) all have a
+    kernel; a reward term with no lane form is refused when the folded
+    program is built, and the V and T control modes when the env is."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     def no_pairs(c):
         c.asset.self_collisions = 1
 
-    for task, mutate in [("GR1T1", None), ("GR1T1_full", None), ("GR1T2_full", None), ("GR1T2", None),
-                         ("GR1T1", no_pairs)]:
+    for task, mutate, program in [
+            ("GR1T1", None, (0, 1)), ("GR1T1_full", None, (0, 1)), ("GR1T2_full", None, (0, 1)),
+            ("GR1T2", None, (0, 1)), ("GR1T1", no_pairs, (0, 1)),
+            ("GR1T1", cuda_step.terrain_config("heightfield", 2, 2), (1, 0)),
+            ("GR1T1", cuda_step.terrain_config("trimesh", 2, 2), (2, 0)),
+            ("GR1T1", cuda_step.heading_config, (0, 0))]:
         cfg, _ = task_registry.get_cfgs(task)
         cfg.env.num_envs = 2
         if mutate is not None:
             mutate(cfg)
         op = task_registry.make_env(task, env_cfg=cfg, device="cpu")[0].decimation_op
         assert op.kernel_support_error() is None, (task, mutate)
-        if mutate is not None:
+        assert (op.sizes.TERRAIN, op.sizes.FOLD) == program, (task, mutate)
+        if mutate is no_pairs:
             assert op.sizes.NPAIR == 0
+    for control in ("V", "T"):
+        cfg, _ = task_registry.get_cfgs("GR1T1")
+        cfg.env.num_envs = 2
+        cfg.control.control_type = control
+        with pytest.raises(NotImplementedError, match="item 11"):
+            task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
     cfg, _ = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
     cfg.rewards.scales.collision = -1.0   # a term without a lane form

@@ -126,9 +126,11 @@ def env_state_from_numpy(d, device="cpu", generator: torch.Generator = None):
     """A JAX ``EnvState`` flattened to numpy -> the port's ``EnvState``.
 
     ``d`` maps every ``EnvState`` field name to a numpy array, with
-    ``physics`` and ``rand`` as dicts of their own fields. ``rng`` (a JAX
+    ``physics`` and ``rand`` as dicts of their own fields; ``ground_plane``
+    and ``measured_cache`` may be absent or None (the plane). ``rng`` (a JAX
     key) is not carried: the state gets ``generator`` (a fresh one on
-    ``device``, seeded 0, if None)."""
+    ``device``, seeded 0, if None). The host's step count is
+    ``common_step``."""
     from wiki_grx_gym_tpu_torch.envs.legged_env import EnvState
 
     t = lambda a: torch.as_tensor(np.array(a), device=device)
@@ -159,4 +161,7 @@ def env_state_from_numpy(d, device="cpu", generator: torch.Generator = None):
         terrain_levels=t(np.asarray(d["terrain_levels"], np.int32)),
         terrain_types=t(np.asarray(d["terrain_types"], np.int32)),
         cmd_lin_vel_x_range=t(d["cmd_lin_vel_x_range"]),
+        ground_plane=None if d.get("ground_plane") is None else t(d["ground_plane"]),
+        measured_cache=None if d.get("measured_cache") is None else t(d["measured_cache"]),
+        step_count=int(np.asarray(d["common_step"])),
     )

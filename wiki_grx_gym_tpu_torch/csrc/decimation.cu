@@ -7,14 +7,29 @@
 // contact with anchored stick friction, sphere-sphere self-collision, CRBA
 // mass matrix + RNEA bias, an unrolled (6+D)^2 Cholesky solve, semi-implicit
 // Euler), the feet accumulators, the final-state FK of the post bodies, and
-// the folded post-physics stage (the GR1T1 family's reward terms,
-// termination, tilt, bad, contact filter, air/land trackers).
+// in the post-fold program the post-physics stage (the GR1T1 family's reward
+// terms, termination, tilt, bad, contact filter, air/land trackers).
 //
-// One library is built per model's sizes (struct Sizes: bodies, dofs,
-// contact points, pairs, reward terms, input and output widths) and team
-// shape, from -D flags (sim/cuda_step.py:nvcc_flags); the GR1T1 and GR1T2
-// lower limbs share one size set, the 32-DOF full bodies another, a config
-// with self-collision off (no pairs) a third.
+// Terrain modes (K1_TERRAIN; sim/scalarized.py:ScalarSubstep terrain_mode):
+// 0, the flat plane at ground_h; 1, "local_plane": each contact point reads
+// its own ground plane h = c + gx x + gy y (3 input lanes a point, sampled
+// from the heightfield by the env once a policy step), with the normal-aware
+// penalty and the anchored friction projected on the plane; 2,
+// "local_plane_walls" (trimesh): 9 lanes a point, the tread plane and up to
+// one riser face per axis, a frictionless wall penalty, and no tread force
+// for a center inside a riser solid. Both terrain modes also write the
+// final-state world position of every contact point (where the env samples
+// the next step's planes). The post fold (K1_FOLD) is off on terrain and
+// with heading commands: the env then runs the post stage itself
+// (envs/legged_env.py), and K1 neither reads its inputs nor writes its
+// outputs.
+//
+// One library is built per program (struct Sizes: bodies, dofs, contact
+// points, pairs, reward terms, input and output widths, terrain mode, fold)
+// and team shape, from -D flags (sim/cuda_step.py:nvcc_flags); the GR1T1
+// and GR1T2 lower limbs share one size set, the 32-DOF full bodies another,
+// a config with self-collision off (no pairs) a third, and each terrain
+// mode and the heading commands' non-fold plane program one each.
 //
 // Two kernels compute it. decimation_team_kernel is the main path's:
 //
@@ -86,8 +101,8 @@
 // flags, and build.library_path names the library by its flags).
 #if !defined(K1_NB) || !defined(K1_ND) || !defined(K1_NP) || !defined(K1_NF) || !defined(K1_NPAIR) || \
     !defined(K1_NR) || !defined(K1_NPOST) || !defined(K1_NIN) || !defined(K1_NOUT) ||                 \
-    !defined(K1_TEAM_T) || !defined(K1_TEAM_E)
-#error "K1 is built for one model's sizes: define K1_NB ... K1_NOUT, K1_TEAM_T and K1_TEAM_E"
+    !defined(K1_TERRAIN) || !defined(K1_FOLD) || !defined(K1_TEAM_T) || !defined(K1_TEAM_E)
+#error "K1 is built for one program: define K1_NB ... K1_NOUT, K1_TERRAIN, K1_FOLD, K1_TEAM_T and K1_TEAM_E"
 #endif
 
 // Every name of the device code has internal linkage (the unnamed namespace):
@@ -110,13 +125,20 @@ struct Sizes {
 };
 static_assert(Sizes::ND >= 1 && Sizes::ND <= 32, "anc_mask holds one bit a dof in 32 bits");
 
+// the program: terrain mode (0 plane, 1 local_plane, 2 local_plane_walls)
+// and whether the post stage is folded in
+constexpr int TERRAIN = K1_TERRAIN;
+constexpr bool FOLD = K1_FOLD != 0;
+static_assert(TERRAIN >= 0 && TERRAIN <= 2, "K1_TERRAIN is 0, 1 or 2");
+constexpr int PLANE_LANES = TERRAIN == 0 ? 0 : TERRAIN == 1 ? 3 : 9;  // ground lanes a point
+
 // an array's capacity for a count that may be 0 (no zero-length arrays;
 // the loops run to the count)
 __host__ __device__ constexpr int cap(int n) { return n > 0 ? n : 1; }
 
 constexpr int MAXG = 8;       // termination-group capacity
-constexpr int N_IN_GROUPS = 21;
-constexpr int N_OUT_GROUPS = 28;
+constexpr int N_IN_GROUPS = 22;
+constexpr int N_OUT_GROUPS = 29;
 constexpr int THREADS = 64;   // the one-thread kernel's block
 // The team kernel's shape: lanes per env and envs per block
 // (sim/cuda_step.py:team_shape; PERF.md records the shapes tried).
@@ -128,14 +150,14 @@ enum InGroup {
   IN_POS, IN_QUAT, IN_LIN, IN_ANG, IN_Q, IN_QD, IN_ANCHOR, IN_ACTIONS, IN_LAST_ACTIONS,
   IN_MOTOR, IN_DELAY, IN_FRICTION, IN_RESTITUTION, IN_MASS_SCALE, IN_COM_OFFSET,
   IN_LAST_QD, IN_COMMANDS, IN_LAST_LAST_ACTIONS, IN_FEET_AIR_TIME, IN_FEET_LAND_TIME,
-  IN_FEET_CONTACT_LAST
+  IN_FEET_CONTACT_LAST, IN_PLANE
 };
 enum OutGroup {
   OUT_POS, OUT_QUAT, OUT_LIN, OUT_ANG, OUT_Q, OUT_QD, OUT_ANCHOR, OUT_FORCE_SUM,
   OUT_VXYZ_SUM, OUT_VRPY_SUM, OUT_TAU, OUT_POINT_FORCE, OUT_POST_QUAT, OUT_POST_REL,
   OUT_REW_TERMS, OUT_BLV, OUT_BAV, OUT_PG, OUT_TERM_CONTACT, OUT_TILT, OUT_BAD,
   OUT_FEET_CONTACT, OUT_CONTACT_FILT, OUT_FIRST_CONTACT, OUT_FEET_AIR_TIME,
-  OUT_FEET_LAND_TIME, OUT_FEET_HEIGHT, OUT_BHO
+  OUT_FEET_LAND_TIME, OUT_FEET_HEIGHT, OUT_BHO, OUT_POINT_POS
 };
 // reward term ids (sim/cuda_step.py:REWARD_IDS)
 enum Reward {
@@ -251,6 +273,103 @@ __device__ __forceinline__ void m3vec(const float m[3][3], const float* v, float
 }
 
 // ---------------------------------------------------------------------------
+// ground contact of one point (ScalarSubstep.contact_forces, the terrain
+// mode's branch; both kernels call it): its force `fo` and new anchor `na`
+// from its world position and velocity, radius r, anchor `a`, friction mu,
+// normal damping d_n and, in the terrain modes, its ground lanes `pl`
+// (c, gx, gy; walls: x pos, top, sign, y pos, top, sign).
+// ---------------------------------------------------------------------------
+
+template <class S>
+__device__ __forceinline__ void point_contact(const ModelConst<S>& K, float r, const float* pos,
+                                              const float* vel, const float* a, const float* pl,
+                                              float mu, float d_n, float* fo, float* na) {
+  if constexpr (TERRAIN == 0) {
+    const float depth = nmin(K.ground_h - (pos[2] - r), 0.5f);
+    const bool active = depth > 0.0f;
+    float f_n = nmax(K.stiffness * depth - d_n * vel[2], 0.0f);
+    f_n = active ? f_n : 0.0f;
+    const float cone = mu * f_n;
+    float ftx, fty;
+    if (K.use_tangent) {
+      const float kt = K.kt;
+      float ex = clipf(pos[0] - a[0], -0.1f, 0.1f);
+      float ey = clipf(pos[1] - a[1], -0.1f, 0.1f);
+      ftx = -kt * ex - K.d_t * vel[0];
+      fty = -kt * ey - K.d_t * vel[1];
+      float mag = sqrtf(ftx * ftx + fty * fty);
+      float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
+      ftx = ftx * sc;
+      fty = fty * sc;
+      na[0] = active ? pos[0] + ftx / kt : pos[0];
+      na[1] = active ? pos[1] + fty / kt : pos[1];
+      na[2] = pos[2] + 0.0f;
+      ftx = active ? ftx : 0.0f;
+      fty = active ? fty : 0.0f;
+    } else {
+      float speed_t = sqrtf(vel[0] * vel[0] + vel[1] * vel[1]);
+      float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), K.imp_cap);
+      ftx = -k_t * vel[0];
+      fty = -k_t * vel[1];
+      for (int k = 0; k < 3; ++k) na[k] = a[k];
+    }
+    fo[0] = ftx; fo[1] = fty; fo[2] = f_n;
+  } else {
+    // the point's own ground plane, its unit normal n = (-gx, -gy, 1) / |.|
+    const float inv = 1.0f / sqrtf(pl[1] * pl[1] + pl[2] * pl[2] + 1.0f);
+    const float nrm[3] = {-pl[1] * inv, -pl[2] * inv, inv};
+    const float h = pl[0] + pl[1] * pos[0] + pl[2] * pos[1];
+    const float depth = nmin(h - (pos[2] - r), 0.5f);
+    const bool active = depth > 0.0f;
+    const float v_n = dot3(vel, nrm);
+    float f_n = nmax(K.stiffness * depth - d_n * v_n, 0.0f);
+    f_n = active ? f_n : 0.0f;
+    float wall_fx[2] = {0.0f, 0.0f};
+    if constexpr (TERRAIN == 2) {
+      // a frictionless riser face per axis; no tread force for a center
+      // inside a riser solid below its top
+      for (int ax = 0; ax < 2; ++ax) {
+        const float wp = pl[3 + 3 * ax], wt = pl[4 + 3 * ax], ws = pl[5 + 3 * ax];
+        const bool below = pos[2] < wt;
+        const float pen = ws * (pos[ax] - wp) + r;
+        const bool act_w = (ws != 0.0f) & (pen > 0.0f) & below;
+        const float v_nw = -ws * vel[ax];  // outward-normal velocity
+        const float f_w = nmax(K.stiffness * nmin(pen, 0.5f) - d_n * v_nw, 0.0f);
+        wall_fx[ax] = -ws * (act_w ? f_w : 0.0f);
+        const bool inside = (ws != 0.0f) & (ws * (pos[ax] - wp) > 0.0f) & below;
+        f_n = inside ? 0.0f : f_n;
+      }
+    }
+    const float cone = mu * f_n;
+    float v_t[3], ft[3];
+    for (int k = 0; k < 3; ++k) v_t[k] = vel[k] - nrm[k] * v_n;
+    if (K.use_tangent) {
+      const float kt = K.kt;
+      float err[3];
+      for (int k = 0; k < 3; ++k) err[k] = clipf(pos[k] - a[k], -0.1f, 0.1f);
+      const float en = dot3(err, nrm);
+      for (int k = 0; k < 3; ++k) err[k] = err[k] - nrm[k] * en;
+      for (int k = 0; k < 3; ++k) ft[k] = -kt * err[k] - K.d_t * v_t[k];
+      const float mag = sqrtf(dot3(ft, ft));
+      const float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
+      for (int k = 0; k < 3; ++k) ft[k] = ft[k] * sc;
+      for (int k = 0; k < 3; ++k) na[k] = active ? pos[k] + ft[k] / kt : pos[k];
+      for (int k = 0; k < 3; ++k) ft[k] = active ? ft[k] : 0.0f;
+    } else {
+      const float speed_t = sqrtf(dot3(v_t, v_t));
+      const float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), K.imp_cap);
+      for (int k = 0; k < 3; ++k) ft[k] = v_t[k] * -k_t;
+      for (int k = 0; k < 3; ++k) na[k] = a[k];
+    }
+    for (int k = 0; k < 3; ++k) fo[k] = nrm[k] * f_n + ft[k];
+    if constexpr (TERRAIN == 2) {
+      fo[0] = fo[0] + wall_fx[0];
+      fo[1] = fo[1] + wall_fx[1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // forward kinematics (ScalarSubstep.fk)
 // ---------------------------------------------------------------------------
 
@@ -294,8 +413,8 @@ struct State {
 template <class S>
 __device__ void substep(State<S>& st, const float* tau_in, const float* damp_in,
                         float friction, float restitution, float mass_scale,
-                        const float* com_offset, float quats[][4], float pos_rel[][3],
-                        float sub[][6], float tw[][6], float forces[][3]) {
+                        const float* com_offset, const float* plane, float quats[][4],
+                        float pos_rel[][3], float sub[][6], float tw[][6], float forces[][3]) {
   const ModelConst<S>& K = c_model;
   constexpr int NB = S::NB, ND = S::ND, NP = S::NP, N6 = 6 + S::ND;
   const float dt = K.dt;
@@ -316,12 +435,11 @@ __device__ void substep(State<S>& st, const float* tau_in, const float* damp_in,
 
   fk<S>(st.quat, st.ang, st.lin, st.q, st.qd, quats, pos_rel, sub, tw);
 
-  // ---- contact: flat ground ----
+  // ---- ground contact ----
   float pts_pos[NP][3], pts_vel[NP][3], new_anchor[NP][3];
-  const float imp_cap = K.imp_cap;
   const float mu = friction;
   const float zeta = K.damping_ratio * clipf(1.0f - restitution, 0.05f, 1.0f);
-  const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, imp_cap);
+  const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, K.imp_cap);
 #pragma unroll 1
   for (int p = 0; p < NP; ++p) {
     const int b = K.point_body[p];
@@ -335,37 +453,8 @@ __device__ void substep(State<S>& st, const float* tau_in, const float* damp_in,
       pts_pos[p][k] = pos[k];
       pts_vel[p][k] = vel[k];
     }
-    const float r = K.point_radius[p];
-    const float depth = nmin(K.ground_h - (pos[2] - r), 0.5f);
-    const bool active = depth > 0.0f;
-    float f_n = nmax(K.stiffness * depth - d_n * vel[2], 0.0f);
-    f_n = active ? f_n : 0.0f;
-    const float cone = mu * f_n;
-    float ftx, fty;
-    if (K.use_tangent) {
-      const float kt = K.kt;
-      const float* a = st.anchor[p];
-      float ex = clipf(pos[0] - a[0], -0.1f, 0.1f);
-      float ey = clipf(pos[1] - a[1], -0.1f, 0.1f);
-      ftx = -kt * ex - K.d_t * vel[0];
-      fty = -kt * ey - K.d_t * vel[1];
-      float mag = sqrtf(ftx * ftx + fty * fty);
-      float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
-      ftx = ftx * sc;
-      fty = fty * sc;
-      new_anchor[p][0] = active ? pos[0] + ftx / kt : pos[0];
-      new_anchor[p][1] = active ? pos[1] + fty / kt : pos[1];
-      new_anchor[p][2] = pos[2] + 0.0f;
-      ftx = active ? ftx : 0.0f;
-      fty = active ? fty : 0.0f;
-    } else {
-      float speed_t = sqrtf(vel[0] * vel[0] + vel[1] * vel[1]);
-      float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), imp_cap);
-      ftx = -k_t * vel[0];
-      fty = -k_t * vel[1];
-      for (int k = 0; k < 3; ++k) new_anchor[p][k] = st.anchor[p][k];
-    }
-    forces[p][0] = ftx; forces[p][1] = fty; forces[p][2] = f_n;
+    point_contact<S>(K, K.point_radius[p], pos, vel, st.anchor[p], plane + PLANE_LANES * p, mu, d_n,
+                     forces[p], new_anchor[p]);
   }
 
   // ---- sphere-sphere self-collision ----
@@ -654,13 +743,15 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
   for (int i = 0; i < ND; ++i) { st.q[i] = ld(IN_Q, i); st.qd[i] = ld(IN_QD, i); }
   for (int p = 0; p < NP; ++p)
     for (int k = 0; k < 3; ++k) st.anchor[p][k] = ld(IN_ANCHOR, 3 * p + k);
-  float actions[ND], last_actions[ND], motor[ND], last_qd[ND];
+  float actions[ND], last_actions[ND], motor[ND];
   for (int i = 0; i < ND; ++i) {
     actions[i] = ld(IN_ACTIONS, i);
     last_actions[i] = ld(IN_LAST_ACTIONS, i);
     motor[i] = ld(IN_MOTOR, i);
-    last_qd[i] = ld(IN_LAST_QD, i);
   }
+  // the ground lanes of every point (terrain modes)
+  float plane[cap(PLANE_LANES * NP)];
+  for (int c = 0; c < PLANE_LANES * NP; ++c) plane[c] = ld(IN_PLANE, c);
   const float delay = ld(IN_DELAY, 0);
   const float friction = ld(IN_FRICTION, 0);
   const float restitution = ld(IN_RESTITUTION, 0);
@@ -688,7 +779,7 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
       taus[d] = clipf(t * motor[d], -lim, lim);
       damp[d] = K.has_damp ? K.damp_coeff[d] * motor[d] : 0.0f;
     }
-    substep<S>(st, taus, damp, friction, restitution, mass_scale, com_offset, quats,
+    substep<S>(st, taus, damp, friction, restitution, mass_scale, com_offset, plane, quats,
                pos_rel, sub, tw, forces);
     for (int g = 0; g < NF; ++g) {
       const int p0 = K.feet_start[g], cnt = K.feet_count[g];
@@ -719,205 +810,231 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
     for (int k = 0; k < 3; ++k) post_rel[s][k] = pos_rel[b][k] + 0.0f;
   }
 
-  // ---- post-physics stage (LanePost.run) ----
-  float blv[3], bav[3], pg[3], torso_pg[3];
-  const float down[3] = {0.0f, 0.0f, -1.0f};
-  qrotinv(st.quat, st.lin, blv);
-  qrotinv(st.quat, st.ang, bav);
-  qrotinv(st.quat, down, pg);
-  if (K.torso_slot >= 0) {
-    float fq[4];
-    qmul(post_quat[K.torso_slot], K.torso_qoff, fq);
-    qrotinv(fq, down, torso_pg);
-  } else {
-    for (int k = 0; k < 3; ++k) torso_pg[k] = pg[k];
-  }
-
-  float feet_height[NF];
-  for (int f = 0; f < NF; ++f) {
-    const int s = K.feet_slot[f];
-    float v[3];
-    qapply(post_quat[s], K.feet_offset[f], v);
-    feet_height[f] = st.pos[2] + post_rel[s][2] + v[2];
-  }
-  float feet_force[NF][3];
-  for (int g = 0; g < NF; ++g) {
-    const int p0 = K.feet_start[g], cnt = K.feet_count[g];
-    for (int k = 0; k < 3; ++k) {
-      float acc = 0.0f;
-      for (int m = 0; m < cnt; ++m) acc = acc + forces[K.feet_pts[p0 + m]][k];
-      feet_force[g][k] = acc;
+  // final-state world positions of the contact points (terrain modes)
+  if constexpr (TERRAIN != 0) {
+    for (int p = 0; p < NP; ++p) {
+      const int b = K.point_body[p];
+      float v[3];
+      qapply(quats[b], K.point_offset[p], v);
+      for (int k = 0; k < 3; ++k) st_(OUT_POINT_POS, 3 * p + k, st.pos[k] + (pos_rel[b][k] + v[k]));
     }
   }
 
-  bool feet_contact[NF], contact_filt[NF];
-  float first_contact[NF], fat[NF], flt[NF];
-  for (int f = 0; f < NF; ++f) {
-    const float fc_last = ld(IN_FEET_CONTACT_LAST, f);
-    const float fat_in = ld(IN_FEET_AIR_TIME, f);
-    feet_contact[f] = feet_force[f][2] > 1.0f;
-    contact_filt[f] = feet_contact[f] | (fc_last > 0.5f);
-    first_contact[f] = b2f((fat_in > 0.0f) & contact_filt[f]);
-    fat[f] = fat_in + K.dt_policy;
-    flt[f] = (ld(IN_FEET_LAND_TIME, f) + K.dt_policy) * b2f(feet_contact[f]);
-  }
-
-  bool term = false;
-  for (int g = 0; g < K.n_term; ++g) {
-    float gf[3];
-    for (int k = 0; k < 3; ++k) {
-      float acc = 0.0f;
-      for (int m = 0; m < K.term_count[g]; ++m) acc = acc + forces[K.term_pts[K.term_start[g] + m]][k];
-      gf[k] = acc;
+  if constexpr (FOLD) {
+    float last_qd[ND];
+    for (int i = 0; i < ND; ++i) last_qd[i] = ld(IN_LAST_QD, i);
+    // ---- post-physics stage (LanePost.run) ----
+    float blv[3], bav[3], pg[3], torso_pg[3];
+    const float down[3] = {0.0f, 0.0f, -1.0f};
+    qrotinv(st.quat, st.lin, blv);
+    qrotinv(st.quat, st.ang, bav);
+    qrotinv(st.quat, down, pg);
+    if (K.torso_slot >= 0) {
+      float fq[4];
+      qmul(post_quat[K.torso_slot], K.torso_qoff, fq);
+      qrotinv(fq, down, torso_pg);
+    } else {
+      for (int k = 0; k < 3; ++k) torso_pg[k] = pg[k];
     }
-    term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
-  }
-  const bool tilt = fabsf(pg[2]) < 0.33f;
-  bool fin = isfinite((st.pos[0] + st.pos[1] + st.pos[2]) +
-                      (st.quat[0] + st.quat[1] + st.quat[2] + st.quat[3]));
-  for (int i = 0; i < ND; ++i) fin = fin & isfinite(st.q[i]) & isfinite(st.qd[i]);
-  const bool bad = !fin;
-  const float bho = clipf(st.pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
 
-  float cmd[3], lla[ND];
-  for (int k = 0; k < 3; ++k) cmd[k] = ld(IN_COMMANDS, k);
-  for (int i = 0; i < ND; ++i) lla[i] = ld(IN_LAST_LAST_ACTIONS, i);
-  const float cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
-  const float as = K.action_scale;
-
-  for (int r = 0; r < S::NR; ++r) {
-    const float sig = K.sigma[r];
-    float val = 0.0f;
-    switch (K.reward_id[r]) {
-      case RW_ACTION_DIFF: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_ACTION_DIFF_DIFF: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i)
-          err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - bav[2])); break;
-      case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
-      case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(pg[0]) + fabsf(pg[1]))); break;
-      case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - blv[0])); break;
-      case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - blv[1])); break;
-      case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(blv[2])); break;
-      case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(torso_pg[0]) + fabsf(torso_pg[1]))); break;
-      case RW_DOF_ACC_NEW: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + fabsf((st.qd[i] - last_qd[i]) / K.dt_policy);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_DOF_TOR_ANKLE_LIFT: {
-        float sl = 0.0f, sr = 0.0f;
-        for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
-        for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
-        const float lh = feet_height[0], rh = feet_height[1];
-        const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
-        const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
-        val = 1.0f - expf(sig * (err_l + err_r));
-      } break;
-      case RW_DOF_TOR_NEW: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_FEET_AIR_FORCE: {
-        float err = 0.0f;
-        for (int f = 0; f < NF; ++f)
-          err = err + fabsf(fat[f] - K.fat_half) * (force_sum[f] / K.decimation_f);
-        val = expf(sig * err) * cmd_active;
-      } break;
-      case RW_FEET_AIR_HEIGHT: {
-        float min_h = feet_height[0];
-        for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
-        float err = 0.0f;
-        for (int f = 0; f < NF; ++f) {
-          const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
-          const float mid = fabsf(fat[f] - K.fat_half);
-          err = err + mid * err_h;
-        }
-        val = expf(sig * err) * cmd_active;
-      } break;
-      case RW_FEET_AIR_TIME: {
-        float rew = 0.0f;
-        for (int f = 0; f < NF; ++f)
-          rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * first_contact[f];
-        val = rew * cmd_active;
-      } break;
-      case RW_FEET_LAND_TIME: {
-        float rew = 0.0f;
-        for (int f = 0; f < NF; ++f)
-          rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
-        val = rew * cmd_active;
-      } break;
-      case RW_FEET_SPEED_XY: {
-        float err = 0.0f;
-        for (int f = 0; f < NF; ++f) {
-          const float hq = feet_height[f];
-          const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
-          const float v0 = vxyz[f][0] / K.decimation_f, v1 = vxyz[f][1] / K.decimation_f;
-          err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
-        }
-        val = expf(sig * err);
-      } break;
-      case RW_FEET_STUMBLE: {
-        float rew = 0.0f;
-        for (int f = 0; f < NF; ++f) {
-          const float* fo = feet_force[f];
-          const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
-          rew = rew + (1.0f - expf(sig * err));
-        }
-        val = rew;
-      } break;
-      case RW_LIMITS_DOF_POS: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) {
-          const float lo = -nmin(st.q[i] - K.soft_lo[i], 0.0f);
-          const float hi = nmax(st.q[i] - K.soft_hi[i], 0.0f);
-          err = err + fabsf(lo + hi);
-        }
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_LIMITS_DOF_TOR: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_LIMITS_DOF_VEL: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(st.qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
-        val = 1.0f - expf(sig * err);
-      } break;
-      case RW_ON_THE_AIR: {
-        float n_contact = 0.0f;
-        for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(feet_contact[f]);
-        val = b2f(n_contact == 0.0f);
-      } break;
-      case RW_POSE_OFFSET: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
-        val = expf(sig * err);
-      } break;
-      case RW_STAND_STILL: {
-        float err = 0.0f;
-        for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
-        val = expf(sig * err) * (1.0f - cmd_active);
-      } break;
-      default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
+    float feet_height[NF];
+    for (int f = 0; f < NF; ++f) {
+      const int s = K.feet_slot[f];
+      float v[3];
+      qapply(post_quat[s], K.feet_offset[f], v);
+      feet_height[f] = st.pos[2] + post_rel[s][2] + v[2];
     }
-    st_(OUT_REW_TERMS, r, fin ? K.scale[r] * val : 0.0f);
+    float feet_force[NF][3];
+    for (int g = 0; g < NF; ++g) {
+      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+      for (int k = 0; k < 3; ++k) {
+        float acc = 0.0f;
+        for (int m = 0; m < cnt; ++m) acc = acc + forces[K.feet_pts[p0 + m]][k];
+        feet_force[g][k] = acc;
+      }
+    }
+
+    bool feet_contact[NF], contact_filt[NF];
+    float first_contact[NF], fat[NF], flt[NF];
+    for (int f = 0; f < NF; ++f) {
+      const float fc_last = ld(IN_FEET_CONTACT_LAST, f);
+      const float fat_in = ld(IN_FEET_AIR_TIME, f);
+      feet_contact[f] = feet_force[f][2] > 1.0f;
+      contact_filt[f] = feet_contact[f] | (fc_last > 0.5f);
+      first_contact[f] = b2f((fat_in > 0.0f) & contact_filt[f]);
+      fat[f] = fat_in + K.dt_policy;
+      flt[f] = (ld(IN_FEET_LAND_TIME, f) + K.dt_policy) * b2f(feet_contact[f]);
+    }
+
+    bool term = false;
+    for (int g = 0; g < K.n_term; ++g) {
+      float gf[3];
+      for (int k = 0; k < 3; ++k) {
+        float acc = 0.0f;
+        for (int m = 0; m < K.term_count[g]; ++m) acc = acc + forces[K.term_pts[K.term_start[g] + m]][k];
+        gf[k] = acc;
+      }
+      term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
+    }
+    const bool tilt = fabsf(pg[2]) < 0.33f;
+    bool fin = isfinite((st.pos[0] + st.pos[1] + st.pos[2]) +
+                        (st.quat[0] + st.quat[1] + st.quat[2] + st.quat[3]));
+    for (int i = 0; i < ND; ++i) fin = fin & isfinite(st.q[i]) & isfinite(st.qd[i]);
+    const bool bad = !fin;
+    const float bho = clipf(st.pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
+
+    float cmd[3], lla[ND];
+    for (int k = 0; k < 3; ++k) cmd[k] = ld(IN_COMMANDS, k);
+    for (int i = 0; i < ND; ++i) lla[i] = ld(IN_LAST_LAST_ACTIONS, i);
+    const float cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
+    const float as = K.action_scale;
+
+    for (int r = 0; r < S::NR; ++r) {
+      const float sig = K.sigma[r];
+      float val = 0.0f;
+      switch (K.reward_id[r]) {
+        case RW_ACTION_DIFF: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_ACTION_DIFF_DIFF: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i)
+            err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - bav[2])); break;
+        case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
+        case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(pg[0]) + fabsf(pg[1]))); break;
+        case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - blv[0])); break;
+        case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - blv[1])); break;
+        case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(blv[2])); break;
+        case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(torso_pg[0]) + fabsf(torso_pg[1]))); break;
+        case RW_DOF_ACC_NEW: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + fabsf((st.qd[i] - last_qd[i]) / K.dt_policy);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_DOF_TOR_ANKLE_LIFT: {
+          float sl = 0.0f, sr = 0.0f;
+          for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
+          for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
+          const float lh = feet_height[0], rh = feet_height[1];
+          const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
+          const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
+          val = 1.0f - expf(sig * (err_l + err_r));
+        } break;
+        case RW_DOF_TOR_NEW: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_FEET_AIR_FORCE: {
+          float err = 0.0f;
+          for (int f = 0; f < NF; ++f)
+            err = err + fabsf(fat[f] - K.fat_half) * (force_sum[f] / K.decimation_f);
+          val = expf(sig * err) * cmd_active;
+        } break;
+        case RW_FEET_AIR_HEIGHT: {
+          float min_h = feet_height[0];
+          for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
+          float err = 0.0f;
+          for (int f = 0; f < NF; ++f) {
+            const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
+            const float mid = fabsf(fat[f] - K.fat_half);
+            err = err + mid * err_h;
+          }
+          val = expf(sig * err) * cmd_active;
+        } break;
+        case RW_FEET_AIR_TIME: {
+          float rew = 0.0f;
+          for (int f = 0; f < NF; ++f)
+            rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * first_contact[f];
+          val = rew * cmd_active;
+        } break;
+        case RW_FEET_LAND_TIME: {
+          float rew = 0.0f;
+          for (int f = 0; f < NF; ++f)
+            rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
+          val = rew * cmd_active;
+        } break;
+        case RW_FEET_SPEED_XY: {
+          float err = 0.0f;
+          for (int f = 0; f < NF; ++f) {
+            const float hq = feet_height[f];
+            const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
+            const float v0 = vxyz[f][0] / K.decimation_f, v1 = vxyz[f][1] / K.decimation_f;
+            err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
+          }
+          val = expf(sig * err);
+        } break;
+        case RW_FEET_STUMBLE: {
+          float rew = 0.0f;
+          for (int f = 0; f < NF; ++f) {
+            const float* fo = feet_force[f];
+            const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
+            rew = rew + (1.0f - expf(sig * err));
+          }
+          val = rew;
+        } break;
+        case RW_LIMITS_DOF_POS: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) {
+            const float lo = -nmin(st.q[i] - K.soft_lo[i], 0.0f);
+            const float hi = nmax(st.q[i] - K.soft_hi[i], 0.0f);
+            err = err + fabsf(lo + hi);
+          }
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_LIMITS_DOF_TOR: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_LIMITS_DOF_VEL: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(st.qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
+          val = 1.0f - expf(sig * err);
+        } break;
+        case RW_ON_THE_AIR: {
+          float n_contact = 0.0f;
+          for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(feet_contact[f]);
+          val = b2f(n_contact == 0.0f);
+        } break;
+        case RW_POSE_OFFSET: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
+          val = expf(sig * err);
+        } break;
+        case RW_STAND_STILL: {
+          float err = 0.0f;
+          for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
+          val = expf(sig * err) * (1.0f - cmd_active);
+        } break;
+        default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
+      }
+      st_(OUT_REW_TERMS, r, fin ? K.scale[r] * val : 0.0f);
+    }
+
+    // the post stage's outputs
+    for (int k = 0; k < 3; ++k) { st_(OUT_BLV, k, blv[k]); st_(OUT_BAV, k, bav[k]); st_(OUT_PG, k, pg[k]); }
+    for (int f = 0; f < NF; ++f) {
+      st_(OUT_FEET_CONTACT, f, b2f(feet_contact[f]));
+      st_(OUT_CONTACT_FILT, f, b2f(contact_filt[f]));
+      st_(OUT_FIRST_CONTACT, f, first_contact[f]);
+      st_(OUT_FEET_AIR_TIME, f, fat[f]);
+      st_(OUT_FEET_LAND_TIME, f, flt[f]);
+      st_(OUT_FEET_HEIGHT, f, feet_height[f]);
+    }
+    st_(OUT_TERM_CONTACT, 0, b2f(term));
+    st_(OUT_TILT, 0, b2f(tilt));
+    st_(OUT_BAD, 0, b2f(bad));
+    st_(OUT_BHO, 0, bho);
   }
 
   // ---- outputs ----
-  for (int k = 0; k < 3; ++k) {
-    st_(OUT_POS, k, st.pos[k]); st_(OUT_LIN, k, st.lin[k]); st_(OUT_ANG, k, st.ang[k]);
-    st_(OUT_BLV, k, blv[k]); st_(OUT_BAV, k, bav[k]); st_(OUT_PG, k, pg[k]);
-  }
+  for (int k = 0; k < 3; ++k) { st_(OUT_POS, k, st.pos[k]); st_(OUT_LIN, k, st.lin[k]); st_(OUT_ANG, k, st.ang[k]); }
   for (int k = 0; k < 4; ++k) st_(OUT_QUAT, k, st.quat[k]);
   for (int i = 0; i < ND; ++i) {
     st_(OUT_Q, i, st.q[i]); st_(OUT_QD, i, st.qd[i]); st_(OUT_TAU, i, taus[i]);
@@ -933,21 +1050,11 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
       st_(OUT_VXYZ_SUM, 3 * f + k, vxyz[f][k]);
       st_(OUT_VRPY_SUM, 3 * f + k, vrpy[f][k]);
     }
-    st_(OUT_FEET_CONTACT, f, b2f(feet_contact[f]));
-    st_(OUT_CONTACT_FILT, f, b2f(contact_filt[f]));
-    st_(OUT_FIRST_CONTACT, f, first_contact[f]);
-    st_(OUT_FEET_AIR_TIME, f, fat[f]);
-    st_(OUT_FEET_LAND_TIME, f, flt[f]);
-    st_(OUT_FEET_HEIGHT, f, feet_height[f]);
   }
   for (int s = 0; s < S::NPOST; ++s) {
     for (int k = 0; k < 4; ++k) st_(OUT_POST_QUAT, 4 * s + k, post_quat[s][k]);
     for (int k = 0; k < 3; ++k) st_(OUT_POST_REL, 3 * s + k, post_rel[s][k]);
   }
-  st_(OUT_TERM_CONTACT, 0, b2f(term));
-  st_(OUT_TILT, 0, b2f(tilt));
-  st_(OUT_BAD, 0, b2f(bad));
-  st_(OUT_BHO, 0, bho);
 }
 
 // ---------------------------------------------------------------------------
@@ -1232,6 +1339,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   const float friction = V.in[K.in_off[IN_FRICTION]];
   const float restitution = V.in[K.in_off[IN_RESTITUTION]];
   const float mass_scale = V.in[K.in_off[IN_MASS_SCALE]];
+  const float* const plane = V.in + K.in_off[IN_PLANE];  // the ground lanes (terrain modes)
   const float dt = K.dt;
 #define TLS(i, j) V.Ls[(i) * ((i) + 1) / 2 + (j)]
 
@@ -1270,10 +1378,9 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
     // compiler may overlap them.
     {
       constexpr int RP = (NP + T - 1) / T;
-      const float imp_cap = K.imp_cap;
       const float mu = friction;
       const float zeta = K.damping_ratio * clipf(1.0f - restitution, 0.05f, 1.0f);
-      const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, imp_cap);
+      const float d_n = nmin(2.0f * zeta * K.sqrt_kpm, K.imp_cap);
       float pw[RP][3], vel[RP][3], fo[RP][3], na[RP][3];
 #pragma unroll
       for (int rr = 0; rr < RP; ++rr) {
@@ -1288,37 +1395,8 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
             vel[rr][k] = V.tw[b][3 + k] + c[k];
             pw[rr][k] = pos[k] + rel[k];
           }
-          const float r = K.point_radius[p];
-          const float depth = nmin(K.ground_h - (pw[rr][2] - r), 0.5f);
-          const bool active = depth > 0.0f;
-          float f_n = nmax(K.stiffness * depth - d_n * vel[rr][2], 0.0f);
-          f_n = active ? f_n : 0.0f;
-          const float cone = mu * f_n;
-          float ftx, fty;
-          const float* a = anchor + 3 * p;
-          if (K.use_tangent) {
-            const float kt = K.kt;
-            float ex = clipf(pw[rr][0] - a[0], -0.1f, 0.1f);
-            float ey = clipf(pw[rr][1] - a[1], -0.1f, 0.1f);
-            ftx = -kt * ex - K.d_t * vel[rr][0];
-            fty = -kt * ey - K.d_t * vel[rr][1];
-            float mag = sqrtf(ftx * ftx + fty * fty);
-            float sc = nmin(cone / nmax(mag, 1e-9f), 1.0f);
-            ftx = ftx * sc;
-            fty = fty * sc;
-            na[rr][0] = active ? pw[rr][0] + ftx / kt : pw[rr][0];
-            na[rr][1] = active ? pw[rr][1] + fty / kt : pw[rr][1];
-            na[rr][2] = pw[rr][2] + 0.0f;
-            ftx = active ? ftx : 0.0f;
-            fty = active ? fty : 0.0f;
-          } else {
-            float speed_t = sqrtf(vel[rr][0] * vel[rr][0] + vel[rr][1] * vel[rr][1]);
-            float k_t = nmin(cone / nmax(speed_t, K.slip_velocity), imp_cap);
-            ftx = -k_t * vel[rr][0];
-            fty = -k_t * vel[rr][1];
-            for (int k = 0; k < 3; ++k) na[rr][k] = a[k];
-          }
-          fo[rr][0] = ftx; fo[rr][1] = fty; fo[rr][2] = f_n;
+          point_contact<S>(K, K.point_radius[p], pw[rr], vel[rr], anchor + 3 * p, plane + PLANE_LANES * p,
+                           mu, d_n, fo[rr], na[rr]);
         }
       }
 #pragma unroll
@@ -1696,73 +1774,70 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   const float* const lla = V.in + K.in_off[IN_LAST_LAST_ACTIONS];
   const float* const last_qd = V.in + K.in_off[IN_LAST_QD];
   TeamPost<S>& P = V.post;
-  if (l == 0) {
-    const float down[3] = {0.0f, 0.0f, -1.0f};
-    qrotinv(quat, lin, P.blv);
-    qrotinv(quat, ang, P.bav);
-    qrotinv(quat, down, P.pg);
-    if (K.torso_slot >= 0) {
-      float fq[4];
-      qmul(V.quats[K.post_body[K.torso_slot]], K.torso_qoff, fq);
-      qrotinv(fq, down, P.torso_pg);
-    } else {
-      for (int k = 0; k < 3; ++k) P.torso_pg[k] = P.pg[k];
-    }
-    for (int f = 0; f < NF; ++f) {
-      const int b = K.post_body[K.feet_slot[f]];
-      float v[3];
-      qapply(V.quats[b], K.feet_offset[f], v);
-      P.feet_height[f] = pos[2] + (V.pos_rel[b][2] + 0.0f) + v[2];
-    }
-    for (int g = 0; g < NF; ++g) {
-      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
-      for (int k = 0; k < 3; ++k) {
-        float acc = 0.0f;
-        for (int m = 0; m < cnt; ++m) acc = acc + V.forces[K.feet_pts[p0 + m]][k];
-        P.feet_force[g][k] = acc;
+  if constexpr (FOLD) {
+    if (l == 0) {
+      const float down[3] = {0.0f, 0.0f, -1.0f};
+      qrotinv(quat, lin, P.blv);
+      qrotinv(quat, ang, P.bav);
+      qrotinv(quat, down, P.pg);
+      if (K.torso_slot >= 0) {
+        float fq[4];
+        qmul(V.quats[K.post_body[K.torso_slot]], K.torso_qoff, fq);
+        qrotinv(fq, down, P.torso_pg);
+      } else {
+        for (int k = 0; k < 3; ++k) P.torso_pg[k] = P.pg[k];
       }
-    }
-    const float* fc_last = V.in + K.in_off[IN_FEET_CONTACT_LAST];
-    const float* fat_in = V.in + K.in_off[IN_FEET_AIR_TIME];
-    const float* flt_in = V.in + K.in_off[IN_FEET_LAND_TIME];
-    for (int f = 0; f < NF; ++f) {
-      const bool fc = P.feet_force[f][2] > 1.0f;
-      const bool filt = fc | (fc_last[f] > 0.5f);
-      P.feet_contact[f] = fc;
-      P.contact_filt[f] = filt;
-      P.first_contact[f] = b2f((fat_in[f] > 0.0f) & filt);
-      P.fat[f] = fat_in[f] + K.dt_policy;
-      P.flt[f] = (flt_in[f] + K.dt_policy) * b2f(fc);
-    }
-    bool term = false;
-    for (int g = 0; g < K.n_term; ++g) {
-      float gf[3];
-      for (int k = 0; k < 3; ++k) {
-        float acc = 0.0f;
-        for (int m = 0; m < K.term_count[g]; ++m) acc = acc + V.forces[K.term_pts[K.term_start[g] + m]][k];
-        gf[k] = acc;
+      for (int f = 0; f < NF; ++f) {
+        const int b = K.post_body[K.feet_slot[f]];
+        float v[3];
+        qapply(V.quats[b], K.feet_offset[f], v);
+        P.feet_height[f] = pos[2] + (V.pos_rel[b][2] + 0.0f) + v[2];
       }
-      term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
+      for (int g = 0; g < NF; ++g) {
+        const int p0 = K.feet_start[g], cnt = K.feet_count[g];
+        for (int k = 0; k < 3; ++k) {
+          float acc = 0.0f;
+          for (int m = 0; m < cnt; ++m) acc = acc + V.forces[K.feet_pts[p0 + m]][k];
+          P.feet_force[g][k] = acc;
+        }
+      }
+      const float* fc_last = V.in + K.in_off[IN_FEET_CONTACT_LAST];
+      const float* fat_in = V.in + K.in_off[IN_FEET_AIR_TIME];
+      const float* flt_in = V.in + K.in_off[IN_FEET_LAND_TIME];
+      for (int f = 0; f < NF; ++f) {
+        const bool fc = P.feet_force[f][2] > 1.0f;
+        const bool filt = fc | (fc_last[f] > 0.5f);
+        P.feet_contact[f] = fc;
+        P.contact_filt[f] = filt;
+        P.first_contact[f] = b2f((fat_in[f] > 0.0f) & filt);
+        P.fat[f] = fat_in[f] + K.dt_policy;
+        P.flt[f] = (flt_in[f] + K.dt_policy) * b2f(fc);
+      }
+      bool term = false;
+      for (int g = 0; g < K.n_term; ++g) {
+        float gf[3];
+        for (int k = 0; k < 3; ++k) {
+          float acc = 0.0f;
+          for (int m = 0; m < K.term_count[g]; ++m) acc = acc + V.forces[K.term_pts[K.term_start[g] + m]][k];
+          gf[k] = acc;
+        }
+        term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
+      }
+      P.term = term;
+      P.tilt = fabsf(P.pg[2]) < 0.33f;
+      bool fin = isfinite((pos[0] + pos[1] + pos[2]) + (quat[0] + quat[1] + quat[2] + quat[3]));
+      for (int i = 0; i < ND; ++i) fin = fin & isfinite(q[i]) & isfinite(qd[i]);
+      P.fin = fin;
+      P.bho = clipf(pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
+      P.cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
     }
-    P.term = term;
-    P.tilt = fabsf(P.pg[2]) < 0.33f;
-    bool fin = isfinite((pos[0] + pos[1] + pos[2]) + (quat[0] + quat[1] + quat[2] + quat[3]));
-    for (int i = 0; i < ND; ++i) fin = fin & isfinite(q[i]) & isfinite(qd[i]);
-    P.fin = fin;
-    P.bho = clipf(pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
-    P.cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
+    __syncwarp(mask);
   }
-  __syncwarp(mask);
 
   // ---- outputs, staged per env, then stored by the block per component row ----
   float* const ob = V.u.outb;
   auto put = [&](int group, int k, float v) { ob[K.out_off[group] + k] = v; };
-  for (int r = l; r < S::NR; r += T)
-    put(OUT_REW_TERMS, r, team_reward<S>(r, K, V, actions, last_actions, lla, q, qd, last_qd, cmd));
-  for (int k = l; k < 3; k += T) {
-    put(OUT_POS, k, pos[k]); put(OUT_LIN, k, lin[k]); put(OUT_ANG, k, ang[k]);
-    put(OUT_BLV, k, P.blv[k]); put(OUT_BAV, k, P.bav[k]); put(OUT_PG, k, P.pg[k]);
-  }
+  for (int k = l; k < 3; k += T) { put(OUT_POS, k, pos[k]); put(OUT_LIN, k, lin[k]); put(OUT_ANG, k, ang[k]); }
   for (int k = l; k < 4; k += T) put(OUT_QUAT, k, quat[k]);
   for (int i = l; i < ND; i += T) { put(OUT_Q, i, q[i]); put(OUT_QD, i, qd[i]); put(OUT_TAU, i, V.taus[i]); }
   for (int c = l; c < 3 * NP; c += T) {
@@ -1775,20 +1850,36 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
       put(OUT_VXYZ_SUM, 3 * f + k, V.vxyz[f][k]);
       put(OUT_VRPY_SUM, 3 * f + k, V.vrpy[f][k]);
     }
-    put(OUT_FEET_CONTACT, f, b2f(P.feet_contact[f]));
-    put(OUT_CONTACT_FILT, f, b2f(P.contact_filt[f]));
-    put(OUT_FIRST_CONTACT, f, P.first_contact[f]);
-    put(OUT_FEET_AIR_TIME, f, P.fat[f]);
-    put(OUT_FEET_LAND_TIME, f, P.flt[f]);
-    put(OUT_FEET_HEIGHT, f, P.feet_height[f]);
   }
   for (int c = l; c < 4 * S::NPOST; c += T) put(OUT_POST_QUAT, c, V.quats[K.post_body[c / 4]][c % 4]);
   for (int c = l; c < 3 * S::NPOST; c += T) put(OUT_POST_REL, c, V.pos_rel[K.post_body[c / 3]][c % 3] + 0.0f);
-  if (l == 0) {
-    put(OUT_TERM_CONTACT, 0, b2f(P.term));
-    put(OUT_TILT, 0, b2f(P.tilt));
-    put(OUT_BAD, 0, b2f(!P.fin));
-    put(OUT_BHO, 0, P.bho);
+  // final-state world positions of the contact points, per point lane (terrain modes)
+  if constexpr (TERRAIN != 0) {
+    for (int p = l; p < NP; p += T) {
+      const int b = K.point_body[p];
+      float v[3];
+      qapply(V.quats[b], K.point_offset[p], v);
+      for (int k = 0; k < 3; ++k) put(OUT_POINT_POS, 3 * p + k, pos[k] + (V.pos_rel[b][k] + v[k]));
+    }
+  }
+  if constexpr (FOLD) {
+    for (int r = l; r < S::NR; r += T)
+      put(OUT_REW_TERMS, r, team_reward<S>(r, K, V, actions, last_actions, lla, q, qd, last_qd, cmd));
+    for (int k = l; k < 3; k += T) { put(OUT_BLV, k, P.blv[k]); put(OUT_BAV, k, P.bav[k]); put(OUT_PG, k, P.pg[k]); }
+    for (int f = l; f < NF; f += T) {
+      put(OUT_FEET_CONTACT, f, b2f(P.feet_contact[f]));
+      put(OUT_CONTACT_FILT, f, b2f(P.contact_filt[f]));
+      put(OUT_FIRST_CONTACT, f, P.first_contact[f]);
+      put(OUT_FEET_AIR_TIME, f, P.fat[f]);
+      put(OUT_FEET_LAND_TIME, f, P.flt[f]);
+      put(OUT_FEET_HEIGHT, f, P.feet_height[f]);
+    }
+    if (l == 0) {
+      put(OUT_TERM_CONTACT, 0, b2f(P.term));
+      put(OUT_TILT, 0, b2f(P.tilt));
+      put(OUT_BAD, 0, b2f(!P.fin));
+      put(OUT_BHO, 0, P.bho);
+    }
   }
 #undef TLS
   __syncthreads();

@@ -4,8 +4,11 @@
 // csrc/k1_sanitize.cpp runs on it unchanged. The team kernel runs block by
 // block, each GPU thread of a block a std::thread; the one-thread kernel
 // runs env by env on the caller's thread. tests/test_torch_decimation_race.py
-// builds it with -fsanitize=thread, for one model's sizes and team shape (the
-// -D flags of sim/cuda_step.py:size_defines, e.g. -DK1_NB=11 ... -DK1_TEAM_E=8):
+// builds it with -fsanitize=thread, for one program's sizes, terrain mode,
+// fold and team shape (the -D flags of sim/cuda_step.py:size_defines, e.g.
+// -DK1_NB=11 ... -DK1_TERRAIN=2 -DK1_FOLD=0 -DK1_TEAM_T=16 -DK1_TEAM_E=8;
+// tests/test_torch_terrain_race.py for the trimesh program, whose ground
+// lanes come in the packed input like every other input):
 //
 //   g++ -std=c++17 -O1 -g -fsanitize=thread -ffp-contract=off -pthread <-D flags> \
 //       -I csrc/host csrc/host/k1_host.cpp csrc/k1_sanitize.cpp -o k1_host

@@ -1,23 +1,28 @@
-"""Legged-robot RL environment, PyTorch port (plane terrain, post fold).
+"""Legged-robot RL environment, PyTorch port.
 
-Port of ``wiki_grx_gym_tpu/envs/legged_env.py`` for the path the GR1T1
-policy rollout runs: flat plane, commands without heading, P control, and
-the post-physics stage folded into the decimation kernel K1
-(``sim/cuda_step.py``). One ``step(state, actions)`` does:
+Port of ``wiki_grx_gym_tpu/envs/legged_env.py`` with P control, on the
+flat plane or on a heightfield/trimesh terrain grid (``terrain/composer``),
+with or without heading commands. One ``step(state, actions)`` does:
 
     clip actions (per-joint boxes)
     draw the step's ONE uniform block U (delay, obs noise, commands,
         resets, pushes are column slices of it; ``u=`` injects it)
     command resampling on schedule
-    K1: delay gate -> PD torques -> 10 physics substeps -> rewards,
-        termination, feet trackers
-    episode sums, pushes, branchless resets, observations
+    K1 (``sim/cuda_step.py``): delay gate -> PD torques -> 10 physics
+        substeps -> (post fold) rewards, termination, feet trackers
+    (no fold) the post stage here: heading yaw command, base-frame
+        quantities, measured heights, feet trackers, termination, the
+        reward terms of ``envs/rewards.py``
+    episode sums, pushes, branchless resets (terrain curriculum), the next
+        step's ground planes (terrain), observations
+
+The post stage runs inside K1 (the fold) on the plane without heading
+commands, and here otherwise (``_post_fold``), as in the JAX env.
 
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
-a ``torch.Generator`` that ``step`` draws from in place. Outside this path
-the env refuses with ``NotImplementedError`` naming the ROADMAP item:
-terrain other than ``plane``, heading commands, models of more than
-``MAX_DOF`` (32) dofs and control types other than ``P``.
+a ``torch.Generator`` that ``step`` draws from in place. Outside these paths
+the env refuses with ``NotImplementedError`` naming the ROADMAP item: models
+of more than ``MAX_DOF`` (32) dofs and control types other than ``P``.
 """
 
 from __future__ import annotations
@@ -25,18 +30,20 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from wiki_grx_gym_tpu_torch.device import resolve_device
 from wiki_grx_gym_tpu_torch.envs.base_config import class_to_dict
+from wiki_grx_gym_tpu_torch.envs.rewards import REWARDS, RewardContext
 from wiki_grx_gym_tpu_torch.models.robot import RobotModel
 from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
 from wiki_grx_gym_tpu_torch.sim.cuda_step import MAX_DOF
 from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
 from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
+from wiki_grx_gym_tpu_torch.sim.scalarized import _div
 from wiki_grx_gym_tpu_torch.utils import maths
 
 @dataclasses.dataclass
@@ -63,6 +70,15 @@ class EnvState:
     terrain_levels: torch.Tensor     # (N,) int32
     terrain_types: torch.Tensor      # (N,) int32
     cmd_lin_vel_x_range: torch.Tensor  # (2,) command-curriculum state
+    # (N, P, 3) per-point ground planes (c, gx, gy), (N, P, 9) with the riser
+    # walls on trimesh; None on the plane
+    ground_plane: Optional[torch.Tensor] = None
+    # (N, H) measured heights, carried between refreshes when
+    # terrain.refresh_interval > 1; None otherwise
+    measured_cache: Optional[torch.Tensor] = None
+    # common_step as a host integer: step adds one to both, so the
+    # refresh phase is known without reading the device
+    step_count: int = 0
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -84,17 +100,10 @@ class LeggedEnv:
     arrays (as the JAX env's); their device copies carry a ``_t`` suffix."""
 
     def __init__(self, cfg, model: RobotModel, terrain=None, device="cuda"):
+        """``terrain``: a ``terrain.composer.Terrain`` on ``device`` (the
+        registry builds it for mesh_type heightfield/trimesh), or None for
+        the flat plane."""
         self.device = resolve_device(device)
-        if terrain is not None or cfg.terrain.mesh_type != "plane":
-            raise NotImplementedError(
-                f"terrain mesh_type {cfg.terrain.mesh_type!r}: the port runs the "
-                "flat plane only; terrain is ROADMAP queue 1 item 10"
-            )
-        if cfg.commands.heading_command:
-            raise NotImplementedError(
-                "commands.heading_command=True has no post fold; the heading "
-                "path is ROADMAP queue 1 item 11"
-            )
         if cfg.control.control_type != "P":
             raise NotImplementedError(
                 f"control_type {cfg.control.control_type!r}: the V and T control "
@@ -109,7 +118,7 @@ class LeggedEnv:
         if getattr(cfg.asset, "disable_gravity", False):
             model = model.replace(gravity_scale=0.0)
         self.model = model
-        self.terrain = None
+        self.terrain = terrain
 
         c = cfg
         self.num_envs = int(c.env.num_envs)
@@ -211,10 +220,24 @@ class LeggedEnv:
         else:
             self.self_pairs = ((), ())
 
-        # --- height measurement grid (plane: only its size is used) ---
+        # --- height measurement grid ---
+        gx, gy = np.meshgrid(
+            np.asarray(c.terrain.measured_points_x, np.float32),
+            np.asarray(c.terrain.measured_points_y, np.float32),
+            indexing="ij",
+        )
+        self.height_points = np.stack([gx.flatten(), gy.flatten()], axis=-1)  # (H, 2)
+        # measure_heights gates the sampling and the privileged obs: with it
+        # off the surround-heights segment is one zero column
         self.measure_heights = bool(getattr(c.terrain, "measure_heights", True))
-        n_grid = len(c.terrain.measured_points_x) * len(c.terrain.measured_points_y)
-        self.num_height_points = n_grid if self.measure_heights else 1
+        self.num_height_points = len(self.height_points) if self.measure_heights else 1
+        # terrain-sample refresh period in policy steps: k > 1 resamples the
+        # ground planes and the measured grid every k-th step and carries
+        # them in between
+        self.refresh_interval = int(getattr(c.terrain, "refresh_interval", 1) or 1)
+        # trimesh: stair risers above the slope threshold are walls; the
+        # contact points then read the 9-channel ground query
+        self.riser_mode = terrain is not None and terrain.slope_threshold_raw is not None
 
         self.contact_params = ContactParams(
             stiffness=c.sim.contact_stiffness,
@@ -238,6 +261,8 @@ class LeggedEnv:
         self.all_reward_names = self.reward_names + (
             ("termination",) if "termination" in raw_scales and raw_scales["termination"] != 0 else ()
         )
+        for n in self.reward_names:
+            assert n in REWARDS, f"unknown reward {n!r}"
 
         # --- observation noise vector ---
         self.noise_scale_vec = self._build_noise_vec()
@@ -254,8 +279,9 @@ class LeggedEnv:
         if c.env.num_pri_obs is not None:
             assert self.pri_obs_dim == c.env.num_pri_obs, (self.pri_obs_dim, c.env.num_pri_obs)
 
-        # --- env origins: a grid on the plane ---
-        self.custom_origins = False
+        # --- env origins: sampled from the terrain grid at init, or a grid
+        # on the plane ---
+        self.custom_origins = terrain is not None
         cols = int(np.floor(np.sqrt(self.num_envs)))
         rows = int(np.ceil(self.num_envs / cols))
         xx, yy = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
@@ -274,6 +300,12 @@ class LeggedEnv:
         self.commands_scale_t = t(self.commands_scale)
         self.init_pos_t = t(c.init_state.pos)
         self.init_rot_t = t(c.init_state.rot)
+        self.dof_pos_soft_lower_t = t(self.dof_pos_soft_lower)
+        self.dof_pos_soft_upper_t = t(self.dof_pos_soft_upper)
+        self.dof_vel_limits_t = t(self.dof_vel_limits)
+        self.torque_limits_t = t(self.torque_limits)
+        self.height_points_t = t(self.height_points)
+        self.feet_offsets_t = t(self.feet_offsets)
 
     # ------------------------------------------------------------------
     # build helpers
@@ -375,6 +407,22 @@ class LeggedEnv:
         return {b: i for i, b in enumerate(self.post_fk_bodies)}
 
     @functools.cached_property
+    def _post_fold(self) -> bool:
+        """True when the post-physics stage runs inside K1
+        (``envs/post_lanes.LanePost``): plane terrain (measured heights are
+        zero there) and commands without heading (the heading yaw needs
+        the post-physics base orientation before the rewards)."""
+        return self.terrain is None and not self.cfg.commands.heading_command
+
+    @functools.cached_property
+    def terrain_mode(self) -> str:
+        """K1's ground: the plane, per-point planes (heightfield) or planes
+        and riser walls (trimesh)."""
+        if self.terrain is None:
+            return "plane"
+        return "local_plane_walls" if self.riser_mode else "local_plane"
+
+    @functools.cached_property
     def decimation_op(self):
         """K1: the decimation kernel's wrapper (``sim/cuda_step.py``)."""
         from wiki_grx_gym_tpu_torch.envs.post_lanes import LanePost
@@ -383,16 +431,99 @@ class LeggedEnv:
 
         sub = ScalarSubstep(
             self.model, self.contact_params, self.sim_dt, self.self_pairs,
-            terrain_mode="plane",
+            terrain_mode=self.terrain_mode,
         )
         deci = ScalarDecimation(
             sub, self.decimation, self.cfg.control.control_type,
             self.cfg.control.action_scale, self.p_gains, self.d_gains,
             self.default_dof_pos, self.torque_limits, self.feet_bodies,
             self.feet_point_groups, post_bodies=self.post_fk_bodies,
-            damping_coeff=self._implicit_damping_const, post=LanePost(self),
+            damping_coeff=self._implicit_damping_const,
+            post=LanePost(self) if self._post_fold else None,
         )
         return CudaDecimation(deci)
+
+    def post_extra(self, state: "EnvState", commands) -> Dict[str, torch.Tensor]:
+        """The folded post stage's extra inputs (``LanePost.extra_schema``)."""
+        return {
+            "commands": commands[:, :3],
+            "last_last_actions": state.last_last_actions,
+            "feet_air_time": state.feet_air_time,
+            "feet_land_time": state.feet_land_time,
+            "feet_contact_last": state.feet_contact_last.to(torch.float32),
+        }
+
+    # ------------------------------------------------------------------
+    # terrain: ground planes and measured heights
+    # ------------------------------------------------------------------
+
+    @functools.cached_property
+    def _default_point_rel(self) -> torch.Tensor:
+        """(P, 3) base-frame contact-point positions at the default pose:
+        where just-reset envs sample their ground planes."""
+        m = self.model
+        kin = forward_kinematics(
+            m, torch.tensor([0.0, 0.0, 0.0, 1.0]), torch.zeros(3), torch.zeros(3),
+            torch.from_numpy(self.default_dof_pos), torch.zeros(m.num_dof),
+        )
+        pb = torch.tensor(m.point_body, dtype=torch.long)
+        rel = kin.pos_rel[pb] + maths.quat_apply(kin.quat[pb], m.point_offset)
+        return rel.to(self.device)
+
+    def _sample_point_planes(self, pos: torch.Tensor, center_xy: torch.Tensor) -> torch.Tensor:
+        """(N, P, 3) world point positions -> (N, P, 3) local ground planes
+        (c, gx, gy), h(x, y) = c + gx x + gy y, the gradient by central
+        differences of 5 cm; on trimesh the (N, P, 9) riser-aware channels.
+        The lookups follow tiles cut at ``center_xy`` (terrain/composer)."""
+        x, y = pos[..., 0], pos[..., 1]
+        if self.riser_mode:
+            return self.terrain.ground_channels(center_xy, x, y)
+        eps = 0.05
+        ep = torch.full_like(x, eps)
+        xs = torch.cat([x, x + ep, x - ep, x, x], dim=1)
+        ys = torch.cat([y, y, y, y + ep, y - ep], dim=1)
+        h, hxp, hxm, hyp, hym = torch.chunk(self.terrain.height(center_xy, xs, ys), 5, dim=1)
+        gx = _div(hxp - hxm, 2.0 * eps)
+        gy = _div(hyp - hym, 2.0 * eps)
+        return torch.stack([h - gx * x - gy * y, gx, gy], dim=-1)
+
+    def _refresh_ground_plane(self, state: "EnvState", reset_mask, point_pos=None,
+                              force: bool = False) -> "EnvState":
+        """The ground planes of the next policy step (terrain only). Envs
+        not reset sample at K1's final-state point positions; just-reset
+        envs at the default-pose offsets around their new root. With
+        ``refresh_interval`` k > 1 the planes are sampled on every k-th
+        step (the measured grid's phase) and carried in between, just-reset
+        envs getting a flat plane at their spawn origin's height; the phase
+        is read from ``state.step_count`` (already counted for this step),
+        so no device value is read."""
+        if self.terrain is None:
+            return state
+        k = self.refresh_interval
+        if not (force or k <= 1 or state.ground_plane is None or (state.step_count - 1) % k == 0):
+            flat = torch.zeros_like(state.ground_plane[:, :1])
+            flat[:, 0, 0] = state.env_origins[:, 2]
+            planes = torch.where(reset_mask[:, None, None], flat, state.ground_plane)
+            return state.replace(ground_plane=planes)
+        phys = state.physics
+        n, p = self.num_envs, self.model.num_points
+        pp = phys.base_pos[:, None, :] + maths.quat_apply(
+            phys.base_quat[:, None, :].expand(n, p, 4), self._default_point_rel.expand(n, p, 3))
+        if point_pos is not None:
+            pp = torch.where(reset_mask[:, None, None], pp, point_pos)
+        return state.replace(ground_plane=self._sample_point_planes(pp, phys.base_pos[:, :2]))
+
+    def _measured_heights(self, phys, base_quat) -> torch.Tensor:
+        """(N, H) terrain heights at the yaw-rotated measurement grid around
+        the base (legged_robot.py:1235-1274); zeros on the plane."""
+        n = self.num_envs
+        if self.terrain is None or not self.measure_heights:
+            return torch.zeros((n, self.num_height_points), device=self.device)
+        h = self.num_height_points
+        pts = torch.cat([self.height_points_t, self.height_points_t.new_zeros((h, 1))], dim=-1)
+        world = maths.quat_apply_yaw(base_quat[:, None, :].expand(n, h, 4), pts.expand(n, h, 3)) \
+            + phys.base_pos[:, None, :]
+        return self.terrain.measured(phys.base_pos[:, :2], world[..., 0], world[..., 1])
 
     # ------------------------------------------------------------------
     # init / reset
@@ -467,7 +598,12 @@ class LeggedEnv:
             if dr.randomize_motor_strength else torch.ones((n, d), device=dev)
         )
 
-        origins = torch.as_tensor(self._origins_np, device=dev)
+        if self.custom_origins:
+            origins, levels, types = self.terrain.sample_origins(g, n, c.terrain)
+        else:
+            origins = torch.as_tensor(self._origins_np, device=dev)
+            levels = torch.zeros(n, dtype=torch.int32, device=dev)
+            types = torch.zeros(n, dtype=torch.int32, device=dev)
         zeros = lambda *shape: torch.zeros(shape, device=dev)
         phys = PhysicsState(
             base_pos=self.init_pos_t.expand(n, 3) + origins,
@@ -501,20 +637,26 @@ class LeggedEnv:
             ),
             motor_strength=motor_strength,
             env_origins=origins,
-            terrain_levels=torch.zeros(n, dtype=torch.int32, device=dev),
-            terrain_types=torch.zeros(n, dtype=torch.int32, device=dev),
+            terrain_levels=levels,
+            terrain_types=types,
             cmd_lin_vel_x_range=torch.tensor(
                 c.commands.ranges.lin_vel_x, dtype=torch.float32, device=dev
+            ),
+            measured_cache=(
+                zeros(n, self.num_height_points)
+                if (self.terrain is not None and self.refresh_interval > 1) else None
             ),
         )
         # force a full reset of every env; curricula do not advance here
         done = torch.ones(n, dtype=torch.bool, device=dev)
-        return self._reset_where(state, done, update_curriculum=False)
+        state = self._reset_where(state, done, update_curriculum=False)
+        return self._refresh_ground_plane(state, done, force=True)
 
     def reset(self, state: EnvState) -> Tuple[EnvState, StepOutput]:
         """Reset all envs, then step zero actions."""
         n = self.num_envs
-        state = self._reset_where(state, torch.ones(n, dtype=torch.bool, device=self.device))
+        done = torch.ones(n, dtype=torch.bool, device=self.device)
+        state = self._refresh_ground_plane(self._reset_where(state, done), done, force=True)
         return self.step(state, torch.zeros((n, self.num_actions), device=self.device))
 
     # ------------------------------------------------------------------
@@ -570,58 +712,154 @@ class LeggedEnv:
         else:
             delay = torch.zeros((n, 1), device=self.device)
 
-        # command resampling on schedule, before the kernel (its post stage
-        # reads the commands)
+        # command resampling on schedule, before the kernel (its folded post
+        # stage reads the commands); the heading yaw is set after it
         episode_length = state.episode_length + 1
         common_step = state.common_step + 1
         resample = (episode_length % self.resample_interval) == 0
         new_cmds = self._sample_commands(u_of("cmd"), n, state.cmd_lin_vel_x_range)
         commands = torch.where(resample[:, None], new_cmds, state.commands)
 
-        extra = {
-            "commands": commands[:, :3],
-            "last_last_actions": state.last_last_actions,
-            "feet_air_time": state.feet_air_time,
-            "feet_land_time": state.feet_land_time,
-            "feet_contact_last": state.feet_contact_last.to(torch.float32),
-        }
-        phys, _, _, _, torques, point_force, _, _, post_out = self.decimation_op(
-            state.physics, actions, state.last_actions, state.motor_strength,
-            delay[:, 0], state.rand, last_qd=state.last_dof_vel, extra=extra,
+        phys, sum_force, sum_vxyz, _, torques, point_force, post_kin, point_pos, post_out = (
+            self.decimation_op(
+                state.physics, actions, state.last_actions, state.motor_strength,
+                delay[:, 0], state.rand, last_qd=state.last_dof_vel,
+                plane=state.ground_plane,
+                extra=self.post_extra(state, commands) if self._post_fold else None,
+            )
         )
+        commands = self._apply_heading_command(commands, phys.base_quat, n)
 
         time_out = episode_length > self.max_episode_length
         hscale = c.normalization.obs_scales.height_measurements
         target_h = c.rewards.base_height_target
+        feet_force = self._group_forces(point_force, self.feet_point_groups)  # (N, F, 3)
 
-        # ---- post-physics, folded into K1: rewards, termination channels,
-        # feet trackers and base-frame quantities arrive as kernel outputs ----
-        base_lin_vel, base_ang_vel = post_out["blv"], post_out["bav"]
-        projected_gravity = post_out["pg"]
-        feet_contact = post_out["feet_contact"] > 0.5
-        contact_filt = post_out["contact_filt"] > 0.5
-        feet_air_time = post_out["feet_air_time_out"]
-        feet_land_time = post_out["feet_land_time_out"]
-        feet_height = post_out["feet_height"]
-        base_heights_offset = post_out["bho"][:, 0]
-        bad = post_out["bad"][:, 0] > 0.5
-        reset_buf = (
-            (post_out["term_contact"][:, 0] > 0.5)
-            | (post_out["tilt"][:, 0] > 0.5)
-            | time_out
-            | bad
-        )
-        # plane terrain: measured heights are identically zero
-        measured_heights = torch.zeros((n, self.num_height_points), device=self.device)
-        surround_heights_offset = (
-            torch.clamp(phys.base_pos[:, 2:3] - target_h, -1.0, 1.0) * hscale
-        ).expand(n, self.num_height_points)
-        # eval channel
-        feet_force = self._group_forces(point_force, self.feet_point_groups)
+        if post_out is not None:
+            # ---- post-physics folded into K1: rewards, termination channels,
+            # feet trackers and base-frame quantities arrive as kernel outputs ----
+            base_lin_vel, base_ang_vel = post_out["blv"], post_out["bav"]
+            projected_gravity = post_out["pg"]
+            feet_contact = post_out["feet_contact"] > 0.5
+            contact_filt = post_out["contact_filt"] > 0.5
+            feet_air_time = post_out["feet_air_time_out"]
+            feet_land_time = post_out["feet_land_time_out"]
+            feet_height = post_out["feet_height"]
+            base_heights_offset = post_out["bho"][:, 0]
+            bad = post_out["bad"][:, 0] > 0.5
+            reset_buf = (
+                (post_out["term_contact"][:, 0] > 0.5)
+                | (post_out["tilt"][:, 0] > 0.5)
+                | time_out
+                | bad
+            )
+            # plane terrain: measured heights are identically zero
+            measured_heights = torch.zeros((n, self.num_height_points), device=self.device)
+            surround_heights_offset = (
+                torch.clamp(phys.base_pos[:, 2:3] - target_h, -1.0, 1.0) * hscale
+            ).expand(n, self.num_height_points)
+            term_stack = post_out["rew_terms"]  # (N, R) == reward_names
+        else:
+            # ---- the post stage outside K1 (terrain, heading commands) ----
+            dof_acc = (phys.qd - state.last_dof_vel) / self.dt
+            # the final-state FK of the consumed bodies comes from K1
+            post_rel, post_quat = post_kin
+            slots = [self._post_slot[b] for b in self.feet_bodies]
+            feet_rel, feet_quat = post_rel[:, slots], post_quat[:, slots]
+            frame_quat = lambda body: post_quat[:, self._post_slot[body]]
 
-        term_stack = post_out["rew_terms"]  # (N, R) == reward_names
+            base_quat = phys.base_quat
+            base_lin_vel = maths.quat_rotate_inverse(base_quat, phys.base_lin_vel)
+            base_ang_vel = maths.quat_rotate_inverse(base_quat, phys.base_ang_vel)
+            down = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(n, 3)
+            projected_gravity = maths.quat_rotate_inverse(base_quat, down)
+
+            # measured terrain heights around the base: every step, or on
+            # every k-th step with the cache carried between (the phase from
+            # the host's step count, equal to state.common_step)
+            if (self.terrain is not None and self.refresh_interval > 1
+                    and state.step_count % self.refresh_interval != 0):
+                measured_heights = state.measured_cache
+            else:
+                measured_heights = self._measured_heights(phys, base_quat)
+            mean_heights = torch.mean(measured_heights, dim=1)
+            rel_h = torch.clamp(phys.base_pos[:, 2:3] - target_h - measured_heights, -1.0, 1.0) * hscale
+            base_heights_offset = torch.mean(rel_h, dim=1)
+            surround_heights_offset = rel_h
+
+            # feet quantities
+            f = self.num_feet
+            feet_pos = phys.base_pos[:, None, :] + feet_rel + maths.quat_apply(
+                feet_quat, self.feet_offsets_t.expand(n, f, 3))
+            feet_height = feet_pos[..., 2] - mean_heights[:, None]
+
+            # air/land trackers
+            feet_contact = feet_force[..., 2] > 1.0
+            contact_filt = feet_contact | state.feet_contact_last
+            feet_first_contact = (state.feet_air_time > 0) & contact_filt
+            feet_air_time = state.feet_air_time + self.dt
+            feet_land_time = (state.feet_land_time + self.dt) * feet_contact
+
+            # termination: per-link contact force > 1 N, tilt, non-finite state
+            if self.termination_links:
+                term_force = self._group_forces(point_force, self.termination_groups)
+                term_contact = torch.any(torch.linalg.vector_norm(term_force, dim=-1) > 1.0, dim=1)
+            else:
+                term_contact = torch.zeros(n, dtype=torch.bool, device=self.device)
+            tilt = torch.abs(projected_gravity[:, 2]) < 0.33
+            bad = ~(
+                torch.all(torch.isfinite(phys.base_pos), dim=1)
+                & torch.all(torch.isfinite(phys.base_quat), dim=1)
+                & torch.all(torch.isfinite(phys.q), dim=1)
+                & torch.all(torch.isfinite(phys.qd), dim=1)
+            )
+            reset_buf = term_contact | tilt | time_out | bad
+
+            if self.penalized_links:
+                pen_force = self._group_forces(point_force, self.penalized_groups)
+                pen_count = torch.sum(
+                    (torch.linalg.vector_norm(pen_force, dim=-1) > 0.1).to(phys.qd.dtype), dim=1)
+            else:
+                pen_count = torch.zeros(n, device=self.device)
+
+            ctx = RewardContext(
+                commands=commands,
+                base_lin_vel=base_lin_vel,
+                base_ang_vel=base_ang_vel,
+                base_projected_gravity=projected_gravity,
+                base_heights_offset=base_heights_offset,
+                base_height=phys.base_pos[:, 2] - mean_heights,
+                torso_projected_gravity=self._frame_projected_gravity(
+                    self.torso_frame, frame_quat, n, projected_gravity),
+                forehead_projected_gravity=self._frame_projected_gravity(
+                    self.forehead_frame, frame_quat, n, projected_gravity),
+                dof_pos=phys.q,
+                dof_vel=phys.qd,
+                dof_acc=dof_acc,
+                torques=torques,
+                actions=actions,
+                last_actions=state.last_actions,
+                last_last_actions=state.last_last_actions,
+                feet_contact=feet_contact,
+                feet_first_contact=feet_first_contact.to(phys.qd.dtype),
+                feet_air_time=feet_air_time,
+                feet_land_time=feet_land_time,
+                feet_height=feet_height,
+                feet_contact_force=feet_force,
+                avg_feet_contact_force=sum_force / self.decimation,
+                avg_feet_speed_xyz=sum_vxyz / self.decimation,
+                penalized_contact_count=pen_count,
+                reset_buf=reset_buf,
+                time_out_buf=time_out,
+            )
+            # an exploded (NaN) env's rewards must not propagate
+            term_stack = torch.stack([
+                torch.where(bad, 0.0, REWARDS[name](self, ctx) * self.reward_scales[name])
+                for name in self.reward_names
+            ], dim=1) if self.reward_names else phys.qd.new_zeros((n, 0))
+
         if self.termination_scale:
-            term = (reset_buf & ~time_out).to(torch.float32) * self.termination_scale
+            term = (reset_buf & ~time_out).to(term_stack.dtype) * self.termination_scale
             term_stack = torch.cat([term_stack, term[:, None]], dim=1)
         episode_sums = state.episode_sums + term_stack
         rew_buf = torch.sum(term_stack[:, : len(self.reward_names)], dim=1)
@@ -637,6 +875,8 @@ class LeggedEnv:
         episode_metrics = {
             "rew_" + name: means[i] for i, name in enumerate(self.all_reward_names)
         }
+        if self.custom_origins and c.terrain.curriculum:
+            episode_metrics["terrain_level"] = torch.mean(state.terrain_levels.to(torch.float32))
         if c.commands.curriculum:
             episode_metrics["max_command_x"] = state.cmd_lin_vel_x_range[1]
         extras = {
@@ -668,6 +908,7 @@ class LeggedEnv:
             physics=phys,
             episode_length=episode_length,
             common_step=common_step,
+            step_count=state.step_count + 1,
             commands=commands,
             actions=actions,
             torques=torques,
@@ -675,7 +916,10 @@ class LeggedEnv:
             feet_air_time=feet_air_time,
             feet_land_time=feet_land_time,
         )
+        if state.measured_cache is not None:
+            state = state.replace(measured_cache=measured_heights)
         state = self._reset_where(state, reset_buf, u=u_of("reset"), update_curriculum=True)
+        state = self._refresh_ground_plane(state, reset_buf, point_pos=point_pos)
 
         # record "last" values; reset envs keep zeros from _reset_where
         not_done = ~reset_buf
@@ -715,17 +959,46 @@ class LeggedEnv:
             return point_force.new_zeros((point_force.shape[0], 0, 3))
         return torch.stack(cols, dim=1)
 
+    def _frame_projected_gravity(self, frame, frame_quat, n, fallback):
+        """Projected gravity in a named (possibly welded) link frame;
+        ``frame_quat`` maps a body index to its (N, 4) quaternion."""
+        if frame is None:
+            return fallback
+        body, quat_off = frame
+        bq = frame_quat(body)
+        link_quat = maths.quat_mul(bq, torch.as_tensor(quat_off, dtype=bq.dtype, device=self.device).expand(n, 4))
+        down = torch.tensor([0.0, 0.0, -1.0], dtype=bq.dtype, device=self.device).expand(n, 3)
+        return maths.quat_rotate_inverse(link_quat, down)
+
+    def _apply_heading_command(self, commands, base_quat, n):
+        """Heading mode (legged_robot.py:321-326): the yaw command from the
+        heading error of the base's forward vector."""
+        if not self.cfg.commands.heading_command:
+            return commands
+        fwd = maths.quat_apply(base_quat, torch.tensor([1.0, 0.0, 0.0], dtype=base_quat.dtype,
+                                                       device=self.device).expand(n, 3))
+        heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+        r = self.cfg.commands.ranges.ang_vel_yaw
+        yaw_cmd = torch.clamp(0.5 * maths.wrap_to_pi(commands[:, 3] - heading), r[0], r[1])
+        return torch.cat([commands[:, :2], yaw_cmd[:, None], commands[:, 3:]], dim=1)
+
     def _sample_commands(self, u3, n, x_range=None):
         """Uniform command resampling from a (n, 3) U[0,1) block; small
-        commands snap to zero. ``x_range`` carries command-curriculum state."""
+        commands snap to zero. ``x_range`` carries command-curriculum state.
+        In heading mode the 4th channel is the heading target and the yaw
+        command is set each step from the heading error."""
         c = self.cfg.commands
         r = c.ranges
         if x_range is None:
             x_range = torch.tensor(r.lin_vel_x, dtype=torch.float32, device=self.device)
         cx = x_range[0] + u3[:, 0] * (x_range[1] - x_range[0])
         cy = r.lin_vel_y[0] + u3[:, 1] * (r.lin_vel_y[1] - r.lin_vel_y[0])
-        cyaw = r.ang_vel_yaw[0] + u3[:, 2] * (r.ang_vel_yaw[1] - r.ang_vel_yaw[0])
-        cmds = torch.stack([cx, cy, cyaw], dim=-1)
+        if c.heading_command:
+            heading = r.heading[0] + u3[:, 2] * (r.heading[1] - r.heading[0])
+            cmds = torch.stack([cx, cy, torch.zeros_like(cx), heading], dim=-1)
+        else:
+            cyaw = r.ang_vel_yaw[0] + u3[:, 2] * (r.ang_vel_yaw[1] - r.ang_vel_yaw[0])
+            cmds = torch.stack([cx, cy, cyaw], dim=-1)
         width = max(3, c.num_commands)
         if cmds.shape[1] < width:
             cmds = torch.cat([cmds, cmds.new_zeros((n, width - cmds.shape[1]))], dim=-1)
@@ -747,9 +1020,30 @@ class LeggedEnv:
         if u is None:
             u = torch.rand((n, self._reset_u_width), generator=state.rng, device=self.device)
         u_q = u[:, :d]
+        u_xy = u[:, d: d + 2]
         u_yaw = u[:, d + 2]
         u_vel = u[:, d + 3: d + 9]
         u_cmd = u[:, d + 9: d + 12]
+        u_level = u[:, d + 12]
+
+        # terrain curriculum (legged_robot.py:799-826): up a level after
+        # walking past half a cell, down after less than half the commanded
+        # distance; past the top to a random level
+        if update_curriculum and self.custom_origins and c.terrain.curriculum:
+            dist = torch.linalg.vector_norm(
+                state.physics.base_pos[:, :2] - state.env_origins[:, :2], dim=1)
+            move_up = dist > self.terrain.env_length / 2
+            move_down = (
+                dist < torch.linalg.vector_norm(state.commands[:, :2], dim=1)
+                * self.max_episode_length_s * 0.5
+            ) & ~move_up
+            levels = state.terrain_levels + move_up.to(torch.int32) - move_down.to(torch.int32)
+            max_level = c.terrain.num_rows
+            rand_level = torch.clamp((u_level * max_level).to(torch.int32), max=max_level - 1)
+            levels = torch.where(levels >= max_level, rand_level, torch.clamp(levels, min=0))
+            levels = torch.where(done, levels, state.terrain_levels)
+            origins = self.terrain.terrain_origins[levels.long(), state.terrain_types.long()]
+            state = state.replace(terrain_levels=levels, env_origins=origins.to(state.env_origins.dtype))
 
         # command curriculum: widen lin_vel_x when the tracking reward of the
         # resetting envs clears 80% of its max
@@ -779,6 +1073,8 @@ class LeggedEnv:
 
         # root state
         pos_new = self.init_pos_t + state.env_origins
+        if self.custom_origins:
+            pos_new = torch.cat([pos_new[:, :2] + (-1.0 + 2.0 * u_xy), pos_new[:, 2:]], dim=1)
         yaw = -2.0 * np.pi + 4.0 * np.pi * u_yaw
         zero = torch.zeros_like(yaw)
         quat_new = maths.quat_from_euler_xyz(zero, zero, yaw)

@@ -91,8 +91,10 @@ class LanePost:
         missing = [n for n in self.reward_names if not hasattr(self, "_rw_" + n)]
         if missing:
             raise NotImplementedError(
-                f"no lane-form implementation for rewards {missing}: the port "
-                "has the terms of the GR1T1 lower-limb task"
+                f"no lane-form implementation for rewards {missing}: K1's post "
+                "fold has the terms of the GR1T1 lower-limb task; the post stage "
+                "outside K1 (envs/rewards.py, run on terrain and with heading "
+                "commands) has all of them"
             )
 
     # ------------------------------------------------------------------

@@ -86,7 +86,8 @@ class ActorCritic(nn.Module):
         self.init_noise_std = float(policy_cfg.init_noise_std)
         self.noise_std_floor = float(getattr(policy_cfg, "noise_std_floor", 0.0))
         if (getattr(policy_cfg, "compute_dtype", "float32") or "float32") != "float32":
-            raise NotImplementedError("bf16 policy matmuls are not ported")
+            raise NotImplementedError("compute_dtype='bfloat16' (bf16 policy matmuls) is "
+                                      "ROADMAP queue 1 item 16")
         # the flat buffer: (name, offset, shape) per leaf, ravel_pytree order
         self.layout = []
         off = 0

@@ -18,11 +18,15 @@ the checked process.
   barrier orders. Needs no card.
 
 The default env counts are 64 (eight full blocks of the lower limb's 16 x 8
-shape) and 61 (a ragged last block with a half-used warp). Any error a tool
+shape) and 61 (a ragged last block with a half-used warp). ``--terrain``
+checks the program of a terrain mode (heightfield: ``local_plane``,
+trimesh: ``local_plane_walls``; no post fold) on planted ground lanes that
+run every contact branch (``cuda_step.planted_planes``). Any error a tool
 reports, or a differing bit, fails the script. Logs go to
 ``build/k1_sanitize``.
 
     python -m wiki_grx_gym_tpu_torch.scripts.sanitize_k1 [--host] [--task GR1T1_full] [--envs 64 61]
+        [--terrain trimesh]
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ def build_harness(op) -> Path:
     linked against it."""
     lib = kbuild.build(cuda_step.library_name(op.sizes) + "_lineinfo", cuda_step._SOURCE,
                        cuda_step.nvcc_flags(op.sizes) + ["-lineinfo"])
-    exe = OUT_DIR / f"k1_sanitize_{op.sizes.ND}dof"
+    exe = OUT_DIR / f"k1_sanitize_{cuda_step.library_name(op.sizes)}"
     cmd = [kbuild.nvcc(), "-std=c++17", "-O2", "-o", str(exe), str(kbuild.CSRC / "k1_sanitize.cpp"),
            str(lib), "-Xlinker", f"-rpath,{lib.parent}"]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -81,13 +85,18 @@ def build_host(op, out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
     return exe
 
 
-def write_case(n: int, out_dir: Path = OUT_DIR, task: str = "GR1T1", steps: int = 8):
+def write_case(n: int, out_dir: Path = OUT_DIR, task: str = "GR1T1", steps: int = 8, mutate=None,
+               planted: bool = False):
     """(constants file, input file, C_out): the files of
-    ``csrc/k1_sanitize.cpp`` for ``n`` envs of ``task``, ``steps`` policy
-    steps after init (``cuda_step.reachable_case``), made on the CPU."""
-    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"), task=task, steps=steps)
+    ``csrc/k1_sanitize.cpp`` for ``n`` envs of ``task`` (``mutate`` applied
+    to its config), ``steps`` policy steps after init
+    (``cuda_step.reachable_case``; ``planted``: with planted ground lanes),
+    made on the CPU."""
+    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"), planted=planted, task=task,
+                                              steps=steps, mutate=mutate)
     const = cuda_step._make_constants(op.deci, op.in_off, op.out_off, op.c_in, op.c_out)
-    const_path, in_path = out_dir / f"constants_{task}_{n}.bin", out_dir / f"input_{task}_{n}.bin"
+    tag = task if mutate is None else f"{task}_{mutate.__name__}"
+    const_path, in_path = out_dir / f"constants_{tag}_{n}.bin", out_dir / f"input_{tag}_{n}.bin"
     const_path.write_bytes(bytes(const))
     in_path.write_bytes(comp.numpy().tobytes())
     return const_path, in_path, op.c_out
@@ -104,9 +113,13 @@ def main(argv=None):
     ap.add_argument("--envs", type=int, nargs="+", default=[64, 61])
     ap.add_argument("--task", default="GR1T1", help="the training env whose sizes K1 is built for")
     ap.add_argument("--host", action="store_true", help="ThreadSanitizer on the CPU instead of the card")
+    ap.add_argument("--terrain", choices=("heightfield", "trimesh"),
+                    help="K1's program for this terrain (no post fold), on a 2 x 2 grid, the "
+                         "ground lanes planted so that every contact branch runs")
     args = ap.parse_args(argv)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    op = cuda_step.task_env(args.task, 1, "cpu").decimation_op
+    mutate = None if args.terrain is None else cuda_step.terrain_config(args.terrain, 2, 2)
+    op = cuda_step.task_env(args.task, 1, "cpu", mutate).decimation_op
     if args.host:
         exe, checks = build_host(op), [("threadsanitizer", [])]
     else:
@@ -117,10 +130,11 @@ def main(argv=None):
         checks = [(tool, [tool_exe, "--tool", tool, "--error-exitcode", "99"]) for tool in TOOLS]
     failed = []
     for n in args.envs:
-        case = write_case(n, task=args.task)
+        case = write_case(n, task=args.task, mutate=mutate, planted=mutate is not None)
         for name, prefix in checks:
             rc, text = run([*prefix, exe, *case[:2], n, case[2]])
-            (OUT_DIR / f"{name}_{args.task}_{n}.log").write_text("\n".join(text) + "\n")
+            tag = args.task if mutate is None else f"{args.task}_{mutate.__name__}"
+            (OUT_DIR / f"{name}_{tag}_{n}.log").write_text("\n".join(text) + "\n")
             summary = [l for l in text if "SUMMARY" in l or "k1_sanitize" in l]
             print(f"{name} at {n} envs: rc {rc}; " + " | ".join(summary), flush=True)
             if rc != 0:

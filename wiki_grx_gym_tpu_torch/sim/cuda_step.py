@@ -3,8 +3,12 @@
 Counterpart of ``wiki_grx_gym_tpu/sim/pallas_step.py:PallasDecimation``,
 with the same call signature and return tuple. One call runs a whole
 policy step per env: delay gate, PD torques, ``decimation`` physics
-substeps, the feet accumulators, the final-state FK of the post bodies and
-the folded post-physics stage (``envs/post_lanes.LanePost``).
+substeps against the ground of the program's terrain mode (the flat plane,
+or per-point ground planes and riser walls given as the ``plane`` input),
+the feet accumulators, the final-state FK of the post bodies, the
+final-state contact-point positions (terrain modes), and, in the post-fold
+program, the post-physics stage (``envs/post_lanes.LanePost``). Without
+the fold the env runs that stage outside K1.
 
 Dispatch is by the device of the tensors it is given:
 
@@ -45,7 +49,7 @@ import torch
 
 from wiki_grx_gym_tpu_torch import build as _build
 from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts  # noqa: F401
-from wiki_grx_gym_tpu_torch.sim.scalarized import ScalarDecimation
+from wiki_grx_gym_tpu_torch.sim.scalarized import PLANE_LANES, ScalarDecimation
 
 _SOURCE = _build.CSRC / "decimation.cu"
 NVCC_FLAGS = _build.BASE_FLAGS + [
@@ -57,9 +61,11 @@ NVCC_FLAGS = _build.BASE_FLAGS + [
 
 
 class K1Sizes(NamedTuple):
-    """The sizes a K1 library is built for (``csrc/decimation.cu`` struct
-    ``Sizes``): bodies, dofs, contact points, feet, self-collision pairs,
-    reward terms, post-FK bodies, input and output components."""
+    """The program a K1 library is built for (``csrc/decimation.cu``
+    struct ``Sizes``): bodies, dofs, contact points, feet, self-collision
+    pairs, reward terms, post-FK bodies, input and output components, the
+    terrain mode (``TERRAIN_MODES``) and whether the post stage is folded
+    in."""
 
     NB: int
     ND: int
@@ -70,7 +76,12 @@ class K1Sizes(NamedTuple):
     NPOST: int
     NIN: int
     NOUT: int
+    TERRAIN: int
+    FOLD: int
 
+
+# the terrain modes' codes in csrc/decimation.cu (K1_TERRAIN)
+TERRAIN_MODES = {"plane": 0, "local_plane": 1, "local_plane_walls": 2}
 
 # the team kernel's shape (lanes an env, envs a block) per model: 16 x 8 up
 # to 16 dofs; for the 32-DOF body the fastest of the shapes measured on the
@@ -140,20 +151,21 @@ IN_GROUPS = (
     "pos", "quat", "lin", "ang", "q", "qd", "anchor", "actions", "last_actions",
     "motor", "delay", "friction", "restitution", "mass_scale", "com_offset",
     "last_qd", "commands", "last_last_actions", "feet_air_time", "feet_land_time",
-    "feet_contact_last",
+    "feet_contact_last", "plane",
 )
 OUT_GROUPS = (
     "pos", "quat", "lin", "ang", "q", "qd", "anchor", "force_sum", "vxyz_sum",
     "vrpy_sum", "tau", "point_force", "post_quat", "post_rel", "rew_terms", "blv",
     "bav", "pg", "term_contact", "tilt", "bad", "feet_contact", "contact_filt",
     "first_contact", "feet_air_time_out", "feet_land_time_out", "feet_height", "bho",
+    "point_pos",
 )
 
 
 def _schema(nd: int, np_: int, nf: int, with_last_qd: bool, npost: int = 0,
-            post_extra=(), post_out=()):
+            plane_lanes: int = 0, post_extra=(), post_out=()):
     """(name, count) component layout of the kernel's input and output
-    (``pallas_step._schema``, plane terrain)."""
+    (``pallas_step._schema``)."""
     state = [
         ("pos", 3), ("quat", 4), ("lin", 3), ("ang", 3),
         ("q", nd), ("qd", nd), ("anchor", 3 * np_),
@@ -165,6 +177,9 @@ def _schema(nd: int, np_: int, nf: int, with_last_qd: bool, npost: int = 0,
     ]
     if with_last_qd:
         inputs.append(("last_qd", nd))
+    if plane_lanes:
+        # per-point ground lanes: (c, gx, gy), + the riser walls (9 lanes)
+        inputs.append(("plane", plane_lanes * np_))
     inputs += list(post_extra)
     outputs = state + [
         ("force_sum", nf), ("vxyz_sum", 3 * nf), ("vrpy_sum", 3 * nf),
@@ -172,6 +187,9 @@ def _schema(nd: int, np_: int, nf: int, with_last_qd: bool, npost: int = 0,
     ]
     if npost:
         outputs += [("post_quat", 4 * npost), ("post_rel", 3 * npost)]
+    if plane_lanes:
+        # final-state point positions: where the env samples the next planes
+        outputs += [("point_pos", 3 * np_)]
     outputs += list(post_out)
     return inputs, outputs
 
@@ -360,15 +378,63 @@ def team_lists(sub) -> dict:
 
 
 def program_sizes(deci: ScalarDecimation, c_in: int, c_out: int) -> K1Sizes:
-    """The sizes of one post-fold program (the K1 library it runs on)."""
-    s = deci.sub
+    """The sizes of one program (the K1 library it runs on)."""
+    s, post = deci.sub, deci.post
     return K1Sizes(NB=s.nb, ND=s.nd, NP=s.np_, NF=len(deci.feet_bodies), NPAIR=len(s.self_pairs),
-                   NR=len(deci.post.reward_names), NPOST=len(deci.post_bodies), NIN=c_in, NOUT=c_out)
+                   NR=0 if post is None else len(post.reward_names), NPOST=len(deci.post_bodies),
+                   NIN=c_in, NOUT=c_out, TERRAIN=TERRAIN_MODES[s.terrain_mode],
+                   FOLD=int(post is not None))
+
+
+def _fill_post(k, deci: ScalarDecimation):
+    """The post stage's fields of ``ModelConst`` (the post-fold program)."""
+    post, nd = deci.post, deci.sub.nd
+    _fill(k.feet_slot, post.feet_slots)
+    k.n_term = len(post.termination_groups)
+    flat, start = [], []
+    for g in post.termination_groups:
+        start.append(len(flat))
+        flat += list(g)
+    _fill(k.term_start, start)
+    _fill(k.term_count, [len(g) for g in post.termination_groups])
+    _fill(k.term_pts, flat)
+    k.torso_slot = -1 if post.torso is None else post.torso[0]
+    k.forehead_slot = -1 if post.forehead is None else post.forehead[0]
+    half = len(post.ankle_dofs) // 2
+    k.n_ankle_left = half
+    _fill(k.ankle_left, post.ankle_dofs[:half])
+    k.n_ankle_right = len(post.ankle_dofs) - half
+    _fill(k.ankle_right, post.ankle_dofs[half:])
+    _fill(k.reward_id, [REWARD_IDS[n] for n in post.reward_names])
+    rw = post.rw
+    k.dt_policy = post.dt
+    k.decimation_f = post.decimation
+    k.hscale = post.hscale
+    k.target_h = post.target_h
+    _fill(k.feet_offset, post.feet_offsets.reshape(-1))
+    if post.torso is not None:
+        _fill(k.torso_qoff, post.torso[1])
+    if post.forehead is not None:
+        _fill(k.forehead_qoff, post.forehead[1])
+    _fill(k.soft_lo, post.dof_pos_soft_lower)
+    _fill(k.soft_hi, post.dof_pos_soft_upper)
+    _fill(k.vel_soft, [float(post.dof_vel_limits[i]) * rw.soft_dof_vel_limit for i in range(nd)])
+    _fill(k.tor_soft, [float(post.torque_limits[i]) * rw.soft_torque_limit for i in range(nd)])
+    _fill(k.scale, [post.scales[n] for n in post.reward_names])
+    _fill(k.sigma, [getattr(rw, "sigma_" + n) for n in post.reward_names])
+    k.swing_target = rw.swing_feet_height_target
+    k.swing_half = rw.swing_feet_height_target / 2
+    k.swing_quarter = rw.swing_feet_height_target / 4
+    k.fat_target = rw.feet_air_time_target
+    k.fat_half = rw.feet_air_time_target / 2
+    k.flt_max = rw.feet_land_time_max
+    k.stumble_ratio = rw.feet_stumble_ratio
 
 
 def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out):
-    """The filled ``ModelConst`` of one program (``const_struct`` of its sizes)."""
-    sub, post = deci.sub, deci.post
+    """The filled ``ModelConst`` of one program (``const_struct`` of its
+    sizes); the post stage's fields stay zero without the fold."""
+    sub = deci.sub
     c = sub.contact
     k = const_struct(program_sizes(deci, c_in, c_out))()
     nb, nd, np_ = sub.nb, sub.nd, sub.np_
@@ -390,29 +456,12 @@ def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out):
     _fill(k.feet_count, [len(g) for g in deci.feet_point_groups])
     _fill(k.feet_pts, flat)
     _fill(k.post_body, deci.post_bodies)
-    _fill(k.feet_slot, post.feet_slots)
-    k.n_term = len(post.termination_groups)
-    flat, start = [], []
-    for g in post.termination_groups:
-        start.append(len(flat))
-        flat += list(g)
-    _fill(k.term_start, start)
-    _fill(k.term_count, [len(g) for g in post.termination_groups])
-    _fill(k.term_pts, flat)
-    k.torso_slot = -1 if post.torso is None else post.torso[0]
-    k.forehead_slot = -1 if post.forehead is None else post.forehead[0]
-    half = len(post.ankle_dofs) // 2
-    k.n_ankle_left = half
-    _fill(k.ankle_left, post.ankle_dofs[:half])
-    k.n_ankle_right = len(post.ankle_dofs) - half
-    _fill(k.ankle_right, post.ankle_dofs[half:])
-    _fill(k.reward_id, [REWARD_IDS[n] for n in post.reward_names])
+    _fill(k.in_off, [in_off[g][0] if g in in_off else 0 for g in IN_GROUPS])
+    _fill(k.out_off, [out_off[g][0] if g in out_off else 0 for g in OUT_GROUPS])
     k.decimation = deci.decimation
     k.use_tangent = int(c.tangent_stiffness > 0.0)
     k.use_joint_limits = int(c.joint_limit_violation > 0.0 and nd > 0)
     k.has_damp = int(deci.damping_coeff is not None)
-    _fill(k.in_off, [in_off[g][0] for g in IN_GROUPS])
-    _fill(k.out_off, [out_off[g][0] for g in OUT_GROUPS])
     # tree + inertia (float64 on the host, rounded once to float32)
     _fill(k.tree_pos, sub.tree_pos.reshape(-1))
     _fill(k.tree_quat, sub.tree_quat.reshape(-1))
@@ -459,30 +508,8 @@ def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out):
     _fill(k.torque_limit, deci.torque_limits)
     if deci.damping_coeff is not None:
         _fill(k.damp_coeff, deci.damping_coeff)
-    # post stage
-    rw = post.rw
-    k.dt_policy = post.dt
-    k.decimation_f = post.decimation
-    k.hscale = post.hscale
-    k.target_h = post.target_h
-    _fill(k.feet_offset, post.feet_offsets.reshape(-1))
-    if post.torso is not None:
-        _fill(k.torso_qoff, post.torso[1])
-    if post.forehead is not None:
-        _fill(k.forehead_qoff, post.forehead[1])
-    _fill(k.soft_lo, post.dof_pos_soft_lower)
-    _fill(k.soft_hi, post.dof_pos_soft_upper)
-    _fill(k.vel_soft, [float(post.dof_vel_limits[i]) * rw.soft_dof_vel_limit for i in range(nd)])
-    _fill(k.tor_soft, [float(post.torque_limits[i]) * rw.soft_torque_limit for i in range(nd)])
-    _fill(k.scale, [post.scales[n] for n in post.reward_names])
-    _fill(k.sigma, [getattr(rw, "sigma_" + n) for n in post.reward_names])
-    k.swing_target = rw.swing_feet_height_target
-    k.swing_half = rw.swing_feet_height_target / 2
-    k.swing_quarter = rw.swing_feet_height_target / 4
-    k.fat_target = rw.feet_air_time_target
-    k.fat_half = rw.feet_air_time_target / 2
-    k.flt_max = rw.feet_land_time_max
-    k.stumble_ratio = rw.feet_stumble_ratio
+    if deci.post is not None:
+        _fill_post(k, deci)
     return k
 
 
@@ -496,11 +523,12 @@ _CONST_OWNER = {}   # per library: the wrapper whose constants sit in its __cons
 class CudaDecimation:
     """Callable wrapper: (batched tensors in) -> K1 -> (batched tensors out).
 
-    The kernel path supports what the CUDA source implements: plane
-    terrain, P control, the post fold and up to ``MAX_DOF`` dofs; anything
-    else raises on a CUDA tensor. The kernel is built for this program's
-    sizes (``sizes``) and team shape (``team``), one library per distinct
-    set, at first use."""
+    The kernel path supports what the CUDA source implements: the three
+    terrain modes, P control, the program with and without the post fold,
+    and up to ``MAX_DOF`` dofs; anything else raises on a CUDA tensor. The
+    kernel is built for this program's sizes, terrain mode and fold
+    (``sizes``) and team shape (``team``), one library per distinct set,
+    at first use."""
 
     def __init__(self, deci: ScalarDecimation):
         self.deci = deci
@@ -509,34 +537,38 @@ class CudaDecimation:
         self.nf = len(deci.feet_bodies)
         self.npost = len(deci.post_bodies)
         self.post = deci.post
+        # P control reads the previous step's joint velocities only in the
+        # post stage (dof_acc_new)
         self.with_last_qd = self.post is not None
+        self.plane_lanes = deci.sub.plane_lanes
         self.post_extra = self.post.extra_schema() if self.post else ()
         self.post_out = self.post.out_schema() if self.post else ()
         self.in_schema, self.out_schema = _schema(
             self.nd, self.np_, self.nf, self.with_last_qd, self.npost,
-            self.post_extra, self.post_out,
+            self.plane_lanes, self.post_extra, self.post_out,
         )
         self.in_off, self.c_in = _offsets(self.in_schema)
         self.out_off, self.c_out = _offsets(self.out_schema)
-        self.sizes = program_sizes(deci, self.c_in, self.c_out) if self.post is not None else None
-        self.team = team_shape(self.sizes) if self.sizes is not None else None
+        self.sizes = program_sizes(deci, self.c_in, self.c_out)
+        self.team = team_shape(self.sizes)
         self._const = None
 
     # -- what the kernel implements ------------------------------------------
 
     def kernel_support_error(self):
         """None if the CUDA kernel implements this program, else why not."""
-        if self.post is None:
-            return "the kernel implements the post-fold program only"
         if self.sizes.ND > MAX_DOF:
             return f"{self.sizes.ND} dofs: the kernel's ancestor masks hold {MAX_DOF}"
+        if self.post is None:
+            return None
         missing = [n for n in self.post.reward_names if n not in REWARD_IDS]
         if missing:
             return f"reward terms without a CUDA implementation: {missing}"
         if len(self.post.termination_groups) > _MAXG:
             return f"more than {_MAXG} termination groups"
         if self.post.penalized_groups:
-            return "penalized contact groups are not implemented in the kernel"
+            return ("penalized contact groups are not implemented in the kernel's post fold "
+                    "(ROADMAP queue 2, K1 (a'))")
         return None
 
     # -- the call -----------------------------------------------------------
@@ -546,19 +578,22 @@ class CudaDecimation:
         """Returns (new_phys, force_sum (N,F), vxyz_sum (N,F,3),
         vrpy_sum (N,F,3), tau (N,D), point_force (N,P,3),
         post_kin: (post_rel (N,R,3), post_quat (N,R,4)) or None,
-        point_pos: None (plane terrain),
-        post_out: dict of (N, cnt) tensors per LanePost.out_schema or None)."""
-        if plane is not None:
-            raise NotImplementedError("local ground planes are ROADMAP queue 1 item 10")
+        point_pos: (N,P,3) final-state contact points (terrain modes) or None,
+        post_out: dict of (N, cnt) tensors per LanePost.out_schema or None).
+        ``plane``: (N, P, 3) or (N, P, 9) ground lanes in the terrain modes."""
+        if (plane is None) != (self.plane_lanes == 0):
+            raise ValueError(f"terrain mode {self.deci.sub.terrain_mode!r} "
+                             f"{'takes' if self.plane_lanes else 'takes no'} plane= input")
         if actions.device.type == "cpu":
-            return self.plain(phys, actions, last_actions, motor, delay, rand, last_qd, extra)
+            return self.plain(phys, actions, last_actions, motor, delay, rand, last_qd, extra, plane)
         if actions.device.type != "cuda":
             raise RuntimeError(f"K1 runs on CUDA tensors, got device {actions.device}")
-        return self._launch(phys, actions, last_actions, motor, delay, rand, last_qd, extra)
+        return self._launch(phys, actions, last_actions, motor, delay, rand, last_qd, extra, plane)
 
     # -- kernel path -----------------------------------------------------------
 
-    def _pack(self, phys, actions, last_actions, motor, delay, rand, last_qd, extra):
+    def _pack(self, phys, actions, last_actions, motor, delay, rand, last_qd=None, extra=None,
+              plane=None):
         """(N, ...) tensors -> one contiguous (C_in, N) float32 tensor."""
         n = actions.shape[0]
         cols = [
@@ -571,15 +606,17 @@ class CudaDecimation:
         ]
         if self.with_last_qd:
             cols.append(last_qd)
+        if self.plane_lanes:
+            cols.append(plane.reshape(n, self.plane_lanes * self.np_))
         for name, cnt in self.post_extra:
             cols.append(extra[name].reshape(n, cnt))
         comp = torch.cat([x.to(torch.float32) for x in cols], dim=1).t().contiguous()
         assert comp.shape == (self.c_in, n)
         return comp
 
-    def _launch(self, phys, actions, last_actions, motor, delay, rand, last_qd, extra):
+    def _launch(self, phys, actions, last_actions, motor, delay, rand, last_qd, extra, plane):
         n = actions.shape[0]
-        comp = self._pack(phys, actions, last_actions, motor, delay, rand, last_qd, extra)
+        comp = self._pack(phys, actions, last_actions, motor, delay, rand, last_qd, extra, plane)
         out = torch.empty((self.c_out, n), dtype=torch.float32, device=actions.device)
         self.launch_packed(comp, out)
         LAUNCHES["k1"] += 1
@@ -642,6 +679,7 @@ class CudaDecimation:
                 take("post_rel").reshape(n, self.npost, 3),
                 take("post_quat").reshape(n, self.npost, 4),
             )
+        point_pos = take("point_pos").reshape(n, self.np_, 3) if self.plane_lanes else None
         post_out = (
             {name: take(name) for name, _ in self.post_out}
             if self.post is not None else None
@@ -654,14 +692,14 @@ class CudaDecimation:
             take("tau"),
             take("point_force").reshape(n, self.np_, 3),
             post_kin,
-            None,
+            point_pos,
             post_out,
         )
 
     # -- plain path (the lane program; any device) -----------------------------
 
     def plain(self, phys, actions, last_actions, motor, delay, rand, last_qd=None,
-              extra=None):
+              extra=None, plane=None):
         """The plain PyTorch version of K1 on (N,) lanes; same return tuple."""
         n = actions.shape[0]
         col = lambda a: [a[..., i] for i in range(a.shape[-1])]
@@ -673,6 +711,8 @@ class CudaDecimation:
             "friction": rand.friction, "restitution": rand.restitution,
             "mass_scale": rand.base_mass_scale, "com_offset": col(rand.base_com_offset),
         }
+        if self.plane_lanes:
+            lanes["plane"] = [col(plane[:, p]) for p in range(self.np_)]
         extra_lanes = {
             name: col(extra[name].reshape(n, cnt)) for name, cnt in self.post_extra
         }
@@ -693,6 +733,9 @@ class CudaDecimation:
                 torch.stack([stack(r) for r in acc["post_rel"]], dim=-2),
                 torch.stack([stack(q) for q in acc["post_quat"]], dim=-2),
             )
+        point_pos = None
+        if self.plane_lanes:
+            point_pos = torch.stack([stack(p) for p in acc["point_pos"]], dim=-2)
         post_out = None
         if self.post is not None:
             post_out = {name: stack(acc["post"][name]) for name, _ in self.post_out}
@@ -704,7 +747,7 @@ class CudaDecimation:
             stack(acc["tau"]),
             torch.stack([stack(p) for p in acc["point_force"]], dim=-2),
             post_kin,
-            None,
+            point_pos,
             post_out,
         )
 
@@ -735,15 +778,26 @@ def task_env(task, n, device, mutate=None):
     return task_registry.make_env(task, env_cfg=cfg, device=device)[0]
 
 
-def reachable_state(n, device, steps=8, seed=0, task="GR1T1", mutate=None):
+def reachable_state(n, device, steps=8, seed=0, task="GR1T1", mutate=None, spread=None):
     """(env, state): :func:`task_env` at ``n`` envs, ``steps`` policy steps
     after ``init_state`` with random actions (the robots land on their
     feet), everything drawn from ``seed``. The states K1 is checked and
-    timed on."""
+    timed on. On terrain, ``spread`` (m) places each robot anywhere within
+    that distance of its cell's origin, dropped from its init height above
+    the highest ground within 0.3 m, instead of on the flat platform at the
+    origin (so that feet land on stairs, slopes and stones)."""
     env = task_env(task, n, device, mutate)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = env.init_state(gen)
+    if spread is not None:
+        xy = state.env_origins[:, :2] + spread * (2.0 * torch.rand(n, 2, generator=gen, device=device) - 1.0)
+        g = torch.linspace(-0.3, 0.3, 5, device=device)
+        gx, gy = torch.meshgrid(g, g, indexing="ij")
+        ground = env.terrain.height(xy, xy[:, :1] + gx.reshape(1, -1), xy[:, 1:] + gy.reshape(1, -1))
+        z = ground.amax(dim=1, keepdim=True) + float(env.cfg.init_state.pos[2])
+        state = state.replace(physics=state.physics.replace(base_pos=torch.cat([xy, z], dim=1)))
+        state = env._refresh_ground_plane(state, torch.ones(n, dtype=torch.bool, device=device), force=True)
     for _ in range(steps):
         state, _ = env.step(state, 0.3 * torch.randn(n, env.num_actions, device=device, generator=gen))
     return env, state
@@ -752,31 +806,108 @@ def reachable_state(n, device, steps=8, seed=0, task="GR1T1", mutate=None):
 def decimation_inputs(env, state, gen, dtype=None):
     """(args, kwargs) that ``env.step`` hands K1 from ``state``, on fresh
     random actions and delays drawn from ``gen``; every float cast to
-    ``dtype`` if given."""
+    ``dtype`` if given. The ground lanes are the state's (sampled by the
+    env) in the terrain modes."""
     n = env.num_envs
     actions = env.clip_actions(0.3 * torch.randn(n, env.num_actions, device=env.device, generator=gen))
     delay = 3.0 * torch.rand(n, device=env.device, generator=gen)
-    extra = {
-        "commands": state.commands[:, :3], "last_last_actions": state.last_last_actions,
-        "feet_air_time": state.feet_air_time, "feet_land_time": state.feet_land_time,
-        "feet_contact_last": state.feet_contact_last.to(torch.float32),
-    }
     c = (lambda x: x.to(dtype)) if dtype is not None else (lambda x: x)
     phys = state.physics.replace(**{k: c(getattr(state.physics, k)) for k in (
         "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anchor")})
     rand = state.rand.replace(**{k: c(getattr(state.rand, k)) for k in (
         "friction", "restitution", "base_mass_scale", "base_com_offset")})
     args = (phys, c(actions), c(state.last_actions), c(state.motor_strength), c(delay), rand)
-    kw = dict(last_qd=c(state.last_dof_vel), extra={k: c(v) for k, v in extra.items()})
+    kw = dict(last_qd=c(state.last_dof_vel), extra=None,
+              plane=None if state.ground_plane is None else c(state.ground_plane))
+    if env.decimation_op.post is not None:
+        kw["extra"] = {k: c(v) for k, v in env.post_extra(state, state.commands).items()}
     return args, kw
 
 
-def reachable_case(n, device, **how):
+def point_positions(env, state):
+    """((N, P, 3) world positions of the contact points of ``state``, by its
+    FK; (1, P) their radii)."""
+    from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
+    from wiki_grx_gym_tpu_torch.utils import maths
+
+    m, ph = env.model, state.physics
+    kin = forward_kinematics(m, ph.base_quat, ph.base_ang_vel, ph.base_lin_vel, ph.q, ph.qd)
+    pb = torch.tensor(m.point_body, dtype=torch.long, device=ph.q.device)
+    rel, quat = kin.pos_rel[:, pb], kin.quat[:, pb]
+    pos = ph.base_pos[:, None, :] + rel + maths.quat_apply(quat, m.point_offset.to(rel).expand_as(rel))
+    return pos, m.point_radius.to(rel)[None, :]
+
+
+def wall_contacts(env, state, plane):
+    """(points in contact with a riser wall, points whose tread force a
+    riser solid suppresses), (N, P) booleans, for the (N, P, 9) ground
+    lanes ``plane`` at the contact points of ``state`` (the first substep's
+    positions): the conditions of the ``local_plane_walls`` contact."""
+    pos, r = point_positions(env, state)
+    active = torch.zeros(pos.shape[:2], dtype=torch.bool, device=pos.device)
+    inside = torch.zeros_like(active)
+    for ax in range(2):
+        wp, top, sign = plane[..., 3 + 3 * ax], plane[..., 4 + 3 * ax], plane[..., 5 + 3 * ax]
+        below = pos[..., 2] < top
+        d = sign * (pos[..., ax] - wp)
+        active |= (sign != 0) & (d + r > 0) & below
+        inside |= (sign != 0) & (d > 0) & below
+    return active, inside
+
+
+def planted_planes(env, state, walls: bool):
+    """(N, P, 3) or, with ``walls``, (N, P, 9) ground lanes planted at each
+    contact point of ``state`` (its position from the state's FK) so that
+    every branch of the terrain contact runs: a tilted tread plane 4 mm
+    above the point's bottom (in contact), and per axis, by point and env,
+    no wall, a wall in contact, a wall whose solid holds the point's center
+    (the tread force suppressed), or a wall whose top is below the point."""
+    pos, r = point_positions(env, state)
+    x, y, z = pos.unbind(-1)
+    gx, gy = torch.full_like(x, 0.2), torch.full_like(x, -0.1)
+    lanes = [z - r + 0.004 - gx * x - gy * y, gx, gy]
+    if walls:
+        n, p = x.shape
+        kind = (torch.arange(p, device=x.device)[None, :] + torch.arange(n, device=x.device)[:, None]) % 4
+        for ax, coord in enumerate((x, y)):
+            k = (kind + ax) % 4
+            sign = torch.where(k == 0, 0.0, torch.where(k == 2, -1.0, 1.0)).to(x.dtype)
+            # 1: in contact from the -side; 2: the center inside the solid; 3: below the top
+            wpos = torch.where(k == 1, coord + 0.5 * r, torch.where(k == 2, coord + 0.01, coord - 0.01))
+            top = torch.where(k == 3, z - 0.1, z + 0.5)
+            lanes += [wpos, top, sign]
+    return torch.stack(lanes, dim=-1)
+
+
+def terrain_config(mesh_type, rows=None, cols=None):
+    """A config change (``mutate``): ``mesh_type`` terrain with the
+    curriculum on, as the reference bench sets it (``bench.py:95-97``), on
+    the config's grid or on a ``rows`` x ``cols`` one."""
+    def mutate(cfg):
+        t = cfg.terrain
+        t.mesh_type, t.curriculum = mesh_type, True
+        if rows is not None:
+            t.num_rows, t.num_cols, t.max_init_terrain_level = rows, cols, rows - 1
+    mutate.__name__ = mesh_type if rows is None else f"{mesh_type}_{rows}x{cols}"
+    return mutate
+
+
+def heading_config(cfg):
+    """A config change (``mutate``): heading commands (a 4th command, the
+    heading target), on the plane."""
+    cfg.commands.heading_command = True
+    cfg.commands.num_commands = 4
+
+
+def reachable_case(n, device, planted=False, **how):
     """(decimation op, packed (C_in, n) input, the wrapper's positional
     arguments, its keyword arguments) on :func:`reachable_state` (``how``:
     its ``steps``, ``task``, ``mutate``) with fresh random actions and delays
-    (seed 1)."""
+    (seed 1); ``planted``: the terrain modes' ground lanes from
+    :func:`planted_planes` instead of the env's."""
     env, state = reachable_state(n, device, **how)
+    if planted:
+        state = state.replace(ground_plane=planted_planes(env, state, env.riser_mode))
     args, kw = decimation_inputs(env, state, torch.Generator(device=device).manual_seed(1))
     op = env.decimation_op
-    return op, op._pack(*args, kw["last_qd"], kw["extra"]), args, kw
+    return op, op._pack(*args, **kw), args, kw

@@ -2,7 +2,7 @@
 of the decimation kernel K1, body.
 
 Port of ``wiki_grx_gym_tpu/sim/scalarized.py`` (``ScalarSubstep`` and
-``ScalarDecimation``), plane terrain. Every scalar quantity (a quaternion
+``ScalarDecimation``) in its three terrain modes (``PLANE_LANES``). Every scalar quantity (a quaternion
 component, one entry of the mass matrix, ...) is a lane: a tensor whose
 shape is the env batch ``(N,)``. Model constants are Python floats, so a
 constant folded from two constants is folded in float64 on the host exactly
@@ -33,6 +33,8 @@ _MAX_ANG_VEL = 100.0
 _MAX_DOF_VEL = 100.0
 _RIDGE = 1e-6
 _GRAV = -9.81
+# input lanes of ground a contact point reads, per terrain mode
+PLANE_LANES = {"plane": 0, "local_plane": 3, "local_plane_walls": 9}
 
 
 # ---------------------------------------------------------------------------
@@ -163,18 +165,21 @@ class ScalarSubstep:
         ground_height: float = 0.0,
         terrain_mode: str = "plane",
     ):
-        if terrain_mode != "plane":
-            raise NotImplementedError(
-                f"terrain_mode {terrain_mode!r}: the local_plane modes of the "
-                "decimation program are ROADMAP queue 1 item 10 (terrain)"
-            )
         self.model = model
         self.contact = contact
         self.dt = float(dt)
         self.self_pairs = tuple(zip(*self_pairs)) if self_pairs[0] else ()
         self.ground_height = float(ground_height)
+        # "plane": flat ground at ground_height, normal +z. "local_plane": a
+        # ground plane per contact point, lanes (c, gx, gy) in
+        # state["plane"], h(x, y) = c + gx x + gy y, sampled from the
+        # heightfield once a policy step outside the kernel.
+        # "local_plane_walls": 9 lanes a point, the tread plane and up to
+        # one riser face per axis (trimesh; terrain/composer.riser_channels).
+        if terrain_mode not in PLANE_LANES:
+            raise ValueError(f"unknown terrain_mode {terrain_mode!r}")
         self.terrain_mode = terrain_mode
-        self.plane_lanes = 0
+        self.plane_lanes = PLANE_LANES[terrain_mode]
 
         m = model
         self.nb = m.num_bodies
@@ -259,6 +264,12 @@ class ScalarSubstep:
             pts_vel.append(vel)
 
             r = float(self.point_radius[p])
+            if self.plane_lanes:
+                f_p, a_p = self._local_plane_contact(
+                    state["plane"][p], state["anchor"][p], pos, vel, r, mu, d_n, imp_cap)
+                forces.append(f_p)
+                anchors.append(a_p)
+                continue
             depth = _minimum(h0 - (pos[2] - r), 0.5)
             active = depth > 0.0
             f_n = _maximum(c.stiffness * depth - d_n * vel[2], 0.0)
@@ -314,6 +325,58 @@ class ScalarSubstep:
                 forces[j] = _sub(forces[j], _scale(n, f_mag))
 
         return pts_pos, forces, anchors
+
+    def _local_plane_contact(self, lanes, a, pos, vel, r, mu, d_n, imp_cap):
+        """(force [3], new anchor [3]) of one point against its ground lanes:
+        the normal-aware penalty on the plane h = c + gx x + gy y, the
+        anchored friction projected on it, and in "local_plane_walls" the
+        frictionless riser-face penalty per axis and the tread force
+        suppressed for a center inside a riser solid."""
+        c = self.contact
+        cpl, gx, gy = lanes[:3]
+        inv = 1.0 / torch.sqrt(gx * gx + gy * gy + 1.0)
+        n = [-gx * inv, -gy * inv, inv]
+        h = cpl + gx * pos[0] + gy * pos[1]
+        depth = _minimum(h - (pos[2] - r), 0.5)
+        active = depth > 0.0
+        v_n = _dot(vel, n)
+        f_n = _maximum(c.stiffness * depth - d_n * v_n, 0.0)
+        f_n = torch.where(active, f_n, 0.0)
+        wall_fx = [0.0, 0.0]
+        if self.terrain_mode == "local_plane_walls":
+            for ax in range(2):
+                wp_, wt_, ws_ = lanes[3 + 3 * ax], lanes[4 + 3 * ax], lanes[5 + 3 * ax]
+                below = pos[2] < wt_
+                pen = ws_ * (pos[ax] - wp_) + r
+                act_w = (ws_ != 0.0) & (pen > 0.0) & below
+                v_nw = -ws_ * vel[ax]   # outward-normal velocity
+                f_w = _maximum(c.stiffness * _minimum(pen, 0.5) - d_n * v_nw, 0.0)
+                wall_fx[ax] = -ws_ * torch.where(act_w, f_w, 0.0)
+                inside = (ws_ != 0.0) & (ws_ * (pos[ax] - wp_) > 0.0) & below
+                f_n = torch.where(inside, 0.0, f_n)
+        cone = mu * f_n
+        v_t = _sub(vel, _scale(n, v_n))
+        if c.tangent_stiffness > 0.0:
+            kt = c.tangent_stiffness
+            d_t = min(2.0 * math.sqrt(kt * c.point_mass), imp_cap)
+            err = [_clip(pos[k] - a[k], -0.1, 0.1) for k in range(3)]
+            err = _sub(err, _scale(n, _dot(err, n)))
+            f_t = [-kt * err[k] - d_t * v_t[k] for k in range(3)]
+            mag = torch.sqrt(_dot(f_t, f_t))
+            sc = _minimum(1.0, cone / _maximum(mag, 1e-9))
+            f_t = _scale(f_t, sc)
+            new_a = [torch.where(active, pos[k] + _div(f_t[k], kt), pos[k]) for k in range(3)]
+            f_t = [torch.where(active, f_t[k], 0.0) for k in range(3)]
+        else:
+            speed_t = torch.sqrt(_dot(v_t, v_t))
+            k_t = _minimum(imp_cap, cone / _maximum(speed_t, c.slip_velocity))
+            f_t = _scale(v_t, -k_t)
+            new_a = a
+        force = _add(_scale(n, f_n), f_t)
+        if self.terrain_mode == "local_plane_walls":
+            force[0] = force[0] + wall_fx[0]
+            force[1] = force[1] + wall_fx[1]
+        return force, new_a
 
     # -- dynamics -----------------------------------------------------------
 
@@ -609,7 +672,10 @@ class ScalarDecimation:
         Returns (state, acc) with acc: ``force_sum`` [F], ``vxyz_sum``
         [F][3], ``vrpy_sum`` [F][3], ``tau`` [D] (final substep),
         ``point_force`` [P][3] (final substep), ``post_quat``/``post_rel``
-        for ``post_bodies``, and with a ``post`` program ``acc["post"]``."""
+        for ``post_bodies``, in the terrain modes ``point_pos`` [P][3] (the
+        final state's contact points), and with a ``post`` program
+        ``acc["post"]``. In the terrain modes ``state["plane"]`` holds each
+        point's ground lanes."""
         f = len(self.feet_bodies)
         zeros = torch.zeros_like(delay)
         force_sum = [zeros for _ in range(f)]
@@ -650,13 +716,24 @@ class ScalarDecimation:
             "tau": taus,
             "point_force": point_force,
         }
-        if self.post_bodies:
+        if self.post_bodies or self.sub.plane_lanes:
             # FK of the final (post-integration) state
             quats, pos_rel, _, _ = self.sub.fk(state)
             like = state["pos"][0]
             lane = lambda v: v + torch.zeros_like(like) if isinstance(v, float) else v
-            acc["post_quat"] = [[lane(c) for c in quats[b]] for b in self.post_bodies]
-            acc["post_rel"] = [[lane(c) for c in pos_rel[b]] for b in self.post_bodies]
+            if self.post_bodies:
+                acc["post_quat"] = [[lane(c) for c in quats[b]] for b in self.post_bodies]
+                acc["post_rel"] = [[lane(c) for c in pos_rel[b]] for b in self.post_bodies]
+            if self.sub.plane_lanes:
+                # final-state contact-point world positions: where the env
+                # samples the ground planes of the next step
+                pp = []
+                for p in range(self.sub.np_):
+                    b = self.sub.point_body[p]
+                    off = [float(x) for x in self.sub.point_offset[p]]
+                    rel = _add(pos_rel[b], _qapply(quats[b], off))
+                    pp.append([lane(c) for c in _add(state["pos"], rel)])
+                acc["point_pos"] = pp
         if self.post is not None:
             acc["post"] = self.post.run(
                 state, acc, actions, last_actions, extra, last_qd

@@ -1,7 +1,8 @@
 """Task registry + env factory (port of ``wiki_grx_gym_tpu/utils/task_registry.py``).
 
 ``make_env`` resolves the compiled robot spec from the port's own copy of the
-resources and returns a :class:`LeggedEnv` on the requested device (default
+resources, builds the terrain grid for ``mesh_type`` heightfield or trimesh,
+and returns a :class:`LeggedEnv` on the requested device (default
 ``"cuda"``); ``make_alg_runner`` builds the PPO runner on the env's device,
 with the reference's log layout ``logs/<experiment_name>/<date>_<run_name>``,
 and resumes from a ``model_<it>.pt`` checkpoint found by ``get_load_path``.
@@ -48,7 +49,13 @@ class TaskRegistry:
         if args is not None:
             update_cfg_from_args(env_cfg, None, args)
         model = load_robot(os.path.join(RESOURCES, env_cfg.asset.file + ".json"))
-        env = task_class(env_cfg, model, device=device)
+        terrain = None
+        if env_cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+            from wiki_grx_gym_tpu_torch.device import resolve_device
+            from wiki_grx_gym_tpu_torch.terrain.composer import Terrain
+
+            terrain = Terrain(env_cfg.terrain, device=resolve_device(device))
+        env = task_class(env_cfg, model, terrain=terrain, device=device)
         return env, env_cfg
 
     def make_alg_runner(self, env, name: str, args=None, train_cfg=None, log_root="default"):

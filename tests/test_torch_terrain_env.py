@@ -25,8 +25,8 @@ on the CPU.
    spawn plane).
 
 The JAX steps run eagerly (``jax.disable_jit()``, as tests/test_terrain.py's
-refresh test does): XLA on the CPU takes ~90 s to compile the terrain step,
-more than the eager run; ``init_state`` runs under jit. Tolerances are tests/test_torch_env.py's: rtol
+refresh test does): XLA on the CPU takes longer to compile the terrain step
+than the eager run takes; ``init_state`` runs under jit. Tolerances are tests/test_torch_env.py's: rtol
 1e-4, atol 1e-5, widened by 3x the port's float32 noise floor at that step
 (the port run in float64 from the same state); counters, levels and
 booleans exact. The substep check holds the state to rtol/atol 1e-5 and the

@@ -16,7 +16,10 @@ together after phase 9):
    full body, the lower limb without self-collision pairs, all on the plane
    with the post fold; and without the fold the lower limb on heightfield
    terrain (``local_plane``), on trimesh terrain (``local_plane_walls``) and
-   on the plane with heading commands; each with its team shape,
+   on the plane with heading commands; the lower limb's fold with all 50
+   reward terms and 4 penalized contact groups, its fold with the V and
+   with the T control law, and V with heading commands (no fold); each
+   with its team shape,
    ``sim/cuda_step.py:team_shape``), K2 (``csrc/ppo_grads.cu``)
    and K3 (``csrc/ppo_update.cu``); print the build times and ptxas'
    register/spill report of each kernel, and the count of HGMMA (wgmma)
@@ -50,7 +53,14 @@ together after phase 9):
    bit for bit (NaN lanes by bit pattern). Times both kernels per launch
    (CUDA events, 50 launches, and again in turns), the wrapper and the plain
    version, and computes K1's bound; for the lower limb the team kernel
-   must be faster than the one-thread kernel.
+   must be faster than the one-thread kernel. The all-terms, V, T and V
+   heading programs must equal their plain versions in every output bit of
+   every env; the all-terms program runs on planted states
+   (``cuda_step.planted_all_terms``: every 4th env dropped and pitched so
+   that thighs and shanks touch, the next with its joints past their soft
+   limits, the next with friction 6), and each reward term that no earlier
+   program folds, and the penalized count, must be non-zero in some env
+   (the counts are printed).
 4. The slice: ``OnPolicyRunner(...).init_state()`` and one 64-step rollout
    at 4096 envs (K1 must launch exactly 64 times; all outputs finite), then
    the port's ``play`` loop for 20 steps from a seeded ``policy.npz``. One
@@ -112,8 +122,12 @@ together after phase 9):
    kernel's own state (``whole_update_check``): at every 4th step and the
    last, the plain version runs the kernel's step from the same params,
    moments, count and LR, in bf16 within 6b's limits and, every 4th step,
-   in float32 operands within 1e-4 of the step in L2 (rows on another
-   branch of the loss taken out of both, as in 5); then the
+   in float32 operands leaf by leaf (``f32_step_check``: in each actor and
+   critic weight and bias and in ``std``, update, m and v within 1e-4 of
+   the step in L2 plus 3x the plain version's spread in that leaf over row
+   tiles; K3 fed K2's gradient with the largest leaf or ``std`` scaled by
+   1.05 must fail it; rows on another branch of the loss taken out of both,
+   as in 5); then the
    whole-update call must equal the composition of its 200 one-step calls
    bit for bit in p, m, v and the LR. The 200-step distance to the plain
    version's whole update is printed, not checked. Every ``update_scan``
@@ -165,10 +179,10 @@ together after phase 9):
    against its plain version under phase 5's rule (at the rollout's params
    and after one epoch, the branch-flip rule and the planted fault
    included), K3 over one float32 epoch step by step from the kernel's
-   state against the plain version's step (6c's float32 rule plus 3x the plain version's spread over row
-   tiles, the rows on another branch in those row tiles taken out too; K3
-   fed K2's gradient with its largest leaf scaled by 1.05 must fail those
-   limits at every checked step), the update's one-epoch CUDA graph in bf16
+   state against the plain version's step (6c's per-leaf float32 rule, the
+   rows on another branch in the row tiles taken out too; K3 fed K2's
+   gradient with its largest leaf or ``std`` scaled by 1.05 must fail
+   those limits at every checked step), the update's one-epoch CUDA graph in bf16
    (adaptive LR on) equal to the composition of its 25 one-step calls bit
    for bit (6c's last check), K3's fused step against its reference pair
    bit for bit (6d), K2's time per grad step beside its plain version,
@@ -182,9 +196,22 @@ together after phase 9):
    programs): K1 64, K2's chain 200 and K3 once an iteration, and the final
    state's ground planes and measured heights finite and non-zero on the
    rough rows; then one 64-step rollout with heading commands (K1's plane
-   program without the fold, launched 64 times). Prints the kernels' JSON
-   line (K1 for each program, K2 at both widths, K3), the card line, and the
-   final ok line.
+   program without the fold, launched 64 times).
+11. The all-terms fold's path: phase 7's ``learn(1)`` (unprofiled) on GR1T1
+   with every reward term and the penalized groups
+   (``cuda_step.all_terms_config``): K1 65, K2's chain 200 and K3 once,
+   every term's episode mean finite; then one 64-step rollout each with the
+   V law, the T law, and V with heading commands (K1 64 each).
+12. The recurrent task ``GR1T1_lstm`` (``lstm_phase``): ``learn(2)`` at 4096
+   envs (K1 129, K2 and K3 never), the LSTM weights and std moved, the
+   checkpoint back bit for bit; the update's replay of a new rollout from
+   its start memory with the done resets equal to the rollout's mu and
+   values within 1e-5 (a replay without the resets must fail that); 20
+   play steps of the stateful policy and the exported ``policy.npz``'s
+   LSTM keys; a rollout and two grad steps of the update under the
+   profiler.
+   Prints the kernels' JSON line (K1 for each program, K2 at both widths,
+   K3), the card line, and the final ok line.
 """
 
 import copy
@@ -206,6 +233,8 @@ FP32_PEAK = 67e12      # H100 SXM FP32 FLOP/s outside the tensor cores (data she
 BF16_TC_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
 TRAIN_ITERS = 2
+# phase 12: the LSTM replay against the rollout's mu and values (largest |diff|)
+REPLAY_TOL = 1e-5
 # K2 vs plain: (loss/aux rtol, leaf rtol, leaf atol as a fraction of the leaf's largest |value|)
 K2_TOL = {"float32": (1e-5, 1e-3, 2e-5), "bfloat16": (1e-4, 1e-2, 1e-3)}
 # K3 vs plain, one bf16 epoch: stated L2 share of update, m and v (plus 3x the
@@ -616,6 +645,56 @@ def step_dist(x, y, base):
             "pmax": float((x[0] - y[0]).abs().max())}
 
 
+def leaf_dists(net, x, y, base):
+    """``step_dist`` per leaf of ``net.layout`` (each actor and critic weight
+    and bias, and std): {leaf: {update, m, v, pmax}}."""
+    out = {}
+    for name, off, shape in net.layout:
+        sl = slice(off, off + math.prod(shape))
+        out[name] = step_dist(tuple(t[sl] for t in x[:3]), tuple(t[sl] for t in y[:3]), base[sl])
+    return out
+
+
+def f32_step_check(one, state, used, tag):
+    """The f32 check of one K3 step (phases 6c and 9), leaf by leaf: K3's
+    fused step from ``state`` = (p, m, v, count, lr) on the buffers ``used``
+    (rows on another branch of the loss already taken out) against the
+    plain step, in each leaf (``leaf_dists``) update, m and v within
+    ``F32_STEP_TOL`` in L2 plus 3x the plain version's own spread in that
+    leaf over row tiles (``plain_variants``: an entry whose gradient sums to
+    noise level moves by about LR whichever its sign, most at Adam's first
+    step), and the same LR. Planted faults must fail it: K3 fed K2's
+    gradient with the largest leaf and with the smallest (``std``) scaled by
+    ``FAULT_SCALE`` (``k3_fault``). Returns (ok, the kernel's step, the
+    worst share of a leaf's limit, that leaf, the largest |param|
+    difference)."""
+    p, m, v, cnt, lr = state
+    k = one.update_scan(p, m, v, cnt, lr, used)
+    pl = one.update_scan_plain(p, m, v, cnt, lr, used)
+    floors = [leaf_dists(one.net, fz.update_scan_plain(p, m, v, cnt, lr, used), pl, p)
+              for fz in plain_variants(one)]
+    lim = {leaf: {key: F32_STEP_TOL + 3.0 * max(f[leaf][key] for f in floors) for key in ("update", "m", "v")}
+           for leaf in floors[0]}
+    d = leaf_dists(one.net, k, pl, p)
+    share = {leaf: max(d[leaf][key] / lim[leaf][key] for key in lim[leaf]) for leaf in d}
+    worst = max(share, key=share.get)
+    ok = share[worst] <= 1.0 and abs(float(k[3]) - float(pl[3])) <= 1e-6 * abs(float(pl[3]))
+    faults = {}
+    for leaf in (max(one.net.layout, key=lambda e: math.prod(e[2]))[0], "std"):
+        fd = k3_fault(one, state, used, pl, leaf)
+        fshare = max(fd[lf][key] / lim[lf][key] for lf in fd for key in lim[lf])
+        faults[leaf] = (fshare, fshare > 1.0)
+    log(f"[K3 f32 step] {tag}: worst leaf {worst} at {share[worst]:.3f} of its limit (update "
+        f"{d[worst]['update']:.3e}, m {d[worst]['m']:.3e}, v {d[worst]['v']:.3e}; limits "
+        f"{lim[worst]['update']:.3e}, {lim[worst]['m']:.3e}, {lim[worst]['v']:.3e}); std leaf at "
+        f"{share['std']:.3f}; lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; {ok}; K3 fed K2's gradient with a leaf x"
+        f"{FAULT_SCALE}: " + ", ".join(f"{leaf} at {fs:.2f} of the limit, caught {c}" for leaf, (fs, c) in faults.items()))
+    for leaf, (_, caught) in faults.items():
+        if not caught:
+            fail(f"K3 {tag}: a gradient off by x{FAULT_SCALE} in {leaf} passes the per-leaf limits")
+    return ok, k, share[worst], worst, float((k[0] - pl[0]).abs().max())
+
+
 def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     """Phase 6c. The kernel drives the whole bf16 update (every epoch and
     minibatch, adaptive LR on) one grad step at a time: a one-step
@@ -639,7 +718,7 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     p, m, v, count0, lr = args0
     sampled = sorted(set(range(0, steps, 4)) | {steps - 1})
     worst16 = {"update": 0.0, "m": 0.0, "v": 0.0, "pmax_lr": 0.0}
-    worst32 = {"update": 0.0, "m": 0.0, "v": 0.0}
+    worst32 = {"share": 0.0, "leaf": None}
     bad16, bad32 = [], []
     max_flips = max_flips32 = 0
     rows = fused16.rows
@@ -676,29 +755,23 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
                 + f"; lr {float(ks[3]):.6e} vs {lr_p:.6e}; rows on another branch {flips} (taken out, "
                 f"with the row tiles' {taken}); {ok}")
             if s % 4 == 0:
-                used32, flips32, _ = neutralize_flips(one32, p, sl(bufs32, k), 0)
-                k32 = one32.update_scan(p, m, v, cnt, lr, used32)
-                p32 = one32.update_scan_plain(p, m, v, cnt, lr, used32)
-                d32 = step_dist(k32, p32, p)
-                ok32 = flips32 <= MAX_FLIPS and abs(float(k32[3]) - float(p32[3])) <= 1e-6 * abs(float(p32[3])) \
-                    and all(d32[key] <= F32_STEP_TOL for key in ("update", "m", "v"))
-                for key in worst32:
-                    worst32[key] = max(worst32[key], d32[key])
+                used32, flips32, _ = neutralize_flips(one32, p, sl(bufs32, k), 0, plain_variants(one32))
+                ok32, _, share32, leaf32, _ = f32_step_check(one32, (p, m, v, cnt, lr), used32,
+                                                             f"6c GR1T1 step {s} mb {k}")
+                ok32 = ok32 and flips32 <= MAX_FLIPS
+                if share32 > worst32["share"]:
+                    worst32.update(share=share32, leaf=leaf32)
                 max_flips32 = max(max_flips32, flips32)
                 if not ok32:
                     bad32.append(s)
-                log(f"[6c] step {s:3d} mb {k:2d} f32:  " + ", ".join(
-                    f"{key} {d32[key]:.3e}" for key in ("update", "m", "v", "pmax"))
-                    + f" (limit {F32_STEP_TOL:g} in L2); lr {float(k32[3]):.6e} vs {float(p32[3]):.6e}; "
-                    f"rows on another branch {flips32}; {ok32}")
         p, m, v, lr = nxt[0], nxt[1], nxt[2], nxt[3]
     log(f"[6c] {len(sampled)} bf16 steps checked, worst share of the limit: "
         + ", ".join(f"{key} {val:.3f}" for key, val in worst16.items() if key != "pmax_lr")
         + f"; largest param diff {worst16['pmax_lr']:.2f} x LR; at most {max_flips} rows on another branch "
         f"of the loss (limit {MAX_FLIPS}); failed at steps {bad16}")
-    log(f"[6c] {len([s for s in sampled if s % 4 == 0])} f32 steps checked, worst: "
-        + ", ".join(f"{key} {val:.3e}" for key, val in worst32.items())
-        + f"; at most {max_flips32} rows on another branch of the loss; failed at steps {bad32}")
+    log(f"[6c] {len([s for s in sampled if s % 4 == 0])} f32 steps checked leaf by leaf, worst "
+        f"{worst32['share']:.3f} of a limit (in {worst32['leaf']}); at most {max_flips32} rows on another branch "
+        f"of the loss; failed at steps {bad32}")
     if bad16:
         fail(f"6c: the kernel's bf16 step disagrees with the plain version's at steps {bad16}")
     if bad32:
@@ -892,24 +965,23 @@ def k2_check(setups, net, alg, p, at, k2_err, tag=""):
             fail(f"K2{tag} disagrees with its plain version ({name} operands, {at})")
 
 
-def k3_fault(one, state, bufs, want, lim):
+def k3_fault(one, state, bufs, want, leaf):
     """A planted fault for a one-step check of K3: K3's fused step
-    (``k3_step_once``) fed K2's gradient of ``bufs`` with its largest leaf
-    scaled by ``FAULT_SCALE``, from ``state`` = (p, m, v, count, lr). It
-    must be over ``lim`` against the plain step ``want`` in update, m or v.
-    (A scale of the whole gradient is no such fault: the norm clip takes it
-    out.) Returns (the leaf, its distances, caught)."""
+    (``k3_step_once``) fed K2's gradient of ``bufs`` with the leaf ``leaf``
+    scaled by ``FAULT_SCALE``, from ``state`` = (p, m, v, count, lr).
+    Returns its distances to the plain step ``want``, leaf by leaf
+    (``leaf_dists``), which the check's limits must catch. (A scale of the
+    whole gradient is no such fault: the norm clip takes it out.)"""
     from wiki_grx_gym_tpu_torch.learn import fused_update
 
     p, m, v, count, lr = state
     args, keep = one._k2_context(p, bufs)
     one._k2_launch(fused_update._lib("k2"), args, 0, p.device)
-    leaf, off, shape = max(one.net.layout, key=lambda e: math.prod(e[2]))
+    _, off, shape = next(e for e in one.net.layout if e[0] == leaf)
     g = keep["g"].clone()
     g[off: off + math.prod(shape)] *= FAULT_SCALE
     r = fused_update.k3_step_once(one, p, m, v, g, keep["aux"], count, lr, 0)
-    d = step_dist((r["p"], r["m"], r["v"]), want, p)
-    return leaf, d, any(d[key] > lim[key] for key in lim)
+    return leaf_dists(one.net, (r["p"], r["m"], r["v"]), want, p)
 
 
 def k3_steps_f32(setups, args0, tag):
@@ -919,13 +991,11 @@ def k3_steps_f32(setups, args0, tag):
     carried out of step s - 1); at every 4th step and the last the plain
     version runs the same step from the kernel's state, rows on another
     branch of the loss taken out of both (``neutralize_flips``, with the
-    row tiles' own): update, m and v within ``F32_STEP_TOL`` in L2 plus 3x
-    the plain version's own spread over row tiles (``plain_variants``, as
-    6b holds the bf16 epoch: an entry whose gradient sums to noise level
-    moves by about LR whichever its sign, most at Adam's first step), the
-    same LR; and at each such step K3 fed a gradient off by
-    ``FAULT_SCALE`` in its largest leaf (``k3_fault``) must fail those
-    limits. Over a whole
+    row tiles' own), and the step is held leaf by leaf (``f32_step_check``:
+    each leaf's update, m and v within ``F32_STEP_TOL`` in L2 plus 3x the
+    plain version's own spread in that leaf over row tiles, the same LR; K3
+    fed a gradient off by ``FAULT_SCALE`` in its largest leaf and in
+    ``std`` must fail those limits). Over a whole
     epoch two correct trajectories part further, so the epoch's distance to
     the plain version's epoch is printed, not checked. Returns the kernel's
     state after the epoch and the largest |param| difference of a checked
@@ -937,42 +1007,29 @@ def k3_steps_f32(setups, args0, tag):
     sl = lambda k: {key: x[k:k + 1] for key, x in bufs32.items()}
     p, m, v, count0, lr = args0
     mbs = fused32.num_mini_batches
-    worst, bad, max_flips = {"update": 0.0, "m": 0.0, "v": 0.0, "pmax": 0.0}, [], 0
+    worst, bad, max_flips = {"share": 0.0, "leaf": None, "pmax": 0.0}, [], 0
     for s in range(mbs):
         nxt = one.update_scan(p, m, v, count0 + s, lr, sl(s))
         if s % 4 == 0 or s == mbs - 1:
-            variants = plain_variants(one)
-            used, flips, taken = neutralize_flips(one, p, sl(s), 0, variants)
-            k = one.update_scan(p, m, v, count0 + s, lr, used) if taken else nxt
-            pl = one.update_scan_plain(p, m, v, count0 + s, lr, used)
-            floors = [step_dist(fz.update_scan_plain(p, m, v, count0 + s, lr, used), pl, p) for fz in variants]
-            lim = {key: F32_STEP_TOL + 3.0 * max(f[key] for f in floors) for key in ("update", "m", "v")}
-            d = step_dist(k, pl, p)
-            leaf, fd, caught = k3_fault(one, (p, m, v, count0 + s, lr), used, pl, lim)
-            ok = flips <= MAX_FLIPS and all(d[key] <= lim[key] for key in lim) \
-                and abs(float(k[3]) - float(pl[3])) <= 1e-6 * abs(float(pl[3])) \
-                and all(bool(torch.isfinite(t).all()) for t in k[:4])
+            used, flips, taken = neutralize_flips(one, p, sl(s), 0, plain_variants(one))
+            ok, k, share, leaf, pmax = f32_step_check(one, (p, m, v, count0 + s, lr), used,
+                                                      f"{tag} step {s} (rows on another branch {flips}, taken "
+                                                      f"out with the row tiles' {taken})")
+            ok = ok and flips <= MAX_FLIPS and all(bool(torch.isfinite(t).all()) for t in k[:4])
             max_flips = max(max_flips, flips)
-            for key in worst:
-                worst[key] = max(worst[key], d[key])
+            if share > worst["share"]:
+                worst.update(share=share, leaf=leaf)
+            worst["pmax"] = max(worst["pmax"], pmax)
             if not ok:
                 bad.append(s)
-            log(f"[K3 steps] {tag} step {s:2d} f32: " + ", ".join(
-                f"{key} {d[key]:.3e} (limit {lim[key]:.3e})" for key in lim) + f", pmax {d['pmax']:.3e}; "
-                f"lr {float(k[3]):.6e} vs {float(pl[3]):.6e}; rows on another branch {flips} (taken out, with "
-                f"the row tiles' {taken}); {ok}")
-            log(f"[K3 steps] {tag} step {s:2d} f32, K3 fed K2's gradient with {leaf} x{FAULT_SCALE}: " + ", ".join(
-                f"{key} {fd[key]:.3e}" for key in lim) + f"; caught {caught}")
-            if not caught:
-                fail(f"K3 {tag}: at step {s} a gradient off by x{FAULT_SCALE} in {leaf} passes the "
-                     f"spread-widened limit")
         p, m, v, lr = nxt[0], nxt[1], nxt[2], nxt[3]
     f1 = copy.copy(fused32)
     f1.num_epochs = 1
     whole = f1.update_scan_plain(*args0, bufs32)
     nrm = lambda t: float(torch.linalg.vector_norm(t))
-    log(f"[K3 steps] {tag} worst of the checked steps: " + ", ".join(f"{key} {val:.3e}" for key, val in worst.items())
-        + f"; at most {max_flips} rows on another branch; failed at steps {bad}; the kernel's epoch against the plain "
+    log(f"[K3 steps] {tag} worst of the checked steps: {worst['share']:.3f} of a leaf's limit (in {worst['leaf']}), "
+        f"largest param diff {worst['pmax']:.3e}; at most {max_flips} rows on another branch; failed at steps {bad}; "
+        f"the kernel's epoch against the plain "
         f"version's (printed, not checked): update {nrm(p - whole[0]) / nrm(whole[0] - args0[0]):.3e}, "
         f"m {nrm(m - whole[1]) / nrm(whole[1]):.3e} in L2")
     if bad:
@@ -1240,12 +1297,14 @@ def ppo_phases(runner, rs, batch, dev):
     return k2_row, k3_row
 
 
-def train_phase(dev, task="GR1T1", mutate=None):
-    """Phase 7: ``learn(2)`` on ``task``'s training config (``mutate``
+def train_phase(dev, task="GR1T1", mutate=None, iters=TRAIN_ITERS, profiled=True):
+    """Phase 7: ``learn(iters)`` on ``task``'s training config (``mutate``
     applied) at 4096 envs through the entry points a user calls; the launch
-    counts are set to 0 just before and read just after. On terrain the
+    counts are set to 0 just before and read just after; every loss and
+    every reward term's episode mean must be finite. On terrain the
     final state's ground planes and measured heights must be finite and
-    non-zero in some envs on the rough rows (levels above 0)."""
+    non-zero in some envs on the rough rows (levels above 0). ``profiled``:
+    one more iteration under torch.profiler."""
     import torch
 
     from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
@@ -1267,7 +1326,7 @@ def train_phase(dev, task="GR1T1", mutate=None):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    state = runner.learn(TRAIN_ITERS, init_at_random_ep_len=True)
+    state = runner.learn(iters, init_at_random_ep_len=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1287,28 +1346,40 @@ def train_phase(dev, task="GR1T1", mutate=None):
         if not (terrain["planes_finite"] and terrain["measured_finite"] and terrain["rough_envs_nonzero_planes"]
                 and terrain["rough_envs_nonzero_measured"]):
             fail(f"{name}: the ground planes or measured heights are not finite, or zero on every rough row: {terrain}")
-    want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": TRAIN_ITERS * steps, "k3": TRAIN_ITERS}
+    want = {"k1": iters * ROLLOUT_STEPS + 1, "k2": iters * steps, "k3": iters}
     if launches != want:
         fail(f"{name}: training launched {launches}, expected {want}")
     for h in runner.log_history:
         m = h["metrics"]
         if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
             fail(f"iteration {h['it']}: non-finite losses {m}")
+        episode = {k: v for k, v in m.items() if k.startswith("episode/")}
+        if len(episode) < len(env.all_reward_names) or not all(math.isfinite(v) for v in episode.values()):
+            fail(f"{name} iteration {h['it']}: a reward term's episode mean is missing or not finite: {episode}")
         log(f"[train {name}] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + "
             f"update {h['update_s']:.3f} s "
             f"(+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s "
             f"host); {h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate "
             f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, lr {m['lr']:.3e}, reward {m['mean_step_reward']:.4f}")
-    ck = os.path.join(runner.log_dir, f"model_{TRAIN_ITERS}.pt")
+    ck = os.path.join(runner.log_dir, f"model_{iters}.pt")
     loaded = runner.load(ck).ppo
     same = all(getattr(loaded, k).dtype == getattr(state.ppo, k).dtype
                and torch.equal(getattr(loaded, k), getattr(state.ppo, k))
                for k in ("params", "m", "v", "count", "learning_rate"))
     if not same:
         fail(f"checkpoint {ck} does not load back bit-identical")
-    log(f"[train {name}] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
-        f"{os.path.basename(ck)} loads back bit-identical: {same}")
+    log(f"[train {name}] learn({iters}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
+        f"{os.path.basename(ck)} loads back bit-identical: {same}; {len(env.reward_names)} reward terms, episode "
+        f"means finite")
     hist = runner.log_history
+    result = {
+        "launches": launches, "iters": iters, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
+        "iteration_s": [h["elapsed_s"] for h in hist], "collection_s": [h["collection_s"] for h in hist],
+        "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
+        "profile": None, "terrain": terrain, "reward_terms": len(env.reward_names),
+    }
+    if not profiled:
+        return result
 
     # where an iteration's time goes: one more under torch.profiler (after
     # the launch counts were read; the profiler slows the host side)
@@ -1398,12 +1469,177 @@ def train_phase(dev, task="GR1T1", mutate=None):
     else:
         log(f"[train {name} profile] the profiler saw no device time; device busy share and kernel "
             "launches not measured")
-    return {
-        "launches": launches, "iters": TRAIN_ITERS, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
-        "iteration_s": [h["elapsed_s"] for h in hist], "collection_s": [h["collection_s"] for h in hist],
-        "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
-        "profile": profile_out, "terrain": terrain,
-    }
+    return dict(result, profile=profile_out)
+
+
+def lstm_phase(dev):
+    """Phase 12: the recurrent task ``GR1T1_lstm`` (LSTM 256 ahead of the
+    [512, 256, 128] heads, 1,333,397 parameters) at 4096 envs through the
+    entry points a user calls: ``learn(2)`` with the launch counts set to 0
+    just before and read just after (K1 64 an iteration and 1 for the
+    initial step; K2 and K3 never: the recurrent update is autograd over
+    the LSTM replay), finite losses and episode means, the LSTM weights and
+    std moved, ``model_2.pt`` loaded back bit for bit. Then the replay
+    check: one more rollout at the trained params, and
+    ``joint_mean_value_seq`` over its stored batch from the memory at the
+    rollout's start with the done resets must give the rollout's ``mu`` and
+    ``values`` within ``REPLAY_TOL``; the same replay without the resets
+    must not (the rollout must hold dones). Then 20 play steps of the
+    stateful policy from the checkpoint (K1 21 launches) and its exported
+    ``policy.npz`` (the LSTM keys). Under torch.profiler: one rollout and
+    two grad steps of the update's shape (163 env columns each): device
+    launches and time a
+    grad step, and the device's busy share of an iteration estimated from
+    them (rollout + 200 grad steps over the unprofiled iteration's wall
+    time)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.scripts.play import play
+    from wiki_grx_gym_tpu_torch.utils.helpers import get_args
+
+    task = "GR1T1_lstm"
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    log_root = os.path.join(THIS, "build", "smoke_train", task)
+    runner, train_cfg = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=log_root)
+    net, alg = runner.net, runner.alg
+    if not runner.recurrent or net.num_params != 1_333_397:
+        raise SystemExit(f"{task}: recurrent {runner.recurrent}, {net.num_params} parameters")
+    p0 = net.params_flat.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = runner.learn(TRAIN_ITERS, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": 0, "k3": 0}
+    if launches != want:
+        fail(f"{task}: training launched {launches}, expected {want}")
+    hist = runner.log_history
+    for h in hist:
+        m = h["metrics"]
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"{task} iteration {h['it']}: non-finite metrics {m}")
+        log(f"[lstm] it {h['it']}: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s + update "
+            f"{h['update_s']:.3f} s (+ {h['elapsed_s'] - h['collection_s'] - h['update_s']:.3f} s host); "
+            f"{h['fps']:.0f} env-steps/s; value loss {m['value_loss']:.4f}, surrogate {m['surrogate_loss']:.5f}, "
+            f"kl {m['kl']:.5f}, lr {m['lr']:.3e}, reward {m['mean_step_reward']:.4f}")
+    moved = {name: not torch.equal(p0[off: off + math.prod(shape)], state.ppo.params[off: off + math.prod(shape)])
+             for name, off, shape in net.layout if name.startswith("memory") or name == "std"}
+    if not all(moved.values()):
+        fail(f"{task}: the LSTM weights or std did not move: {moved}")
+    ck = os.path.join(runner.log_dir, f"model_{TRAIN_ITERS}.pt")
+    loaded = runner.load(ck).ppo
+    same = all(getattr(loaded, k).dtype == getattr(state.ppo, k).dtype
+               and torch.equal(getattr(loaded, k), getattr(state.ppo, k))
+               for k in ("params", "m", "v", "count", "learning_rate"))
+    if not same:
+        fail(f"{task}: {ck} does not load back bit-identical")
+    log(f"[lstm] learn({TRAIN_ITERS}) in {wall:.2f} s; launches {launches}; peak memory {peak:.3f} GiB; "
+        f"LSTM weights and std moved {moved}; {os.path.basename(ck)} loads back bit-identical: {same}")
+
+    # the replay reproduces the rollout
+    net.bind(state.ppo.params)
+    hidden0 = state.hidden
+    with torch.no_grad():
+        rs, batch, _ = runner.rollout(state)
+        n = batch.rewards.shape[1]
+        done_prev = torch.cat([torch.zeros((1, n), device=dev), batch.dones[:-1].to(torch.float32)], dim=0)
+        mean, value = net.joint_mean_value_seq(batch.obs, batch.critic_obs, done_prev, hidden0)
+        mean0, value0 = net.joint_mean_value_seq(batch.obs, batch.critic_obs, torch.zeros_like(done_prev), hidden0)
+    torch.cuda.synchronize()
+    err = {"mu": float((mean - batch.mu).abs().max()), "values": float((value - batch.values).abs().max())}
+    err0 = {"mu": float((mean0 - batch.mu).abs().max()), "values": float((value0 - batch.values).abs().max())}
+    resets = int(batch.dones[:-1].sum())
+    replay_ok = max(err.values()) <= REPLAY_TOL
+    caught = max(err0.values()) > REPLAY_TOL
+    log(f"[lstm replay] {ROLLOUT_STEPS} x {n}: the replay with the done resets against the rollout's mu and "
+        f"values, largest |diff| {err} (limit {REPLAY_TOL:g}): {replay_ok}; {resets} resets mid-rollout; the replay "
+        f"without them {err0}: caught {caught}")
+    if not replay_ok:
+        fail(f"{task}: the update's replay does not reproduce the rollout: {err}")
+    if not resets or not caught:
+        fail(f"{task}: a replay that skips the done resets is not caught ({resets} resets, {err0})")
+
+    # the stateful policy through play, from the checkpoint
+    before = LAUNCHES["k1"]
+    play_log = play(get_args(["--task", task, "--device", "cuda"]), num_steps=PLAY_STEPS, log_root=log_root)
+    play_launches = LAUNCHES["k1"] - before
+    npz = os.path.join(log_root, "exported", "policies", "policy.npz")
+    import numpy as np
+
+    keys = sorted(np.load(npz).files)
+    if play_launches != PLAY_STEPS + 1 or not all(math.isfinite(v) for k, vals in play_log.items()
+                                                  if k != "dones" for v in vals):
+        fail(f"{task}: play launched K1 {play_launches} times or produced non-finite values")
+    if not {"lstm0_w_ih", "lstm0_w_hh", "lstm0_b_ih", "lstm0_b_hh", "std"} <= set(keys):
+        fail(f"{task}: the exported policy.npz lacks the LSTM keys: {keys}")
+    log(f"[lstm play] {PLAY_STEPS} steps, K1 launches {play_launches}; exported {os.path.basename(npz)} keys {keys}")
+
+    # where an iteration's time goes: a rollout and one epoch of the update under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    net.bind(state.ppo.params)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rs2, batch2, _ = runner.rollout(rs)
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    roll_ms, roll_n = sum(dev_us(e) for e in kern) / 1e3, sum(e.count for e in kern)
+    k1_ms = sum(dev_us(e) for e in kern if any(nm in e.key for nm in KERNEL_NAMES["K1"])) / 1e3
+    with torch.no_grad():
+        last, _ = net.evaluate_rnn(rs2.critic_obs, rs2.hidden)
+    ret, adv = alg.compute_returns(batch2, last)
+    # two grad steps of the update's shape: the first 2 x 163 env columns
+    # as two minibatches of one epoch (a whole update is ~10^6 launches,
+    # more than the profiler should hold)
+    mb_envs, _ = alg.recurrent_geometry(n)
+    cols = slice(0, 2 * mb_envs)
+    two = copy.copy(alg)
+    two.num_learning_epochs, two.num_mini_batches = 1, 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    sub = type(batch2)(*(x[:, cols] for x in batch2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        two.update_recurrent(state.ppo, sub, ret[:, cols], adv[:, cols], rs.hidden.select(cols), generator=gen)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    upd_ms, upd_n = sum(dev_us(e) for e in kern) / 1e3, sum(e.count for e in kern)
+    grad_steps = 2
+    iter_ms = 1e3 * sum(h["elapsed_s"] for h in hist) / len(hist)
+    per_update = alg.num_learning_epochs * alg.num_mini_batches
+    busy = (roll_ms + per_update * upd_ms / grad_steps) / iter_ms if iter_ms else None
+    profile_out = {"rollout_wall_ms": roll_s * 1e3, "rollout_device_ms": roll_ms, "rollout_launches": roll_n,
+                   "rollout_k1_ms": k1_ms, "grad_steps_profiled": grad_steps, "grad_steps_wall_ms": steps_s * 1e3,
+                   "grad_steps_device_ms": upd_ms, "grad_steps_launches": upd_n,
+                   "launches_per_grad_step": upd_n / grad_steps if upd_ms else None,
+                   "device_ms_per_grad_step": upd_ms / grad_steps, "busy_share_estimate": busy}
+    if roll_ms > 0 and upd_ms > 0:
+        log(f"[lstm profile] rollout {roll_s * 1e3:.1f} ms wall, device {roll_ms:.1f} ms in {roll_n} launches (K1 "
+            f"{k1_ms:.1f} ms); {grad_steps} grad steps of {mb_envs} env columns {steps_s * 1e3:.1f} ms wall, device "
+            f"{upd_ms:.1f} ms in {upd_n} launches: {upd_n / grad_steps:.0f} device launches and "
+            f"{upd_ms / grad_steps:.3f} ms of device time a grad step; device busy ~{100 * busy:.1f}% of the "
+            f"unprofiled iteration's {iter_ms:.1f} ms (rollout + {per_update} grad steps)")
+        if k1_ms == 0:
+            fail(f"{task}: the rollout profile attributes no device time to K1")
+    else:
+        log("[lstm profile] the profiler saw no device time; launches a grad step and busy share not measured")
+    return {"launches": launches, "iters": TRAIN_ITERS, "envs": N_ENVS, "wall_s": wall, "peak_mem_gib": peak,
+            "iteration_s": [h["elapsed_s"] for h in hist], "collection_s": [h["collection_s"] for h in hist],
+            "update_s": [h["update_s"] for h in hist], "env_steps_per_s": [h["fps"] for h in hist],
+            "replay_max_abs_err": err, "replay_without_resets_err": err0, "replay_resets": resets,
+            "play_launches": play_launches, "params": net.num_params, "profile": profile_out}
 
 
 def no_self_collision(cfg):
@@ -1446,18 +1682,49 @@ K1_SETS = {
     "GR1T1_heightfield": ("GR1T1", heightfield, "GR1T1 lower limb, heightfield (local_plane), no post fold", 3.5),
     "GR1T1_trimesh": ("GR1T1", trimesh, "GR1T1 lower limb, trimesh (local_plane_walls), no post fold", 3.5),
     "GR1T1_heading": ("GR1T1", heading, "GR1T1 lower limb, plane, heading commands, no post fold", None),
+    "GR1T1_all_terms": ("GR1T1", None, "GR1T1 lower limb, plane, post fold with all 50 reward terms and 4 "
+                        "penalized contact groups", None),
+    "GR1T1_V": ("GR1T1", None, "GR1T1 lower limb, plane, post fold, V control", None),
+    "GR1T1_T": ("GR1T1", None, "GR1T1 lower limb, plane, post fold, T control", None),
+    "GR1T1_V_heading": ("GR1T1", None, "GR1T1 lower limb, plane, heading commands, no post fold, V control",
+                        None),
 }
+# the programs that must equal their plain versions in every output bit of
+# every env (phase 3), and the terms of the all-terms fold that no earlier
+# program folds (each must be non-zero in some env of phase 3's states)
+K1_EXACT = ("GR1T1_all_terms", "GR1T1_V", "GR1T1_T", "GR1T1_V_heading")
+NEW_TERMS = ("action_diff_knee", "action_rate", "ang_vel_xy", "base_height", "cmd_diff_ang_vel_pitch",
+             "cmd_diff_ang_vel_roll", "cmd_diff_forehead_orient", "collision", "dof_acc", "dof_pos_limits",
+             "dof_tor_new_hip_roll", "dof_vel", "dof_vel_limits", "dof_vel_new", "dof_vel_new_knee",
+             "feet_contact_forces", "feet_speed_z_close_to_height_target", "limits_actions", "lin_vel_z",
+             "orientation", "pose_offset_hip_yaw", "stumble", "torque_limits", "torques", "tracking_ang_vel",
+             "tracking_lin_vel")
+
+
+def k1_set_mutate(name):
+    """The config change of K1 program ``name`` (``K1_SETS``; this PR's
+    programs take theirs from ``sim/cuda_step.py``)."""
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    return {"GR1T1_all_terms": cuda_step.all_terms_config, "GR1T1_V": cuda_step.control_config("V"),
+            "GR1T1_T": cuda_step.control_config("T"),
+            "GR1T1_V_heading": cuda_step.control_config("V", cuda_step.heading_config)}.get(name, K1_SETS[name][1])
 TERRAIN_STEPS = 16   # phase 3's policy steps from init on terrain (the drop from 0.3 m lands)
 
 
-def k1_phase(dev, task, mutate, label, spread, require_faster):
+def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
     """Phase 3 for one K1 program: the kernel against its plain version on
     4096 reachable envs of ``task``'s training config (``mutate`` applied;
     on terrain the ground lanes the env samples), the team kernel against
     the one-thread kernel bit for bit, both timed, the plain version timed,
     and the bound; on trimesh the envs with a riser wall in contact and with
-    a tread force suppressed are counted (none fails). Any failure stops the
-    script. Returns the numbers of the kernels' JSON row."""
+    a tread force suppressed are counted (none fails). ``exact``: the
+    kernel must equal its plain version in every output bit of every env;
+    for the all-terms fold the states are planted
+    (``cuda_step.planted_all_terms``) and each term of ``NEW_TERMS`` must
+    be non-zero in some env (``collision`` non-zero where the penalized
+    count is). Any failure stops the script. Returns the numbers of the
+    kernels' JSON row."""
     import torch
 
     from wiki_grx_gym_tpu_torch import build as kbuild
@@ -1467,8 +1734,12 @@ def k1_phase(dev, task, mutate, label, spread, require_faster):
     env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate, spread=spread,
                                            steps=8 if spread is None else TERRAIN_STEPS)
     op = env.decimation_op
+    all_terms = op.post is not None and len(op.post.reward_names) == len(cuda_step.REWARD_IDS)
+    if all_terms:
+        state = cuda_step.planted_all_terms(env, state)
     log(f"{tag} sizes {op.sizes._asdict()}, team {op.team[0]} lanes x {op.team[1]} envs; terrain mode "
-        f"{env.terrain_mode}, post fold {op.post is not None}")
+        f"{env.terrain_mode}, post fold {op.post is not None}, control {op.deci.control_type}, last_qd "
+        f"input {op.with_last_qd}")
     walls = None
     if env.riser_mode:
         active, inside = cuda_step.wall_contacts(env, state, state.ground_plane)
@@ -1528,6 +1799,18 @@ def k1_phase(dev, task, mutate, label, spread, require_faster):
     force_err = max(float((k[g] - p[g])[keep].abs().max()) for g in FORCE_GROUPS)
     if div_frac > 1e-3 or not widened_ok:
         raise SystemExit(f"{tag} K1 disagrees with its plain version")
+    if exact and int(same.sum()) != N_ENVS:
+        raise SystemExit(f"{tag} K1 differs from its plain version in {N_ENVS - int(same.sum())} envs")
+    term_envs = None
+    if all_terms:
+        names = op.post.reward_names
+        nz = (k["post/rew_terms"] != 0).sum(dim=0).tolist()
+        term_envs = {n: int(nz[names.index(n)]) for n in NEW_TERMS}
+        term_envs["pen_count"] = term_envs["collision"]   # collision is 0 exactly where the count is
+        log(f"{tag} envs (of {N_ENVS}) where each new term is non-zero: {term_envs}")
+        dead = [n for n, c in term_envs.items() if c == 0]
+        if dead:
+            raise SystemExit(f"{tag} terms zero in every env: {dead}")
 
     # the team kernel against the one-thread kernel on the same packed
     # input: every output lane bit for bit
@@ -1603,6 +1886,8 @@ def k1_phase(dev, task, mutate, label, spread, require_faster):
         "terrain_mode": env.terrain_mode,
         "post_fold": op.post is not None,
         "wall_contacts": walls,
+        "control": op.deci.control_type,
+        "term_nonzero_envs": term_envs,
     }
     del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
     gc.collect()
@@ -1760,8 +2045,8 @@ def main():
 
     t0 = time.perf_counter()
     jobs = {}
-    k1_ops = {name: cuda_step.task_env(task, 1, "cpu", mutate).decimation_op
-              for name, (task, mutate, _, _) in K1_SETS.items()}
+    k1_ops = {name: cuda_step.task_env(task, 1, "cpu", k1_set_mutate(name)).decimation_op
+              for name, (task, _, _, _) in K1_SETS.items()}
     for op in k1_ops.values():
         jobs[cuda_step.library_name(op.sizes)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes))
     jobs.update({
@@ -1808,7 +2093,10 @@ def main():
 
     phase_done("phase 2")
     # ---- phase 3: K1 against its plain version, 4096 envs, each size set ----
-    k1_rows = {name: k1_phase(dev, *K1_SETS[name], require_faster=name == "GR1T1") for name in K1_SETS}
+    k1_rows = {}
+    for name, (task, _, label, spread) in K1_SETS.items():
+        k1_rows[name] = k1_phase(dev, task, k1_set_mutate(name), label, spread, require_faster=name == "GR1T1",
+                                 exact=name in K1_EXACT)
     del k1_ops
 
     phase_done("phase 3")
@@ -1926,6 +2214,18 @@ def main():
     train_terrain = {m.__name__: train_phase(dev, "GR1T1", m) for m in (heightfield, trimesh)}
     heading_launches = drive_rollout(dev, "GR1T1", heading)
     phase_done("phase 10")
+    # ---- phase 11: the all-terms fold's path (learn(1)); rollouts with V, T and V with heading ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_all_terms = train_phase(dev, "GR1T1", cuda_step.all_terms_config, iters=1, profiled=False)
+    control_launches = {name: drive_rollout(dev, "GR1T1", k1_set_mutate(name))
+                        for name in ("GR1T1_V", "GR1T1_T", "GR1T1_V_heading")}
+    phase_done("phase 11")
+    # ---- phase 12: the recurrent task GR1T1_lstm ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lstm = lstm_phase(dev)
+    phase_done("phase 12")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -1947,13 +2247,20 @@ def main():
                             launches_from=f"learn({TRAIN_ITERS}) on {m}") for m in ("heightfield", "trimesh")]
     k1_heading_row = dict(k1_rows["GR1T1_heading"], launches=heading_launches,
                           launches_from="one 64-step rollout with heading commands")
+    k1_all_terms_row = dict(k1_rows["GR1T1_all_terms"], launches=train_all_terms["launches"]["k1"],
+                            launches_from="learn(1) of the all-terms config")
+    k1_control_rows = [dict(k1_rows[name], launches=control_launches[name],
+                            launches_from=f"one 64-step rollout ({name})") for name in control_launches]
     k2_full_row["launches"] = train_full["launches"]["k2"]
     k2_full_row["kernel_launches_per_grad_step"] = train_full["profile"]["k2_kernel_launches_per_grad_step"]
-    kernels = [k1_row, k1_full_row, k1_no_pairs_row, *k1_terrain_rows, k1_heading_row, k2_row, k2_full_row, k3_row]
+    kernels = [k1_row, k1_full_row, k1_no_pairs_row, *k1_terrain_rows, k1_heading_row, k1_all_terms_row,
+               *k1_control_rows, k2_row, k2_full_row, k3_row]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(json.dumps({"train_GR1T1_full": {k: v for k, v in train_full.items() if k != "launches"}}))
     for m, tr in train_terrain.items():
         log(json.dumps({f"train_GR1T1_{m}": {k: v for k, v in tr.items() if k != "launches"}}))
+    log(json.dumps({"train_GR1T1_all_terms": {k: v for k, v in train_all_terms.items() if k != "launches"}}))
+    log(json.dumps({"train_GR1T1_lstm": train_lstm}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

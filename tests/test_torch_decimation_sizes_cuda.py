@@ -14,15 +14,22 @@ actions, 512 envs):
   (``local_plane``, the ground planes the env samples), on trimesh terrain
   (``local_plane_walls``, with ground lanes planted so that riser walls
   push, hold a point's center and pass below, ``cuda_step.planted_planes``)
-  and on the plane with heading commands (3 x 3 curriculum grids).
+  and on the plane with heading commands (3 x 3 curriculum grids);
+- the all-terms fold: GR1T1 with every one of the 50 lane-form reward
+  terms at a non-zero scale and contacts penalized on the thighs and shanks
+  (``cuda_step.all_terms_config``; 4 groups), on states planted so that
+  every term is non-zero somewhere (``cuda_step.planted_all_terms``);
+- the control laws: GR1T1's fold with V and with T, and V with heading
+  commands (no fold, ``last_qd`` still an input).
 
 Each is held against its plain version (the lane program, the same
 inputs) under chip_smoke.py phase 3's rule: rtol 1e-4 / atol 1e-4 (1e-2 N
 on the contact forces), envs with a flipped boolean lane or a float lane
 over that tolerance at most 0.1% of all (here: at most 1 of 512), and those
 envs within the tolerance plus 3x the plain program's float32 noise floor
-(its float32 result against float64); the team kernel equals the one-thread
-kernel in every output bit; the wrapper's call launches the team kernel
+(its float32 result against float64); the all-terms and V/T programs
+equal their plain versions in every output bit; the team kernel equals the
+one-thread kernel in every output bit; the wrapper's call launches the team kernel
 and counts one launch. The lane program's division by a Python float
 (``scalarized._div``) rounds on the card as on the CPU.
 
@@ -54,7 +61,13 @@ SETS = {"GR1T1_full": dict(task="GR1T1_full"),
         "GR1T1_no_pairs": dict(task="GR1T1", mutate=no_self_collision),
         "GR1T1_heightfield": dict(task="GR1T1", mutate=cuda_step.terrain_config("heightfield", 3, 3)),
         "GR1T1_trimesh": dict(task="GR1T1", mutate=cuda_step.terrain_config("trimesh", 3, 3), planted=True),
-        "GR1T1_heading": dict(task="GR1T1", mutate=cuda_step.heading_config)}
+        "GR1T1_heading": dict(task="GR1T1", mutate=cuda_step.heading_config),
+        "GR1T1_all_terms": dict(task="GR1T1", mutate=cuda_step.all_terms_config, plant_terms=True),
+        "GR1T1_V": dict(task="GR1T1", mutate=cuda_step.control_config("V")),
+        "GR1T1_T": dict(task="GR1T1", mutate=cuda_step.control_config("T")),
+        "GR1T1_V_heading": dict(task="GR1T1", mutate=cuda_step.control_config("V", cuda_step.heading_config))}
+# this PR's programs: held to their plain versions bit for bit
+EXACT = ("GR1T1_all_terms", "GR1T1_V", "GR1T1_T", "GR1T1_V_heading")
 
 
 @pytest.fixture(scope="module", params=sorted(SETS))
@@ -66,9 +79,12 @@ def case(request):
     dev = torch.device("cuda")
     how = dict(SETS[request.param])
     planted = how.pop("planted", False)
+    plant_terms = how.pop("plant_terms", False)
     env, state = cuda_step.reachable_state(N, dev, **how)
     if planted:
         state = state.replace(ground_plane=cuda_step.planted_planes(env, state, env.riser_mode))
+    if plant_terms:
+        state = cuda_step.planted_all_terms(env, state)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     args, kw = cuda_step.decimation_inputs(env, state, gen)
@@ -104,6 +120,10 @@ def test_sizes_are_the_set_s(case):
         assert op.team == cuda_step.TEAM_SHAPE_FULL_BODY
     elif name == "GR1T1_no_pairs":
         assert (op.sizes.ND, op.sizes.NPAIR) == (10, 0)
+    elif name in EXACT:
+        want = {"GR1T1_all_terms": (0, 1, 50, 4), "GR1T1_V": (1, 1, 24, 0), "GR1T1_T": (2, 1, 24, 0),
+                "GR1T1_V_heading": (1, 0, 0, 0)}[name]
+        assert (op.sizes.CTRL, op.sizes.FOLD, op.sizes.NR, op.sizes.NPEN) == want
     else:
         program = {"GR1T1_heightfield": (1, 3), "GR1T1_trimesh": (2, 9), "GR1T1_heading": (0, 0)}[name]
         assert (op.sizes.TERRAIN, op.plane_lanes, op.sizes.FOLD, op.post) == (*program, 0, None)
@@ -130,6 +150,18 @@ def test_kernel_within_tolerance_of_its_plain_version(case):
         assert bool((err[keep] <= stated[keep] + 3.0 * floor).all()), (
             f"{name}: max |kernel - plain| {float(err[keep].max()):.3e}, noise floor {floor:.3e}")
     assert int((flips | over).sum()) <= max(1, N // 1000)
+
+
+def test_new_programs_equal_their_plain_version_bit_for_bit(case):
+    """This PR's programs (the all-terms fold with penalized groups, V, T)
+    round as their plain version does, op by op: every output bit equal
+    (NaN lanes by bit pattern)."""
+    name, op, _, (args, kw), _ = case
+    if name not in EXACT:
+        pytest.skip("held to the stated tolerance above")
+    k, p = groups(op(*args, **kw)), groups(op.plain(*args, **kw))
+    differ = {g: int((k[g].float().view(torch.int32) != p[g].float().view(torch.int32)).sum()) for g in k}
+    assert not any(differ.values()), {g: d for g, d in differ.items() if d}
 
 
 def test_team_kernel_equals_the_thread_kernel_bit_for_bit(case):

@@ -92,7 +92,8 @@ def case():
 def test_full_body_program_sizes(case):
     op = case[3]
     assert op.sizes == cuda_step.K1Sizes(NB=33, ND=32, NP=29, NF=2, NPAIR=240, NR=24, NPOST=4,
-                                         NIN=340, NOUT=374, TERRAIN=0, FOLD=1)
+                                         NIN=340, NOUT=374, TERRAIN=0, FOLD=1, CTRL=0, NPEN=0,
+                                         NPENP=0)
     assert op.kernel_support_error() is None
     assert op.team == cuda_step.TEAM_SHAPE_FULL_BODY
     # dof 31's ancestors reach bit 31 of its 32-bit mask

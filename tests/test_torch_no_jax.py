@@ -85,32 +85,41 @@ def test_entry_points_refuse_cuda_without_a_card():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mutate,match", [
-    (lambda c: setattr(c.control, "control_type", "T"), "control_type"),
-    (lambda c: setattr(c.control, "control_type", "V"), "item 11"),
-    (lambda c: (cuda_step.terrain_config("heightfield", 2, 2)(c),
-                setattr(c.control, "control_type", "V")), "item 11"),
-    (lambda c: (cuda_step.terrain_config("trimesh", 2, 2)(c),
-                setattr(c.control, "control_type", "T")), "item 11"),
-    (lambda c: (cuda_step.heading_config(c), setattr(c.control, "control_type", "V")), "item 11"),
+@pytest.mark.parametrize("mutate,ctrl", [
+    pytest.param(lambda c: setattr(c.control, "control_type", "T"), 2, id="mutate0-control_type"),
+    pytest.param(lambda c: setattr(c.control, "control_type", "V"), 1, id="mutate1-item 11"),
+    pytest.param(lambda c: (cuda_step.terrain_config("heightfield", 2, 2)(c),
+                            setattr(c.control, "control_type", "V")), 1, id="mutate2-item 11"),
+    pytest.param(lambda c: (cuda_step.terrain_config("trimesh", 2, 2)(c),
+                            setattr(c.control, "control_type", "T")), 2, id="mutate3-item 11"),
+    pytest.param(lambda c: (cuda_step.heading_config(c), setattr(c.control, "control_type", "V")), 1,
+                 id="mutate4-item 11"),
 ])
-def test_env_refuses_outside_the_slice(mutate, match):
-    """The V and T control modes stay outside the slice, on the plane, on
-    terrain and with heading commands (ROADMAP queue 1 item 11 part 2)."""
+def test_env_refuses_outside_the_slice(mutate, ctrl):
+    """The V and T control modes, which the env refused before, build on the
+    plane, on terrain and with heading commands, and K1 has a program for
+    each (its control law ``ctrl`` in the sizes; ``last_qd`` an input for
+    V). An unknown control type is refused."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     cfg, _ = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
     mutate(cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    op = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")[0].decimation_op
+    assert op.kernel_support_error() is None
+    assert op.sizes.CTRL == ctrl and op.deci.control_type == cfg.control.control_type
+    assert op.with_last_qd == (ctrl == 1 or op.post is not None)
+    assert (op.deci.damping_coeff is None) == (ctrl == 2)
+    cfg.control.control_type = "X"
+    with pytest.raises(ValueError, match="control_type"):
         task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
 
 
 @pytest.mark.parametrize("task", ["GR1T1_full", "GR1T2_full"])
 def test_full_body_tasks_refused(task):
     """The 32-DOF tasks build (K1 takes up to 32 dofs), with heading
-    commands too; what stays outside the slice is refused for them as for
-    the lower limb: the V and T control modes."""
+    commands too, and with the V control law (refused before): K1's
+    program then reads ``last_qd`` and has a kernel."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     cfg, _ = task_registry.get_cfgs(task)
@@ -121,18 +130,27 @@ def test_full_body_tasks_refused(task):
     env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
     assert not env._post_fold and env.decimation_op.kernel_support_error() is None
     cfg.control.control_type = "V"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        task_registry.make_env(task, env_cfg=cfg, device="cpu")
+    op = task_registry.make_env(task, env_cfg=cfg, device="cpu")[0].decimation_op
+    assert op.kernel_support_error() is None and op.with_last_qd and op.sizes.CTRL == 1
+    assert op.sizes.ND == 32 and op.post is None
 
 
 def test_lstm_runner_refused():
+    """The recurrent task, which the runner refused before, builds its
+    runner with the LSTM actor-critic on the recurrent update path; the
+    symmetry loss stays refused for it (ROADMAP queue 1 item 13)."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent
     from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 
     cfg, train = task_registry.get_cfgs("GR1T1_lstm")
     cfg.env.num_envs = 2
     env, _ = task_registry.make_env("GR1T1_lstm", env_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    runner = OnPolicyRunner(env, train, device="cpu")
+    assert runner.recurrent and isinstance(runner.net, ActorCriticRecurrent)
+    assert runner.net.num_params == 1_333_397
+    train.algorithm.symmetry_coef = 0.5
+    with pytest.raises(NotImplementedError, match="item 13"):
         OnPolicyRunner(env, train, device="cpu")
 
 
@@ -142,8 +160,8 @@ def test_kernel_path_refuses_unsupported_programs():
     GR1T2 and GR1T1 without self-collision pairs (other sizes than the
     GR1T1 lower limb's), and GR1T1 on heightfield and trimesh terrain and
     with heading commands (programs without the post fold) all have a
-    kernel; a reward term with no lane form is refused when the folded
-    program is built, and the V and T control modes when the env is."""
+    kernel; so do the V and T control laws and the fold with every reward
+    term and penalized contact groups, which were refused before."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
 
     def no_pairs(c):
@@ -164,15 +182,17 @@ def test_kernel_path_refuses_unsupported_programs():
         assert (op.sizes.TERRAIN, op.sizes.FOLD) == program, (task, mutate)
         if mutate is no_pairs:
             assert op.sizes.NPAIR == 0
-    for control in ("V", "T"):
+    for control in ("V", "T"):   # refused before; a program each now
         cfg, _ = task_registry.get_cfgs("GR1T1")
         cfg.env.num_envs = 2
         cfg.control.control_type = control
-        with pytest.raises(NotImplementedError, match="item 11"):
-            task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
+        op = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")[0].decimation_op
+        assert op.kernel_support_error() is None and op.sizes.CTRL == "PVT".index(control)
     cfg, _ = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
-    cfg.rewards.scales.collision = -1.0   # a term without a lane form
+    cfg.rewards.scales.collision = -1.0   # without a lane form before
+    cfg.asset.penalize_contacts_on = ["thigh", "shank"]   # refused by the kernel before
     env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="collision"):
-        env.decimation_op
+    op = env.decimation_op
+    assert "collision" in op.post.reward_names and op.kernel_support_error() is None
+    assert (op.sizes.NPEN, op.sizes.NPENP) == (4, 8)

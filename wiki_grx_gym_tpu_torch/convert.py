@@ -3,8 +3,15 @@
 - :func:`actor_critic_from_numpy`: JAX ``ActorCriticParams`` as numpy
   (``actor``/``critic`` lists of ``(W (in, out), b)`` pairs plus ``std``)
   into the port's ``ActorCritic`` (``nn.Linear`` keeps W as (out, in)).
+- :func:`recurrent_from_numpy` / :func:`recurrent_to_numpy`: JAX
+  ``RecurrentParams`` as numpy (``memory_a``/``memory_c`` lists of layers
+  with ``w_ih`` (I, 4H), ``w_hh`` (H, 4H), ``b_ih``, ``b_hh``, then the
+  heads and ``std``) into the port's ``ActorCriticRecurrent`` flat buffer
+  and back, bit for bit (the memories keep JAX's layout, the heads'
+  weights are transposed).
 - :func:`load_actor_npz`: the actor of a ``policy.npz`` written by the JAX
-  ``export_policy_npz`` into the port's ``ActorCritic``.
+  ``export_policy_npz`` into the port's ``ActorCritic`` (with its LSTM
+  layers into an ``ActorCriticRecurrent``).
 - :func:`env_state_from_numpy`: a JAX ``EnvState`` flattened to numpy into
   the port's ``EnvState``. The port's ``rng`` is a ``torch.Generator``.
 - :func:`ppo_state_from_numpy`: JAX params plus the raveled optax Adam
@@ -26,6 +33,10 @@ from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
 
 def _get(tree, key):
     return tree[key] if isinstance(tree, dict) else getattr(tree, key)
+
+
+def _has(tree, key):
+    return key in tree if isinstance(tree, dict) else hasattr(tree, key)
 
 
 def _linears(seq):
@@ -56,22 +67,40 @@ def actor_critic_from_numpy(net, tree):
     return net
 
 
+LSTM_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
 @torch.no_grad()
 def load_actor_npz(net, path: str):
     """Fill the actor and std of ``net`` from a ``policy.npz`` in the
     ``export_policy_npz`` format (``actor_w{i}`` (in, out), ``actor_b{i}``,
-    ``std``). Returns ``net``."""
+    ``std``, and for a recurrent actor ``lstm{i}_w_ih`` ... in JAX's
+    layout). Returns ``net``."""
     blob = np.load(path, allow_pickle=False)
     n_layers = sum(1 for k in blob.files if k.startswith("actor_w"))
     pairs = [(blob[f"actor_w{i}"], blob[f"actor_b{i}"]) for i in range(n_layers)]
+    lstm = sorted(k for k in blob.files if k.startswith("lstm"))
+    memory_a = getattr(net, "memories", lambda: ((), ()))()[0]
+    if len(lstm) != 4 * len(memory_a):
+        raise ValueError(f"{path}: LSTM keys {lstm} do not fit the net's {len(memory_a)} actor layers")
+    for i, layer in enumerate(memory_a):
+        for view, k in zip(layer, LSTM_KEYS):
+            src = torch.as_tensor(np.asarray(blob[f"lstm{i}_{k}"], np.float32))
+            if src.shape != view.shape:
+                raise ValueError(f"{path}: lstm{i}_{k} is {tuple(src.shape)}, the net's {tuple(view.shape)}")
+            view.copy_(src)
     _fill_stack(_linears(net.actor), pairs)
     net.std_param.copy_(torch.as_tensor(np.asarray(blob["std"], np.float32)))
     return net
 
 
 def _jax_leaf_vector(tree):
-    """JAX ``ActorCriticParams`` as numpy -> its ``ravel_pytree`` vector."""
+    """JAX ``ActorCriticParams`` (or ``RecurrentParams``) as numpy -> its
+    ``ravel_pytree`` vector."""
     leaves = []
+    for stack in ("memory_a", "memory_c"):
+        for layer in (_get(tree, stack) if _has(tree, stack) else ()):
+            leaves += [np.asarray(_get(layer, k), np.float32).reshape(-1) for k in LSTM_KEYS]
     for stack in ("actor", "critic"):
         for w, b in _get(tree, stack):
             leaves += [np.asarray(w, np.float32).reshape(-1), np.asarray(b, np.float32).reshape(-1)]
@@ -84,9 +113,9 @@ def _reorder(net, vec, to_port: bool):
     if vec.shape != (net.num_params,):
         raise ValueError(f"expected {net.num_params} values, got {vec.shape[0]}")
     out = np.empty_like(vec)
-    for _, off, shape in net.layout:
+    for name, off, shape in net.layout:
         x = vec[off: off + int(np.prod(shape))]
-        if len(shape) == 2:   # port (out, in) <-> JAX (in, out)
+        if len(shape) == 2 and not name.startswith("memory"):   # heads: port (out, in) <-> JAX (in, out)
             x = (x.reshape(shape[1], shape[0]) if to_port else x.reshape(shape)).T.reshape(-1)
         out[off: off + x.size] = x
     return out
@@ -103,6 +132,34 @@ def flat_to_jax_order(net, flat):
     if isinstance(flat, torch.Tensor):
         flat = flat.detach().cpu().numpy()
     return _reorder(net, flat, to_port=False)
+
+
+@torch.no_grad()
+def recurrent_from_numpy(net, tree):
+    """Fill ``net`` (the port's ``ActorCriticRecurrent``) from JAX
+    ``RecurrentParams`` as numpy (attribute or dict access). Returns ``net``."""
+    net.params_flat.copy_(torch.as_tensor(flat_from_jax_order(net, _jax_leaf_vector(tree))))
+    return net
+
+
+def recurrent_to_numpy(net, flat=None):
+    """``RecurrentParams`` as a numpy dict from the port's flat buffer (or
+    ``flat``): ``memory_a``/``memory_c`` lists of {w_ih, w_hh, b_ih, b_hh},
+    ``actor``/``critic`` lists of (W (in, out), b), ``std``."""
+    vec = flat_to_jax_order(net, net.params_flat if flat is None else flat)
+    leaf = {name: vec[off: off + int(np.prod(shape))].reshape(shape) for name, off, shape in net.layout}
+    out = {}
+    for stack in ("memory_a", "memory_c"):
+        out[stack] = [{k: leaf[f"{stack}.{i}.{k}"] for k in LSTM_KEYS} for i in range(net.rnn_layers)]
+    for stack in ("actor", "critic"):
+        pairs = []
+        for name, _, shape in net.layout:
+            if name.startswith(stack + ".") and name.endswith(".weight"):
+                w = leaf[name].reshape(shape[1], shape[0])   # JAX order: (in, out)
+                pairs.append((w, leaf[name[: -len("weight")] + "bias"]))
+        out[stack] = pairs
+    out["std"] = leaf["std"]
+    return out
 
 
 def ppo_state_from_numpy(net, params, mu, nu, count, lr, device="cpu"):

@@ -7,8 +7,16 @@
 // contact with anchored stick friction, sphere-sphere self-collision, CRBA
 // mass matrix + RNEA bias, an unrolled (6+D)^2 Cholesky solve, semi-implicit
 // Euler), the feet accumulators, the final-state FK of the post bodies, and
-// in the post-fold program the post-physics stage (the GR1T1 family's reward
-// terms, termination, tilt, bad, contact filter, air/land trackers).
+// in the post-fold program the post-physics stage (every lane-form reward
+// term of envs/post_lanes.py, one __device__ function a term selected by the
+// program's reward ids; the penalized-contact count; termination, tilt, bad,
+// contact filter, air/land trackers).
+//
+// Control laws (K1_CTRL; sim/scalarized.py:CONTROL_TYPES): 0, P (joint
+// position targets); 1, V (velocity targets, damped by the change of joint
+// velocity since the previous policy step over the sim dt: it reads the
+// last_qd input); 2, T (torques). The launch setup gives V the implicit
+// damping p + d / sim_dt and T none (has_damp 0).
 //
 // Terrain modes (K1_TERRAIN; sim/scalarized.py:ScalarSubstep terrain_mode):
 // 0, the flat plane at ground_h; 1, "local_plane": each contact point reads
@@ -25,11 +33,12 @@
 // outputs.
 //
 // One library is built per program (struct Sizes: bodies, dofs, contact
-// points, pairs, reward terms, input and output widths, terrain mode, fold)
-// and team shape, from -D flags (sim/cuda_step.py:nvcc_flags); the GR1T1
+// points, pairs, reward terms, input and output widths, terrain mode, fold,
+// control law, penalized contact groups and their points) and team shape, from -D flags (sim/cuda_step.py:nvcc_flags); the GR1T1
 // and GR1T2 lower limbs share one size set, the 32-DOF full bodies another,
-// a config with self-collision off (no pairs) a third, and each terrain
-// mode and the heading commands' non-fold plane program one each.
+// a config with self-collision off (no pairs) a third, each terrain mode
+// and the heading commands' non-fold plane program one each, and so do the
+// fold with all 50 terms and penalized groups and each control law.
 //
 // Two kernels compute it. decimation_team_kernel is the main path's:
 //
@@ -46,15 +55,17 @@
 //   level by level or one component a lane, the sums to the root one
 //   component a lane; the back substitution, the base's integration and the
 //   post stage's scalars run on lane 0.
-// - Shared memory. Each block copies the model constants (5.2 KB for the
+// - Shared memory. Each block copies the model constants (5.4 KB for the
 //   lower limb, 13 KB for the full body) into shared memory once, since
 //   lanes read them at different indices, and stages its envs' inputs and
 //   outputs there so that device memory is read and written one component
 //   row at a time. An env's working set (TeamEnv: the state, FK, contact and
 //   the composite dynamics, the phases' short-lived arrays in one union) is
-//   5.2 KB for the lower limb (8 envs and the constants: 47 KB, 4 blocks or
-//   16 warps an SM, the main path's 4096 envs in one wave) and 14 KB for the
-//   full body (4 envs and the constants: 68 KB, 3 blocks or 12 warps an SM).
+//   5.3 KB for the lower limb, padded to 16 (mod 32) words so that the two
+//   teams of a warp read a field 16 banks apart (8 envs and the constants:
+//   48 KB, 4 blocks or 16 warps an SM, the main path's 4096 envs in one
+//   wave), and 14 KB for the full body (4 envs and the constants: 69 KB, 3
+//   blocks or 12 warps an SM).
 //   The launch bounds ask for the blocks that shared memory allows
 //   (team_min_blocks), which sets the registers a thread may take.
 // - What bounds it: one env's chain of dependent steps, not FP32 throughput
@@ -101,8 +112,9 @@
 // flags, and build.library_path names the library by its flags).
 #if !defined(K1_NB) || !defined(K1_ND) || !defined(K1_NP) || !defined(K1_NF) || !defined(K1_NPAIR) || \
     !defined(K1_NR) || !defined(K1_NPOST) || !defined(K1_NIN) || !defined(K1_NOUT) ||                 \
-    !defined(K1_TERRAIN) || !defined(K1_FOLD) || !defined(K1_TEAM_T) || !defined(K1_TEAM_E)
-#error "K1 is built for one program: define K1_NB ... K1_NOUT, K1_TERRAIN, K1_FOLD, K1_TEAM_T and K1_TEAM_E"
+    !defined(K1_TERRAIN) || !defined(K1_FOLD) || !defined(K1_CTRL) || !defined(K1_NPEN) ||            \
+    !defined(K1_NPENP) || !defined(K1_TEAM_T) || !defined(K1_TEAM_E)
+#error "K1 is built for one program: define K1_NB ... K1_NOUT, K1_TERRAIN, K1_FOLD, K1_CTRL, K1_NPEN, K1_NPENP, K1_TEAM_T and K1_TEAM_E"
 #endif
 
 // Every name of the device code has internal linkage (the unnamed namespace):
@@ -122,14 +134,20 @@ struct Sizes {
   static constexpr int NPOST = K1_NPOST;  // post-FK bodies
   static constexpr int NIN = K1_NIN;      // input components (sim/cuda_step.py:_schema)
   static constexpr int NOUT = K1_NOUT;    // output components
+  static constexpr int NPEN = K1_NPEN;    // penalized contact groups (post fold)
+  static constexpr int NPENP = K1_NPENP;  // their points in all
 };
 static_assert(Sizes::ND >= 1 && Sizes::ND <= 32, "anc_mask holds one bit a dof in 32 bits");
 
-// the program: terrain mode (0 plane, 1 local_plane, 2 local_plane_walls)
-// and whether the post stage is folded in
+// the program: terrain mode (0 plane, 1 local_plane, 2 local_plane_walls),
+// whether the post stage is folded in, and the control law (0 P, 1 V, 2 T)
 constexpr int TERRAIN = K1_TERRAIN;
 constexpr bool FOLD = K1_FOLD != 0;
+constexpr int CTRL = K1_CTRL;
 static_assert(TERRAIN >= 0 && TERRAIN <= 2, "K1_TERRAIN is 0, 1 or 2");
+static_assert(CTRL >= 0 && CTRL <= 2, "K1_CTRL is 0 (P), 1 (V) or 2 (T)");
+// the last_qd input: V's damping term and the post stage's joint accelerations
+constexpr bool WITH_LAST_QD = CTRL == 1 || FOLD;
 constexpr int PLANE_LANES = TERRAIN == 0 ? 0 : TERRAIN == 1 ? 3 : 9;  // ground lanes a point
 
 // an array's capacity for a count that may be 0 (no zero-length arrays;
@@ -159,14 +177,22 @@ enum OutGroup {
   OUT_FEET_CONTACT, OUT_CONTACT_FILT, OUT_FIRST_CONTACT, OUT_FEET_AIR_TIME,
   OUT_FEET_LAND_TIME, OUT_FEET_HEIGHT, OUT_BHO, OUT_POINT_POS
 };
-// reward term ids (sim/cuda_step.py:REWARD_IDS)
+// reward term ids (sim/cuda_step.py:REWARD_IDS, the terms' names in
+// alphabetical order)
 enum Reward {
-  RW_ACTION_DIFF, RW_ACTION_DIFF_DIFF, RW_CMD_ANG_VEL_YAW, RW_CMD_BASE_HEIGHT,
-  RW_CMD_BASE_ORIENT, RW_CMD_LIN_VEL_X, RW_CMD_LIN_VEL_Y, RW_CMD_LIN_VEL_Z,
-  RW_CMD_TORSO_ORIENT, RW_DOF_ACC_NEW, RW_DOF_TOR_ANKLE_LIFT, RW_DOF_TOR_NEW,
-  RW_FEET_AIR_FORCE, RW_FEET_AIR_HEIGHT, RW_FEET_AIR_TIME, RW_FEET_LAND_TIME,
-  RW_FEET_SPEED_XY, RW_FEET_STUMBLE, RW_LIMITS_DOF_POS, RW_LIMITS_DOF_TOR,
-  RW_LIMITS_DOF_VEL, RW_ON_THE_AIR, RW_POSE_OFFSET, RW_STAND_STILL
+  RW_ACTION_DIFF, RW_ACTION_DIFF_DIFF, RW_ACTION_DIFF_KNEE, RW_ACTION_RATE,
+  RW_ANG_VEL_XY, RW_BASE_HEIGHT, RW_CMD_ANG_VEL_PITCH, RW_CMD_ANG_VEL_ROLL,
+  RW_CMD_ANG_VEL_YAW, RW_CMD_BASE_HEIGHT, RW_CMD_BASE_ORIENT, RW_CMD_FOREHEAD_ORIENT,
+  RW_CMD_LIN_VEL_X, RW_CMD_LIN_VEL_Y, RW_CMD_LIN_VEL_Z, RW_CMD_TORSO_ORIENT,
+  RW_COLLISION, RW_DOF_ACC, RW_DOF_ACC_NEW, RW_DOF_POS_LIMITS,
+  RW_DOF_TOR_ANKLE_LIFT, RW_DOF_TOR_NEW, RW_DOF_TOR_NEW_HIP_ROLL, RW_DOF_VEL,
+  RW_DOF_VEL_LIMITS, RW_DOF_VEL_NEW, RW_DOF_VEL_NEW_KNEE, RW_FEET_AIR_FORCE,
+  RW_FEET_AIR_HEIGHT, RW_FEET_AIR_TIME, RW_FEET_CONTACT_FORCES, RW_FEET_LAND_TIME,
+  RW_FEET_SPEED_XY, RW_FEET_SPEED_Z, RW_FEET_STUMBLE, RW_LIMITS_ACTIONS,
+  RW_LIMITS_DOF_POS, RW_LIMITS_DOF_TOR, RW_LIMITS_DOF_VEL, RW_LIN_VEL_Z,
+  RW_ON_THE_AIR, RW_ORIENTATION, RW_POSE_OFFSET, RW_POSE_OFFSET_HIP_YAW,
+  RW_STAND_STILL, RW_STUMBLE, RW_TORQUE_LIMITS, RW_TORQUES,
+  RW_TRACKING_ANG_VEL, RW_TRACKING_LIN_VEL
 };
 
 // Field order and sizes mirror sim/cuda_step.py:_ModelConst.
@@ -185,6 +211,8 @@ struct ModelConst {
   int torso_slot, forehead_slot;
   int n_ankle_left, ankle_left[S::ND];
   int n_ankle_right, ankle_right[S::ND];
+  int n_knee, knee[S::ND], n_hip_roll, hip_roll[S::ND], n_hip_yaw, hip_yaw[S::ND];
+  int pen_start[cap(S::NPEN)], pen_count[cap(S::NPEN)], pen_pts[cap(S::NPENP)];
   int reward_id[cap(S::NR)];
   int decimation, use_tangent, use_joint_limits, has_damp;
   int in_off[N_IN_GROUPS], out_off[N_OUT_GROUPS];
@@ -210,7 +238,7 @@ struct ModelConst {
   float soft_lo[S::ND], soft_hi[S::ND], vel_soft[S::ND], tor_soft[S::ND];
   float scale[cap(S::NR)], sigma[cap(S::NR)];
   float swing_target, swing_half, swing_quarter, fat_target, fat_half, flt_max,
-      stumble_ratio;
+      stumble_ratio, swing_3q, tracking_sigma, max_contact_force;
 };
 
 using Sz = Sizes;
@@ -723,6 +751,438 @@ __device__ void substep(State<S>& st, const float* tau_in, const float* damp_in,
 }
 
 // ---------------------------------------------------------------------------
+// the control law (ScalarDecimation.torques) and the post-physics stage
+// (LanePost.run): both kernels call these, so the one-thread kernel stays the
+// team kernel's bit-for-bit reference for every program
+// ---------------------------------------------------------------------------
+
+// one dof's torque before the motor strength and the clip
+template <class S>
+__device__ __forceinline__ float control_law(const ModelConst<S>& K, int d, float scaled, float q,
+                                             float qd, float last_qd) {
+  if constexpr (CTRL == 0) {
+    return K.p_gain[d] * (scaled + K.default_q[d] - q) - K.d_gain[d] * qd;
+  } else if constexpr (CTRL == 1) {
+    return K.p_gain[d] * (scaled - qd) - (K.d_gain[d] * (qd - last_qd)) / K.dt;
+  } else {
+    return scaled;
+  }
+}
+
+// post-stage values of one env: the one-thread kernel keeps them in the
+// thread, the team kernel in shared memory (written by lane 0, read by the
+// reward lanes)
+template <class S>
+struct PostVals {
+  float blv[3], bav[3], pg[3], torso_pg[3], forehead_pg[3];
+  float feet_height[S::NF], feet_force[S::NF][3], fat[S::NF], flt[S::NF], first_contact[S::NF];
+  float cmd_active, bho, pen_count;
+  int feet_contact[S::NF], contact_filt[S::NF], term, tilt, fin;
+};
+
+// the net force of contact-point group g of a (start, count, points) list
+__device__ __forceinline__ void group_force(const int* start, const int* count, const int* pts, int g,
+                                            const float (*forces)[3], float* gf) {
+  for (int k = 0; k < 3; ++k) {
+    float acc = 0.0f;
+    for (int m = 0; m < count[g]; ++m) acc = acc + forces[pts[start[g] + m]][k];
+    gf[k] = acc;
+  }
+}
+
+__device__ __forceinline__ float norm3(const float* v) { return sqrtf(nmax(dot3(v, v), 0.0f)); }
+
+// the gravity direction in a frame (the body of post slot `slot`, turned by
+// qoff), or the base's where the model has no such frame
+template <class S, class QA>
+__device__ __forceinline__ void frame_pg(const ModelConst<S>& K, const QA& quats, int slot, const float* qoff,
+                                         const float* pg, float* out) {
+  if (slot >= 0) {
+    const float down[3] = {0.0f, 0.0f, -1.0f};
+    float fq[4];
+    qmul(quats[K.post_body[slot]], qoff, fq);
+    qrotinv(fq, down, out);
+  } else {
+    for (int k = 0; k < 3; ++k) out[k] = pg[k];
+  }
+}
+
+// LanePost.run up to the reward terms, from the final state, its FK (quats,
+// pos_rel of every body), the last substep's point forces and the stage's
+// inputs
+template <class S, class QA, class RA>
+__device__ void post_values(const ModelConst<S>& K, PostVals<S>& P, const float* pos, const float* quat,
+                            const float* lin, const float* ang, const float* q, const float* qd,
+                            const QA& quats, const RA& pos_rel, const float (*forces)[3],
+                            const float* fc_last, const float* fat_in, const float* flt_in,
+                            const float* cmd) {
+  constexpr int ND = S::ND, NF = S::NF;
+  const float down[3] = {0.0f, 0.0f, -1.0f};
+  qrotinv(quat, lin, P.blv);
+  qrotinv(quat, ang, P.bav);
+  qrotinv(quat, down, P.pg);
+  frame_pg<S>(K, quats, K.torso_slot, K.torso_qoff, P.pg, P.torso_pg);
+  frame_pg<S>(K, quats, K.forehead_slot, K.forehead_qoff, P.pg, P.forehead_pg);
+  for (int f = 0; f < NF; ++f) {
+    const int b = K.post_body[K.feet_slot[f]];
+    float v[3];
+    qapply(quats[b], K.feet_offset[f], v);
+    P.feet_height[f] = pos[2] + (pos_rel[b][2] + 0.0f) + v[2];
+  }
+  for (int g = 0; g < NF; ++g) group_force(K.feet_start, K.feet_count, K.feet_pts, g, forces, P.feet_force[g]);
+  for (int f = 0; f < NF; ++f) {
+    const bool fc = P.feet_force[f][2] > 1.0f;
+    const bool filt = fc | (fc_last[f] > 0.5f);
+    P.feet_contact[f] = fc;
+    P.contact_filt[f] = filt;
+    P.first_contact[f] = b2f((fat_in[f] > 0.0f) & filt);
+    P.fat[f] = fat_in[f] + K.dt_policy;
+    P.flt[f] = (flt_in[f] + K.dt_policy) * b2f(fc);
+  }
+  bool term = false;
+  for (int g = 0; g < K.n_term; ++g) {
+    float gf[3];
+    group_force(K.term_start, K.term_count, K.term_pts, g, forces, gf);
+    term = term | (norm3(gf) > 1.0f);
+  }
+  P.term = term;
+  P.tilt = fabsf(P.pg[2]) < 0.33f;
+  bool fin = isfinite((pos[0] + pos[1] + pos[2]) + (quat[0] + quat[1] + quat[2] + quat[3]));
+  for (int i = 0; i < ND; ++i) fin = fin & isfinite(q[i]) & isfinite(qd[i]);
+  P.fin = fin;
+  // the penalized contact groups in touch (a force over 0.1 N)
+  float pen = 0.0f;
+  for (int g = 0; g < S::NPEN; ++g) {
+    float gf[3];
+    group_force(K.pen_start, K.pen_count, K.pen_pts, g, forces, gf);
+    pen = pen + b2f(norm3(gf) > 0.1f);
+  }
+  P.pen_count = pen;
+  P.bho = clipf(pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
+  P.cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
+}
+
+// what the reward terms read of one env
+template <class S>
+struct RewardIn {
+  const ModelConst<S>& K;
+  const PostVals<S>& P;
+  const float *actions, *last_actions, *lla, *q, *qd, *last_qd, *cmd, *taus, *force_sum, *pos;
+  const float (*vxyz)[3];
+};
+
+// sums over dofs: all of them (idx null) or a list's
+__device__ __forceinline__ float sum_abs(const float* x, const int* idx, int n) {
+  float err = 0.0f;
+  for (int m = 0; m < n; ++m) err = err + fabsf(x[idx ? idx[m] : m]);
+  return err;
+}
+__device__ __forceinline__ float sum_sq(const float* x, int n) {
+  float err = 0.0f;
+  for (int i = 0; i < n; ++i) err = err + x[i] * x[i];
+  return err;
+}
+
+// The reward terms, one function a term (LanePost._rw_<name>; sig is the
+// term's sigma). The ETH terms (no sigma) come last.
+#define K1_TERM(name) template <class S> __device__ float name(const RewardIn<S>& R, float sig)
+
+K1_TERM(rw_collision) { return 1.0f - expf(sig * R.P.pen_count); }
+K1_TERM(rw_stand_still) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + fabsf(R.q[i] - R.K.default_q[i]);
+  return expf(sig * err) * (1.0f - R.P.cmd_active);
+}
+K1_TERM(rw_cmd_lin_vel_x) { return expf(sig * fabsf(R.cmd[0] - R.P.blv[0])); }
+K1_TERM(rw_cmd_lin_vel_y) { return expf(sig * fabsf(R.cmd[1] - R.P.blv[1])); }
+K1_TERM(rw_cmd_lin_vel_z) { return expf(sig * fabsf(R.P.blv[2])); }
+K1_TERM(rw_cmd_ang_vel_roll) { return expf(sig * fabsf(R.P.bav[0])); }
+K1_TERM(rw_cmd_ang_vel_pitch) { return expf(sig * fabsf(R.P.bav[1])); }
+K1_TERM(rw_cmd_ang_vel_yaw) { return expf(sig * fabsf(R.cmd[2] - R.P.bav[2])); }
+K1_TERM(rw_cmd_base_height) { return expf(sig * (fabsf(R.P.bho) * b2f(R.P.bho < 0.0f))); }
+K1_TERM(rw_cmd_base_orient) { return expf(sig * (fabsf(R.P.pg[0]) + fabsf(R.P.pg[1]))); }
+K1_TERM(rw_cmd_torso_orient) { return expf(sig * (fabsf(R.P.torso_pg[0]) + fabsf(R.P.torso_pg[1]))); }
+K1_TERM(rw_cmd_forehead_orient) { return expf(sig * (fabsf(R.P.forehead_pg[0]) + fabsf(R.P.forehead_pg[1]))); }
+K1_TERM(rw_action_diff) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + fabsf((R.last_actions[i] - R.actions[i]) * R.K.action_scale);
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_action_diff_diff) {
+  const float as = R.K.action_scale;
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i)
+    err = err + fabsf((R.last_actions[i] - R.actions[i]) * as - (R.lla[i] - R.last_actions[i]) * as);
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_action_diff_knee) {
+  float err = 0.0f;
+  for (int m = 0; m < R.K.n_knee; ++m) {
+    const int i = R.K.knee[m];
+    err = err + fabsf((R.actions[i] - R.last_actions[i]) * R.K.action_scale);
+  }
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_dof_vel_new) { return 1.0f - expf(sig * sum_abs(R.qd, nullptr, S::ND)); }
+K1_TERM(rw_dof_vel_new_knee) { return 1.0f - expf(sig * sum_abs(R.qd, R.K.knee, R.K.n_knee)); }
+K1_TERM(rw_dof_acc_new) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + fabsf((R.qd[i] - R.last_qd[i]) / R.K.dt_policy);
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_dof_tor_new) { return 1.0f - expf(sig * sum_abs(R.taus, nullptr, S::ND)); }
+K1_TERM(rw_dof_tor_new_hip_roll) { return 1.0f - expf(sig * sum_abs(R.taus, R.K.hip_roll, R.K.n_hip_roll)); }
+K1_TERM(rw_pose_offset) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + fabsf(R.q[i] - R.K.default_q[i]);
+  return expf(sig * err);
+}
+K1_TERM(rw_pose_offset_hip_yaw) {
+  float err = 0.0f;
+  for (int m = 0; m < R.K.n_hip_yaw; ++m) {
+    const int i = R.K.hip_yaw[m];
+    err = err + fabsf(R.q[i] - R.K.default_q[i]);
+  }
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_limits_dof_pos) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) {
+    const float lo = -nmin(R.q[i] - R.K.soft_lo[i], 0.0f);
+    const float hi = nmax(R.q[i] - R.K.soft_hi[i], 0.0f);
+    err = err + fabsf(lo + hi);
+  }
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_limits_dof_vel) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + clipf(fabsf(R.qd[i]) - R.K.vel_soft[i], 0.0f, 1.0f);
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_limits_dof_tor) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + nmax(fabsf(R.taus[i]) - R.K.tor_soft[i], 0.0f);
+  return 1.0f - expf(sig * err);
+}
+K1_TERM(rw_dof_tor_ankle_lift) {
+  const float sl = sum_abs(R.taus, R.K.ankle_left, R.K.n_ankle_left);
+  const float sr = sum_abs(R.taus, R.K.ankle_right, R.K.n_ankle_right);
+  const float lh = R.P.feet_height[0], rh = R.P.feet_height[1];
+  const float err_l = sl * fabsf(lh) * b2f(lh > R.K.swing_half);
+  const float err_r = sr * fabsf(rh) * b2f(rh > R.K.swing_half);
+  return 1.0f - expf(sig * (err_l + err_r));
+}
+K1_TERM(rw_feet_speed_xy) {
+  const ModelConst<S>& K = R.K;
+  float err = 0.0f;
+  for (int f = 0; f < S::NF; ++f) {
+    const float h = R.P.feet_height[f];
+    const float closeness = fabsf(h - K.swing_quarter) * b2f(h < K.swing_quarter) / K.swing_quarter;
+    const float v0 = R.vxyz[f][0] / K.decimation_f, v1 = R.vxyz[f][1] / K.decimation_f;
+    err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
+  }
+  return expf(sig * err);
+}
+K1_TERM(rw_feet_speed_z) {
+  const ModelConst<S>& K = R.K;
+  float err = 0.0f;
+  for (int f = 0; f < S::NF; ++f) {
+    const float h = R.P.feet_height[f];
+    const float closeness = fabsf(h - K.swing_3q) * b2f(h > K.swing_3q) / K.swing_quarter;
+    err = err + fabsf(R.vxyz[f][2] / K.decimation_f) * closeness;
+  }
+  return expf(sig * err);
+}
+K1_TERM(rw_feet_air_time) {
+  float rew = 0.0f;
+  for (int f = 0; f < S::NF; ++f)
+    rew = rew + expf(sig * fabsf(R.P.fat[f] - R.K.fat_target)) * R.P.first_contact[f];
+  return rew * R.P.cmd_active;
+}
+K1_TERM(rw_feet_air_height) {
+  const float* fh = R.P.feet_height;
+  float min_h = fh[0];
+  for (int f = 1; f < S::NF; ++f) min_h = nmin(min_h, fh[f]);
+  float err = 0.0f;
+  for (int f = 0; f < S::NF; ++f) {
+    const float err_h = fabsf(fh[f] - min_h - R.K.swing_target);
+    const float mid = fabsf(R.P.fat[f] - R.K.fat_half);
+    err = err + mid * err_h;
+  }
+  return expf(sig * err) * R.P.cmd_active;
+}
+K1_TERM(rw_feet_air_force) {
+  float err = 0.0f;
+  for (int f = 0; f < S::NF; ++f)
+    err = err + fabsf(R.P.fat[f] - R.K.fat_half) * (R.force_sum[f] / R.K.decimation_f);
+  return expf(sig * err) * R.P.cmd_active;
+}
+K1_TERM(rw_feet_land_time) {
+  float rew = 0.0f;
+  for (int f = 0; f < S::NF; ++f) {
+    const float flt = R.P.flt[f];
+    rew = rew + (1.0f - expf(sig * (flt - R.K.flt_max) * b2f(flt > R.K.flt_max)));
+  }
+  return rew * R.P.cmd_active;
+}
+K1_TERM(rw_on_the_air) {
+  float n_contact = 0.0f;
+  for (int f = 0; f < S::NF; ++f) n_contact = n_contact + b2f(R.P.feet_contact[f]);
+  return b2f(n_contact == 0.0f);
+}
+K1_TERM(rw_feet_stumble) {
+  float rew = 0.0f;
+  for (int f = 0; f < S::NF; ++f) {
+    const float* fo = R.P.feet_force[f];
+    const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - R.K.stumble_ratio * fabsf(fo[2]), 0.0f);
+    rew = rew + (1.0f - expf(sig * err));
+  }
+  return rew;
+}
+K1_TERM(rw_limits_actions) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) {
+    const float scaled = R.actions[i] * R.K.action_scale;
+    const float under = nmin(scaled - R.K.soft_lo[i], 0.0f);
+    const float over = nmax(scaled - R.K.soft_hi[i], 0.0f);
+    const float d = over - under;
+    err = err + d * d;
+  }
+  return 1.0f - expf(sig * err);
+}
+// ETH base terms
+K1_TERM(rw_lin_vel_z) { return R.P.blv[2] * R.P.blv[2]; }
+K1_TERM(rw_ang_vel_xy) { return R.P.bav[0] * R.P.bav[0] + R.P.bav[1] * R.P.bav[1]; }
+K1_TERM(rw_orientation) { return R.P.pg[0] * R.P.pg[0] + R.P.pg[1] * R.P.pg[1]; }
+K1_TERM(rw_torques) { return sum_sq(R.taus, S::ND); }
+K1_TERM(rw_dof_vel) { return sum_sq(R.qd, S::ND); }
+K1_TERM(rw_dof_acc) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) {
+    const float a = (R.qd[i] - R.last_qd[i]) / R.K.dt_policy;
+    err = err + a * a;
+  }
+  return err;
+}
+K1_TERM(rw_action_rate) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) {
+    const float d = R.last_actions[i] - R.actions[i];
+    err = err + d * d;
+  }
+  return err;
+}
+K1_TERM(rw_tracking_lin_vel) {
+  const float dx = R.cmd[0] - R.P.blv[0], dy = R.cmd[1] - R.P.blv[1];
+  const float err = dx * dx + dy * dy;
+  return expf(-err / R.K.tracking_sigma);
+}
+K1_TERM(rw_tracking_ang_vel) {
+  const float d = R.cmd[2] - R.P.bav[2];
+  const float err = d * d;
+  return expf(-err / R.K.tracking_sigma);
+}
+K1_TERM(rw_feet_contact_forces) {
+  float err = 0.0f;
+  for (int f = 0; f < S::NF; ++f) err = err + nmax(norm3(R.P.feet_force[f]) - R.K.max_contact_force, 0.0f);
+  return err;
+}
+K1_TERM(rw_base_height) {
+  const float d = R.pos[2] - R.K.target_h;
+  return d * d;
+}
+K1_TERM(rw_dof_pos_limits) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) {
+    const float under = nmin(R.q[i] - R.K.soft_lo[i], 0.0f);
+    const float over = nmax(R.q[i] - R.K.soft_hi[i], 0.0f);
+    err = err + (over - under);
+  }
+  return err;
+}
+K1_TERM(rw_dof_vel_limits) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + clipf(fabsf(R.qd[i]) - R.K.vel_soft[i], 0.0f, 1.0f);
+  return err;
+}
+K1_TERM(rw_torque_limits) {
+  float err = 0.0f;
+  for (int i = 0; i < S::ND; ++i) err = err + nmax(fabsf(R.taus[i]) - R.K.tor_soft[i], 0.0f);
+  return err;
+}
+K1_TERM(rw_stumble) {
+  bool any = false;
+  for (int f = 0; f < S::NF; ++f) {
+    const float* fo = R.P.feet_force[f];
+    any = any | (sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) > 5.0f * fabsf(fo[2]));
+  }
+  return b2f(any);
+}
+#undef K1_TERM
+
+// reward term r of the program, scaled; 0 in a NaN env (a select, not a
+// product: NaN * 0 is NaN)
+template <class S>
+__device__ float reward_term(int r, const RewardIn<S>& R) {
+  const float sig = R.K.sigma[r];
+  float val;
+  switch (R.K.reward_id[r]) {
+    case RW_ACTION_DIFF: val = rw_action_diff<S>(R, sig); break;
+    case RW_ACTION_DIFF_DIFF: val = rw_action_diff_diff<S>(R, sig); break;
+    case RW_ACTION_DIFF_KNEE: val = rw_action_diff_knee<S>(R, sig); break;
+    case RW_ACTION_RATE: val = rw_action_rate<S>(R, sig); break;
+    case RW_ANG_VEL_XY: val = rw_ang_vel_xy<S>(R, sig); break;
+    case RW_BASE_HEIGHT: val = rw_base_height<S>(R, sig); break;
+    case RW_CMD_ANG_VEL_PITCH: val = rw_cmd_ang_vel_pitch<S>(R, sig); break;
+    case RW_CMD_ANG_VEL_ROLL: val = rw_cmd_ang_vel_roll<S>(R, sig); break;
+    case RW_CMD_ANG_VEL_YAW: val = rw_cmd_ang_vel_yaw<S>(R, sig); break;
+    case RW_CMD_BASE_HEIGHT: val = rw_cmd_base_height<S>(R, sig); break;
+    case RW_CMD_BASE_ORIENT: val = rw_cmd_base_orient<S>(R, sig); break;
+    case RW_CMD_FOREHEAD_ORIENT: val = rw_cmd_forehead_orient<S>(R, sig); break;
+    case RW_CMD_LIN_VEL_X: val = rw_cmd_lin_vel_x<S>(R, sig); break;
+    case RW_CMD_LIN_VEL_Y: val = rw_cmd_lin_vel_y<S>(R, sig); break;
+    case RW_CMD_LIN_VEL_Z: val = rw_cmd_lin_vel_z<S>(R, sig); break;
+    case RW_CMD_TORSO_ORIENT: val = rw_cmd_torso_orient<S>(R, sig); break;
+    case RW_COLLISION: val = rw_collision<S>(R, sig); break;
+    case RW_DOF_ACC: val = rw_dof_acc<S>(R, sig); break;
+    case RW_DOF_ACC_NEW: val = rw_dof_acc_new<S>(R, sig); break;
+    case RW_DOF_POS_LIMITS: val = rw_dof_pos_limits<S>(R, sig); break;
+    case RW_DOF_TOR_ANKLE_LIFT: val = rw_dof_tor_ankle_lift<S>(R, sig); break;
+    case RW_DOF_TOR_NEW: val = rw_dof_tor_new<S>(R, sig); break;
+    case RW_DOF_TOR_NEW_HIP_ROLL: val = rw_dof_tor_new_hip_roll<S>(R, sig); break;
+    case RW_DOF_VEL: val = rw_dof_vel<S>(R, sig); break;
+    case RW_DOF_VEL_LIMITS: val = rw_dof_vel_limits<S>(R, sig); break;
+    case RW_DOF_VEL_NEW: val = rw_dof_vel_new<S>(R, sig); break;
+    case RW_DOF_VEL_NEW_KNEE: val = rw_dof_vel_new_knee<S>(R, sig); break;
+    case RW_FEET_AIR_FORCE: val = rw_feet_air_force<S>(R, sig); break;
+    case RW_FEET_AIR_HEIGHT: val = rw_feet_air_height<S>(R, sig); break;
+    case RW_FEET_AIR_TIME: val = rw_feet_air_time<S>(R, sig); break;
+    case RW_FEET_CONTACT_FORCES: val = rw_feet_contact_forces<S>(R, sig); break;
+    case RW_FEET_LAND_TIME: val = rw_feet_land_time<S>(R, sig); break;
+    case RW_FEET_SPEED_XY: val = rw_feet_speed_xy<S>(R, sig); break;
+    case RW_FEET_SPEED_Z: val = rw_feet_speed_z<S>(R, sig); break;
+    case RW_FEET_STUMBLE: val = rw_feet_stumble<S>(R, sig); break;
+    case RW_LIMITS_ACTIONS: val = rw_limits_actions<S>(R, sig); break;
+    case RW_LIMITS_DOF_POS: val = rw_limits_dof_pos<S>(R, sig); break;
+    case RW_LIMITS_DOF_TOR: val = rw_limits_dof_tor<S>(R, sig); break;
+    case RW_LIMITS_DOF_VEL: val = rw_limits_dof_vel<S>(R, sig); break;
+    case RW_LIN_VEL_Z: val = rw_lin_vel_z<S>(R, sig); break;
+    case RW_ON_THE_AIR: val = rw_on_the_air<S>(R, sig); break;
+    case RW_ORIENTATION: val = rw_orientation<S>(R, sig); break;
+    case RW_POSE_OFFSET: val = rw_pose_offset<S>(R, sig); break;
+    case RW_POSE_OFFSET_HIP_YAW: val = rw_pose_offset_hip_yaw<S>(R, sig); break;
+    case RW_STAND_STILL: val = rw_stand_still<S>(R, sig); break;
+    case RW_STUMBLE: val = rw_stumble<S>(R, sig); break;
+    case RW_TORQUE_LIMITS: val = rw_torque_limits<S>(R, sig); break;
+    case RW_TORQUES: val = rw_torques<S>(R, sig); break;
+    case RW_TRACKING_ANG_VEL: val = rw_tracking_ang_vel<S>(R, sig); break;
+    case RW_TRACKING_LIN_VEL: val = rw_tracking_lin_vel<S>(R, sig); break;
+    default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
+  }
+  return R.P.fin ? R.K.scale[r] * val : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
 // the kernel: one thread per env
 // ---------------------------------------------------------------------------
 
@@ -758,6 +1218,8 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
   const float mass_scale = ld(IN_MASS_SCALE, 0);
   float com_offset[3];
   for (int k = 0; k < 3; ++k) com_offset[k] = ld(IN_COM_OFFSET, k);
+  float last_qd[ND];
+  for (int i = 0; i < ND; ++i) last_qd[i] = WITH_LAST_QD ? ld(IN_LAST_QD, i) : 0.0f;
 
   float force_sum[NF], vxyz[NF][3], vrpy[NF][3];
   for (int g = 0; g < NF; ++g) {
@@ -774,7 +1236,7 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
     for (int d = 0; d < ND; ++d) {
       const float use_act = gate ? last_actions[d] : actions[d];
       const float scaled = use_act * K.action_scale;
-      const float t = K.p_gain[d] * (scaled + K.default_q[d] - st.q[d]) - K.d_gain[d] * st.qd[d];
+      const float t = control_law<S>(K, d, scaled, st.q[d], st.qd[d], last_qd[d]);
       const float lim = K.torque_limit[d];
       taus[d] = clipf(t * motor[d], -lim, lim);
       damp[d] = K.has_damp ? K.damp_coeff[d] * motor[d] : 0.0f;
@@ -821,216 +1283,36 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
   }
 
   if constexpr (FOLD) {
-    float last_qd[ND];
-    for (int i = 0; i < ND; ++i) last_qd[i] = ld(IN_LAST_QD, i);
     // ---- post-physics stage (LanePost.run) ----
-    float blv[3], bav[3], pg[3], torso_pg[3];
-    const float down[3] = {0.0f, 0.0f, -1.0f};
-    qrotinv(st.quat, st.lin, blv);
-    qrotinv(st.quat, st.ang, bav);
-    qrotinv(st.quat, down, pg);
-    if (K.torso_slot >= 0) {
-      float fq[4];
-      qmul(post_quat[K.torso_slot], K.torso_qoff, fq);
-      qrotinv(fq, down, torso_pg);
-    } else {
-      for (int k = 0; k < 3; ++k) torso_pg[k] = pg[k];
-    }
-
-    float feet_height[NF];
+    float fc_last[NF], fat_in[NF], flt_in[NF], cmd[3], lla[ND];
     for (int f = 0; f < NF; ++f) {
-      const int s = K.feet_slot[f];
-      float v[3];
-      qapply(post_quat[s], K.feet_offset[f], v);
-      feet_height[f] = st.pos[2] + post_rel[s][2] + v[2];
+      fc_last[f] = ld(IN_FEET_CONTACT_LAST, f);
+      fat_in[f] = ld(IN_FEET_AIR_TIME, f);
+      flt_in[f] = ld(IN_FEET_LAND_TIME, f);
     }
-    float feet_force[NF][3];
-    for (int g = 0; g < NF; ++g) {
-      const int p0 = K.feet_start[g], cnt = K.feet_count[g];
-      for (int k = 0; k < 3; ++k) {
-        float acc = 0.0f;
-        for (int m = 0; m < cnt; ++m) acc = acc + forces[K.feet_pts[p0 + m]][k];
-        feet_force[g][k] = acc;
-      }
-    }
-
-    bool feet_contact[NF], contact_filt[NF];
-    float first_contact[NF], fat[NF], flt[NF];
-    for (int f = 0; f < NF; ++f) {
-      const float fc_last = ld(IN_FEET_CONTACT_LAST, f);
-      const float fat_in = ld(IN_FEET_AIR_TIME, f);
-      feet_contact[f] = feet_force[f][2] > 1.0f;
-      contact_filt[f] = feet_contact[f] | (fc_last > 0.5f);
-      first_contact[f] = b2f((fat_in > 0.0f) & contact_filt[f]);
-      fat[f] = fat_in + K.dt_policy;
-      flt[f] = (ld(IN_FEET_LAND_TIME, f) + K.dt_policy) * b2f(feet_contact[f]);
-    }
-
-    bool term = false;
-    for (int g = 0; g < K.n_term; ++g) {
-      float gf[3];
-      for (int k = 0; k < 3; ++k) {
-        float acc = 0.0f;
-        for (int m = 0; m < K.term_count[g]; ++m) acc = acc + forces[K.term_pts[K.term_start[g] + m]][k];
-        gf[k] = acc;
-      }
-      term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
-    }
-    const bool tilt = fabsf(pg[2]) < 0.33f;
-    bool fin = isfinite((st.pos[0] + st.pos[1] + st.pos[2]) +
-                        (st.quat[0] + st.quat[1] + st.quat[2] + st.quat[3]));
-    for (int i = 0; i < ND; ++i) fin = fin & isfinite(st.q[i]) & isfinite(st.qd[i]);
-    const bool bad = !fin;
-    const float bho = clipf(st.pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
-
-    float cmd[3], lla[ND];
     for (int k = 0; k < 3; ++k) cmd[k] = ld(IN_COMMANDS, k);
     for (int i = 0; i < ND; ++i) lla[i] = ld(IN_LAST_LAST_ACTIONS, i);
-    const float cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
-    const float as = K.action_scale;
-
-    for (int r = 0; r < S::NR; ++r) {
-      const float sig = K.sigma[r];
-      float val = 0.0f;
-      switch (K.reward_id[r]) {
-        case RW_ACTION_DIFF: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_ACTION_DIFF_DIFF: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i)
-            err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - bav[2])); break;
-        case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
-        case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(pg[0]) + fabsf(pg[1]))); break;
-        case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - blv[0])); break;
-        case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - blv[1])); break;
-        case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(blv[2])); break;
-        case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(torso_pg[0]) + fabsf(torso_pg[1]))); break;
-        case RW_DOF_ACC_NEW: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + fabsf((st.qd[i] - last_qd[i]) / K.dt_policy);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_DOF_TOR_ANKLE_LIFT: {
-          float sl = 0.0f, sr = 0.0f;
-          for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
-          for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
-          const float lh = feet_height[0], rh = feet_height[1];
-          const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
-          const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
-          val = 1.0f - expf(sig * (err_l + err_r));
-        } break;
-        case RW_DOF_TOR_NEW: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_FEET_AIR_FORCE: {
-          float err = 0.0f;
-          for (int f = 0; f < NF; ++f)
-            err = err + fabsf(fat[f] - K.fat_half) * (force_sum[f] / K.decimation_f);
-          val = expf(sig * err) * cmd_active;
-        } break;
-        case RW_FEET_AIR_HEIGHT: {
-          float min_h = feet_height[0];
-          for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
-          float err = 0.0f;
-          for (int f = 0; f < NF; ++f) {
-            const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
-            const float mid = fabsf(fat[f] - K.fat_half);
-            err = err + mid * err_h;
-          }
-          val = expf(sig * err) * cmd_active;
-        } break;
-        case RW_FEET_AIR_TIME: {
-          float rew = 0.0f;
-          for (int f = 0; f < NF; ++f)
-            rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * first_contact[f];
-          val = rew * cmd_active;
-        } break;
-        case RW_FEET_LAND_TIME: {
-          float rew = 0.0f;
-          for (int f = 0; f < NF; ++f)
-            rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
-          val = rew * cmd_active;
-        } break;
-        case RW_FEET_SPEED_XY: {
-          float err = 0.0f;
-          for (int f = 0; f < NF; ++f) {
-            const float hq = feet_height[f];
-            const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
-            const float v0 = vxyz[f][0] / K.decimation_f, v1 = vxyz[f][1] / K.decimation_f;
-            err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
-          }
-          val = expf(sig * err);
-        } break;
-        case RW_FEET_STUMBLE: {
-          float rew = 0.0f;
-          for (int f = 0; f < NF; ++f) {
-            const float* fo = feet_force[f];
-            const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
-            rew = rew + (1.0f - expf(sig * err));
-          }
-          val = rew;
-        } break;
-        case RW_LIMITS_DOF_POS: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) {
-            const float lo = -nmin(st.q[i] - K.soft_lo[i], 0.0f);
-            const float hi = nmax(st.q[i] - K.soft_hi[i], 0.0f);
-            err = err + fabsf(lo + hi);
-          }
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_LIMITS_DOF_TOR: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_LIMITS_DOF_VEL: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(st.qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
-          val = 1.0f - expf(sig * err);
-        } break;
-        case RW_ON_THE_AIR: {
-          float n_contact = 0.0f;
-          for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(feet_contact[f]);
-          val = b2f(n_contact == 0.0f);
-        } break;
-        case RW_POSE_OFFSET: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
-          val = expf(sig * err);
-        } break;
-        case RW_STAND_STILL: {
-          float err = 0.0f;
-          for (int i = 0; i < ND; ++i) err = err + fabsf(st.q[i] - K.default_q[i]);
-          val = expf(sig * err) * (1.0f - cmd_active);
-        } break;
-        default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
-      }
-      st_(OUT_REW_TERMS, r, fin ? K.scale[r] * val : 0.0f);
-    }
+    PostVals<S> P;
+    post_values<S>(K, P, st.pos, st.quat, st.lin, st.ang, st.q, st.qd, quats, pos_rel, forces, fc_last,
+                   fat_in, flt_in, cmd);
+    const RewardIn<S> R{K, P, actions, last_actions, lla, st.q, st.qd, last_qd, cmd, taus, force_sum,
+                        st.pos, vxyz};
+    for (int r = 0; r < S::NR; ++r) st_(OUT_REW_TERMS, r, reward_term<S>(r, R));
 
     // the post stage's outputs
-    for (int k = 0; k < 3; ++k) { st_(OUT_BLV, k, blv[k]); st_(OUT_BAV, k, bav[k]); st_(OUT_PG, k, pg[k]); }
+    for (int k = 0; k < 3; ++k) { st_(OUT_BLV, k, P.blv[k]); st_(OUT_BAV, k, P.bav[k]); st_(OUT_PG, k, P.pg[k]); }
     for (int f = 0; f < NF; ++f) {
-      st_(OUT_FEET_CONTACT, f, b2f(feet_contact[f]));
-      st_(OUT_CONTACT_FILT, f, b2f(contact_filt[f]));
-      st_(OUT_FIRST_CONTACT, f, first_contact[f]);
-      st_(OUT_FEET_AIR_TIME, f, fat[f]);
-      st_(OUT_FEET_LAND_TIME, f, flt[f]);
-      st_(OUT_FEET_HEIGHT, f, feet_height[f]);
+      st_(OUT_FEET_CONTACT, f, b2f(P.feet_contact[f]));
+      st_(OUT_CONTACT_FILT, f, b2f(P.contact_filt[f]));
+      st_(OUT_FIRST_CONTACT, f, P.first_contact[f]);
+      st_(OUT_FEET_AIR_TIME, f, P.fat[f]);
+      st_(OUT_FEET_LAND_TIME, f, P.flt[f]);
+      st_(OUT_FEET_HEIGHT, f, P.feet_height[f]);
     }
-    st_(OUT_TERM_CONTACT, 0, b2f(term));
-    st_(OUT_TILT, 0, b2f(tilt));
-    st_(OUT_BAD, 0, b2f(bad));
-    st_(OUT_BHO, 0, bho);
+    st_(OUT_TERM_CONTACT, 0, b2f(P.term));
+    st_(OUT_TILT, 0, b2f(P.tilt));
+    st_(OUT_BAD, 0, b2f(!P.fin));
+    st_(OUT_BHO, 0, P.bho);
   }
 
   // ---- outputs ----
@@ -1063,21 +1345,12 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
 // order as in decimation_kernel above; only who computes it changes.
 // ---------------------------------------------------------------------------
 
-// post-stage values of one env (written by lane 0, read by the reward lanes)
-template <class S>
-struct TeamPost {
-  float blv[3], bav[3], pg[3], torso_pg[3];
-  float feet_height[S::NF], feet_force[S::NF][3], fat[S::NF], flt[S::NF], first_contact[S::NF];
-  float cmd_active, bho;
-  int feet_contact[S::NF], contact_filt[S::NF], term, tilt, fin;
-};
-
 // One env's working set. Odd row strides (5, 3, 7, 9 floats) put the rows
 // that the lanes of a team read at once in different banks. `u` holds what
 // lives in one phase only: FK's joint quaternions, the contact phase's point
 // velocities and pair forces, the dynamics arrays, the staged outputs.
 template <class S>
-struct TeamEnv {
+struct TeamEnvBody {
   static constexpr int N6 = 6 + S::ND;
   static constexpr int INP = (S::NIN + 15) / 32 * 32 + 16;  // = 16 (mod 32) words
   float in[INP];  // the inputs; the state (pos ... anchor) is updated in place
@@ -1086,7 +1359,7 @@ struct TeamEnv {
   float pts_pos[S::NP][3], forces[S::NP][3];
   float force_sum[S::NF], vxyz[S::NF][3], vrpy[S::NF][3];
   float Ls[N6 * (N6 + 1) / 2], yacc[N6], y[N6], x[N6];
-  TeamPost<S> post;
+  PostVals<S> post;
   union {
     float qj[S::NB][5];
     struct { float pts_vel[S::NP][3], nf[cap(S::NPAIR)][3]; } c;
@@ -1097,6 +1370,25 @@ struct TeamEnv {
     float outb[S::NOUT];
   } u;
 };
+
+// Where two or more teams share a warp (T < 32), consecutive envs' working
+// sets start 16 words apart mod 32, so that the teams of a warp reading the
+// same field hit different banks: the body is padded to 16 (mod 32) words.
+// (Measured with scripts/time_k1.py on GR1T1, PERF.md section 6.)
+template <class S>
+constexpr int team_env_pad() {
+  constexpr int words = (int)(sizeof(TeamEnvBody<S>) / 4);
+  constexpr int pad = ((16 - words % 32) % 32 + 32) % 32;
+  return pad == 0 ? 32 : pad;
+}
+template <class S, bool PAD>
+struct TeamEnvPadded : TeamEnvBody<S> {
+  float pad_[team_env_pad<S>()];
+};
+template <class S>
+struct TeamEnvPadded<S, false> : TeamEnvBody<S> {};
+template <class S>
+using TeamEnv = TeamEnvPadded<S, (TEAM_T < 32)>;
 
 template <class S>
 __host__ __device__ constexpr int team_const_bytes() { return (int)((sizeof(ModelConst<S>) + 15) / 16 * 16); }
@@ -1149,147 +1441,6 @@ __device__ __forceinline__ void team_fk(const ModelConst<S>& K, TeamEnv<S>& V, c
   }
 }
 
-// one reward term (the switch of decimation_kernel, on the team's arrays)
-template <class S>
-__device__ float team_reward(int r, const ModelConst<S>& K, const TeamEnv<S>& V, const float* actions,
-                             const float* last_actions, const float* lla, const float* q,
-                             const float* qd, const float* last_qd, const float* cmd) {
-  constexpr int ND = S::ND, NF = S::NF;
-  const TeamPost<S>& P = V.post;
-  const float* taus = V.taus;
-  const float* feet_height = P.feet_height;
-  const float* fat = P.fat;
-  const float* flt = P.flt;
-  const float sig = K.sigma[r];
-  const float as = K.action_scale;
-  const float cmd_active = P.cmd_active;
-  const float bho = P.bho;
-  float val = 0.0f;
-  switch (K.reward_id[r]) {
-    case RW_ACTION_DIFF: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + fabsf((last_actions[i] - actions[i]) * as);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_ACTION_DIFF_DIFF: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i)
-        err = err + fabsf((last_actions[i] - actions[i]) * as - (lla[i] - last_actions[i]) * as);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_CMD_ANG_VEL_YAW: val = expf(sig * fabsf(cmd[2] - P.bav[2])); break;
-    case RW_CMD_BASE_HEIGHT: val = expf(sig * (fabsf(bho) * b2f(bho < 0.0f))); break;
-    case RW_CMD_BASE_ORIENT: val = expf(sig * (fabsf(P.pg[0]) + fabsf(P.pg[1]))); break;
-    case RW_CMD_LIN_VEL_X: val = expf(sig * fabsf(cmd[0] - P.blv[0])); break;
-    case RW_CMD_LIN_VEL_Y: val = expf(sig * fabsf(cmd[1] - P.blv[1])); break;
-    case RW_CMD_LIN_VEL_Z: val = expf(sig * fabsf(P.blv[2])); break;
-    case RW_CMD_TORSO_ORIENT: val = expf(sig * (fabsf(P.torso_pg[0]) + fabsf(P.torso_pg[1]))); break;
-    case RW_DOF_ACC_NEW: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + fabsf((qd[i] - last_qd[i]) / K.dt_policy);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_DOF_TOR_ANKLE_LIFT: {
-      float sl = 0.0f, sr = 0.0f;
-      for (int m = 0; m < K.n_ankle_left; ++m) sl = sl + fabsf(taus[K.ankle_left[m]]);
-      for (int m = 0; m < K.n_ankle_right; ++m) sr = sr + fabsf(taus[K.ankle_right[m]]);
-      const float lh = feet_height[0], rh = feet_height[1];
-      const float err_l = sl * fabsf(lh) * b2f(lh > K.swing_half);
-      const float err_r = sr * fabsf(rh) * b2f(rh > K.swing_half);
-      val = 1.0f - expf(sig * (err_l + err_r));
-    } break;
-    case RW_DOF_TOR_NEW: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + fabsf(taus[i]);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_FEET_AIR_FORCE: {
-      float err = 0.0f;
-      for (int f = 0; f < NF; ++f)
-        err = err + fabsf(fat[f] - K.fat_half) * (V.force_sum[f] / K.decimation_f);
-      val = expf(sig * err) * cmd_active;
-    } break;
-    case RW_FEET_AIR_HEIGHT: {
-      float min_h = feet_height[0];
-      for (int f = 1; f < NF; ++f) min_h = nmin(min_h, feet_height[f]);
-      float err = 0.0f;
-      for (int f = 0; f < NF; ++f) {
-        const float err_h = fabsf(feet_height[f] - min_h - K.swing_target);
-        const float mid = fabsf(fat[f] - K.fat_half);
-        err = err + mid * err_h;
-      }
-      val = expf(sig * err) * cmd_active;
-    } break;
-    case RW_FEET_AIR_TIME: {
-      float rew = 0.0f;
-      for (int f = 0; f < NF; ++f)
-        rew = rew + expf(sig * fabsf(fat[f] - K.fat_target)) * P.first_contact[f];
-      val = rew * cmd_active;
-    } break;
-    case RW_FEET_LAND_TIME: {
-      float rew = 0.0f;
-      for (int f = 0; f < NF; ++f)
-        rew = rew + (1.0f - expf(sig * (flt[f] - K.flt_max) * b2f(flt[f] > K.flt_max)));
-      val = rew * cmd_active;
-    } break;
-    case RW_FEET_SPEED_XY: {
-      float err = 0.0f;
-      for (int f = 0; f < NF; ++f) {
-        const float hq = feet_height[f];
-        const float closeness = fabsf(hq - K.swing_quarter) * b2f(hq < K.swing_quarter) / K.swing_quarter;
-        const float v0 = V.vxyz[f][0] / K.decimation_f, v1 = V.vxyz[f][1] / K.decimation_f;
-        err = err + sqrtf(v0 * v0 + v1 * v1) * closeness;
-      }
-      val = expf(sig * err);
-    } break;
-    case RW_FEET_STUMBLE: {
-      float rew = 0.0f;
-      for (int f = 0; f < NF; ++f) {
-        const float* fo = P.feet_force[f];
-        const float err = nmax(sqrtf(fo[0] * fo[0] + fo[1] * fo[1]) - K.stumble_ratio * fabsf(fo[2]), 0.0f);
-        rew = rew + (1.0f - expf(sig * err));
-      }
-      val = rew;
-    } break;
-    case RW_LIMITS_DOF_POS: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) {
-        const float lo = -nmin(q[i] - K.soft_lo[i], 0.0f);
-        const float hi = nmax(q[i] - K.soft_hi[i], 0.0f);
-        err = err + fabsf(lo + hi);
-      }
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_LIMITS_DOF_TOR: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + nmax(fabsf(taus[i]) - K.tor_soft[i], 0.0f);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_LIMITS_DOF_VEL: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + clipf(fabsf(qd[i]) - K.vel_soft[i], 0.0f, 1.0f);
-      val = 1.0f - expf(sig * err);
-    } break;
-    case RW_ON_THE_AIR: {
-      float n_contact = 0.0f;
-      for (int f = 0; f < NF; ++f) n_contact = n_contact + b2f(P.feet_contact[f]);
-      val = b2f(n_contact == 0.0f);
-    } break;
-    case RW_POSE_OFFSET: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + fabsf(q[i] - K.default_q[i]);
-      val = expf(sig * err);
-    } break;
-    case RW_STAND_STILL: {
-      float err = 0.0f;
-      for (int i = 0; i < ND; ++i) err = err + fabsf(q[i] - K.default_q[i]);
-      val = expf(sig * err) * (1.0f - cmd_active);
-    } break;
-    default: val = __int_as_float(0x7fc00000); break;  // unknown id: NaN
-  }
-  return P.fin ? K.scale[r] * val : 0.0f;
-}
-
 template <int T>
 __device__ __forceinline__ unsigned team_mask(int tid) {
   return T == 32 ? 0xffffffffu : ((1u << T) - 1u) << ((tid & 31) / T * T);
@@ -1340,6 +1491,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   const float restitution = V.in[K.in_off[IN_RESTITUTION]];
   const float mass_scale = V.in[K.in_off[IN_MASS_SCALE]];
   const float* const plane = V.in + K.in_off[IN_PLANE];  // the ground lanes (terrain modes)
+  const float* const last_qd = V.in + K.in_off[IN_LAST_QD];  // (WITH_LAST_QD)
   const float dt = K.dt;
 #define TLS(i, j) V.Ls[(i) * ((i) + 1) / 2 + (j)]
 
@@ -1354,7 +1506,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
     for (int d = l; d < ND; d += T) {
       const float use_act = gate ? last_actions[d] : actions[d];
       const float scaled = use_act * K.action_scale;
-      const float t = K.p_gain[d] * (scaled + K.default_q[d] - q[d]) - K.d_gain[d] * qd[d];
+      const float t = control_law<S>(K, d, scaled, q[d], qd[d], WITH_LAST_QD ? last_qd[d] : 0.0f);
       const float lim = K.torque_limit[d];
       const float tq = clipf(t * motor[d], -lim, lim);
       V.taus[d] = tq;
@@ -1772,65 +1924,12 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   // ---- post-physics stage (LanePost.run): the env's scalars on lane 0 ----
   const float* const cmd = V.in + K.in_off[IN_COMMANDS];
   const float* const lla = V.in + K.in_off[IN_LAST_LAST_ACTIONS];
-  const float* const last_qd = V.in + K.in_off[IN_LAST_QD];
-  TeamPost<S>& P = V.post;
+  PostVals<S>& P = V.post;
   if constexpr (FOLD) {
-    if (l == 0) {
-      const float down[3] = {0.0f, 0.0f, -1.0f};
-      qrotinv(quat, lin, P.blv);
-      qrotinv(quat, ang, P.bav);
-      qrotinv(quat, down, P.pg);
-      if (K.torso_slot >= 0) {
-        float fq[4];
-        qmul(V.quats[K.post_body[K.torso_slot]], K.torso_qoff, fq);
-        qrotinv(fq, down, P.torso_pg);
-      } else {
-        for (int k = 0; k < 3; ++k) P.torso_pg[k] = P.pg[k];
-      }
-      for (int f = 0; f < NF; ++f) {
-        const int b = K.post_body[K.feet_slot[f]];
-        float v[3];
-        qapply(V.quats[b], K.feet_offset[f], v);
-        P.feet_height[f] = pos[2] + (V.pos_rel[b][2] + 0.0f) + v[2];
-      }
-      for (int g = 0; g < NF; ++g) {
-        const int p0 = K.feet_start[g], cnt = K.feet_count[g];
-        for (int k = 0; k < 3; ++k) {
-          float acc = 0.0f;
-          for (int m = 0; m < cnt; ++m) acc = acc + V.forces[K.feet_pts[p0 + m]][k];
-          P.feet_force[g][k] = acc;
-        }
-      }
-      const float* fc_last = V.in + K.in_off[IN_FEET_CONTACT_LAST];
-      const float* fat_in = V.in + K.in_off[IN_FEET_AIR_TIME];
-      const float* flt_in = V.in + K.in_off[IN_FEET_LAND_TIME];
-      for (int f = 0; f < NF; ++f) {
-        const bool fc = P.feet_force[f][2] > 1.0f;
-        const bool filt = fc | (fc_last[f] > 0.5f);
-        P.feet_contact[f] = fc;
-        P.contact_filt[f] = filt;
-        P.first_contact[f] = b2f((fat_in[f] > 0.0f) & filt);
-        P.fat[f] = fat_in[f] + K.dt_policy;
-        P.flt[f] = (flt_in[f] + K.dt_policy) * b2f(fc);
-      }
-      bool term = false;
-      for (int g = 0; g < K.n_term; ++g) {
-        float gf[3];
-        for (int k = 0; k < 3; ++k) {
-          float acc = 0.0f;
-          for (int m = 0; m < K.term_count[g]; ++m) acc = acc + V.forces[K.term_pts[K.term_start[g] + m]][k];
-          gf[k] = acc;
-        }
-        term = term | (sqrtf(nmax(dot3(gf, gf), 0.0f)) > 1.0f);
-      }
-      P.term = term;
-      P.tilt = fabsf(P.pg[2]) < 0.33f;
-      bool fin = isfinite((pos[0] + pos[1] + pos[2]) + (quat[0] + quat[1] + quat[2] + quat[3]));
-      for (int i = 0; i < ND; ++i) fin = fin & isfinite(q[i]) & isfinite(qd[i]);
-      P.fin = fin;
-      P.bho = clipf(pos[2] - K.target_h, -1.0f, 1.0f) * K.hscale;
-      P.cmd_active = b2f(sqrtf(cmd[0] * cmd[0] + cmd[1] * cmd[1]) > 0.1f);
-    }
+    if (l == 0)
+      post_values<S>(K, P, pos, quat, lin, ang, q, qd, V.quats, V.pos_rel, V.forces,
+                     V.in + K.in_off[IN_FEET_CONTACT_LAST], V.in + K.in_off[IN_FEET_AIR_TIME],
+                     V.in + K.in_off[IN_FEET_LAND_TIME], cmd);
     __syncwarp(mask);
   }
 
@@ -1863,8 +1962,9 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
     }
   }
   if constexpr (FOLD) {
-    for (int r = l; r < S::NR; r += T)
-      put(OUT_REW_TERMS, r, team_reward<S>(r, K, V, actions, last_actions, lla, q, qd, last_qd, cmd));
+    const RewardIn<S> R{K, P, actions, last_actions, lla, q, qd, last_qd, cmd, V.taus, V.force_sum, pos,
+                        V.vxyz};
+    for (int r = l; r < S::NR; r += T) put(OUT_REW_TERMS, r, reward_term<S>(r, R));
     for (int k = l; k < 3; k += T) { put(OUT_BLV, k, P.blv[k]); put(OUT_BAV, k, P.bav[k]); put(OUT_PG, k, P.pg[k]); }
     for (int f = l; f < NF; f += T) {
       put(OUT_FEET_CONTACT, f, b2f(P.feet_contact[f]));

@@ -1,7 +1,7 @@
 """Legged-robot RL environment, PyTorch port.
 
-Port of ``wiki_grx_gym_tpu/envs/legged_env.py`` with P control, on the
-flat plane or on a heightfield/trimesh terrain grid (``terrain/composer``),
+Port of ``wiki_grx_gym_tpu/envs/legged_env.py`` with the P, V and T
+control laws, on the flat plane or on a heightfield/trimesh terrain grid (``terrain/composer``),
 with or without heading commands. One ``step(state, actions)`` does:
 
     clip actions (per-joint boxes)
@@ -22,7 +22,7 @@ commands, and here otherwise (``_post_fold``), as in the JAX env.
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
 a ``torch.Generator`` that ``step`` draws from in place. Outside these paths
 the env refuses with ``NotImplementedError`` naming the ROADMAP item: models
-of more than ``MAX_DOF`` (32) dofs and control types other than ``P``.
+of more than ``MAX_DOF`` (32) dofs.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
 from wiki_grx_gym_tpu_torch.sim.cuda_step import MAX_DOF
 from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
 from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
-from wiki_grx_gym_tpu_torch.sim.scalarized import _div
+from wiki_grx_gym_tpu_torch.sim.scalarized import CONTROL_TYPES, _div
 from wiki_grx_gym_tpu_torch.utils import maths
 
 @dataclasses.dataclass
@@ -104,11 +104,8 @@ class LeggedEnv:
         registry builds it for mesh_type heightfield/trimesh), or None for
         the flat plane."""
         self.device = resolve_device(device)
-        if cfg.control.control_type != "P":
-            raise NotImplementedError(
-                f"control_type {cfg.control.control_type!r}: the V and T control "
-                "modes are ROADMAP queue 1 item 11"
-            )
+        if cfg.control.control_type not in CONTROL_TYPES:
+            raise ValueError(f"unknown control_type {cfg.control.control_type!r}")
         if model.num_dof > MAX_DOF:
             raise NotImplementedError(
                 f"{model.num_dof}-DOF model: the decimation kernel K1 takes at most "
@@ -384,13 +381,37 @@ class LeggedEnv:
                     pj.append(b)
         return (tuple(pi), tuple(pj))
 
+    def _pd_torques(self, q, qd, actions, motor_strength, last_qd=None):
+        """The control law on (N, D) tensors: P, V or T. V's damping term
+        takes the change of joint velocity since the previous policy step
+        (``last_qd``) over the sim dt. K1 runs the same law in component
+        form (``ScalarDecimation.torques``)."""
+        c = self.cfg.control
+        scaled = actions * c.action_scale
+        p, d = (torch.as_tensor(np.asarray(g, np.float32)).to(q) for g in (self.p_gains, self.d_gains))
+        if c.control_type == "P":
+            tau = p * (scaled + self.default_dof_pos_t.to(q) - q) - d * qd
+        elif c.control_type == "V":
+            tau = p * (scaled - qd) - _div(d * (qd - last_qd), self.sim_dt)
+        else:
+            tau = scaled
+        lim = self.torque_limits_t.to(q)
+        return torch.clamp(tau * motor_strength, -lim, lim)
+
     @functools.cached_property
     def _implicit_damping_const(self):
         """(D,) actuator-damping coefficient solved implicitly by the physics
-        (``-d tau / d qd`` of the P law), or None."""
+        (``-d tau / d qd`` of the control law), or None: the D gains for P,
+        ``p + d / sim_dt`` for V, none for T (its torques do not depend on
+        qd)."""
         if not getattr(self.cfg.sim, "implicit_pd_damping", True):
             return None
-        return np.asarray(self.d_gains)
+        ct = self.cfg.control.control_type
+        if ct == "P":
+            return np.asarray(self.d_gains)
+        if ct == "V":
+            return np.asarray(self.p_gains) + np.asarray(self.d_gains) / self.sim_dt
+        return None
 
     @functools.cached_property
     def post_fk_bodies(self):

@@ -2,9 +2,10 @@
 after the decimation loop (plane terrain). The plain PyTorch version of the
 tail of K1.
 
-Port of ``wiki_grx_gym_tpu/envs/post_lanes.py`` with the reward terms the
-GR1T1 lower-limb task activates. The translation is literal (same statement
-order, same sums). Plane terrain only: measured heights are identically
+Port of ``wiki_grx_gym_tpu/envs/post_lanes.py``: all 50 lane-form reward
+terms (every term of ``envs/rewards.py`` but ``termination``) and the
+penalized-contact count. The translation is literal (same statement order,
+same sums; every division by a Python float through ``_div``). Plane terrain only: measured heights are identically
 zero there, so ``feet_height`` is the world foot z and ``base_height`` the
 world base z.
 """
@@ -89,13 +90,7 @@ class LanePost:
         self.reward_names = tuple(env.reward_names)  # excl. termination
         self.scales = dict(env.reward_scales)        # already x dt
         missing = [n for n in self.reward_names if not hasattr(self, "_rw_" + n)]
-        if missing:
-            raise NotImplementedError(
-                f"no lane-form implementation for rewards {missing}: K1's post "
-                "fold has the terms of the GR1T1 lower-limb task; the post stage "
-                "outside K1 (envs/rewards.py, run on terrain and with heading "
-                "commands) has all of them"
-            )
+        assert not missing, f"no lane-form implementation for rewards {missing}"
 
     # ------------------------------------------------------------------
     # decimation-program I/O schemas
@@ -195,6 +190,11 @@ class LanePost:
             fin = fin & torch.isfinite(state["q"][i]) & torch.isfinite(state["qd"][i])
         bad = ~fin
 
+        pen_count = sum(
+            (_norm3(gf) > 0.1).to(one.dtype)
+            for gf in group_force(self.penalized_groups)
+        ) if self.penalized_groups else torch.zeros_like(one)
+
         bho = _clip(state["pos"][2] - self.target_h, -1.0, 1.0) * self.hscale
 
         ctx = dict(
@@ -215,6 +215,7 @@ class LanePost:
             avg_force=[_div(acc["force_sum"][f], self.decimation) for f in range(self.nf)],
             avg_vxyz=[[_div(acc["vxyz_sum"][f][k], self.decimation) for k in range(3)]
                       for f in range(self.nf)],
+            pen_count=pen_count,
             bho=bho,
             base_height=state["pos"][2],
             cmd_active=(_norm2(extra["commands"][0], extra["commands"][1]) > 0.1
@@ -250,6 +251,9 @@ class LanePost:
         idx = range(len(xs)) if idx is None else idx
         return sum(torch.abs(xs[i]) for i in idx)
 
+    def _rw_collision(self, ctx):
+        return 1.0 - torch.exp(self.rw.sigma_collision * ctx["pen_count"])
+
     def _rw_stand_still(self, ctx):
         err = sum(
             torch.abs(ctx["q"][i] - float(self.default_dof_pos[i]))
@@ -269,6 +273,12 @@ class LanePost:
     def _rw_cmd_diff_lin_vel_z(self, ctx):
         return torch.exp(self.rw.sigma_cmd_diff_lin_vel_z * torch.abs(ctx["blv"][2]))
 
+    def _rw_cmd_diff_ang_vel_roll(self, ctx):
+        return torch.exp(self.rw.sigma_cmd_diff_ang_vel_roll * torch.abs(ctx["bav"][0]))
+
+    def _rw_cmd_diff_ang_vel_pitch(self, ctx):
+        return torch.exp(self.rw.sigma_cmd_diff_ang_vel_pitch * torch.abs(ctx["bav"][1]))
+
     def _rw_cmd_diff_ang_vel_yaw(self, ctx):
         err = torch.abs(ctx["commands"][2] - ctx["bav"][2])
         return torch.exp(self.rw.sigma_cmd_diff_ang_vel_yaw * err)
@@ -284,6 +294,10 @@ class LanePost:
     def _rw_cmd_diff_torso_orient(self, ctx):
         err = torch.abs(ctx["torso_pg"][0]) + torch.abs(ctx["torso_pg"][1])
         return torch.exp(self.rw.sigma_cmd_diff_torso_orient * err)
+
+    def _rw_cmd_diff_forehead_orient(self, ctx):
+        err = torch.abs(ctx["forehead_pg"][0]) + torch.abs(ctx["forehead_pg"][1])
+        return torch.exp(self.rw.sigma_cmd_diff_forehead_orient * err)
 
     def _rw_action_diff(self, ctx):
         err = sum(
@@ -303,11 +317,29 @@ class LanePost:
         )
         return 1.0 - torch.exp(self.rw.sigma_action_diff_diff * err)
 
+    def _rw_action_diff_knee(self, ctx):
+        err = sum(
+            torch.abs((ctx["actions"][i] - ctx["last_actions"][i]) * self.action_scale)
+            for i in self.knee_dofs
+        )
+        return 1.0 - torch.exp(self.rw.sigma_action_diff_knee * err)
+
+    def _rw_dof_vel_new(self, ctx):
+        return 1.0 - torch.exp(self.rw.sigma_dof_vel_new * self._sum_abs(ctx["qd"]))
+
+    def _rw_dof_vel_new_knee(self, ctx):
+        err = self._sum_abs(ctx["qd"], self.knee_dofs)
+        return 1.0 - torch.exp(self.rw.sigma_dof_vel_new_knee * err)
+
     def _rw_dof_acc_new(self, ctx):
         return 1.0 - torch.exp(self.rw.sigma_dof_acc_new * self._sum_abs(ctx["dof_acc"]))
 
     def _rw_dof_tor_new(self, ctx):
         return 1.0 - torch.exp(self.rw.sigma_dof_tor_new * self._sum_abs(ctx["tau"]))
+
+    def _rw_dof_tor_new_hip_roll(self, ctx):
+        err = self._sum_abs(ctx["tau"], self.hip_roll_dofs)
+        return 1.0 - torch.exp(self.rw.sigma_dof_tor_new_hip_roll * err)
 
     def _rw_pose_offset(self, ctx):
         err = sum(
@@ -315,6 +347,13 @@ class LanePost:
             for i in range(self.nd)
         )
         return torch.exp(self.rw.sigma_pose_offset * err)
+
+    def _rw_pose_offset_hip_yaw(self, ctx):
+        err = sum(
+            torch.abs(ctx["q"][i] - float(self.default_dof_pos[i]))
+            for i in self.hip_yaw_dofs
+        )
+        return 1.0 - torch.exp(self.rw.sigma_pose_offset_hip_yaw * err)
 
     def _rw_limits_dof_pos(self, ctx):
         err = 0.0
@@ -359,6 +398,16 @@ class LanePost:
             closeness = _div(torch.abs(h - quarter) * (h < quarter), quarter)
             v = ctx["avg_vxyz"][f]
             err = err + _norm2(v[0], v[1]) * closeness
+        return torch.exp(sig * err)
+
+    def _rw_feet_speed_z_close_to_height_target(self, ctx):
+        sig = self.rw.sigma_feet_speed_z_close_to_height_target
+        target = self.rw.swing_feet_height_target
+        err = 0.0
+        for f in range(self.nf):
+            h = ctx["feet_height"][f]
+            closeness = _div(torch.abs(h - target * 3 / 4) * (h > target * 3 / 4), target / 4)
+            err = err + torch.abs(ctx["avg_vxyz"][f][2]) * closeness
         return torch.exp(sig * err)
 
     def _rw_feet_air_time(self, ctx):
@@ -417,3 +466,87 @@ class LanePost:
             err = _maximum(_norm2(fo[0], fo[1]) - ratio * torch.abs(fo[2]), 0.0)
             rew = rew + (1.0 - torch.exp(sig * err))
         return rew
+
+    # ETH base terms
+
+    def _rw_lin_vel_z(self, ctx):
+        return torch.square(ctx["blv"][2])
+
+    def _rw_ang_vel_xy(self, ctx):
+        return torch.square(ctx["bav"][0]) + torch.square(ctx["bav"][1])
+
+    def _rw_orientation(self, ctx):
+        return torch.square(ctx["pg"][0]) + torch.square(ctx["pg"][1])
+
+    def _rw_torques(self, ctx):
+        return sum(torch.square(t) for t in ctx["tau"])
+
+    def _rw_dof_vel(self, ctx):
+        return sum(torch.square(x) for x in ctx["qd"])
+
+    def _rw_dof_acc(self, ctx):
+        return sum(torch.square(x) for x in ctx["dof_acc"])
+
+    def _rw_action_rate(self, ctx):
+        return sum(
+            torch.square(ctx["last_actions"][i] - ctx["actions"][i])
+            for i in range(self.nd)
+        )
+
+    def _rw_tracking_lin_vel(self, ctx):
+        err = torch.square(ctx["commands"][0] - ctx["blv"][0]) + torch.square(
+            ctx["commands"][1] - ctx["blv"][1]
+        )
+        return torch.exp(_div(-err, self.rw.tracking_sigma))
+
+    def _rw_tracking_ang_vel(self, ctx):
+        err = torch.square(ctx["commands"][2] - ctx["bav"][2])
+        return torch.exp(_div(-err, self.rw.tracking_sigma))
+
+    def _rw_feet_contact_forces(self, ctx):
+        mx = self.rw.max_contact_force
+        return sum(
+            _maximum(_norm3(ctx["feet_force"][f]) - mx, 0.0)
+            for f in range(self.nf)
+        )
+
+    def _rw_base_height(self, ctx):
+        return torch.square(ctx["base_height"] - self.target_h)
+
+    def _rw_dof_pos_limits(self, ctx):
+        err = 0.0
+        for i in range(self.nd):
+            under = _minimum(ctx["q"][i] - float(self.dof_pos_soft_lower[i]), 0.0)
+            over = _maximum(ctx["q"][i] - float(self.dof_pos_soft_upper[i]), 0.0)
+            err = err + (over - under)
+        return err
+
+    def _rw_dof_vel_limits(self, ctx):
+        soft = self.rw.soft_dof_vel_limit
+        return sum(
+            _clip(torch.abs(ctx["qd"][i]) - float(self.dof_vel_limits[i]) * soft, 0.0, 1.0)
+            for i in range(self.nd)
+        )
+
+    def _rw_torque_limits(self, ctx):
+        soft = self.rw.soft_torque_limit
+        return sum(
+            _maximum(torch.abs(ctx["tau"][i]) - float(self.torque_limits[i]) * soft, 0.0)
+            for i in range(self.nd)
+        )
+
+    def _rw_limits_actions(self, ctx):
+        err = 0.0
+        for i in range(self.nd):
+            scaled = ctx["actions"][i] * self.action_scale
+            under = _minimum(scaled - float(self.dof_pos_soft_lower[i]), 0.0)
+            over = _maximum(scaled - float(self.dof_pos_soft_upper[i]), 0.0)
+            err = err + torch.square(over - under)
+        return 1.0 - torch.exp(self.rw.sigma_limits_actions * err)
+
+    def _rw_stumble(self, ctx):
+        any_st = torch.zeros_like(ctx["base_height"], dtype=torch.bool)
+        for f in range(self.nf):
+            fo = ctx["feet_force"][f]
+            any_st = any_st | (_norm2(fo[0], fo[1]) > 5.0 * torch.abs(fo[2]))
+        return any_st.to(torch.float32)

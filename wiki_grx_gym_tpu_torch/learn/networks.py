@@ -61,10 +61,10 @@ class ActorCritic(nn.Module):
     """Actor and critic MLPs plus the learnable std."""
 
     def __init__(self, num_actor_input, num_critic_input, num_actions, policy_cfg,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, prefix=()):
+        """``prefix``: (name, shape) leaves that come before the heads in the
+        flat buffer (the recurrent net's memories, ``learn/recurrent.py``)."""
         super().__init__()
-        if getattr(policy_cfg, "rnn_type", None):
-            raise NotImplementedError("recurrent policies are ROADMAP queue 1 item 12")
         self.num_actor_input = num_actor_input
         self.num_critic_input = num_critic_input
         self.num_actions = num_actions
@@ -91,6 +91,10 @@ class ActorCritic(nn.Module):
         # the flat buffer: (name, offset, shape) per leaf, ravel_pytree order
         self.layout = []
         off = 0
+        for name, shape in prefix:
+            self.layout.append((name, off, tuple(shape)))
+            off += math.prod(shape)
+        self.num_prefix = len(prefix)
         for stack, lins in (("actor", self._linears(self.actor)),
                             ("critic", self._linears(self.critic))):
             for i, lin in enumerate(lins):
@@ -111,7 +115,7 @@ class ActorCritic(nn.Module):
 
     def _bind_views(self):
         flat = self.params_flat
-        leaves = iter(self.layout)
+        leaves = iter(self.layout[self.num_prefix:])
         for lin in self.linears():
             for kind in ("weight", "bias"):
                 _, off, shape = next(leaves)
@@ -136,7 +140,8 @@ class ActorCritic(nn.Module):
     def leaves(self, flat: torch.Tensor):
         """``flat`` cut into the (actor pairs, critic pairs, std) views of this
         layout: ``([(W (out, in), b), ...], [(W, b), ...], std)``."""
-        views = [flat[off: off + math.prod(shape)].view(shape) for _, off, shape in self.layout]
+        views = [flat[off: off + math.prod(shape)].view(shape)
+                 for _, off, shape in self.layout[self.num_prefix:]]
         na = len(self._linears(self.actor))
         pairs = list(zip(views[:-1:2], views[1:-1:2]))
         return pairs[:na], pairs[na:], views[-1]

@@ -6,7 +6,9 @@ bootstrapping in the rollout, GAE with advantage normalisation, the clipped
 surrogate + clipped value loss + entropy bonus, the adaptive-KL learning
 rate, the NaN-loss skip, clip by global norm and Adam.
 
-``update`` has the JAX package's three paths, chosen by the same config keys:
+``update`` has the JAX package's three paths, chosen by the same config keys
+(``update_recurrent``, the LSTM net's, is the xla path's autograd over an
+LSTM replay of whole env columns):
 
 - **mega** (``fused_mega=True``, the default): the whole update as K3
   (``FusedPPOGrad.update_scan``, ``learn/fused_update.py``);
@@ -144,10 +146,18 @@ class PPO:
         actor, critic, std_p = net.leaves(flat)
         mean = self._mlp(actor, mb["obs"].to(torch.float32))
         value = self._mlp(critic, mb["critic_obs"].to(torch.float32))[:, 0]
+        return self._ppo_loss(std_p, mean, value, mb)
+
+    def _ppo_loss(self, std_p, mean, value, mb):
+        """The clipped PPO objective of the policy's ``mean`` and ``value``
+        over a minibatch (any leading shape), with the std leaf ``std_p``
+        (the floor as ``networks.py:148-153``'s max: gradient 0.5 at a tie).
+        Returns (loss, aux)."""
+        net = self.net
         if net.fixed_std:
             std1 = torch.full_like(std_p, net.init_noise_std)
         elif self.std_floor > 0.0:
-            std1 = _jmax(std_p, self.std_floor)   # networks.py:148-153: gradient 0.5 at a tie
+            std1 = _jmax(std_p, self.std_floor)
         else:
             std1 = std_p
         std = std1.expand_as(mean)
@@ -299,6 +309,64 @@ class PPO:
             with torch.enable_grad():
                 pr = p.detach().requires_grad_(True)
                 loss, aux = self._minibatch_loss(pr, mb)
+                (g,) = torch.autograd.grad(loss, pr)
+            return loss.detach(), g, aux
+
+        return self._run_epochs(ppo_state, grad_fn)
+
+    # ------------------------------------------------------------------
+    # the recurrent update (whole-trajectory minibatches, learn/recurrent.py)
+    # ------------------------------------------------------------------
+
+    def _minibatch_loss_recurrent(self, flat, mb):
+        """``ppo.py:_minibatch_loss_recurrent``: the same clipped objective,
+        the policy and value an LSTM replay over the minibatch's (T, M)
+        sequence with the memory zeroed at done boundaries."""
+        net = self.net
+        mean, value = net.joint_mean_value_seq(mb["obs"], mb["critic_obs"], mb["done_prev"],
+                                               mb["hidden0"], flat=flat)
+        return self._ppo_loss(net.leaves(flat)[2], mean, value, mb)
+
+    def recurrent_geometry(self, n: int) -> Tuple[int, int]:
+        """(envs a minibatch, envs used): whole env columns, the leftover
+        ``n - used`` envs dropped (ppo.py:781-783)."""
+        mb_envs = max(n // self.num_mini_batches, 1)
+        return mb_envs, mb_envs * self.num_mini_batches
+
+    def update_recurrent(self, ppo_state: PPOState, batch, returns, advantages, hidden0,
+                         generator: Optional[torch.Generator] = None, perm=None):
+        """Epochs x minibatches of whole env columns (= whole trajectories,
+        ppo.py:772): one permutation of the envs, ``randperm(n)[:used]``
+        (or ``perm``), cut into ``num_mini_batches`` rows and reused in every
+        epoch; each grad step differentiates the LSTM replay from the
+        rollout's start memory ``hidden0`` (a ``recurrent.Hidden``) with
+        autograd. Returns (new PPOState, metric means) as :meth:`update`.
+        ``FusedPPOGrad`` is not consulted: the kernels cover the MLP only."""
+        t, n = batch.rewards.shape
+        mb_envs, used = self.recurrent_geometry(n)
+        dev = batch.rewards.device
+        if perm is None:
+            if generator is None:
+                raise ValueError("update_recurrent needs a generator or a permutation")
+            perm = torch.randperm(n, generator=generator, device=dev)[:used]
+        perm = torch.as_tensor(perm, device=dev).to(torch.long)
+        if perm.shape != (used,):
+            raise ValueError(f"perm must hold {used} env indices, got {tuple(perm.shape)}")
+        perms = perm.reshape(self.num_mini_batches, mb_envs)
+        done_prev = torch.cat([torch.zeros((1, n), device=dev),
+                               batch.dones[:-1].to(torch.float32)], dim=0)
+        data = {"obs": batch.obs.to(torch.float32), "critic_obs": batch.critic_obs.to(torch.float32),
+                "actions": batch.actions, "log_prob": batch.log_prob, "mu": batch.mu,
+                "sigma": batch.sigma, "values": batch.values, "returns": returns,
+                "advantages": advantages, "done_prev": done_prev}
+
+        def grad_fn(p, i):
+            idx = perms[i]
+            mb = {k: v[:, idx] for k, v in data.items()}
+            mb["hidden0"] = hidden0.select(idx)
+            with torch.enable_grad():
+                pr = p.detach().requires_grad_(True)
+                loss, aux = self._minibatch_loss_recurrent(pr, mb)
                 (g,) = torch.autograd.grad(loss, pr)
             return loss.detach(), g, aux
 

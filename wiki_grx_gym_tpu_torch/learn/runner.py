@@ -7,6 +7,13 @@ values, GAE, the PPO update (``learn/ppo.py``; K3 on the default path) and
 the metrics dict with the JAX package's keys. ``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
+
+The recurrent policy (``policy_class_name`` ActorCriticRecurrent or a
+``policy.rnn_type``, as the GR1T1_lstm task sets it) runs the same
+iteration with the LSTM net (``learn/recurrent.py``): the rollout steps both
+memories each env step and zeroes the memory of reset envs after it, the
+update replays whole env columns from the memory at the rollout's start
+(``PPO.update_recurrent``), and the inference policy is stateful.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from wiki_grx_gym_tpu_torch.device import resolve_device
 from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
 from wiki_grx_gym_tpu_torch.learn.ppo import PPO, PPOState
+from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent, Hidden
 
 
 class Transition(NamedTuple):
@@ -46,6 +54,7 @@ class RunnerState:
     critic_obs: torch.Tensor   # (N, OP)
     rng: torch.Generator       # action-noise and shuffle generator
     ppo: Optional[PPOState] = None
+    hidden: Optional[Hidden] = None   # the LSTM memory (recurrent policy)
 
     def replace(self, **kw) -> "RunnerState":
         return dataclasses.replace(self, **kw)
@@ -74,8 +83,8 @@ class OnPolicyRunner:
         scn = str(getattr(self.alg_cfg, "storage_class", "RolloutStorage"))
         if scn != "RolloutStorage":
             raise ValueError(f"unknown storage_class {scn!r}")
-        if pcn == "ActorCriticRecurrent" or getattr(self.policy_cfg, "rnn_type", None):
-            raise NotImplementedError("recurrent policies are ROADMAP queue 1 item 12")
+        # rnn_type also selects the recurrent net (runner.py:70-80)
+        self.recurrent = pcn == "ActorCriticRecurrent" or bool(getattr(self.policy_cfg, "rnn_type", None))
         if float(getattr(self.alg_cfg, "symmetry_coef", 0.0)) > 0.0:
             raise NotImplementedError("the symmetry loss (symmetry_coef > 0) is ROADMAP queue 1 item 13")
         num_pri_obs = env.pri_obs_dim if env.cfg.env.num_pri_obs else env.obs_dim
@@ -83,7 +92,8 @@ class OnPolicyRunner:
         self.fused_trunk = bool(getattr(self.alg_cfg, "fused_trunk", False))
         g = torch.Generator(device=self.device)
         g.manual_seed(self.seed)
-        self.net = ActorCritic(
+        net_cls = ActorCriticRecurrent if self.recurrent else ActorCritic
+        self.net = net_cls(
             env.obs_dim, num_pri_obs, env.num_actions, self.policy_cfg,
         ).to(self.device)
         self.net.reset_parameters(g)
@@ -124,7 +134,8 @@ class OnPolicyRunner:
         zeros = torch.zeros((env.num_envs, env.num_actions), device=self.device)
         env_state, out = env.step(env_state, zeros)
         return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run,
-                           ppo=self.alg.init(self.net.params_flat))
+                           ppo=self.alg.init(self.net.params_flat),
+                           hidden=self.net.initial_hidden(env.num_envs) if self.recurrent else None)
 
     @torch.no_grad()
     def rollout(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
@@ -155,11 +166,15 @@ class OnPolicyRunner:
             "ep_sums": torch.zeros((n, len(env.all_reward_names)), device=dev),
             "ep_len_done": torch.zeros(n, device=dev),
         }
-        env_state, obs, critic_obs = state.env_state, state.obs, state.critic_obs
+        env_state, obs, critic_obs, hidden = state.env_state, state.obs, state.critic_obs, state.hidden
         for t in range(t_len):
             eps = noise[t] if noise is not None else torch.randn(
                 (n, a), generator=state.rng, device=dev)
-            if self.fused_trunk:
+            if self.recurrent:
+                # both memories stepped in one dispatch chain
+                actions, logp, mu, sigma, values, hidden = net.act_evaluate_rnn(
+                    obs, critic_obs, hidden, eps)
+            elif self.fused_trunk:
                 mu, values = net.joint_mean_value(obs, critic_obs)
                 sigma = net.std().expand_as(mu)
                 actions = mu + sigma * eps
@@ -179,7 +194,10 @@ class OnPolicyRunner:
             acc["ep_sums"] += out.extras["episode_done_sums"]
             acc["ep_len_done"] += out.extras["ep_len_done"]
             obs, critic_obs = out.obs, out.pri_obs
-        new_state = state.replace(env_state=env_state, obs=obs, critic_obs=critic_obs)
+            if self.recurrent:
+                # the memory of reset envs is zeroed (rsl_rl reset semantics)
+                hidden = hidden.masked(1.0 - out.reset.to(torch.float32))
+        new_state = state.replace(env_state=env_state, obs=obs, critic_obs=critic_obs, hidden=hidden)
         return new_state, buf, acc
 
     # ------------------------------------------------------------------
@@ -198,12 +216,21 @@ class OnPolicyRunner:
         t0 = time.perf_counter()
         rs, batch, acc = self.rollout(state, noise=noise, u=u)
         with torch.no_grad():
-            last_values = net.evaluate(rs.critic_obs)
+            if self.recurrent:
+                # the critic's memory after the rollout
+                last_values, _ = net.evaluate_rnn(rs.critic_obs, rs.hidden)
+            else:
+                last_values = net.evaluate(rs.critic_obs)
         returns, advantages = alg.compute_returns(batch, last_values)
         self._sync()
         t1 = time.perf_counter()
-        ppo, update_metrics = alg.update(state.ppo, batch, returns, advantages,
-                                         generator=state.rng, perm=perm)
+        if self.recurrent:
+            # the replay starts from the memory at the rollout's start
+            ppo, update_metrics = alg.update_recurrent(state.ppo, batch, returns, advantages,
+                                                       state.hidden, generator=state.rng, perm=perm)
+        else:
+            ppo, update_metrics = alg.update(state.ppo, batch, returns, advantages,
+                                             generator=state.rng, perm=perm)
         net.bind(ppo.params)
         self._sync()
         self.last_timing = {"collection_s": t1 - t0, "update_s": time.perf_counter() - t1}
@@ -307,6 +334,8 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
 
     def save(self, path: str, state: RunnerState):
+        """Params, Adam moments and count, LR and iteration; the LSTM memory
+        is not saved, as in JAX (runner.py:395-405)."""
         ppo = state.ppo
         torch.save({
             "params": ppo.params.detach().cpu(), "m": ppo.m.cpu(), "v": ppo.v.cpu(),
@@ -331,11 +360,26 @@ class OnPolicyRunner:
         return state
 
     def get_inference_policy(self):
-        """Deterministic policy: obs -> action mean."""
+        """Deterministic policy: obs -> action mean. The recurrent policy is
+        stateful: it carries the LSTM memory across calls (zeros at the
+        first), and ``policy.reset()`` zeroes it (runner.py:437-466). It does
+        not zero the memory of an env that resets, as the reference's
+        ``PolicyExporterLSTM`` does not."""
         net = self.net
+        if not self.recurrent:
+            @torch.no_grad()
+            def policy(obs):
+                return net.act_inference(obs)
+
+            return policy
+        cell = {"hidden": None}
 
         @torch.no_grad()
         def policy(obs):
-            return net.act_inference(obs)
+            if cell["hidden"] is None:
+                cell["hidden"] = net.initial_hidden(obs.shape[0], obs.device)
+            actions, cell["hidden"] = net.act_inference_rnn(obs, cell["hidden"])
+            return actions
 
+        policy.reset = lambda: cell.update(hidden=None)
         return policy

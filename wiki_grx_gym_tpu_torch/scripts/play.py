@@ -10,8 +10,15 @@ experiment's runs (or the one ``--load_run``/``--checkpoint`` name) through
 logging the tracking channels of one robot. ``--policy <npz>`` plays a
 ``policy.npz`` instead of a checkpoint (and exports nothing).
 
+A recurrent task (``GR1T1_lstm``) plays its stateful policy: the LSTM memory
+is carried from step to step and, as in the JAX package and the reference's
+``PolicyExporterLSTM``, not zeroed when an env resets. Its ``policy.npz``
+holds the LSTM layers too (``lstm{i}_w_ih`` ...), which ``--policy`` loads
+back.
+
     python -m wiki_grx_gym_tpu_torch.scripts.play --task GR1T1 [--load_run R] [--checkpoint C]
     python -m wiki_grx_gym_tpu_torch.scripts.play --task GR1T1 --policy policy.npz
+    python -m wiki_grx_gym_tpu_torch.scripts.play --task GR1T1_lstm
 """
 
 from __future__ import annotations

@@ -21,12 +21,15 @@ The default env counts are 64 (eight full blocks of the lower limb's 16 x 8
 shape) and 61 (a ragged last block with a half-used warp). ``--terrain``
 checks the program of a terrain mode (heightfield: ``local_plane``,
 trimesh: ``local_plane_walls``; no post fold) on planted ground lanes that
-run every contact branch (``cuda_step.planted_planes``). Any error a tool
-reports, or a differing bit, fails the script. Logs go to
-``build/k1_sanitize``.
+run every contact branch (``cuda_step.planted_planes``). ``--program``
+checks the all-terms fold (every reward term at a non-zero scale, contacts
+penalized on the thighs and shanks, the states planted so that every
+term is non-zero somewhere: ``cuda_step.all_terms_config``,
+``planted_all_terms``) or the V or T control law. Any error a tool reports, or a differing bit, fails the
+script. Logs go to ``build/k1_sanitize``.
 
     python -m wiki_grx_gym_tpu_torch.scripts.sanitize_k1 [--host] [--task GR1T1_full] [--envs 64 61]
-        [--terrain trimesh]
+        [--terrain trimesh | --program all_terms|V|T]
 """
 
 from __future__ import annotations
@@ -85,15 +88,20 @@ def build_host(op, out_dir: Path = OUT_DIR, csrc: Path = kbuild.CSRC) -> Path:
     return exe
 
 
+# the programs --program selects (config changes, cuda_step)
+PROGRAMS = {"all_terms": cuda_step.all_terms_config, "V": cuda_step.control_config("V"),
+            "T": cuda_step.control_config("T")}
+
+
 def write_case(n: int, out_dir: Path = OUT_DIR, task: str = "GR1T1", steps: int = 8, mutate=None,
-               planted: bool = False):
+               planted: bool = False, plant_terms: bool = False):
     """(constants file, input file, C_out): the files of
     ``csrc/k1_sanitize.cpp`` for ``n`` envs of ``task`` (``mutate`` applied
     to its config), ``steps`` policy steps after init
-    (``cuda_step.reachable_case``; ``planted``: with planted ground lanes),
-    made on the CPU."""
-    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"), planted=planted, task=task,
-                                              steps=steps, mutate=mutate)
+    (``cuda_step.reachable_case``; ``planted``: with planted ground lanes;
+    ``plant_terms``: with ``cuda_step.planted_all_terms``), made on the CPU."""
+    op, comp, _, _ = cuda_step.reachable_case(n, torch.device("cpu"), planted=planted, plant_terms=plant_terms,
+                                              task=task, steps=steps, mutate=mutate)
     const = cuda_step._make_constants(op.deci, op.in_off, op.out_off, op.c_in, op.c_out)
     tag = task if mutate is None else f"{task}_{mutate.__name__}"
     const_path, in_path = out_dir / f"constants_{tag}_{n}.bin", out_dir / f"input_{tag}_{n}.bin"
@@ -116,9 +124,14 @@ def main(argv=None):
     ap.add_argument("--terrain", choices=("heightfield", "trimesh"),
                     help="K1's program for this terrain (no post fold), on a 2 x 2 grid, the "
                          "ground lanes planted so that every contact branch runs")
+    ap.add_argument("--program", choices=sorted(PROGRAMS),
+                    help="K1's all-terms fold (every reward term, penalized contact groups; "
+                         "some envs dropped so that they touch) or the V or T control law")
     args = ap.parse_args(argv)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     mutate = None if args.terrain is None else cuda_step.terrain_config(args.terrain, 2, 2)
+    if args.program is not None:
+        mutate = PROGRAMS[args.program]
     op = cuda_step.task_env(args.task, 1, "cpu", mutate).decimation_op
     if args.host:
         exe, checks = build_host(op), [("threadsanitizer", [])]
@@ -130,7 +143,8 @@ def main(argv=None):
         checks = [(tool, [tool_exe, "--tool", tool, "--error-exitcode", "99"]) for tool in TOOLS]
     failed = []
     for n in args.envs:
-        case = write_case(n, task=args.task, mutate=mutate, planted=mutate is not None)
+        case = write_case(n, task=args.task, mutate=mutate, planted=args.terrain is not None,
+                          plant_terms=args.program == "all_terms")
         for name, prefix in checks:
             rc, text = run([*prefix, exe, *case[:2], n, case[2]])
             tag = args.task if mutate is None else f"{args.task}_{mutate.__name__}"

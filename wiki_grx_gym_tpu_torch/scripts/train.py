@@ -5,7 +5,9 @@
         [--device cuda|cpu]
 
 Runs on the card by default and raises without one; ``--device cpu`` runs
-the kernels' plain versions on the CPU. One device: multi-GPU training is
+the kernels' plain versions on the CPU. ``--task GR1T1_lstm`` trains the
+recurrent policy (its update replays the LSTM with autograd; K2 and K3 are
+the MLP's). One device: multi-GPU training is
 ROADMAP queue 1 item 14. Checkpoints and TensorBoard events go to
 ``logs/<experiment_name>/<date>_<run_name>/``.
 """

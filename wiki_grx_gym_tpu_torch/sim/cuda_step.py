@@ -2,7 +2,8 @@
 
 Counterpart of ``wiki_grx_gym_tpu/sim/pallas_step.py:PallasDecimation``,
 with the same call signature and return tuple. One call runs a whole
-policy step per env: delay gate, PD torques, ``decimation`` physics
+policy step per env: delay gate, the control law's torques (P, V or T),
+``decimation`` physics
 substeps against the ground of the program's terrain mode (the flat plane,
 or per-point ground planes and riser walls given as the ``plane`` input),
 the feet accumulators, the final-state FK of the post bodies, the
@@ -49,7 +50,7 @@ import torch
 
 from wiki_grx_gym_tpu_torch import build as _build
 from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts  # noqa: F401
-from wiki_grx_gym_tpu_torch.sim.scalarized import PLANE_LANES, ScalarDecimation
+from wiki_grx_gym_tpu_torch.sim.scalarized import CONTROL_TYPES, PLANE_LANES, ScalarDecimation
 
 _SOURCE = _build.CSRC / "decimation.cu"
 NVCC_FLAGS = _build.BASE_FLAGS + [
@@ -64,8 +65,9 @@ class K1Sizes(NamedTuple):
     """The program a K1 library is built for (``csrc/decimation.cu``
     struct ``Sizes``): bodies, dofs, contact points, feet, self-collision
     pairs, reward terms, post-FK bodies, input and output components, the
-    terrain mode (``TERRAIN_MODES``) and whether the post stage is folded
-    in."""
+    terrain mode (``TERRAIN_MODES``), whether the post stage is folded in,
+    the control law (``scalarized.CONTROL_TYPES``: 0 P, 1 V, 2 T), and the
+    folded stage's penalized contact groups and their points in all."""
 
     NB: int
     ND: int
@@ -78,6 +80,9 @@ class K1Sizes(NamedTuple):
     NOUT: int
     TERRAIN: int
     FOLD: int
+    CTRL: int
+    NPEN: int
+    NPENP: int
 
 
 # the terrain modes' codes in csrc/decimation.cu (K1_TERRAIN)
@@ -133,17 +138,23 @@ def ptxas_report(sizes: K1Sizes) -> dict:
 
 _MAXG = 8          # termination groups capacity
 
-# reward terms that have a CUDA implementation (ids match csrc/decimation.cu)
+# the folded stage's reward terms, every lane-form term of envs/post_lanes.py
+# (ids match enum Reward of csrc/decimation.cu)
 REWARD_IDS = {
     name: i for i, name in enumerate([
-        "action_diff", "action_diff_diff", "cmd_diff_ang_vel_yaw",
-        "cmd_diff_base_height", "cmd_diff_base_orient", "cmd_diff_lin_vel_x",
-        "cmd_diff_lin_vel_y", "cmd_diff_lin_vel_z", "cmd_diff_torso_orient",
-        "dof_acc_new", "dof_tor_ankle_feet_lift_up", "dof_tor_new",
-        "feet_air_force", "feet_air_height", "feet_air_time", "feet_land_time",
-        "feet_speed_xy_close_to_ground", "feet_stumble", "limits_dof_pos",
-        "limits_dof_tor", "limits_dof_vel", "on_the_air", "pose_offset",
-        "stand_still",
+        "action_diff", "action_diff_diff", "action_diff_knee", "action_rate",
+        "ang_vel_xy", "base_height", "cmd_diff_ang_vel_pitch", "cmd_diff_ang_vel_roll",
+        "cmd_diff_ang_vel_yaw", "cmd_diff_base_height", "cmd_diff_base_orient",
+        "cmd_diff_forehead_orient", "cmd_diff_lin_vel_x", "cmd_diff_lin_vel_y",
+        "cmd_diff_lin_vel_z", "cmd_diff_torso_orient", "collision", "dof_acc",
+        "dof_acc_new", "dof_pos_limits", "dof_tor_ankle_feet_lift_up", "dof_tor_new",
+        "dof_tor_new_hip_roll", "dof_vel", "dof_vel_limits", "dof_vel_new",
+        "dof_vel_new_knee", "feet_air_force", "feet_air_height", "feet_air_time",
+        "feet_contact_forces", "feet_land_time", "feet_speed_xy_close_to_ground",
+        "feet_speed_z_close_to_height_target", "feet_stumble", "limits_actions",
+        "limits_dof_pos", "limits_dof_tor", "limits_dof_vel", "lin_vel_z", "on_the_air",
+        "orientation", "pose_offset", "pose_offset_hip_yaw", "stand_still", "stumble",
+        "torque_limits", "torques", "tracking_ang_vel", "tracking_lin_vel",
     ])
 }
 
@@ -259,6 +270,7 @@ def const_struct(sizes: K1Sizes):
     """The ctypes mirror of ``ModelConst<Sizes>`` for one size set."""
     nb, nd, np_, nf = sizes.NB, sizes.ND, sizes.NP, sizes.NF
     npair, nr, npost = _cap(sizes.NPAIR), _cap(sizes.NR), sizes.NPOST
+    npen, npenp = _cap(sizes.NPEN), _cap(sizes.NPENP)
     fields = [
         # ints
         ("parent", _I * nb),
@@ -274,6 +286,10 @@ def const_struct(sizes: K1Sizes):
         ("torso_slot", _I), ("forehead_slot", _I),
         ("n_ankle_left", _I), ("ankle_left", _I * nd),
         ("n_ankle_right", _I), ("ankle_right", _I * nd),
+        ("n_knee", _I), ("knee", _I * nd),
+        ("n_hip_roll", _I), ("hip_roll", _I * nd),
+        ("n_hip_yaw", _I), ("hip_yaw", _I * nd),
+        ("pen_start", _I * npen), ("pen_count", _I * npen), ("pen_pts", _I * npenp),
         ("reward_id", _I * nr),
         ("decimation", _I), ("use_tangent", _I), ("use_joint_limits", _I),
         ("has_damp", _I),
@@ -312,6 +328,7 @@ def const_struct(sizes: K1Sizes):
         ("scale", _F * nr), ("sigma", _F * nr),
         ("swing_target", _F), ("swing_half", _F), ("swing_quarter", _F),
         ("fat_target", _F), ("fat_half", _F), ("flt_max", _F), ("stumble_ratio", _F),
+        ("swing_3q", _F), ("tracking_sigma", _F), ("max_contact_force", _F),
     ]
     return type(f"ModelConst_{'_'.join(map(str, sizes))}", (ctypes.Structure,), {"_fields_": fields})
 
@@ -380,10 +397,12 @@ def team_lists(sub) -> dict:
 def program_sizes(deci: ScalarDecimation, c_in: int, c_out: int) -> K1Sizes:
     """The sizes of one program (the K1 library it runs on)."""
     s, post = deci.sub, deci.post
+    pen = () if post is None else post.penalized_groups
     return K1Sizes(NB=s.nb, ND=s.nd, NP=s.np_, NF=len(deci.feet_bodies), NPAIR=len(s.self_pairs),
                    NR=0 if post is None else len(post.reward_names), NPOST=len(deci.post_bodies),
                    NIN=c_in, NOUT=c_out, TERRAIN=TERRAIN_MODES[s.terrain_mode],
-                   FOLD=int(post is not None))
+                   FOLD=int(post is not None), CTRL=CONTROL_TYPES[deci.control_type],
+                   NPEN=len(pen), NPENP=sum(len(g) for g in pen))
 
 
 def _fill_post(k, deci: ScalarDecimation):
@@ -405,6 +424,17 @@ def _fill_post(k, deci: ScalarDecimation):
     _fill(k.ankle_left, post.ankle_dofs[:half])
     k.n_ankle_right = len(post.ankle_dofs) - half
     _fill(k.ankle_right, post.ankle_dofs[half:])
+    for name in ("knee", "hip_roll", "hip_yaw"):
+        dofs = getattr(post, name + "_dofs")
+        setattr(k, "n_" + name, len(dofs))
+        _fill(getattr(k, name), dofs)
+    flat, start = [], []
+    for g in post.penalized_groups:
+        start.append(len(flat))
+        flat += list(g)
+    _fill(k.pen_start, start)
+    _fill(k.pen_count, [len(g) for g in post.penalized_groups])
+    _fill(k.pen_pts, flat)
     _fill(k.reward_id, [REWARD_IDS[n] for n in post.reward_names])
     rw = post.rw
     k.dt_policy = post.dt
@@ -421,7 +451,8 @@ def _fill_post(k, deci: ScalarDecimation):
     _fill(k.vel_soft, [float(post.dof_vel_limits[i]) * rw.soft_dof_vel_limit for i in range(nd)])
     _fill(k.tor_soft, [float(post.torque_limits[i]) * rw.soft_torque_limit for i in range(nd)])
     _fill(k.scale, [post.scales[n] for n in post.reward_names])
-    _fill(k.sigma, [getattr(rw, "sigma_" + n) for n in post.reward_names])
+    # the ETH terms have no sigma
+    _fill(k.sigma, [getattr(rw, "sigma_" + n, 0.0) for n in post.reward_names])
     k.swing_target = rw.swing_feet_height_target
     k.swing_half = rw.swing_feet_height_target / 2
     k.swing_quarter = rw.swing_feet_height_target / 4
@@ -429,6 +460,9 @@ def _fill_post(k, deci: ScalarDecimation):
     k.fat_half = rw.feet_air_time_target / 2
     k.flt_max = rw.feet_land_time_max
     k.stumble_ratio = rw.feet_stumble_ratio
+    k.swing_3q = rw.swing_feet_height_target * 3 / 4
+    k.tracking_sigma = rw.tracking_sigma
+    k.max_contact_force = rw.max_contact_force
 
 
 def _make_constants(deci: ScalarDecimation, in_off, out_off, c_in, c_out):
@@ -524,11 +558,12 @@ class CudaDecimation:
     """Callable wrapper: (batched tensors in) -> K1 -> (batched tensors out).
 
     The kernel path supports what the CUDA source implements: the three
-    terrain modes, P control, the program with and without the post fold,
+    terrain modes, the P, V and T control laws, the program with and
+    without the post fold (all 50 reward terms, penalized contact groups),
     and up to ``MAX_DOF`` dofs; anything else raises on a CUDA tensor. The
-    kernel is built for this program's sizes, terrain mode and fold
-    (``sizes``) and team shape (``team``), one library per distinct set,
-    at first use."""
+    kernel is built for this program's sizes, terrain mode, fold and
+    control law (``sizes``) and team shape (``team``), one library per
+    distinct set, at first use."""
 
     def __init__(self, deci: ScalarDecimation):
         self.deci = deci
@@ -537,9 +572,9 @@ class CudaDecimation:
         self.nf = len(deci.feet_bodies)
         self.npost = len(deci.post_bodies)
         self.post = deci.post
-        # P control reads the previous step's joint velocities only in the
-        # post stage (dof_acc_new)
-        self.with_last_qd = self.post is not None
+        # the previous policy step's joint velocities: V's damping term and
+        # the post stage's joint accelerations (pallas_step.py:104)
+        self.with_last_qd = deci.control_type == "V" or self.post is not None
         self.plane_lanes = deci.sub.plane_lanes
         self.post_extra = self.post.extra_schema() if self.post else ()
         self.post_out = self.post.out_schema() if self.post else ()
@@ -566,9 +601,6 @@ class CudaDecimation:
             return f"reward terms without a CUDA implementation: {missing}"
         if len(self.post.termination_groups) > _MAXG:
             return f"more than {_MAXG} termination groups"
-        if self.post.penalized_groups:
-            return ("penalized contact groups are not implemented in the kernel's post fold "
-                    "(ROADMAP queue 2, K1 (a'))")
         return None
 
     # -- the call -----------------------------------------------------------
@@ -879,6 +911,28 @@ def planted_planes(env, state, walls: bool):
     return torch.stack(lanes, dim=-1)
 
 
+def planted_all_terms(env, state):
+    """``state`` planted so that every reward term of ``all_terms_config``
+    is non-zero in some env: every 4th env dropped to 0.35 m and pitched
+    forward by 1.2 rad (its thigh and shank points touch the plane: the
+    penalized groups); the next env of each four with every joint 0.1 rad
+    past its soft upper limit (the position-limit terms); the next with
+    friction 6 (a foot's horizontal force may then exceed 5 times its
+    normal force: ``stumble``; below a friction of 5 the cone forbids it)."""
+    ph, rand = state.physics, state.rand
+    dev, n = ph.base_pos.device, ph.base_pos.shape[0]
+    idx = torch.arange(n, device=dev) % 4
+    pos, quat, q = ph.base_pos.clone(), ph.base_quat.clone(), ph.q.clone()
+    low = idx == 0
+    pos[low, 2] = 0.35
+    quat[low] = torch.tensor([0.0, math.sin(0.6), 0.0, math.cos(0.6)], device=dev, dtype=quat.dtype)
+    past = idx == 1
+    q[past] = torch.as_tensor(env.dof_pos_soft_upper, dtype=q.dtype, device=dev) + 0.1
+    friction = torch.where(idx == 2, torch.full_like(rand.friction, 6.0), rand.friction)
+    return state.replace(physics=ph.replace(base_pos=pos, base_quat=quat, q=q),
+                         rand=rand.replace(friction=friction))
+
+
 def terrain_config(mesh_type, rows=None, cols=None):
     """A config change (``mutate``): ``mesh_type`` terrain with the
     curriculum on, as the reference bench sets it (``bench.py:95-97``), on
@@ -899,15 +953,58 @@ def heading_config(cfg):
     cfg.commands.num_commands = 4
 
 
-def reachable_case(n, device, planted=False, **how):
+# the scales config (a) gives the terms a task leaves at 0: legged_gym's
+# defaults for its base terms, +-0.1 for the FFTAI terms (a reward of
+# exp(sigma * err) gets +0.1, a penalty of 1 - exp(sigma * err) -0.1)
+ALL_TERM_SCALES = {
+    "tracking_lin_vel": 1.0, "tracking_ang_vel": 0.5, "lin_vel_z": -2.0, "ang_vel_xy": -0.05,
+    "orientation": -1.0, "torques": -1e-5, "dof_vel": -1e-4, "dof_acc": -2.5e-7,
+    "base_height": -1.0, "collision": -1.0, "action_rate": -0.01, "dof_pos_limits": -10.0,
+    "dof_vel_limits": -1.0, "torque_limits": -1.0, "feet_contact_forces": -0.01, "stumble": -1.0,
+    "cmd_diff_ang_vel_roll": 0.1, "cmd_diff_ang_vel_pitch": 0.1, "cmd_diff_forehead_orient": 0.1,
+    "feet_speed_z_close_to_height_target": 0.1,
+}
+
+
+def all_terms_config(cfg):
+    """A config change (``mutate``): every lane-form reward term of the
+    fold at a non-zero scale (``ALL_TERM_SCALES`` where the task has 0, else
+    -0.1), contacts penalized on the thighs and shanks, and the soft torque
+    and joint-velocity limits lowered to 0.5 (at 1.0 ``torque_limits`` and
+    ``limits_dof_tor`` are 0 by construction: the torques are clipped to
+    their limits)."""
+    scales = cfg.rewards.scales
+    for name in REWARD_IDS:
+        if not getattr(scales, name, 0.0):
+            setattr(scales, name, ALL_TERM_SCALES.get(name, -0.1))
+    cfg.asset.penalize_contacts_on = ["thigh", "shank"]
+    cfg.rewards.soft_torque_limit = 0.5
+    cfg.rewards.soft_dof_vel_limit = 0.5
+
+
+def control_config(control_type, then=None):
+    """A config change (``mutate``): the control law ``control_type`` ("P",
+    "V" or "T"), after the change ``then`` if given."""
+    def mutate(cfg):
+        if then is not None:
+            then(cfg)
+        cfg.control.control_type = control_type
+    mutate.__name__ = control_type if then is None else f"{control_type}_{then.__name__}"
+    return mutate
+
+
+def reachable_case(n, device, planted=False, plant_terms=False, **how):
     """(decimation op, packed (C_in, n) input, the wrapper's positional
     arguments, its keyword arguments) on :func:`reachable_state` (``how``:
     its ``steps``, ``task``, ``mutate``) with fresh random actions and delays
     (seed 1); ``planted``: the terrain modes' ground lanes from
-    :func:`planted_planes` instead of the env's."""
+    :func:`planted_planes` instead of the env's; ``plant_terms``: the
+    states of :func:`planted_all_terms`."""
     env, state = reachable_state(n, device, **how)
     if planted:
         state = state.replace(ground_plane=planted_planes(env, state, env.riser_mode))
+    if plant_terms:
+        state = planted_all_terms(env, state)
     args, kw = decimation_inputs(env, state, torch.Generator(device=device).manual_seed(1))
     op = env.decimation_op
     return op, op._pack(*args, **kw), args, kw

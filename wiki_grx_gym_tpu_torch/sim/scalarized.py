@@ -35,6 +35,9 @@ _RIDGE = 1e-6
 _GRAV = -9.81
 # input lanes of ground a contact point reads, per terrain mode
 PLANE_LANES = {"plane": 0, "local_plane": 3, "local_plane_walls": 9}
+# the control laws (cfg.control.control_type) and their codes in
+# csrc/decimation.cu (K1_CTRL)
+CONTROL_TYPES = {"P": 0, "V": 1, "T": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -627,11 +630,8 @@ class ScalarDecimation:
         damping_coeff: np.ndarray = None,
         post=None,
     ):
-        if control_type != "P":
-            raise NotImplementedError(
-                f"control_type {control_type!r}: the V and T control modes are "
-                "ROADMAP queue 1 item 11"
-            )
+        if control_type not in CONTROL_TYPES:
+            raise ValueError(f"unknown control_type {control_type!r}")
         self.sub = sub
         self.decimation = int(decimation)
         self.control_type = control_type
@@ -652,15 +652,25 @@ class ScalarDecimation:
         self.post = post
 
     def torques(self, state, use_act, motor_strength, last_qd=None):
-        """PD torques (P mode) in component form."""
+        """The control law (``legged_env._pd_torques``) in component form: P
+        (joint position targets), V (velocity targets, damped by the change
+        of joint velocity since the previous policy step over the sim dt) or
+        T (torques)."""
         nd = self.sub.nd
         taus = []
         for i in range(nd):
             scaled = use_act[i] * self.action_scale
-            t = (
-                float(self.p_gains[i]) * (scaled + float(self.default_dof_pos[i]) - state["q"][i])
-                - float(self.d_gains[i]) * state["qd"][i]
-            )
+            if self.control_type == "P":
+                t = (
+                    float(self.p_gains[i]) * (scaled + float(self.default_dof_pos[i]) - state["q"][i])
+                    - float(self.d_gains[i]) * state["qd"][i]
+                )
+            elif self.control_type == "V":
+                t = float(self.p_gains[i]) * (scaled - state["qd"][i]) - _div(
+                    float(self.d_gains[i]) * (state["qd"][i] - last_qd[i]), self.sub.dt
+                )
+            else:
+                t = scaled
             lim = float(self.torque_limits[i])
             taus.append(_clip(t * motor_strength[i], -lim, lim))
         return taus

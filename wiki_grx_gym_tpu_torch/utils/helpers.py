@@ -45,22 +45,35 @@ def set_seed(seed: int) -> int:
 
 
 def export_policy_npz(net, path: str) -> None:
-    """Deploy-format export of the port's ``ActorCritic`` (the format of the
-    JAX package's ``export_policy_npz``): the actor's weights as
-    ``actor_w{i}`` (in, out) and ``actor_b{i}``, the raw ``std`` parameter
-    and ``activation`` "elu", float32, in one ``.npz``."""
+    """Deploy-format export of the port's ``ActorCritic`` or
+    ``ActorCriticRecurrent`` (the format of the JAX package's
+    ``export_policy_npz``): the actor's weights as ``actor_w{i}`` (in, out)
+    and ``actor_b{i}``, for a recurrent actor its LSTM layers as
+    ``lstm{i}_w_ih`` (I, 4H), ``lstm{i}_w_hh`` (H, 4H), ``lstm{i}_b_ih`` and
+    ``lstm{i}_b_hh`` (JAX's layout, gate order i, f, g, o), the raw ``std``
+    parameter and ``activation`` "elu", float32, in one ``.npz``."""
     blob = {}
     for i, lin in enumerate(m for m in net.actor if isinstance(m, torch.nn.Linear)):
         blob[f"actor_w{i}"] = lin.weight.detach().cpu().numpy().T.astype(np.float32)
         blob[f"actor_b{i}"] = lin.bias.detach().cpu().numpy().astype(np.float32)
+    memory_a = net.memories()[0] if hasattr(net, "memories") else ()
+    for i, layer in enumerate(memory_a):
+        for k, t in zip(("w_ih", "w_hh", "b_ih", "b_hh"), layer):
+            blob[f"lstm{i}_{k}"] = t.detach().cpu().numpy().astype(np.float32)
     blob["std"] = net.std_param.detach().cpu().numpy().astype(np.float32)
     blob["activation"] = np.asarray("elu")
     np.savez(path, **blob)
 
 
 def load_policy_npz(path: str):
-    """Numpy-only policy loader for deployment targets."""
+    """Numpy-only policy loader for deployment targets: the MLP actor. A
+    recurrent actor's file (``lstm*`` keys) is refused with a ValueError; the
+    JAX loader ignores those keys and fails at the first product instead."""
     blob = np.load(path, allow_pickle=False)
+    lstm = sorted(k for k in blob.files if k.startswith("lstm"))
+    if lstm:
+        raise ValueError(f"{path} holds a recurrent actor (LSTM keys {lstm}); this loader runs "
+                         "the MLP actor only")
     n_layers = sum(1 for k in blob.files if k.startswith("actor_w"))
     weights = [(blob[f"actor_w{i}"], blob[f"actor_b{i}"]) for i in range(n_layers)]
 

@@ -210,8 +210,28 @@ together after phase 9):
    play steps of the stateful policy and the exported ``policy.npz``'s
    LSTM keys; a rollout and two grad steps of the update under the
    profiler.
-   Prints the kernels' JSON line (K1 for each program, K2 at both widths,
-   K3), the card line, and the final ok line.
+13. The mirror-symmetry loss (``symmetry_phase``): ``learn(1)`` of GR1T1 at
+   4096 envs with ``symmetry_coef`` 0.5 on the xla path (K1 65, K2 and K3
+   never), the loss term and its gradient finite and non-zero on a
+   minibatch at the trained params; then one grad step of GR1T1_lstm's
+   recurrent update with the loss after a 64-step rollout (K1 64).
+14. Data parallel (``dp_phase``): the one-process step path's ``learn(1)``
+   (the update's yardstick); then two gloo ranks sharing the card
+   (``dp_worker``, NCCL refuses two ranks on one device), 2048 envs each:
+   (a) ``learn(2)``, K1 129 and K2's chain 400 on each rank, K3 never; (b)
+   each rank's K2 against its plain version on its own minibatch under
+   phase 5's rule, and the all-reduced mean against the plain versions'
+   mean; (c) planted faults that must fail: rank 1's largest leaf x1.05
+   before the all-reduce, and rank 1 dropping the all-reduce's result once
+   (the identity check); (d) the ranks' learner states bit-identical after
+   each update, the checkpoint from rank 0 only; the gloo all-reduce of the
+   gradient timed alone. The ranks are joined within ``DP_JOIN_S`` or
+   killed. (e) ``torchrun --nproc_per_node=1 -m
+   wiki_grx_gym_tpu_torch.scripts.train --distributed`` with NCCL, one
+   iteration, exit 0. Each of phases 13 and 14 prints its seconds.
+   Prints the kernels' JSON line (K1 for each program, K2 at both widths
+   with its data-parallel use under ``dp``, K3), the card line, and the
+   final ok line.
 """
 
 import copy
@@ -2019,6 +2039,392 @@ def drive_rollout(dev, task, mutate):
     return launches
 
 
+# phase 13: the symmetry loss's coefficient (GR1T1 and GR1T1_lstm)
+SYMMETRY_COEF = 0.5
+# phase 14: data parallel, two gloo ranks on the one card
+DP_WORLD = 2
+DP_JOIN_S = 300.0     # the ranks' time limit; past it both are killed and the phase fails
+DP_ALLREDUCE_REPS = 20
+
+
+def symmetry_phase(dev):
+    """Phase 13: the mirror-symmetry loss (``learn/symmetry.py``) through the
+    entry points a user calls. (a) GR1T1 at 4096 envs with
+    ``symmetry_coef`` 0.5: ``learn(1)`` on the xla path (an extra loss term
+    takes it: ``FusedPPOGrad.supported`` is false), the launch counts set to
+    0 just before and read just after (K1 65, K2 and K3 never), finite
+    losses; then on one minibatch of a new rollout at the trained params the
+    loss term and its gradient must be finite and non-zero. (b) GR1T1_lstm
+    at 4096 envs with the loss: one rollout (K1 64), then ONE grad step of
+    the recurrent update (the first minibatch, 163 env columns, autograd over
+    the LSTM replay; a whole update takes ~34 s, PERF.md section 5): the
+    loss term and the gradient finite and non-zero."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    out = {}
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    train_cfg.algorithm.symmetry_coef = SYMMETRY_COEF
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg,
+                                              log_root=os.path.join(THIS, "build", "smoke_train", "GR1T1_symmetry"))
+    alg = runner.alg
+    if alg.path != "xla" or alg.extra_loss_fn is None:
+        fail(f"GR1T1 with symmetry_coef {SYMMETRY_COEF}: path {alg.path}, extra loss {alg.extra_loss_fn}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = runner.learn(1, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {"k1": ROLLOUT_STEPS + 1, "k2": 0, "k3": 0}
+    if launches != want:
+        fail(f"GR1T1 symmetry: learn(1) launched {launches}, expected {want}")
+    h = runner.log_history[-1]
+    m = h["metrics"]
+    if not all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")):
+        fail(f"GR1T1 symmetry: non-finite losses {m}")
+    log(f"[symmetry GR1T1] learn(1) in {wall:.2f} s: {h['elapsed_s']:.3f} s = collection {h['collection_s']:.3f} s "
+        f"+ update {h['update_s']:.3f} s; {h['fps']:.0f} env-steps/s; launches {launches}; path {alg.path}; value "
+        f"loss {m['value_loss']:.4f}, surrogate {m['surrogate_loss']:.5f}, kl {m['kl']:.5f}")
+    runner.net.bind(state.ppo.params)
+    rs, batch, _ = runner.rollout(state)
+    with torch.no_grad():
+        last = runner.net.evaluate(rs.critic_obs)
+    ret, adv = alg.compute_returns(batch, last)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    w, _, rows = alg._pack_shuffle(batch, ret, adv, alg.draw_perm(*batch.rewards.shape, gen, dev))
+    term, gnorm = _extra_term(alg, state.ppo.params, {"obs": w[0, :, :env.obs_dim]})
+    log(f"[symmetry GR1T1] the loss term on minibatch 0 ({rows} rows) at the trained params: {term:.6e}, its "
+        f"gradient's norm {gnorm:.6e}")
+    if not (math.isfinite(term) and term > 0 and math.isfinite(gnorm) and gnorm > 0):
+        fail(f"GR1T1 symmetry: the loss term {term} or its gradient norm {gnorm} is not finite and non-zero")
+    out["GR1T1"] = {"launches": launches, "envs": N_ENVS, "wall_s": wall, "iteration_s": h["elapsed_s"],
+                    "collection_s": h["collection_s"], "update_s": h["update_s"], "env_steps_per_s": h["fps"],
+                    "loss_term": term, "loss_term_grad_norm": gnorm, "path": alg.path}
+    del runner, env, state, rs, batch, w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    task = "GR1T1_lstm"
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    train_cfg.algorithm.symmetry_coef = SYMMETRY_COEF
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)
+    alg = runner.alg
+    state = runner.init_state()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rs, batch, _ = runner.rollout(state)
+    with torch.no_grad():
+        last, _ = runner.net.evaluate_rnn(rs.critic_obs, rs.hidden)
+    ret, adv = alg.compute_returns(batch, last)
+    mb = alg.recurrent_minibatches(batch, ret, adv, state.hidden, generator=gen)(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        p = state.ppo.params.detach().requires_grad_(True)
+        loss, aux = alg._minibatch_loss_recurrent(p, mb)
+        (g,) = torch.autograd.grad(loss, p)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(loss.detach())
+    launches = dict(LAUNCHES)
+    term, term_gnorm = _extra_term(alg, state.ppo.params, mb)
+    gn = float(torch.linalg.vector_norm(g))
+    log(f"[symmetry {task}] one grad step of the recurrent update ({mb['obs'].shape[1]} env columns x "
+        f"{mb['obs'].shape[0]} steps) in {step_s * 1e3:.1f} ms: loss {loss:.6f}, the loss term {term:.6e} "
+        f"(its gradient's norm {term_gnorm:.6e}), the whole gradient's norm {gn:.6e}; launches {launches}")
+    if launches != {"k1": ROLLOUT_STEPS, "k2": 0, "k3": 0}:
+        fail(f"{task} symmetry: the rollout and grad step launched {launches}")
+    if not (math.isfinite(term) and term > 0 and math.isfinite(term_gnorm) and term_gnorm > 0
+            and math.isfinite(gn) and gn > 0 and math.isfinite(loss)):
+        fail(f"{task} symmetry: loss {loss}, term {term}, gradient norms {term_gnorm} / {gn}")
+    out[task] = {"launches": launches, "grad_step_s": step_s, "loss": loss, "loss_term": term,
+                 "loss_term_grad_norm": term_gnorm, "grad_norm": gn, "env_columns": int(mb["obs"].shape[1])}
+    return out
+
+
+def _extra_term(alg, params, mb):
+    """The extra loss term of ``alg`` on ``mb`` at ``params`` and the norm of
+    its gradient."""
+    import torch
+
+    with torch.enable_grad():
+        p = params.detach().requires_grad_(True)
+        term = alg.extra_loss_fn(p, mb)
+        (g,) = torch.autograd.grad(term, p)
+    return float(term.detach()), float(torch.linalg.vector_norm(g))
+
+
+def leaf_check(net, got, want, tol):
+    """Per layout leaf: max |got - want| within ``rtol x scale + atol_frac x
+    scale`` (``tol`` = K2_TOL's (loss, rtol, atol_frac); scale = the leaf's
+    largest |want|). Returns (all within, {leaf: (diff, limit)})."""
+    _, rtol, atol_frac = tol
+    out, ok = {}, True
+    for name, d, scale in leaf_diffs(net, got, want):
+        lim = (rtol + atol_frac) * scale
+        good = d <= lim and math.isfinite(d)
+        ok &= good
+        out[name] = (d, lim)
+    return ok, out
+
+
+def dp_worker(rank, world, init_method, out_dir, device, num_envs):
+    """Phase 14, one rank of two gloo processes on the one card: GR1T1 at
+    4096 envs in all (2048 a rank), through the entry points a user calls
+    with ``dp``. (a) ``learn(2)``, the launch counts set to 0 just before and
+    read just after: K1 129 and K2's chain 400 on this rank (the step path: K2
+    per shard, the gradient all-reduce, clip and Adam), K3 never; (d) the
+    ranks' learner states bit-identical after each update (the runner checks
+    the all-gathered digests and raises otherwise). Then a gloo all-reduce of
+    the gradient's size timed alone. (b) On a new rollout of this rank's
+    shard: K2 against its plain version on this rank's minibatch 0 (5232
+    rows), leaf by leaf at phase 5's bf16 limits, rows on another branch of
+    the loss taken out of both (phase 5's rule); the all-reduced mean of the
+    two ranks' K2 gradients against the mean of their plain versions at the
+    same limits. (c) Planted faults: rank 1's largest leaf scaled by 1.05
+    before the all-reduce must fail the mean's check; rank 1 dropping the
+    all-reduce's result once (its own gradient into its Adam step) must fail
+    the ranks' identity check. Results go to ``out_dir/rank<r>.json``."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPOState
+    from wiki_grx_gym_tpu_torch.parallel import mesh, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp = mesh.init_distributed(backend="gloo", init_method=init_method, world_size=world, rank=rank,
+                               device=device, timeout_s=DP_JOIN_S)
+    try:
+        dev = dp.device
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+        cfg.env.num_envs = num_envs
+        env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, dp=dp)
+        runner, _ = task_registry.make_alg_runner(
+            env, "GR1T1", train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", "GR1T1_dp2"),
+            dp=dp)
+        alg, net = runner.alg, runner.net
+        steps = alg.num_learning_epochs * alg.num_mini_batches
+        res = {"rank": rank, "world": world, "backend": "gloo", "device": str(dev), "envs": env.num_envs,
+               "shard": list(env.shard), "path": alg.path}
+        saved = []   # the checkpoints this rank writes
+        save = runner.save
+        runner.save = lambda path, st: (saved.append(os.path.basename(path)), save(path, st))
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = runner.learn(TRAIN_ITERS, init_at_random_ep_len=True)
+        sync()
+        res["learn_s"] = time.perf_counter() - t0
+        res["launches"] = dict(LAUNCHES)
+        hist = runner.log_history
+        res.update(iteration_s=[h["elapsed_s"] for h in hist], collection_s=[h["collection_s"] for h in hist],
+                   update_s=[h["update_s"] for h in hist], env_steps_per_s=[h["fps"] for h in hist],
+                   metrics=[h["metrics"] for h in hist],
+                   digests=[[str(int(x)) for x in d] for d in runner.replica_digests])
+        res["checkpoints_saved"] = saved
+
+        # the gloo all-reduce of one grad step's (gradient, loss, 3 metrics) alone
+        buf = torch.zeros(net.num_params + 4, device=dev)
+        dp.all_reduce_sum(buf)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(DP_ALLREDUCE_REPS):
+            dp.all_reduce_sum(buf)
+        sync()
+        res["allreduce_ms"] = 1e3 * (time.perf_counter() - t0) / DP_ALLREDUCE_REPS
+
+        # (b) K2 against its plain version on this rank's shard
+        net.bind(state.ppo.params)
+        rs, batch, _ = runner.rollout(state)
+        with torch.no_grad():
+            last = net.evaluate(rs.critic_obs)
+        ret, adv = alg.compute_returns(batch, last)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(14)
+        perm = alg._shared_perm(None, gen, lambda g: alg.draw_perm(*batch.rewards.shape, g, dev), dev)
+        w, f, rows = alg._pack_shuffle(batch, ret, adv, perm)
+        fused = alg._get_fused(rows)
+        bufs = fused.split_buffers(w, f, env.obs_dim)
+        p = state.ppo.params
+        # (on the CPU, a rehearsal, grads is the plain version itself: no branch flips)
+        used, flips, taken = neutralize_flips(fused, p, bufs, 0) if dev.type == "cuda" else (bufs, 0, 0)
+        lk, gk, ak = fused.grads(p, used, 0)
+        lp, gp, ap = fused.grads_plain(p, used, 0)
+        sync()
+        tol = K2_TOL["bfloat16"]
+        rank_ok, diffs = leaf_check(net, gk, gp, tol)
+        rank_ok &= flips <= MAX_FLIPS
+        mean_k = dp.all_reduce_sum(gk.clone()) / world
+        mean_p = dp.all_reduce_sum(gp.clone()) / world
+        mean_ok, mean_diffs = leaf_check(net, mean_k, mean_p, tol)
+        # (c) rank 1's largest leaf scaled by FAULT_SCALE before the all-reduce
+        name, off, shape = max(net.layout, key=lambda leaf: math.prod(leaf[2]))
+        gk_f = gk.clone()
+        if rank == 1:
+            gk_f[off: off + math.prod(shape)] *= FAULT_SCALE
+        fault_ok, fault_diffs = leaf_check(net, dp.all_reduce_sum(gk_f) / world, mean_p, tol)
+        # (c) rank 1 drops the all-reduce's result once: its Adam step takes its own gradient
+        s = state.ppo
+        honest = alg.reduce(lk, gk, ak)
+        own = (lk, gk, ak) if rank == 1 else honest
+        caught = {}
+        for tag, (loss_r, g_r, aux_r) in (("honest", honest), ("rank 1 skips", own)):
+            lr = alg._adapt_lr(s.learning_rate, aux_r["kl"])
+            p2, m2, v2, c2 = alg._optax_step(s.params, s.m, s.v, s.count, lr, g_r)
+            try:
+                sharding.check_replicas_identical(dp, PPOState(params=p2, m=m2, v=v2, count=c2, learning_rate=lr))
+                caught[tag] = False
+            except RuntimeError:
+                caught[tag] = True
+        # K2 at this rank's rows (rank 0 times it while rank 1 waits): its
+        # launch on a prepared context, as phase 8 times it, and the step
+        # path's whole grads() call (the context built anew each grad step)
+        k2_ms = grads_ms = None
+        if rank == 0 and dev.type == "cuda":
+            from wiki_grx_gym_tpu_torch.learn import fused_update
+
+            args, _keep = fused._k2_context(p, bufs)
+            lib = fused_update._lib("k2")
+            k2_ms = cuda_ms(lambda: fused._k2_launch(lib, args, 0, dev), reps=50, warmup=3)
+            grads_ms = cuda_ms(lambda: fused.grads(p, bufs, 0), reps=20, warmup=2)
+        dp.all_reduce_sum(torch.zeros(1, device=dev))
+        ops, nbytes = k2_work(fused, 2)
+        res.update(rows=rows, k2_ms=k2_ms, k2_grads_call_ms=grads_ms,
+                   k2_bound_ms=max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3, flips=flips, rows_taken_out=taken, k2_rank_ok=bool(rank_ok),
+                   k2_rank_worst={k: d / max(lim, 1e-30) for k, (d, lim) in diffs.items()},
+                   k2_loss=[float(lk), float(lp)],
+                   k2_mean_ok=bool(mean_ok),
+                   k2_mean_worst={k: d / max(lim, 1e-30) for k, (d, lim) in mean_diffs.items()},
+                   fault_leaf=name, fault_caught=not fault_ok,
+                   fault_ratio=fault_diffs[name][0] / max(fault_diffs[name][1], 1e-30),
+                   identity_check={"honest step flagged": caught["honest"],
+                                   "rank 1 skipping the all-reduce caught": caught["rank 1 skips"]})
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        mesh.destroy(dp)
+
+
+def dp_phase(dev):
+    """Phase 14: data parallel over ``torch.distributed``. The one-process
+    step path's update at 4096 envs first (``learn(1)``, ``fused_mega``
+    off: K2 per grad step, then clip and Adam; the yardstick for the dp
+    update's time, which stages each all-reduce through the host over gloo:
+    not the cost of dp on NVLink). Then ``dp_worker`` on two gloo ranks
+    sharing the card (NCCL refuses two ranks on one device), joined within
+    ``DP_JOIN_S`` (past it both are killed and the phase fails). Then (e)
+    ``torchrun --nproc_per_node=1 -m wiki_grx_gym_tpu_torch.scripts.train
+    --distributed`` with NCCL, one iteration, must exit 0. Returns the
+    phase's results (K2's dp row)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.parallel.launch import spawn
+
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    train_cfg.algorithm.fused_mega = False
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+    assert runner.alg.path == "step"
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    reset_launch_counts()
+    runner.learn(1)
+    one = runner.log_history[-1]
+    if dict(LAUNCHES) != {"k1": ROLLOUT_STEPS + 1, "k2": steps, "k3": 0}:
+        fail(f"the one-process step path launched {dict(LAUNCHES)}")
+    log(f"[dp] one process, step path, {N_ENVS} envs: update {one['update_s']:.3f} s, iteration {one['elapsed_s']:.3f} s "
+        f"(collection {one['collection_s']:.3f} s); launches {dict(LAUNCHES)}")
+    del runner, env
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(THIS, "build", "smoke_dp")
+    os.makedirs(out_dir, exist_ok=True)
+    for r in range(DP_WORLD):
+        if os.path.exists(os.path.join(out_dir, f"rank{r}.json")):
+            os.remove(os.path.join(out_dir, f"rank{r}.json"))
+    t0 = time.perf_counter()
+    rank_dev = str(torch.device(dev.type, dev.index or 0)) if dev.type == "cuda" else "cpu"
+    spawn(dp_worker, DP_WORLD, args=(out_dir, rank_dev, N_ENVS), rendezvous_dir=out_dir, timeout_s=DP_JOIN_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    want = {"k1": TRAIN_ITERS * ROLLOUT_STEPS + 1, "k2": TRAIN_ITERS * steps, "k3": 0}
+    for r in ranks:
+        log(f"[dp rank {r['rank']}] {r['envs']} envs {r['shard']} on {r['device']} over {r['backend']}, path "
+            f"{r['path']}: learn({TRAIN_ITERS}) in {r['learn_s']:.2f} s; launches {r['launches']}; iterations "
+            + ", ".join(f"{a:.3f} s (collection {b:.3f} + update {c:.3f})"
+                        for a, b, c in zip(r["iteration_s"], r["collection_s"], r["update_s"]))
+            + f"; {', '.join(f'{x:.0f}' for x in r['env_steps_per_s'])} env-steps/s in all; gloo all-reduce of "
+            f"the gradient {r['allreduce_ms']:.3f} ms; digests {r['digests']}; checkpoints written "
+            f"{r['checkpoints_saved']}")
+        log(f"[dp rank {r['rank']}] K2 vs plain on its minibatch 0 ({r['rows']} rows): {r['flips']} rows on another "
+            f"branch (limit {MAX_FLIPS}), {r['rows_taken_out']} taken out of both; loss {r['k2_loss'][0]:.6e} vs "
+            f"{r['k2_loss'][1]:.6e}; worst leaf at {max(r['k2_rank_worst'].values()):.3f} of its limit: "
+            f"{r['k2_rank_ok']}; the all-reduced mean against the plain versions' mean, worst leaf at "
+            f"{max(r['k2_mean_worst'].values()):.3f} of its limit: {r['k2_mean_ok']}; rank 1's {r['fault_leaf']} "
+            f"x{FAULT_SCALE} fault at {r['fault_ratio']:.2f}x the limit, caught {r['fault_caught']}; identity "
+            f"check {r['identity_check']}" + (f"; K2 {r['k2_ms']:.4f} ms a launch on a prepared context at "
+                                               f"{r['rows']} rows (bound {r['k2_bound_ms']:.4f} ms), the step "
+                                               f"path's grads() call {r['k2_grads_call_ms']:.4f} ms"
+                                               if r["k2_ms"] else ""))
+        if r["launches"] != want:
+            fail(f"dp rank {r['rank']}: launched {r['launches']}, expected {want}")
+        if r["path"] != "step" or not r["k2_rank_ok"] or not r["k2_mean_ok"]:
+            fail(f"dp rank {r['rank']}: path {r['path']}, K2 vs plain {r['k2_rank_ok']}, mean {r['k2_mean_ok']}")
+        if not r["fault_caught"] or r["identity_check"] != {"honest step flagged": False,
+                                                             "rank 1 skipping the all-reduce caught": True}:
+            fail(f"dp rank {r['rank']}: a planted dp fault passed: {r['fault_caught']}, {r['identity_check']}")
+        if not all(math.isfinite(m[k]) for m in r["metrics"] for k in ("value_loss", "surrogate_loss", "kl")):
+            fail(f"dp rank {r['rank']}: non-finite losses")
+        if len(r["digests"]) != TRAIN_ITERS or any(len(set(d)) != 1 for d in r["digests"]):
+            fail(f"dp rank {r['rank']}: the ranks' digests differ or are missing: {r['digests']}")
+    if ranks[0]["digests"] != ranks[1]["digests"] or ranks[0]["metrics"] != ranks[1]["metrics"]:
+        fail("dp: the ranks disagree on the digests or the metrics")
+    if ranks[0]["checkpoints_saved"] != [f"model_{TRAIN_ITERS}.pt"] or ranks[1]["checkpoints_saved"]:
+        fail(f"dp: the checkpoint must come from rank 0 only: {[r['checkpoints_saved'] for r in ranks]}")
+
+    # (e) torchrun, NCCL at world size 1, one iteration of the train CLI
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+           "wiki_grx_gym_tpu_torch.scripts.train", "--distributed", "--task", "GR1T1", "--num_envs", str(N_ENVS),
+           "--max_iterations", "1", "--experiment_name", "smoke_torchrun"] + (["--device", "cpu"] if dev.type == "cpu"
+                                                                            else [])
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=THIS, timeout=DP_JOIN_S)
+    torchrun_s = time.perf_counter() - t0
+    it_lines = [line for line in res.stdout.splitlines() if line.startswith("it ")]
+    log(f"[dp torchrun] {' '.join(cmd[2:])}: exit {res.returncode} in {torchrun_s:.1f} s; {it_lines}")
+    if res.returncode != 0 or len(it_lines) != 1:
+        log(res.stdout[-3000:])
+        log(res.stderr[-3000:])
+        fail(f"torchrun with NCCL at world size 1 exited {res.returncode} with {len(it_lines)} iteration lines")
+    return {"world": DP_WORLD, "backend": "gloo", "device": ranks[0]["device"], "path": ranks[0]["path"],
+            "rows_per_rank": ranks[0]["rows"], "launches_per_rank": [r["launches"] for r in ranks],
+            "k2_ms_at_rows_per_rank": ranks[0]["k2_ms"], "k2_grads_call_ms": ranks[0]["k2_grads_call_ms"],
+            "k2_bound_ms_at_rows_per_rank": ranks[0]["k2_bound_ms"], "allreduce_ms_per_grad_step": [r["allreduce_ms"] for r in ranks],
+            "iteration_s": ranks[0]["iteration_s"], "collection_s": ranks[0]["collection_s"],
+            "update_s": ranks[0]["update_s"], "env_steps_per_s": ranks[0]["env_steps_per_s"],
+            "one_process_step_update_s": one["update_s"], "one_process_step_iteration_s": one["elapsed_s"],
+            "spawn_s": spawn_s, "torchrun_nccl_world1": {"exit": res.returncode, "seconds": torchrun_s,
+                                                         "iteration": it_lines}}
+
+
 def main():
     import torch
 
@@ -2226,9 +2632,25 @@ def main():
     torch.cuda.empty_cache()
     train_lstm = lstm_phase(dev)
     phase_done("phase 12")
+    # ---- phase 13: the mirror-symmetry loss (GR1T1 learn(1); one GR1T1_lstm grad step) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    symmetry = symmetry_phase(dev)
+    log(f"[time] phase 13 took {time.perf_counter() - t13:.1f} s")
+    phase_done("phase 13")
+    # ---- phase 14: data parallel (two gloo ranks on the card; torchrun with NCCL at world size 1) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    dp_row = dp_phase(dev)
+    log(f"[time] phase 14 took {time.perf_counter() - t14:.1f} s")
+    phase_done("phase 14")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
+    k2_row["dp"] = dict(dp_row, launches_from=f"learn({TRAIN_ITERS}) on each of {DP_WORLD} gloo ranks (2048 envs "
+                        "each), the step path: K2 per shard, the gradient all-reduce, clip and Adam")
     k3_row["launches"] = train["launches"]["k3"]
     k2_row["kernel_launches_per_grad_step"] = train["profile"]["k2_kernel_launches_per_grad_step"]
     k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
@@ -2261,6 +2683,8 @@ def main():
         log(json.dumps({f"train_GR1T1_{m}": {k: v for k, v in tr.items() if k != "launches"}}))
     log(json.dumps({"train_GR1T1_all_terms": {k: v for k, v in train_all_terms.items() if k != "launches"}}))
     log(json.dumps({"train_GR1T1_lstm": train_lstm}))
+    log(json.dumps({"symmetry": symmetry}))
+    log(json.dumps({"data_parallel": dp_row}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

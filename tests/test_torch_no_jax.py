@@ -50,6 +50,11 @@ def test_importing_every_port_module_loads_no_jax():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["n"] >= 20
     assert out["bad"] == []
+    # the data-parallel and symmetry modules are among them
+    assert {"wiki_grx_gym_tpu_torch.parallel.mesh", "wiki_grx_gym_tpu_torch.parallel.sharding",
+            "wiki_grx_gym_tpu_torch.parallel.launch", "wiki_grx_gym_tpu_torch.learn.symmetry",
+            "wiki_grx_gym_tpu_torch.scripts.bench_scaling",
+            "wiki_grx_gym_tpu_torch.scripts.multihost_dryrun"} <= set(_modules())
 
 
 def test_port_sources_do_not_import_jax():
@@ -137,8 +142,9 @@ def test_full_body_tasks_refused(task):
 
 def test_lstm_runner_refused():
     """The recurrent task, which the runner refused before, builds its
-    runner with the LSTM actor-critic on the recurrent update path; the
-    symmetry loss stays refused for it (ROADMAP queue 1 item 13)."""
+    runner with the LSTM actor-critic on the recurrent update path; so does
+    it with the symmetry loss (refused before, ROADMAP queue 1 item 13),
+    whose recurrent form is then PPO's extra loss term."""
     from wiki_grx_gym_tpu_torch.envs import task_registry
     from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent
     from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
@@ -150,8 +156,8 @@ def test_lstm_runner_refused():
     assert runner.recurrent and isinstance(runner.net, ActorCriticRecurrent)
     assert runner.net.num_params == 1_333_397
     train.algorithm.symmetry_coef = 0.5
-    with pytest.raises(NotImplementedError, match="item 13"):
-        OnPolicyRunner(env, train, device="cpu")
+    runner = OnPolicyRunner(env, train, device="cpu")
+    assert runner.recurrent and runner.alg.extra_loss_fn.__qualname__.startswith("make_mirror_loss_recurrent")
 
 
 def test_kernel_path_refuses_unsupported_programs():

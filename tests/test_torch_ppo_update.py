@@ -183,16 +183,21 @@ def test_update_refuses_what_gr1t1_does_not_use(field, value, match):
     net = ActorCritic(39, 168, 10, train_cfg.policy)
     with pytest.raises(NotImplementedError, match=match):
         PPO(net, train_cfg.algorithm)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PPO(net, task_registry.get_cfgs("GR1T1")[1].algorithm, perm_groups=2)
+    # group-local shuffles (refused before, item 14): in one process JAX's
+    # perm_groups > 1 runs its xla path (ppo.py:165-168), and so does the port's
+    alg = task_registry.get_cfgs("GR1T1")[1].algorithm
+    assert PPO(net, alg, perm_groups=2).path == "xla" and PPO(net, alg).path == "mega"
 
 
 def test_runner_refuses_the_symmetry_loss():
+    """The runner refused ``symmetry_coef > 0`` (item 13) before; it now
+    adds the mirror loss through PPO's ``extra_loss_fn``, on the xla path
+    (``FusedPPOGrad.supported`` is false with an extra loss term)."""
     from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 
     cfg, train_cfg = task_registry.get_cfgs("GR1T1")
     cfg.env.num_envs = 2
     env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cpu")
     train_cfg.algorithm.symmetry_coef = 0.5
-    with pytest.raises(NotImplementedError, match="item 13"):
-        OnPolicyRunner(env, train_cfg, device="cpu")
+    runner = OnPolicyRunner(env, train_cfg, device="cpu")
+    assert runner.alg.extra_loss_fn is not None and runner.alg.path == "xla"

@@ -20,7 +20,10 @@ The post stage runs inside K1 (the fold) on the plane without heading
 commands, and here otherwise (``_post_fold``), as in the JAX env.
 
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
-a ``torch.Generator`` that ``step`` draws from in place. Outside these paths
+a ``torch.Generator`` that ``step`` draws from in place. In a data-parallel
+run the env is one rank's shard of the envs (``shard``), and the command
+curriculum's mean over resetting envs is the one collective of a step (an
+all-reduce of a sum and a count, as JAX's global mean). Outside these paths
 the env refuses with ``NotImplementedError`` naming the ROADMAP item: models
 of more than ``MAX_DOF`` (32) dofs.
 """
@@ -99,10 +102,15 @@ class LeggedEnv:
     checks happen here, once, on the host. Host constants are numpy float32
     arrays (as the JAX env's); their device copies carry a ``_t`` suffix."""
 
-    def __init__(self, cfg, model: RobotModel, terrain=None, device="cuda"):
+    def __init__(self, cfg, model: RobotModel, terrain=None, device="cuda", shard=None, dp=None):
         """``terrain``: a ``terrain.composer.Terrain`` on ``device`` (the
         registry builds it for mesh_type heightfield/trimesh), or None for
-        the flat plane."""
+        the flat plane. ``shard``: ``(lo, hi)``, the envs of the
+        ``cfg.env.num_envs`` this env holds (one rank's of a data-parallel
+        run, ``parallel.sharding.shard_bounds``; default all): the plane's
+        origin grid and the terrain types follow the global env index.
+        ``dp``: the run's ``parallel.mesh.DataParallel``, over which the
+        command curriculum's mean is taken."""
         self.device = resolve_device(device)
         if cfg.control.control_type not in CONTROL_TYPES:
             raise ValueError(f"unknown control_type {cfg.control.control_type!r}")
@@ -118,7 +126,12 @@ class LeggedEnv:
         self.terrain = terrain
 
         c = cfg
-        self.num_envs = int(c.env.num_envs)
+        self.num_envs_global = int(c.env.num_envs)
+        self.shard = (0, self.num_envs_global) if shard is None else (int(shard[0]), int(shard[1]))
+        if not 0 <= self.shard[0] < self.shard[1] <= self.num_envs_global:
+            raise ValueError(f"shard {self.shard} outside {self.num_envs_global} envs")
+        self.dp = dp
+        self.num_envs = self.shard[1] - self.shard[0]
         self.num_actions = int(c.env.num_actions)
         self.num_dof = model.num_dof
         assert self.num_actions == self.num_dof, (
@@ -279,14 +292,15 @@ class LeggedEnv:
         # --- env origins: sampled from the terrain grid at init, or a grid
         # on the plane ---
         self.custom_origins = terrain is not None
-        cols = int(np.floor(np.sqrt(self.num_envs)))
-        rows = int(np.ceil(self.num_envs / cols))
+        n_all = self.num_envs_global
+        cols = int(np.floor(np.sqrt(n_all)))
+        rows = int(np.ceil(n_all / cols))
         xx, yy = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
         spacing = c.env.env_spacing
-        org = np.zeros((self.num_envs, 3), np.float32)
-        org[:, 0] = spacing * xx.flatten()[: self.num_envs]
-        org[:, 1] = spacing * yy.flatten()[: self.num_envs]
-        self._origins_np = org
+        org = np.zeros((n_all, 3), np.float32)
+        org[:, 0] = spacing * xx.flatten()[:n_all]
+        org[:, 1] = spacing * yy.flatten()[:n_all]
+        self._origins_np = org[self.shard[0]:self.shard[1]]
 
         # --- device copies of the constants the step reads ---
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -620,7 +634,8 @@ class LeggedEnv:
         )
 
         if self.custom_origins:
-            origins, levels, types = self.terrain.sample_origins(g, n, c.terrain)
+            origins, levels, types = self.terrain.sample_origins(g, n, c.terrain, offset=self.shard[0],
+                                                                 total=self.num_envs_global)
         else:
             origins = torch.as_tensor(self._origins_np, device=dev)
             levels = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -1074,8 +1089,12 @@ class LeggedEnv:
             and "tracking_lin_vel" in self.reward_names
         ):
             i = self.reward_names.index("tracking_lin_vel")
-            cnt = torch.clamp(torch.sum(done.to(torch.float32)), min=1.0)
-            mean_track = torch.sum(state.episode_sums[:, i] * done) / cnt / self.max_episode_length
+            # the mean over the resetting envs of every rank (one all-reduce)
+            sums = torch.stack([torch.sum(state.episode_sums[:, i] * done), torch.sum(done.to(torch.float32))])
+            if self.dp is not None:
+                sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+            cnt = torch.clamp(sums[1], min=1.0)
+            mean_track = sums[0] / cnt / self.max_episode_length
             grow = mean_track > 0.8 * self.reward_scales["tracking_lin_vel"]
             lo, hi = state.cmd_lin_vel_x_range[0], state.cmd_lin_vel_x_range[1]
             mx = c.commands.max_curriculum

@@ -162,8 +162,19 @@ class ActorCritic(nn.Module):
 
     # ---- distribution ops ----
 
-    def action_mean(self, obs):
-        return self.actor(obs)
+    def action_mean(self, obs, flat=None):
+        """The actor's mean; with ``flat``, as a function of that flat
+        parameter vector (for autograd) instead of the bound buffer."""
+        if flat is None:
+            return self.actor(obs)
+        pairs = self.leaves(flat)[0]
+        act = get_activation(self.activation)
+        x = obs
+        for w, b in pairs[:-1]:
+            x = act(x @ w.t() + b)
+        w, b = pairs[-1]
+        x = x @ w.t() + b
+        return get_activation(self.actor_out_act)(x) if self.actor_out_act else x
 
     def std(self):
         if self.fixed_std:

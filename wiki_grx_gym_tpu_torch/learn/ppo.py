@@ -19,11 +19,25 @@ LSTM replay of whole env columns):
 
 ``fused_update="auto"`` selects the kernel paths wherever
 ``FusedPPOGrad.supported`` holds (MLP, ELU, no extra loss), on any device:
-CPU tensors run the kernels' plain versions. Each path mirrors its own JAX
-counterpart, including where they differ: the step and xla paths use
-optax's clip ``(g / norm) * max`` and bias correction ``1 - b**count``, K3
-its own ``g * (max / norm)`` and ``1 - exp(count log b)``; the xla loss
-differentiates through ``max(std, floor)``, the kernels use the raw std.
+CPU tensors run the kernels' plain versions. An extra loss term
+(``extra_loss_fn(flat, minibatch)``, the symmetry loss of
+``learn/symmetry.py``) therefore always takes the xla path. Each path
+mirrors its own JAX counterpart, including where they differ: the step and
+xla paths use optax's clip ``(g / norm) * max`` and bias correction
+``1 - b**count``, K3 its own ``g * (max / norm)`` and ``1 - exp(count log
+b)``; the xla loss differentiates through ``max(std, floor)``, the kernels
+use the raw std.
+
+**Data parallel** (``dp``, a ``parallel.mesh.DataParallel``): each rank
+holds its shard of the envs and updates on its group-local minibatches; the
+gradient, loss and metrics are all-reduced to their mean once a grad step,
+between the gradient and the adaptive LR, the NaN skip, clip and Adam
+(``ppo.py:600-640``), so every rank takes the same step. GAE's advantage
+mean and std are over the global batch, and every rank uses rank 0's block
+permutation. With ``perm_groups`` equal to the group's size the step path
+runs K2 per shard (JAX turns the mega path off on a dp mesh,
+``ppo.py:172-174``); ``perm_groups > 1`` otherwise selects the xla path, as
+in JAX (``ppo.py:166-169``).
 
 Clip by global norm and Adam are written out with optax's formulas (``eps``
 outside the sqrt, ``eps_root`` 0, the count carried across updates); no
@@ -56,19 +70,23 @@ class PPOState:
 
 class PPO:
     def __init__(self, net, alg_cfg, extra_loss_fn=None, perm_groups: int = 1,
-                 shuffle_block: int = 16):
-        if extra_loss_fn is not None:
-            raise NotImplementedError("extra loss terms (the symmetry loss) are ROADMAP queue 1 item 13")
-        if int(perm_groups) > 1:
-            raise NotImplementedError(
-                "permutation_groups > 1 (group-local shuffles for multi-device runs) "
-                "is ROADMAP queue 1 item 14")
+                 shuffle_block: int = 16, dp=None):
+        """``perm_groups``: env groups the block shuffle is local to, each
+        minibatch drawing equally from every group (``ppo.py:61-67``); with
+        ``dp`` each rank holds ``perm_groups / world`` of them."""
+        world = 1 if dp is None else dp.world
+        if int(perm_groups) < 1 or int(perm_groups) % world:
+            raise ValueError(f"perm_groups {perm_groups} is not a positive multiple of the {world} ranks")
         if str(getattr(alg_cfg, "update_dtype", "float32") or "float32") != "float32":
             raise NotImplementedError("update_dtype='bfloat16' is ROADMAP queue 1 item 16")
         if bool(getattr(alg_cfg, "remat_update", False)):
             raise NotImplementedError("remat_update is ROADMAP queue 1 item 16")
         self.net = net
         self.cfg = alg_cfg
+        self.dp = dp
+        self.extra_loss_fn = extra_loss_fn
+        self.perm_groups = int(perm_groups)
+        self.local_groups = self.perm_groups // world
         self.std_floor = 0.0 if net.fixed_std else float(net.noise_std_floor)
         self.shuffle_block = int(shuffle_block)
         self.gamma = float(alg_cfg.gamma)
@@ -91,8 +109,10 @@ class PPO:
         fu = getattr(alg_cfg, "fused_update", "auto")
         if fu == "auto" or fu:
             fu = FusedPPOGrad.supported(net, extra_loss_fn)
-        self.fused_update = bool(fu)
-        self.fused_mega = bool(getattr(alg_cfg, "fused_mega", True))
+        # K2 per shard with the gradient mean between it and Adam
+        dp_kernel = world > 1 and self.perm_groups == world
+        self.fused_update = bool(fu) and (self.perm_groups == 1 or dp_kernel)
+        self.fused_mega = bool(getattr(alg_cfg, "fused_mega", True)) and not dp_kernel
         self.fused_update_tile = int(getattr(alg_cfg, "fused_update_tile", 512) or 512)
         self._fused_cache: Dict[int, FusedPPOGrad] = {}
 
@@ -125,8 +145,16 @@ class PPO:
             acc = delta[t] + coeff[t] * acc
             adv_raw[t] = acc
         returns = adv_raw + batch.values
-        # jnp.std is the population std: correction=0, not torch's default 1
-        adv = (adv_raw - adv_raw.mean()) / (adv_raw.std(correction=0) + 1e-8)
+        if self.dp is None:
+            # jnp.std is the population std: correction=0, not torch's default 1
+            adv = (adv_raw - adv_raw.mean()) / (adv_raw.std(correction=0) + 1e-8)
+            return returns, adv
+        # over the global (T, N) batch (ppo.py:232), in two passes as jnp's
+        # mean and std: the mean, then the squared deviations from it
+        total = float(adv_raw.numel() * self.dp.world)
+        mean = self.dp.all_reduce_sum(adv_raw.sum().reshape(1))[0] / total
+        sq = self.dp.all_reduce_sum(torch.square(adv_raw - mean).sum().reshape(1))[0]
+        adv = (adv_raw - mean) / (torch.sqrt(sq / total) + 1e-8)
         return returns, adv
 
     # ------------------------------------------------------------------
@@ -146,7 +174,8 @@ class PPO:
         actor, critic, std_p = net.leaves(flat)
         mean = self._mlp(actor, mb["obs"].to(torch.float32))
         value = self._mlp(critic, mb["critic_obs"].to(torch.float32))[:, 0]
-        return self._ppo_loss(std_p, mean, value, mb)
+        loss, aux = self._ppo_loss(std_p, mean, value, mb)
+        return self._with_extra_loss(flat, mb, loss), aux
 
     def _ppo_loss(self, std_p, mean, value, mb):
         """The clipped PPO objective of the policy's ``mean`` and ``value``
@@ -193,6 +222,12 @@ class PPO:
                "kl": kl_mean}
         return loss, aux
 
+    def _with_extra_loss(self, flat, mb, loss):
+        """``loss`` plus the extra loss term (ppo.py:286-287, :767-768)."""
+        if self.extra_loss_fn is None:
+            return loss
+        return loss + self.extra_loss_fn(flat, mb)
+
     def _adapt_lr(self, lr, kl_mean):
         """ppo.py:291 (rsl_rl ppo.py:207-213), on device scalars."""
         if not self.adaptive:
@@ -229,10 +264,11 @@ class PPO:
     # ------------------------------------------------------------------
 
     def shuffle_geometry(self, t: int, n: int) -> Tuple[int, int, int, int]:
-        """(block, n_blocks, used blocks, rows per minibatch) of the block
-        shuffle (ppo.py:322-332): ``shuffle_block`` consecutive envs at one
-        timestep, cut to a divisor of N that leaves every minibatch a block;
-        the ``n_blocks - used`` leftover blocks are dropped."""
+        """(block, n_blocks, used blocks, rows per minibatch) of one group's
+        block shuffle (ppo.py:322-332), for ``n`` envs a group:
+        ``shuffle_block`` consecutive envs at one timestep, cut to a divisor
+        of ``n`` that leaves every minibatch a block; the ``n_blocks - used``
+        leftover blocks are dropped."""
         b = max(1, min(self.shuffle_block, n))
         while b > 1 and ((n % b) or (t * (n // b)) < self.num_mini_batches):
             b -= 1
@@ -242,14 +278,25 @@ class PPO:
             raise ValueError(f"{n_blocks} sample blocks cannot fill {self.num_mini_batches} minibatches")
         return b, n_blocks, mb_blocks * self.num_mini_batches, mb_blocks * b
 
+    def _groups(self, n: int) -> Tuple[int, int]:
+        """(groups, envs a group) of a batch of ``n`` envs on this rank."""
+        g = self.local_groups
+        if n % g:
+            raise ValueError(f"num_envs {n} not divisible by the {g} permutation groups of this rank")
+        return g, n // g
+
     def _pack_shuffle(self, batch, returns, advantages, perm):
         """Pack the nine rollout fields into the update's two buffers,
         shuffled once by the block permutation ``perm`` (ppo.py:303): the
         matmul inputs ``(MB, rows, O+P)`` in ``storage_dtype`` and the
         ratio/KL-critical scalars ``(MB, rows, 3A+4)`` in f32, in the lane
-        order actions | log_prob | mu | sigma | values | returns | advantages."""
+        order actions | log_prob | mu | sigma | values | returns | advantages.
+        With G groups the one permutation of a group's blocks is applied to
+        every group, and minibatch i holds each group's i-th slice, group by
+        group: ``rows`` = G x the rows a group gives (ppo.py:361-383)."""
         t, n = batch.rewards.shape
-        b, n_blocks, used, rows = self.shuffle_geometry(t, n)
+        g, npg = self._groups(n)
+        b, n_blocks, used, rows = self.shuffle_geometry(t, npg)
         perm = torch.as_tensor(perm, device=batch.rewards.device).to(torch.long)
         if perm.shape != (used,):
             raise ValueError(f"perm must hold {used} block indices, got {tuple(perm.shape)}")
@@ -260,17 +307,33 @@ class PPO:
                          col(batch.values), col(returns), col(advantages)],
                         dim=-1).to(torch.float32)
 
-        def shuffle(x):
-            f = x.shape[-1]
-            return x.reshape(n_blocks, b, f)[perm].reshape(self.num_mini_batches, rows, f)
+        mb = self.num_mini_batches
 
-        return shuffle(wide), shuffle(f32), rows
+        def shuffle(x):   # (T, N, F) -> (G, blocks, B, F), gathered -> (MB, G x rows, F)
+            f = x.shape[-1]
+            x = x.reshape(t, g, npg // b, b, f).transpose(0, 1).reshape(g, n_blocks, b, f)[:, perm]
+            return x.reshape(g, mb, rows, f).transpose(0, 1).reshape(mb, g * rows, f)
+
+        return shuffle(wide), shuffle(f32), g * rows
 
     def draw_perm(self, t: int, n: int, generator: torch.Generator, device) -> torch.Tensor:
-        """One block permutation per update (base_storage.py:169), cut to
-        the used blocks: ``randperm(n_blocks)[:used]``."""
-        _, n_blocks, used, _ = self.shuffle_geometry(t, n)
+        """One block permutation per update (base_storage.py:169) of a
+        group's blocks, cut to the used blocks: ``randperm(n_blocks)[:used]``
+        (``n``: this rank's envs)."""
+        _, n_blocks, used, _ = self.shuffle_geometry(t, self._groups(n)[1])
         return torch.randperm(n_blocks, generator=generator, device=device)[:used]
+
+    def _shared_perm(self, perm, generator, draw, device) -> torch.Tensor:
+        """The update's permutation: ``perm`` if given, else ``draw(generator)``;
+        with ``dp``, rank 0's on every rank (one broadcast)."""
+        if perm is None:
+            if generator is None:
+                raise ValueError("the update needs a generator or a permutation")
+            perm = draw(generator)
+        perm = torch.as_tensor(perm, device=device).to(torch.long)
+        if self.dp is not None:
+            perm = self.dp.broadcast(perm.to(self.dp.device).contiguous()).to(device)
+        return perm
 
     def update(self, ppo_state: PPOState, batch, returns, advantages,
                generator: Optional[torch.Generator] = None, perm=None):
@@ -280,10 +343,8 @@ class PPO:
         drawing one from ``generator``. Returns (new PPOState, metric means:
         value_loss, surrogate_loss, kl, lr); the inputs are not modified."""
         t, n = batch.rewards.shape
-        if perm is None:
-            if generator is None:
-                raise ValueError("update needs a generator or a permutation")
-            perm = self.draw_perm(t, n, generator, batch.rewards.device)
+        dev = batch.rewards.device
+        perm = self._shared_perm(perm, generator, lambda gen: self.draw_perm(t, n, gen, dev), dev)
         shuf_w, shuf_f, rows = self._pack_shuffle(batch, returns, advantages, perm)
         obs_dim = batch.obs.shape[-1]
         if self.fused_update:
@@ -325,45 +386,31 @@ class PPO:
         net = self.net
         mean, value = net.joint_mean_value_seq(mb["obs"], mb["critic_obs"], mb["done_prev"],
                                                mb["hidden0"], flat=flat)
-        return self._ppo_loss(net.leaves(flat)[2], mean, value, mb)
+        loss, aux = self._ppo_loss(net.leaves(flat)[2], mean, value, mb)
+        return self._with_extra_loss(flat, mb, loss), aux
 
     def recurrent_geometry(self, n: int) -> Tuple[int, int]:
-        """(envs a minibatch, envs used): whole env columns, the leftover
-        ``n - used`` envs dropped (ppo.py:781-783)."""
+        """(envs a minibatch, envs used) of one group of ``n`` envs: whole
+        env columns, the leftover ``n - used`` envs dropped
+        (ppo.py:781-783)."""
         mb_envs = max(n // self.num_mini_batches, 1)
         return mb_envs, mb_envs * self.num_mini_batches
 
     def update_recurrent(self, ppo_state: PPOState, batch, returns, advantages, hidden0,
                          generator: Optional[torch.Generator] = None, perm=None):
         """Epochs x minibatches of whole env columns (= whole trajectories,
-        ppo.py:772): one permutation of the envs, ``randperm(n)[:used]``
-        (or ``perm``), cut into ``num_mini_batches`` rows and reused in every
-        epoch; each grad step differentiates the LSTM replay from the
-        rollout's start memory ``hidden0`` (a ``recurrent.Hidden``) with
-        autograd. Returns (new PPOState, metric means) as :meth:`update`.
-        ``FusedPPOGrad`` is not consulted: the kernels cover the MLP only."""
-        t, n = batch.rewards.shape
-        mb_envs, used = self.recurrent_geometry(n)
-        dev = batch.rewards.device
-        if perm is None:
-            if generator is None:
-                raise ValueError("update_recurrent needs a generator or a permutation")
-            perm = torch.randperm(n, generator=generator, device=dev)[:used]
-        perm = torch.as_tensor(perm, device=dev).to(torch.long)
-        if perm.shape != (used,):
-            raise ValueError(f"perm must hold {used} env indices, got {tuple(perm.shape)}")
-        perms = perm.reshape(self.num_mini_batches, mb_envs)
-        done_prev = torch.cat([torch.zeros((1, n), device=dev),
-                               batch.dones[:-1].to(torch.float32)], dim=0)
-        data = {"obs": batch.obs.to(torch.float32), "critic_obs": batch.critic_obs.to(torch.float32),
-                "actions": batch.actions, "log_prob": batch.log_prob, "mu": batch.mu,
-                "sigma": batch.sigma, "values": batch.values, "returns": returns,
-                "advantages": advantages, "done_prev": done_prev}
+        ppo.py:772): one permutation of a group's envs,
+        ``randperm(n / G)[:used]`` (or ``perm``), cut into ``num_mini_batches``
+        rows, applied to every group and reused in every epoch; each grad
+        step differentiates the LSTM replay from the rollout's start memory
+        ``hidden0`` (a ``recurrent.Hidden``) with autograd. Returns (new
+        PPOState, metric means) as :meth:`update`. ``FusedPPOGrad`` is not
+        consulted: the kernels cover the MLP only."""
+        minibatch = self.recurrent_minibatches(batch, returns, advantages, hidden0,
+                                               generator=generator, perm=perm)
 
         def grad_fn(p, i):
-            idx = perms[i]
-            mb = {k: v[:, idx] for k, v in data.items()}
-            mb["hidden0"] = hidden0.select(idx)
+            mb = minibatch(i)
             with torch.enable_grad():
                 pr = p.detach().requires_grad_(True)
                 loss, aux = self._minibatch_loss_recurrent(pr, mb)
@@ -371,6 +418,38 @@ class PPO:
             return loss.detach(), g, aux
 
         return self._run_epochs(ppo_state, grad_fn)
+
+    def recurrent_minibatches(self, batch, returns, advantages, hidden0,
+                              generator: Optional[torch.Generator] = None, perm=None):
+        """The recurrent update's minibatches: a function of the minibatch
+        index ``i`` to its dict of (T, M, ...) fields and ``hidden0``, M the
+        minibatch's env columns, group by group (ppo.py:789-824)."""
+        t, n = batch.rewards.shape
+        g, per_group = self._groups(n)
+        mb_envs, used = self.recurrent_geometry(per_group)
+        dev = batch.rewards.device
+        perm = self._shared_perm(
+            perm, generator, lambda gen: torch.randperm(per_group, generator=gen, device=dev)[:used], dev)
+        if perm.shape != (used,):
+            raise ValueError(f"perm must hold {used} env indices, got {tuple(perm.shape)}")
+        # minibatch i: the same env columns of every group, group by group
+        starts = torch.arange(g, device=dev)[:, None] * per_group
+        cols = (starts[None] + perm.reshape(self.num_mini_batches, 1, mb_envs)).reshape(
+            self.num_mini_batches, g * mb_envs)
+        done_prev = torch.cat([torch.zeros((1, n), device=dev),
+                               batch.dones[:-1].to(torch.float32)], dim=0)
+        data = {"obs": batch.obs.to(torch.float32), "critic_obs": batch.critic_obs.to(torch.float32),
+                "actions": batch.actions, "log_prob": batch.log_prob, "mu": batch.mu,
+                "sigma": batch.sigma, "values": batch.values, "returns": returns,
+                "advantages": advantages, "done_prev": done_prev}
+
+        def minibatch(i):
+            idx = cols[i]
+            mb = {k: v[:, idx] for k, v in data.items()}
+            mb["hidden0"] = hidden0.select(idx)
+            return mb
+
+        return minibatch
 
     def _get_fused(self, rows: int) -> FusedPPOGrad:
         if rows not in self._fused_cache:
@@ -389,14 +468,15 @@ class PPO:
 
     def _run_epochs(self, ppo_state: PPOState, grad_fn):
         """The per-grad-step loop of the step and xla paths (ppo.py:600,
-        :664): gradient, adaptive-KL LR from this minibatch's KL, NaN-loss
-        skip, clip + Adam, std projection. ``grad_fn(p, i)`` -> (loss, flat
-        gradient, aux) for minibatch ``i``."""
+        :664): gradient, with ``dp`` its all-reduced mean (:meth:`reduce`),
+        adaptive-KL LR from this minibatch's KL, NaN-loss skip, clip + Adam,
+        std projection. ``grad_fn(p, i)`` -> (loss, flat gradient, aux) for
+        minibatch ``i``."""
         p, m, v = ppo_state.params, ppo_state.m, ppo_state.v
         count, lr = ppo_state.count, ppo_state.learning_rate
         hist = []
         for s in range(self.num_learning_epochs * self.num_mini_batches):
-            loss, g, aux = grad_fn(p, s % self.num_mini_batches)
+            loss, g, aux = self.reduce(*grad_fn(p, s % self.num_mini_batches))
             lr = self._adapt_lr(lr, aux["kl"])
             g = torch.where(torch.isfinite(loss), g, torch.zeros_like(g))   # NaN-loss skip
             p, m, v, count = self._optax_step(p, m, v, count, lr, g)
@@ -405,3 +485,17 @@ class PPO:
         means = torch.stack(hist).mean(dim=0)
         metrics = {"value_loss": means[0], "surrogate_loss": means[1], "kl": means[2], "lr": lr}
         return PPOState(params=p, m=m, v=v, count=count, learning_rate=lr), metrics
+
+    def reduce(self, loss, g, aux):
+        """One grad step's (loss, flat gradient, aux) as the mean over the
+        ranks, in one all-reduce (the pmean of ppo.py:617; every rank holds as
+        many rows, so it is the global minibatch's mean); unchanged without
+        ``dp``."""
+        if self.dp is None:
+            return loss, g, aux
+        keys = ("value_loss", "surrogate_loss", "kl")
+        buf = torch.cat([g.reshape(-1), torch.stack([loss.detach(), *(aux[k] for k in keys)])
+                         .to(g.dtype)]).to(self.dp.device)
+        buf = self.dp.all_reduce_sum(buf).to(g.device) / self.dp.world
+        n = g.numel()
+        return buf[n], buf[:n].reshape(g.shape), dict(zip(keys, buf[n + 1:]))

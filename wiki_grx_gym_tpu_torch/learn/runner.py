@@ -14,6 +14,18 @@ iteration with the LSTM net (``learn/recurrent.py``): the rollout steps both
 memories each env step and zeroes the memory of reset envs after it, the
 update replays whole env columns from the memory at the rollout's start
 (``PPO.update_recurrent``), and the inference policy is stateful.
+
+``algorithm.symmetry_coef > 0`` adds the mirror-symmetry loss
+(``learn/symmetry.py``) to PPO's objective through its ``extra_loss_fn``.
+
+**Data parallel** (``dp``, a ``parallel.mesh.DataParallel``): the env is
+this rank's shard of the envs (``parallel.sharding.shard_bounds``), its
+generators are seeded from ``(seed, rank)``, the learner state is broadcast
+from rank 0 at init and after a load and is checked bit-identical on every
+rank after every update, the iteration's metric sums are all-reduced once,
+and only rank 0 writes TensorBoard events and checkpoints (JAX
+``runner.py:326-356``). ``permutation_groups = 0`` resolves to the group's
+size, as JAX's does to the dp mesh size (``runner.py:99-108``).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from wiki_grx_gym_tpu_torch.device import resolve_device
 from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
 from wiki_grx_gym_tpu_torch.learn.ppo import PPO, PPOState
 from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent, Hidden
+from wiki_grx_gym_tpu_torch.parallel import sharding
 
 
 class Transition(NamedTuple):
@@ -61,10 +74,18 @@ class RunnerState:
 
 
 class OnPolicyRunner:
-    def __init__(self, env, train_cfg, device="cuda", log_dir: Optional[str] = None):
+    def __init__(self, env, train_cfg, device="cuda", log_dir: Optional[str] = None, dp=None):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, runner asked for {self.device}")
+        self.dp = dp
+        if dp is not None:
+            if dp.device != self.device:
+                raise ValueError(f"rank {dp.rank} runs on {dp.device}, the runner on {self.device}")
+            want = sharding.shard_bounds(env.num_envs_global, dp.world, dp.rank)
+            if env.shard != want:
+                raise ValueError(f"rank {dp.rank} of {dp.world} must hold envs {want}, its env holds "
+                                 f"{env.shard}")
         self.env = env
         self.cfg = train_cfg.runner
         self.alg_cfg = train_cfg.algorithm
@@ -85,8 +106,6 @@ class OnPolicyRunner:
             raise ValueError(f"unknown storage_class {scn!r}")
         # rnn_type also selects the recurrent net (runner.py:70-80)
         self.recurrent = pcn == "ActorCriticRecurrent" or bool(getattr(self.policy_cfg, "rnn_type", None))
-        if float(getattr(self.alg_cfg, "symmetry_coef", 0.0)) > 0.0:
-            raise NotImplementedError("the symmetry loss (symmetry_coef > 0) is ROADMAP queue 1 item 13")
         num_pri_obs = env.pri_obs_dim if env.cfg.env.num_pri_obs else env.obs_dim
         self.gamma = float(self.alg_cfg.gamma)
         self.fused_trunk = bool(getattr(self.alg_cfg, "fused_trunk", False))
@@ -97,10 +116,18 @@ class OnPolicyRunner:
             env.obs_dim, num_pri_obs, env.num_actions, self.policy_cfg,
         ).to(self.device)
         self.net.reset_parameters(g)
-        # 0 = auto: the device count of the run, which is 1 here
-        pg = int(getattr(self.alg_cfg, "permutation_groups", 0) or 0) or 1
-        self.alg = PPO(self.net, self.alg_cfg, perm_groups=pg,
-                       shuffle_block=int(getattr(self.alg_cfg, "shuffle_block", 16) or 16))
+        # the mirror-symmetry loss through PPO's extra_loss_fn (runner.py:87-98)
+        extra_loss_fn = None
+        symmetry_coef = float(getattr(self.alg_cfg, "symmetry_coef", 0.0))
+        if symmetry_coef > 0.0:
+            from wiki_grx_gym_tpu_torch.learn.symmetry import make_mirror_loss, make_mirror_loss_recurrent
+
+            make = make_mirror_loss_recurrent if self.recurrent else make_mirror_loss
+            extra_loss_fn = make(env, self.net, symmetry_coef)
+        # 0 = auto: the run's rank count
+        pg = int(getattr(self.alg_cfg, "permutation_groups", 0) or 0) or (1 if dp is None else dp.world)
+        self.alg = PPO(self.net, self.alg_cfg, extra_loss_fn=extra_loss_fn, perm_groups=pg,
+                       shuffle_block=int(getattr(self.alg_cfg, "shuffle_block", 16) or 16), dp=dp)
         if not getattr(env, "reward_names", ("_",)):
             print("WARNING: env has ZERO active reward terms (all scales are 0) "
                   "— training will not learn anything. Check cfg.rewards.scales.", flush=True)
@@ -110,7 +137,17 @@ class OnPolicyRunner:
         self.lenbuffer = deque(maxlen=100)
         self.last_timing: Dict[str, float] = {}
         self.log_history = []   # per iteration: its index, time, fps, timing and metrics
+        self.replica_digests = []   # with dp, per iteration: every rank's learner-state digest
         self._loaded_state: Optional[RunnerState] = None   # set by load()
+
+    @property
+    def is_lead(self) -> bool:
+        """Whether this process writes logs and checkpoints (rank 0)."""
+        return self.dp is None or self.dp.is_lead
+
+    @property
+    def rank_seed(self) -> int:
+        return self.seed if self.dp is None else sharding.rank_seed(self.seed, self.dp.rank)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -121,8 +158,8 @@ class OnPolicyRunner:
     def init_state(self, init_at_random_ep_len: bool = False) -> RunnerState:
         """Env init + one zero-action step for the first observations."""
         env = self.env
-        g_env = env.make_generator(self.seed)
-        g_run = env.make_generator(self.seed + 1)
+        g_env = env.make_generator(self.rank_seed)
+        g_run = env.make_generator(self.rank_seed + 1)
         env_state = env.init_state(g_env)
         if init_at_random_ep_len:
             env_state = env_state.replace(
@@ -133,8 +170,11 @@ class OnPolicyRunner:
             )
         zeros = torch.zeros((env.num_envs, env.num_actions), device=self.device)
         env_state, out = env.step(env_state, zeros)
-        return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run,
-                           ppo=self.alg.init(self.net.params_flat),
+        ppo = self.alg.init(self.net.params_flat)
+        if self.dp is not None:
+            ppo = sharding.broadcast_ppo_state(self.dp, ppo)
+            self.net.bind(ppo.params)
+        return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run, ppo=ppo,
                            hidden=self.net.initial_hidden(env.num_envs) if self.recurrent else None)
 
     @torch.no_grad()
@@ -235,22 +275,30 @@ class OnPolicyRunner:
         self._sync()
         self.last_timing = {"collection_s": t1 - t0, "update_s": time.perf_counter() - t1}
 
-        # per-reward episode means over done envs (runner.py:284-301)
-        total_done = torch.clamp(torch.sum(acc["done"]), min=1.0)
+        # per-reward episode means over done envs (runner.py:284-301), from
+        # sums over every rank's envs (one all-reduce)
+        sums = torch.cat([torch.stack([torch.sum(acc["rew"]), torch.sum(acc["done"]),
+                                       torch.sum(acc["ep_len_done"]),
+                                       torch.sum(rs.env_state.terrain_levels.to(torch.float32))]),
+                          torch.sum(acc["ep_sums"], dim=0)])
+        if self.dp is not None:
+            sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+        n_global = env.num_envs_global
+        total_done = torch.clamp(sums[1], min=1.0)
         ep_metrics = {
-            name: torch.sum(acc["ep_sums"][:, i]) / total_done / env.max_episode_length_s
+            name: sums[4 + i] / total_done / env.max_episode_length_s
             for i, name in enumerate(env.all_reward_names)
         }
         if env.custom_origins and env.cfg.terrain.curriculum:
-            ep_metrics["terrain_level"] = torch.mean(rs.env_state.terrain_levels.to(torch.float32))
+            ep_metrics["terrain_level"] = sums[3] / n_global
         if env.cfg.commands.curriculum:
             ep_metrics["max_command_x"] = rs.env_state.cmd_lin_vel_x_range[1]
         with torch.no_grad():
             std_mean = torch.mean(net.std())
         metrics = {
-            "mean_step_reward": torch.sum(acc["rew"]) / (self.num_steps_per_env * env.num_envs),
-            "done_count": torch.sum(acc["done"]),
-            "mean_ep_len_done": torch.sum(acc["ep_len_done"]) / total_done,
+            "mean_step_reward": sums[0] / (self.num_steps_per_env * n_global),
+            "done_count": sums[1],
+            "mean_ep_len_done": sums[2] / total_done,
             "mean_action_std": std_mean,
             **{f"episode/{k}": v for k, v in ep_metrics.items()},
             **update_metrics,
@@ -264,13 +312,17 @@ class OnPolicyRunner:
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = True,
               state: Optional[RunnerState] = None) -> RunnerState:
         """Train for ``num_learning_iterations`` iterations; checkpoints every
-        ``save_interval`` iterations and at the end when ``log_dir`` is set."""
+        ``save_interval`` iterations and at the end when ``log_dir`` is set
+        (rank 0 only). With ``dp`` every update ends with the check that the
+        ranks' learner states are bit-identical (``replica_digests`` holds
+        each iteration's digests)."""
         if state is None:
             state = self._loaded_state   # the resume path (task_registry.make_alg_runner)
         if state is None:
             state = self.init_state(init_at_random_ep_len)
-        if self.log_dir is not None and self.writer is None:
+        if self.log_dir is not None and self.is_lead:
             os.makedirs(self.log_dir, exist_ok=True)
+        if self.log_dir is not None and self.writer is None and self.is_lead:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -279,7 +331,7 @@ class OnPolicyRunner:
             else:
                 self.writer = SummaryWriter(log_dir=self.log_dir, flush_secs=10)
 
-        steps_per_iter = self.num_steps_per_env * self.env.num_envs
+        steps_per_iter = self.num_steps_per_env * self.env.num_envs_global
         start_iter = self.current_learning_iteration
         for it in range(start_iter, start_iter + num_learning_iterations):
             t0 = time.perf_counter()
@@ -287,11 +339,14 @@ class OnPolicyRunner:
             self._sync()
             elapsed = time.perf_counter() - t0
             metrics = {k: float(v) for k, v in metrics.items()}
+            if self.dp is not None:
+                self.replica_digests.append(
+                    sharding.check_replicas_identical(self.dp, state.ppo, f"update of iteration {it}"))
             self.current_learning_iteration = it + 1
             self._log(it, metrics, elapsed, steps_per_iter)
-            if self.log_dir is not None and (it + 1) % self.save_interval == 0:
+            if self.log_dir is not None and self.is_lead and (it + 1) % self.save_interval == 0:
                 self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"), state)
-        if self.log_dir is not None:
+        if self.log_dir is not None and self.is_lead:
             self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"),
                       state)
         return state
@@ -321,6 +376,8 @@ class OnPolicyRunner:
             for k, v in m.items():
                 if k.startswith("episode/"):
                     w.add_scalar("Episode/" + k.split("/", 1)[1], v, it)
+        if not self.is_lead:
+            return
         print(
             f"it {it:5d} | fps {fps:9.0f} | rew {m['mean_step_reward']:7.3f} "
             f"| vloss {m['value_loss']:7.3f} | sloss {m['surrogate_loss']:7.4f} "
@@ -343,17 +400,25 @@ class OnPolicyRunner:
             "iter": self.current_learning_iteration,
         }, path)
 
-    def load(self, path: str, state: Optional[RunnerState] = None, load_optimizer: bool = True):
+    def load(self, path: Optional[str], state: Optional[RunnerState] = None, load_optimizer: bool = True):
         """Restore params, LR (and with ``load_optimizer`` m, v and the count)
-        and the iteration from ``path``; the next ``learn`` resumes from it."""
-        ck = torch.load(path, map_location=self.device, weights_only=True)
+        and the iteration from ``path``; the next ``learn`` resumes from it.
+        With ``dp`` rank 0 reads ``path`` and broadcasts what it read (the
+        other ranks' ``path`` is not read and may be None)."""
         if state is None:
             state = self.init_state()
-        ppo = state.ppo.replace(params=ck["params"].contiguous(),
-                                learning_rate=ck["learning_rate"])
-        if load_optimizer:
-            ppo = ppo.replace(m=ck["m"], v=ck["v"], count=ck["count"])
-        self.current_learning_iteration = int(ck["iter"])
+        it = 0
+        ppo = state.ppo
+        if self.is_lead:
+            ck = torch.load(path, map_location=self.device, weights_only=True)
+            ppo = ppo.replace(params=ck["params"].contiguous(), learning_rate=ck["learning_rate"])
+            if load_optimizer:
+                ppo = ppo.replace(m=ck["m"], v=ck["v"], count=ck["count"])
+            it = int(ck["iter"])
+        if self.dp is not None:
+            ppo = sharding.broadcast_ppo_state(self.dp, ppo)
+            it = int(self.dp.broadcast(torch.tensor([it], dtype=torch.int64, device=self.dp.device))[0])
+        self.current_learning_iteration = it
         self.net.bind(ppo.params)
         state = state.replace(ppo=ppo)
         self._loaded_state = state

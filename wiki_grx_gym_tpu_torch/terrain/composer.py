@@ -343,15 +343,19 @@ class Terrain:
             x0w, y0w, fx, fy, self._hs, self._vs, thr,
         )
 
-    def sample_origins(self, generator: torch.Generator, num_envs: int, cfg):
+    def sample_origins(self, generator: torch.Generator, num_envs: int, cfg, offset: int = 0,
+                       total: int = None):
         """Initial terrain levels, types and origins of ``num_envs`` envs
         (legged_robot.py:1167-1183): levels uniform in [0, max_init] from
-        ``generator``, types in equal blocks of envs."""
+        ``generator``, types in equal blocks of envs. ``offset``/``total``:
+        these are envs ``[offset, offset + num_envs)`` of ``total`` (default
+        all), whose blocks the types follow."""
+        total = num_envs if total is None else int(total)
         max_init = cfg.max_init_terrain_level if cfg.curriculum else cfg.num_rows - 1
         levels = torch.randint(0, max_init + 1, (num_envs,), generator=generator,
                                device=self.device, dtype=torch.int32)
-        types = np.floor(np.arange(num_envs).astype(np.float32)
-                         / np.float32(num_envs / cfg.num_cols)).astype(np.int32)
+        types = np.floor(np.arange(offset, offset + num_envs).astype(np.float32)
+                         / np.float32(total / cfg.num_cols)).astype(np.int32)
         types = torch.as_tensor(types, device=self.device)
         origins = self.terrain_origins[levels.long(), types.long()]
         return origins, levels, types

@@ -30,6 +30,13 @@ def get_args(argv=None):
                         help="play.py: policy.npz to run (the export_policy_npz format) instead of "
                              "the run's latest checkpoint")
     parser.add_argument("--steps", type=int, default=500, help="play.py: policy steps")
+    # data parallel (train.py)
+    parser.add_argument("--distributed", action="store_true", default=False,
+                        help="one rank of a data-parallel group (run under torchrun)")
+    parser.add_argument("--num_mp", type=int, default=1,
+                        help="tensor-parallel ways; only 1 is ported (ROADMAP queue 1 item 14b)")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="torch.distributed backend: nccl on CUDA, gloo on the CPU by default")
     return parser.parse_args(argv)
 
 

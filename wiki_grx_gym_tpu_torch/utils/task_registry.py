@@ -37,8 +37,10 @@ class TaskRegistry:
     def get_cfgs(self, name: str) -> Tuple[LeggedRobotCfg, LeggedRobotCfgPPO]:
         return self.env_cfgs[name](), self.train_cfgs[name]()
 
-    def make_env(self, name: str, args=None, env_cfg: LeggedRobotCfg = None, device="cuda"):
-        """Build the env. Returns (env, env_cfg)."""
+    def make_env(self, name: str, args=None, env_cfg: LeggedRobotCfg = None, device="cuda", dp=None):
+        """Build the env. With ``dp`` (a ``parallel.mesh.DataParallel``) it is
+        that rank's shard of ``env_cfg.env.num_envs`` envs on the rank's
+        device. Returns (env, env_cfg)."""
         from wiki_grx_gym_tpu_torch.models.serialize import load_robot
 
         if name not in self.task_classes:
@@ -49,19 +51,26 @@ class TaskRegistry:
         if args is not None:
             update_cfg_from_args(env_cfg, None, args)
         model = load_robot(os.path.join(RESOURCES, env_cfg.asset.file + ".json"))
+        shard = None
+        if dp is not None:
+            from wiki_grx_gym_tpu_torch.parallel.sharding import shard_bounds
+
+            device = dp.device
+            shard = shard_bounds(env_cfg.env.num_envs, dp.world, dp.rank)
         terrain = None
         if env_cfg.terrain.mesh_type in ("heightfield", "trimesh"):
             from wiki_grx_gym_tpu_torch.device import resolve_device
             from wiki_grx_gym_tpu_torch.terrain.composer import Terrain
 
             terrain = Terrain(env_cfg.terrain, device=resolve_device(device))
-        env = task_class(env_cfg, model, terrain=terrain, device=device)
+        env = task_class(env_cfg, model, terrain=terrain, device=device, shard=shard, dp=dp)
         return env, env_cfg
 
-    def make_alg_runner(self, env, name: str, args=None, train_cfg=None, log_root="default"):
-        """Build the PPO runner on ``env.device``. ``log_root="default"`` is
-        ``logs/<experiment_name>`` under the checkout; None writes nothing.
-        Returns (runner, train_cfg)."""
+    def make_alg_runner(self, env, name: str, args=None, train_cfg=None, log_root="default", dp=None):
+        """Build the PPO runner on ``env.device`` (with ``dp``, for that rank's
+        env: only rank 0 writes, and only rank 0 looks for the checkpoint to
+        resume from). ``log_root="default"`` is ``logs/<experiment_name>``
+        under the checkout; None writes nothing. Returns (runner, train_cfg)."""
         from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 
         if train_cfg is None:
@@ -75,11 +84,13 @@ class TaskRegistry:
         rcn = str(getattr(train_cfg, "runner_class_name", "OnPolicyRunner"))
         if rcn != "OnPolicyRunner":
             raise ValueError(f"unknown runner_class_name {rcn!r}")
-        runner = OnPolicyRunner(env, train_cfg, device=env.device, log_dir=log_dir)
+        runner = OnPolicyRunner(env, train_cfg, device=env.device, log_dir=log_dir, dp=dp)
         if train_cfg.runner.resume:
-            resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
-                                        checkpoint=train_cfg.runner.checkpoint)
-            print(f"Loading model from: {resume_path}")
+            resume_path = None
+            if runner.is_lead:
+                resume_path = get_load_path(log_root, load_run=train_cfg.runner.load_run,
+                                            checkpoint=train_cfg.runner.checkpoint)
+                print(f"Loading model from: {resume_path}")
             runner.load(resume_path)
         return runner, train_cfg
 

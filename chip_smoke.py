@@ -226,12 +226,31 @@ together after phase 9):
    (the identity check); (d) the ranks' learner states bit-identical after
    each update, the checkpoint from rank 0 only; the gloo all-reduce of the
    gradient timed alone. The ranks are joined within ``DP_JOIN_S`` or
-   killed. (e) ``torchrun --nproc_per_node=1 -m
+   killed. Rank 0 also times K2's plain version and the cuBLAS yardstick
+   (phase 8's) at its 5,232 rows. (e) ``torchrun --nproc_per_node=1 -m
    wiki_grx_gym_tpu_torch.scripts.train --distributed`` with NCCL, one
    iteration, exit 0. Each of phases 13 and 14 prints its seconds.
-   Prints the kernels' JSON line (K1 for each program, K2 at both widths
-   with its data-parallel use under ``dp``, K3), the card line, and the
-   final ok line.
+15. Eval and deploy (``eval_deploy_phase``), the launch counts set to 0
+   just before each part and read just after: (a) ``play --record`` of
+   GR1T1 from phase 7's ``model_2.pt`` (50 envs, 100 steps; K1 once a step
+   and once for the load's initial step; ``traj.npz`` with JAX's keys,
+   shapes and dtypes, finite; ``policy.npz`` and ``policy.grxpolicy``
+   written); (b) the native C++ runtime (``deploy/runtime.py``, built by
+   g++) on that ``.grxpolicy`` and 4096 rows of phase 4's observations
+   against the port's actor on the card in f32, rtol 1e-4 / atol 1e-5, one
+   weight of the file moved by 1e-2 must fail it, and the forward's host
+   CPU time, for the batch and for 1,000 single-row calls (median, p99); (c) the same for GR1T1_lstm's export from phase 12, streamed
+   20 steps against the port's stateful policy and again after
+   ``reset()``; (d) the replay frames of (a)'s file (forward kinematics on
+   the card) against float64 on the CPU within 1e-5 m; (e) ``eval_tracking``
+   at 64 envs: six finite rows, survival in [0, 1], K1 1 + 6 x 261 times;
+   (f) ``learn(5, profile_dir=...)`` at 4096 envs: one Chrome trace of
+   iterations 2-4 naming K1's team kernel and K2's and K3's kernels (or the
+   update's graph launch). Prints its seconds.
+   Prints the kernels' JSON line (K1 for each program, its main-path count
+   from phase 4 with phase 15's counts beside it under their own keys, K2 at both widths with its
+   data-parallel use under ``dp``, K3), the card line, and the final ok
+   line.
 """
 
 import copy
@@ -316,6 +335,15 @@ def fail(msg):
     last phase (so one run reports every check) and prints no result."""
     FAILURES.append(msg)
     log("FAIL:", msg)
+
+
+def logger_finite(logger):
+    """Every value play's EvalLogger holds, the stored rewards included, is
+    finite (a NaN reward times an episode count of 0 stays NaN)."""
+    import numpy as np
+
+    return all(bool(np.isfinite(v).all()) for vals in {**logger.state_log, **logger.rew_log}.values()
+               for v in vals)
 
 
 def card_line():
@@ -1595,8 +1623,7 @@ def lstm_phase(dev):
     import numpy as np
 
     keys = sorted(np.load(npz).files)
-    if play_launches != PLAY_STEPS + 1 or not all(math.isfinite(v) for k, vals in play_log.items()
-                                                  if k != "dones" for v in vals):
+    if play_launches != PLAY_STEPS + 1 or not logger_finite(play_log):
         fail(f"{task}: play launched K1 {play_launches} times or produced non-finite values")
     if not {"lstm0_w_ih", "lstm0_w_hh", "lstm0_b_ih", "lstm0_b_hh", "std"} <= set(keys):
         fail(f"{task}: the exported policy.npz lacks the LSTM keys: {keys}")
@@ -2291,7 +2318,7 @@ def dp_worker(rank, world, init_method, out_dir, device, num_envs):
         # K2 at this rank's rows (rank 0 times it while rank 1 waits): its
         # launch on a prepared context, as phase 8 times it, and the step
         # path's whole grads() call (the context built anew each grad step)
-        k2_ms = grads_ms = None
+        k2_ms = grads_ms = plain_ms = library_ms = None
         if rank == 0 and dev.type == "cuda":
             from wiki_grx_gym_tpu_torch.learn import fused_update
 
@@ -2299,9 +2326,13 @@ def dp_worker(rank, world, init_method, out_dir, device, num_envs):
             lib = fused_update._lib("k2")
             k2_ms = cuda_ms(lambda: fused._k2_launch(lib, args, 0, dev), reps=50, warmup=3)
             grads_ms = cuda_ms(lambda: fused.grads(p, bufs, 0), reps=20, warmup=2)
+            # K2's plain version and the cuBLAS yardstick at this rank's rows
+            plain_ms = cuda_ms(lambda: fused.grads_plain(p, bufs, 0), reps=5, warmup=1)
+            library_ms = cublas_yardstick(fused, dev)
         dp.all_reduce_sum(torch.zeros(1, device=dev))
         ops, nbytes = k2_work(fused, 2)
-        res.update(rows=rows, k2_ms=k2_ms, k2_grads_call_ms=grads_ms,
+        res.update(rows=rows, k2_ms=k2_ms, k2_grads_call_ms=grads_ms, k2_plain_ms=plain_ms,
+                   k2_library_ms=library_ms,
                    k2_bound_ms=max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3, flips=flips, rows_taken_out=taken, k2_rank_ok=bool(rank_ok),
                    k2_rank_worst={k: d / max(lim, 1e-30) for k, (d, lim) in diffs.items()},
                    k2_loss=[float(lk), float(lp)],
@@ -2382,7 +2413,10 @@ def dp_phase(dev):
             f"x{FAULT_SCALE} fault at {r['fault_ratio']:.2f}x the limit, caught {r['fault_caught']}; identity "
             f"check {r['identity_check']}" + (f"; K2 {r['k2_ms']:.4f} ms a launch on a prepared context at "
                                                f"{r['rows']} rows (bound {r['k2_bound_ms']:.4f} ms), the step "
-                                               f"path's grads() call {r['k2_grads_call_ms']:.4f} ms"
+                                               f"path's grads() call {r['k2_grads_call_ms']:.4f} ms, its "
+                                               f"plain version {r['k2_plain_ms']:.3f} ms, the cuBLAS "
+                                               f"yardstick (22 bf16 products, one graph) "
+                                               f"{r['k2_library_ms']:.4f} ms"
                                                if r["k2_ms"] else ""))
         if r["launches"] != want:
             fail(f"dp rank {r['rank']}: launched {r['launches']}, expected {want}")
@@ -2417,12 +2451,252 @@ def dp_phase(dev):
     return {"world": DP_WORLD, "backend": "gloo", "device": ranks[0]["device"], "path": ranks[0]["path"],
             "rows_per_rank": ranks[0]["rows"], "launches_per_rank": [r["launches"] for r in ranks],
             "k2_ms_at_rows_per_rank": ranks[0]["k2_ms"], "k2_grads_call_ms": ranks[0]["k2_grads_call_ms"],
-            "k2_bound_ms_at_rows_per_rank": ranks[0]["k2_bound_ms"], "allreduce_ms_per_grad_step": [r["allreduce_ms"] for r in ranks],
+            "k2_bound_ms_at_rows_per_rank": ranks[0]["k2_bound_ms"],
+            "k2_plain_ms_at_rows_per_rank": ranks[0]["k2_plain_ms"],
+            "k2_library_ms_at_rows_per_rank": ranks[0]["k2_library_ms"], "allreduce_ms_per_grad_step": [r["allreduce_ms"] for r in ranks],
             "iteration_s": ranks[0]["iteration_s"], "collection_s": ranks[0]["collection_s"],
             "update_s": ranks[0]["update_s"], "env_steps_per_s": ranks[0]["env_steps_per_s"],
             "one_process_step_update_s": one["update_s"], "one_process_step_iteration_s": one["elapsed_s"],
             "spawn_s": spawn_s, "torchrun_nccl_world1": {"exit": res.returncode, "seconds": torchrun_s,
                                                          "iteration": it_lines}}
+
+
+# phase 15: eval and deploy
+EVAL_PLAY_STEPS = 100
+NATIVE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_deploy.py's limits
+NATIVE_FAULT = 1e-2   # one weight of the .grxpolicy moved by this much must fail NATIVE_TOL
+LSTM_STREAM = 20
+NATIVE_ROW_CALLS = 1000   # single-row forwards timed: one robot's control step each
+FRAME_TOL = 1e-5      # replay frames on the card against float64 FK on the CPU, meters
+EVAL_TRANSIENT, EVAL_WINDOW, EVAL_ENVS = 60, 200, 64
+PROFILE_ITERS = 5
+
+
+def native_check(native, obs, want):
+    """(largest |native - want|, within NATIVE_TOL) on a batch."""
+    import numpy as np
+
+    got = native(obs)
+    err = np.abs(got - want)
+    return float(err.max()), bool((err <= NATIVE_TOL["atol"] + NATIVE_TOL["rtol"] * np.abs(want)).all())
+
+
+def eval_deploy_phase(dev, eval_obs, stream_obs):
+    """Phase 15: the eval and deploy path through the entry points a user
+    calls, the launch counts set to 0 just before and read just after.
+    (a) ``play --record`` of GR1T1 from phase 7's ``model_2.pt`` (the eval
+    config: 50 envs, 100 steps): K1 once a step plus the load's initial
+    step; ``traj.npz`` with JAX's keys, shapes and dtypes, all finite;
+    ``policy.npz`` and ``policy.grxpolicy`` written. (b) ``NativePolicy`` on
+    that ``.grxpolicy`` (the C++ runtime, built by g++ into build/deploy)
+    on ``eval_obs`` (4096 rows of the phase-4 rollout) against the port's
+    actor on the card in f32 (TF32 off) within rtol 1e-4 / atol 1e-5; one
+    weight of the file moved by 1e-2 must fail it; the forward's CPU time,
+    for the batch and for single-row calls (a robot's control step).
+    (c) The same for GR1T1_lstm from phase 12's export: the native stream
+    against the port's stateful policy for 20 steps of ``stream_obs``, and
+    again after ``reset()``. (d) The replay frames of (a)'s ``traj.npz``
+    (FK on the card) against the same FK on the CPU in float64 within 1e-5
+    m. (e) ``eval_tracking`` of the trained GR1T1 at 64 envs: six finite
+    rows, survival in [0, 1], K1 1 + 6 x (1 + 260) launches. (f)
+    ``learn(5, profile_dir=...)`` at 4096 envs: one Chrome trace naming
+    K1's ``decimation_team_kernel`` and K3's ``k3_fused_step`` and K2's
+    chain, or the update's ``cudaGraphLaunch`` where the profiler sees no
+    kernel inside the graph. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.deploy.runtime import MAGIC, NativePolicy, ensure_library
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
+    from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent
+    from wiki_grx_gym_tpu_torch.scripts.play import play
+    from wiki_grx_gym_tpu_torch.tools.eval_tracking import evaluate
+    from wiki_grx_gym_tpu_torch.tools.visualize import replay_frames
+    from wiki_grx_gym_tpu_torch.utils.helpers import get_args
+    from wiki_grx_gym_tpu_torch.utils.task_registry import get_load_path
+
+    t_phase = time.perf_counter()
+    out = {}
+    k1_total = 0
+    root = os.path.join(THIS, "build", "smoke_train", "GR1T1")
+    export = os.path.join(root, "exported", "policies")
+
+    # (a) play --record
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logger = play(get_args(["--task", "GR1T1", "--device", str(dev), "--record"]), num_steps=EVAL_PLAY_STEPS,
+                  log_root=root)
+    torch.cuda.synchronize()
+    play_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    k1_total += launches["k1"]
+    traj = np.load(os.path.join(root, "traj.npz"), allow_pickle=False)
+    shapes = {k: (str(traj[k].dtype), traj[k].shape) for k in traj.files}
+    want = {"base_pos": ("float32", (EVAL_PLAY_STEPS, 3)), "base_quat": ("float32", (EVAL_PLAY_STEPS, 4)),
+            "q": ("float32", (EVAL_PLAY_STEPS, 10)), "dt": ("float32", ()), "task": ("<U5", ())}
+    finite = all(bool(np.isfinite(traj[k]).all()) for k in ("base_pos", "base_quat", "q", "dt")) and logger_finite(
+        logger)
+    exports = {f: os.path.isfile(os.path.join(export, f)) for f in ("policy.npz", "policy.grxpolicy")}
+    log(f"[eval play] play --record, GR1T1 from {os.path.relpath(get_load_path(root), THIS)}, 50 envs, "
+        f"{EVAL_PLAY_STEPS} steps in {play_s:.2f} s; launches {launches}; traj.npz {shapes}; finite {finite}; "
+        f"exports {exports}; {logger.num_episodes} episodes ended")
+    if launches != {"k1": EVAL_PLAY_STEPS + 1, "k2": 0, "k3": 0} or shapes != want or not finite or not all(
+            exports.values()):
+        fail(f"play --record: launches {launches}, traj {shapes}, finite {finite}, exports {exports}")
+    out["play"] = {"seconds": play_s, "launches": launches, "episodes": logger.num_episodes}
+
+    # (b) the native runtime against the port's actor on the card
+    t0 = time.perf_counter()
+    lib = ensure_library()
+    build_s = time.perf_counter() - t0
+    _, train_cfg = task_registry.get_cfgs("GR1T1")
+    net = ActorCritic(39, 168, 10, train_cfg.policy).to(dev)
+    ck = torch.load(get_load_path(root), map_location=dev, weights_only=True)
+    net.params_flat.copy_(ck["params"])
+    with torch.no_grad():
+        want_act = net.act_inference(torch.from_numpy(eval_obs).to(dev)).cpu().numpy()
+    path = os.path.join(export, "policy.grxpolicy")
+    native = NativePolicy(path)
+    native(eval_obs[:8])
+    t0 = time.perf_counter()
+    err, ok = native_check(native, eval_obs, want_act)
+    native_s = time.perf_counter() - t0
+    row_s = []
+    for i in range(NATIVE_ROW_CALLS):   # a robot runs one row a call
+        t0 = time.perf_counter()
+        native(eval_obs[i % len(eval_obs)])
+        row_s.append(time.perf_counter() - t0)
+    row_us = np.percentile(row_s, [50, 99]) * 1e6
+    blob = bytearray(open(path, "rb").read())
+    off = 16 + 8   # header (magic, version, layers, activation), layer 0's (in, out); then W[0, 0]
+    w = np.frombuffer(bytes(blob[off: off + 4]), np.float32)[0]
+    blob[off: off + 4] = np.float32(w + NATIVE_FAULT).tobytes()
+    faulty = os.path.join(THIS, "build", "smoke_faulty.grxpolicy")
+    with open(faulty, "wb") as fh:
+        fh.write(bytes(blob))
+    f_err, f_ok = native_check(NativePolicy(faulty), eval_obs, want_act)
+    magic = int(np.frombuffer(bytes(blob[:4]), np.uint32)[0])
+    log(f"[eval native] libgrxpolicy.so ({os.path.relpath(lib, THIS)}, g++ {build_s:.2f} s if built now) on "
+        f"{len(eval_obs)} rollout observations against the port's actor on the card (f32): largest |diff| "
+        f"{err:.3e}, within rtol {NATIVE_TOL['rtol']:g} / atol {NATIVE_TOL['atol']:g}: {ok}; the forward "
+        f"{native_s * 1e3:.1f} ms on the host CPU ({native_s / len(eval_obs) * 1e6:.2f} us a row of the batch); "
+        f"{NATIVE_ROW_CALLS} single-row calls: median {row_us[0]:.2f} us, p99 {row_us[1]:.2f} us; W0[0,0] "
+        f"moved by {NATIVE_FAULT:g}: largest |diff| {f_err:.3e}, caught {not f_ok}")
+    if not ok or f_ok or magic != MAGIC:
+        fail(f"native runtime: within tolerance {ok}, planted fault caught {not f_ok}, magic {magic:#x}")
+    out["native"] = {"rows": len(eval_obs), "max_abs_err": err, "ok": ok, "fault_caught": not f_ok,
+                     "fault_max_abs_err": f_err, "forward_ms_host_cpu": native_s * 1e3,
+                     "us_per_row_host_cpu": native_s / len(eval_obs) * 1e6,
+                     "single_row_median_us_host_cpu": float(row_us[0]),
+                     "single_row_p99_us_host_cpu": float(row_us[1])}
+
+    # (c) the LSTM's native stream against the port's stateful policy
+    lroot = os.path.join(THIS, "build", "smoke_train", "GR1T1_lstm")
+    _, lcfg = task_registry.get_cfgs("GR1T1_lstm")
+    lnet = ActorCriticRecurrent(39, 168, 10, lcfg.policy).to(dev)
+    ck = torch.load(get_load_path(lroot), map_location=dev, weights_only=True)
+    lnet.params_flat.copy_(ck["params"])
+    lnative = NativePolicy(os.path.join(lroot, "exported", "policies", "policy.grxpolicy"))
+
+    def port_stream(n):
+        hidden, acts = lnet.initial_hidden(1), []
+        with torch.no_grad():
+            for t in range(n):
+                a, hidden = lnet.act_inference_rnn(torch.from_numpy(stream_obs[t: t + 1]).to(dev), hidden)
+                acts.append(a[0].cpu().numpy())
+        return np.stack(acts)
+
+    lwant = port_stream(LSTM_STREAM)
+    l_err, l_ok = native_check(lnative, stream_obs[:LSTM_STREAM], lwant)
+    lnative.reset()
+    r_err, r_ok = native_check(lnative, stream_obs[:LSTM_STREAM], lwant)
+    log(f"[eval native lstm] GR1T1_lstm ({lnative.num_lstm_layers} LSTM layer(s)), {LSTM_STREAM} streamed steps "
+        f"against the port's stateful policy on the card: largest |diff| {l_err:.3e}: {l_ok}; after reset() "
+        f"{r_err:.3e}: {r_ok}")
+    if not (l_ok and r_ok) or lnative.num_lstm_layers < 1:
+        fail(f"native LSTM stream: {l_ok}, after reset {r_ok}")
+    out["native_lstm"] = {"steps": LSTM_STREAM, "max_abs_err": max(l_err, r_err), "ok": l_ok and r_ok}
+
+    # (d) replay frames: FK on the card against float64 FK on the CPU
+    tpath = os.path.join(root, "traj.npz")
+    frames, model, _, _, stride = replay_frames(tpath, dev)
+    frames64 = replay_frames(tpath, "cpu", dtype=torch.float64)[0]
+    f_diff = float(np.abs(frames - frames64).max())
+    log(f"[eval replay] {len(frames)} frames (stride {stride}) of {model.num_bodies} bodies: largest |card f32 - "
+        f"CPU f64| {f_diff:.3e} m (limit {FRAME_TOL:g}); the GIF is drawn by tools/visualize.py where matplotlib "
+        f"and Pillow are installed")
+    if not f_diff <= FRAME_TOL:
+        fail(f"replay frames differ from float64 FK by {f_diff} m")
+    out["replay"] = {"frames": len(frames), "max_abs_err_m": f_diff}
+
+    # (e) command tracking
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = evaluate("GR1T1", num_envs=EVAL_ENVS, transient=EVAL_TRANSIENT, window=EVAL_WINDOW, log_root=root,
+                    device=str(dev))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    k1_total += launches["k1"]
+    want_k1 = 1 + 6 * (1 + EVAL_TRANSIENT + EVAL_WINDOW)
+    steps = 6 * (1 + EVAL_TRANSIENT + EVAL_WINDOW) * EVAL_ENVS
+    rows_ok = len(rows) == 6 and all(math.isfinite(r[2]) and 0.0 <= r[4] <= 1.0 for r in rows)
+    log(f"[eval tracking] {EVAL_ENVS} envs, transient {EVAL_TRANSIENT}, window {EVAL_WINDOW}: {eval_s:.2f} s, "
+        f"{steps / eval_s:.0f} env-steps/s; launches {launches} (K1 expected {want_k1}); rows "
+        + "; ".join(f"{r[0]} measured {r[2]:+.3f} survival {r[4]:.3f}" for r in rows))
+    if launches != {"k1": want_k1, "k2": 0, "k3": 0} or not rows_ok:
+        fail(f"eval_tracking: launches {launches} (K1 {want_k1} expected), rows {rows}")
+    out["eval_tracking"] = {"seconds": eval_s, "env_steps_per_s": steps / eval_s, "launches": launches,
+                            "rows": [list(r) for r in rows]}
+
+    # (f) learn(5, profile_dir=...): a device trace of iterations 2-4
+    prof_dir = os.path.join(THIS, "build", "smoke_profile")
+    if os.path.isdir(prof_dir):
+        for f in os.listdir(prof_dir):
+            os.remove(os.path.join(prof_dir, f))
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner.learn(PROFILE_ITERS, profile_dir=prof_dir)
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    k1_total += launches["k1"]
+    files = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    names = set()
+    if len(files) == 1:
+        with open(os.path.join(prof_dir, files[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {str(e.get("name", "")) for e in events}
+    has = lambda frag: any(frag in n for n in names)
+    seen = {k: has(k) for k in (*KERNEL_NAMES["K1"], *KERNEL_NAMES["K2"], *KERNEL_NAMES["K3"], "cudaGraphLaunch")}
+    iters = sorted(int(n.rsplit(" ", 1)[1]) for n in names if n.startswith("OnPolicyRunner.iteration "))
+    k23 = all(seen[k] for k in (*KERNEL_NAMES["K2"], *KERNEL_NAMES["K3"]))
+    size_mb = os.path.getsize(os.path.join(prof_dir, files[0])) / 2**20 if len(files) == 1 else 0.0
+    log(f"[eval profile] learn({PROFILE_ITERS}, profile_dir=build/smoke_profile) at {N_ENVS} envs in {learn_s:.2f} s; "
+        f"launches {launches}; trace files {files} ({size_mb:.1f} MiB), iterations traced {iters}; names seen "
+        f"{seen}" + ("" if k23 else "; no K2/K3 kernel inside the update's graph in the trace: its "
+                     "cudaGraphLaunch stands for them"))
+    grad_steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    want = {"k1": PROFILE_ITERS * ROLLOUT_STEPS + 1, "k2": PROFILE_ITERS * grad_steps, "k3": PROFILE_ITERS}
+    if len(files) != 1 or iters != [2, 3, 4] or not seen["decimation_team_kernel"] or not (
+            k23 or seen["cudaGraphLaunch"]) or launches != want:
+        fail(f"learn(profile_dir=): files {files}, iterations {iters}, names {seen}, launches {launches} "
+             f"(expected {want})")
+    out["profile"] = {"seconds": learn_s, "launches": launches, "trace_mib": size_mb, "iterations": iters,
+                      "names_seen": seen}
+    out["k1_launches"] = k1_total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 15 took {out['seconds']:.1f} s; K1 launched {k1_total} times in it")
+    return out
 
 
 def main():
@@ -2560,7 +2834,7 @@ def main():
     play_launches = cuda_step.LAUNCHES["k1"] - before
     if play_launches != PLAY_STEPS + 1:
         raise SystemExit(f"play launched K1 {play_launches} times for {PLAY_STEPS} steps + init")
-    if not all(math.isfinite(v) for key, vals in play_log.items() if key != "dones" for v in vals):
+    if not logger_finite(play_log):
         raise SystemExit("play produced non-finite values")
     main_path_launches = cuda_step.LAUNCHES["k1"]
     log(f"[play] {PLAY_STEPS} steps, K1 launches {play_launches} (incl. the init step)")
@@ -2595,6 +2869,10 @@ def main():
     if dev_total_ms > 0 and k1_dev_ms == 0:
         raise SystemExit(f"the rollout profile attributes no device time to {KERNEL_NAMES['K1']} "
                          f"though K1 launched {rollout_launches} times in a rollout")
+
+    # phase 15's inputs: one step of the rollout's observations, and env 0's first steps
+    eval_obs = batch.obs[ROLLOUT_STEPS // 2].cpu().numpy()
+    stream_obs = batch.obs[:LSTM_STREAM, 0].cpu().numpy()
 
     phase_done("phase 4")
     # ---- phases 5-8: the learner ----
@@ -2646,6 +2924,11 @@ def main():
     dp_row = dp_phase(dev)
     log(f"[time] phase 14 took {time.perf_counter() - t14:.1f} s")
     phase_done("phase 14")
+    # ---- phase 15: eval and deploy (play --record, the native runtime, replay, eval_tracking, profile_dir) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_deploy = eval_deploy_phase(dev, eval_obs, stream_obs)
+    phase_done("phase 15")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -2659,7 +2942,13 @@ def main():
     k3_row["kernels_ptxas"] = k3_kernels
     k3_row["coresident_blocks"] = k3_resident
 
-    k1_row = dict(k1_rows["GR1T1"], launches=main_path_launches, build_all_s=build_s,
+    # launches: phase 4's rollout and play, as in every earlier slice; phase
+    # 15's runs, each counted from 0, under their own keys
+    k1_row = dict(k1_rows["GR1T1"], launches=main_path_launches,
+                  eval_deploy_launches=eval_deploy["k1_launches"],
+                  eval_play_launches=eval_deploy["play"]["launches"]["k1"],
+                  eval_tracking_launches=eval_deploy["eval_tracking"]["launches"]["k1"],
+                  eval_learn_launches=eval_deploy["profile"]["launches"]["k1"], build_all_s=build_s,
                   rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
                   peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"])
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
@@ -2685,6 +2974,7 @@ def main():
     log(json.dumps({"train_GR1T1_lstm": train_lstm}))
     log(json.dumps({"symmetry": symmetry}))
     log(json.dumps({"data_parallel": dp_row}))
+    log(json.dumps({"eval_deploy": eval_deploy}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

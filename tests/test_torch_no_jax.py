@@ -57,6 +57,44 @@ def test_importing_every_port_module_loads_no_jax():
             "wiki_grx_gym_tpu_torch.scripts.multihost_dryrun"} <= set(_modules())
 
 
+NEW_MODULES = [
+    "wiki_grx_gym_tpu_torch.utils.logger", "wiki_grx_gym_tpu_torch.deploy.runtime",
+    "wiki_grx_gym_tpu_torch.models.urdf", "wiki_grx_gym_tpu_torch.models.mjcf",
+    "wiki_grx_gym_tpu_torch.models.serialize", "wiki_grx_gym_tpu_torch.tools.import_urdf",
+    "wiki_grx_gym_tpu_torch.tools.eval_tracking", "wiki_grx_gym_tpu_torch.tools.visualize",
+    "wiki_grx_gym_tpu_torch.scripts.play", "wiki_grx_gym_tpu_torch.learn.runner",
+]
+
+
+def test_eval_and_deploy_modules_import_with_jax_blocked():
+    """The eval and deploy modules import with any import of ``jax`` (and its
+    kin) or of the JAX package made to fail, and then compile a robot, write
+    a ``.grxpolicy`` and read it through the native runtime."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'wiki_grx_gym_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {NEW_MODULES!r}: importlib.import_module(m)\n"
+        "import numpy as np, torch, tempfile, os\n"
+        "from wiki_grx_gym_tpu_torch.models.urdf import compile_robot\n"
+        "from wiki_grx_gym_tpu_torch.deploy.runtime import NativePolicy, export_policy_bin\n"
+        "from wiki_grx_gym_tpu_torch.envs import task_registry\n"
+        "from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic\n"
+        "m = compile_robot('<robot name=\"r\"><link name=\"a\"/></robot>')\n"
+        "_, tc = task_registry.get_cfgs('GR1T1')\n"
+        "d = tempfile.mkdtemp()\n"
+        "export_policy_bin(ActorCritic(39, 168, 10, tc.policy), os.path.join(d, 'p.grxpolicy'))\n"
+        "print(m.num_bodies, NativePolicy(os.path.join(d, 'p.grxpolicy'))(np.zeros(39)).shape)\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "1 (10,)"
+
+
 def test_port_sources_do_not_import_jax():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:

@@ -305,6 +305,6 @@ def test_only_rank_0_writes_and_play_loads_it(dp_iteration):
     _, _, out_dir = dp_iteration
     assert os.path.isfile(out_dir / "rank0" / "run" / "model_1.pt")
     assert not os.path.exists(out_dir / "rank1")
-    log = play(get_args(["--task", "GR1T1", "--device", "cpu", "--num_envs", "2"]), num_steps=2,
-               log_root=str(out_dir / "rank0"))
-    assert len(log["rew_total"]) == 2 and all(np.isfinite(log["rew_total"]))
+    logger = play(get_args(["--task", "GR1T1", "--device", "cpu", "--num_envs", "2"]), num_steps=2,
+                  log_root=str(out_dir / "rank0"))
+    assert len(logger.rew_log["rew_total"]) == 2 and all(np.isfinite(logger.rew_log["rew_total"]))

@@ -46,15 +46,17 @@ def trained(tmp_path_factory):
 def test_play_loads_the_latest_checkpoint_and_exports_policy_npz(trained):
     root, runner, state = trained
     before = dict(LAUNCHES)
-    log = play(get_args(ARGS), num_steps=3, log_root=root)
+    logger = play(get_args(ARGS), num_steps=3, log_root=root)
     assert LAUNCHES == before   # CPU tensors launch no kernel
-    assert len(log["rew_total"]) == 3
-    assert all(np.isfinite(v) for k, vals in log.items() if k != "dones" for v in vals)
+    assert len(logger.rew_log["rew_total"]) == 3
+    assert all(np.isfinite(v).all() for vals in {**logger.state_log, **logger.rew_log}.values()
+               for v in vals)
     path = os.path.join(root, "exported", "policies", "policy.npz")
     blob = np.load(path)
     assert sorted(blob.files) == sorted([f"actor_{k}{i}" for k in "wb" for i in range(4)] + ["std", "activation"])
     assert blob["actor_w0"].shape == (39, 512) and blob["actor_w3"].shape == (128, 10)
     np.testing.assert_array_equal(blob["std"], runner.net.std_param.numpy())
+    assert os.path.isfile(os.path.join(root, "exported", "policies", "policy.grxpolicy"))
 
 
 def test_exported_policy_matches_the_port_in_the_jax_loader(trained):
@@ -82,6 +84,6 @@ def test_play_from_policy_npz_exports_nothing(trained, tmp_path):
     path = os.path.join(root, "exported", "policies", "policy.npz")
     if not os.path.isfile(path):
         play(get_args(ARGS), num_steps=1, log_root=root)
-    log = play(get_args(ARGS + ["--policy", path]), num_steps=2, log_root=str(tmp_path))
-    assert len(log["rew_total"]) == 2
+    logger = play(get_args(ARGS + ["--policy", path]), num_steps=2, log_root=str(tmp_path))
+    assert len(logger.rew_log["rew_total"]) == 2
     assert not os.path.exists(tmp_path / "exported")

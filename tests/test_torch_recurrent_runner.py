@@ -256,9 +256,10 @@ def test_play_exports_the_jax_format_and_the_loader_refuses_it(trained):
     from wiki_grx_gym_tpu_torch.utils.helpers import get_args
 
     root, args, runner, state = trained
-    log = play(get_args(args), num_steps=4, log_root=root)
-    assert len(log["rew_total"]) == 4
-    assert all(np.isfinite(v) for k, vals in log.items() if k != "dones" for v in vals)
+    logger = play(get_args(args), num_steps=4, log_root=root)
+    assert len(logger.rew_log["rew_total"]) == 4
+    assert all(np.isfinite(v).all() for vals in {**logger.state_log, **logger.rew_log}.values()
+               for v in vals)
     path = os.path.join(root, "exported", "policies", "policy.npz")
     tree = recurrent_to_numpy(runner.net, state.ppo.params)
     jparams = RecurrentParams(

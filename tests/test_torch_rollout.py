@@ -304,9 +304,10 @@ def test_play_runs_from_jax_exported_policy_npz(nets, tmp_path):
     path = str(tmp_path / "policy.npz")
     export_policy_npz(jnet, params, path)
     args = get_args(["--task", "GR1T1", "--policy", path, "--device", "cpu", "--num_envs", "4"])
-    log = play(args, num_steps=3)
-    assert len(log["rew_total"]) == 3
-    assert all(np.isfinite(v) for k, vals in log.items() if k != "dones" for v in vals)
+    logger = play(args, num_steps=3, log_root=str(tmp_path))
+    assert len(logger.rew_log["rew_total"]) == 3
+    assert all(np.isfinite(v).all() for vals in {**logger.state_log, **logger.rew_log}.values()
+               for v in vals)
 
 
 def test_npz_actor_matches_numpy_loader(nets, tmp_path):

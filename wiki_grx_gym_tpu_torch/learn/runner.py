@@ -310,12 +310,20 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
 
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = True,
-              state: Optional[RunnerState] = None) -> RunnerState:
+              state: Optional[RunnerState] = None, profile_dir: Optional[str] = None) -> RunnerState:
         """Train for ``num_learning_iterations`` iterations; checkpoints every
         ``save_interval`` iterations and at the end when ``log_dir`` is set
         (rank 0 only). With ``dp`` every update ends with the check that the
         ranks' learner states are bit-identical (``replica_digests`` holds
-        each iteration's digests)."""
+        each iteration's digests).
+
+        ``profile_dir``: trace iterations 2-4 of this call (counted from 0)
+        with ``torch.profiler`` (the CPU, and the card's kernels when the
+        runner is on CUDA) and write them as one Chrome trace
+        ``<profile_dir>/trace_<pid>.json`` (JAX ``runner.py:312-346``
+        writes a jax.profiler trace of the same iterations); each iteration
+        is the range ``OnPolicyRunner.iteration <it>``. Open it in Perfetto
+        or ``chrome://tracing``."""
         if state is None:
             state = self._loaded_state   # the resume path (task_registry.make_alg_runner)
         if state is None:
@@ -333,11 +341,19 @@ class OnPolicyRunner:
 
         steps_per_iter = self.num_steps_per_env * self.env.num_envs_global
         start_iter = self.current_learning_iteration
+        prof = None
         for it in range(start_iter, start_iter + num_learning_iterations):
+            rel = it - start_iter
+            if profile_dir is not None and rel == 2:
+                prof = self._start_profile()
             t0 = time.perf_counter()
-            state, metrics = self.iteration(state)
-            self._sync()
+            with torch.profiler.record_function(f"OnPolicyRunner.iteration {it}"):
+                state, metrics = self.iteration(state)
+                self._sync()
             elapsed = time.perf_counter() - t0
+            if prof is not None and rel == 4:
+                self._stop_profile(prof, profile_dir)
+                prof = None
             metrics = {k: float(v) for k, v in metrics.items()}
             if self.dp is not None:
                 self.replica_digests.append(
@@ -346,10 +362,30 @@ class OnPolicyRunner:
             self._log(it, metrics, elapsed, steps_per_iter)
             if self.log_dir is not None and self.is_lead and (it + 1) % self.save_interval == 0:
                 self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"), state)
+        if prof is not None:   # fewer than 5 iterations: the trace ends with the last
+            self._stop_profile(prof, profile_dir)
         if self.log_dir is not None and self.is_lead:
             self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"),
                       state)
         return state
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str):
+        self._sync()
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        print(f"wrote the profiler trace to {path}", flush=True)
 
     def _log(self, it: int, m: Dict[str, float], elapsed: float, steps_per_iter: int):
         # Perf/total_fps: the reference's FPS, env steps of the iteration over

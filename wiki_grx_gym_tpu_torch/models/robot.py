@@ -14,7 +14,7 @@ from (``point_link``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -102,3 +102,13 @@ class RobotModel:
     def find_dofs(self, substring: str) -> Tuple[int, ...]:
         """DOF indices whose joint name contains ``substring``."""
         return tuple(i for i, n in enumerate(self.dof_names) if substring in n)
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "num_bodies": self.num_bodies,
+            "num_dof": self.num_dof,
+            "num_points": self.num_points,
+            "total_mass": float(torch.sum(self.mass)),
+            "dof_names": list(self.dof_names),
+        }

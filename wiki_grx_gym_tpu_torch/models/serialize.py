@@ -1,7 +1,10 @@
-"""Load compiled RobotModel specs from JSON.
+"""Save and load compiled RobotModel specs as JSON (port of
+``wiki_grx_gym_tpu/models/serialize.py``).
 
 The specs in ``models/resources/`` are byte-identical copies of the JAX
-package's (asserted by tests/test_torch_config.py)."""
+package's (asserted by tests/test_torch_config.py); :func:`save_robot`
+writes the same JSON text as the JAX package's ``save_robot`` for the same
+model (``tools/import_urdf.py`` makes a spec from a URDF)."""
 
 from __future__ import annotations
 
@@ -19,6 +22,16 @@ _STATIC_FIELDS = (
     "parent", "point_body", "point_link", "name", "body_names", "dof_names",
     "link_names", "link_frames",
 )
+
+
+def save_robot(model: RobotModel, path: str) -> None:
+    blob = {}
+    for f in ARRAY_FIELDS:
+        blob[f] = getattr(model, f).numpy().tolist()
+    for f in _STATIC_FIELDS:
+        blob[f] = getattr(model, f)
+    with open(path, "w") as fh:
+        json.dump(blob, fh, indent=1)
 
 
 def _tuplify(x):

@@ -30,6 +30,10 @@ def get_args(argv=None):
                         help="play.py: policy.npz to run (the export_policy_npz format) instead of "
                              "the run's latest checkpoint")
     parser.add_argument("--steps", type=int, default=500, help="play.py: policy steps")
+    parser.add_argument("--record", action="store_true", default=False,
+                        help="play.py: dump a replayable trajectory artifact "
+                             "(traj.npz; animate with python -m "
+                             "wiki_grx_gym_tpu_torch.tools.visualize --replay)")
     # data parallel (train.py)
     parser.add_argument("--distributed", action="store_true", default=False,
                         help="one rank of a data-parallel group (run under torchrun)")

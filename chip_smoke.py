@@ -247,10 +247,27 @@ together after phase 9):
    (f) ``learn(5, profile_dir=...)`` at 4096 envs: one Chrome trace of
    iterations 2-4 naming K1's team kernel and K2's and K3's kernels (or the
    update's graph launch). Prints its seconds.
+16. The engine path (``engine_phase``; ``sim/engine.physics_step`` under
+   the env's decimation loop, ``cfg.sim.use_pallas = False``): (a) K1 (the
+   GR1T1 fold program) against the engine on phase 3's 4096 reachable
+   states and inputs, one policy step each: the physics state within rtol
+   1e-3 / atol 1e-4, the feet sums, torques and point forces within rtol
+   2e-3 / atol 2e-2 (tests/test_scalarized.py's decimation check): at most
+   0.1% of the envs over them plus 3x their own float32 noise floor (the
+   lane program's float32 against float64 on the env's outputs), and every
+   env within them plus 3x the lane program's float32 floor on the group
+   (phase 3's widened bound); the envs over the bare tolerance are counted
+   (two float32 programs drift apart by about their noise floor in envs
+   whose contact amplifies it); the engine with its
+   contact stiffness times 1.05 must fail every check; the engine's step
+   timed beside K1's and its device kernels counted. (b) ``learn(1)`` of
+   GR1T1 at 4096 envs with ``use_pallas = False`` in the config only: the
+   physics on the card, K1 0 launches, K2 and K3 as in phase 7, finite
+   losses; seconds, env-steps/s, peak memory and the card line.
    Prints the kernels' JSON line (K1 for each program, its main-path count
-   from phase 4 with phase 15's counts beside it under their own keys, K2 at both widths with its
-   data-parallel use under ``dp``, K3), the card line, and the final ok
-   line.
+   from phase 4 with phase 15's and 16's counts beside it under their own
+   keys, K2 at both widths with its data-parallel use under ``dp``, K3),
+   the card line, and the final ok line.
 """
 
 import copy
@@ -2699,6 +2716,215 @@ def eval_deploy_phase(dev, eval_obs, stream_obs):
     return out
 
 
+# phase 16: the engine path on the card (sim/engine.physics_step under the
+# env's decimation loop, cfg.sim.use_pallas = False)
+ENGINE_TOL = {"state": (1e-3, 1e-4), "forces": (2e-3, 2e-2)}   # (rtol, atol): tests/test_scalarized.py's decimation check
+ENGINE_GROUPS = {"state": ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anchor"),
+                 "forces": ("force_sum", "vxyz_sum", "vrpy_sum", "tau", "point_force")}
+ENGINE_MAX_SHARE = 1e-3   # envs over the tolerance + 3x their own float32 floor (engine_vs)
+ENGINE_FAULT = 1.05       # the planted fault: the engine's contact stiffness times this
+ENGINE_PROFILE_STEPS = 1
+
+
+def engine_path(cfg):
+    """The config change of phase 16b: the engine path, set in the config only."""
+    cfg.sim.use_pallas = False
+
+
+def physics_groups(res):
+    """The output groups that K1 and the engine both return, float64 (N, -1)."""
+    g = {f: getattr(res[0], f) for f in ENGINE_GROUPS["state"]}
+    g.update(force_sum=res[1], vxyz_sum=res[2], vrpy_sum=res[3], tau=res[4], point_force=res[5])
+    return {k: v.double().reshape(v.shape[0], -1) for k, v in g.items()}
+
+
+def engine_vs(k, e, p, p64):
+    """K1's outputs ``k`` against the engine's ``e``, per group family of
+    ENGINE_GROUPS at its ENGINE_TOL, with the plain lane program's float32
+    (``p``) and float64 (``p64``) outputs for the noise floors. Two checks:
+    (share) the envs where an output is over the tolerance plus 3x that
+    env's own float32 noise floor on the group (max |p - p64| over the
+    env's outputs of the group) may be at most ENGINE_MAX_SHARE of all;
+    (widened) every output of every env within the tolerance plus 3x the
+    group's float32 floor (over all envs; phase 3's widened bound). Two
+    float32 programs that round differently drift apart by about their
+    own noise floor in envs whose contact amplifies it, so the envs over
+    the bare tolerance are counted and printed but not limited. Returns
+    {family: (envs over the tolerance, envs over the per-env bound, share
+    ok, widened ok, largest |diff| per group)}."""
+    import torch
+
+    out = {}
+    for fam, names in ENGINE_GROUPS.items():
+        rtol, atol = ENGINE_TOL[fam]
+        over = torch.zeros(N_ENVS, dtype=torch.bool, device=k["q"].device)
+        over_env = torch.zeros_like(over)
+        widened, largest = True, {}
+        for name in names:
+            err = (k[name] - e[name]).abs()
+            stated = atol + rtol * e[name].abs()
+            noise = (p[name] - p64[name]).abs()
+            finite = torch.isfinite(err).all(dim=1)
+            over |= (err > stated).any(dim=1) | ~finite
+            over_env |= (err > stated + 3.0 * noise.amax(dim=1, keepdim=True)).any(dim=1) | ~finite
+            widened &= bool(finite.all()) and bool((err <= stated + 3.0 * noise.max()).all())
+            largest[name] = float(err.max())
+        out[fam] = (int(over.sum()), int(over_env.sum()), float(over_env.float().mean()) <= ENGINE_MAX_SHARE,
+                    widened, largest)
+    return out
+
+
+def engine_phase(dev):
+    """Phase 16: the engine path on the card. (a) K1 (the GR1T1 fold
+    program) against the batched engine (``sim/engine.physics_step`` under
+    the env's ``_run_decimation`` with ``cfg.sim.use_pallas = False``) on
+    phase 3's 4096 reachable GR1T1 states and inputs, one policy step each:
+    the physics state at rtol 1e-3 / atol 1e-4, the feet sums, torques and
+    point forces at rtol 2e-3 / atol 2e-2, under ``engine_vs``'s two checks;
+    the engine with its contact stiffness times 1.05 must fail every
+    check. The engine's policy step is timed (CUDA events) beside
+    K1's, and its device kernels counted under torch.profiler. (b)
+    ``learn(1)`` of GR1T1 at 4096 envs with ``use_pallas = False`` set in
+    the config only: every physics tensor on the card, K1 launched 0
+    times, K2 and K3 as in phase 7, finite losses; its seconds,
+    env-steps/s and peak memory. Returns the phase's numbers."""
+    import copy
+
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("[16] TF32 matmuls are on; the engine must run in float32")
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) K1 against the engine
+    env, state = cuda_step.reachable_state(N_ENVS, dev)
+    op = env.decimation_op
+    eng = cuda_step.task_env("GR1T1", N_ENVS, dev, engine_path)
+    if not (env.backend == "kernel" and op.post is not None and eng.backend == "engine" and not eng._post_fold):
+        raise SystemExit(f"[16a] backends {env.backend} (fold {op.post is not None}) / {eng.backend}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    args, kw = cuda_step.decimation_inputs(env, state, gen)
+    gen.manual_seed(1)
+    args64, kw64 = cuda_step.decimation_inputs(env, state, gen, dtype=torch.float64)
+
+    def engine_step(e, args, kw):
+        phys, actions, last_actions, motor, delay, rand = args
+        s = state.replace(physics=phys, last_actions=last_actions, motor_strength=motor, rand=rand,
+                          last_dof_vel=kw["last_qd"], torques=torch.zeros_like(phys.q))
+        return e._run_decimation(s, actions, delay[:, None], commands=None)
+
+    reset_launch_counts()
+    k = physics_groups(op(*args, **kw))
+    if LAUNCHES["k1"] != 1:
+        raise SystemExit(f"[16a] K1 launched {LAUNCHES['k1']} times for one policy step")
+    reset_launch_counts()
+    res = engine_step(eng, args, kw)
+    e = physics_groups(res)
+    if LAUNCHES["k1"] != 0 or res[6] is not None or res[8] is not None:
+        raise SystemExit("[16a] the engine step launched K1 or returned K1's outputs")
+    p, p64 = physics_groups(op.plain(*args, **kw)), physics_groups(op.plain(*args64, **kw64))
+    floor = {name: float((p[name] - p64[name]).abs().max()) for name in p}
+    checks = engine_vs(k, e, p, p64)
+    torch.cuda.synchronize()
+    ok = True
+    for fam, (n_over, n_over_env, share_ok, widened_ok, largest) in checks.items():
+        rtol, atol = ENGINE_TOL[fam]
+        log(f"[16a] K1 vs engine, {fam} (rtol {rtol:g} / atol {atol:g}): {n_over} of {N_ENVS} envs over the "
+            f"tolerance, {n_over_env} over it + 3 x their own f32 floor ({100 * n_over_env / N_ENVS:.3f}%, limit "
+            f"{100 * ENGINE_MAX_SHARE:g}%); every env within it + 3 x the lane program's f32 floor: {widened_ok}; "
+            "largest |diff| " + ", ".join(f"{n} {v:.3e} (floor {floor[n]:.3e})" for n, v in largest.items()))
+        ok &= share_ok and widened_ok
+    if not ok:
+        raise SystemExit("[16a] K1 disagrees with the engine")
+    # the planted fault must fail every check
+    bad = copy.copy(eng)
+    bad.contact_params = eng.contact_params.replace(stiffness=eng.contact_params.stiffness * ENGINE_FAULT)
+    fault = engine_vs(k, physics_groups(engine_step(bad, args, kw)), p, p64)
+    caught = {f"{fam} {what}": not val for fam, v in fault.items()
+              for what, val in (("share", v[2]), ("widened", v[3]))}
+    log(f"[16a] the engine's contact stiffness x {ENGINE_FAULT}: envs over the per-env bound "
+        f"{({f: v[1] for f, v in fault.items()})}; checks failed {caught}")
+    if not all(caught.values()):
+        raise SystemExit(f"[16a] a planted fault passed a check: {caught}")
+    # time: the engine's policy step and K1's (the wrapper), CUDA events
+    engine_ms = cuda_ms(lambda: engine_step(eng, args, kw), reps=3, warmup=1)
+    k1_wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ENGINE_PROFILE_STEPS):
+            engine_step(eng, args, kw)
+        torch.cuda.synchronize()
+    dev_us = lambda ev: getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+    kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    n_kern = sum(ev.count for ev in kern)
+    dev_ms = sum(dev_us(ev) for ev in kern) / 1e3 / ENGINE_PROFILE_STEPS
+    per_substep = n_kern / ENGINE_PROFILE_STEPS / eng.decimation
+    log(f"[16a] engine policy step at {N_ENVS} envs: {engine_ms:.2f} ms (CUDA events, 3 steps), K1's wrapper "
+        f"{k1_wrapper_ms:.4f} ms; under the profiler {n_kern / ENGINE_PROFILE_STEPS:.0f} device kernels a step "
+        f"({per_substep:.0f} a substep), {dev_ms:.2f} ms of device time (busy {100 * dev_ms / engine_ms:.1f}%)")
+    out["a"] = {"envs": N_ENVS, "checks": {f: {"envs_over_tolerance": v[0], "envs_over_env_bound": v[1],
+                                               "share_ok": v[2], "widened_ok": v[3], "max_abs": v[4]}
+                                           for f, v in checks.items()},
+                "f32_floor": floor, "fault": ENGINE_FAULT, "fault_envs_over": {f: v[1] for f, v in fault.items()},
+                "fault_checks_failed": caught, "engine_step_ms": engine_ms, "k1_wrapper_ms": k1_wrapper_ms,
+                "engine_kernels_per_step": n_kern / ENGINE_PROFILE_STEPS, "engine_kernels_per_substep": per_substep,
+                "engine_device_ms_per_step": dev_ms}
+    del env, state, op, eng, bad, args, kw, args64, kw64, k, e, p, p64, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) learn(1) through the engine
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    engine_path(cfg)
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, train_cfg = task_registry.make_alg_runner(
+        env, "GR1T1", train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", "GR1T1_engine"))
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rs = runner.learn(1, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ph = rs.env_state.physics
+    devices = {f: getattr(ph, f).device.type for f in ENGINE_GROUPS["state"]}
+    if env.backend != "engine" or set(devices.values()) != {"cuda"}:
+        raise SystemExit(f"[16b] backend {env.backend}; physics tensors on {devices}")
+    want = {"k1": 0, "k2": steps, "k3": 1}
+    if launches != want:
+        raise SystemExit(f"[16b] learn(1) through the engine launched {launches}, expected {want}")
+    h = runner.log_history[-1]
+    m = h["metrics"]
+    if not all(math.isfinite(m[x]) for x in ("value_loss", "surrogate_loss", "kl", "lr", "mean_step_reward")):
+        raise SystemExit(f"[16b] non-finite losses {m}")
+    card = card_line()
+    log(f"[16b] learn(1) of GR1T1 at {N_ENVS} envs through the engine in {wall:.2f} s: collection "
+        f"{h['collection_s']:.3f} s + update {h['update_s']:.3f} s; {h['fps']:.0f} env-steps/s; launches "
+        f"{launches}; peak memory {peak:.3f} GiB; value loss {m['value_loss']:.4f}, surrogate "
+        f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, reward {m['mean_step_reward']:.4f}; physics on {devices['q']}; "
+        f"{card}")
+    out["b"] = {"envs": N_ENVS, "wall_s": wall, "collection_s": h["collection_s"], "update_s": h["update_s"],
+                "env_steps_per_s": h["fps"], "peak_mem_gib": peak, "launches": launches, "card": card}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 16 took {out['seconds']:.1f} s")
+    del runner, env, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -2929,12 +3155,20 @@ def main():
     torch.cuda.empty_cache()
     eval_deploy = eval_deploy_phase(dev, eval_obs, stream_obs)
     phase_done("phase 15")
+    # ---- phase 16: the engine path (K1 against the engine; learn(1) through the engine) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = engine_phase(dev)
+    phase_done("phase 16")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
     k2_row["dp"] = dict(dp_row, launches_from=f"learn({TRAIN_ITERS}) on each of {DP_WORLD} gloo ranks (2048 envs "
                         "each), the step path: K2 per shard, the gradient all-reduce, clip and Adam")
     k3_row["launches"] = train["launches"]["k3"]
+    # phase 16b's learn(1) through the engine, counted from 0, under their own keys
+    k2_row["engine_learn_launches"] = engine["b"]["launches"]["k2"]
+    k3_row["engine_learn_launches"] = engine["b"]["launches"]["k3"]
     k2_row["kernel_launches_per_grad_step"] = train["profile"]["k2_kernel_launches_per_grad_step"]
     k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
     k3_row["kernel_launches_from"] = train["profile"]["kernel_launches_from"]
@@ -2948,7 +3182,8 @@ def main():
                   eval_deploy_launches=eval_deploy["k1_launches"],
                   eval_play_launches=eval_deploy["play"]["launches"]["k1"],
                   eval_tracking_launches=eval_deploy["eval_tracking"]["launches"]["k1"],
-                  eval_learn_launches=eval_deploy["profile"]["launches"]["k1"], build_all_s=build_s,
+                  eval_learn_launches=eval_deploy["profile"]["launches"]["k1"],
+                  engine_learn_launches=engine["b"]["launches"]["k1"], build_all_s=build_s,
                   rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
                   peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"])
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
@@ -2975,6 +3210,7 @@ def main():
     log(json.dumps({"symmetry": symmetry}))
     log(json.dumps({"data_parallel": dp_row}))
     log(json.dumps({"eval_deploy": eval_deploy}))
+    log(json.dumps({"engine": engine}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

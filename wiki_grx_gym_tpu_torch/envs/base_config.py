@@ -83,10 +83,11 @@ class LeggedRobotCfg(BaseConfig):
         # sphere-sphere self-collision spring (stiffer than the ground so
         # driven limb-limb contact stays under ~5 mm penetration)
         contact_self_collision_stiffness = 1.0e5
-        # physics hot-loop backend: "auto" = Pallas VMEM mega-kernel on TPU
-        # for plane terrain (sim/pallas_step.py), XLA lax.scan elsewhere;
-        # True/False force it ("interpret" = Pallas interpreter; "lanes" =
-        # the kernel program as plain XLA on (N,) lanes — tests only)
+        # physics backend (envs/legged_env.physics_backend): "auto" = K1
+        # (sim/cuda_step.py) on CUDA, its lane program on the CPU; True/"on"
+        # = K1 (raises on the CPU); False/"off" = the batched engine
+        # (sim/engine.py) on either device; "lanes"/"interpret" = the lane
+        # program (K1's plain version) on either device
         use_pallas = "auto"
         # kernel substep loop: "unroll" (decimation copies of the substep
         # program), "fori" (one copy in a lax.fori_loop — ~10x smaller

@@ -8,24 +8,28 @@ with or without heading commands. One ``step(state, actions)`` does:
     draw the step's ONE uniform block U (delay, obs noise, commands,
         resets, pushes are column slices of it; ``u=`` injects it)
     command resampling on schedule
-    K1 (``sim/cuda_step.py``): delay gate -> PD torques -> 10 physics
-        substeps -> (post fold) rewards, termination, feet trackers
+    the decimation loop: delay gate -> PD torques -> 10 physics substeps,
+        on the backend ``cfg.sim.use_pallas`` picks (:func:`physics_backend`):
+        K1 (``sim/cuda_step.py``, with (post fold) rewards, termination and
+        feet trackers), its lane program, or the batched engine
+        (``sim/engine.physics_step``, :meth:`LeggedEnv._decimation_scan`)
     (no fold) the post stage here: heading yaw command, base-frame
         quantities, measured heights, feet trackers, termination, the
         reward terms of ``envs/rewards.py``
     episode sums, pushes, branchless resets (terrain curriculum), the next
-        step's ground planes (terrain), observations
+        step's ground planes (terrain, K1 and lanes), observations
 
-The post stage runs inside K1 (the fold) on the plane without heading
-commands, and here otherwise (``_post_fold``), as in the JAX env.
+The post stage runs inside K1 or its lane program (the fold) on the plane
+without heading commands, and here otherwise (``_post_fold``), as in the
+JAX env; the engine path always runs it here.
 
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
 a ``torch.Generator`` that ``step`` draws from in place. In a data-parallel
 run the env is one rank's shard of the envs (``shard``), and the command
 curriculum's mean over resetting envs is the one collective of a step (an
 all-reduce of a sum and a count, as JAX's global mean). Outside these paths
-the env refuses with ``NotImplementedError`` naming the ROADMAP item: models
-of more than ``MAX_DOF`` (32) dofs.
+the env refuses with ``NotImplementedError`` naming the ROADMAP item: K1
+with models of more than ``MAX_DOF`` (32) dofs.
 """
 
 from __future__ import annotations
@@ -44,10 +48,42 @@ from wiki_grx_gym_tpu_torch.envs.rewards import REWARDS, RewardContext
 from wiki_grx_gym_tpu_torch.models.robot import RobotModel
 from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
 from wiki_grx_gym_tpu_torch.sim.cuda_step import MAX_DOF
-from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState
+from wiki_grx_gym_tpu_torch.sim.engine import BodyRandomization, PhysicsState, flat_ground, physics_step
 from wiki_grx_gym_tpu_torch.sim.kinematics import forward_kinematics
-from wiki_grx_gym_tpu_torch.sim.scalarized import CONTROL_TYPES, _div
+from wiki_grx_gym_tpu_torch.sim.scalarized import CONTROL_TYPES
 from wiki_grx_gym_tpu_torch.utils import maths
+from wiki_grx_gym_tpu_torch.utils.maths import _cross, _div
+
+
+def physics_backend(use_pallas, device) -> str:
+    """The physics backend that ``cfg.sim.use_pallas`` asks for on
+    ``device`` (the counterpart of the JAX env's ``_pallas_mode``):
+
+    - ``False`` / ``"off"``: ``"engine"``, the batched engine
+      (``sim/engine.physics_step``), on either device;
+    - ``"lanes"`` / ``"interpret"``: ``"lanes"``, K1's plain version (the
+      lane program), on either device;
+    - ``True`` / ``"on"``: ``"kernel"``, K1; on the CPU it raises (there is
+      no kernel there, and nothing falls back);
+    - ``"auto"``: ``"kernel"`` on CUDA, ``"lanes"`` on the CPU.
+
+    Any other value raises. ``"auto"`` differs from the JAX package's on
+    purpose: there it picks the Pallas kernel on a TPU and the engine
+    elsewhere; the port's accelerator is the CUDA card, where K1 runs."""
+    device = torch.device(device)
+    if use_pallas is False or use_pallas == "off":
+        return "engine"
+    if use_pallas in ("lanes", "interpret"):
+        return "lanes"
+    if use_pallas is True or use_pallas == "on":
+        if device.type != "cuda":
+            raise ValueError(f"cfg.sim.use_pallas={use_pallas!r} asks for K1, which runs on a CUDA card, "
+                             f"not on device {device}; use False (the engine) or 'lanes' there")
+        return "kernel"
+    if use_pallas == "auto":
+        return "kernel" if device.type == "cuda" else "lanes"
+    raise ValueError(f"unknown cfg.sim.use_pallas {use_pallas!r}: one of False/'off', 'lanes', "
+                     "'interpret', True/'on', 'auto'")
 
 @dataclasses.dataclass
 class EnvState:
@@ -114,7 +150,9 @@ class LeggedEnv:
         self.device = resolve_device(device)
         if cfg.control.control_type not in CONTROL_TYPES:
             raise ValueError(f"unknown control_type {cfg.control.control_type!r}")
-        if model.num_dof > MAX_DOF:
+        # read once: the engine, K1's lane program, or K1
+        self.backend = physics_backend(getattr(cfg.sim, "use_pallas", "auto"), self.device)
+        if self.backend == "kernel" and model.num_dof > MAX_DOF:
             raise NotImplementedError(
                 f"{model.num_dof}-DOF model: the decimation kernel K1 takes at most "
                 f"{MAX_DOF} dofs (ROADMAP queue 2, K1)"
@@ -248,6 +286,9 @@ class LeggedEnv:
         # trimesh: stair risers above the slope threshold are walls; the
         # contact points then read the 9-channel ground query
         self.riser_mode = terrain is not None and terrain.slope_threshold_raw is not None
+        # the engine's ground: the plane or the terrain's whole-field lookups
+        self.height_fn = flat_ground if terrain is None else terrain.height_fn
+        self.ground_query = terrain.ground_query if self.riser_mode else None
 
         self.contact_params = ContactParams(
             stiffness=c.sim.contact_stiffness,
@@ -314,6 +355,8 @@ class LeggedEnv:
         self.dof_pos_soft_lower_t = t(self.dof_pos_soft_lower)
         self.dof_pos_soft_upper_t = t(self.dof_pos_soft_upper)
         self.dof_vel_limits_t = t(self.dof_vel_limits)
+        self.p_gains_t = t(self.p_gains)
+        self.d_gains_t = t(self.d_gains)
         self.torque_limits_t = t(self.torque_limits)
         self.height_points_t = t(self.height_points)
         self.feet_offsets_t = t(self.feet_offsets)
@@ -358,11 +401,11 @@ class LeggedEnv:
         v[9 + 2 * d: 9 + 3 * d] = ns.action * level * os_.action
         return v
 
-    def _build_self_pairs(self):
-        """Static self-collision pair list: proxy spheres on different limbs
-        (different child subtrees of the base) that are separated by more
-        than 2 cm at the default pose. Computed in float32 like the JAX
-        env's, so a gap near the threshold falls on the same side."""
+    def _cross_limb_gaps(self):
+        """(point_i, point_j, gap in m at the default pose) of every pair of
+        proxy spheres on different limbs (different child subtrees of the
+        base). The gaps are float32, as the JAX env's, so a gap near the
+        pair threshold falls on the same side."""
         model = self.model
 
         def limb_root(body):
@@ -370,30 +413,22 @@ class LeggedEnv:
                 body = model.parent[body]
             return body
 
-        kin = forward_kinematics(
-            model,
-            torch.tensor([0.0, 0.0, 0.0, 1.0]),
-            torch.zeros(3),
-            torch.zeros(3),
-            torch.from_numpy(self.default_dof_pos),
-            torch.zeros(model.num_dof),
-        )
-        pb = torch.tensor(model.point_body, dtype=torch.long)
-        pos = (
-            kin.pos_rel[pb] + maths.quat_apply(kin.quat[pb], model.point_offset)
-        ).numpy()
+        pos = self._default_point_rel.cpu().numpy()
         radius = model.point_radius.numpy()
-        pi, pj = [], []
+        out = []
         for a in range(model.num_points):
             for b in range(a + 1, model.num_points):
                 ba, bb = model.point_body[a], model.point_body[b]
                 if ba == 0 or bb == 0 or limb_root(ba) == limb_root(bb):
                     continue
-                gap = np.linalg.norm(pos[a] - pos[b]) - (radius[a] + radius[b])
-                if gap > 0.02:
-                    pi.append(a)
-                    pj.append(b)
-        return (tuple(pi), tuple(pj))
+                out.append((a, b, np.linalg.norm(pos[a] - pos[b]) - (radius[a] + radius[b])))
+        return out
+
+    def _build_self_pairs(self):
+        """Static self-collision pair list: the cross-limb pairs separated
+        by more than 2 cm at the default pose."""
+        pairs = [(a, b) for a, b, gap in self._cross_limb_gaps() if gap > 0.02]
+        return (tuple(a for a, _ in pairs), tuple(b for _, b in pairs))
 
     def _pd_torques(self, q, qd, actions, motor_strength, last_qd=None):
         """The control law on (N, D) tensors: P, V or T. V's damping term
@@ -402,7 +437,7 @@ class LeggedEnv:
         form (``ScalarDecimation.torques``)."""
         c = self.cfg.control
         scaled = actions * c.action_scale
-        p, d = (torch.as_tensor(np.asarray(g, np.float32)).to(q) for g in (self.p_gains, self.d_gains))
+        p, d = self.p_gains_t.to(q), self.d_gains_t.to(q)
         if c.control_type == "P":
             tau = p * (scaled + self.default_dof_pos_t.to(q) - q) - d * qd
         elif c.control_type == "V":
@@ -443,11 +478,13 @@ class LeggedEnv:
 
     @functools.cached_property
     def _post_fold(self) -> bool:
-        """True when the post-physics stage runs inside K1
-        (``envs/post_lanes.LanePost``): plane terrain (measured heights are
-        zero there) and commands without heading (the heading yaw needs
-        the post-physics base orientation before the rewards)."""
-        return self.terrain is None and not self.cfg.commands.heading_command
+        """True when the post-physics stage runs inside K1 or its lane
+        program (``envs/post_lanes.LanePost``): those backends, plane
+        terrain (measured heights are zero there) and commands without
+        heading (the heading yaw needs the post-physics base orientation
+        before the rewards). The engine path runs it outside, as JAX's."""
+        return (self.backend != "engine" and self.terrain is None
+                and not self.cfg.commands.heading_command)
 
     @functools.cached_property
     def terrain_mode(self) -> str:
@@ -477,6 +514,74 @@ class LeggedEnv:
             post=LanePost(self) if self._post_fold else None,
         )
         return CudaDecimation(deci)
+
+    def self_pair_report(self):
+        """Audit of the self-collision pair selection: (included, excluded)
+        lists of (point_i, point_j, default_gap_m) over all cross-limb
+        candidates. Excluded pairs lie inside the default-pose margin and
+        are invisible to the contact model, so the list should be empty (it
+        is for the GRx models)."""
+        included_set = set(zip(*self.self_pairs))
+        included, excluded = [], []
+        for a, b, gap in self._cross_limb_gaps():
+            (included if (a, b) in included_set else excluded).append((a, b, float(gap)))
+        return included, excluded
+
+    # ------------------------------------------------------------------
+    # the decimation loop's backends
+    # ------------------------------------------------------------------
+
+    def _run_decimation(self, state: "EnvState", actions, delay, commands):
+        """One policy step of physics on the env's backend; the return
+        tuple of ``CudaDecimation.__call__`` (``post_kin``, ``point_pos``
+        and ``post_out`` None on the engine path). ``commands``: the
+        post-resample commands that the folded post stage reads."""
+        if self.backend == "engine":
+            return self._decimation_scan(state, actions, delay)
+        op = self.decimation_op
+        args = (state.physics, actions, state.last_actions, state.motor_strength, delay[:, 0], state.rand)
+        kw = dict(last_qd=state.last_dof_vel, plane=state.ground_plane,
+                  extra=self.post_extra(state, commands) if self._post_fold else None)
+        if self.backend == "lanes":
+            return op.plain(*args, **kw)
+        return op(*args, **kw)
+
+    def _decimation_scan(self, state: "EnvState", actions, delay):
+        """The engine's decimation loop (JAX's ``lax.scan`` of the vmapped
+        ``physics_step``): each substep the delay gate and the control
+        law's torques, one batched :func:`physics_step` (the implicit drive
+        damping scaled by the motor strength, as the torque is), and the
+        feet's force norms and linear and angular speeds summed."""
+        n, f = self.num_envs, self.num_feet
+        phys = state.physics
+        like = phys.q
+        damp = None if self._damping_t is None else self._damping_t.to(like) * state.motor_strength
+        fb = list(self.feet_bodies)
+        sum_force = like.new_zeros((n, f))
+        sum_vxyz = like.new_zeros((n, f, 3))
+        sum_vrpy = like.new_zeros((n, f, 3))
+        torques, point_force = state.torques, like.new_zeros((n, self.model.num_points, 3))
+        for i in range(self.decimation):
+            use_act = torch.where(i < delay, state.last_actions, actions)
+            tau = self._pd_torques(phys.q, phys.qd, use_act, state.motor_strength, last_qd=state.last_dof_vel)
+            phys, out = physics_step(
+                self.model, phys, tau, self.height_fn, self.contact_params, state.rand, self.sim_dt,
+                self_pairs=self.self_pairs, joint_damping=damp, ground_query=self.ground_query,
+            )
+            foot_force = self._group_forces(out.point_force, self.feet_point_groups)
+            sum_force = sum_force + torch.linalg.vector_norm(foot_force, dim=-1)
+            # feet link velocities from the body twists (rigid_body_states 7:13)
+            tw, rel = out.kin.twist[:, fb], out.kin.pos_rel[:, fb]
+            sum_vxyz = sum_vxyz + torch.abs(tw[..., 3:] + _cross(tw[..., :3], rel))
+            sum_vrpy = sum_vrpy + torch.abs(tw[..., :3])
+            torques, point_force = tau, out.point_force
+        return phys, sum_force, sum_vxyz, sum_vrpy, torques, point_force, None, None, None
+
+    @functools.cached_property
+    def _damping_t(self):
+        """``_implicit_damping_const`` on the env's device, or None."""
+        d = self._implicit_damping_const
+        return None if d is None else torch.as_tensor(np.asarray(d, np.float32), device=self.device)
 
     def post_extra(self, state: "EnvState", commands) -> Dict[str, torch.Tensor]:
         """The folded post stage's extra inputs (``LanePost.extra_schema``)."""
@@ -524,7 +629,8 @@ class LeggedEnv:
 
     def _refresh_ground_plane(self, state: "EnvState", reset_mask, point_pos=None,
                               force: bool = False) -> "EnvState":
-        """The ground planes of the next policy step (terrain only). Envs
+        """The ground planes of the next policy step (terrain, on K1 and its
+        lane program; the engine reads the terrain itself). Envs
         not reset sample at K1's final-state point positions; just-reset
         envs at the default-pose offsets around their new root. With
         ``refresh_interval`` k > 1 the planes are sampled on every k-th
@@ -532,7 +638,7 @@ class LeggedEnv:
         envs getting a flat plane at their spawn origin's height; the phase
         is read from ``state.step_count`` (already counted for this step),
         so no device value is read."""
-        if self.terrain is None:
+        if self.terrain is None or self.backend == "engine":
             return state
         k = self.refresh_interval
         if not (force or k <= 1 or state.ground_plane is None or (state.step_count - 1) % k == 0):
@@ -757,12 +863,7 @@ class LeggedEnv:
         commands = torch.where(resample[:, None], new_cmds, state.commands)
 
         phys, sum_force, sum_vxyz, _, torques, point_force, post_kin, point_pos, post_out = (
-            self.decimation_op(
-                state.physics, actions, state.last_actions, state.motor_strength,
-                delay[:, 0], state.rand, last_qd=state.last_dof_vel,
-                plane=state.ground_plane,
-                extra=self.post_extra(state, commands) if self._post_fold else None,
-            )
+            self._run_decimation(state, actions, delay, commands)
         )
         commands = self._apply_heading_command(commands, phys.base_quat, n)
 
@@ -796,13 +897,21 @@ class LeggedEnv:
             ).expand(n, self.num_height_points)
             term_stack = post_out["rew_terms"]  # (N, R) == reward_names
         else:
-            # ---- the post stage outside K1 (terrain, heading commands) ----
+            # ---- the post stage outside K1 (terrain, heading commands, the engine) ----
             dof_acc = (phys.qd - state.last_dof_vel) / self.dt
-            # the final-state FK of the consumed bodies comes from K1
-            post_rel, post_quat = post_kin
-            slots = [self._post_slot[b] for b in self.feet_bodies]
-            feet_rel, feet_quat = post_rel[:, slots], post_quat[:, slots]
-            frame_quat = lambda body: post_quat[:, self._post_slot[body]]
+            # the final-state FK of the consumed bodies: from K1 (or its lane
+            # program), or recomputed here on the engine path
+            if post_kin is None:
+                kin = forward_kinematics(self.model, phys.base_quat, phys.base_ang_vel,
+                                         phys.base_lin_vel, phys.q, phys.qd)
+                fb = list(self.feet_bodies)
+                feet_rel, feet_quat = kin.pos_rel[:, fb], kin.quat[:, fb]
+                frame_quat = lambda body: kin.quat[:, body]
+            else:
+                post_rel, post_quat = post_kin
+                slots = [self._post_slot[b] for b in self.feet_bodies]
+                feet_rel, feet_quat = post_rel[:, slots], post_quat[:, slots]
+                frame_quat = lambda body: post_quat[:, self._post_slot[body]]
 
             base_quat = phys.base_quat
             base_lin_vel = maths.quat_rotate_inverse(base_quat, phys.base_lin_vel)

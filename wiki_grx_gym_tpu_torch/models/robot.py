@@ -82,6 +82,16 @@ class RobotModel:
     def num_points(self) -> int:
         return len(self.point_body)
 
+    def ancestors(self, body: int) -> Tuple[int, ...]:
+        """Chain of ancestor bodies of ``body`` (without the base, with
+        ``body`` itself if > 0), root-most first."""
+        chain = []
+        b = body
+        while b > 0:
+            chain.append(b)
+            b = self.parent[b]
+        return tuple(reversed(chain))
+
     # ---- name resolution (host side, build time only) ----
 
     def link_frame(self, link_name: str) -> Tuple[int, torch.Tensor, torch.Tensor]:
@@ -102,6 +112,13 @@ class RobotModel:
     def find_dofs(self, substring: str) -> Tuple[int, ...]:
         """DOF indices whose joint name contains ``substring``."""
         return tuple(i for i, n in enumerate(self.dof_names) if substring in n)
+
+    def link_point_mask(self, link_names, device=None) -> torch.Tensor:
+        """(P,) float32 mask on ``device`` of the contact points belonging to
+        any of the links."""
+        idx = {self.link_names.index(n) for n in link_names}
+        return torch.tensor([1.0 if l in idx else 0.0 for l in self.point_link],
+                            dtype=torch.float32, device=device)
 
     def summary(self) -> Dict[str, Any]:
         return {

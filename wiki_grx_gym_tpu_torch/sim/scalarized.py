@@ -27,6 +27,7 @@ import torch
 
 from wiki_grx_gym_tpu_torch.models.robot import RobotModel
 from wiki_grx_gym_tpu_torch.sim.contact import ContactParams
+from wiki_grx_gym_tpu_torch.utils.maths import _div
 
 _MAX_LIN_VEL = 100.0
 _MAX_ANG_VEL = 100.0
@@ -53,15 +54,6 @@ def _maximum(a, b):
     if isinstance(a, (int, float)):
         return torch.clamp(b, min=a)
     return torch.maximum(a, b)
-
-
-def _div(a, c: float):
-    """``a / c`` for a Python float ``c``, a true division on every device.
-    PyTorch on CUDA turns a division by a Python scalar into a
-    multiplication by the scalar's float32 reciprocal, which can round to
-    the neighbouring value; a 0-d tensor divisor keeps the division (the
-    kernel's and the CPU's)."""
-    return a / torch.full((), c, dtype=a.dtype, device=a.device)
 
 
 def _minimum(a, b):

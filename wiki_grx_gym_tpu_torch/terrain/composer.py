@@ -16,6 +16,11 @@ env's device, each for (N, Q) world points around one center per env:
 - :meth:`Terrain.ground_channels`: the 9 riser-aware channels of the trimesh
   mode (:func:`riser_channels`).
 
+The engine path (``sim/engine.physics_step``) asks the whole field at
+world points, as the JAX engine does: :meth:`Terrain.height_fn` (bilinear,
+its contact height), :meth:`Terrain.measured_heights` (the 3-tap min) and
+:meth:`Terrain.ground_query` (the 9 riser channels by gather).
+
 The JAX env asks the same questions of a 48 x 48 tile cut around the
 center (``extract_tiles`` and the one-hot products on the MXU, a TPU
 device). Here each query is a direct gather from the whole field, at the
@@ -32,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wiki_grx_gym_tpu_torch.sim.scalarized import _div
+from wiki_grx_gym_tpu_torch.utils.maths import _div
 from wiki_grx_gym_tpu_torch.terrain import generators as G
 
 
@@ -160,6 +165,29 @@ class Terrain:
             else None
         )
         self._to_device(device)
+
+    @classmethod
+    def from_heightfield(cls, field: np.ndarray, horizontal_scale: float, vertical_scale: float,
+                         border_size: float = 0.0, slope_threshold: float | None = None, device="cpu"):
+        """A Terrain around an explicit raw (int16) heightfield (tests and
+        tooling): no generators, one cell whose origin is the field's
+        center at height 0. ``slope_threshold`` (as
+        ``cfg.terrain.slope_treshold``) gives trimesh semantics."""
+        t = cls.__new__(cls)
+        t.cfg = None
+        t.type = "trimesh" if slope_threshold is not None else "heightfield"
+        t.height_field_raw = np.asarray(field, np.int16)
+        t._hs = float(horizontal_scale)
+        t._vs = float(vertical_scale)
+        t._border_m = float(border_size)
+        t.env_length = field.shape[0] * horizontal_scale
+        t.env_width = field.shape[1] * horizontal_scale
+        t.env_origins_grid = np.asarray([[[t.env_length / 2.0, t.env_width / 2.0, 0.0]]])
+        t.slope_threshold_raw = (
+            float(slope_threshold) * t._hs / t._vs if slope_threshold is not None else None
+        )
+        t._to_device(device)
+        return t
 
     # ------------------------------------------------------------------
     # host-side composition (the same program as the JAX package's)
@@ -336,11 +364,60 @@ class Terrain:
         g = self._gather
         x0w = (sx.to(x.dtype) + x0) * self._hs - self._border_m
         y0w = (sy.to(y.dtype) + y0) * self._hs - self._border_m
-        thr = float("inf") if self.slope_threshold_raw is None else self.slope_threshold_raw
         return riser_channels(
             g(gx, gy), g(gx + 1, gy), g(gx, gy + 1), g(gx + 1, gy + 1),
             g(gxb, gy), g(gxb, gy + 1), g(gx, gyb), g(gx + 1, gyb),
-            x0w, y0w, fx, fy, self._hs, self._vs, thr,
+            x0w, y0w, fx, fy, self._hs, self._vs, self._thr,
+        )
+
+    # ------------------------------------------------------------------
+    # the engine's lookups: the whole field at world points
+    # ------------------------------------------------------------------
+
+    @property
+    def _thr(self) -> float:
+        return float("inf") if self.slope_threshold_raw is None else self.slope_threshold_raw
+
+    def height_fn(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Bilinear height (m) for contact at world points of any shape."""
+        px = torch.clamp(_div(x + self._border_m, self._hs), 0.0, self.shape[0] - 2.0)
+        py = torch.clamp(_div(y + self._border_m, self._hs), 0.0, self.shape[1] - 2.0)
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx, fy = px - x0, py - y0
+        xi, yi = x0.to(torch.int64), y0.to(torch.int64)
+        g = lambda a, b: self._gather(a, b).to(x.dtype)
+        h = (g(xi, yi) * (1 - fx) * (1 - fy) + g(xi + 1, yi) * fx * (1 - fy)
+             + g(xi, yi + 1) * (1 - fx) * fy + g(xi + 1, yi + 1) * fx * fy)
+        return h * self._vs
+
+    def measured_heights(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The conservative 3-tap min height (m) at world points of any
+        shape (legged_robot.py:1258-1274)."""
+        px = torch.clamp(_div(x + self._border_m, self._hs).to(torch.int64), 0, self.shape[0] - 2)
+        py = torch.clamp(_div(y + self._border_m, self._hs).to(torch.int64), 0, self.shape[1] - 2)
+        h = torch.minimum(torch.minimum(self._gather(px, py), self._gather(px + 1, py)),
+                          self._gather(px, py + 1))
+        return h.to(x.dtype) * self._vs
+
+    def ground_query(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """World points of any shape -> (..., 9) riser-aware ground channels
+        (:func:`riser_channels`) by gathers from the whole field; JAX's
+        ``Terrain.ground_channels(x, y)``."""
+        px = torch.clamp(_div(x + self._border_m, self._hs), 0.0, self.shape[0] - 2.0)
+        py = torch.clamp(_div(y + self._border_m, self._hs), 0.0, self.shape[1] - 2.0)
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx, fy = px - x0, py - y0
+        xi, yi = x0.to(torch.int64), y0.to(torch.int64)
+        xb, yb = torch.clamp(xi - 1, min=0), torch.clamp(yi - 1, min=0)
+        g = lambda a, b: self._gather(a, b).to(x.dtype)
+        x0w = x0 * self._hs - self._border_m
+        y0w = y0 * self._hs - self._border_m
+        return riser_channels(
+            g(xi, yi), g(xi + 1, yi), g(xi, yi + 1), g(xi + 1, yi + 1),
+            g(xb, yi), g(xb, yi + 1), g(xi, yb), g(xi + 1, yb),
+            x0w, y0w, fx, fy, self._hs, self._vs, self._thr,
         )
 
     def sample_origins(self, generator: torch.Generator, num_envs: int, cfg, offset: int = 0,

@@ -16,6 +16,15 @@ import torch
 _EPS = 1e-9
 
 
+def _div(a, c: float):
+    """``a / c`` for a Python float ``c``, a true division on every device.
+    PyTorch on CUDA turns a division by a Python scalar into a
+    multiplication by the scalar's float32 reciprocal, which can round to
+    the neighbouring value; a 0-d tensor divisor keeps the division (the
+    kernel's and the CPU's)."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.cross`` for (..., 3) vectors (same formula, same rounding)."""
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
@@ -177,3 +186,93 @@ def sample_distribution(generator: torch.Generator, rng, shape, distribution="un
         z = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
         return lo + math.sqrt(hi) * z
     raise ValueError(f"unknown DR distribution {distribution!r}")
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quat (x, y, z, w). Branchless Shepperd-style blend."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(w2x4, x, y, z, w):
+        s = torch.sqrt(torch.clamp(w2x4, min=_EPS)) * 2.0
+        return torch.stack([x / s, y / s, z / s, w / s], dim=-1)
+
+    q0 = cand(1.0 + tr, m21 - m12, m02 - m20, m10 - m01, (1.0 + tr) / 1.0)
+    q1 = cand(1.0 + m00 - m11 - m22, (1.0 + m00 - m11 - m22), m01 + m10, m02 + m20, m21 - m12)
+    q2 = cand(1.0 - m00 + m11 - m22, m01 + m10, (1.0 - m00 + m11 - m22), m12 + m21, m02 - m20)
+    q3 = cand(1.0 - m00 - m11 + m22, m02 + m20, m12 + m21, (1.0 - m00 - m11 + m22), m10 - m01)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond2 = (m11 >= m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return quat_unit(q)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix, shape ``(..., 3, 3)``."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
+# component-form small-matrix products: the same sums in the same order as
+# the JAX package's (each entry a + b + c of elementwise products)
+
+def mat3_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3)."""
+    return torch.stack(
+        [
+            m[..., 0, 0] * v[..., 0] + m[..., 0, 1] * v[..., 1] + m[..., 0, 2] * v[..., 2],
+            m[..., 1, 0] * v[..., 0] + m[..., 1, 1] * v[..., 1] + m[..., 1, 2] * v[..., 2],
+            m[..., 2, 0] * v[..., 0] + m[..., 2, 1] * v[..., 1] + m[..., 2, 2] * v[..., 2],
+        ],
+        dim=-1,
+    )
+
+
+def mat3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3, 3)."""
+    rows = []
+    for i in range(3):
+        rows.append(torch.stack([
+            a[..., i, 0] * b[..., 0, j] + a[..., i, 1] * b[..., 1, j] + a[..., i, 2] * b[..., 2, j]
+            for j in range(3)
+        ], dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def mat3_sandwich(r: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """R @ M @ R^T."""
+    rm = mat3_mul(r, m)
+    rows = []
+    for i in range(3):
+        rows.append(torch.stack([
+            rm[..., i, 0] * r[..., j, 0] + rm[..., i, 1] * r[..., j, 1] + rm[..., i, 2] * r[..., j, 2]
+            for j in range(3)
+        ], dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def outer3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) outer (..., 3) -> (..., 3, 3)."""
+    return a[..., :, None] * b[..., None, :]
+
+
+def sqrt_uniform_shape(r: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Map U[-1, 1) draws ``r`` to the signed-sqrt-shaped sample of
+    :func:`rand_sqrt_uniform`."""
+    r = torch.where(r < 0.0, -torch.sqrt(-r), torch.sqrt(r))
+    return (r + 1.0) / 2.0 * (hi - lo) + lo
+
+
+def rand_sqrt_uniform(generator: torch.Generator, lo, hi, shape, device=None) -> torch.Tensor:
+    """Signed-sqrt-shaped uniform in [lo, hi) (legged_gym utils/math.py:51-56)."""
+    return sqrt_uniform_shape(uniform(generator, -1.0, 1.0, shape, device), lo, hi)
+
+
+def tensor_clamp(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Elementwise clamp with tensor bounds (torch_utils.py:207-209)."""
+    return torch.clamp(x, lo, hi)

@@ -264,9 +264,26 @@ together after phase 9):
    GR1T1 at 4096 envs with ``use_pallas = False`` in the config only: the
    physics on the card, K1 0 launches, K2 and K3 as in phase 7, finite
    losses; seconds, env-steps/s, peak memory and the card line.
+17. Item 16 and item 14b at GR1T1's full width. (a, ``dtype_phase``)
+   ``compute_dtype`` and ``update_dtype`` bf16 with f32 storage on the mega
+   path: K2's operands bf16 by JAX's rule, the bf16 rollout at iteration 0
+   within 1e-2 / 2e-2 of the f32 net's mu and values, ``learn(1)`` with K1
+   65, K2 200, K3 1, finite losses and params. (b) The xla path at the
+   trained state, one minibatch: ``remat_update``'s gradient bit for bit,
+   ``fused_trunk``'s f32 gradient within 1e-4 of the leaf's largest, the
+   bf16 gradient within 5e-2 and one bf16 grad step's params within
+   tests/test_parallel.py's bf16 bounds of the f32 ones, a planted fault
+   (the last layer accumulated in bf16) reported against both. (c,
+   ``tp_phase``) ``tp_worker`` on two gloo ranks at ``--num_mp 2``: each
+   rank's parameter count, an mp1 checkpoint loaded as the shards,
+   ``learn(1)`` (K1 64, the xla path), the peers bit-identical, the gathered
+   gradient against one process's (1e-4 of each leaf's largest), two planted
+   faults failing that check, 4 grad steps against one process's, the mp2
+   checkpoint loaded at mp1; then four ranks at dp2 x mp2 (2 x 2048 envs)
+   while the phase stays inside its budget.
    Prints the kernels' JSON line (K1 for each program, its main-path count
-   from phase 4 with phase 15's and 16's counts beside it under their own
-   keys, K2 at both widths with its data-parallel use under ``dp``, K3),
+   from phase 4 with phase 15's, 16's and 17's counts beside it under their
+   own keys, K2 at both widths with its data-parallel use under ``dp``, K3),
    the card line, and the final ok line.
 """
 
@@ -2716,6 +2733,403 @@ def eval_deploy_phase(dev, eval_obs, stream_obs):
     return out
 
 
+# phase 17: item 16 (bf16 policy and update dtypes, remat_update, fused_trunk)
+# and item 14b (tensor parallelism over torch.distributed)
+TP_WORLD = 2
+TP_JOIN_S = 240.0     # the ranks' time limit; past it all are killed and the phase fails
+TP_BUDGET_S = 90.0    # the 4-rank dp2 x mp2 run follows only while the phase is inside this
+FULL_PARAMS = 436885  # GR1T1's actor-critic: 39 / 168 -> [512, 256, 128] -> 10 / 1, and std
+BF16_MEAN_TOL, BF16_VALUE_TOL = 1e-2, 2e-2      # tests/test_learn.py:306-326
+BF16_PARAM_RTOL, BF16_PARAM_ATOL = 1e-2, 5e-3   # tests/test_parallel.py:193-196
+BF16_GRAD_TOL = 5e-2   # 17b: bf16 gradient vs f32, per leaf, a share of the leaf's largest |value|
+TRUNK_GRAD_TOL = 1e-4  # 17b: the stacked trunk's f32 gradient vs the two stacks', likewise
+TP_GRAD_TOL = 1e-4     # 17c: the gathered mp2 gradient vs one process, likewise
+TP_STEP_TOL = 1e-3     # 17c: 4 grad steps' update, per leaf, L2 share of the one-process update
+TP_STEPS = 4
+
+
+def dtype_cfgs(update="bfloat16", compute="bfloat16", storage="float32", **alg):
+    """GR1T1 at 4096 envs with the item-16 options."""
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N_ENVS
+    train_cfg.policy.compute_dtype = compute
+    train_cfg.algorithm.update_dtype = update
+    train_cfg.algorithm.storage_dtype = storage
+    for k, v in alg.items():
+        setattr(train_cfg.algorithm, k, v)
+    return cfg, train_cfg
+
+
+def sync(dev):
+    """Wait for the card (a no-op on the CPU, where phase 17 is rehearsed)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def worst_share(net, got, want, tol):
+    """(all leaves within ``tol`` x the leaf's largest |want|, the worst
+    leaf's share of its limit)."""
+    worst = 0.0
+    for name, d, scale in leaf_diffs(net, got, want):
+        worst = max(worst, d / max(tol * scale, 1e-30)) if math.isfinite(d) else math.inf
+    return worst <= 1.0, worst
+
+
+def l2_share(net, got, want):
+    """The largest per-leaf ||got - want|| / ||want||."""
+    worst = 0.0
+    for _, off, shape in net.layout:
+        n = math.prod(shape)
+        a, b = got[off: off + n], want[off: off + n]
+        worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    return worst
+
+
+def _last_layer_in_bf16(orig):
+    """A planted fault of 17b: ``networks._layer`` with the last layer's
+    float32 accumulation dropped to a bf16 product."""
+    def layer(x, w, b, i, n, dtype, mp):
+        if dtype is None or i != n - 1:
+            return orig(x, w, b, i, n, dtype, mp)
+        return (x @ w.transpose(-1, -2).to(dtype)).float() + b
+    return layer
+
+
+def dtype_phase(dev):
+    """Phase 17a-b: item 16 at GR1T1's full width, 4096 envs. (a) The mega
+    path with ``compute_dtype`` and ``update_dtype`` bf16 and f32 storage:
+    K2's operands bf16 by JAX's rule; the bf16 rollout's mu and values at
+    iteration 0 against the f32 net's at the same params (1e-2 / 2e-2,
+    tests/test_learn.py:306-326); ``learn(1)`` with the counts set to 0
+    just before (K1 65, K2 200, K3 1), finite losses and params. (b) The xla
+    path at the trained state and one minibatch of a new rollout: remat's
+    gradient bit for bit the plain one; the stacked trunk's f32 gradient
+    within TRUNK_GRAD_TOL of the two stacks'; the bf16 gradient within
+    BF16_GRAD_TOL of the f32 one and one bf16 grad step's params within
+    tests/test_parallel.py's bf16 bounds of the f32 step's; a planted fault
+    (the last layer accumulated in bf16) reported against both. Returns the
+    phase's numbers and the trained runner (17c's mp1 side)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import networks
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPO
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg, train_cfg = dtype_cfgs()
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+    alg, net = runner.alg, runner.net
+    rs, batch, _ = runner.rollout(runner.init_state(init_at_random_ep_len=True))
+    o, c = batch.obs.reshape(-1, env.obs_dim), batch.critic_obs.reshape(-1, batch.critic_obs.shape[-1])
+    with torch.no_grad():
+        mu32 = net.action_mean(o, dtype=None).reshape(batch.mu.shape)
+        v32 = net.evaluate(c, dtype=None).reshape(batch.values.shape)
+    d_mu, d_v = float((batch.mu - mu32).abs().max()), float((batch.values - v32).abs().max())
+    rows = alg.shuffle_geometry(ROLLOUT_STEPS, env.num_envs)[3]
+    op = alg._get_fused(rows).op_dtype
+    del rs, batch, o, c, mu32, v32
+    sync(dev)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    state = runner.learn(1, init_at_random_ep_len=True)
+    sync(dev)
+    learn_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    m = runner.log_history[-1]["metrics"]
+    finite = all(math.isfinite(m[k]) for k in ("value_loss", "surrogate_loss", "kl", "lr")) and bool(
+        torch.isfinite(state.ppo.params).all())
+    log(f"[17a] bf16 compute and update, f32 storage, path {alg.path}: K2 operands {op}; the bf16 rollout "
+        f"at iteration 0 against the f32 net: mu {d_mu:.3e} (limit {BF16_MEAN_TOL}), values {d_v:.3e} (limit "
+        f"{BF16_VALUE_TOL}); learn(1) in {learn_s:.2f} s, launches {launches}; value loss {m['value_loss']:.5f}, "
+        f"kl {m['kl']:.5f}, finite {finite}")
+    want = {"k1": ROLLOUT_STEPS + 1, "k2": alg.num_learning_epochs * alg.num_mini_batches, "k3": 1}
+    if alg.path != "mega" or op != torch.bfloat16 or launches != want or not finite:
+        fail(f"17a: path {alg.path}, K2 operands {op}, launches {launches} (expected {want}), finite {finite}")
+    if not (d_mu <= BF16_MEAN_TOL and d_v <= BF16_VALUE_TOL):
+        fail(f"17a: the bf16 rollout is {d_mu} / {d_v} from the f32 net's")
+    out["a"] = {"op_dtype": str(op), "launches": launches, "learn_s": learn_s, "mu_diff": d_mu,
+                "value_diff": d_v, "iteration": runner.log_history[-1]["elapsed_s"],
+                "update_s": runner.log_history[-1]["update_s"], "metrics": m}
+
+    # (b) the xla path, one minibatch of a new rollout at the trained state
+    runner.net.bind(state.ppo.params)
+    rs, batch, _ = runner.rollout(state)
+    with torch.no_grad():
+        last = net.evaluate(rs.critic_obs)
+    ret, adv = alg.compute_returns(batch, last)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    w, f, _ = alg._pack_shuffle(batch, ret, adv, alg.draw_perm(*batch.rewards.shape, gen, dev))
+    mb = PPO.minibatch(w, f, env.obs_dim, env.num_actions, 0)
+    del rs, batch
+
+    def xla(update="float32", **flags):
+        _, tc = dtype_cfgs(update, fused_update=False, **flags)
+        return PPO(net, tc.algorithm)
+
+    p, s0 = state.ppo.params, state.ppo
+    g32 = xla().loss_and_grad(p, mb)[1]
+    g_remat = xla(remat_update=True).loss_and_grad(p, mb)[1]
+    g_trunk = xla(fused_trunk=True).loss_and_grad(p, mb)[1]
+    g16 = xla("bfloat16").loss_and_grad(p, mb)[1]
+    remat_equal = bool(torch.equal(g32, g_remat))
+    trunk_ok, trunk_worst = worst_share(net, g_trunk, g32, TRUNK_GRAD_TOL)
+    g16_ok, g16_worst = worst_share(net, g16, g32, BF16_GRAD_TOL)
+
+    def step(ppo, g):
+        lr = ppo._adapt_lr(s0.learning_rate, torch.zeros((), device=dev))
+        return ppo._optax_step(s0.params, s0.m, s0.v, s0.count, lr, g)[0]
+
+    def params_within(a, b):
+        d = (a - b).abs() - (BF16_PARAM_ATOL + BF16_PARAM_RTOL * b.abs())
+        return bool((d <= 0).all()), float((a - b).abs().max())
+
+    p32, p16 = step(xla(), g32), step(xla("bfloat16"), g16)
+    step_ok, step_diff = params_within(p16, p32)
+    layer = networks._layer
+    networks._layer = _last_layer_in_bf16(layer)
+    try:
+        g_fault = xla("bfloat16").loss_and_grad(p, mb)[1]
+    finally:
+        networks._layer = layer
+    fault_grad_ok, fault_worst = worst_share(net, g_fault, g32, BF16_GRAD_TOL)
+    fault_step_ok, fault_step_diff = params_within(step(xla("bfloat16"), g_fault), p32)
+    fault_moved = l2_share(net, g_fault, g16)
+    log(f"[17b] xla path, one minibatch ({mb['obs'].shape[0]} rows) at the trained state: remat's gradient "
+        f"equal bit for bit {remat_equal}; fused_trunk's f32 gradient worst leaf at {trunk_worst:.3f} of "
+        f"{TRUNK_GRAD_TOL} x its largest |value|; the bf16 gradient worst leaf at {g16_worst:.3f} of "
+        f"{BF16_GRAD_TOL}; one bf16 grad step's params within rtol {BF16_PARAM_RTOL} / atol {BF16_PARAM_ATOL} of "
+        f"the f32 step's: {step_ok} (largest |diff| {step_diff:.3e}); planted fault (last layer accumulated in "
+        f"bf16): gradient moved {fault_moved:.3e} (L2 share) from the honest bf16 one, worst leaf at "
+        f"{fault_worst:.3f} of the bf16 bound: caught {not fault_grad_ok}; its step within the params bound: "
+        f"{fault_step_ok} (caught {not fault_step_ok}, largest |diff| {fault_step_diff:.3e})")
+    if not (remat_equal and trunk_ok and g16_ok and step_ok):
+        fail(f"17b: remat {remat_equal}, trunk {trunk_ok}, bf16 gradient {g16_ok}, bf16 step {step_ok}")
+    if not fault_moved > 0:
+        fail("17b: the planted fault did not change the bf16 gradient")
+    out["b"] = {"rows": int(mb["obs"].shape[0]), "remat_bit_equal": remat_equal, "trunk_worst": trunk_worst,
+                "bf16_grad_worst": g16_worst, "bf16_step_ok": step_ok, "bf16_step_diff": step_diff,
+                "fault": {"grad_moved_l2": fault_moved, "grad_worst": fault_worst,
+                          "caught_by_grad_check": not fault_grad_ok, "caught_by_step_check": not fault_step_ok}}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[time] phase 17a-b took {out['seconds']:.1f} s")
+    return out, runner, state
+
+
+def tp_worker(rank, world, init_method, out_dir, device, num_mp, num_envs, full_checks):
+    """Phase 17c, one rank of a gloo group on the one card at ``num_mp``:
+    GR1T1 at full width through the entry points a user calls with the
+    mesh. With ``full_checks`` (mp2, dp1): the mp1 checkpoint ``mp1.pt``
+    loaded as this rank's shard; ``learn(1)`` with the counts set to 0 just
+    before (K1 64 from the loaded state, K2 and K3 never: the xla path), the
+    peers held bit-identical by the runner after the update; the gathered
+    checkpoint ``mp2.pt`` from rank 0; on a new rollout, minibatch 0's
+    gathered gradient against the one-process xla gradient (rank 0) leaf by
+    leaf; two planted faults (rank 1's shard of the first actor layer x1.05;
+    the forward's row-parallel all-reduce skipped) against the same check;
+    the first TP_STEPS grad steps of an update against one process's.
+    Without: ``learn(1)`` (K1 65) and the peers' identity. Results go to
+    ``out_dir/tp<world>_rank<r>.json``."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import networks
+    from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPO
+    from wiki_grx_gym_tpu_torch.parallel import mesh, sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = mesh.init_distributed(backend="gloo", init_method=init_method, world_size=world, rank=rank,
+                                  device=device, timeout_s=TP_JOIN_S)
+    try:
+        dp = mesh.make_mesh(num_mp, group)
+        mp, dev = dp.mp, dp.device
+        cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+        cfg.env.num_envs = num_envs
+        env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, dp=dp)
+        runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None, dp=dp)
+        alg, net = runner.alg, runner.net
+        res = {"rank": rank, "world": world, "dp": [dp.world, dp.rank], "mp": [mp.world, mp.rank],
+               "envs": env.num_envs, "shard": list(env.shard), "path": alg.path, "params": net.num_params,
+               "full_params": net.full_num_params}
+        state = None
+        if full_checks:
+            state = runner.load(os.path.join(out_dir, "mp1.pt"))
+            ck = torch.load(os.path.join(out_dir, "mp1.pt"), map_location=dev, weights_only=True)
+            res["mp1_loads_as_shard"] = bool(torch.equal(
+                state.ppo.params, sharding.shard_flat(net, ck["params"], mp.world, mp.rank)))
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = runner.learn(1, init_at_random_ep_len=True, state=state)
+        sync(dev)
+        res["learn_s"] = time.perf_counter() - t0
+        res["launches"] = dict(LAUNCHES)
+        h = runner.log_history[-1]
+        res.update(iteration_s=h["elapsed_s"], collection_s=h["collection_s"], update_s=h["update_s"],
+                   env_steps_per_s=h["fps"], metrics=h["metrics"],
+                   digests=[[str(int(x)) for x in d] for d in runner.replica_digests])
+        if full_checks:
+            runner.save(os.path.join(out_dir, "mp2.pt"), state)
+            full = runner.gathered(state.ppo)
+            res["gathered_params_digest"] = str(int(sharding._digest([full.params])[0]))
+            # a new rollout; minibatch 0 at the trained shard
+            net.bind(state.ppo.params)
+            rs, batch, _ = runner.rollout(state)
+            with torch.no_grad():
+                last = net.evaluate(rs.critic_obs)
+            ret, adv = alg.compute_returns(batch, last)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(17)
+            w, f, rows = alg._pack_shuffle(batch, ret, adv, alg.draw_perm(*batch.rewards.shape, gen, dev))
+            a = env.num_actions
+            mb = PPO.minibatch(w, f, env.obs_dim, a, 0)
+            gather = lambda x: sharding.gather_flat(net, mp.all_gather(x.contiguous()))
+            p = state.ppo.params
+            grads = {"honest": gather(alg.loss_and_grad(p, mb)[1])}
+            pf = p.clone()
+            _, off, shape = next(leaf for leaf in net.layout if leaf[0] == "actor.0.weight")
+            if mp.rank == 1:
+                pf[off: off + math.prod(shape)] *= FAULT_SCALE
+            grads["rank 1's actor.0.weight shard x1.05"] = gather(alg.loss_and_grad(pf, mb)[1])
+            forward = networks._ReduceFromMP.forward
+            networks._ReduceFromMP.forward = staticmethod(lambda ctx, y, mp_: y.clone())
+            try:
+                grads["row-parallel all-reduce skipped"] = gather(alg.loss_and_grad(p, mb)[1])
+            finally:
+                networks._ReduceFromMP.forward = forward
+            # the first TP_STEPS grad steps of an update from the trained state
+            grad_fn = lambda q, i: alg.loss_and_grad(q, PPO.minibatch(w, f, env.obs_dim, a, i))
+            t1 = time.perf_counter()
+            s4, m4 = alg._run_epochs(state.ppo, grad_fn, steps=TP_STEPS)
+            sync(dev)
+            res["tp_grad_step_ms"] = 1e3 * (time.perf_counter() - t1) / TP_STEPS
+            f4 = runner.gathered(s4)
+            if rank == 0:
+                # one process on the same inputs: the whole net, the xla path
+                ref_cfg = copy.deepcopy(train_cfg)
+                ref_cfg.algorithm.fused_update = False
+                ref_net = ActorCritic(env.obs_dim, net.num_critic_input, a, ref_cfg.policy,
+                                      generator=torch.Generator()).to(dev)
+                ref = PPO(ref_net, ref_cfg.algorithm)
+                want = ref.loss_and_grad(full.params, mb)[1]
+                res["grad_checks"] = {}
+                for tag, g in grads.items():
+                    ok, worst = worst_share(ref_net, g, want, TP_GRAD_TOL)
+                    res["grad_checks"][tag] = {"within": ok, "worst": worst}
+                ref_fn = lambda q, i: ref.loss_and_grad(q, PPO.minibatch(w, f, env.obs_dim, a, i))
+                t1 = time.perf_counter()
+                r4, rm4 = ref._run_epochs(full, ref_fn, steps=TP_STEPS)
+                sync(dev)
+                res["one_process_grad_step_ms"] = 1e3 * (time.perf_counter() - t1) / TP_STEPS
+                res["steps_l2_share"] = {k: l2_share(ref_net, getattr(f4, k) - getattr(full, k),
+                                                     getattr(r4, k) - getattr(full, k)) for k in ("params", "m", "v")}
+                res["steps_metrics"] = {k: [float(m4[k]), float(rm4[k])] for k in ("value_loss", "kl", "lr")}
+                res["rows"] = rows
+            # the peers after the checks' steps: the runner's check on the 4-step state
+            sharding.check_replicas_identical(dp, s4, "4 grad steps", net=net,
+                                              replicated=torch.stack([m4[k] for k in sorted(m4)]))
+        with open(os.path.join(out_dir, f"tp{world}_rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        mesh.destroy(group)
+
+
+def tp_phase(dev, runner1, state1):
+    """Phase 17c: item 14b on the card. ``tp_worker`` on two gloo ranks
+    sharing the card at ``--num_mp 2`` (dp1, 4096 envs on each: mp peers
+    step the same envs), then, inside TP_BUDGET_S, four at dp2 x mp2 with
+    2 x 2048 envs; NCCL refuses two ranks on one device, so the collectives
+    stage through the host (the cost of gloo on one card, not of TP over
+    NVLink). The mp1 side of the checkpoint round trip is 17a's runner:
+    ``mp1.pt`` from its state before, ``mp2.pt`` loaded into it after, equal
+    to the ranks' gathered params. Returns the phase's numbers."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.parallel import sharding
+    from wiki_grx_gym_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(THIS, "build", "smoke_tp")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    runner1.save(os.path.join(out_dir, "mp1.pt"), state1)
+    rank_dev = str(torch.device(dev.type, dev.index or 0)) if dev.type == "cuda" else "cpu"
+    spawn(tp_worker, TP_WORLD, args=(out_dir, rank_dev, 2, N_ENVS, True), rendezvous_dir=out_dir,
+          timeout_s=TP_JOIN_S)
+    ranks = [json.load(open(os.path.join(out_dir, f"tp{TP_WORLD}_rank{r}.json"))) for r in range(TP_WORLD)]
+    back = runner1.load(os.path.join(out_dir, "mp2.pt"))
+    mp2_loads = str(int(sharding._digest([back.ppo.params])[0])) == ranks[0]["gathered_params_digest"]
+    out = {"mp2": ranks, "mp2_checkpoint_loads_at_mp1": mp2_loads}
+    r0 = ranks[0]
+    for r in ranks:
+        log(f"[17c mp2 rank {r['rank']}] dp {r['dp']} mp {r['mp']}: {r['params']:,} params on this rank of the "
+            f"whole net's {r['full_params']:,}; {r['envs']} envs {r['shard']}, path {r['path']}; learn(1) in "
+            f"{r['learn_s']:.2f} s: {r['iteration_s']:.3f} s = collection {r['collection_s']:.3f} + update "
+            f"{r['update_s']:.3f} s, {r['env_steps_per_s']:.0f} env-steps/s; launches {r['launches']}; digests "
+            f"{r['digests']}; mp1 checkpoint loads as the shard {r['mp1_loads_as_shard']}; a grad step of the "
+            f"checks {r['tp_grad_step_ms']:.1f} ms")
+    log(f"[17c mp2] the gathered gradient against one process on minibatch 0 ({r0['rows']} rows), worst leaf "
+        f"against {TP_GRAD_TOL} x its largest |value|: " + "; ".join(
+            f"{k}: {v['worst']:.3f} of the limit, within {v['within']}" for k, v in r0["grad_checks"].items())
+        + f"; {TP_STEPS} grad steps' update against one process's (L2 share per leaf, limit {TP_STEP_TOL}): "
+        f"{r0['steps_l2_share']}, metrics {r0['steps_metrics']} (one process {r0['one_process_grad_step_ms']:.1f} "
+        f"ms a grad step); the mp2 checkpoint loads at mp1 {mp2_loads}")
+    want = {"k1": ROLLOUT_STEPS, "k2": 0, "k3": 0}
+    checks = r0["grad_checks"]
+    for r in ranks:
+        if r["path"] != "xla" or r["launches"] != want or r["params"] >= r["full_params"]:
+            fail(f"17c mp2 rank {r['rank']}: path {r['path']}, launches {r['launches']} (expected {want}), "
+                 f"params {r['params']}")
+        if not r["mp1_loads_as_shard"] or not all(math.isfinite(r["metrics"][k])
+                                                  for k in ("value_loss", "surrogate_loss", "kl")):
+            fail(f"17c mp2 rank {r['rank']}: mp1 checkpoint as shard {r['mp1_loads_as_shard']}, metrics {r['metrics']}")
+    # (each rank's digests are its dp group's, here itself: the runner held the
+    # mp peers' replicated leaves, env states and metrics bit-identical)
+    if ranks[0]["metrics"] != ranks[1]["metrics"] or any(len(d) != 1 for r in ranks for d in r["digests"]):
+        fail("17c mp2: the mp peers disagree on the metrics, or a digest is missing")
+    if ranks[0]["full_params"] != FULL_PARAMS:
+        fail(f"17c: the whole net has {ranks[0]['full_params']} params, expected {FULL_PARAMS}")
+    if not checks["honest"]["within"] or any(v["within"] for k, v in checks.items() if k != "honest"):
+        fail(f"17c mp2: the gradient check {checks}")
+    if not all(v <= TP_STEP_TOL for v in r0["steps_l2_share"].values()) or not mp2_loads:
+        fail(f"17c mp2: {TP_STEPS} grad steps {r0['steps_l2_share']}, mp2 checkpoint at mp1 {mp2_loads}")
+    elapsed = time.perf_counter() - t_phase
+    if elapsed < 0.6 * TP_BUDGET_S:
+        world = 4
+        spawn(tp_worker, world, args=(out_dir, rank_dev, 2, N_ENVS, False), rendezvous_dir=out_dir,
+              timeout_s=TP_JOIN_S)
+        q = [json.load(open(os.path.join(out_dir, f"tp{world}_rank{r}.json"))) for r in range(world)]
+        for r in q:
+            log(f"[17c dp2 x mp2 rank {r['rank']}] dp {r['dp']} mp {r['mp']}: {r['params']:,} params, {r['envs']} "
+                f"envs {r['shard']}; learn(1) in {r['learn_s']:.2f} s: {r['iteration_s']:.3f} s = collection "
+                f"{r['collection_s']:.3f} + update {r['update_s']:.3f} s, {r['env_steps_per_s']:.0f} env-steps/s "
+                f"in all; launches {r['launches']}; digests {r['digests']}")
+            if r["launches"] != {"k1": ROLLOUT_STEPS + 1, "k2": 0, "k3": 0} or r["path"] != "xla":
+                fail(f"17c dp2 x mp2 rank {r['rank']}: launches {r['launches']}, path {r['path']}")
+        # dp peers (ranks 0 and 2, 1 and 3) hold the same shard; mp peers the same envs
+        if any(x["metrics"] != q[0]["metrics"] for x in q) or q[0]["digests"] != q[2]["digests"] \
+                or q[1]["digests"] != q[3]["digests"] or q[0]["shard"] != q[1]["shard"] \
+                or q[0]["shard"] == q[2]["shard"]:
+            fail("17c dp2 x mp2: the peers disagree or the shards are not as laid out")
+        out["dp2_mp2"] = q
+    else:
+        log(f"[17c] the dp2 x mp2 run is left out: the phase took {elapsed:.1f} s of its {TP_BUDGET_S} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 17c took {out['seconds']:.1f} s")
+    return out
+
+
 # phase 16: the engine path on the card (sim/engine.physics_step under the
 # env's decimation loop, cfg.sim.use_pallas = False)
 ENGINE_TOL = {"state": (1e-3, 1e-4), "forces": (2e-3, 2e-2)}   # (rtol, atol): tests/test_scalarized.py's decimation check
@@ -3160,6 +3574,13 @@ def main():
     torch.cuda.empty_cache()
     engine = engine_phase(dev)
     phase_done("phase 16")
+    # ---- phase 17: bf16 policy and update dtypes, remat_update, fused_trunk; tensor parallelism ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    dtypes, runner17, state17 = dtype_phase(dev)
+    tp = tp_phase(dev, runner17, state17)
+    del runner17, state17
+    phase_done("phase 17")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -3169,6 +3590,11 @@ def main():
     # phase 16b's learn(1) through the engine, counted from 0, under their own keys
     k2_row["engine_learn_launches"] = engine["b"]["launches"]["k2"]
     k3_row["engine_learn_launches"] = engine["b"]["launches"]["k3"]
+    # phase 17a's learn(1) with bf16 compute and update, and 17c's per-rank
+    # learn(1) under tensor parallelism (the xla path: K2 and K3 never)
+    for row, k in ((k2_row, "k2"), (k3_row, "k3")):
+        row["dtype_learn_launches"] = dtypes["a"]["launches"][k]
+        row["tp_learn_launches"] = [r["launches"][k] for r in tp["mp2"]]
     k2_row["kernel_launches_per_grad_step"] = train["profile"]["k2_kernel_launches_per_grad_step"]
     k3_row["kernel_launches_per_update"] = train["profile"]["kernel_launches_per_update"]
     k3_row["kernel_launches_from"] = train["profile"]["kernel_launches_from"]
@@ -3183,7 +3609,9 @@ def main():
                   eval_play_launches=eval_deploy["play"]["launches"]["k1"],
                   eval_tracking_launches=eval_deploy["eval_tracking"]["launches"]["k1"],
                   eval_learn_launches=eval_deploy["profile"]["launches"]["k1"],
-                  engine_learn_launches=engine["b"]["launches"]["k1"], build_all_s=build_s,
+                  engine_learn_launches=engine["b"]["launches"]["k1"],
+                  dtype_learn_launches=dtypes["a"]["launches"]["k1"],
+                  tp_learn_launches=[r["launches"]["k1"] for r in tp["mp2"]], build_all_s=build_s,
                   rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
                   peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"])
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
@@ -3211,6 +3639,8 @@ def main():
     log(json.dumps({"data_parallel": dp_row}))
     log(json.dumps({"eval_deploy": eval_deploy}))
     log(json.dumps({"engine": engine}))
+    log(json.dumps({"dtype_options": dtypes}))
+    log(json.dumps({"tensor_parallel": tp}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

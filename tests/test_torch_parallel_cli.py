@@ -1,7 +1,10 @@
 """The data-parallel entry points of the port, and what they refuse.
 
-- ``--num_mp 2`` (tensor parallelism) raises, naming ROADMAP item 14b, from
-  ``make_mesh`` and from ``scripts/train.py``; torchrun's variables without
+- ``--num_mp 2`` (tensor parallelism) builds the dp x mp mesh before the
+  runner and passes it at construction (two gloo ranks through
+  ``scripts/train.py``'s ``train``: the rank's net is its shard, PPO on the
+  xla path); ``--num_mp 2`` without ``--distributed`` raises, and so does a
+  world that ``num_mp`` does not divide; torchrun's variables without
   ``--distributed`` raise; ``init_distributed`` refuses a partial group
   description; ``shard_bounds`` refuses env counts the ranks do not divide.
 - The reference hazard: JAX's ``task_registry.make_alg_runner`` builds the
@@ -14,7 +17,9 @@
 - A rank's env is its slice of the global one: the plane's origin grid and
   the terrain types follow the global env index.
 - ``scripts/multihost_dryrun.py`` over two gloo processes exits 0 (finite
-  losses, bit-identical ranks, only rank 0 wrote logs and a checkpoint).
+  losses, bit-identical ranks, only rank 0 wrote logs and a checkpoint), and
+  over four at dp2 x mp2 (``--num_mp 2``: finite losses, params moved,
+  identical peers).
 """
 
 import os
@@ -28,6 +33,7 @@ import torch
 from wiki_grx_gym_tpu_torch.envs import task_registry
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 from wiki_grx_gym_tpu_torch.parallel import mesh, sharding
+from wiki_grx_gym_tpu_torch.parallel.launch import spawn
 from wiki_grx_gym_tpu_torch.scripts.train import train
 from wiki_grx_gym_tpu_torch.sim import cuda_step
 from wiki_grx_gym_tpu_torch.utils.helpers import get_args
@@ -35,11 +41,43 @@ from wiki_grx_gym_tpu_torch.utils.helpers import get_args
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def test_num_mp_2_raises_naming_14b():
-    with pytest.raises(NotImplementedError, match="14b"):
-        mesh.make_mesh(num_mp=2)
-    with pytest.raises(NotImplementedError, match="14b"):
+def cli_mp_worker(rank, world, init, out_dir):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    group = mesh.init_distributed(init_method=init, world_size=world, rank=rank, device="cpu", timeout_s=60)
+    try:
+        args = get_args(["--task", "GR1T1", "--device", "cpu", "--num_envs", "4", "--max_iterations", "0",
+                         "--distributed", "--num_mp", "2"])
+        with pytest.raises(ValueError, match="--num_mp 2 needs --distributed and the mesh"):
+            train(args, log_root=None, dp=group)   # the group without its mesh
+        runner, _ = train(args, log_root=None, dp=mesh.make_mesh(args.num_mp, group))
+        alg, net = runner.alg, runner.net
+        torch.save(dict(mp=(runner.mp.world, runner.mp.rank), dp=(runner.dp.world, runner.dp.rank),
+                        params=net.num_params, full=net.full_num_params, path=alg.path, groups=alg.perm_groups,
+                        ppo_mp=alg.mp is runner.mp, net_mp=net.mp is runner.mp, lead=runner.is_lead),
+                   os.path.join(out_dir, f"cli_rank{rank}.pt"))
+    finally:
+        mesh.destroy(group)
+
+
+def test_num_mp_2_raises_naming_14b(tmp_path):
+    """``--num_mp 2`` builds the dp x mp mesh at construction (it was refused
+    before, ROADMAP item 14b); ``--num_mp 2`` without ``--distributed``
+    raises; ``world % num_mp`` raises."""
+    spawn(cli_mp_worker, 2, args=(str(tmp_path),), rendezvous_dir=str(tmp_path), timeout_s=120)
+    for r in range(2):
+        got = torch.load(tmp_path / f"cli_rank{r}.pt", weights_only=False)
+        assert got["mp"] == (2, r) and got["dp"] == (1, 0) and got["lead"] == (r == 0)
+        assert got["path"] == "xla" and got["groups"] == 1 and got["ppo_mp"] and got["net_mp"]
+        assert got["full"] == 436885 and got["params"] < got["full"]
+    with pytest.raises(ValueError, match="needs --distributed"):
         train(get_args(["--task", "GR1T1", "--device", "cpu", "--num_envs", "2", "--num_mp", "2"]), log_root=None)
+    from wiki_grx_gym_tpu_torch.scripts.train import main
+    with pytest.raises(ValueError, match="needs --distributed"):
+        main(["--task", "GR1T1", "--device", "cpu", "--num_mp", "2"])
+    with pytest.raises(ValueError, match="not divisible by num_mp=2"):
+        mesh.make_mesh(2, mesh.DataParallel(world=3, rank=0, device=torch.device("cpu")))
+    with pytest.raises(ValueError, match="--distributed"):
+        mesh.make_mesh(num_mp=2)
     assert mesh.make_mesh(num_mp=1) is None
     args = get_args(["--distributed", "--dist_backend", "gloo"])
     assert args.distributed and args.dist_backend == "gloo" and args.num_mp == 1
@@ -129,4 +167,17 @@ def test_multihost_dryrun_exits_0(tmp_path):
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert "-> OK" in res.stdout
     assert '"digests_equal": true' in res.stdout
+    assert sorted(os.listdir(tmp_path / "logs")) == ["rank0"]
+
+
+def test_multihost_dryrun_dp2_mp2_exits_0(tmp_path):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-m", "wiki_grx_gym_tpu_torch.scripts.multihost_dryrun",
+                          "--procs", "4", "--num_mp", "2", "--iters", "1", "--num-envs", "8",
+                          "--log-root", str(tmp_path / "logs"), "--timeout", "100"],
+                         capture_output=True, text=True, cwd=str(ROOT), env=env, timeout=150)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "-> OK" in res.stdout and res.stdout.count('"digests_equal": true') == 4
+    assert res.stdout.count('"path": "xla"') == 4 and '"num_mp": 2' in res.stdout
     assert sorted(os.listdir(tmp_path / "logs")) == ["rank0"]

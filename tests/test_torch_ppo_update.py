@@ -173,16 +173,38 @@ def test_ppo_state_from_numpy_round_trip():
     assert jppo.init(params).learning_rate == st.learning_rate
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("update_dtype", "bfloat16", "update_dtype.*item 16"),
-    ("remat_update", True, "remat_update.*item 16"),
+@pytest.mark.parametrize("field,value", [
+    ("update_dtype", "bfloat16"),
+    ("remat_update", True),
 ])
-def test_update_refuses_what_gr1t1_does_not_use(field, value, match):
+def test_update_refuses_what_gr1t1_does_not_use(field, value):
+    """PPO builds and honours ``update_dtype`` / ``remat_update`` (refused
+    before, ROADMAP item 16): bf16 moves the xla loss by bf16 rounding and
+    runs K2 on bf16 operands even at f32 storage (JAX ``ppo.py:469-473``);
+    remat leaves the xla gradient bit for bit. Their parity with JAX is
+    ``tests/test_torch_dtype_options.py``."""
     _, train_cfg = task_registry.get_cfgs("GR1T1")
-    setattr(train_cfg.algorithm, field, value)
-    net = ActorCritic(39, 168, 10, train_cfg.policy)
-    with pytest.raises(NotImplementedError, match=match):
-        PPO(net, train_cfg.algorithm)
+    alg = train_cfg.algorithm
+    alg.storage_dtype = "float32"
+    alg.fused_update = False
+    net = ActorCritic(39, 168, 10, train_cfg.policy, generator=torch.Generator().manual_seed(0))
+    base = PPO(net, alg)
+    setattr(alg, field, value)
+    ppo = PPO(net, alg)
+    rng = np.random.RandomState(0)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    mu = 0.3 * f(64, 10)
+    mb = dict(obs=f(64, 39), critic_obs=f(64, 168), actions=mu + 0.2 * f(64, 10), log_prob=f(64), mu=mu,
+              sigma=torch.full((64, 10), 0.2), values=f(64), returns=f(64), advantages=f(64))
+    l0, g0, _ = base.loss_and_grad(net.params_flat, mb)
+    l1, g1, _ = ppo.loss_and_grad(net.params_flat, mb)
+    if field == "update_dtype":
+        assert ppo.update_dtype == torch.bfloat16 and not ppo.remat_update
+        assert ppo._get_fused(64).op_dtype == torch.bfloat16 and base._get_fused(64).op_dtype == torch.float32
+        assert not torch.equal(g0, g1) and torch.allclose(l0, l1, rtol=1e-2)
+    else:
+        assert ppo.remat_update and ppo.update_dtype is None
+        assert torch.equal(l0, l1) and torch.equal(g0, g1)
     # group-local shuffles (refused before, item 14): in one process JAX's
     # perm_groups > 1 runs its xla path (ppo.py:165-168), and so does the port's
     alg = task_registry.get_cfgs("GR1T1")[1].algorithm

@@ -50,7 +50,11 @@ def export_policy_bin(net, path: str) -> None:
     head weight as (out, in); the file takes it row-major (in x out), as
     JAX stores it. The LSTM layers keep JAX's layout (w_ih (I, 4H), w_hh
     (H, 4H)), and their biases go in folded as ``b_ih + b_hh`` (summed in
-    float32, as the JAX exporter sums them)."""
+    float32, as the JAX exporter sums them). The weights are float32 whatever
+    the net's ``compute_dtype``; a tensor-parallel rank's net is refused
+    (export ``OnPolicyRunner.full_net()``)."""
+    if getattr(net, "mp", None) is not None:
+        raise ValueError("a tensor-parallel shard: export the gathered net (OnPolicyRunner.full_net())")
     if net.activation not in _ACT_IDS:
         raise ValueError(f"activation {net.activation!r}: the runtime knows {sorted(_ACT_IDS)}")
     if net.actor_out_act:

@@ -1,10 +1,10 @@
 """Task registration (port of ``wiki_grx_gym_tpu/envs/__init__.py``): the same
 seven names and aliases. ``GR1T1``/``GR1T2`` are the lower-limb tasks,
 ``GR1T1_full``/``GR1T2_full`` the 32-DOF full bodies, and ``GR1T1_lstm`` the
-lower limb with the recurrent (LSTM) policy; each trains, in one process or
-data parallel. What still raises ``NotImplementedError`` names its ROADMAP
-item: models of more than 32 dofs, the bf16 update and policy variants (item
-16) and tensor parallelism (item 14b)."""
+lower limb with the recurrent (LSTM) policy; each trains in one process,
+data parallel or tensor parallel, with the bf16 policy and update options.
+What still raises ``NotImplementedError`` names its ROADMAP item: models of
+more than 32 dofs on K1."""
 
 from wiki_grx_gym_tpu_torch.envs.legged_env import EnvState, LeggedEnv, StepOutput  # noqa: F401
 from wiki_grx_gym_tpu_torch.envs.gr1t1_config import (  # noqa: F401

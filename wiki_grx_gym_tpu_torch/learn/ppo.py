@@ -15,7 +15,14 @@ LSTM replay of whole env columns):
 - **step** (``fused_mega=False``): K2 per grad step
   (``FusedPPOGrad.grads``), then clip and Adam in plain torch;
 - **xla** (``fused_update=False``): ``torch.autograd`` of
-  :meth:`PPO._minibatch_loss`, with the same clip and Adam.
+  :meth:`PPO._minibatch_loss`, with the same clip and Adam. The loss runs
+  the MLPs in ``algorithm.update_dtype`` (bf16 under JAX's contract,
+  ``networks.apply_mlp``), as one stacked trunk with
+  ``algorithm.fused_trunk`` (``networks.joint_mean_value``), and with
+  ``algorithm.remat_update`` under ``torch.utils.checkpoint`` (its
+  activations recomputed in the backward; JAX's ``jax.checkpoint``, on this
+  path only). K2's operands are f32 only when both ``storage_dtype`` and
+  ``update_dtype`` are f32 (``ppo.py:469-473``), else bf16.
 
 ``fused_update="auto"`` selects the kernel paths wherever
 ``FusedPPOGrad.supported`` holds (MLP, ELU, no extra loss), on any device:
@@ -39,6 +46,15 @@ runs K2 per shard (JAX turns the mega path off on a dp mesh,
 ``ppo.py:172-174``); ``perm_groups > 1`` otherwise selects the xla path, as
 in JAX (``ppo.py:166-169``).
 
+**Tensor parallel** (``dp.mp``, ``parallel.mesh.make_mesh``): the xla path
+only, as JAX keeps its XLA update under mp (``ppo.py:153``); the flat
+buffer, Adam's moments and the gradient are this rank's shard, and the
+optimizer is elementwise on it, as JAX's leaf-by-leaf optax
+(``flat_optimizer=False``). The gradient is averaged over the dp group;
+clip by global norm sums the squares of the split entries over the mp
+group and adds the replicated entries once. Losses, KL and the NaN skip are
+the same on mp peers, which compute the same loss.
+
 Clip by global norm and Adam are written out with optax's formulas (``eps``
 outside the sqrt, ``eps_root`` 0, the count carried across updates); no
 ``torch.optim``.
@@ -50,8 +66,10 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad, _jclip, _jmax
+from wiki_grx_gym_tpu_torch.learn.networks import compute_dtype_of
 
 _INT32_MAX = 2**31 - 1
 
@@ -73,17 +91,23 @@ class PPO:
                  shuffle_block: int = 16, dp=None):
         """``perm_groups``: env groups the block shuffle is local to, each
         minibatch drawing equally from every group (``ppo.py:61-67``); with
-        ``dp`` each rank holds ``perm_groups / world`` of them."""
+        ``dp`` each rank holds ``perm_groups / world`` of them. ``dp``: the
+        run's ``DataParallel`` (its dp view and ``mp`` under tensor
+        parallelism; ``net`` is then the rank's tensor-parallel net)."""
         world = 1 if dp is None else dp.world
         if int(perm_groups) < 1 or int(perm_groups) % world:
             raise ValueError(f"perm_groups {perm_groups} is not a positive multiple of the {world} ranks")
-        if str(getattr(alg_cfg, "update_dtype", "float32") or "float32") != "float32":
-            raise NotImplementedError("update_dtype='bfloat16' is ROADMAP queue 1 item 16")
-        if bool(getattr(alg_cfg, "remat_update", False)):
-            raise NotImplementedError("remat_update is ROADMAP queue 1 item 16")
+        self.mp = None if dp is None else dp.mp
+        if (self.mp is None) != (getattr(net, "mp", None) is None):
+            raise ValueError("a tensor-parallel run needs the rank's tensor-parallel net, and only it")
         self.net = net
         self.cfg = alg_cfg
-        self.dp = dp
+        # a dp group of one rank (mp alone) has nothing to average
+        self.dp = dp if dp is not None and dp.world > 1 else None
+        self.update_dtype = compute_dtype_of(getattr(alg_cfg, "update_dtype", "float32"))
+        self.remat_update = bool(getattr(alg_cfg, "remat_update", False))
+        self.fused_trunk = bool(getattr(alg_cfg, "fused_trunk", False))
+        self._split = None if self.mp is None else net.split_mask()
         self.extra_loss_fn = extra_loss_fn
         self.perm_groups = int(perm_groups)
         self.local_groups = self.perm_groups // world
@@ -111,7 +135,9 @@ class PPO:
             fu = FusedPPOGrad.supported(net, extra_loss_fn)
         # K2 per shard with the gradient mean between it and Adam
         dp_kernel = world > 1 and self.perm_groups == world
-        self.fused_update = bool(fu) and (self.perm_groups == 1 or dp_kernel)
+        # under mp the xla update (ppo.py:153; runner.py:112 turns the flat
+        # optimizer, and with it the kernels, off)
+        self.fused_update = bool(fu) and (self.perm_groups == 1 or dp_kernel) and self.mp is None
         self.fused_mega = bool(getattr(alg_cfg, "fused_mega", True)) and not dp_kernel
         self.fused_update_tile = int(getattr(alg_cfg, "fused_update_tile", 512) or 512)
         self._fused_cache: Dict[int, FusedPPOGrad] = {}
@@ -159,22 +185,20 @@ class PPO:
 
     # ------------------------------------------------------------------
 
-    def _mlp(self, pairs, x):
-        for w, b in pairs[:-1]:
-            x = torch.nn.functional.elu(x @ w.t() + b)
-        w, b = pairs[-1]
-        return x @ w.t() + b
-
     def _minibatch_loss(self, flat, mb):
-        """The loss of ``ppo.py:_minibatch_loss`` (update_dtype float32) as a
-        function of the flat params, for torch.autograd. ``torch.maximum``/
-        ``minimum`` give 0.5 at ties as ``jnp.maximum``/``clip`` do; a
-        ``torch.clamp`` would give 1 at the boundary."""
-        net = self.net
-        actor, critic, std_p = net.leaves(flat)
-        mean = self._mlp(actor, mb["obs"].to(torch.float32))
-        value = self._mlp(critic, mb["critic_obs"].to(torch.float32))[:, 0]
-        loss, aux = self._ppo_loss(std_p, mean, value, mb)
+        """The loss of ``ppo.py:_minibatch_loss`` as a function of the flat
+        params, for torch.autograd: the MLPs in ``update_dtype``, as one
+        stacked trunk with ``fused_trunk``. ``torch.maximum``/``minimum``
+        give 0.5 at ties as ``jnp.maximum``/``clip`` do; a ``torch.clamp``
+        would give 1 at the boundary."""
+        net, dt = self.net, self.update_dtype
+        obs, cobs = mb["obs"].to(torch.float32), mb["critic_obs"].to(torch.float32)
+        if self.fused_trunk:
+            mean, value = net.joint_mean_value(obs, cobs, dtype=dt, flat=flat)
+        else:
+            mean = net.action_mean(obs, flat=flat, dtype=dt)
+            value = net.evaluate(cobs, dtype=dt, flat=flat)
+        loss, aux = self._ppo_loss(net.leaves(flat)[2], mean, value, mb)
         return self._with_extra_loss(flat, mb, loss), aux
 
     def _ppo_loss(self, std_p, mean, value, mb):
@@ -249,8 +273,16 @@ class PPO:
 
     def _optax_step(self, p, m, v, count, lr, g):
         """optax.clip_by_global_norm(max) + optax.adam(lr, 0.9, 0.999, 1e-8)
-        on one flat vector, formula for formula."""
-        gnorm = torch.sqrt(torch.sum(g * g))
+        on one flat vector, formula for formula. Under mp ``g`` is this
+        rank's shard: the global norm adds the split entries' squares over
+        the mp group to the replicated entries' (counted once)."""
+        if self.mp is None:
+            gnorm = torch.sqrt(torch.sum(g * g))
+        else:
+            split = self._split.to(g.device)
+            sq = torch.sum(torch.square(g[split])).reshape(1).to(self.mp.device)
+            sq = self.mp.all_reduce_sum(sq).to(g.device)[0]
+            gnorm = torch.sqrt(sq + torch.sum(torch.square(g[~split])))
         g = torch.where(gnorm < self.max_grad_norm, g, (g / gnorm) * self.max_grad_norm)
         count = torch.where(count < _INT32_MAX, count + 1, count)
         m = (1 - self.b1) * g + self.b1 * m
@@ -360,20 +392,32 @@ class PPO:
             return self._run_epochs(ppo_state, lambda p, i: fused.grads(p, bufs, i))
 
         a = batch.actions.shape[-1]
+        return self._run_epochs(
+            ppo_state, lambda p, i: self.loss_and_grad(p, self.minibatch(shuf_w, shuf_f, obs_dim, a, i)))
 
-        def grad_fn(p, i):
-            fs = shuf_f[i]
-            mb = {"obs": shuf_w[i, :, :obs_dim], "critic_obs": shuf_w[i, :, obs_dim:],
-                  "actions": fs[:, :a], "log_prob": fs[:, a], "mu": fs[:, a + 1:2 * a + 1],
-                  "sigma": fs[:, 2 * a + 1:3 * a + 1], "values": fs[:, 3 * a + 1],
-                  "returns": fs[:, 3 * a + 2], "advantages": fs[:, 3 * a + 3]}
-            with torch.enable_grad():
-                pr = p.detach().requires_grad_(True)
+    @staticmethod
+    def minibatch(shuf_w, shuf_f, obs_dim: int, a: int, i: int):
+        """Minibatch ``i`` of the packed shuffle buffers (:meth:`_pack_shuffle`)
+        as the xla loss's dict of fields (``a``: the action width)."""
+        fs = shuf_f[i]
+        return {"obs": shuf_w[i, :, :obs_dim], "critic_obs": shuf_w[i, :, obs_dim:],
+                "actions": fs[:, :a], "log_prob": fs[:, a], "mu": fs[:, a + 1:2 * a + 1],
+                "sigma": fs[:, 2 * a + 1:3 * a + 1], "values": fs[:, 3 * a + 1],
+                "returns": fs[:, 3 * a + 2], "advantages": fs[:, 3 * a + 3]}
+
+    def loss_and_grad(self, p, mb):
+        """The xla path's (loss, flat gradient, aux) of minibatch ``mb`` at
+        ``p``; with ``remat_update`` the loss runs under
+        ``torch.utils.checkpoint`` (``ppo.py:458-461``)."""
+        with torch.enable_grad():
+            pr = p.detach().requires_grad_(True)
+            if self.remat_update:
+                loss, aux = torch.utils.checkpoint.checkpoint(self._minibatch_loss, pr, mb,
+                                                              use_reentrant=False)
+            else:
                 loss, aux = self._minibatch_loss(pr, mb)
-                (g,) = torch.autograd.grad(loss, pr)
-            return loss.detach(), g, aux
-
-        return self._run_epochs(ppo_state, grad_fn)
+            (g,) = torch.autograd.grad(loss, pr)
+        return loss.detach(), g, aux
 
     # ------------------------------------------------------------------
     # the recurrent update (whole-trajectory minibatches, learn/recurrent.py)
@@ -453,9 +497,10 @@ class PPO:
 
     def _get_fused(self, rows: int) -> FusedPPOGrad:
         if rows not in self._fused_cache:
-            # f32 operands when the whole update is stored f32 (the exact
-            # check), else bf16 (ppo.py:468-474; update_dtype bf16 is refused)
-            op = torch.float32 if self.storage_dtype == torch.float32 else torch.bfloat16
+            # f32 operands only when the whole update is pinned f32 (the exact
+            # check), else bf16 (ppo.py:468-474, less its TPU clause)
+            op = (torch.float32 if self.storage_dtype == torch.float32 and self.update_dtype is None
+                  else torch.bfloat16)
             self._fused_cache[rows] = FusedPPOGrad(
                 self.net, clip_param=self.clip_param, value_loss_coef=self.value_loss_coef,
                 entropy_coef=self.entropy_coef, use_clipped_value_loss=self.use_clipped_value_loss,
@@ -466,16 +511,18 @@ class PPO:
             )
         return self._fused_cache[rows]
 
-    def _run_epochs(self, ppo_state: PPOState, grad_fn):
+    def _run_epochs(self, ppo_state: PPOState, grad_fn, steps: Optional[int] = None):
         """The per-grad-step loop of the step and xla paths (ppo.py:600,
         :664): gradient, with ``dp`` its all-reduced mean (:meth:`reduce`),
         adaptive-KL LR from this minibatch's KL, NaN-loss skip, clip + Adam,
         std projection. ``grad_fn(p, i)`` -> (loss, flat gradient, aux) for
-        minibatch ``i``."""
+        minibatch ``i``. ``steps``: stop after that many grad steps (a check
+        of the first steps of an update); default all."""
         p, m, v = ppo_state.params, ppo_state.m, ppo_state.v
         count, lr = ppo_state.count, ppo_state.learning_rate
         hist = []
-        for s in range(self.num_learning_epochs * self.num_mini_batches):
+        total = self.num_learning_epochs * self.num_mini_batches
+        for s in range(total if steps is None else min(int(steps), total)):
             loss, g, aux = self.reduce(*grad_fn(p, s % self.num_mini_batches))
             lr = self._adapt_lr(lr, aux["kl"])
             g = torch.where(torch.isfinite(loss), g, torch.zeros_like(g))   # NaN-loss skip

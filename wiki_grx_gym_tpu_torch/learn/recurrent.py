@@ -23,7 +23,10 @@ torch ops on the card and on the CPU.
 
 Every method takes the parameters as an optional flat vector ``flat``
 (default: the bound ``params_flat``), so that the update differentiates the
-same code the rollout runs.
+same code the rollout runs. The heads run in the net's ``compute_dtype``
+(JAX ``recurrent.py:145-225``: ``apply_mlp`` with ``self.compute_dtype``;
+the memories stay float32) and, under tensor parallelism, split as the MLP
+net's with the memories replicated (``networks.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic, get_activation
+from wiki_grx_gym_tpu_torch.learn.networks import ActorCritic, apply_mlp, get_activation
 
 
 class Hidden(NamedTuple):
@@ -87,7 +90,7 @@ class ActorCriticRecurrent(ActorCritic):
     """LSTM memories (actor and critic) feeding the MLP heads."""
 
     def __init__(self, num_actor_input, num_critic_input, num_actions, policy_cfg,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, mp=None):
         if (getattr(policy_cfg, "rnn_type", None) or "lstm") != "lstm":
             raise NotImplementedError(f"rnn_type {policy_cfg.rnn_type!r}: the port has the LSTM")
         hd = int(policy_cfg.rnn_hidden_size)
@@ -98,12 +101,11 @@ class ActorCriticRecurrent(ActorCritic):
                 i = in_dim if li == 0 else hd
                 prefix += [(f"{stack}.{li}.w_ih", (i, 4 * hd)), (f"{stack}.{li}.w_hh", (hd, 4 * hd)),
                            (f"{stack}.{li}.b_ih", (4 * hd,)), (f"{stack}.{li}.b_hh", (4 * hd,))]
-        super().__init__(hd, hd, num_actions, policy_cfg, generator, prefix=prefix)
+        super().__init__(hd, hd, num_actions, policy_cfg, generator, prefix=prefix, mp=mp)
         self.num_actor_input = num_actor_input
         self.num_critic_input = num_critic_input
         self.rnn_hidden = hd
         self.rnn_layers = nl
-        self._act = get_activation(self.activation)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator = None):
@@ -128,26 +130,19 @@ class ActorCriticRecurrent(ActorCritic):
         layers = [tuple(views[4 * i: 4 * i + 4]) for i in range(len(views) // 4)]
         return layers[: self.rnn_layers], layers[self.rnn_layers:]
 
-    def _head(self, pairs, x):
-        for w, b in pairs[:-1]:
-            x = self._act(x @ w.t() + b)
-        w, b = pairs[-1]
-        return x @ w.t() + b
-
     def heads(self, feat_a, feat_c, flat: Optional[torch.Tensor] = None):
-        """Actor mean and critic value (squeezed) on the memories' features."""
+        """Actor mean and critic value (squeezed) on the memories' features,
+        in the net's ``compute_dtype``."""
         flat = self.params_flat if flat is None else flat
         actor, critic, _ = self.leaves(flat)
         mean = v = None
+        dt, mp = self.compute_dtype, self.mp
         if feat_a is not None:
-            mean = self._head(actor, feat_a)
-            if self.actor_out_act:
-                mean = get_activation(self.actor_out_act)(mean)
+            out_act = get_activation(self.actor_out_act) if self.actor_out_act else None
+            mean = apply_mlp(actor, feat_a, self._act, out_act, dt, mp)
         if feat_c is not None:
-            v = self._head(critic, feat_c)
-            if self.critic_out_act:
-                v = get_activation(self.critic_out_act)(v)
-            v = v[..., 0]
+            out_act = get_activation(self.critic_out_act) if self.critic_out_act else None
+            v = apply_mlp(critic, feat_c, self._act, out_act, dt, mp)[..., 0]
         return mean, v
 
     # ---- the memory ----

@@ -79,6 +79,7 @@ class OnPolicyRunner:
         if env.device != self.device:
             raise ValueError(f"env is on {env.device}, runner asked for {self.device}")
         self.dp = dp
+        self.mp = None if dp is None else dp.mp
         if dp is not None:
             if dp.device != self.device:
                 raise ValueError(f"rank {dp.rank} runs on {dp.device}, the runner on {self.device}")
@@ -113,7 +114,7 @@ class OnPolicyRunner:
         g.manual_seed(self.seed)
         net_cls = ActorCriticRecurrent if self.recurrent else ActorCritic
         self.net = net_cls(
-            env.obs_dim, num_pri_obs, env.num_actions, self.policy_cfg,
+            env.obs_dim, num_pri_obs, env.num_actions, self.policy_cfg, mp=self.mp,
         ).to(self.device)
         self.net.reset_parameters(g)
         # the mirror-symmetry loss through PPO's extra_loss_fn (runner.py:87-98)
@@ -144,6 +145,12 @@ class OnPolicyRunner:
     def is_lead(self) -> bool:
         """Whether this process writes logs and checkpoints (rank 0)."""
         return self.dp is None or self.dp.is_lead
+
+    @property
+    def _saves(self) -> bool:
+        """Whether this rank calls :meth:`save` in ``learn``: the lead, and
+        under mp every peer (the save gathers over the mp group)."""
+        return self.log_dir is not None and (self.is_lead or self.mp is not None)
 
     @property
     def rank_seed(self) -> int:
@@ -356,15 +363,17 @@ class OnPolicyRunner:
                 prof = None
             metrics = {k: float(v) for k, v in metrics.items()}
             if self.dp is not None:
-                self.replica_digests.append(
-                    sharding.check_replicas_identical(self.dp, state.ppo, f"update of iteration {it}"))
+                self.replica_digests.append(sharding.check_replicas_identical(
+                    self.dp, state.ppo, f"update of iteration {it}", net=self.net,
+                    replicated=(state.env_state, torch.tensor([metrics[k] for k in sorted(metrics)],
+                                                              dtype=torch.float64))))
             self.current_learning_iteration = it + 1
             self._log(it, metrics, elapsed, steps_per_iter)
-            if self.log_dir is not None and self.is_lead and (it + 1) % self.save_interval == 0:
+            if self._saves and (it + 1) % self.save_interval == 0:
                 self.save(os.path.join(self.log_dir, f"model_{it + 1}.pt"), state)
         if prof is not None:   # fewer than 5 iterations: the trace ends with the last
             self._stop_profile(prof, profile_dir)
-        if self.log_dir is not None and self.is_lead:
+        if self._saves:
             self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"),
                       state)
         return state
@@ -427,34 +436,79 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
 
     def save(self, path: str, state: RunnerState):
-        """Params, Adam moments and count, LR and iteration; the LSTM memory
-        is not saved, as in JAX (runner.py:395-405)."""
-        ppo = state.ppo
+        """Params, Adam moments and count, LR and iteration (the whole net's,
+        gathered over the mp group first: every mp peer calls this), written
+        by the lead rank only; the LSTM memory is not saved, as in JAX
+        (runner.py:395-405)."""
+        ppo = self.gathered(state.ppo)
+        if not self.is_lead:
+            return
         torch.save({
             "params": ppo.params.detach().cpu(), "m": ppo.m.cpu(), "v": ppo.v.cpu(),
             "count": ppo.count.cpu(), "learning_rate": ppo.learning_rate.cpu(),
             "iter": self.current_learning_iteration,
         }, path)
 
+    def gathered(self, ppo: PPOState) -> PPOState:
+        """``ppo`` with params, m and v of the whole net (under mp one
+        all-gather over the mp group; ``ppo`` itself otherwise)."""
+        if self.mp is None:
+            return ppo
+        n = self.net.num_params
+        parts = self.mp.all_gather(torch.cat([ppo.params.detach(), ppo.m, ppo.v]))
+        full = [sharding.gather_flat(self.net, parts[:, k * n:(k + 1) * n]) for k in range(3)]
+        return ppo.replace(params=full[0], m=full[1], v=full[2])
+
+    def full_net(self, state: Optional[RunnerState] = None):
+        """A one-process net bound to the whole parameters of ``state``
+        (default: the bound buffer); under mp gathered first (every mp peer
+        calls this), so an export of a tensor-parallel run writes what a
+        one-process run with those weights writes."""
+        if self.mp is None:
+            if state is not None:
+                self.net.bind(state.ppo.params)
+            return self.net
+        params = self.net.params_flat if state is None else state.ppo.params
+        n = self.net.num_params
+        full = sharding.gather_flat(self.net, self.mp.all_gather(params.detach())[:, :n])
+        net = type(self.net)(self.net.num_actor_input, self.net.num_critic_input, self.env.num_actions,
+                             self.policy_cfg, generator=torch.Generator()).to(self.device)
+        net.bind(full.contiguous())
+        return net
+
     def load(self, path: Optional[str], state: Optional[RunnerState] = None, load_optimizer: bool = True):
         """Restore params, LR (and with ``load_optimizer`` m, v and the count)
-        and the iteration from ``path``; the next ``learn`` resumes from it.
-        With ``dp`` rank 0 reads ``path`` and broadcasts what it read (the
-        other ranks' ``path`` is not read and may be None)."""
+        and the iteration from ``path`` (the whole net's, at any ``num_mp``);
+        the next ``learn`` resumes from it. With ``dp`` the lead rank reads
+        ``path`` and the others take what it read (their ``path`` is not
+        read and may be None): under mp the whole state is broadcast over
+        the lead's mp group and each rank keeps its shard, then each dp
+        group takes its dp rank 0's."""
         if state is None:
             state = self.init_state()
         it = 0
-        ppo = state.ppo
+        ppo = self.gathered(state.ppo)
         if self.is_lead:
             ck = torch.load(path, map_location=self.device, weights_only=True)
             ppo = ppo.replace(params=ck["params"].contiguous(), learning_rate=ck["learning_rate"])
             if load_optimizer:
                 ppo = ppo.replace(m=ck["m"], v=ck["v"], count=ck["count"])
             it = int(ck["iter"])
+        it = torch.tensor([it], dtype=torch.int64, device=self.device)
+        if self.mp is not None:
+            mp, net = self.mp, self.net
+            full = mp.broadcast(torch.cat([ppo.params.reshape(-1), ppo.m.reshape(-1), ppo.v.reshape(-1),
+                                           ppo.learning_rate.reshape(1).to(torch.float32)]).to(mp.device))
+            count = mp.broadcast(ppo.count.reshape(1).to(device=mp.device, dtype=torch.int32).clone())
+            it = mp.broadcast(it.to(mp.device))
+            n = net.full_num_params
+            shard = lambda k: sharding.shard_flat(net, full[k * n:(k + 1) * n], mp.world, mp.rank).contiguous()
+            ppo = ppo.replace(params=shard(0), m=shard(1), v=shard(2), learning_rate=full[3 * n].clone(),
+                              count=count[0].clone())
         if self.dp is not None:
             ppo = sharding.broadcast_ppo_state(self.dp, ppo)
-            it = int(self.dp.broadcast(torch.tensor([it], dtype=torch.int64, device=self.dp.device))[0])
-        self.current_learning_iteration = it
+            it = self.dp.broadcast(it.to(self.dp.device))
+        self.current_learning_iteration = int(it[0])
         self.net.bind(ppo.params)
         state = state.replace(ppo=ppo)
         self._loaded_state = state

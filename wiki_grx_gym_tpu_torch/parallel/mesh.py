@@ -1,4 +1,4 @@
-"""The process group of a data-parallel run (port of
+"""The process groups of a data- and tensor-parallel run (port of
 ``wiki_grx_gym_tpu/parallel/mesh.py``).
 
 JAX shards the env batch over the ``dp`` axis of a device ``Mesh`` and lets
@@ -12,8 +12,15 @@ XLA emit the collectives. Here every rank is one process with one device:
 - :class:`DataParallel` names the group, this rank and its device, and is
   what the env, the runner and PPO are given.
 
-The tensor-parallel ``mp`` axis of JAX's mesh is ROADMAP queue 1 item 14b:
-:func:`make_mesh` refuses ``num_mp > 1``.
+JAX's mesh is ``("dp", "mp")`` over ``devices.reshape(n // num_mp,
+num_mp)``. :func:`make_mesh` lays the ranks out the same way, ``rank =
+dp_index x num_mp + mp_index``, and forms two groups with ``dist.new_group``:
+the mp group (``num_mp`` consecutive ranks, which split the MLP hidden
+layers, ``learn/networks.py``) and the dp group (stride ``num_mp``, which
+hold the same shard and average their gradients). It returns this rank's
+:class:`DataParallel` over the dp group, which carries its
+:class:`TensorParallel` as ``mp``; with ``num_mp = 1`` the data-parallel
+layout is unchanged. mp peers step the same env shard.
 """
 
 from __future__ import annotations
@@ -38,19 +45,55 @@ def launched_by_torchrun() -> bool:
     return all(v in os.environ for v in TORCHRUN_VARS)
 
 
+def _src(group, src: int) -> int:
+    """The global rank of rank ``src`` of ``group`` (None: the default group)."""
+    return src if group is None else dist.get_global_rank(group, src)
+
+
 @dataclasses.dataclass(frozen=True)
-class DataParallel:
-    """One rank of a data-parallel group: the group's size, this rank, this
-    rank's device, and the process group (None: the default group)."""
+class TensorParallel:
+    """This rank's place in its mp group: the group's size (``num_mp``), this
+    rank's mp index, its device and the process group."""
 
     world: int
     rank: int
     device: torch.device
     group: Optional[object] = None
 
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the mp group, in place; returns ``x``."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every mp rank's ``x`` stacked in mp order: ``(world, *x.shape)``."""
+        out = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(out, x.contiguous(), group=self.group)
+        return torch.stack(out)
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """mp rank ``src``'s ``x`` on every mp rank, in place; returns ``x``."""
+        dist.broadcast(x, src=_src(self.group, src), group=self.group)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """One rank of a data-parallel group: the group's size, this rank, this
+    rank's device, and the process group (None: the default group). Under
+    tensor parallelism (:func:`make_mesh`) the group is the dp group of this
+    rank's mp index and ``mp`` its :class:`TensorParallel`."""
+
+    world: int
+    rank: int
+    device: torch.device
+    group: Optional[object] = None
+    mp: Optional[TensorParallel] = None
+
     @property
     def is_lead(self) -> bool:
-        return self.rank == 0
+        """Global rank 0: the rank that writes logs and checkpoints."""
+        return self.rank == 0 and (self.mp is None or self.mp.rank == 0)
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks, in place; returns ``x``."""
@@ -59,7 +102,7 @@ class DataParallel:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place; returns ``x``."""
-        dist.broadcast(x, src=src, group=self.group)
+        dist.broadcast(x, src=_src(self.group, src), group=self.group)
         return x
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,16 +157,39 @@ def init_distributed(backend: Optional[str] = None, init_method: Optional[str] =
 
 
 def make_mesh(num_mp: int = 1, dp: Optional[DataParallel] = None) -> Optional[DataParallel]:
-    """The run's layout: ``dp`` (data parallel over every rank of the group,
-    or None for one process). ``num_mp > 1`` (tensor parallelism of the MLP
-    hidden layers, JAX ``parallel/sharding.py:36-65``) is not ported."""
-    if int(num_mp) != 1:
-        if int(num_mp) < 1:
-            raise ValueError(f"num_mp must be >= 1, got {num_mp}")
-        raise NotImplementedError(
-            f"num_mp={num_mp}: tensor parallelism is ROADMAP queue 1 item 14b; the port runs "
-            "data parallel only (num_mp=1)")
-    return dp
+    """The run's layout. ``num_mp = 1``: ``dp`` as it is (data parallel over
+    every rank of the group, or None for one process). ``num_mp > 1``: the
+    ``world = n_dp x num_mp`` ranks of ``dp`` (the whole group, from
+    :func:`init_distributed`) in JAX's device order (``parallel/mesh.py:32``:
+    ``rank = dp_index x num_mp + mp_index``); every rank forms every group
+    (``dist.new_group`` is collective). Returns this rank's dp view with its
+    ``mp``. ``world % num_mp != 0`` raises, as JAX asserts."""
+    num_mp = int(num_mp)
+    if num_mp < 1:
+        raise ValueError(f"num_mp must be >= 1, got {num_mp}")
+    if num_mp == 1:
+        return dp
+    if dp is None:
+        raise ValueError(f"num_mp={num_mp} splits the net over the ranks of a process group: run "
+                         "with --distributed (init_distributed) and pass its DataParallel")
+    if dp.mp is not None or dp.group is not None:
+        raise ValueError("make_mesh takes the whole group's DataParallel (from init_distributed)")
+    world, rank = dp.world, dp.rank
+    if world % num_mp:
+        raise ValueError(f"world size {world} is not divisible by num_mp={num_mp}")
+    n_dp = world // num_mp
+    dp_index, mp_index = divmod(rank, num_mp)
+    mp_group = dp_group = None
+    for i in range(n_dp):
+        g = dist.new_group(ranks=[i * num_mp + j for j in range(num_mp)])
+        if i == dp_index:
+            mp_group = g
+    for j in range(num_mp):
+        g = dist.new_group(ranks=[i * num_mp + j for i in range(n_dp)])
+        if j == mp_index:
+            dp_group = g
+    mp = TensorParallel(world=num_mp, rank=mp_index, device=dp.device, group=mp_group)
+    return DataParallel(world=n_dp, rank=dp_index, device=dp.device, group=dp_group, mp=mp)
 
 
 def destroy(dp: Optional[DataParallel]) -> None:

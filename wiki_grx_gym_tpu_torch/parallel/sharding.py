@@ -13,12 +13,22 @@ replicated. Here:
   (:func:`broadcast_ppo_state`), and kept bit-identical by the update,
   which every rank runs on the same all-reduced gradient
   (:func:`check_replicas_identical` holds it so after every update).
+
+Under tensor parallelism (``dp.mp``, ``parallel/mesh.make_mesh``) the envs
+are sharded over dp only: every mp peer steps the same env shard from the
+same seed ``rank_seed(seed, dp_index)``, as JAX puts env state on
+``P("dp")``. The parameters follow JAX's ``shard_params`` (Megatron split,
+``learn/networks.split_axis``): :func:`shard_flat` cuts a rank's shard out
+of the whole net's flat buffer and :func:`gather_flat` puts the shards back
+together; Adam's moments are sharded the same way. Checkpoints and exports
+hold the gathered whole net.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 
 import torch
 
@@ -78,21 +88,103 @@ def broadcast_ppo_state(dp, ppo):
                        learning_rate=f32[3 * n].clone(), count=count[0].clone())
 
 
-def ppo_state_digest(ppo) -> torch.Tensor:
-    """A 64-bit hash of the bytes of params, m, v, count and learning rate,
-    as a (1,) int64 tensor on the CPU."""
+def _digest(tensors) -> torch.Tensor:
+    """A 64-bit hash of the tensors' bytes, as a (1,) int64 tensor on the CPU."""
     h = hashlib.sha256()
-    for t in (ppo.params, ppo.m, ppo.v, ppo.count, ppo.learning_rate):
+    for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return torch.tensor([int.from_bytes(h.digest()[:8], "little", signed=True)], dtype=torch.int64)
 
 
-def check_replicas_identical(dp, ppo, what: str = "update") -> torch.Tensor:
-    """Raise unless every rank's learner state is bit-identical to rank 0's.
-    Returns every rank's :func:`ppo_state_digest` in rank order (one
-    all-gather)."""
-    digests = dp.all_gather(ppo_state_digest(ppo).to(dp.device)).reshape(-1).cpu()
+def ppo_state_digest(ppo) -> torch.Tensor:
+    """A 64-bit hash of the bytes of params, m, v, count and learning rate,
+    as a (1,) int64 tensor on the CPU."""
+    return _digest((ppo.params, ppo.m, ppo.v, ppo.count, ppo.learning_rate))
+
+
+def tensor_leaves(tree):
+    """The tensors of ``tree`` (dataclass, named tuple, tuple, list or dict)
+    in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree) for t in tensor_leaves(getattr(tree, f.name))]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in tensor_leaves(x)]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensor_leaves(tree[k])]
+    return []
+
+
+def _same_everywhere(group, digest, what):
+    digests = group.all_gather(digest.to(group.device)).reshape(-1).cpu()
     if not bool((digests == digests[0]).all()):
-        raise RuntimeError(f"the ranks' learner states differ after the {what}: digests "
-                           f"{digests.tolist()}")
+        raise RuntimeError(f"the ranks' {what}: digests {digests.tolist()}")
     return digests
+
+
+def check_replicas_identical(dp, ppo, what: str = "update", net=None, replicated=None) -> torch.Tensor:
+    """Raise unless every rank of the dp group holds a learner state
+    bit-identical to its dp rank 0's. Returns every dp rank's
+    :func:`ppo_state_digest` in rank order (one all-gather). Under tensor
+    parallelism (``dp.mp``; ``net`` the rank's tensor-parallel net) the mp
+    peers must also hold bit-identical replicated leaves of params, m and v,
+    the count, the learning rate and ``replicated`` (a tree of tensors every
+    mp peer holds alike: the env state, the metrics)."""
+    digests = _same_everywhere(dp, ppo_state_digest(ppo), f"learner states differ after the {what}")
+    if dp.mp is not None:
+        if net is None:
+            raise ValueError("the mp check needs the rank's net (its split leaves)")
+        keep = ~net.split_mask()
+        leaves = [ppo.params[keep], ppo.m[keep], ppo.v[keep], ppo.count, ppo.learning_rate]
+        _same_everywhere(dp.mp, _digest(leaves + tensor_leaves(replicated)),
+                         f"replicated leaves, env states or metrics differ between mp peers after the {what}")
+    return digests
+
+
+def _leaves(net):
+    """(name, full offset, full shape, split axis) per leaf."""
+    from wiki_grx_gym_tpu_torch.learn.networks import split_axis
+
+    return [(name, off, shape, split_axis(name)) for name, off, shape in net.full_layout]
+
+
+def shard_flat(net, full: torch.Tensor, num_mp: int, j: int) -> torch.Tensor:
+    """mp rank ``j``'s shard of ``full`` (the whole net's flat buffer in
+    ``net.full_layout``, e.g. ``convert.py``'s result, Adam's moments or a
+    gradient) of ``num_mp`` ranks: the leaves in layout order, each split
+    leaf cut into ``num_mp`` equal parts along its split axis (JAX
+    ``shard_params``), each replicated leaf whole."""
+    if full.shape != (net.full_num_params,):
+        raise ValueError(f"expected the whole net's {net.full_num_params} values, got {tuple(full.shape)}")
+    out = []
+    for name, off, shape, axis in _leaves(net):
+        x = full[off: off + math.prod(shape)].view(shape)
+        if axis is not None and num_mp > 1:
+            if shape[axis] % num_mp:
+                raise ValueError(f"{name}: dimension {shape[axis]} is not divisible by num_mp={num_mp}")
+            x = x.chunk(num_mp, dim=axis)[j]
+        out.append(x.reshape(-1))
+    return torch.cat(out)
+
+
+def gather_flat(net, shards) -> torch.Tensor:
+    """The inverse of :func:`shard_flat`: the whole net's flat buffer from
+    every mp rank's shard, in mp order (a list or a ``(num_mp, S)`` tensor;
+    a replicated leaf is taken from the first)."""
+    num_mp = len(shards)
+    out, pos = [], 0
+    for name, off, shape, axis in _leaves(net):
+        if axis is None or num_mp == 1:
+            part = shape
+        else:
+            part = tuple(d // num_mp if a == axis else d for a, d in enumerate(shape))
+        n = math.prod(part)
+        if axis is None or num_mp == 1:
+            out.append(shards[0][pos: pos + n])
+        else:
+            out.append(torch.cat([s[pos: pos + n].view(part) for s in shards], dim=axis).reshape(-1))
+        pos += n
+    if pos != shards[0].shape[0]:
+        raise ValueError(f"a shard holds {shards[0].shape[0]} values, the layout {pos}")
+    return torch.cat(out)

@@ -16,12 +16,18 @@ envs and all-reducing the gradient once a grad step:
     torchrun --nproc_per_node=K -m wiki_grx_gym_tpu_torch.scripts.train --distributed ...
         [--dist_backend nccl|gloo]
 
-Without ``--distributed`` the run is one process, and torchrun's variables
-in the environment are refused. ``--num_mp`` > 1 (tensor parallelism) is
-ROADMAP queue 1 item 14b and is refused. Unlike JAX's CLI, which sets
-``runner.mesh`` after building the runner (so its PPO keeps
-``perm_groups = 1``), the runner here is built with the data-parallel
-group: ``permutation_groups = 0`` resolves to the group's size.
+Tensor parallel: ``--num_mp M`` splits the MLP hidden layers over M
+consecutive ranks (Megatron, as JAX's ``shard_params``) and data-parallels
+over the ``K / M`` groups of them:
+
+    torchrun --nproc_per_node=K -m wiki_grx_gym_tpu_torch.scripts.train --distributed --num_mp M ...
+
+Without ``--distributed`` the run is one process: torchrun's variables in
+the environment, and ``--num_mp`` > 1, are refused. Unlike JAX's CLI, which
+sets ``runner.mesh`` after building the runner (so its PPO keeps
+``perm_groups = 1`` and its flat optimizer), the mesh here is built before
+the runner and passed at construction: ``permutation_groups = 0`` resolves
+to the dp group's size, and under mp PPO takes the xla path.
 """
 
 from __future__ import annotations
@@ -33,11 +39,16 @@ from wiki_grx_gym_tpu_torch.utils.helpers import get_args, set_seed
 
 def train(args, log_root="default", dp=None):
     """Returns (runner, final RunnerState). ``dp``: this rank's
-    ``DataParallel`` (:func:`main` forms it for ``--distributed``)."""
-    mesh.make_mesh(num_mp=args.num_mp)
+    ``DataParallel`` with its ``mp`` for ``--num_mp`` > 1 (:func:`main` forms
+    them for ``--distributed``)."""
+    if int(args.num_mp) < 1:
+        raise ValueError(f"--num_mp must be >= 1, got {args.num_mp}")
     if dp is None and (args.distributed or mesh.launched_by_torchrun()):
         raise RuntimeError("a data-parallel run (--distributed, or torchrun's RANK/WORLD_SIZE/LOCAL_RANK "
                            "set) needs its process group: run main() with --distributed")
+    if int(args.num_mp) != (1 if dp is None or dp.mp is None else dp.mp.world):
+        raise ValueError(f"--num_mp {args.num_mp} needs --distributed and the mesh of make_mesh(num_mp, dp)"
+                         " (tensor parallelism splits the net over the ranks of a process group)")
     _, train_cfg = task_registry.get_cfgs(args.task)
     args.seed = set_seed(args.seed if args.seed is not None else train_cfg.seed)
     device = args.device if dp is None else dp.device
@@ -51,10 +62,12 @@ def train(args, log_root="default", dp=None):
 
 def main(argv=None):
     args = get_args(argv)
-    mesh.make_mesh(num_mp=args.num_mp)   # refuses tensor parallelism before a group forms
+    if args.num_mp != 1 and not args.distributed:
+        raise ValueError(f"--num_mp {args.num_mp} needs --distributed (run under torchrun)")
     dp = mesh.init_distributed(backend=args.dist_backend, device=args.device) if args.distributed else None
     try:
-        train(args, dp=dp)
+        # the mesh before the runner, passed at construction
+        train(args, dp=mesh.make_mesh(args.num_mp, dp))
     finally:
         mesh.destroy(dp)
 

@@ -38,7 +38,8 @@ def get_args(argv=None):
     parser.add_argument("--distributed", action="store_true", default=False,
                         help="one rank of a data-parallel group (run under torchrun)")
     parser.add_argument("--num_mp", type=int, default=1,
-                        help="tensor-parallel ways; only 1 is ported (ROADMAP queue 1 item 14b)")
+                        help="tensor-parallel ways: the MLP hidden layers split over this many "
+                             "consecutive ranks (needs --distributed)")
     parser.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
                         help="torch.distributed backend: nccl on CUDA, gloo on the CPU by default")
     return parser.parse_args(argv)
@@ -62,7 +63,11 @@ def export_policy_npz(net, path: str) -> None:
     and ``actor_b{i}``, for a recurrent actor its LSTM layers as
     ``lstm{i}_w_ih`` (I, 4H), ``lstm{i}_w_hh`` (H, 4H), ``lstm{i}_b_ih`` and
     ``lstm{i}_b_hh`` (JAX's layout, gate order i, f, g, o), the raw ``std``
-    parameter and ``activation`` "elu", float32, in one ``.npz``."""
+    parameter and ``activation`` "elu", float32 whatever the net's
+    ``compute_dtype`` (as JAX's), in one ``.npz``. A tensor-parallel rank's
+    net is refused: export ``OnPolicyRunner.full_net()``."""
+    if getattr(net, "mp", None) is not None:
+        raise ValueError("a tensor-parallel shard: export the gathered net (OnPolicyRunner.full_net())")
     blob = {}
     for i, lin in enumerate(m for m in net.actor if isinstance(m, torch.nn.Linear)):
         blob[f"actor_w{i}"] = lin.weight.detach().cpu().numpy().T.astype(np.float32)

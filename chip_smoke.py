@@ -18,8 +18,11 @@ together after phase 9):
    terrain (``local_plane``), on trimesh terrain (``local_plane_walls``) and
    on the plane with heading commands; the lower limb's fold with all 50
    reward terms and 4 penalized contact groups, its fold with the V and
-   with the T control law, and V with heading commands (no fold); each
-   with its team shape,
+   with the T control law, V with heading commands (no fold), and the
+   bench's ``ref_equiv_subset``: viscous friction (tangent stiffness 0,
+   K1's ``use_tangent = 0`` branch) without self-collision pairs, the same
+   library as the no-pairs program, and the same on trimesh terrain (the
+   terrain modes' viscous branch); each with its team shape,
    ``sim/cuda_step.py:team_shape``), K2 (``csrc/ppo_grads.cu``)
    and K3 (``csrc/ppo_update.cu``); print the build times and ptxas'
    register/spill report of each kernel, and the count of HGMMA (wgmma)
@@ -53,9 +56,13 @@ together after phase 9):
    bit for bit (NaN lanes by bit pattern). Times both kernels per launch
    (CUDA events, 50 launches, and again in turns), the wrapper and the plain
    version, and computes K1's bound; for the lower limb the team kernel
-   must be faster than the one-thread kernel. The all-terms, V, T and V
-   heading programs must equal their plain versions in every output bit of
-   every env; the all-terms program runs on planted states
+   must be faster than the one-thread kernel. The all-terms, V, T, V
+   heading and both viscous programs must equal their plain versions in
+   every output bit of every env; for the viscous programs the points in
+   ground contact with a horizontal force at the step's end are counted (none, or
+   fewer than half the envs in contact, fails), and the plain version with
+   the friction coefficient x1.05 (which then feeds only the viscous law)
+   must differ from K1 (a planted fault); the all-terms program runs on planted states
    (``cuda_step.planted_all_terms``: every 4th env dropped and pitched so
    that thighs and shanks touch, the next with its joints past their soft
    limits, the next with friction 6), and each reward term that no earlier
@@ -201,7 +208,8 @@ together after phase 9):
    with every reward term and the penalized groups
    (``cuda_step.all_terms_config``): K1 65, K2's chain 200 and K3 once,
    every term's episode mean finite; then one 64-step rollout each with the
-   V law, the T law, and V with heading commands (K1 64 each).
+   V law, the T law, V with heading commands, and the viscous contact on
+   trimesh (K1 64 each).
 12. The recurrent task ``GR1T1_lstm`` (``lstm_phase``): ``learn(2)`` at 4096
    envs (K1 129, K2 and K3 never), the LSTM weights and std moved, the
    checkpoint back bit for bit; the update's replay of a new rollout from
@@ -281,10 +289,28 @@ together after phase 9):
    faults failing that check, 4 grad steps against one process's, the mp2
    checkpoint loaded at mp1; then four ranks at dp2 x mp2 (2 x 2048 envs)
    while the phase stays inside its budget.
+18. The port's bench (``bench_phase``, ``scripts/bench.py``): its
+   ``build_run`` and ``time_run`` for ``main`` (4096 envs),
+   ``ref_equiv_subset`` and ``envs8192`` (the reference's default 8192
+   envs) at 5 timed iterations each, the launch counts set to 0 before
+   each and held to the iterations and rollouts the cell reports; each
+   cell's line finite with ``pallas_kernel`` true, its per-iteration times
+   and peak memory. Then on the 8192-env cell's run: one iteration counted
+   alone (K1 64, K2 200, K3 1); K1 against its plain version and the team
+   kernel against the one-thread kernel on its env state, by phase 3's
+   rule; on its rollout buffer (20,960-row minibatches: K2's row splits
+   end on partial blocks) K2's GEMM check and K2 against its plain version
+   under phase 5's rule and limits, at the params and after one float32
+   epoch; the whole 200-step bf16 update's CUDA graph against its 200
+   one-step calls bit for bit; K2's time beside its plain version, bound
+   and cuBLAS yardstick at 20,960 rows.
    Prints the kernels' JSON line (K1 for each program, its main-path count
    from phase 4 with phase 15's, 16's and 17's counts beside it under their
-   own keys, K2 at both widths with its data-parallel use under ``dp``, K3),
-   the card line, and the final ok line.
+   own keys, the viscous program's from phase 18's ``ref_equiv_subset``
+   cell, the trimesh viscous program's from phase 11's rollout, GR1T1's at
+   8192 envs from phase 18, K2 at both widths with its data-parallel use
+   under ``dp`` and at 20,960 rows from phase 18, K3), the card line, and
+   the final ok line.
 """
 
 import copy
@@ -955,10 +981,12 @@ def learner_setups(runner, rs, batch, task, dev):
     """K2/K3's inputs from one rollout buffer of ``runner`` (``task``'s
     training config): GAE, the block shuffle, and for each operand type (the
     config's bf16 storage, and float32) the ``FusedPPOGrad`` and its
-    minibatch buffers. Returns {type name: (fused, buffers)}."""
+    minibatch buffers. A minibatch holds the whole blocks of
+    ``shuffle_block`` envs at one step that the buffer's steps x envs split
+    into the config's minibatches give (10,480 rows at 4096 envs, 20,960 at
+    8192). Returns {type name: (fused, buffers)}."""
     import torch
 
-    from wiki_grx_gym_tpu_torch.envs import task_registry
     from wiki_grx_gym_tpu_torch.learn.ppo import PPO
 
     alg, net = runner.alg, runner.net
@@ -969,19 +997,21 @@ def learner_setups(runner, rs, batch, task, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     perm = alg.draw_perm(t_len, n, gen, dev)
-    _, cfg32 = task_registry.get_cfgs(task)
-    cfg32.algorithm.storage_dtype = "float32"
-    algs = {"bfloat16": alg, "float32": PPO(net, cfg32.algorithm)}
+    cfg32 = copy.deepcopy(runner.alg_cfg)
+    cfg32.storage_dtype = "float32"
+    algs = {"bfloat16": alg, "float32": PPO(net, cfg32)}
     setups = {}
     for name, a in algs.items():
-        w, f, rows = a._pack_shuffle(batch, returns, adv, perm)
-        fused = a._get_fused(rows)
+        w, f, mb_rows = a._pack_shuffle(batch, returns, adv, perm)
+        fused = a._get_fused(mb_rows)
         setups[name] = (fused, fused.split_buffers(w, f, batch.obs.shape[-1]))
     fused16 = setups["bfloat16"][0]
     log(f"[ppo {task}] buffer: {t_len} steps x {n} envs, {alg.num_mini_batches} minibatches of {fused16.rows} "
         f"rows, {alg.num_learning_epochs} epochs, path {alg.path}; widths obs {fused16.obs_dim}, critic obs "
         f"{fused16.cobs_dim}, actions {fused16.act_dim}, {net.num_params} params")
-    assert fused16.rows == 10480 and fused16.op_dtype == torch.bfloat16
+    block = alg.shuffle_block
+    rows = t_len * (n // block) // alg.num_mini_batches * block
+    assert fused16.rows == rows and fused16.op_dtype == torch.bfloat16, (fused16.rows, rows)
     return setups
 
 
@@ -1119,18 +1149,20 @@ def k3_steps_f32(setups, args0, tag):
     return p, m, v, lr, worst["pmax"]
 
 
-def composition_check(fused, bufs, args0, tag):
-    """6c's last check over one epoch (``same_as_composition``): the
-    update's CUDA graph for the epoch (every minibatch once, adaptive LR
-    on) against its one-step calls, each fed minibatch s's slice, Adam
-    count ``count0 + s`` and the LR of the step before."""
+def composition_check(fused, bufs, args0, tag, epochs=1):
+    """6c's last check over ``epochs`` epochs (``same_as_composition``): the
+    update's CUDA graph for them (every minibatch once an epoch, adaptive LR
+    on) against its one-step calls, step s fed minibatch s % MB's slice,
+    Adam count ``count0 + s`` and the LR of the step before."""
     one = one_step(fused)
+    mbs = fused.num_mini_batches
     p, m, v, count0, lr = args0
-    for s in range(fused.num_mini_batches):
-        p, m, v, lr = one.update_scan(p, m, v, count0 + s, lr, {key: x[s:s + 1] for key, x in bufs.items()})[:4]
+    for s in range(epochs * mbs):
+        k = s % mbs
+        p, m, v, lr = one.update_scan(p, m, v, count0 + s, lr, {key: x[k:k + 1] for key, x in bufs.items()})[:4]
     f1 = copy.copy(fused)
-    f1.num_epochs = 1
-    same_as_composition(f1.update_scan(*args0, bufs), (p, m, v, lr), fused.num_mini_batches, tag)
+    f1.num_epochs = epochs
+    same_as_composition(f1.update_scan(*args0, bufs), (p, m, v, lr), epochs * mbs, tag)
 
 
 def ppo_phases(runner, rs, batch, dev):
@@ -1724,8 +1756,10 @@ def lstm_phase(dev):
 
 
 def no_self_collision(cfg):
-    """The GR1T1 config with self-collision off (no pairs): the reference's
-    ``ref_equiv_subset`` bench config (bench.py:98-102)."""
+    """The GR1T1 config with self-collision off: K1's no-pairs program, with
+    the anchored stick friction kept. (The reference bench's
+    ``ref_equiv_subset``, bench.py:98-102, also turns the stick spring off:
+    ``GR1T1_viscous``.)"""
     cfg.asset.self_collisions = 1
 
 
@@ -1742,6 +1776,16 @@ def trimesh(cfg):
     reference bench's ``trimesh`` cell: K1's ``local_plane_walls`` program."""
     cfg.terrain.mesh_type = "trimesh"
     cfg.terrain.curriculum = True
+
+
+def trimesh_viscous(cfg):
+    """The trimesh program with the bench's viscous contact and no
+    self-collision (``scripts/bench.py:ref_equiv_subset``): K1's
+    terrain-mode ``use_tangent = 0`` branch."""
+    from wiki_grx_gym_tpu_torch.scripts import bench
+
+    trimesh(cfg)
+    bench.ref_equiv_subset(cfg)
 
 
 def heading(cfg):
@@ -1769,11 +1813,15 @@ K1_SETS = {
     "GR1T1_T": ("GR1T1", None, "GR1T1 lower limb, plane, post fold, T control", None),
     "GR1T1_V_heading": ("GR1T1", None, "GR1T1 lower limb, plane, heading commands, no post fold, V control",
                         None),
+    "GR1T1_viscous": ("GR1T1", None, "GR1T1 lower limb, plane, post fold, viscous friction (tangent "
+                      "stiffness 0), no self-collision: the bench's ref_equiv_subset", None),
+    "GR1T1_trimesh_viscous": ("GR1T1", trimesh_viscous, "GR1T1 lower limb, trimesh (local_plane_walls), no post "
+                              "fold, viscous friction, no self-collision", 3.5),
 }
 # the programs that must equal their plain versions in every output bit of
 # every env (phase 3), and the terms of the all-terms fold that no earlier
 # program folds (each must be non-zero in some env of phase 3's states)
-K1_EXACT = ("GR1T1_all_terms", "GR1T1_V", "GR1T1_T", "GR1T1_V_heading")
+K1_EXACT = ("GR1T1_all_terms", "GR1T1_V", "GR1T1_T", "GR1T1_V_heading", "GR1T1_viscous", "GR1T1_trimesh_viscous")
 NEW_TERMS = ("action_diff_knee", "action_rate", "ang_vel_xy", "base_height", "cmd_diff_ang_vel_pitch",
              "cmd_diff_ang_vel_roll", "cmd_diff_forehead_orient", "collision", "dof_acc", "dof_pos_limits",
              "dof_tor_new_hip_roll", "dof_vel", "dof_vel_limits", "dof_vel_new", "dof_vel_new_knee",
@@ -1783,22 +1831,25 @@ NEW_TERMS = ("action_diff_knee", "action_rate", "ang_vel_xy", "base_height", "cm
 
 
 def k1_set_mutate(name):
-    """The config change of K1 program ``name`` (``K1_SETS``; this PR's
-    programs take theirs from ``sim/cuda_step.py``)."""
+    """The config change of K1 program ``name`` (``K1_SETS``; the later
+    programs take theirs from ``sim/cuda_step.py`` and ``scripts/bench.py``)."""
+    from wiki_grx_gym_tpu_torch.scripts import bench
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
     return {"GR1T1_all_terms": cuda_step.all_terms_config, "GR1T1_V": cuda_step.control_config("V"),
             "GR1T1_T": cuda_step.control_config("T"),
-            "GR1T1_V_heading": cuda_step.control_config("V", cuda_step.heading_config)}.get(name, K1_SETS[name][1])
+            "GR1T1_V_heading": cuda_step.control_config("V", cuda_step.heading_config),
+            "GR1T1_viscous": bench.ref_equiv_subset}.get(name, K1_SETS[name][1])
 TERRAIN_STEPS = 16   # phase 3's policy steps from init on terrain (the drop from 0.3 m lands)
 
 
-def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
+def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=None):
     """Phase 3 for one K1 program: the kernel against its plain version on
     4096 reachable envs of ``task``'s training config (``mutate`` applied;
-    on terrain the ground lanes the env samples), the team kernel against
-    the one-thread kernel bit for bit, both timed, the plain version timed,
-    and the bound; on trimesh the envs with a riser wall in contact and with
+    on terrain the ground lanes the env samples), or on ``run``, an (env,
+    env state) pair of that config, at its env count; the team kernel
+    against the one-thread kernel bit for bit, both timed, the plain version
+    timed, and the bound; on trimesh the envs with a riser wall in contact and with
     a tread force suppressed are counted (none fails). ``exact``: the
     kernel must equal its plain version in every output bit of every env;
     for the all-terms fold the states are planted
@@ -1812,8 +1863,13 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
     tag = f"[K1 {task}{'' if mutate is None else ', ' + mutate.__name__}]"
-    env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate, spread=spread,
-                                           steps=8 if spread is None else TERRAIN_STEPS)
+    if run is None:
+        env, state = cuda_step.reachable_state(N_ENVS, dev, task=task, mutate=mutate, spread=spread,
+                                               steps=8 if spread is None else TERRAIN_STEPS)
+    else:
+        env, state = run
+        tag = f"{tag[:-1]}, {env.num_envs} envs]"
+    n_envs = env.num_envs
     op = env.decimation_op
     all_terms = op.post is not None and len(op.post.reward_names) == len(cuda_step.REWARD_IDS)
     if all_terms:
@@ -1842,12 +1898,12 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
     p = groups(op.plain(*args, **kw))
     p64 = groups(op.plain(*args64, **kw64))
     torch.cuda.synchronize()
-    flips = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+    flips = torch.zeros(n_envs, dtype=torch.bool, device=dev)
     for name in BOOL_GROUPS:
         if name in k:   # the post fold's
             flips |= (k[name] != p[name]).any(dim=1)
     keep = ~flips
-    over = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)   # over the stated tolerance
+    over = torch.zeros(n_envs, dtype=torch.bool, device=dev)   # over the stated tolerance
     widened_ok, max_abs_err = True, 0.0
     for name in k:
         if name in BOOL_GROUPS:
@@ -1871,24 +1927,61 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
             f"f32 noise floor {floor:.3e}; within stated + 3 x floor {good}")
     divergent = flips | over
     div_frac = float(divergent.float().mean())
-    same = torch.ones(N_ENVS, dtype=torch.bool, device=dev)
+    same = torch.ones(n_envs, dtype=torch.bool, device=dev)
     for name in k:
         same &= ((k[name] == p[name]) | (k[name].isnan() & p[name].isnan())).all(dim=1)
-    log(f"{tag} vs plain, {N_ENVS} envs: boolean lanes differ in {int(flips.sum())}, float lanes "
+    log(f"{tag} vs plain, {n_envs} envs: boolean lanes differ in {int(flips.sum())}, float lanes "
         f"over the stated tolerance in {int(over.sum())}; together {int(divergent.sum())} envs "
         f"({100 * div_frac:.3f}%, limit 0.1%); every output equal in {int(same.sum())} envs")
     force_err = max(float((k[g] - p[g])[keep].abs().max()) for g in FORCE_GROUPS)
     if div_frac > 1e-3 or not widened_ok:
         raise SystemExit(f"{tag} K1 disagrees with its plain version")
-    if exact and int(same.sum()) != N_ENVS:
-        raise SystemExit(f"{tag} K1 differs from its plain version in {N_ENVS - int(same.sum())} envs")
+    if exact and int(same.sum()) != n_envs:
+        raise SystemExit(f"{tag} K1 differs from its plain version in {n_envs - int(same.sum())} envs")
+    viscous = None
+    if op.deci.sub.contact.tangent_stiffness == 0.0:
+        # the viscous law ran: points in ground contact at the step's end
+        # (the last substep's forces) with a horizontal force (on the
+        # plane: the tangential force; on terrain the normal's tilt and the
+        # walls add to it). A planted
+        # fault must fail the exact check: the plain version with the
+        # friction coefficient times FAULT_SCALE, which without the stick
+        # spring feeds only the viscous law (|f_t| = min(m / dt, mu f_n /
+        # max(|v_t|, slip)) |v_t|)
+        f = k["point_force"].reshape(n_envs, -1, 3)
+        active = f[..., 2] > 0
+        horizontal = active & (f[..., :2].abs().amax(dim=-1) > 0)
+        rand = args[5]
+        bad_args = args[:5] + (rand.replace(friction=rand.friction * FAULT_SCALE),) + args[6:]
+        pf = groups(op.plain(*bad_args, **kw))
+        fault_same = torch.ones(n_envs, dtype=torch.bool, device=dev)
+        fault_over = torch.zeros(n_envs, dtype=torch.bool, device=dev)
+        for name in k:
+            fault_same &= ((k[name] == pf[name]) | (k[name].isnan() & pf[name].isnan())).all(dim=1)
+            if name not in BOOL_GROUPS:
+                atol = ATOL_FORCE if name in FORCE_GROUPS else ATOL
+                fault_over |= ((k[name] - pf[name]).abs() > atol + RTOL * pf[name].abs()).any(dim=1)
+        viscous = {"points_in_contact": int(active.sum()), "envs_in_contact": int(active.any(1).sum()),
+                   "points_with_horizontal_force": int(horizontal.sum()),
+                   "fault_envs_differing": n_envs - int(fault_same.sum()),
+                   "fault_envs_over_tolerance": int(fault_over.sum())}
+        log(f"{tag} viscous contact at the step's end: {viscous['points_in_contact']} points in "
+            f"{viscous['envs_in_contact']} envs with an upward force, {viscous['points_with_horizontal_force']} "
+            f"with a horizontal force; the plain version with friction x{FAULT_SCALE} differs from K1 in "
+            f"{viscous['fault_envs_differing']} envs ({viscous['fault_envs_over_tolerance']} over the stated "
+            f"tolerance): caught {bool(viscous['fault_envs_differing'])}")
+        if not (viscous["points_with_horizontal_force"] and viscous["envs_in_contact"] >= n_envs // 2):
+            raise SystemExit(f"{tag} the viscous law is not exercised by these states: {viscous}")
+        if not viscous["fault_envs_differing"]:
+            raise SystemExit(f"{tag} the planted viscous-friction fault passes the exact check")
+        del pf, bad_args
     term_envs = None
     if all_terms:
         names = op.post.reward_names
         nz = (k["post/rew_terms"] != 0).sum(dim=0).tolist()
         term_envs = {n: int(nz[names.index(n)]) for n in NEW_TERMS}
         term_envs["pen_count"] = term_envs["collision"]   # collision is 0 exactly where the count is
-        log(f"{tag} envs (of {N_ENVS}) where each new term is non-zero: {term_envs}")
+        log(f"{tag} envs (of {n_envs}) where each new term is non-zero: {term_envs}")
         dead = [n for n, c in term_envs.items() if c == 0]
         if dead:
             raise SystemExit(f"{tag} terms zero in every env: {dead}")
@@ -1896,13 +1989,13 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
     # the team kernel against the one-thread kernel on the same packed
     # input: every output lane bit for bit
     comp = op._pack(*args, **kw)
-    out = torch.full((op.c_out, N_ENVS), -7.0, dtype=torch.float32, device=dev)
+    out = torch.full((op.c_out, n_envs), -7.0, dtype=torch.float32, device=dev)
     ref = torch.empty_like(out)
     op.launch_packed(comp, ref, kernel="thread")
     op.launch_packed(comp, out)
     torch.cuda.synchronize()
     differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
-    log(f"{tag} team vs thread: {op.c_out} x {N_ENVS} output lanes, bit for bit (NaN lanes by bit "
+    log(f"{tag} team vs thread: {op.c_out} x {n_envs} output lanes, bit for bit (NaN lanes by bit "
         f"pattern; {int(torch.isnan(ref).sum())} NaN lanes): {differ} differing lanes")
     if differ:
         raise SystemExit(f"{tag} the team kernel differs from the one-thread kernel in {differ} output lanes")
@@ -1919,15 +2012,15 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
     # one timed call, no warm-up
     plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=1, warmup=0)
     ops_per_env = count_plain_ops(task, mutate)
-    bytes_moved = (op.c_in + op.c_out) * 4 * N_ENVS
-    ops_ms = ops_per_env * N_ENVS / FP32_PEAK * 1e3
+    bytes_moved = (op.c_in + op.c_out) * 4 * n_envs
+    ops_ms = ops_per_env * n_envs / FP32_PEAK * 1e3
     bytes_ms = bytes_moved / HBM_RATE * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     # K1 is built with --fmad=false: no FMA pairing, so its attainable rate
     # for these ops is half the peak
     ops_ms_no_fma = 2.0 * ops_ms
-    log(f"{tag} team kernel {k1_ms:.4f} ms/launch at {N_ENVS} envs, then {turns[1]:.4f}; one-thread kernel "
+    log(f"{tag} team kernel {k1_ms:.4f} ms/launch at {n_envs} envs, then {turns[1]:.4f}; one-thread kernel "
         f"{thread_ms:.4f}, then {turns[0]:.4f} ms; wrapper incl. pack/unpack {wrapper_ms:.4f} ms; plain "
         f"{plain_ms:.2f} ms; ops/env/step {ops_per_env}; bound {bound_ms:.4f} ms by {bound_by} (ops "
         f"{ops_ms:.4f} ms, {ops_ms_no_fma:.4f} ms without FMA pairing; bytes {bytes_ms:.4f} ms); the team "
@@ -1953,7 +2046,7 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
         "bound_ms_no_fma": max(ops_ms_no_fma, bytes_ms),
         "library_ms": None,
         "wrapper_ms": wrapper_ms,
-        "envs": N_ENVS,
+        "envs": n_envs,
         "sizes": op.sizes._asdict(),
         "ops_per_env_step": ops_per_env,
         "bytes": bytes_moved,
@@ -1969,6 +2062,7 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False):
         "wall_contacts": walls,
         "control": op.deci.control_type,
         "term_nonzero_envs": term_envs,
+        "viscous": viscous,
     }
     del env, state, op, comp, out, ref, args, kw, args64, kw64, k, p, p64
     gc.collect()
@@ -1991,9 +2085,7 @@ def full_body_ppo_phase(dev):
     products. Returns the K2 row of the kernels' JSON line."""
     import torch
 
-    from wiki_grx_gym_tpu_torch import build as kbuild
     from wiki_grx_gym_tpu_torch.envs import task_registry
-    from wiki_grx_gym_tpu_torch.learn import fused_update
     from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 
     task = "GR1T1_full"
@@ -2031,11 +2123,28 @@ def full_body_ppo_phase(dev):
     k3_differ = (k3_fused_check(fused16, args0, bufs16, 0, 0, f"{task} at p0")
                  + k3_fused_check(fused16, state1, bufs16, alg.num_mini_batches - 1, 1, f"{task} after one epoch"))
 
+    row = dict(k2_timed_row(fused16, p0, bufs16, dev, tag,
+                            "K2 PPO minibatch loss + gradients (GR1T1_full, 10480 rows, obs 105, critic obs 234, "
+                            "32 actions, bf16 operands)", k2_err, gemm_worst),
+               k3_f32_step_max_abs_err=k3_pmax, k3_fused_vs_reference_differing_words=k3_differ,
+               params=net.num_params)
+    del setups, fused16, bufs16, batch, acc, rs, runner, env
+    return row
+
+
+def k2_timed_row(fused16, p0, bufs16, dev, tag, name, k2_err, gemm_worst):
+    """K2's time per grad step on minibatch 0 of ``bufs16`` at params ``p0``
+    (CUDA events, 50 launches) beside its plain version, its bound and the
+    cuBLAS yardstick of the same products at these rows (phases 9 and 18):
+    the K2 row of the kernels' JSON line, ``launches`` left to the caller."""
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+
     lib2 = fused_update._lib("k2")
     args16, keep = fused16._k2_context(p0, bufs16)
-    k2_launch = lambda: fused16._k2_launch(lib2, args16, 0, dev)
-    k2_ms = cuda_ms(k2_launch, reps=50, warmup=3)
+    k2_ms = cuda_ms(lambda: fused16._k2_launch(lib2, args16, 0, dev), reps=50, warmup=3)
     k2_plain_ms = cuda_ms(lambda: fused16.grads_plain(p0, bufs16, 0), reps=3, warmup=1)
+    del args16, keep
     library_ms = cublas_yardstick(fused16, dev)
     ops, nbytes = k2_work(fused16, 2)
     bound_tc = max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3
@@ -2046,9 +2155,8 @@ def full_body_ppo_phase(dev):
         f"peak; achieved {ops / (k2_ms * 1e-3) / 1e12:.2f} TFLOP/s; cuBLAS yardstick (torch.matmul, the same "
         f"{len(fused16.gemm_shapes())} products on bf16 operands, GEMMs only, one CUDA graph replay) "
         f"{library_ms:.4f} ms")
-    row = {
-        "name": "K2 PPO minibatch loss + gradients (GR1T1_full, 10480 rows, obs 105, critic obs 234, "
-                "32 actions, bf16 operands)",
+    return {
+        "name": name,
         "route": "cuda", "source": "wiki_grx_gym_tpu_torch/csrc/ppo_grads.cu",
         "replaces": "wiki_grx_gym_tpu/learn/fused_update.py:348",
         "launches": None, "max_abs_err": k2_err["bfloat16"], "max_abs_err_f32": k2_err["float32"],
@@ -2056,13 +2164,10 @@ def full_body_ppo_phase(dev):
         "bound_ms_fp32": bound_fp32, "library_ms": library_ms,
         "library": "torch.matmul (cuBLAS) of the same bf16 products, GEMMs only, one CUDA graph replay; "
                    "not used by the port",
-        "gflop": ops / 1e9, "bytes": nbytes, "kernel_launches_per_grad_step": None,
-        "gemm_err_share_of_limit": gemm_worst, "k3_f32_step_max_abs_err": k3_pmax,
-        "k3_fused_vs_reference_differing_words": k3_differ,
-        "params": net.num_params, "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
+        "gflop": ops / 1e9, "bytes": nbytes, "rows": fused16.rows, "kernel_launches_per_grad_step": None,
+        "gemm_err_share_of_limit": gemm_worst,
+        "build_s": kbuild.BUILD_INFO["k2_ppo_grads"].get("seconds"),
     }
-    del keep, args16, setups, fused16, bufs16, batch, acc, rs, runner, env
-    return row
 
 
 def drive_rollout(dev, task, mutate):
@@ -3339,6 +3444,133 @@ def engine_phase(dev):
     return out
 
 
+# phase 18: the port's bench (scripts/bench.py) through its own entry points,
+# three of its cells (bench.cells) cut to BENCH_ITERS timed iterations (the
+# bench's own 30 / 15); the 8192-env cell last, its run kept for the checks
+BENCH_ITERS = 5
+BENCH_CELLS = ("main", "ref_equiv_subset", "envs8192")
+BIG_ENVS = 8192      # the reference's default env count (envs/gr1t1_config.py)
+
+
+def bench_phase(dev):
+    """Phase 18: the port's bench at the reference's default sizes. (a)
+    Each of ``BENCH_CELLS`` through ``bench.build_run`` and
+    ``bench.time_run`` at ``BENCH_ITERS`` timed iterations, the launch
+    counts set to 0 just before and read just after (K1 once for
+    ``init_state`` and 64 times for each iteration and rollout the cell
+    reports, K2 200 and K3 once for each iteration): the cell's line
+    finite, ``pallas_kernel`` true, its per-iteration times and peak memory
+    printed. (b) On the 8192-env cell's run: one more iteration counted
+    alone (K1 64, K2 200, K3 1, finite metrics); K1 against its plain
+    version and the team kernel against the one-thread kernel on its env
+    state (1,024 blocks) by phase 3's rule (``k1_phase``); on a rollout
+    buffer at its params (20,960-row minibatches, where K2's row splits end
+    on partial blocks) K2's GEMM against float64 and K2 against its plain
+    version under phase 5's rule and limits (``k2_check``, at those params
+    and after one float32 epoch of the plain version), the whole 200-step
+    bf16 update's CUDA graph against its 200 one-step calls bit for bit
+    (``composition_check``), that graph's replay time, and K2's time beside
+    its plain version, bound and cuBLAS yardstick. Returns the cells, and
+    the K1 and K2 rows of the kernels' JSON line at 8192 envs."""
+    import statistics
+
+    import torch
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.scripts import bench
+
+    t18 = time.perf_counter()
+    alg_cfg = task_registry.get_cfgs("GR1T1")[1].algorithm
+    steps = alg_cfg.num_learning_epochs * alg_cfg.num_mini_batches
+    cells = dict(bench.cells(on_card=True, full=True))
+    out = {"cells": {}}
+    for name in BENCH_CELLS:
+        kw = {k: v for k, v in cells[name].items() if k != "iters"}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        env, runner, state = bench.build_run(device=str(dev), **kw)
+        r, state = bench.time_run(env, runner, state, BENCH_ITERS, device=str(dev))
+        sync(dev)
+        got = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cell = bench.cell_summary(r)
+        calls = r["calls"]
+        want = {"k1": 1 + ROLLOUT_STEPS * (calls["iterations"] + calls["rollouts"]),
+                "k2": steps * calls["iterations"], "k3": calls["iterations"]}
+        each = r["iter_ms_each"]
+        finite = all(math.isfinite(v) for v in cell.values() if not isinstance(v, bool)) and \
+            all(math.isfinite(v) for v in each)
+        log(f"[18 bench {name}] {kw['num_envs']} envs, {BENCH_ITERS} timed iterations: {json.dumps(cell)}; "
+            f"iteration ms min {min(each):.2f} / median {statistics.median(each):.2f} / max {max(each):.2f}; "
+            f"peak memory {peak:.3f} GiB; calls {calls}; launches {got} (expected {want})")
+        if not (finite and cell["pallas_kernel"] is True):
+            fail(f"phase 18: the bench's {name} cell is not finite or did not run K1: {cell}")
+        if got != want:
+            fail(f"phase 18: the bench's {name} cell launched {got}, not {want}")
+        out["cells"][name] = dict(cell, iter_ms_each=each, peak_mem_gib=peak, calls=calls, launches=got)
+        if name != "envs8192":
+            del env, runner, state
+    assert env.num_envs == BIG_ENVS
+
+    reset_launch_counts()
+    state, metrics = runner.iteration(state)
+    sync(dev)
+    one = dict(LAUNCHES)
+    finite = all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    log(f"[18 {BIG_ENVS} envs] one iteration: launches {one}; metrics finite {finite}; "
+        f"collection {runner.last_timing['collection_s']:.3f} s, update {runner.last_timing['update_s']:.3f} s")
+    if one != {"k1": ROLLOUT_STEPS, "k2": steps, "k3": 1} or not finite:
+        fail(f"phase 18: one {BIG_ENVS}-env iteration launched {one} (finite metrics {finite})")
+    _, _, label, _ = K1_SETS["GR1T1"]
+    k1_row = k1_phase(dev, "GR1T1", None, f"{label}, {BIG_ENVS} envs", None, require_faster=False,
+                      run=(env, state.env_state))
+    k1_row["launches"] = one["k1"]
+    k1_row["launches_from"] = "one iteration of the bench's envs8192 cell, counted alone"
+    rs, batch, acc = runner.rollout(state)
+    net, alg = runner.net, runner.alg
+    p0 = net.params_flat.clone()
+    setups = learner_setups(runner, rs, batch, "GR1T1", dev)
+    del rs, batch, acc, state
+    fused16, bufs16 = setups["bfloat16"]
+    fused32, bufs32 = setups["float32"]
+    k2_err, tag = {}, f" {BIG_ENVS} envs"
+    gemm_worst = gemm_checks(fused16, dev)
+    k2_check(setups, net, alg, p0, "at p0", k2_err, tag)
+    st0 = alg.init(p0.clone())
+    args0 = (st0.params, st0.m, st0.v, st0.count, st0.learning_rate)
+    f1 = copy.copy(fused32)
+    f1.num_epochs = 1
+    p1 = f1.update_scan_plain(*args0, bufs32)[0]
+    share = [clip_shares(fused32, p1, bufs32, mb) for mb in (0, alg.num_mini_batches - 1)]
+    log(f"[K2 vs plain]{tag} after one epoch: rows outside the ratio clip range "
+        + ", ".join(f"{100 * r:.2f}%" for r, _ in share) + "; outside the value clip range "
+        + ", ".join(f"{100 * v:.2f}%" for _, v in share) + " (minibatches 0, last)")
+    k2_check(setups, net, alg, p1, "after one epoch", k2_err, tag)
+    log(f"[K2 vs plain]{tag} largest |diff| bf16 {k2_err['bfloat16']:.3e}, f32 {k2_err['float32']:.3e}")
+    composition_check(fused16, bufs16, args0, f"GR1T1 at {BIG_ENVS} envs, bf16 operands, the whole update",
+                      epochs=fused16.num_epochs)
+    # the update's graph (captured by the whole-update call above) replayed
+    ctx = fused16.update_graph(dev, bufs16)
+    k3_ms = cuda_ms(lambda: fused16.update_scan(*args0, bufs16), reps=3, warmup=1)
+    log(f"[K3{tag}] {k3_ms:.3f} ms per update ({ctx.steps} steps of {fused16.rows} rows, one graph replay); captured "
+        f"in {ctx.capture_ms:.1f} ms, instantiated in {ctx.instantiate_ms:.1f} ms")
+    out["k3_update_ms"], out["k3_capture_ms"] = k3_ms, ctx.capture_ms
+    del ctx
+    row = k2_timed_row(fused16, p0, bufs16, dev, tag,
+                       f"K2 PPO minibatch loss + gradients (GR1T1 at {BIG_ENVS} envs, {fused16.rows} rows, bf16 "
+                       "operands)", k2_err, gemm_worst)
+    row["launches"] = one["k2"]
+    row["launches_from"] = "one iteration of the bench's envs8192 cell, counted alone"
+    out["one_iteration_launches"] = one
+    out["seconds"] = time.perf_counter() - t18
+    log(f"[time] phase 18 took {out['seconds']:.1f} s")
+    del setups, fused16, bufs16, fused32, bufs32, runner, env
+    return out, k1_row, row
+
+
 def main():
     import torch
 
@@ -3538,12 +3770,12 @@ def main():
     train_terrain = {m.__name__: train_phase(dev, "GR1T1", m) for m in (heightfield, trimesh)}
     heading_launches = drive_rollout(dev, "GR1T1", heading)
     phase_done("phase 10")
-    # ---- phase 11: the all-terms fold's path (learn(1)); rollouts with V, T and V with heading ----
+    # ---- phase 11: the all-terms fold's path (learn(1)); rollouts with V, T, V with heading, trimesh viscous ----
     gc.collect()
     torch.cuda.empty_cache()
     train_all_terms = train_phase(dev, "GR1T1", cuda_step.all_terms_config, iters=1, profiled=False)
     control_launches = {name: drive_rollout(dev, "GR1T1", k1_set_mutate(name))
-                        for name in ("GR1T1_V", "GR1T1_T", "GR1T1_V_heading")}
+                        for name in ("GR1T1_V", "GR1T1_T", "GR1T1_V_heading", "GR1T1_trimesh_viscous")}
     phase_done("phase 11")
     # ---- phase 12: the recurrent task GR1T1_lstm ----
     gc.collect()
@@ -3581,6 +3813,11 @@ def main():
     tp = tp_phase(dev, runner17, state17)
     del runner17, state17
     phase_done("phase 17")
+    # ---- phase 18: the port's bench at 4096 and 8192 envs; K2 and K3 at 8192 ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench18, k1_big_row, k2_big_row = bench_phase(dev)
+    phase_done("phase 18")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -3625,10 +3862,15 @@ def main():
                             launches_from="learn(1) of the all-terms config")
     k1_control_rows = [dict(k1_rows[name], launches=control_launches[name],
                             launches_from=f"one 64-step rollout ({name})") for name in control_launches]
+    subset_cell = bench18["cells"]["ref_equiv_subset"]
+    k1_viscous_row = dict(k1_rows["GR1T1_viscous"], launches=subset_cell["launches"]["k1"],
+                          launches_from=f"phase 18's ref_equiv_subset cell: init_state, "
+                                        f"{subset_cell['calls']['iterations']} iterations and "
+                                        f"{subset_cell['calls']['rollouts']} rollouts")
     k2_full_row["launches"] = train_full["launches"]["k2"]
     k2_full_row["kernel_launches_per_grad_step"] = train_full["profile"]["k2_kernel_launches_per_grad_step"]
     kernels = [k1_row, k1_full_row, k1_no_pairs_row, *k1_terrain_rows, k1_heading_row, k1_all_terms_row,
-               *k1_control_rows, k2_row, k2_full_row, k3_row]
+               *k1_control_rows, k1_viscous_row, k1_big_row, k2_row, k2_full_row, k2_big_row, k3_row]
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"}}))
     log(json.dumps({"train_GR1T1_full": {k: v for k, v in train_full.items() if k != "launches"}}))
     for m, tr in train_terrain.items():
@@ -3641,6 +3883,7 @@ def main():
     log(json.dumps({"engine": engine}))
     log(json.dumps({"dtype_options": dtypes}))
     log(json.dumps({"tensor_parallel": tp}))
+    log(json.dumps({"bench": bench18}))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

@@ -37,16 +37,20 @@ PHYS = ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "q", "qd", "anc
 RAND = ("friction", "restitution", "base_mass_scale", "base_com_offset")
 
 
-def build_case(decimation):
+def build_case(decimation, mutate=None):
     """(JAX output, port output, port wrapper, port inputs) on one set of
-    reachable inputs at ``decimation`` substeps per policy step."""
+    reachable inputs at ``decimation`` substeps per policy step; ``mutate``
+    changes both configs first."""
     jc, _ = jax_registry.get_cfgs("GR1T1")
     jc.env.num_envs = N
     jc.sim.use_pallas = "lanes"
     jc.control.decimation = decimation
-    jenv, _ = jax_registry.make_env("GR1T1", env_cfg=jc)
     tc, _ = torch_registry.get_cfgs("GR1T1")
     tc.env.num_envs = N
+    if mutate is not None:
+        mutate(jc)
+        mutate(tc)
+    jenv, _ = jax_registry.make_env("GR1T1", env_cfg=jc)
     tenv, _ = torch_registry.make_env("GR1T1", env_cfg=tc, device="cpu")
 
     # reachable states: the port's env a few steps after init
@@ -146,8 +150,8 @@ def check_group(case, name):
         f"{name}: max |port - jax| {err.max():.3e}, float32 noise floor {floor:.3e}")
 
 
-def case_with_floor(decimation):
-    want, got, op, port_inputs = build_case(decimation)
+def case_with_floor(decimation, mutate=None):
+    want, got, op, port_inputs = build_case(decimation, mutate)
     return want, got, run_port(op, port_inputs, torch.float64), op
 
 

@@ -4,8 +4,8 @@
 // TorchScript export (legged_gym/utils/helpers.py:188-231 +
 // PolicyExporterLSTM :204-231). This runtime serves the same purpose without
 // a torch dependency: it loads the framework's flat binary policy export
-// (.grxpolicy, written by wiki_grx_gym_tpu.deploy.runtime.export_policy_bin)
-// and evaluates the actor deterministically at control rate. Recurrent
+// (.grxpolicy, written by wiki_grx_gym_tpu_torch.deploy.runtime.export_policy_bin,
+// byte for byte the JAX package's format) and evaluates the actor deterministically at control rate. Recurrent
 // (LSTM) policies carry their hidden state inside the handle, exactly like
 // PolicyExporterLSTM keeps hidden/cell buffers inside the exported module.
 //

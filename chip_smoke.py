@@ -151,7 +151,11 @@ together after phase 9):
    gradient entry and the surrogate sum set to NaN (a NaN row: the NaN-loss
    path), and with the surrogate sum alone NaN (ok = 0, finite gradient).
 7. The slice: ``OnPolicyRunner.learn(2)`` on the GR1T1 config at 4096 envs
-   with ``log_dir`` under ``build/``: finite losses, K3 launched once per
+   with ``log_dir`` under ``build/`` (since the compiled iteration,
+   ``learn`` runs ``_train_iter``: the launch counts below are the graphed
+   path's, the first iteration's from its warm-up and each later one's
+   from a replay's tally; the profiled iteration after it is the eager
+   ``iteration``, run once unprofiled first): finite losses, K3 launched once per
    iteration, K2's chain 200 times per iteration, K1 64 times per iteration
    (+1 for the initial step), and ``model_2.pt`` loads back bit-identical.
    Prints each iteration's time split into collection and update, the
@@ -253,8 +257,10 @@ together after phase 9):
    the card) against float64 on the CPU within 1e-5 m; (e) ``eval_tracking``
    at 64 envs: six finite rows, survival in [0, 1], K1 1 + 6 x 261 times;
    (f) ``learn(5, profile_dir=...)`` at 4096 envs: one Chrome trace of
-   iterations 2-4 naming K1's team kernel and K2's and K3's kernels (or the
-   update's graph launch). Prints its seconds.
+   iterations 2-4 naming K1's team kernel and K2's and K3's kernels (or,
+   ``learn`` being compiled, the graphs' launches). Play and eval_tracking
+   step through ``env.step_graph`` (the first step of each graph is its
+   warm-up, counted as any eager step). Prints its seconds.
 16. The engine path (``engine_phase``; ``sim/engine.physics_step`` under
    the env's decimation loop, ``cfg.sim.use_pallas = False``): (a) K1 (the
    GR1T1 fold program) against the engine on phase 3's 4096 reachable
@@ -304,13 +310,34 @@ together after phase 9):
    epoch; the whole 200-step bf16 update's CUDA graph against its 200
    one-step calls bit for bit; K2's time beside its plain version, bound
    and cuBLAS yardstick at 20,960 rows.
+19. The compiled iteration (``compiled_phase``; ``learn/graphs.py``,
+   ``OnPolicyRunner._train_iter``, ``LeggedEnv.step_graph``) at 4096 envs:
+   (t) eager and graphed iteration times (min / median / max; collection
+   and update from the CUDA events), peak memory, each graph's warm-up,
+   capture and instantiate ms and kernel nodes, and the graphed
+   iterations' launch counts (K1 64, K2 200, K3 1 each); (a) three
+   ``_train_iter`` calls with injected noise, u and perm against three eager
+   iterations, the donated state feeding the next call: the Transition's
+   nine fields, last values, returns, advantages, the env state, the PPO
+   state and the metrics bit for bit; (b) the same with generator draws
+   (the graphed draws equal the eager ones; two consecutive replays sample
+   other noise); (f2) a GR1T1 env of the same K1 sizes with its contact
+   stiffness x1.05 steps eagerly (uploading its constants) between two
+   replays of one state and draws: the replays agree bit for bit; (c) one
+   graphed and one eager iteration under torch.profiler: the host's launch
+   calls, device time, busy share, equal kernel counts; (d) heightfield and
+   GR1T1_full under (a)'s rule (a warm-up and a replay); (e) ``step_graph``
+   against ``step`` at play's 50 envs, bit for bit for 20 steps, and the
+   eval step at 64 envs timed both ways; (f1) a capture that does not
+   register the generators must fail (b) or raise.
    Prints the kernels' JSON line (K1 for each program, its main-path count
    from phase 4 with phase 15's, 16's and 17's counts beside it under their
    own keys, the viscous program's from phase 18's ``ref_equiv_subset``
    cell, the trimesh viscous program's from phase 11's rollout, GR1T1's at
    8192 envs from phase 18, K2 at both widths with its data-parallel use
-   under ``dp`` and at 20,960 rows from phase 18, K3), the card line, and
-   the final ok line.
+   under ``dp`` and at 20,960 rows from phase 18, K3; K1, K2 and K3 also
+   with phase 19's graphed iterations' counts), the card line, and the
+   final ok line.
 """
 
 import copy
@@ -1495,11 +1522,17 @@ def train_phase(dev, task="GR1T1", mutate=None, iters=TRAIN_ITERS, profiled=True
     if not profiled:
         return result
 
-    # where an iteration's time goes: one more under torch.profiler (after
-    # the launch counts were read; the profiler slows the host side)
+    # where an eager iteration's time goes: one more under torch.profiler
+    # (after the launch counts were read; the profiler slows the host side).
+    # learn ran the compiled iteration; the profiled one is the eager
+    # ``iteration``, whose update graph is captured first, unprofiled
+    # (phase 19 profiles the compiled one)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if runner.eager_reason is None:
+        runner.iteration(state)
+        torch.cuda.synchronize()
     before = dict(LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2826,7 +2859,10 @@ def eval_deploy_phase(dev, eval_obs, stream_obs):
                      "cudaGraphLaunch stands for them"))
     grad_steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
     want = {"k1": PROFILE_ITERS * ROLLOUT_STEPS + 1, "k2": PROFILE_ITERS * grad_steps, "k3": PROFILE_ITERS}
-    if len(files) != 1 or iters != [2, 3, 4] or not seen["decimation_team_kernel"] or not (
+    # learn runs the compiled iteration: K1's kernels may appear only as the
+    # collection graph's launch, as K2's and K3's as the update graph's
+    k1_seen = seen["decimation_team_kernel"] or (runner.eager_reason is None and seen["cudaGraphLaunch"])
+    if len(files) != 1 or iters != [2, 3, 4] or not k1_seen or not (
             k23 or seen["cudaGraphLaunch"]) or launches != want:
         fail(f"learn(profile_dir=): files {files}, iterations {iters}, names {seen}, launches {launches} "
              f"(expected {want})")
@@ -3571,6 +3607,389 @@ def bench_phase(dev):
     return out, k1_row, row
 
 
+# phase 19: the compiled iteration (learn/graphs.py, OnPolicyRunner._train_iter)
+COMPILED_CALLS = 3     # (a), (b): the first call warms up and captures, the next two replay
+COMPILED_TIMED = 10    # graphed iterations timed; eager ones: EAGER_TIMED
+EAGER_TIMED = 3
+EVAL_GRAPH_ENVS, EVAL_GRAPH_STEPS = 50, 20   # (e): play's envs, bit for bit
+EVAL_TIMED_ENVS, EVAL_TIMED_STEPS = 64, 100  # (e): the eval step timed at eval_tracking's envs
+PLANT_STIFFNESS = 1.05  # (f2): the other K1 instance's contact stiffness (a __constant__ value)
+
+
+def _bits(x):
+    """A tensor's bits, as an integer tensor (NaN compared by pattern)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.view(ints[x.element_size()]) if x.is_floating_point() else x
+
+
+def tree_diffs(got, want, prefix=""):
+    """The leaves of two state trees (or dicts, named tuples of tensors) that
+    differ in a bit, their shape or type; generators by seed and offset."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import graphs
+
+    out = []
+    for (p, x), (_, y) in zip(graphs.leaves(got, prefix), graphs.leaves(want, prefix)):
+        if torch.is_tensor(x):
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(_bits(x), _bits(y)):
+                out.append(p)
+        elif isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                out.append(p)
+        elif x is not y and x != y:
+            out.append(p)
+    return out
+
+
+def injected_draws(runner, seed, dev):
+    """(noise, u, perm) of one iteration, drawn on the card from ``seed``."""
+    import torch
+
+    env, t = runner.env, runner.num_steps_per_env
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((t, env.num_envs, env.num_actions), generator=g, device=dev)
+    u = torch.rand((t, env.num_envs, env._step_u_cols[1]), generator=g, device=dev)
+    _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, env.num_envs)
+    return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
+
+
+def compiled_vs_eager(runner, s_e, s_g, calls, draws, dev, tag):
+    """``calls`` iterations of the eager ``iteration`` and of ``_train_iter``
+    side by side, each fed its own last state; every collection output, the
+    env state, the obs, the PPO state and the metrics compared bit for bit
+    (``draws``: "injected" noise, u and perm, or "generators"). Returns
+    (the per-call diff lists, the sampled noise of each graphed call)."""
+    import torch
+
+    diffs, eps = [], []
+    mode = "inject" if draws == "injected" else "draw"
+    for it in range(calls):
+        kw = dict(zip(("noise", "u", "perm"), injected_draws(runner, 1000 + it, dev))) \
+            if draws == "injected" else {}
+        want = {}
+        s_e, m_e = runner.iteration(s_e, out=want, **kw)
+        graph = runner.compiled.collect.get(mode) if runner.compiled else None
+        how = "replay" if graph is not None and graph.graph is not None else "warm-up and capture"
+        s_g, m_g = runner._train_iter(s_g, **kw)
+        got = runner.compiled.last
+        d = tree_diffs({k: got[k] for k in want}, want)
+        d += tree_diffs(s_g, s_e, "state")
+        d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
+        if list(m_g) != list(m_e):
+            d.append("metric keys")
+        b = got["batch"]
+        eps.append(((b.actions - b.mu) / b.sigma).clone())
+        diffs.append(d)
+        log(f"[19 {tag}] call {it} ({how}, {draws} draws): "
+            f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
+    return diffs, eps, s_e, s_g
+
+
+def fresh_draws(eps_a, eps_b):
+    """Whether two graphed calls sampled different action noise: the noise
+    recovered as (actions - mu) / sigma (the same draws give it to float32
+    rounding, fresh ones differ by O(1))."""
+    import torch
+
+    close = (eps_a - eps_b).abs() < 1e-3
+    return float(close.float().mean()), float((eps_a - eps_b).abs().max())
+
+
+def host_calls(prof):
+    """The host's runtime launch, copy and set calls in a profile."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+             and any(k in e.name for k in ("Launch", "Memcpy", "Memset"))]
+    return {n: names.count(n) for n in sorted(set(names))}
+
+
+def device_kernels(prof):
+    """(device kernel ms, launches, K1 launches) in a profile."""
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    k1 = sum(e.count for e in kern if any(n in e.key for n in KERNEL_NAMES["K1"]))
+    return sum(dev_us(e) for e in kern) / 1e3, sum(e.count for e in kern), k1
+
+
+def compiled_phase(dev):
+    """Phase 19: the compiled iteration (``OnPolicyRunner._train_iter``: the
+    collection graph and K3's donated update graph; ``LeggedEnv.step_graph``).
+    (t) GR1T1 at 4096 envs: peak memory and iteration times of the eager
+    ``iteration`` and of ``_train_iter`` (min / median / max; collection and
+    update from the CUDA events), the graphs' warm-up, capture and
+    instantiate ms and kernel nodes, the launch counts of the graphed
+    iterations (K1 64, K2 200, K3 1 each). (a) Injected noise, u and perm:
+    three ``_train_iter`` calls (warm-up and capture, then two replays of
+    the donated state) against three eager iterations, every collection
+    output (the Transition's nine fields, last values, returns,
+    advantages), the env state, the obs, the PPO state (p, m, v, count, LR)
+    and the metrics bit for bit. (b) Generator draws, the same: the graphed
+    draws equal the eager ones from the same generator states (and leave the
+    generators where the eager ones are), and two consecutive replays sample
+    other noise. (f2) A second GR1T1 env of the same K1 size set with the
+    contact stiffness x``PLANT_STIFFNESS`` (a value in K1's __constant__
+    memory) steps eagerly, uploading its constants, between two replays of
+    the same state and draws: the replays must agree bit for bit, the
+    planted env's step must differ from the main env's, and its next eager
+    step must equal its first. (c) One graphed and one eager iteration under
+    torch.profiler: the host's launch calls, the device time and the busy
+    share, K1's device launches. (d) heightfield and GR1T1_full: two
+    ``_train_iter`` calls against eager under (a)'s rule. (e) Play's config
+    at 50 envs: ``step_graph`` against ``step`` bit for bit for 20 steps;
+    the eval step at 64 envs timed both ways. (f1) A fresh compiled
+    iteration whose capture does not register the generators must fail (b):
+    the capture raises, or two replays sample the same noise."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import graphs
+    from wiki_grx_gym_tpu_torch.scripts.play import no_randomization
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    t19 = time.perf_counter()
+    out = {}
+
+    def make(task="GR1T1", mutate=None, n=N_ENVS):
+        cfg, train_cfg = task_registry.get_cfgs(task)
+        cfg.env.num_envs = n
+        if mutate is not None:
+            mutate(cfg)
+        env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+        runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)
+        return env, runner
+
+    # ---- (t) peak memory and times, eager then graphed ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    env, runner = make()
+    if runner.eager_reason is not None:
+        fail(f"phase 19: GR1T1 is not compiled: {runner.eager_reason}")
+        return out
+    state = runner.init_state(init_at_random_ep_len=True)
+    eager = []
+    for _ in range(EAGER_TIMED + 1):
+        t0 = time.perf_counter()
+        state, _ = runner.iteration(state)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0, dict(runner.last_timing)))
+    eager = eager[1:]
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    graphed = []
+    reset_launch_counts()
+    for _ in range(COMPILED_TIMED + 1):
+        t0 = time.perf_counter()
+        state, metrics = runner._train_iter(state)
+        graphed.append((time.perf_counter() - t0, dict(runner.last_timing)))
+    launches = dict(LAUNCHES)
+    peak_graphed = torch.cuda.max_memory_allocated() / 2**30
+    first, graphed = graphed[0], graphed[1:]
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    calls = COMPILED_TIMED + 1
+    want = {"k1": calls * ROLLOUT_STEPS, "k2": calls * steps, "k3": calls}
+    finite = all(math.isfinite(float(v)) for v in metrics.values())
+    ms = lambda xs: [1e3 * x for x in xs]
+    stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+    t_out = {
+        "eager_iteration_ms": stats(ms([w for w, _ in eager])),
+        "eager_collection_ms": stats(ms([t["collection_s"] for _, t in eager])),
+        "eager_update_ms": stats(ms([t["update_s"] for _, t in eager])),
+        "graphed_iteration_ms": stats(ms([w for w, _ in graphed])),
+        "graphed_collection_ms": stats(ms([t["collection_s"] for _, t in graphed])),
+        "graphed_update_ms": stats(ms([t["update_s"] for _, t in graphed])),
+        "first_call_ms": 1e3 * first[0], "peak_mem_gib_eager": peak_eager, "peak_mem_gib_graphed": peak_graphed,
+        "launches": launches, "graphs": runner.compiled.reports(),
+    }
+    out["t"] = t_out
+    log(f"[19 t] GR1T1 at {N_ENVS} envs: eager iteration ms {t_out['eager_iteration_ms']} (collection "
+        f"{t_out['eager_collection_ms']['median']:.2f}, update {t_out['eager_update_ms']['median']:.2f}); "
+        f"graphed {t_out['graphed_iteration_ms']} (collection {t_out['graphed_collection_ms']['median']:.2f}, "
+        f"update {t_out['graphed_update_ms']['median']:.2f}, from the events); the first call {1e3 * first[0]:.1f} "
+        f"ms; peak memory eager {peak_eager:.3f} GiB, graphed {peak_graphed:.3f} GiB")
+    for g in t_out["graphs"]:
+        log(f"[19 t] graph {json.dumps(g)}")
+    log(f"[19 t] {calls} graphed iterations launched {launches} (expected {want}); metrics finite {finite}")
+    if launches != want or not finite:
+        fail(f"phase 19 (t): {calls} graphed iterations launched {launches}, not {want}, or non-finite metrics")
+
+    # ---- (a) injected draws, 3 calls against eager ----
+    diffs, _, _, s_g = compiled_vs_eager(runner, runner.init_state(), runner.init_state(), COMPILED_CALLS,
+                                         "injected", dev, "a GR1T1")
+    out["a"] = {"calls": COMPILED_CALLS, "differing": diffs}
+    if any(diffs):
+        fail(f"phase 19 (a): the compiled iteration differs from the eager one: {diffs}")
+
+    # ---- (b) generator draws: the same draws as eager, fresh on each replay ----
+    diffs, eps, _, s_g = compiled_vs_eager(runner, runner.init_state(), runner.init_state(), COMPILED_CALLS,
+                                           "generators", dev, "b GR1T1")
+    same_share, max_diff = fresh_draws(eps[1], eps[2])
+    fresh = same_share < 0.01 and max_diff > 0.5
+    log(f"[19 b] replays 1 and 2 sampled noise equal to 1e-3 in {100 * same_share:.3f}% of the entries, largest "
+        f"|diff| {max_diff:.3f}: fresh {fresh}")
+    out["b"] = {"differing": diffs, "same_noise_share": same_share, "max_noise_diff": max_diff, "fresh": fresh}
+    if any(diffs) or not fresh:
+        fail(f"phase 19 (b): generator draws differ from eager ({diffs}) or are not fresh ({same_share}, {max_diff})")
+
+    # ---- (f2) another K1 instance of the same sizes uploads between two replays ----
+    plant = lambda cfg: setattr(cfg.sim, "contact_stiffness", cfg.sim.contact_stiffness * PLANT_STIFFNESS)
+    env2 = cuda_step.task_env("GR1T1", N_ENVS, dev, plant)
+    op, op2 = env.decimation_op, env2.decimation_op
+    x = graphs.map_tensors(torch.clone, runner.compiled.static)
+    draws = dict(zip(("noise", "u", "perm"), injected_draws(runner, 77, dev)))
+    zeros = torch.zeros((N_ENVS, env.num_actions), device=dev)
+    u0 = draws["u"][0]
+    _, o1 = env.step(x.env_state, zeros, u=u0)   # the main env's step (its constants)
+    runner._train_iter(x, **draws)
+    first_batch = graphs.map_tensors(torch.clone, runner.compiled.last["batch"])
+    _, o2a = env2.step(x.env_state, zeros, u=u0)   # the planted env uploads its constants (the eager path)
+    o2a = graphs.map_tensors(torch.clone, o2a)
+    runner._train_iter(x, **draws)   # the replay right after the planted upload
+    d_replay = tree_diffs(runner.compiled.last["batch"], first_batch)
+    owner = cuda_step._CONST_OWNER.get(op.sizes) is op
+    _, o2b = env2.step(x.env_state, zeros, u=u0)   # it must upload again after the replay
+    visible = bool((o1.obs != o2a.obs).any())
+    d_again = tree_diffs({k: getattr(o2b, k) for k in ("obs", "pri_obs", "rew", "reset")},
+                         {k: getattr(o2a, k) for k in ("obs", "pri_obs", "rew", "reset")})
+    log(f"[19 f2] a GR1T1 env with contact stiffness x{PLANT_STIFFNESS} (same K1 sizes: {op2.sizes == op.sizes}) "
+        f"stepped eagerly between two replays: the replays differ in {d_replay or 'nothing'}; its step differs from "
+        f"the main env's: {visible}; the replay left the main wrapper the owner of the constants: {owner}; its next "
+        f"step equals its first: {not d_again}")
+    out["f2"] = {"same_sizes": op2.sizes == op.sizes, "replay_diffs": d_replay, "plant_visible": visible,
+                 "owner_after_replay": owner, "planted_step_diffs": d_again}
+    if d_replay or not visible or not owner or d_again or op2.sizes != op.sizes:
+        fail(f"phase 19 (f2): {out['f2']}")
+    del env2, op2, x, first_batch, o1, o2a, o2b
+
+    # ---- (c) host launches, device time: one graphed and one eager iteration under the profiler ----
+    prof_out = {}
+    for name, fn in (("graphed", lambda s: runner._train_iter(s)), ("eager", lambda s: runner.iteration(s))):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s_g, _ = fn(s_g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        host = host_calls(prof)
+        dev_ms, kernels, k1_seen = device_kernels(prof)
+        wall_unprofiled = (t_out["graphed_iteration_ms"] if name == "graphed" else t_out["eager_iteration_ms"])["median"]
+        prof_out[name] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
+                          "device_ms": dev_ms, "device_kernels": kernels, "k1_device_launches": k1_seen,
+                          "busy_share": dev_ms / wall_unprofiled, "profiled_wall_ms": 1e3 * wall,
+                          "launches": dict(LAUNCHES)}
+        log(f"[19 c] one {name} iteration under the profiler: host calls {host}; device kernels {dev_ms:.1f} ms in "
+            f"{kernels} launches (K1 {k1_seen}); device busy {100 * dev_ms / wall_unprofiled:.1f}% of the unprofiled "
+            f"median {wall_unprofiled:.1f} ms; kernel counts {dict(LAUNCHES)}")
+    out["c"] = prof_out
+    lg, le = prof_out["graphed"]["launches"], prof_out["eager"]["launches"]
+    if lg != le or lg != {"k1": ROLLOUT_STEPS, "k2": steps, "k3": 1}:
+        fail(f"phase 19 (c): kernel counts graphed {lg}, eager {le}")
+    if prof_out["graphed"]["host_calls"] and prof_out["graphed"]["host_launch_calls"] > 100:
+        fail(f"phase 19 (c): the graphed iteration made {prof_out['graphed']['host_launch_calls']} host launch calls")
+    del runner, env, state, s_g, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) other configs: heightfield, GR1T1_full ----
+    out["d"] = {}
+    for name, task, mutate in (("heightfield", "GR1T1", heightfield), ("GR1T1_full", "GR1T1_full", None)):
+        env, runner = make(task, mutate)
+        if runner.eager_reason is not None:
+            fail(f"phase 19 (d): {name} is not compiled: {runner.eager_reason}")
+            continue
+        diffs, _, _, _ = compiled_vs_eager(runner, runner.init_state(), runner.init_state(), 2, "injected", dev,
+                                           f"d {name}")
+        out["d"][name] = {"differing": diffs, "graphs": runner.compiled.reports()}
+        for g in out["d"][name]["graphs"]:
+            log(f"[19 d {name}] graph {json.dumps(g)}")
+        if any(diffs):
+            fail(f"phase 19 (d): {name} differs from eager: {diffs}")
+        del env, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (e) eval: step_graph against step at play's 50 envs; the eval step timed at 64 envs ----
+    def eval_env(n):
+        cfg, _ = task_registry.get_cfgs("GR1T1")
+        cfg.env.num_envs = n
+        no_randomization(cfg)
+        return task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)[0]
+
+    env = eval_env(EVAL_GRAPH_ENVS)
+    s_e, s_g = env.init_state(0), env.init_state(0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    e_diffs = []
+    for t in range(EVAL_GRAPH_STEPS):
+        a = 0.3 * torch.randn((EVAL_GRAPH_ENVS, env.num_actions), generator=g, device=dev)
+        s_e, o_e = env.step(s_e, a)
+        s_g, o_g = env.step_graph(s_g, a)
+        d = tree_diffs(s_g, s_e, "state") + tree_diffs({k: getattr(o_g, k) for k in ("obs", "pri_obs", "rew", "reset")},
+                                                       {k: getattr(o_e, k) for k in ("obs", "pri_obs", "rew", "reset")})
+        if d:
+            e_diffs.append((t, d[:8]))
+    sg = next(iter(env._step_graphs.values())).graph
+    log(f"[19 e] step_graph against step at {EVAL_GRAPH_ENVS} envs, {EVAL_GRAPH_STEPS} steps: "
+        f"{'equal bit for bit' if not e_diffs else e_diffs}; the step graph {json.dumps(sg.report())}")
+    timed = {}
+    env = eval_env(EVAL_TIMED_ENVS)
+    for name in ("eager", "graphed"):
+        st = env.init_state(0)
+        a = torch.zeros((EVAL_TIMED_ENVS, env.num_actions), device=dev)
+        fn = env.step if name == "eager" else env.step_graph
+        each = []
+        for _ in range(EVAL_TIMED_STEPS + 1):
+            t0 = time.perf_counter()
+            st, o = fn(st, a)
+            torch.cuda.synchronize()
+            each.append(1e3 * (time.perf_counter() - t0))
+        timed[name] = stats(each[1:])
+    log(f"[19 e] the eval step at {EVAL_TIMED_ENVS} envs, ms (host clock, each ended by a synchronize): "
+        f"eager {timed['eager']}, graphed {timed['graphed']}")
+    out["e"] = {"differing": e_diffs, "step_graph": sg.report(), "step_ms": timed}
+    if e_diffs:
+        fail(f"phase 19 (e): step_graph differs from step: {e_diffs}")
+    del env, s_e, s_g
+
+    # ---- (f1) planted: a capture that does not register the generators ----
+    env, runner = make()
+    torch.cuda.CUDAGraph.register_generator_state = lambda self, gen: None   # shadows the real one
+    caught = None
+    try:
+        s = runner.init_state()
+        eps = []
+        for _ in range(COMPILED_CALLS):
+            s, _ = runner._train_iter(s)
+            b = runner.compiled.last["batch"]
+            eps.append(((b.actions - b.mu) / b.sigma).clone())
+        same_share, max_diff = fresh_draws(eps[1], eps[2])
+        if not (same_share < 0.01 and max_diff > 0.5):
+            caught = f"(b)'s check: replays 1 and 2 sampled the same noise ({100 * same_share:.2f}% equal)"
+    except RuntimeError as e:
+        caught = f"the capture raised: {str(e).splitlines()[0][:200]}"
+    finally:
+        del torch.cuda.CUDAGraph.register_generator_state
+    log(f"[19 f1] a capture without the generators registered: caught {caught is not None} ({caught})")
+    out["f1"] = {"caught": caught}
+    if caught is None:
+        fail("phase 19 (f1): a graph captured without its generators drew fresh noise: the planted fault went unseen")
+    del env, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t19
+    log(f"[time] phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3818,6 +4237,11 @@ def main():
     torch.cuda.empty_cache()
     bench18, k1_big_row, k2_big_row = bench_phase(dev)
     phase_done("phase 18")
+    # ---- phase 19: the compiled iteration (the collection and update graphs; step_graph) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    compiled = compiled_phase(dev)
+    phase_done("phase 19")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -3838,6 +4262,12 @@ def main():
     k3_row["host_launches_per_update"] = train["profile"]["host_launches_per_update"]
     k3_row["kernels_ptxas"] = k3_kernels
     k3_row["coresident_blocks"] = k3_resident
+    # phase 19's graphed iterations, counted from 0 (a replay adds its graph's tally)
+    graphed_from = (f"{COMPILED_TIMED + 1} calls of OnPolicyRunner._train_iter at {N_ENVS} envs (the first "
+                    "warms up and captures, the others replay the collection and update graphs)")
+    for row, k in ((k2_row, "k2"), (k3_row, "k3")):
+        row["graphed_iteration_launches"] = compiled.get("t", {}).get("launches", {}).get(k)
+        row["graphed_iteration_launches_from"] = graphed_from
 
     # launches: phase 4's rollout and play, as in every earlier slice; phase
     # 15's runs, each counted from 0, under their own keys
@@ -3850,7 +4280,9 @@ def main():
                   dtype_learn_launches=dtypes["a"]["launches"]["k1"],
                   tp_learn_launches=[r["launches"]["k1"] for r in tp["mp2"]], build_all_s=build_s,
                   rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
-                  peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"])
+                  peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"],
+                  graphed_iteration_launches=compiled.get("t", {}).get("launches", {}).get("k1"),
+                  graphed_iteration_launches_from=graphed_from)
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
     k1_no_pairs_row = dict(k1_rows["GR1T1_no_pairs"], launches=no_pairs_launches,
                            launches_from="one 64-step rollout of the no-pairs config")
@@ -3884,6 +4316,7 @@ def main():
     log(json.dumps({"dtype_options": dtypes}))
     log(json.dumps({"tensor_parallel": tp}))
     log(json.dumps({"bench": bench18}))
+    log(json.dumps({"compiled_iteration": compiled}, default=str))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

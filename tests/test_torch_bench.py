@@ -71,6 +71,7 @@ def test_subset_is_the_root_bench_config():
 def test_cpu_cell_is_finite_and_not_the_kernel(cpu_cell):
     r = cpu_cell
     assert r["pallas"] is False
+    assert r["path"].startswith("eager (device cpu") and r["graphs"] == []
     assert len(r["iter_ms_each"]) == 1 and math.isclose(r["iter_ms"], r["iter_ms_each"][0])
     # the root bench.py's calls: one warm-up iteration, two warm-up rollouts
     # and max(iters // 2, 5) timed ones
@@ -106,8 +107,10 @@ def test_main_without_a_card_exits_and_runs_nothing(monkeypatch, capsys):
 
 
 def fake_cell(num_envs, iters, device, **kw):
+    graphs = [{"name": "collection (draw)", "capture_ms": 1.0, "instantiate_ms": 2.0}] if device == "cuda" else []
     return {"fps": 1.0 * num_envs, "iter_ms": 1.0, "iter_ms_each": [1.0] * iters, "pallas": device == "cuda",
-            "collection_ms": 0.5, "learn_ms": 0.5, "flops_per_iter": 7, "mfu_vs_bf16_peak": 0.0}
+            "collection_ms": 0.5, "learn_ms": 0.5, "flops_per_iter": 7, "mfu_vs_bf16_peak": 0.0,
+            "path": "graphed" if device == "cuda" else "eager (device cpu)", "graphs": graphs}
 
 
 @pytest.mark.parametrize("argv, want", [
@@ -139,9 +142,49 @@ def test_main_runs_the_root_bench_cells(monkeypatch, capsys, argv, want):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("bench: device ")
     assert len(lines) == len(want) + 2   # the device, one line a cell, the JSON line
+    for line in lines[1:-1]:   # each cell's path and graphs
+        path = "graphed; collection (draw) captured in 1.0 ms" if device == "cuda" else "eager (device cpu)"
+        assert path in line, line
     line = json.loads(lines[-1])
     assert list(line["breakdown"]) == list(want)
     assert line["config"] == {"num_envs": want["main"][0], "num_steps_per_env": 64, "platform": device,
                               "physics_substeps_per_env_step": 10,
                               "contact_fidelity": "full (self-collision + stick friction)",
                               "iters_timed": want["main"][1]}
+
+
+def test_time_run_takes_the_compiled_iteration_where_the_rule_graphs(monkeypatch):
+    """Where ``eager_reason`` is None, ``time_run`` times ``_train_iter`` and
+    ``_rollout_graph`` (the root bench's ``_train_iter`` and ``rollout_jit``),
+    never the eager ``iteration`` and ``rollout``; here the compiled calls are
+    stood in by recorders around the eager ones (no card)."""
+    env, runner, state = bench.build_run(8, device="cpu", train_hook=short_run, env_hook=two_substeps)
+    calls, inside = [], [False]
+    eager_iteration, eager_rollout = runner.iteration, runner.rollout
+
+    class Compiled:
+        @staticmethod
+        def reports():
+            return [{"name": "collection (draw)", "capture_ms": 1.0, "instantiate_ms": 2.0}]
+
+    def stand_in(name, fn):
+        def call(s):
+            calls.append(name)
+            inside[0] = True
+            try:
+                return fn(s)
+            finally:
+                inside[0] = False
+        return call
+
+    def only_inside(fn):
+        return lambda *a, **k: fn(*a, **k) if inside[0] else pytest.fail("the eager path was timed")
+
+    monkeypatch.setattr(type(runner), "eager_reason", property(lambda self: None))
+    runner._train_iter = stand_in("_train_iter", eager_iteration)
+    runner._rollout_graph = stand_in("_rollout_graph", eager_rollout)
+    runner.compiled = Compiled()
+    runner.iteration, runner.rollout = only_inside(eager_iteration), only_inside(eager_rollout)
+    r, _ = bench.time_run(env, runner, state, 1, device="cpu")
+    assert calls == ["_train_iter"] * 2 + ["_rollout_graph"] * 7
+    assert r["path"] == "graphed" and r["graphs"][0]["name"] == "collection (draw)"

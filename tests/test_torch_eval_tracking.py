@@ -82,6 +82,9 @@ class InjectedDraws:
     def step(self, state, actions):
         return self._env.step(state, actions, u=torch.from_numpy(next(self._blocks)).to(self._dtype))
 
+    # track() steps through step_graph, which on the CPU is the eager step
+    step_graph = step
+
 
 @pytest.fixture(scope="module")
 def rows():

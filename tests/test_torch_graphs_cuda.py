@@ -1,0 +1,101 @@
+"""The compiled iteration on the card (``learn/graphs.py``,
+``OnPolicyRunner._train_iter``): GR1T1 at 64 envs, the GR1T1 training
+config otherwise.
+
+- ``_train_iter`` against the eager ``iteration`` with injected noise, u
+  and permutation, over three calls (the first warms up and captures, the
+  next two replay the donated state): the Transition's nine fields, the
+  last values, returns and advantages, the env state, the PPO state and
+  the metrics, bit for bit.
+- A capture that fails raises, and nothing runs eagerly in its place: a
+  host read (``.item()``) planted in the collection makes the capture
+  fail; the call raises, no graph is kept, and the launch counts show only
+  the warm-up's launches.
+
+Needs a CUDA card (a CUDA graph has no CPU mode; on the CPU the graphs'
+bookkeeping is held to the eager path by tests/test_torch_graphs.py).
+Marked ``gpu``; elsewhere each test skips. On the card, from the
+checkout's root:
+
+    python -m pytest --noconftest -m gpu -q tests/test_torch_graphs_cuda.py
+"""
+
+import pytest
+import torch
+
+from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+from wiki_grx_gym_tpu_torch.envs import task_registry
+from wiki_grx_gym_tpu_torch.learn import graphs
+
+pytestmark = pytest.mark.gpu
+
+N = 64
+
+
+@pytest.fixture
+def runner():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and K1-K3 have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = N
+    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cuda")
+    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+    assert runner.eager_reason is None
+    return runner
+
+
+def draws(runner, seed):
+    env, t = runner.env, runner.num_steps_per_env
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((t, N, env.num_actions), generator=g, device="cuda")
+    u = torch.rand((t, N, env._step_u_cols[1]), generator=g, device="cuda")
+    _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, N)
+    return noise, u, torch.randperm(n_blocks, generator=g, device="cuda")[:used]
+
+
+def bits(x):
+    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]) \
+        if x.is_floating_point() else x
+
+
+def assert_same(got, want, what):
+    for (path, x), (_, y) in zip(graphs.leaves(got), graphs.leaves(want)):
+        if torch.is_tensor(x):
+            assert x.dtype == y.dtype and torch.equal(bits(x), bits(y)), f"{what}: {path}"
+        elif isinstance(x, torch.Generator):
+            assert torch.equal(x.get_state(), y.get_state()), f"{what}: {path}"
+
+
+def test_train_iter_equals_iteration_bit_for_bit(runner):
+    s_e, s_g = runner.init_state(), runner.init_state()
+    for it in range(3):
+        noise, u, perm = draws(runner, 100 + it)
+        want = {}
+        s_e, m_e = runner.iteration(s_e, noise=noise, u=u, perm=perm, out=want)
+        s_g, m_g = runner._train_iter(s_g, noise=noise, u=u, perm=perm)
+        assert s_g is runner.compiled.static
+        assert_same({k: runner.compiled.last[k] for k in want}, want, f"call {it}")
+        assert_same(s_g, s_e, f"call {it} state")
+        assert list(m_g) == list(m_e)
+        assert all(torch.equal(bits(m_g[k]), bits(m_e[k])) for k in m_e), it
+    assert runner.compiled.collect["inject"].replays == 2
+
+
+def test_a_failed_capture_raises_and_nothing_runs_instead(runner, monkeypatch):
+    sums = runner._collection_sums
+
+    def reads_the_device(rs, acc):
+        out = sums(rs, acc)
+        out[0].item()   # a host read: refused inside a capture
+        return out
+
+    monkeypatch.setattr(runner, "_collection_sums", reads_the_device)
+    state = runner.init_state()
+    reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        runner._train_iter(state)
+    graph = runner.compiled.collect["draw"]
+    assert graph.graph is None and graph.replays == 0
+    # the warm-up's launches (one collection), no second run of the body
+    assert LAUNCHES["k1"] == runner.num_steps_per_env and LAUNCHES["k3"] == 0

@@ -77,6 +77,9 @@ class Recorder:
                 "ang": out.extras["base_ang_vel"].numpy().copy(), "reset": out.reset.numpy().copy()})
         return new, out
 
+    # eval_tracking steps through step_graph, which on the CPU is the eager step
+    step_graph = step
+
 
 @pytest.fixture(scope="module")
 def checkpoint_root(tmp_path_factory):

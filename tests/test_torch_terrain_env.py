@@ -250,7 +250,6 @@ def test_resets_and_curriculum_match(trajectories):
         np.testing.assert_array_equal(to.extras["time_outs"].numpy(), np.asarray(jo.extras["time_outs"]))
         for k in ("terrain_levels", "terrain_types", "episode_length", "common_step"):
             np.testing.assert_array_equal(getattr(ts, k).numpy(), js[k], err_msg=f"{which} {k} step {t}")
-        assert ts.step_count == int(js["common_step"])
     resets = [np.asarray(jo.reset) for _, jo in jout]
     assert resets[0][0] and resets[1][1]   # the planted timeouts
     if which != "heading":

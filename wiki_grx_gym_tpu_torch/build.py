@@ -9,7 +9,9 @@ builds anew and an unchanged one is reused.
 
 ``LAUNCHES`` holds one count per kernel (``k1`` decimation, ``k2`` PPO
 gradient chain, ``k3`` whole PPO update). Each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else (:func:`count_launch`). Inside the
+capture of a CUDA graph nothing runs: there the launch goes to the capture's
+:class:`LaunchTally`, and each replay of the graph adds the tally.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import re
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -41,6 +44,53 @@ BUILD_INFO: Dict[str, dict] = {}
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class LaunchTally:
+    """The kernel launches that a CUDA graph's capture recorded (``counts``),
+    and what the host must do after each replay (``after_replay``: e.g. K1
+    noting whose constants the replay left in its ``__constant__`` memory).
+    :meth:`replayed` adds the counts to ``LAUNCHES`` once per replay."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(LAUNCHES, 0)
+        self.after_replay = []
+
+    def replayed(self):
+        for k, n in self.counts.items():
+            LAUNCHES[k] += n
+        for fn in self.after_replay:
+            fn()
+
+
+_TALLIES: List[LaunchTally] = []   # the captures under way, innermost last
+
+
+@contextmanager
+def capture_tally():
+    """Collect the launches of the capture inside the block into a new
+    :class:`LaunchTally` (yielded) instead of ``LAUNCHES``."""
+    tally = LaunchTally()
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def current_tally():
+    """The tally of the capture under way, or None."""
+    return _TALLIES[-1] if _TALLIES else None
+
+
+def count_launch(kernel: str):
+    """One launch of ``kernel`` by its wrapper: to ``LAUNCHES``, or inside a
+    capture to the capture's tally."""
+    tally = current_tally()
+    if tally is None:
+        LAUNCHES[kernel] += 1
+    else:
+        tally.counts[kernel] += 1
 
 
 def nvcc() -> str:

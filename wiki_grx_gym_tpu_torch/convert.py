@@ -220,5 +220,4 @@ def env_state_from_numpy(d, device="cpu", generator: torch.Generator = None):
         cmd_lin_vel_x_range=t(d["cmd_lin_vel_x_range"]),
         ground_plane=None if d.get("ground_plane") is None else t(d["ground_plane"]),
         measured_cache=None if d.get("measured_cache") is None else t(d["measured_cache"]),
-        step_count=int(np.asarray(d["common_step"])),
     )

@@ -98,6 +98,7 @@
 // are ternaries on values that are both computed.
 //
 // Interface (plain C, loaded with ctypes): k1_const_size, k1_set_constants,
+// k1_copy_constants (from a device copy; the form a CUDA graph captures),
 // k1_launch (the team kernel), k1_launch_thread (the one-thread kernel),
 // k1_occupancy (the team kernel's shape, shared memory and blocks per SM).
 // One team shape (TEAM_T x TEAM_E) is instantiated per library. A launch
@@ -2025,16 +2026,18 @@ static_assert(team_min_blocks<Sz, TEAM_T, TEAM_E>() >= 1, "no block of this team
 struct TeamSetup {
   cudaError_t err;
   const ModelConst<Sz>* model;  // device address of g_model
+  void* const_model;            // device address of c_model
 };
 
-// Done once: allow the dynamic shared memory above 48 KB, find the
-// constants' device address.
+// Done once, at the first launch (never inside a graph's capture): allow the
+// dynamic shared memory above 48 KB, find the constants' device addresses.
 const TeamSetup& team_setup() {
   static const TeamSetup s = [] {
-    TeamSetup r{cudaSuccess, nullptr};
+    TeamSetup r{cudaSuccess, nullptr, nullptr};
     r.err = cudaFuncSetAttribute(decimation_team_kernel<Sz, TEAM_T, TEAM_E>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, team_smem_bytes<Sz, TEAM_E>());
     if (r.err == cudaSuccess) r.err = cudaGetSymbolAddress((void**)&r.model, g_model);
+    if (r.err == cudaSuccess) r.err = cudaGetSymbolAddress(&r.const_model, c_model);
     return r;
   }();
   return s;
@@ -2057,6 +2060,23 @@ int k1_launch(const float* in, float* out, int n, void* stream) {
       <<<(n + TEAM_E - 1) / TEAM_E, TEAM_T * TEAM_E, team_smem_bytes<Sz, TEAM_E>(), (cudaStream_t)stream>>>(
           s.model, in, out, n);
   return (int)cudaGetLastError();
+}
+
+// The copy of k1_set_constants from a device-resident copy of the struct,
+// ordered on `stream`, with no synchronize and no other runtime call: a CUDA
+// graph captures it as two memcpy nodes, so each replay puts its own
+// constants in place before its launches. The symbols' addresses come from
+// the first launch (team_setup).
+int k1_copy_constants(const void* device_src, int nbytes, void* stream) {
+  using namespace k1;
+  if (nbytes != (int)sizeof(ModelConst<Sz>)) return (int)cudaErrorInvalidValue;
+  const TeamSetup& s = team_setup();
+  if (s.err != cudaSuccess) return (int)s.err;
+  cudaError_t err = cudaMemcpyAsync(s.const_model, device_src, nbytes, cudaMemcpyDeviceToDevice,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyAsync((void*)s.model, device_src, nbytes, cudaMemcpyDeviceToDevice,
+                              (cudaStream_t)stream);
 }
 
 // The one-thread-per-env kernel, kept as the team kernel's bit-for-bit

@@ -24,7 +24,12 @@ without heading commands, and here otherwise (``_post_fold``), as in the
 JAX env; the engine path always runs it here.
 
 State is a dataclass of (N, ...) tensors on the env's device; its ``rng`` is
-a ``torch.Generator`` that ``step`` draws from in place. In a data-parallel
+a ``torch.Generator`` that ``step`` draws from in place. ``step`` reads no
+device value on the host and copies nothing from the host (its constants
+are made once, in ``__init__``; the terrain refresh phase is decided on the
+device from ``common_step``, as JAX's ``lax.cond``), so a CUDA graph can
+capture it: :meth:`LeggedEnv.step_graph` (the counterpart of JAX's
+``step_jit``) replays one such graph per env and batch shape. In a data-parallel
 run the env is one rank's shard of the envs (``shard``), and the command
 curriculum's mean over resetting envs is the one collective of a step (an
 all-reduce of a sum and a count, as JAX's global mean). Outside these paths
@@ -115,9 +120,6 @@ class EnvState:
     # (N, H) measured heights, carried between refreshes when
     # terrain.refresh_interval > 1; None otherwise
     measured_cache: Optional[torch.Tensor] = None
-    # common_step as a host integer: step adds one to both, so the
-    # refresh phase is known without reading the device
-    step_count: int = 0
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -360,10 +362,30 @@ class LeggedEnv:
         self.torque_limits_t = t(self.torque_limits)
         self.height_points_t = t(self.height_points)
         self.feet_offsets_t = t(self.feet_offsets)
+        # the step's small constant vectors: gravity's direction, the heading's
+        # forward axis, the welded frames' quaternions
+        self.down_t = t([0.0, 0.0, -1.0])
+        self.forward_t = t([1.0, 0.0, 0.0])
+        self.frame_qoff_t = {name: t(fr[1]) for name, fr in (("torso", self.torso_frame),
+                                                             ("forehead", self.forehead_frame))
+                             if fr is not None}
+        self._step_graphs = {}   # step_graph's CUDA graphs, per batch shape
+        self._index_cache = {}   # index_t's device index tensors
 
     # ------------------------------------------------------------------
     # build helpers
     # ------------------------------------------------------------------
+
+    def index_t(self, idx) -> torch.Tensor:
+        """A static index sequence (dofs, bodies, contact points) as an int64
+        tensor on the env's device, made at its first use and kept: the
+        step indexes with these, never with a Python list, whose host copy
+        a CUDA graph's capture refuses."""
+        key = tuple(int(i) for i in idx)
+        t = self._index_cache.get(key)
+        if t is None:
+            t = self._index_cache[key] = torch.tensor(key, dtype=torch.long, device=self.device)
+        return t
 
     @staticmethod
     def _match_by_name(table: dict, dof_name: str) -> float:
@@ -635,24 +657,28 @@ class LeggedEnv:
         envs at the default-pose offsets around their new root. With
         ``refresh_interval`` k > 1 the planes are sampled on every k-th
         step (the measured grid's phase) and carried in between, just-reset
-        envs getting a flat plane at their spawn origin's height; the phase
-        is read from ``state.step_count`` (already counted for this step),
-        so no device value is read."""
+        envs getting a flat plane at their spawn origin's height. The phase
+        is decided on the device from ``state.common_step`` (already counted
+        for this step), as JAX's ``lax.cond`` does: both branches are
+        computed and ``torch.where`` keeps one, so no device value is read
+        and a CUDA graph does not bake the phase in."""
         if self.terrain is None or self.backend == "engine":
             return state
-        k = self.refresh_interval
-        if not (force or k <= 1 or state.ground_plane is None or (state.step_count - 1) % k == 0):
-            flat = torch.zeros_like(state.ground_plane[:, :1])
-            flat[:, 0, 0] = state.env_origins[:, 2]
-            planes = torch.where(reset_mask[:, None, None], flat, state.ground_plane)
-            return state.replace(ground_plane=planes)
         phys = state.physics
         n, p = self.num_envs, self.model.num_points
         pp = phys.base_pos[:, None, :] + maths.quat_apply(
             phys.base_quat[:, None, :].expand(n, p, 4), self._default_point_rel.expand(n, p, 3))
         if point_pos is not None:
             pp = torch.where(reset_mask[:, None, None], pp, point_pos)
-        return state.replace(ground_plane=self._sample_point_planes(pp, phys.base_pos[:, :2]))
+        planes = self._sample_point_planes(pp, phys.base_pos[:, :2])
+        k = self.refresh_interval
+        if force or k <= 1 or state.ground_plane is None:
+            return state.replace(ground_plane=planes)
+        flat = torch.zeros_like(state.ground_plane[:, :1])
+        flat[:, 0, 0] = state.env_origins[:, 2]
+        carried = torch.where(reset_mask[:, None, None], flat, state.ground_plane)
+        refresh = (state.common_step - 1) % k == 0
+        return state.replace(ground_plane=torch.where(refresh, planes, carried))
 
     def _measured_heights(self, phys, base_quat) -> torch.Tensor:
         """(N, H) terrain heights at the yaw-rotated measurement grid around
@@ -904,29 +930,27 @@ class LeggedEnv:
             if post_kin is None:
                 kin = forward_kinematics(self.model, phys.base_quat, phys.base_ang_vel,
                                          phys.base_lin_vel, phys.q, phys.qd)
-                fb = list(self.feet_bodies)
+                fb = self.index_t(self.feet_bodies)
                 feet_rel, feet_quat = kin.pos_rel[:, fb], kin.quat[:, fb]
                 frame_quat = lambda body: kin.quat[:, body]
             else:
                 post_rel, post_quat = post_kin
-                slots = [self._post_slot[b] for b in self.feet_bodies]
+                slots = self.index_t([self._post_slot[b] for b in self.feet_bodies])
                 feet_rel, feet_quat = post_rel[:, slots], post_quat[:, slots]
                 frame_quat = lambda body: post_quat[:, self._post_slot[body]]
 
             base_quat = phys.base_quat
             base_lin_vel = maths.quat_rotate_inverse(base_quat, phys.base_lin_vel)
             base_ang_vel = maths.quat_rotate_inverse(base_quat, phys.base_ang_vel)
-            down = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(n, 3)
-            projected_gravity = maths.quat_rotate_inverse(base_quat, down)
+            projected_gravity = maths.quat_rotate_inverse(base_quat, self.down_t.expand(n, 3))
 
             # measured terrain heights around the base: every step, or on
-            # every k-th step with the cache carried between (the phase from
-            # the host's step count, equal to state.common_step)
-            if (self.terrain is not None and self.refresh_interval > 1
-                    and state.step_count % self.refresh_interval != 0):
-                measured_heights = state.measured_cache
-            else:
-                measured_heights = self._measured_heights(phys, base_quat)
+            # every k-th step with the cache carried between (the phase
+            # decided on the device, as JAX's lax.cond on common_step)
+            measured_heights = self._measured_heights(phys, base_quat)
+            if self.terrain is not None and self.refresh_interval > 1:
+                measured_heights = torch.where(state.common_step % self.refresh_interval == 0,
+                                               measured_heights, state.measured_cache)
             mean_heights = torch.mean(measured_heights, dim=1)
             rel_h = torch.clamp(phys.base_pos[:, 2:3] - target_h - measured_heights, -1.0, 1.0) * hscale
             base_heights_offset = torch.mean(rel_h, dim=1)
@@ -975,9 +999,9 @@ class LeggedEnv:
                 base_heights_offset=base_heights_offset,
                 base_height=phys.base_pos[:, 2] - mean_heights,
                 torso_projected_gravity=self._frame_projected_gravity(
-                    self.torso_frame, frame_quat, n, projected_gravity),
+                    "torso", self.torso_frame, frame_quat, n, projected_gravity),
                 forehead_projected_gravity=self._frame_projected_gravity(
-                    self.forehead_frame, frame_quat, n, projected_gravity),
+                    "forehead", self.forehead_frame, frame_quat, n, projected_gravity),
                 dof_pos=phys.q,
                 dof_vel=phys.qd,
                 dof_acc=dof_acc,
@@ -1053,7 +1077,6 @@ class LeggedEnv:
             physics=phys,
             episode_length=episode_length,
             common_step=common_step,
-            step_count=state.step_count + 1,
             commands=commands,
             actions=actions,
             torques=torques,
@@ -1087,55 +1110,83 @@ class LeggedEnv:
         )
         return state, StepOutput(obs=obs, pri_obs=pri_obs, rew=rew_buf, reset=reset_buf, extras=extras)
 
+    @property
+    def step_graph_reason(self) -> Optional[str]:
+        """None where :meth:`step_graph` replays a CUDA graph, else why it
+        runs :meth:`step`: a CUDA device, K1 as the physics backend and no
+        data parallelism (the command curriculum's all-reduce) are needed."""
+        if self.device.type != "cuda":
+            return f"device {self.device}"
+        if self.backend != "kernel":
+            return f"the physics backend is {self.backend!r}, not K1"
+        if self.dp is not None:
+            return "data parallelism"
+        return None
+
+    def step_graph(self, state: EnvState, actions: torch.Tensor) -> Tuple[EnvState, StepOutput]:
+        """One policy step as a CUDA graph (the counterpart of JAX's
+        ``step_jit``): one graph per env and batch shape, made at its first
+        call (``learn/graphs.StepGraph``: that call runs the step eagerly as
+        the capture's warm-up, then captures it); each call copies ``state``
+        (where it is not the graph's static state itself) and ``actions``
+        in, replays, and returns (the static state, which the next call
+        overwrites in place, and the step's outputs, likewise). Where
+        :attr:`step_graph_reason` is not None it is :meth:`step`."""
+        if self.step_graph_reason is not None:
+            return self.step(state, actions)
+        key = (tuple(actions.shape), actions.dtype)
+        graph = self._step_graphs.get(key)
+        if graph is None:
+            from wiki_grx_gym_tpu_torch.learn.graphs import StepGraph
+
+            graph = self._step_graphs[key] = StepGraph(self, state, actions)
+        return graph(state, actions)
+
     # ------------------------------------------------------------------
     # helpers used by step
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _group_forces(point_force: torch.Tensor, groups) -> torch.Tensor:
+    def _group_forces(self, point_force: torch.Tensor, groups) -> torch.Tensor:
         """(N, P, 3) point forces -> (N, G, 3) per-group sums."""
         cols = []
         for g in groups:
             if len(g) == 1:
                 cols.append(point_force[:, g[0]])
             else:
-                cols.append(torch.sum(point_force[:, list(g)], dim=1))
+                cols.append(torch.sum(point_force[:, self.index_t(g)], dim=1))
         if not cols:
             return point_force.new_zeros((point_force.shape[0], 0, 3))
         return torch.stack(cols, dim=1)
 
-    def _frame_projected_gravity(self, frame, frame_quat, n, fallback):
-        """Projected gravity in a named (possibly welded) link frame;
-        ``frame_quat`` maps a body index to its (N, 4) quaternion."""
+    def _frame_projected_gravity(self, name, frame, frame_quat, n, fallback):
+        """Projected gravity in the named (possibly welded) link frame
+        (``name``: "torso" or "forehead"); ``frame_quat`` maps a body index
+        to its (N, 4) quaternion."""
         if frame is None:
             return fallback
-        body, quat_off = frame
-        bq = frame_quat(body)
-        link_quat = maths.quat_mul(bq, torch.as_tensor(quat_off, dtype=bq.dtype, device=self.device).expand(n, 4))
-        down = torch.tensor([0.0, 0.0, -1.0], dtype=bq.dtype, device=self.device).expand(n, 3)
-        return maths.quat_rotate_inverse(link_quat, down)
+        bq = frame_quat(frame[0])
+        link_quat = maths.quat_mul(bq, self.frame_qoff_t[name].to(bq.dtype).expand(n, 4))
+        return maths.quat_rotate_inverse(link_quat, self.down_t.to(bq.dtype).expand(n, 3))
 
     def _apply_heading_command(self, commands, base_quat, n):
         """Heading mode (legged_robot.py:321-326): the yaw command from the
         heading error of the base's forward vector."""
         if not self.cfg.commands.heading_command:
             return commands
-        fwd = maths.quat_apply(base_quat, torch.tensor([1.0, 0.0, 0.0], dtype=base_quat.dtype,
-                                                       device=self.device).expand(n, 3))
+        fwd = maths.quat_apply(base_quat, self.forward_t.to(base_quat.dtype).expand(n, 3))
         heading = torch.atan2(fwd[:, 1], fwd[:, 0])
         r = self.cfg.commands.ranges.ang_vel_yaw
         yaw_cmd = torch.clamp(0.5 * maths.wrap_to_pi(commands[:, 3] - heading), r[0], r[1])
         return torch.cat([commands[:, :2], yaw_cmd[:, None], commands[:, 3:]], dim=1)
 
-    def _sample_commands(self, u3, n, x_range=None):
+    def _sample_commands(self, u3, n, x_range):
         """Uniform command resampling from a (n, 3) U[0,1) block; small
-        commands snap to zero. ``x_range`` carries command-curriculum state.
-        In heading mode the 4th channel is the heading target and the yaw
-        command is set each step from the heading error."""
+        commands snap to zero. ``x_range``: the (2,) lin_vel_x range, the
+        command curriculum's state. In heading mode the 4th channel is the
+        heading target and the yaw command is set each step from the
+        heading error."""
         c = self.cfg.commands
         r = c.ranges
-        if x_range is None:
-            x_range = torch.tensor(r.lin_vel_x, dtype=torch.float32, device=self.device)
         cx = x_range[0] + u3[:, 0] * (x_range[1] - x_range[0])
         cy = r.lin_vel_y[0] + u3[:, 1] * (r.lin_vel_y[1] - r.lin_vel_y[0])
         if c.heading_command:
@@ -1273,8 +1324,7 @@ class LeggedEnv:
         phys = state.physics
         blv2 = maths.quat_rotate_inverse(phys.base_quat, phys.base_lin_vel)
         bav2 = maths.quat_rotate_inverse(phys.base_quat, phys.base_ang_vel)
-        g = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(n, 3)
-        pg2 = maths.quat_rotate_inverse(phys.base_quat, g)
+        pg2 = maths.quat_rotate_inverse(phys.base_quat, self.down_t.expand(n, 3))
         r1 = reset_buf[:, None]
         blv = torch.where(r1, blv2, blv)
         bav = torch.where(r1, bav2, bav)

@@ -147,7 +147,7 @@ def action_diff_diff(env, ctx):
 
 
 def action_diff_knee(env, ctx):
-    idx = list(env.knee_dofs)
+    idx = env.index_t(env.knee_dofs)
     err = (ctx.actions[:, idx] - ctx.last_actions[:, idx]) * env.cfg.control.action_scale
     err = torch.sum(torch.abs(err), dim=1)
     return 1.0 - torch.exp(env.cfg.rewards.sigma_action_diff_knee * err)
@@ -159,7 +159,7 @@ def dof_vel_new(env, ctx):
 
 
 def dof_vel_new_knee(env, ctx):
-    idx = list(env.knee_dofs)
+    idx = env.index_t(env.knee_dofs)
     err = torch.sum(torch.abs(ctx.dof_vel[:, idx]), dim=1)
     return 1.0 - torch.exp(env.cfg.rewards.sigma_dof_vel_new_knee * err)
 
@@ -175,7 +175,7 @@ def dof_tor_new(env, ctx):
 
 
 def dof_tor_new_hip_roll(env, ctx):
-    idx = list(env.hip_roll_dofs)
+    idx = env.index_t(env.hip_roll_dofs)
     err = torch.sum(torch.abs(ctx.torques[:, idx]), dim=1)
     return 1.0 - torch.exp(env.cfg.rewards.sigma_dof_tor_new_hip_roll * err)
 
@@ -186,7 +186,7 @@ def pose_offset(env, ctx):
 
 
 def pose_offset_hip_yaw(env, ctx):
-    idx = list(env.hip_yaw_dofs)
+    idx = env.index_t(env.hip_yaw_dofs)
     err = torch.sum(torch.abs(ctx.dof_pos[:, idx] - env.default_dof_pos_t[idx]), dim=1)
     return 1.0 - torch.exp(env.cfg.rewards.sigma_pose_offset_hip_yaw * err)
 
@@ -227,8 +227,8 @@ def dof_tor_ankle_feet_lift_up(env, ctx):
     target = env.cfg.rewards.swing_feet_height_target
     ankles = env.ankle_dofs
     half = len(ankles) // 2
-    left = list(ankles[:half])
-    right = list(ankles[half:])
+    left = env.index_t(ankles[:half])
+    right = env.index_t(ankles[half:])
     lh, rh = ctx.feet_height[:, 0], ctx.feet_height[:, 1]
     err_l = (
         torch.sum(torch.abs(ctx.torques[:, left]), dim=1) * torch.abs(lh) * (lh > target / 2)

@@ -48,6 +48,14 @@ checks on the card.
 ``LAUNCHES["k2"]`` counts K2 gradient chains (one per grad step, in ``grads``
 and inside ``update_scan``: a replay adds its steps), ``LAUNCHES["k3"]``
 counts whole updates (graph replays).
+
+The compiled iteration (``learn/graphs.py``) runs the same update graph over
+a donated state: :meth:`FusedPPOGrad.donated_update` makes a context whose
+p, m and v are the caller's static tensors (updated in place, no copies),
+whose inputs the caller stages inside its own graph
+(:meth:`_UpdateGraph.stage_inputs`), and whose capture ends with the
+caller's epilogue (the count, the learning rate and the metrics written into
+the static state).
 """
 
 from __future__ import annotations
@@ -834,7 +842,7 @@ class FusedPPOGrad:
         with torch.cuda.device(dev):
             err = lib.k2_step(ctypes.addressof(args), int(mb_index), stream)
         _check(err, "K2 launch")
-        LAUNCHES["k2"] += 1
+        _build.count_launch("k2")
 
     def grads(self, p, bufs, mb_index: int):
         """Gradient of ``PPO._minibatch_loss`` for minibatch ``mb_index``.
@@ -919,6 +927,18 @@ class FusedPPOGrad:
             self._graphs[key] = _UpdateGraph(self, dev, bufs)
         return self._graphs[key]
 
+    def donated_update(self, dev, bufs, p, m, v):
+        """A context (not cached) for updates that read and write the flat
+        float32 ``p``, ``m`` and ``v`` in place (a donated state): the caller
+        stages each update's inputs (:meth:`_UpdateGraph.stage_inputs`),
+        captures once (:meth:`_UpdateGraph.capture`, with its epilogue) and
+        replays (:meth:`_UpdateGraph.replay`)."""
+        for name, x in (("p", p), ("m", m), ("v", v)):
+            if x.dtype != torch.float32 or x.shape != (self.net.num_params,) or x.device != p.device \
+                    or x.device.type != "cuda" or not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous float32 ({self.net.num_params},) on p's CUDA device")
+        return _UpdateGraph(self, dev, bufs, state=(p, m, v))
+
     def update_scan(self, p, m, v, count, lr, bufs):
         """The whole PPO update. ``p``, ``m``, ``v``: flat float32 params and
         Adam moments; ``count``: the Adam step count (int32 0-d tensor);
@@ -945,9 +965,7 @@ class FusedPPOGrad:
             if ctx.graph is None:
                 ctx.capture(self)
             ctx.stage(self, p, m, v, count, lr, bufs)
-            ctx.graph.replay()
-        LAUNCHES["k2"] += ctx.steps
-        LAUNCHES["k3"] += 1
+            ctx.replay()
         return ctx.results()
 
 
@@ -960,14 +978,18 @@ class _UpdateGraph:
     addresses in, so the context keeps every one of them alive as long as
     the graph. :meth:`stage` copies an update's inputs in; the graph, steps
     x (K2's chain on minibatch s % MB, K3's fused step s), is captured at the
-    first :meth:`capture` (no tensor is allocated during the capture) and
-    replayed per update."""
+    first :meth:`capture` (no tensor is allocated during the capture but by
+    its epilogue) and replayed per update (:meth:`replay`, which adds its
+    launches: K2 ``steps``, K3 1). ``state``: the (p, m, v) to update in
+    place (a donated state); default the context's own."""
 
-    def __init__(self, fused, dev, bufs):
+    def __init__(self, fused, dev, bufs, state=None):
         self.dev = dev
         self.steps = fused.num_epochs * fused.num_mini_batches
         n = fused.net.num_params
-        self.p, self.m, self.v = (torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3))
+        if state is None:
+            state = (torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3))
+        self.p, self.m, self.v = state
         ops = fused._k2_operands(bufs, dev)
         ops["fscal"] = ops["fscal"].clone(memory_format=torch.contiguous_format)
         self.ops = ops
@@ -982,16 +1004,24 @@ class _UpdateGraph:
         self.p.copy_(p)
         self.m.copy_(m)
         self.v.copy_(v)
+        self.stage_inputs(fused, count, lr, bufs)
+
+    def stage_inputs(self, fused, count, lr, bufs):
+        """Copy one update's count, learning rate and minibatch buffers into
+        the context (on the current stream; p, m and v are read where they
+        lie)."""
         self.keep["count0"].copy_(count.reshape(1))
         state = self.keep["state"]
         state.zero_()
         state[:1].copy_(lr.reshape(1))
         fused._k2_operands(bufs, self.dev, out=self.ops)
 
-    def capture(self, fused):
+    def capture(self, fused, epilogue=None):
         """Capture the update of ``fused`` into a CUDA graph and
         instantiate it; raises if any launch, the capture or the
-        instantiation fails. Nothing runs on the card."""
+        instantiation fails. Nothing runs on the card. ``epilogue``: a
+        callable captured after the last step (its kernels must have run
+        once before)."""
         lib2, lib3 = _lib("k2"), _lib("k3")
         a2, a3 = ctypes.addressof(self.args2), ctypes.addressof(self.args3)
         mb = fused.num_mini_batches
@@ -1005,6 +1035,8 @@ class _UpdateGraph:
             for s in range(self.steps):
                 _check(lib2.k2_step(a2, s % mb, stream), f"K2 launch (capture, step {s})")
                 _check(lib3.k3_step(a3, s, stream), f"K3 step (capture, step {s})")
+            if epilogue is not None:
+                epilogue()
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()
@@ -1012,11 +1044,23 @@ class _UpdateGraph:
         self.nodes = graph_kernel_nodes(graph)
         self.graph = graph
 
+    def replay(self):
+        """One update: replay the graph (on the current stream) and count
+        its launches."""
+        self.graph.replay()
+        LAUNCHES["k2"] += self.steps
+        LAUNCHES["k3"] += 1
+
+    def outputs(self):
+        """(lr_final, metric means) of the last replay: a view of the LR
+        slot and new tensors of the means."""
+        s = self.steps
+        out = self.keep["state"][(s & 1) * 8:(s & 1) * 8 + 4]
+        return out[0], {"value_loss": out[1] / s, "surrogate_loss": out[2] / s, "kl": out[3] / s}
+
     def results(self):
         """(p', m', v', lr_final, metric means) of the last replay, as new
         tensors (the next replay overwrites the context)."""
-        s = self.steps
-        out = self.keep["state"][(s & 1) * 8:(s & 1) * 8 + 4]
-        lr_final = out[0].clone()
-        metrics = {"value_loss": out[1] / s, "surrogate_loss": out[2] / s, "kl": out[3] / s, "lr": lr_final}
-        return self.p.clone(), self.m.clone(), self.v.clone(), lr_final, metrics
+        lr, metrics = self.outputs()
+        lr_final = lr.clone()
+        return self.p.clone(), self.m.clone(), self.v.clone(), lr_final, dict(metrics, lr=lr_final)

@@ -1,0 +1,442 @@
+"""CUDA graphs over static, donated buffers: the port's counterpart of JAX's
+``jax.jit`` with buffer donation.
+
+The JAX package compiles three things once and then calls them: the
+training iteration (``wiki_grx_gym_tpu/learn/runner.py:134``,
+``jax.jit(self._iteration, donate_argnums=(0,))``: the whole iteration is
+one call, and the state's buffers are reused for the new state), the env
+step (``envs/legged_env.py:1503``, ``step_jit``, which play steps through)
+and the bench's rollout (root ``bench.py:124``, ``rollout_jit``). Here each
+is a ``torch.cuda.CUDAGraph``:
+
+- **The static state** (:func:`make_static`): a copy of every tensor of a
+  state tree (``RunnerState``, ``EnvState``, ``PPOState`` and what they
+  hold), made once; its generators are the state's own. :func:`copy_in`
+  copies a state into it leaf by leaf, skipping the leaves that are the
+  static ones themselves, so the state a call returned goes back in for
+  free; a static generator takes the seed and offset of another generator
+  given in its place.
+- **A graph** (:class:`Graph`) of one body ``() -> (new state, outputs)``
+  over the static state. Its first call runs the body eagerly on a side
+  stream: the warm-up that a capture needs (every kernel loaded, every
+  cache of the port filled) and that call's real result, its kernel
+  launches counted as any eager call's. Then the capture: the state's
+  generators registered with the graph (``register_generator_state``: each
+  replay draws from, and advances, their current seed and offset), the
+  kernel wrappers' launches collected in a ``build.LaunchTally``, the body,
+  and the copy of the new state into the static state (the donation); then
+  ``instantiate``. Every later call is one replay, which adds the tally to
+  ``build.LAUNCHES``. A failed warm-up, capture, instantiation or replay
+  raises; nothing runs the body eagerly instead.
+- **The iteration** (:class:`CompiledIteration`, ``OnPolicyRunner._train_iter``):
+  two replays over one static ``RunnerState``. (A) the collection: T x (act
+  -> ``env.step`` -> store), the last values, GAE, the block permutation,
+  the packed shuffle and K3's staging of the update's inputs; the new env
+  state and observations are donated into the static state, the metrics'
+  sums into a static vector. (B) K3's update graph
+  (``FusedPPOGrad.donated_update``) over the static ``PPOState``: p, m and v
+  in place, then the Adam count, the learning rate and the metrics. CUDA
+  events between them time the two; one synchronize ends the iteration. A
+  has one graph per source of draws: the generators (``learn``), or noise,
+  u and a permutation copied into static buffers (the checks).
+- **The env step** (:class:`StepGraph`, ``LeggedEnv.step_graph``) and the
+  bench's rollout (:meth:`CompiledIteration.rollout`, not donated: each
+  replay starts from the static state, as ``rollout_jit`` from its input).
+
+This module imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List
+
+import torch
+
+from wiki_grx_gym_tpu_torch import build as _build
+
+
+# ---------------------------------------------------------------------------
+# state trees: dataclasses, named tuples, tuples, dicts of tensors,
+# generators and None
+# ---------------------------------------------------------------------------
+
+
+def _children(x):
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+    if isinstance(x, tuple):
+        names = getattr(x, "_fields", None) or [str(i) for i in range(len(x))]
+        return list(zip(names, x))
+    if isinstance(x, dict):
+        return [(str(k), v) for k, v in x.items()]
+    return None
+
+
+def leaves(tree, prefix: str = ""):
+    """``[(path, leaf)]`` of a state tree in a fixed order: every tensor,
+    generator and None (and any other leaf) with its dotted path."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for name, child in kids:
+        out += leaves(child, f"{prefix}.{name}" if prefix else name)
+    return out
+
+
+def map_tensors(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor leaf (the rest kept)."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: map_tensors(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple):
+        vals = [map_tensors(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def generators(tree) -> List[torch.Generator]:
+    """The distinct generators of a state tree, in leaf order."""
+    out = []
+    for _, x in leaves(tree):
+        if isinstance(x, torch.Generator) and all(x is not g for g in out):
+            out.append(x)
+    return out
+
+
+def make_static(tree):
+    """The static copy of a state tree: each tensor cloned into a fresh
+    contiguous buffer; generators, None and the rest kept as they are."""
+    return map_tensors(lambda t: t.clone(memory_format=torch.contiguous_format), tree)
+
+
+def _pairs(static, tree, what: str):
+    a, b = leaves(static), leaves(tree)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise ValueError(f"{what}: the state's fields {[p for p, _ in b]} are not the static state's "
+                         f"{[p for p, _ in a]}")
+    return [(p, s, x) for (p, s), (_, x) in zip(a, b)]
+
+
+def _check_leaf(path, dst, src, what):
+    if dst is None or src is None:
+        if dst is not src:
+            raise ValueError(f"{what}: {path} is {type(src).__name__}, the static state's "
+                             f"{type(dst).__name__}")
+        return False
+    if torch.is_tensor(dst):
+        if not torch.is_tensor(src) or src.shape != dst.shape or src.dtype != dst.dtype \
+                or src.device != dst.device:
+            desc = (f"{src.dtype} {tuple(src.shape)} on {src.device}" if torch.is_tensor(src)
+                    else type(src).__name__)
+            raise ValueError(f"{what}: {path} is {desc}, the static buffer "
+                             f"{dst.dtype} {tuple(dst.shape)} on {dst.device}")
+        return src is not dst
+    if isinstance(dst, torch.Generator):
+        if not isinstance(src, torch.Generator) or src.device != dst.device:
+            raise ValueError(f"{what}: {path} is not a generator on {dst.device}")
+        return src is not dst
+    if src != dst:
+        raise ValueError(f"{what}: {path} is {src!r}, the static state's {dst!r}")
+    return False
+
+
+def copy_in(static, tree):
+    """Copy ``tree`` into the static state: each tensor leaf that is not the
+    static buffer itself (same shape, type and device, else ValueError),
+    and each generator that is not the static one (its seed and offset)."""
+    for path, dst, src in _pairs(static, tree, "copy_in"):
+        if _check_leaf(path, dst, src, "copy_in"):
+            if torch.is_tensor(dst):
+                dst.copy_(src)
+            else:
+                dst.set_state(src.get_state())
+
+
+def donate(static, new):
+    """Copy the new state ``new`` (a body's result) into the static state,
+    as donation reuses the input's buffers: each tensor leaf that is not the
+    static buffer itself. A generator must be the static one (the body
+    draws from it in place), and no new leaf may share memory with another
+    static buffer (it could be overwritten before it is read)."""
+    pairs = _pairs(static, new, "donate")
+    storages = {}
+    for path, dst, _ in pairs:
+        if torch.is_tensor(dst):
+            storages[dst.untyped_storage().data_ptr()] = path
+    for path, dst, src in pairs:
+        if isinstance(dst, torch.Generator) and src is not dst:
+            raise ValueError(f"donate: {path} is another generator than the static state's")
+        if _check_leaf(path, dst, src, "donate"):
+            other = storages.get(src.untyped_storage().data_ptr())
+            if other is not None:
+                raise ValueError(f"donate: the new {path} shares memory with the static {other}")
+    for path, dst, src in pairs:
+        if torch.is_tensor(dst) and src is not dst:
+            dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# one graph
+# ---------------------------------------------------------------------------
+
+
+class Graph:
+    """A CUDA graph of ``body`` over the static state ``static``: the first
+    call warms up (eagerly, on a side stream, donating) and captures, every
+    later call replays. ``body() -> (new state or None, outputs)``; with
+    ``donate`` the new state is copied into ``static`` at the end of each
+    run. ``count_nodes``: optional ``fn(CUDAGraph) -> dict`` recording the
+    captured graph's size. Records ``warmup_ms``, ``capture_ms``,
+    ``instantiate_ms``, ``replays``, the warm-up's kernel launches and the
+    capture's tally."""
+
+    def __init__(self, name: str, body, static, donate: bool = True, count_nodes=None):
+        self.name, self.body, self.static, self.donate = name, body, static, donate
+        self.generators = generators(static)
+        self.count_nodes = count_nodes
+        self.graph = None
+        self.outputs = None
+        self.tally = None
+        self.nodes = None
+        self.replays = 0
+        self.warmup_ms = self.capture_ms = self.instantiate_ms = None
+        self.warmup_launches = None
+
+    def _run(self):
+        new, out = self.body()
+        if self.donate:
+            donate(self.static, new)
+        return out
+
+    def __call__(self):
+        if self.graph is None:
+            out = self._warm_up()
+            self._capture()
+            return out
+        self.graph.replay()
+        self.tally.replayed()
+        self.replays += 1
+        return self.outputs
+
+    def _warm_up(self):
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            out = self._run()
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        self.warmup_ms = 1e3 * (time.perf_counter() - t0)
+        self.warmup_launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        return out
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if self.generators and not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(f"torch {torch.__version__} cannot register a generator with a CUDA graph "
+                               "(CUDAGraph.register_generator_state): the graph would replay the same draws")
+        for g in self.generators:
+            graph.register_generator_state(g)
+        with _build.capture_tally() as tally:
+            with torch.cuda.graph(graph):
+                t0 = time.perf_counter()
+                out = self._run()
+                t1 = time.perf_counter()
+        graph.instantiate()
+        self.instantiate_ms = 1e3 * (time.perf_counter() - t1)
+        self.capture_ms = 1e3 * (t1 - t0)
+        self.graph, self.tally, self.outputs = graph, tally, out
+        if self.count_nodes is not None:
+            self.nodes = self.count_nodes(graph)
+
+    def report(self) -> dict:
+        """What the graph cost to make and what it holds."""
+        return {"name": self.name, "warmup_ms": self.warmup_ms, "capture_ms": self.capture_ms,
+                "instantiate_ms": self.instantiate_ms, "replays": self.replays,
+                "warmup_launches": self.warmup_launches,
+                "launches_per_replay": None if self.tally is None else dict(self.tally.counts),
+                "nodes": self.nodes}
+
+
+def _kernel_nodes(graph):
+    from wiki_grx_gym_tpu_torch.learn.fused_update import graph_kernel_nodes
+
+    return graph_kernel_nodes(graph)
+
+
+# ---------------------------------------------------------------------------
+# the training iteration
+# ---------------------------------------------------------------------------
+
+
+class CompiledIteration:
+    """``OnPolicyRunner._train_iter``'s graphs and static state (the module
+    docstring's "the iteration"). Made from the first state it is given;
+    ``runner.eager_reason`` must be None (the runner checks)."""
+
+    def __init__(self, runner, state):
+        self.runner = runner
+        self.static = make_static(state)
+        env = runner.env
+        dev = runner.device
+        self.sums = torch.zeros(4 + len(env.all_reward_names), device=dev)   # the metrics' sums (A)
+        self.collect: Dict[str, Graph] = {}   # "draw" / "inject" -> graph A
+        self.update = None   # K3's donated update context (graph B), made in A's warm-up
+        self.fused = None
+        self.inject = None   # the injected noise, u and perm (static buffers)
+        self.metric_keys = None
+        self.metrics = None  # B's (K,) metrics vector
+        self.last = None     # the last call's collection outputs
+        self._rollout = None
+
+    def reports(self) -> List[dict]:
+        out = [g.report() for g in self.collect.values()]
+        if self.update is not None and self.update.graph is not None:
+            out.append({"name": "update (K3, donated)", "capture_ms": self.update.capture_ms,
+                        "instantiate_ms": self.update.instantiate_ms, "nodes": self.update.nodes})
+        if self._rollout is not None:
+            out.append(self._rollout.report())
+        return out
+
+    # -- graph A ---------------------------------------------------------------
+
+    def _collection_body(self, mode):
+        runner, alg, s = self.runner, self.runner.alg, self.static
+
+        def body():
+            inj = self.inject if mode == "inject" else {}
+            with torch.no_grad():
+                rs, batch, acc, last_values, returns, adv = runner._collect(
+                    s, noise=inj.get("noise"), u=inj.get("u"))
+                shuf_w, shuf_f, rows = alg.prepare_update(batch, returns, adv, generator=s.rng,
+                                                          perm=inj.get("perm"))
+                fused = alg._get_fused(rows)
+                bufs = fused.split_buffers(shuf_w, shuf_f, batch.obs.shape[-1])
+                if self.update is None:   # the warm-up: K3's context over the static PPOState
+                    p = s.ppo
+                    self.fused = fused
+                    self.update = fused.donated_update(p.params.device, bufs, p.params, p.m, p.v)
+                if fused is not self.fused:
+                    raise RuntimeError("the update's geometry changed between the collection's calls")
+                self.update.stage_inputs(fused, s.ppo.count, s.ppo.learning_rate, bufs)
+                self.sums.copy_(runner._collection_sums(rs, acc))
+            out = {"batch": batch, "acc": acc, "last_values": last_values, "returns": returns,
+                   "advantages": adv}
+            return rs.replace(ppo=s.ppo, hidden=s.hidden), out
+
+        return body
+
+    def _collection(self, mode) -> Graph:
+        if mode not in self.collect:
+            self.collect[mode] = Graph(f"collection ({mode})", self._collection_body(mode), self.static,
+                                       count_nodes=_kernel_nodes)
+        return self.collect[mode]
+
+    # -- graph B ---------------------------------------------------------------
+
+    def _epilogue(self, donate: bool):
+        """After K3's last step: the metrics vector and, with ``donate``, the
+        new Adam count and learning rate written into the static PPOState."""
+        runner, p = self.runner, self.static.ppo
+        lr, upd = self.update.outputs()
+        metrics = runner._metrics(self.sums, self.static.env_state, dict(upd, lr=lr))
+        self.metric_keys = list(metrics)
+        self.metrics = torch.stack(list(metrics.values()))
+        if donate:
+            p.count.add_(self.update.steps)
+            p.learning_rate.copy_(lr)
+
+    def _capture_update(self):
+        with torch.no_grad():
+            self._epilogue(donate=False)   # its kernels run once before the capture
+            self.update.capture(self.fused, epilogue=lambda: self._epilogue(donate=True))
+
+    # -- the calls ---------------------------------------------------------------
+
+    def _stage_draws(self, noise, u, perm):
+        given = [x is not None for x in (noise, u, perm)]
+        if not any(given):
+            return "draw"
+        if not all(given):
+            raise ValueError("inject noise, u and perm together, or none of them")
+        dev = self.runner.device
+        if self.inject is None:
+            self.inject = {k: torch.empty(x.shape, dtype=dtype, device=dev)
+                           for k, x, dtype in (("noise", noise, torch.float32), ("u", u, torch.float32),
+                                               ("perm", perm, torch.long))}
+        for k, x in (("noise", noise), ("u", u), ("perm", perm)):
+            x = x if torch.is_tensor(x) else torch.as_tensor(x)
+            if x.shape != self.inject[k].shape:
+                raise ValueError(f"{k} is {tuple(x.shape)}, the graph's {tuple(self.inject[k].shape)}")
+            self.inject[k].copy_(x)
+        return "inject"
+
+    def __call__(self, state, noise=None, u=None, perm=None):
+        runner, s = self.runner, self.static
+        copy_in(s, state)
+        runner.net.bind(s.ppo.params)
+        mode = self._stage_draws(noise, u, perm)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        self.last = self._collection(mode)()
+        ev[1].record()
+        if self.update.graph is None:
+            self._capture_update()
+        self.update.replay()
+        ev[2].record()
+        ev[2].synchronize()
+        runner.last_timing = {"collection_s": ev[0].elapsed_time(ev[1]) / 1e3,
+                              "update_s": ev[1].elapsed_time(ev[2]) / 1e3}
+        return s, {k: self.metrics[i] for i, k in enumerate(self.metric_keys)}
+
+    def rollout(self, state):
+        """The rollout alone as a graph over the static state, not donated:
+        each replay starts from the static state (the generators advance).
+        Returns (new state, Transition, acc) as ``runner.rollout``."""
+        copy_in(self.static, state)
+        self.runner.net.bind(self.static.ppo.params)
+        if self._rollout is None:
+            body = lambda: (None, self.runner.rollout(self.static))
+            self._rollout = Graph("rollout", body, self.static, donate=False)
+        return self._rollout()
+
+
+# ---------------------------------------------------------------------------
+# the env step
+# ---------------------------------------------------------------------------
+
+
+class StepGraph:
+    """``LeggedEnv.step_graph``'s graph for one batch shape: the env's step
+    over a static ``EnvState`` and static actions, the new state donated
+    into the static one. A call copies its state (the leaves that are not
+    the static ones) and actions in, replays and returns (the static state,
+    the step's outputs)."""
+
+    def __init__(self, env, state, actions):
+        self.static = make_static(state)
+        self.actions = actions.clone(memory_format=torch.contiguous_format)
+
+        def body():
+            with torch.no_grad():
+                return env.step(self.static, self.actions)
+
+        self.graph = Graph("env.step", body, self.static)
+
+    def __call__(self, state, actions):
+        copy_in(self.static, state)
+        if actions.shape != self.actions.shape or actions.dtype != self.actions.dtype:
+            raise ValueError(f"actions {actions.dtype} {tuple(actions.shape)}, the graph's "
+                             f"{self.actions.dtype} {tuple(self.actions.shape)}")
+        self.actions.copy_(actions)
+        return self.static, self.graph()
+

@@ -74,6 +74,16 @@ from wiki_grx_gym_tpu_torch.learn.networks import compute_dtype_of
 _INT32_MAX = 2**31 - 1
 
 
+def _long_on(x, device) -> torch.Tensor:
+    """``x`` (a tensor or a sequence of indices) as an int64 tensor on
+    ``device``; a tensor is moved, not rebuilt from the host."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(x)
+    if x.device != device:
+        x = x.to(device)
+    return x.to(torch.long)
+
+
 @dataclasses.dataclass
 class PPOState:
     params: torch.Tensor          # (P,) float32, networks.ActorCritic.layout
@@ -329,7 +339,7 @@ class PPO:
         t, n = batch.rewards.shape
         g, npg = self._groups(n)
         b, n_blocks, used, rows = self.shuffle_geometry(t, npg)
-        perm = torch.as_tensor(perm, device=batch.rewards.device).to(torch.long)
+        perm = _long_on(perm, batch.rewards.device)
         if perm.shape != (used,):
             raise ValueError(f"perm must hold {used} block indices, got {tuple(perm.shape)}")
         col = lambda x: x[..., None]
@@ -362,10 +372,20 @@ class PPO:
             if generator is None:
                 raise ValueError("the update needs a generator or a permutation")
             perm = draw(generator)
-        perm = torch.as_tensor(perm, device=device).to(torch.long)
+        perm = _long_on(perm, device)
         if self.dp is not None:
             perm = self.dp.broadcast(perm.to(self.dp.device).contiguous()).to(device)
         return perm
+
+    def prepare_update(self, batch, returns, advantages, generator: Optional[torch.Generator] = None,
+                       perm=None):
+        """The update's inputs: the block permutation (``perm``, or drawn
+        from ``generator``) and the packed, shuffled buffers. Returns
+        ``(shuf_w, shuf_f, rows)`` (:meth:`_pack_shuffle`)."""
+        t, n = batch.rewards.shape
+        dev = batch.rewards.device
+        perm = self._shared_perm(perm, generator, lambda gen: self.draw_perm(t, n, gen, dev), dev)
+        return self._pack_shuffle(batch, returns, advantages, perm)
 
     def update(self, ppo_state: PPOState, batch, returns, advantages,
                generator: Optional[torch.Generator] = None, perm=None):
@@ -374,10 +394,7 @@ class PPO:
         ``perm``: optional block permutation (``used`` indices), instead of
         drawing one from ``generator``. Returns (new PPOState, metric means:
         value_loss, surrogate_loss, kl, lr); the inputs are not modified."""
-        t, n = batch.rewards.shape
-        dev = batch.rewards.device
-        perm = self._shared_perm(perm, generator, lambda gen: self.draw_perm(t, n, gen, dev), dev)
-        shuf_w, shuf_f, rows = self._pack_shuffle(batch, returns, advantages, perm)
+        shuf_w, shuf_f, rows = self.prepare_update(batch, returns, advantages, generator, perm)
         obs_dim = batch.obs.shape[-1]
         if self.fused_update:
             fused = self._get_fused(rows)

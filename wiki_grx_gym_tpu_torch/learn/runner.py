@@ -4,7 +4,14 @@ One training iteration (:meth:`OnPolicyRunner.iteration`, the counterpart of
 the JAX ``_iteration``) is: the rollout (a Python loop over T steps filling
 a preallocated ``Transition`` buffer and the per-env accumulators), the last
 values, GAE, the PPO update (``learn/ppo.py``; K3 on the default path) and
-the metrics dict with the JAX package's keys. ``learn`` runs iterations,
+the metrics dict with the JAX package's keys. :meth:`OnPolicyRunner._train_iter`
+is the same iteration compiled, the counterpart of JAX's
+``jax.jit(self._iteration, donate_argnums=(0,))``: two CUDA graph replays
+over static, donated buffers (``learn/graphs.py``). The rule for which
+configs take it is static (:attr:`OnPolicyRunner.eager_reason`): a CUDA
+device, K1 as the physics backend, the update on the mega path (K3), no
+data or tensor parallelism, not recurrent, no extra loss. Every other
+config runs ``iteration``, eagerly. ``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
 
@@ -140,6 +147,7 @@ class OnPolicyRunner:
         self.log_history = []   # per iteration: its index, time, fps, timing and metrics
         self.replica_digests = []   # with dp, per iteration: every rank's learner-state digest
         self._loaded_state: Optional[RunnerState] = None   # set by load()
+        self.compiled = None   # _train_iter's graphs and static state (graphs.CompiledIteration)
 
     @property
     def is_lead(self) -> bool:
@@ -159,6 +167,26 @@ class OnPolicyRunner:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @property
+    def eager_reason(self) -> Optional[str]:
+        """None where the iteration is compiled (:meth:`_train_iter`),
+        else why it runs eagerly. The rule is static: a CUDA device, K1 as
+        the physics backend, the update on the mega path (K3), no data or
+        tensor parallelism, not recurrent, no extra loss term."""
+        if self.device.type != "cuda":
+            return f"device {self.device} (CUDA graphs need a CUDA device)"
+        if self.env.backend != "kernel":
+            return f"the physics backend is {self.env.backend!r}, not K1"
+        if self.dp is not None:
+            return "data or tensor parallelism (collectives between the ranks)"
+        if self.recurrent:
+            return "the recurrent policy (its update is autograd over an LSTM replay)"
+        if self.alg.extra_loss_fn is not None:
+            return "an extra loss term (the update's autograd path)"
+        if self.alg.path != "mega":
+            return f"the update's {self.alg.path!r} path, not the mega path (K3)"
+        return None
 
     # ------------------------------------------------------------------
 
@@ -251,16 +279,11 @@ class OnPolicyRunner:
     # one training iteration (the JAX _iteration, runner.py:256)
     # ------------------------------------------------------------------
 
-    def iteration(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
-                  u: Optional[torch.Tensor] = None, perm=None):
-        """Rollout, last values, GAE, PPO update. ``noise``/``u`` as for
-        :meth:`rollout`; ``perm``: the update's block permutation instead of
-        one drawn from ``state.rng``. Returns (new state, metrics dict of 0-d
-        tensors with the JAX package's keys); the times of collection and
-        update land in ``last_timing``."""
-        env, net, alg = self.env, self.net, self.alg
-        net.bind(state.ppo.params)
-        t0 = time.perf_counter()
+    def _collect(self, state: RunnerState, noise=None, u=None):
+        """The iteration up to the update: the rollout, the last values and
+        GAE. Returns (rollout state, Transition, acc, last values, returns,
+        advantages)."""
+        net = self.net
         rs, batch, acc = self.rollout(state, noise=noise, u=u)
         with torch.no_grad():
             if self.recurrent:
@@ -268,7 +291,24 @@ class OnPolicyRunner:
                 last_values, _ = net.evaluate_rnn(rs.critic_obs, rs.hidden)
             else:
                 last_values = net.evaluate(rs.critic_obs)
-        returns, advantages = alg.compute_returns(batch, last_values)
+        returns, advantages = self.alg.compute_returns(batch, last_values)
+        return rs, batch, acc, last_values, returns, advantages
+
+    def iteration(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
+                  u: Optional[torch.Tensor] = None, perm=None, out: Optional[dict] = None):
+        """Rollout, last values, GAE, PPO update, eagerly. ``noise``/``u`` as
+        for :meth:`rollout`; ``perm``: the update's block permutation instead
+        of one drawn from ``state.rng``. Returns (new state, metrics dict of
+        0-d tensors with the JAX package's keys); the times of collection and
+        update land in ``last_timing``. ``out``: a dict that receives the
+        collection's batch, acc, last_values, returns and advantages (for
+        checks)."""
+        net, alg = self.net, self.alg
+        net.bind(state.ppo.params)
+        t0 = time.perf_counter()
+        rs, batch, acc, last_values, returns, advantages = self._collect(state, noise=noise, u=u)
+        if out is not None:
+            out.update(batch=batch, acc=acc, last_values=last_values, returns=returns, advantages=advantages)
         self._sync()
         t1 = time.perf_counter()
         if self.recurrent:
@@ -281,15 +321,27 @@ class OnPolicyRunner:
         net.bind(ppo.params)
         self._sync()
         self.last_timing = {"collection_s": t1 - t0, "update_s": time.perf_counter() - t1}
+        sums = self._collection_sums(rs, acc)
+        if self.dp is not None:
+            # over every rank's envs (one all-reduce)
+            sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+        return rs.replace(ppo=ppo), self._metrics(sums, rs.env_state, update_metrics)
 
-        # per-reward episode means over done envs (runner.py:284-301), from
-        # sums over every rank's envs (one all-reduce)
-        sums = torch.cat([torch.stack([torch.sum(acc["rew"]), torch.sum(acc["done"]),
+    def _collection_sums(self, rs: RunnerState, acc) -> torch.Tensor:
+        """The (4 + R,) sums of the metrics over this rank's envs: reward,
+        dones, episode lengths at done, terrain levels, then each reward's
+        episode sums at done."""
+        return torch.cat([torch.stack([torch.sum(acc["rew"]), torch.sum(acc["done"]),
                                        torch.sum(acc["ep_len_done"]),
                                        torch.sum(rs.env_state.terrain_levels.to(torch.float32))]),
                           torch.sum(acc["ep_sums"], dim=0)])
-        if self.dp is not None:
-            sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+
+    def _metrics(self, sums: torch.Tensor, env_state, update_metrics) -> Dict[str, torch.Tensor]:
+        """The iteration's metrics dict from the (global) sums, the env state
+        after the rollout and the update's metrics: per-reward episode means
+        over done envs (runner.py:284-301), the mean action std of the bound
+        params."""
+        env = self.env
         n_global = env.num_envs_global
         total_done = torch.clamp(sums[1], min=1.0)
         ep_metrics = {
@@ -299,10 +351,10 @@ class OnPolicyRunner:
         if env.custom_origins and env.cfg.terrain.curriculum:
             ep_metrics["terrain_level"] = sums[3] / n_global
         if env.cfg.commands.curriculum:
-            ep_metrics["max_command_x"] = rs.env_state.cmd_lin_vel_x_range[1]
+            ep_metrics["max_command_x"] = env_state.cmd_lin_vel_x_range[1]
         with torch.no_grad():
-            std_mean = torch.mean(net.std())
-        metrics = {
+            std_mean = torch.mean(self.net.std())
+        return {
             "mean_step_reward": sums[0] / (self.num_steps_per_env * n_global),
             "done_count": sums[1],
             "mean_ep_len_done": sums[2] / total_done,
@@ -310,7 +362,44 @@ class OnPolicyRunner:
             **{f"episode/{k}": v for k, v in ep_metrics.items()},
             **update_metrics,
         }
-        return rs.replace(ppo=ppo), metrics
+
+    def _train_iter(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
+                    u: Optional[torch.Tensor] = None, perm=None):
+        """The iteration compiled (JAX ``runner.py:134``): the collection
+        graph and K3's update graph replayed over the static state
+        (``graphs.CompiledIteration``, made at the first call: its warm-up
+        runs that call's collection eagerly, then captures). ``state`` is
+        copied in where it is not the static state itself; the returned
+        state IS the static state, which the next call overwrites in place
+        (donation: clone what must outlive it). ``noise``, ``u`` and
+        ``perm`` together replace the draws, as for :meth:`iteration`
+        (their own collection graph). Returns (the static state, metrics of
+        0-d tensors with :meth:`iteration`'s keys, views of the update
+        graph's output that the next call overwrites too); ``last_timing``
+        from CUDA events between the replays; one synchronize at the end.
+        Raises where :attr:`eager_reason` is not None, and on any failure
+        to warm up, capture or replay (nothing runs eagerly instead)."""
+        why = self.eager_reason
+        if why is not None:
+            raise ValueError(f"this config's iteration is not compiled: {why}")
+        if self.compiled is None:
+            from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
+
+            self.compiled = CompiledIteration(self, state)
+        return self.compiled(state, noise=noise, u=u, perm=perm)
+
+    def _rollout_graph(self, state: RunnerState):
+        """The rollout alone as a CUDA graph over the compiled iteration's
+        static state (not donated; the bench's counterpart of JAX's
+        ``rollout_jit``). Returns (state, Transition, acc) as :meth:`rollout`."""
+        why = self.eager_reason
+        if why is not None:
+            raise ValueError(f"this config's rollout is not compiled: {why}")
+        if self.compiled is None:
+            from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
+
+            self.compiled = CompiledIteration(self, state)
+        return self.compiled.rollout(state)
 
     # ------------------------------------------------------------------
     # host loop (on_policy_runner.learn; runner.py:312)
@@ -330,7 +419,12 @@ class OnPolicyRunner:
         ``<profile_dir>/trace_<pid>.json`` (JAX ``runner.py:312-346``
         writes a jax.profiler trace of the same iterations); each iteration
         is the range ``OnPolicyRunner.iteration <it>``. Open it in Perfetto
-        or ``chrome://tracing``."""
+        or ``chrome://tracing``.
+
+        Where :attr:`eager_reason` is None each iteration is
+        :meth:`_train_iter` (two graph replays), else :meth:`iteration`;
+        the first call prints which and why. The metrics leave the device in
+        one copy an iteration."""
         if state is None:
             state = self._loaded_state   # the resume path (task_registry.make_alg_runner)
         if state is None:
@@ -348,6 +442,12 @@ class OnPolicyRunner:
 
         steps_per_iter = self.num_steps_per_env * self.env.num_envs_global
         start_iter = self.current_learning_iteration
+        why = self.eager_reason
+        step = self.iteration if why else self._train_iter
+        if self.is_lead:
+            print("iteration: " + (f"eager ({why})" if why else
+                                   "compiled, two CUDA graph replays over the static state (_train_iter)"),
+                  flush=True)
         prof = None
         for it in range(start_iter, start_iter + num_learning_iterations):
             rel = it - start_iter
@@ -355,13 +455,13 @@ class OnPolicyRunner:
                 prof = self._start_profile()
             t0 = time.perf_counter()
             with torch.profiler.record_function(f"OnPolicyRunner.iteration {it}"):
-                state, metrics = self.iteration(state)
+                state, metrics = step(state)
                 self._sync()
             elapsed = time.perf_counter() - t0
             if prof is not None and rel == 4:
                 self._stop_profile(prof, profile_dir)
                 prof = None
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             if self.dp is not None:
                 self.replica_digests.append(sharding.check_replicas_identical(
                     self.dp, state.ppo, f"update of iteration {it}", net=self.net,

@@ -9,6 +9,13 @@ The metric is the reference's FPS (``rsl_rl/runners/on_policy_runner.py:235,242`
 ``num_steps_per_env * num_envs / (collection_time + learning_time)``, env
 steps per wall-clock second with the PPO update included.
 
+As the root bench times the compiled ``runner._train_iter`` and a jitted
+rollout (``bench.py:108-134``), a cell whose config the runner compiles
+(``OnPolicyRunner.eager_reason`` is None: GR1T1, the subset, terrain, the
+full body) times ``_train_iter`` (two CUDA graph replays) and
+``_rollout_graph``; the others (the LSTM, the CPU) time the eager
+``iteration`` and ``rollout``.
+
 On the card: ``main`` (GR1T1 at 4096 envs, 30 timed iterations) and
 ``envs8192`` (the reference's default env count, ``envs/gr1t1_config.py``, 15
 iterations); ``--full`` adds ``ref_equiv_subset`` (viscous friction, no
@@ -129,18 +136,24 @@ def time_run(env, runner, state, iters, device="cuda"):
     iteration's state): env-steps/s, the mean iteration, collection and
     learn ms, each timed iteration's ms, whether K1 ran (``pallas``), the
     FLOPs of an iteration and, on the card, their share of the H100's bf16
-    peak (None on the CPU: no device was timed), and the iterations and
-    rollouts run in all (``calls``)."""
+    peak (None on the CPU: no device was timed), the iterations and
+    rollouts run in all (``calls``), the path (``graphed``, or ``eager``
+    and why) and, graphed, each graph's warm-up, capture and instantiate
+    times (``graphs``). Graphed, the first iteration and the first rollout
+    are the graphs' warm-ups and captures."""
     import torch
 
     num_envs = env.num_envs
+    why = runner.eager_reason
+    step = runner.iteration if why else runner._train_iter
+    roll = runner.rollout if why else runner._rollout_graph
     for _ in range(WARMUP_ITERATIONS):
-        state, _ = runner.iteration(state)
+        state, _ = step(state)
     _sync(device)
     each = []
     for _ in range(iters):
         t = time.perf_counter()
-        state, _ = runner.iteration(state)
+        state, _ = step(state)
         _sync(device)
         each.append(time.perf_counter() - t)
     iter_time = sum(each) / iters
@@ -149,17 +162,18 @@ def time_run(env, runner, state, iters, device="cuda"):
         "iter_ms": iter_time * 1e3,
         "iter_ms_each": [s * 1e3 for s in each],
         "pallas": env.backend == "kernel",
+        "path": f"eager ({why})" if why else "graphed",
     }
 
     # collection/learn split (on_policy_runner.py:235-244 parity): time the
     # rollout alone; learn = iteration - collection
     for _ in range(WARMUP_ROLLOUTS):
-        runner.rollout(state)
+        roll(state)
     _sync(device)
     n_coll = rollout_count(iters)
     t0 = time.perf_counter()
     for _ in range(n_coll):
-        runner.rollout(state)
+        roll(state)
     _sync(device)
     coll_time = (time.perf_counter() - t0) / n_coll
     result["collection_ms"] = coll_time * 1e3
@@ -170,6 +184,7 @@ def time_run(env, runner, state, iters, device="cuda"):
     on_card = torch.device(device).type == "cuda"
     result["mfu_vs_bf16_peak"] = flops / iter_time / H100_BF16_PEAK if on_card else None
     result["calls"] = {"iterations": WARMUP_ITERATIONS + iters, "rollouts": WARMUP_ROLLOUTS + n_coll}
+    result["graphs"] = [] if why else runner.compiled.reports()
     return result, state
 
 
@@ -256,9 +271,11 @@ def main(argv=None):
     for name, kw in cell_list:
         r = bench_config(device=args.device, **kw)
         each = r["iter_ms_each"]
-        print(f"bench: {name}: {kw['num_envs']} envs, {kw['iters']} timed iterations: iteration ms min "
-              f"{min(each):.2f} / median {statistics.median(each):.2f} / max {max(each):.2f}; collection "
-              f"{r['collection_ms']:.2f} ms; {r['fps']:.1f} env-steps/s", flush=True)
+        graphs = "".join(f"; {g['name']} captured in {g['capture_ms']:.1f} ms, instantiated in "
+                         f"{g['instantiate_ms']:.1f} ms" for g in r["graphs"])
+        print(f"bench: {name}: {kw['num_envs']} envs, {kw['iters']} timed iterations, {r['path']}{graphs}: "
+              f"iteration ms min {min(each):.2f} / median {statistics.median(each):.2f} / max {max(each):.2f}; "
+              f"collection {r['collection_ms']:.2f} ms; {r['fps']:.1f} env-steps/s", flush=True)
         breakdown[name] = r
     print(json.dumps(result_line(breakdown, n_main, iters, args.device)), flush=True)
     return 0

@@ -64,8 +64,10 @@ def no_randomization(env_cfg):
 def play_loop(env, policy, env_state, obs, steps: int, record: bool = False):
     """Step ``policy`` in ``env`` for ``steps`` policy steps from
     (``env_state``, ``obs``), logging one robot (``viewer.ref_env``) and one
-    joint (the first knee, else joint 1) as JAX's play does. Each step's
-    logged values leave the device in one copy. Returns (the
+    joint (the first knee, else joint 1) as JAX's play does. The env steps
+    through ``env.step_graph`` (a CUDA graph replay on the card, as JAX's
+    play steps through ``step_jit``). Each step's logged values leave the
+    device in one copy. Returns (the
     :class:`EvalLogger`, the trajectory: ``{"base_pos", "base_quat", "q"}``
     stacked float32 arrays with ``record``, else None)."""
     r = min(int(getattr(env.cfg.viewer, "ref_env", 0)), env.num_envs - 1)
@@ -76,7 +78,7 @@ def play_loop(env, policy, env_state, obs, steps: int, record: bool = False):
     traj = {"base_pos": [], "base_quat": [], "q": []}
     for _ in range(steps):
         actions = policy(obs)
-        env_state, out = env.step(env_state, actions)
+        env_state, out = env.step_graph(env_state, actions)
         obs = out.obs
         ph = env_state.physics
         lin, ang = out.extras["base_lin_vel"][r], out.extras["base_ang_vel"][r]

@@ -34,7 +34,15 @@ Dispatch is by the device of the tensors it is given:
 
 ``LAUNCHES["k1"]`` (shared with the other kernels, ``build.LAUNCHES``)
 counts the kernel launches of all wrappers; it adds one where the kernel is
-launched and nowhere else.
+launched and nowhere else (``build.count_launch``: inside a CUDA graph's
+capture the graph's tally, which each replay adds).
+
+Under a CUDA graph's capture (``learn/graphs.py``) a launch is preceded by
+a device-to-symbol copy of the wrapper's own constants (``k1_copy_constants``
+from a device-resident copy made at the first launch outside a capture), so
+a replay computes with this wrapper's constants whatever another wrapper of
+the same sizes uploaded in between; after each replay the wrapper is again
+the owner of the symbol.
 """
 
 from __future__ import annotations
@@ -237,6 +245,8 @@ def _load(sizes: K1Sizes):
             lib.k1_const_size.restype = ctypes.c_int
             lib.k1_set_constants.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.k1_set_constants.restype = ctypes.c_int
+            lib.k1_copy_constants.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.k1_copy_constants.restype = ctypes.c_int
             launch = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             for fn in (lib.k1_launch, lib.k1_launch_thread):
                 fn.argtypes = launch
@@ -587,6 +597,7 @@ class CudaDecimation:
         self.sizes = program_sizes(deci, self.c_in, self.c_out)
         self.team = team_shape(self.sizes)
         self._const = None
+        self._const_dev = None   # the constants' bytes on the card (the captured upload's source)
 
     # -- what the kernel implements ------------------------------------------
 
@@ -651,7 +662,7 @@ class CudaDecimation:
         comp = self._pack(phys, actions, last_actions, motor, delay, rand, last_qd, extra, plane)
         out = torch.empty((self.c_out, n), dtype=torch.float32, device=actions.device)
         self.launch_packed(comp, out)
-        LAUNCHES["k1"] += 1
+        _build.count_launch("k1")
         return self._unpack(out, phys, n)
 
     def launch_packed(self, comp, out, kernel="team"):
@@ -673,18 +684,23 @@ class CudaDecimation:
         lib = _load(self.sizes)
         dev = comp.device
         stream = torch.cuda.current_stream(dev).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         with torch.cuda.device(dev):
-            if self._const is None:
-                self._const = _make_constants(
-                    self.deci, self.in_off, self.out_off, self.c_in, self.c_out
-                )
-            if _CONST_OWNER.get(self.sizes) is not self:
-                err = lib.k1_set_constants(
-                    ctypes.addressof(self._const), ctypes.sizeof(self._const), stream
-                )
-                if err != 0:
-                    raise RuntimeError(f"k1_set_constants failed: CUDA error {err}")
-                _CONST_OWNER[self.sizes] = self
+            if capturing:
+                self._capture_constants(lib, dev, stream)
+            else:
+                if self._const is None:
+                    self._const = _make_constants(
+                        self.deci, self.in_off, self.out_off, self.c_in, self.c_out
+                    )
+                    self._const_dev = torch.frombuffer(bytearray(bytes(self._const)), dtype=torch.uint8).to(dev)
+                if _CONST_OWNER.get(self.sizes) is not self:
+                    err = lib.k1_set_constants(
+                        ctypes.addressof(self._const), ctypes.sizeof(self._const), stream
+                    )
+                    if err != 0:
+                        raise RuntimeError(f"k1_set_constants failed: CUDA error {err}")
+                    _CONST_OWNER[self.sizes] = self
             if kernel == "thread":
                 err = lib.k1_launch_thread(comp.data_ptr(), out.data_ptr(), n, stream)
             elif kernel == "team":
@@ -693,6 +709,19 @@ class CudaDecimation:
                 raise ValueError(f"unknown K1 kernel {kernel!r}")
         if err != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+
+    def _capture_constants(self, lib, dev, stream):
+        """Under a capture: record the copy of this wrapper's constants from
+        the card into the symbol, and let each replay make it the owner."""
+        tally = _build.current_tally()
+        if tally is None:
+            raise RuntimeError("K1 captured outside build.capture_tally: its launches would go uncounted")
+        if self._const_dev is None or self._const_dev.device != dev:
+            raise RuntimeError("K1's constants are not on the card yet: launch it once before a capture")
+        err = lib.k1_copy_constants(self._const_dev.data_ptr(), self._const_dev.numel(), stream)
+        if err != 0:
+            raise RuntimeError(f"k1_copy_constants failed under capture: CUDA error {err}")
+        tally.after_replay.append(functools.partial(_CONST_OWNER.__setitem__, self.sizes, self))
 
     def _unpack(self, flat, phys, n):
         def take(name):

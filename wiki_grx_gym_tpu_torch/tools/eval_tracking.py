@@ -3,7 +3,8 @@
 Loads a trained checkpoint, turns off domain randomization, noise and
 pushes, pins the commanded velocity for each of six commands, and measures
 the mean base-frame velocity and the survival share over a window after a
-settling transient. On the card every env step runs through K1.
+settling transient. On the card every env step runs through K1, as a
+replay of the env's step graph (``LeggedEnv.step_graph``).
 
     python -m wiki_grx_gym_tpu_torch.tools.eval_tracking --task GR1T1 [--load_run R] [--checkpoint N]
 """
@@ -47,8 +48,8 @@ def evaluation_config(task: str, num_envs: int):
 def track(env, policy, env_state, transient: int, window: int):
     """Run the six pinned commands, each from ``env_state`` reset in every
     env (``env.reset``: one zero-action step) with a stateful policy reset,
-    for ``transient + window`` steps with the command written into the
-    state before each step. Returns ``[(label, target, measured, tracking
+    for ``transient + window`` steps (``env.step_graph``) with the command
+    written into the state before each step. Returns ``[(label, target, measured, tracking
     %, survival)]``: measured is the mean over the window's steps and the
     envs of the commanded velocity's base-frame channel, survival the share
     of envs that did not reset in any step."""
@@ -65,7 +66,7 @@ def track(env, policy, env_state, transient: int, window: int):
         for t in range(transient + window):
             state = state.replace(commands=cmd.clone())
             actions = policy(obs)
-            state, out = env.step(state, actions)
+            state, out = env.step_graph(state, actions)
             obs = out.obs
             alive &= ~out.reset
             if t >= transient:

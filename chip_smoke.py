@@ -202,7 +202,7 @@ together after phase 9):
    step, finite losses, the checkpoint loads back bit-identical); then one
    64-step rollout of the no-pairs config (K1 launched 64 times).
 10. Terrain training: phase 7 on GR1T1 with ``mesh_type`` heightfield and
-   trimesh and the curriculum on (the config's 10 x 20 grid; the post
+   trimesh (without the profiled iteration) and the curriculum on (the config's 10 x 20 grid; the post
    stage outside K1, K1's ``local_plane`` and ``local_plane_walls``
    programs): K1 64, K2's chain 200 and K3 once an iteration, and the final
    state's ground planes and measured heights finite and non-zero on the
@@ -215,7 +215,9 @@ together after phase 9):
    V law, the T law, V with heading commands, and the viscous contact on
    trimesh (K1 64 each).
 12. The recurrent task ``GR1T1_lstm`` (``lstm_phase``): ``learn(2)`` at 4096
-   envs (K1 129, K2 and K3 never), the LSTM weights and std moved, the
+   envs (the compiled iteration: the collection graph, then one grad
+   step's graph replayed 200 times; K1 129, K2 and K3 never), the LSTM
+   weights and std moved, the
    checkpoint back bit for bit; the update's replay of a new rollout from
    its start memory with the done resets equal to the rollout's mu and
    values within 1e-5 (a replay without the resets must fail that); 20
@@ -223,7 +225,7 @@ together after phase 9):
    LSTM keys; a rollout and two grad steps of the update under the
    profiler.
 13. The mirror-symmetry loss (``symmetry_phase``): ``learn(1)`` of GR1T1 at
-   4096 envs with ``symmetry_coef`` 0.5 on the xla path (K1 65, K2 and K3
+   4096 envs with ``symmetry_coef`` 0.5 on the xla path, compiled (K1 65, K2 and K3
    never), the loss term and its gradient finite and non-zero on a
    minibatch at the trained params; then one grad step of GR1T1_lstm's
    recurrent update with the loss after a 64-step rollout (K1 64).
@@ -330,14 +332,30 @@ together after phase 9):
    against ``step`` at play's 50 envs, bit for bit for 20 steps, and the
    eval step at 64 envs timed both ways; (f1) a capture that does not
    register the generators must fail (b) or raise.
+20. The compiled update on the other paths (``compiled_update_phase``) at
+   4096 envs: the registry's GR1T1_lstm (one grad step's graph replayed
+   200 times, the step index on the device), GR1T1 with the symmetry loss
+   on the xla path, on the step path (K2 inside the update's graph) and on
+   the xla path. (a) Two ``_train_iter`` calls against two eager
+   iterations with injected noise, u and perm: every collection output,
+   the state (the LSTM memory included), the PPO state and the metrics bit
+   for bit. (b) Five graphed iterations (generator draws): min / median /
+   max, collection and update from the CUDA events, beside (a)'s eager
+   times; launch counts (K1 64, K2 200 on the step path, each); the
+   graphs' warm-up, capture and instantiate ms and kernel nodes; peak
+   memory; the host's launch calls and the device busy share from the
+   profiler (GR1T1_lstm: estimated from one collection replay and 10
+   grad-step replays). (c) GR1T1_lstm: a grad-step graph whose step index
+   does not advance and a collection that keeps the old memory must each
+   fail (a)'s check.
    Prints the kernels' JSON line (K1 for each program, its main-path count
    from phase 4 with phase 15's, 16's and 17's counts beside it under their
    own keys, the viscous program's from phase 18's ``ref_equiv_subset``
    cell, the trimesh viscous program's from phase 11's rollout, GR1T1's at
    8192 envs from phase 18, K2 at both widths with its data-parallel use
    under ``dp`` and at 20,960 rows from phase 18, K3; K1, K2 and K3 also
-   with phase 19's graphed iterations' counts), the card line, and the
-   final ok line.
+   with phase 19's graphed iterations' counts; K2 with phase 20's graphed
+   step path's), the card line, and the final ok line.
 """
 
 import copy
@@ -2256,7 +2274,7 @@ def symmetry_phase(dev):
     loss term and its gradient must be finite and non-zero. (b) GR1T1_lstm
     at 4096 envs with the loss: one rollout (K1 64), then ONE grad step of
     the recurrent update (the first minibatch, 163 env columns, autograd over
-    the LSTM replay; a whole update takes ~34 s, PERF.md section 5): the
+    the LSTM replay; a whole eager update takes ~28 s, PERF.md section 5): the
     loss term and the gradient finite and non-zero."""
     import torch
 
@@ -3652,7 +3670,10 @@ def injected_draws(runner, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     noise = torch.randn((t, env.num_envs, env.num_actions), generator=g, device=dev)
     u = torch.rand((t, env.num_envs, env._step_u_cols[1]), generator=g, device=dev)
-    _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, env.num_envs)
+    if runner.recurrent:   # the recurrent update's env columns
+        n_blocks, used = env.num_envs, runner.alg.recurrent_geometry(env.num_envs)[1]
+    else:
+        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, env.num_envs)
     return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
 
 
@@ -3990,6 +4011,230 @@ def compiled_phase(dev):
     return out
 
 
+# phase 20: the compiled update on the recurrent, step and xla paths
+UPDATE_CONFIGS = {   # name: (task, algorithm settings)
+    "GR1T1_lstm": ("GR1T1_lstm", {}),
+    "symmetry": ("GR1T1", {"fused_mega": False, "fused_update": False, "symmetry_coef": SYMMETRY_COEF}),
+    "step_path": ("GR1T1", {"fused_mega": False}),
+    "xla_path": ("GR1T1", {"fused_update": False}),
+}
+UPDATE_CALLS = 2    # (a): compiled against eager, injected draws
+UPDATE_TIMED = 5    # (b): graphed iterations timed (generator draws), after one that captures their collection
+STEP_PROFILED = 10  # (b), GR1T1_lstm: grad-step replays under the profiler (a whole update is ~1.6M kernels)
+
+
+def _tensor_diffs(got, want, prefix):
+    """The tensor leaves of two trees that differ in a bit (generators left
+    out: a planted run's and a later eager call's generators are others)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import graphs
+
+    return [p for (p, x), (_, y) in zip(graphs.leaves(got, prefix), graphs.leaves(want, prefix))
+            if torch.is_tensor(x) and (x.shape != y.shape or not torch.equal(_bits(x), _bits(y)))]
+
+
+def update_config_check(dev, name, task, alg_kw):
+    """Phase 20 on one config (:func:`compiled_update_phase`): (a), (b) and,
+    recurrent, (c). Returns its results (None if the config is not
+    compiled, a failure); everything it made is freed when it returns."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import graphs
+
+    ms = lambda xs: [1e3 * x for x in xs]
+    stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+    t_cfg = time.perf_counter()
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = N_ENVS
+    for k, v in alg_kw.items():
+        setattr(train_cfg.algorithm, k, v)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+    runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)
+    path = "recurrent" if runner.recurrent else runner.alg.path
+    if runner.eager_reason is not None:
+        fail(f"phase 20: {name} is not compiled: {runner.eager_reason}")
+        return None
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    k2_each = steps if path == "step" else 0
+
+    # ---- (a) against eager, injected draws ----
+    base = torch.cuda.memory_allocated() / 2**30   # what earlier work left allocated
+    torch.cuda.reset_peak_memory_stats()
+    p0 = runner.net.params_flat.clone()   # (c) starts from these params again
+    s_e, s_g = runner.init_state(), runner.init_state()
+    diffs, eager, first_ms, ref0 = [], [], [], None
+    for it in range(UPDATE_CALLS):
+        kw = dict(zip(("noise", "u", "perm"), injected_draws(runner, 2000 + it, dev)))
+        want = {}
+        t0 = time.perf_counter()
+        s_e, m_e = runner.iteration(s_e, out=want, **kw)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0, dict(runner.last_timing)))
+        if it == 0:
+            ref0 = graphs.map_tensors(torch.clone, {"draws": kw, "out": want, "state": s_e, "metrics": m_e})
+        t0 = time.perf_counter()
+        s_g, m_g = runner._train_iter(s_g, **kw)
+        first_ms.append(1e3 * (time.perf_counter() - t0))
+        d = tree_diffs({k: runner.compiled.last[k] for k in want}, want)
+        d += tree_diffs(s_g, s_e, "state")
+        d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
+        diffs.append(d)
+        log(f"[20 a {name}] call {it} ({path} update; {'warm-up and capture' if it == 0 else 'replay'}): "
+            f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    res = {"path": path, "a": {"calls": UPDATE_CALLS, "differing": diffs,
+                               "graphed_call_ms": first_ms}}
+    if any(diffs):
+        fail(f"phase 20 (a): {name}'s compiled iteration differs from the eager one: {diffs}")
+    del s_e
+
+    # ---- (b) timed graphed iterations (generator draws) ----
+    torch.cuda.reset_peak_memory_stats()
+    s_g, _ = runner._train_iter(s_g)   # captures the generators' collection graph
+    reset_launch_counts()
+    graphed = []
+    for _ in range(UPDATE_TIMED):
+        t0 = time.perf_counter()
+        s_g, metrics = runner._train_iter(s_g)
+        graphed.append((time.perf_counter() - t0, dict(runner.last_timing)))
+    launches = dict(LAUNCHES)
+    want_l = {"k1": UPDATE_TIMED * ROLLOUT_STEPS, "k2": UPDATE_TIMED * k2_each, "k3": 0}
+    finite = all(math.isfinite(float(v)) for v in metrics.values())
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    reserved_b = torch.cuda.max_memory_reserved() / 2**30
+    b = {"eager_iteration_ms": stats(ms([w for w, _ in eager])),
+         "eager_collection_ms": stats(ms([t["collection_s"] for _, t in eager])),
+         "eager_update_ms": stats(ms([t["update_s"] for _, t in eager])),
+         "graphed_iteration_ms": stats(ms([w for w, _ in graphed])),
+         "graphed_collection_ms": stats(ms([t["collection_s"] for _, t in graphed])),
+         "graphed_update_ms": stats(ms([t["update_s"] for _, t in graphed])),
+         "launches": launches, "base_mem_gib": base, "peak_mem_gib_a": peak_a, "peak_mem_gib_graphed": peak_b,
+         "peak_reserved_gib_graphed": reserved_b, "graphs": runner.compiled.reports()}
+    log(f"[20 b {name}] eager iteration ms {b['eager_iteration_ms']} (collection "
+        f"{b['eager_collection_ms']['median']:.2f}, update {b['eager_update_ms']['median']:.2f}); graphed "
+        f"{b['graphed_iteration_ms']} (collection {b['graphed_collection_ms']['median']:.2f}, update "
+        f"{b['graphed_update_ms']['median']:.2f}, from the events); peak memory {peak_a:.3f} GiB in (a), from "
+        f"{base:.3f} GiB allocated before it, "
+        f"graphed {peak_b:.3f} GiB (reserved {reserved_b:.3f}); {UPDATE_TIMED} graphed iterations launched "
+        f"{launches} (expected {want_l}); metrics finite {finite}")
+    for g in b["graphs"]:
+        log(f"[20 b {name}] graph {json.dumps(g)}")
+    if launches != want_l or not finite:
+        fail(f"phase 20 (b): {name}'s graphed iterations launched {launches}, not {want_l}, or non-finite metrics")
+    wall_ms = b["graphed_iteration_ms"]["median"]
+    if path != "recurrent":
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            s_g, _ = runner._train_iter(s_g)
+            torch.cuda.synchronize()
+        host = host_calls(prof)
+        dev_ms, kernels, _ = device_kernels(prof)
+        b["profile"] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
+                        "device_ms": dev_ms, "device_kernels": kernels, "busy_share": dev_ms / wall_ms}
+    else:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            s_g, _ = runner._train_iter(s_g)
+            torch.cuda.synchronize()
+        host = host_calls(prof)
+        ci = runner.compiled
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ci.collect["draw"]()
+            torch.cuda.synchronize()
+        coll_ms, coll_k, _ = device_kernels(prof)
+        ci.step_index.zero_()
+        n_prof = min(STEP_PROFILED, steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                ci.update()
+            torch.cuda.synchronize()
+        step_ms, step_k, _ = device_kernels(prof)
+        est = coll_ms + steps * step_ms / n_prof
+        b["profile"] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
+                        "collection_device_ms": coll_ms, "collection_kernels": coll_k,
+                        "grad_step_device_ms": step_ms / n_prof, "grad_step_kernels": step_k / n_prof,
+                        "device_ms_estimate": est, "busy_share_estimate": est / wall_ms}
+    log(f"[20 b {name}] profile {json.dumps(b['profile'])}")
+    if b["profile"]["host_calls"] and b["profile"]["host_launch_calls"] > steps + 100:
+        fail(f"phase 20 (b): {name}'s graphed iteration made {b['profile']['host_launch_calls']} host launch calls")
+    res["b"] = b
+
+    # ---- (c) planted faults must fail (a)'s check ----
+    if path == "recurrent":
+        from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
+
+        plants = {"step index not advanced": ("_advance", lambda self: None),
+                  "collection keeps the old memory": (
+                      "_collected", lambda self, rs: rs.replace(ppo=self.static.ppo, hidden=self.static.hidden))}
+        res["c"] = {}
+        for plant, (attr, fn) in plants.items():
+            runner.compiled = None
+            gc.collect()
+            orig = getattr(CompiledIteration, attr)
+            setattr(CompiledIteration, attr, fn)
+            try:
+                s0 = runner.init_state()
+                s0 = s0.replace(ppo=s0.ppo.replace(params=p0.clone()))
+                s_p, m_p = runner._train_iter(s0, **ref0["draws"])
+                d = _tensor_diffs({"ppo": s_p.ppo, "hidden": s_p.hidden, "metrics": m_p},
+                                  {"ppo": ref0["state"].ppo, "hidden": ref0["state"].hidden,
+                                   "metrics": ref0["metrics"]}, "")
+            finally:
+                setattr(CompiledIteration, attr, orig)
+            res["c"][plant] = {"caught": bool(d), "differing": d}
+            log(f"[20 c {name}] planted: {plant}: (a)'s check against the first eager call differs in {d[:8]}: "
+                f"caught {bool(d)}")
+            if not d:
+                fail(f"phase 20 (c): the planted fault ({plant}) passed (a)'s check")
+    res["seconds"] = time.perf_counter() - t_cfg
+    log(f"[time] phase 20 {name} took {res['seconds']:.1f} s")
+    return res
+
+
+def compiled_update_phase(dev):
+    """Phase 20: the compiled iteration on the update paths beside K3's,
+    at 4096 envs: the registry's GR1T1_lstm (the recurrent update: one grad
+    step's graph replayed 200 times, the step index on the device), GR1T1
+    with the symmetry loss on the xla path, on the step path (K2 a grad
+    step inside the update's graph) and on the xla path. For each: (a)
+    ``UPDATE_CALLS`` ``_train_iter`` calls against as many eager
+    ``iteration`` calls with injected noise, u and perm, each fed its own
+    last state: the collection's outputs, the state (env state, obs, the
+    LSTM memory, the PPO state) and the metrics bit for bit; the eager
+    calls' times are (b)'s eager side. (b) ``UPDATE_TIMED`` graphed
+    iterations with generator draws (min / median / max; collection and
+    update from the CUDA events), their launch counts (K1 64 each, K2 200
+    each on the step path), the graphs' warm-up, capture and instantiate ms
+    and kernel nodes, peak memory; one graphed iteration under
+    torch.profiler: the host's launch calls and, but for GR1T1_lstm, the
+    device time and busy share (GR1T1_lstm: the host calls from a CPU-only
+    profile; the device time of one collection replay and
+    ``STEP_PROFILED`` grad-step replays, the busy share estimated from
+    them). (c) GR1T1_lstm: two planted faults must fail (a)'s check against
+    its first eager call: a grad-step graph whose step index does not
+    advance (every step on minibatch 0) and a collection that keeps the
+    old memory."""
+    import torch
+
+    t20 = time.perf_counter()
+    out = {}
+    for name, (task, alg_kw) in UPDATE_CONFIGS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = update_config_check(dev, name, task, alg_kw)
+        if res is not None:
+            out[name] = res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t20
+    log(f"[time] phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -4186,7 +4431,10 @@ def main():
     # ---- phase 10: terrain training (heightfield, trimesh); the heading rollout ----
     gc.collect()
     torch.cuda.empty_cache()
-    train_terrain = {m.__name__: train_phase(dev, "GR1T1", m) for m in (heightfield, trimesh)}
+    # trimesh without phase 7's profiled eager iteration (the profiler's ~80k
+    # launches cost ~45 s; heightfield's profile stands for the terrain path)
+    train_terrain = {m.__name__: train_phase(dev, "GR1T1", m, profiled=m is heightfield)
+                     for m in (heightfield, trimesh)}
     heading_launches = drive_rollout(dev, "GR1T1", heading)
     phase_done("phase 10")
     # ---- phase 11: the all-terms fold's path (learn(1)); rollouts with V, T, V with heading, trimesh viscous ----
@@ -4242,6 +4490,11 @@ def main():
     torch.cuda.empty_cache()
     compiled = compiled_phase(dev)
     phase_done("phase 19")
+    # ---- phase 20: the compiled update on the recurrent, step and xla paths (symmetry loss) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    compiled_update = compiled_update_phase(dev)
+    phase_done("phase 20")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -4268,6 +4521,10 @@ def main():
     for row, k in ((k2_row, "k2"), (k3_row, "k3")):
         row["graphed_iteration_launches"] = compiled.get("t", {}).get("launches", {}).get(k)
         row["graphed_iteration_launches_from"] = graphed_from
+    # phase 20's graphed step path: K2 a grad step inside the update's graph
+    k2_row["step_path_graphed_launches"] = compiled_update.get("step_path", {}).get("b", {}).get("launches", {}).get("k2")
+    k2_row["step_path_graphed_launches_from"] = (f"{UPDATE_TIMED} graphed iterations of the step path "
+                                                 f"(fused_mega False) at {N_ENVS} envs, replays of its update graph")
 
     # launches: phase 4's rollout and play, as in every earlier slice; phase
     # 15's runs, each counted from 0, under their own keys
@@ -4317,6 +4574,7 @@ def main():
     log(json.dumps({"tensor_parallel": tp}))
     log(json.dumps({"bench": bench18}))
     log(json.dumps({"compiled_iteration": compiled}, default=str))
+    log(json.dumps({"compiled_update": compiled_update}, default=str))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

@@ -2,10 +2,12 @@
 callers runs without a card.
 
 1. The rule (``OnPolicyRunner.eager_reason``, ``LeggedEnv.step_graph_reason``)
-   for each registry task and for the dp, mp, symmetry, step-path and
-   engine variants, as it reads on a CUDA device: each runner is built on
-   the CPU and its device and env backend then set to what the card would
-   give (``physics_backend(use_pallas, "cuda")``).
+   for each registry task and for the dp, mp, symmetry, step-path, xla-path
+   and engine variants, as it reads on a CUDA device: each runner is built
+   on the CPU and its device and env backend then set to what the card
+   would give (``physics_backend(use_pallas, "cuda")``). Every registry
+   task and every update path is compiled; the CPU, the engine and lane
+   backends, dp and mp keep their reasons.
 2. Capture hygiene: during ``env.step`` on the plane, heightfield, trimesh,
    heading and full-body configs, and during ``rollout`` + the last values
    + GAE + ``PPO.prepare_update`` (the block permutation and
@@ -96,7 +98,7 @@ def as_on_card(runner):
 
 RULE = {
     "GR1T1": None, "GR1T2": None, "GR1T1_lower_limb": None, "GR1T2_lower_limb": None,
-    "GR1T1_full": None, "GR1T2_full": None, "GR1T1_lstm": "recurrent",
+    "GR1T1_full": None, "GR1T2_full": None, "GR1T1_lstm": None,
 }
 
 
@@ -139,8 +141,8 @@ def test_rule_per_variant(variant):
     if variant in ("dp", "mp"):
         runner.dp = _dp(2, mp=object() if variant == "mp" else None)
     reason = as_on_card(runner)
-    want = {"dp": "parallelism", "mp": "parallelism", "symmetry": "extra loss", "step_path": "'step' path",
-            "xla_path": "'xla' path", "engine": "'engine'", "lanes": "'lanes'", "bf16": None,
+    want = {"dp": "parallelism", "mp": "parallelism", "symmetry": None, "step_path": None,
+            "xla_path": None, "engine": "'engine'", "lanes": "'lanes'", "bf16": None,
             "fused_trunk": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
     # the env step's rule: K1 on a CUDA device, no dp
@@ -396,8 +398,8 @@ class _NoEvent:
         return 0.0
 
 
-@pytest.fixture
-def graphs_on_cpu(monkeypatch):
+def stand_in_graphs(monkeypatch):
+    """The CUDA graphs stood in on the CPU (section 4 of the docstring)."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: _NoStream())
     monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _NoStream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
@@ -414,12 +416,20 @@ def graphs_on_cpu(monkeypatch):
     monkeypatch.setattr(LeggedEnv, "step_graph_reason", property(lambda self: None))
 
 
+@pytest.fixture
+def graphs_on_cpu(monkeypatch):
+    stand_in_graphs(monkeypatch)
+
+
 def _draws(env, runner, it):
     rng = np.random.RandomState(10 + it)
     t, n, a = runner.num_steps_per_env, env.num_envs, env.num_actions
     noise = torch.from_numpy(rng.randn(t, n, a).astype(np.float32))
     u = torch.from_numpy(rng.rand(t, n, env._step_u_cols[1]).astype(np.float32))
-    _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, n)
+    if runner.recurrent:   # env columns
+        n_blocks, used = n, runner.alg.recurrent_geometry(n)[1]
+    else:
+        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, n)
     perm = torch.from_numpy(rng.permutation(n_blocks)[:used])
     return noise, u, perm
 

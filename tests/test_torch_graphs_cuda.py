@@ -1,16 +1,21 @@
 """The compiled iteration on the card (``learn/graphs.py``,
-``OnPolicyRunner._train_iter``): GR1T1 at 64 envs, the GR1T1 training
-config otherwise.
+``OnPolicyRunner._train_iter``): at 64 envs, the training configs
+otherwise: GR1T1 (the mega path, K3), GR1T1_lstm (the recurrent update:
+one grad step's graph replayed), and GR1T1 on the step path
+(``fused_mega = False``: K2 a grad step) and the xla path
+(``fused_update = False``), each update one graph.
 
 - ``_train_iter`` against the eager ``iteration`` with injected noise, u
   and permutation, over three calls (the first warms up and captures, the
   next two replay the donated state): the Transition's nine fields, the
-  last values, returns and advantages, the env state, the PPO state and
-  the metrics, bit for bit.
+  last values, returns and advantages, the env state (and the LSTM
+  memory), the PPO state and the metrics, bit for bit.
 - A capture that fails raises, and nothing runs eagerly in its place: a
   host read (``.item()``) planted in the collection makes the capture
   fail; the call raises, no graph is kept, and the launch counts show only
-  the warm-up's launches.
+  the warm-up's launches. Likewise a host read planted in the recurrent
+  grad step: the update's capture raises, no graph is kept, and the grad
+  step ran once (its warm-up).
 
 Needs a CUDA card (a CUDA graph has no CPU mode; on the CPU the graphs'
 bookkeeping is held to the eager path by tests/test_torch_graphs.py).
@@ -32,17 +37,32 @@ pytestmark = pytest.mark.gpu
 N = 64
 
 
-@pytest.fixture
-def runner():
+CONFIGS = {
+    "GR1T1": ("GR1T1", None),
+    "GR1T1_lstm": ("GR1T1_lstm", None),
+    "step_path": ("GR1T1", lambda t: setattr(t.algorithm, "fused_mega", False)),
+    "xla_path": ("GR1T1", lambda t: setattr(t.algorithm, "fused_update", False)),
+}
+
+
+def make_runner(config="GR1T1"):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs and K1-K3 have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+    task, train = CONFIGS[config]
+    cfg, train_cfg = task_registry.get_cfgs(task)
     cfg.env.num_envs = N
-    env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device="cuda")
-    runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+    if train is not None:
+        train(train_cfg)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, device="cuda")
+    runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)
     assert runner.eager_reason is None
     return runner
+
+
+@pytest.fixture
+def runner():
+    return make_runner()
 
 
 def draws(runner, seed):
@@ -50,7 +70,10 @@ def draws(runner, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = torch.randn((t, N, env.num_actions), generator=g, device="cuda")
     u = torch.rand((t, N, env._step_u_cols[1]), generator=g, device="cuda")
-    _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, N)
+    if runner.recurrent:   # env columns
+        n_blocks, used = N, runner.alg.recurrent_geometry(N)[1]
+    else:
+        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, N)
     return noise, u, torch.randperm(n_blocks, generator=g, device="cuda")[:used]
 
 
@@ -67,7 +90,9 @@ def assert_same(got, want, what):
             assert torch.equal(x.get_state(), y.get_state()), f"{what}: {path}"
 
 
-def test_train_iter_equals_iteration_bit_for_bit(runner):
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_train_iter_equals_iteration_bit_for_bit(config):
+    runner = make_runner(config)
     s_e, s_g = runner.init_state(), runner.init_state()
     for it in range(3):
         noise, u, perm = draws(runner, 100 + it)
@@ -99,3 +124,23 @@ def test_a_failed_capture_raises_and_nothing_runs_instead(runner, monkeypatch):
     assert graph.graph is None and graph.replays == 0
     # the warm-up's launches (one collection), no second run of the body
     assert LAUNCHES["k1"] == runner.num_steps_per_env and LAUNCHES["k3"] == 0
+
+
+def test_a_failed_update_capture_raises_and_nothing_runs_instead(monkeypatch):
+    runner = make_runner("GR1T1_lstm")
+    alg = runner.alg
+    grad = alg.recurrent_grad
+    calls = []
+
+    def reads_the_device(p, mb):
+        calls.append(1)
+        loss, g, aux = grad(p, mb)
+        loss.item()   # a host read: refused inside a capture
+        return loss, g, aux
+
+    monkeypatch.setattr(alg, "recurrent_grad", reads_the_device)
+    with pytest.raises(RuntimeError):
+        runner._train_iter(runner.init_state())
+    update = runner.compiled.update
+    assert update.graph is None and update.replays == 0
+    assert calls == [1, 1]   # the warm-up's grad step, then the capture's (refused), no other

@@ -13,7 +13,9 @@ entry point, play and export, on the CPU.
   holds them (rtol 1e-4 / atol 1e-5 widened by 3x the port's float32 floor,
   the port run again in float64); metrics and LR at rtol 1e-3; params at
   atol 2 x LR x steps element by element and the whole update within 2% in
-  L2.
+  L2. The compiled iteration (``_train_iter``, its CUDA graphs stood in
+  as tests/test_torch_graphs.py does) from the same state and draws, by
+  the same rules.
 - ``scripts/train.py --task GR1T1_lstm --device cpu`` for 2 iterations (4
   envs, 8 steps, one epoch of 2 minibatches: the registry's config cut so
   the test stays short), then a resume from ``model_2.pt`` that restores
@@ -55,6 +57,7 @@ from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner, RunnerState
 from wiki_grx_gym_tpu_torch.utils.helpers import load_policy_npz
 
 TASK = "GR1T1_lstm"
+FIELDS = ("obs", "critic_obs", "actions", "rewards", "values", "log_prob", "mu", "sigma", "dones")
 N, T, DECIMATION = 4, 3, 2
 
 
@@ -143,11 +146,11 @@ def iteration():
     trun.net = net32
     return dict(jax=(batch, hidden, np.asarray(ret), jst2, jm), port=(tb, rs, tret.numpy(), tst2, tm),
                 port64=(tb64, rs64, ret64.numpy()), p0=p0, net=net32,
-                lr=float(jst.learning_rate), steps=4)
+                lr=float(jst.learning_rate), steps=4, runner=trun, port_state=port_state,
+                draws=dict(noise=noise, u=blocks, perm=torch.from_numpy(perm)))
 
 
-@pytest.mark.parametrize("field", ["obs", "critic_obs", "actions", "rewards", "values", "log_prob",
-                                   "mu", "sigma", "dones"])
+@pytest.mark.parametrize("field", FIELDS)
 def test_recurrent_rollout_buffer_matches(iteration, field):
     jb, tb, tb64 = iteration["jax"][0], iteration["port"][0], iteration["port64"][0]
     got, want = getattr(tb, field).numpy(), jb[field]
@@ -168,9 +171,8 @@ def test_recurrent_memory_and_returns_match(iteration):
                              err_msg=f"returns {t}")
 
 
-def test_recurrent_iteration_update_matches(iteration):
+def check_update(iteration, tst2, tm):
     _, _, _, jst2, jm = iteration["jax"]
-    _, _, _, tst2, tm = iteration["port"]
     for k in ("value_loss", "surrogate_loss", "kl", "lr"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, err_msg=k)
     assert int(tst2.ppo.count) == iteration["steps"]
@@ -183,6 +185,42 @@ def test_recurrent_iteration_update_matches(iteration):
     assert np.linalg.norm(d_want) > 0
     assert np.linalg.norm(d_got - d_want) <= 0.02 * np.linalg.norm(d_want)
     assert tst2.hidden is not None and tst2.hidden.ha.shape == (1, N, 256)
+
+
+def test_recurrent_iteration_update_matches(iteration):
+    check_update(iteration, *iteration["port"][3:])
+
+
+def test_compiled_recurrent_iteration_matches(iteration, monkeypatch):
+    """The compiled iteration (``_train_iter``, the CUDA graphs stood in as
+    tests/test_torch_graphs.py does on the CPU: a replay runs the graph's
+    body again) from the same state and draws, held to JAX by the same
+    rules: the collection's buffer, the new memory and the returns, then
+    the update's metrics and params."""
+    from test_torch_graphs import stand_in_graphs
+
+    stand_in_graphs(monkeypatch)
+    trun = iteration["runner"]
+    try:
+        st, m = trun._train_iter(iteration["port_state"](torch.float32), **iteration["draws"])
+        got = trun.compiled.last
+        jb, jh, jret = iteration["jax"][:3]
+        tb64, rs64, ret64 = iteration["port64"]
+        for field in FIELDS:
+            g, w = getattr(got["batch"], field).numpy(), jb[field]
+            for t in range(T):
+                if field == "dones":
+                    np.testing.assert_array_equal(g[t], w[t])
+                else:
+                    assert_close_widened(g[t], w[t], getattr(tb64, field)[t].numpy(), err_msg=f"{field} {t}")
+        for g, w, g64, name in zip(st.hidden, jh, rs64.hidden, Hidden._fields):
+            assert_close_widened(g.numpy(), np.asarray(w), g64.numpy(), err_msg=name)
+        for t in range(T):
+            assert_close_widened(got["returns"][t].numpy(), jret[t], ret64[t], err_msg=f"returns {t}")
+        check_update(iteration, st, m)
+        assert trun.compiled.update.replays == iteration["steps"] - 1   # one grad step's graph
+    finally:
+        trun.compiled = None
 
 
 # ---------------------------------------------------------------------------

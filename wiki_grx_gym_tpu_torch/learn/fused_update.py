@@ -55,7 +55,10 @@ p, m and v are the caller's static tensors (updated in place, no copies),
 whose inputs the caller stages inside its own graph
 (:meth:`_UpdateGraph.stage_inputs`), and whose capture ends with the
 caller's epilogue (the count, the learning rate and the metrics written into
-the static state).
+the static state). The step path's update graph launches K2 from a
+persistent context (:meth:`FusedPPOGrad.step_context`): the argument
+struct, launch plan, scratch and operands made once over the static params,
+which the plain clip and Adam update in place between the grad steps.
 """
 
 from __future__ import annotations
@@ -107,14 +110,29 @@ def _clip_grad(x, lo, hi):
                        torch.where((x == lo) | (x == hi), 0.5 * one, 0.0 * one))
 
 
+_SCALARS: Dict[tuple, torch.Tensor] = {}
+
+
+def scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``value`` on ``device``, made once per (value, type,
+    device) and reused: a tensor made from a host number is a host copy,
+    which a CUDA graph's capture refuses (the first call comes before any
+    capture, in its warm-up)."""
+    key = (float(value), dtype, torch.device(device))
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(value, dtype=dtype, device=device)
+    return t
+
+
 def _jmax(a, b):
     """jnp.maximum: NaN-propagating (torch.maximum is too)."""
-    return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype, device=a.device))
+    return torch.maximum(a, scalar(b, a.dtype, a.device))
 
 
 def _jclip(x, lo, hi):
     """jnp.clip = minimum(maximum(x, lo), hi), NaN-propagating."""
-    return torch.minimum(_jmax(x, lo), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+    return torch.minimum(_jmax(x, lo), scalar(hi, x.dtype, x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -603,9 +621,8 @@ class FusedPPOGrad:
 
     def _entropy(self, std):
         if self.fixed_std:
-            return torch.tensor(
-                self.act_dim * (0.5 + 0.5 * _LOG_2PI) + self.act_dim * math.log(self.init_noise_std),
-                device=std.device)
+            return scalar(self.act_dim * (0.5 + 0.5 * _LOG_2PI) + self.act_dim * math.log(self.init_noise_std),
+                          torch.float32, std.device)
         return torch.sum(0.5 + 0.5 * _LOG_2PI + torch.log(std))
 
     def _finalize_grads(self, p, g, sums):
@@ -646,7 +663,7 @@ class FusedPPOGrad:
         loss = surr_mean + self.value_loss_coef * vl_mean - self.entropy_coef * ent
         if self.adaptive_lr:
             lr_dn = _jmax(lr / 1.5, self.lr_min)
-            lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
+            lr_up = torch.minimum(lr * 1.5, scalar(self.lr_max, torch.float32, lr.device))
             lr = torch.where(kl_mean > self.desired_kl * 2.0, lr_dn,
                              torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0),
                                          lr_up, lr))
@@ -860,6 +877,13 @@ class FusedPPOGrad:
         self._k2_launch(lib, args, mb_index, p.device)
         return self._finalize_grads(p, keep["g"], keep["aux"][:3])
 
+    def step_context(self, p, bufs):
+        """A persistent context of :meth:`grads` for the step path inside a
+        CUDA graph (:class:`_StepContext`): K2 over the flat params ``p``,
+        read where they lie, and over the minibatch buffers ``bufs`` (views
+        of the caller's static buffers)."""
+        return _StepContext(self, p, bufs)
+
     def _k3_args(self, ptrs, nblocks: int = K3_BLOCKS):
         """K3's argument struct: this spec's constants, and the device
         addresses in ``ptrs`` (p, m, v, g, aux, state, count0, part, step;
@@ -967,6 +991,39 @@ class FusedPPOGrad:
             ctx.stage(self, p, m, v, count, lr, bufs)
             ctx.replay()
         return ctx.results()
+
+
+class _StepContext:
+    """K2's context for the step path's grad steps, made once and kept as
+    long as the graph that launches from it: the argument struct, the
+    launch plan (tensor maps encoded once), the scratch and the repacked
+    operands, over the params ``p`` (the caller's static buffer, updated in
+    place between the steps) and the minibatch buffers ``bufs``.
+    :meth:`stage` copies ``bufs`` into the operands once an update;
+    :meth:`grads` is :meth:`FusedPPOGrad.grads` for minibatch ``mb_index``.
+    On CPU tensors it runs the plain version on ``p`` and ``bufs``."""
+
+    def __init__(self, fused, p, bufs):
+        self.fused, self.p, self.bufs = fused, p, bufs
+        if p.device.type == "cpu":
+            return
+        ops = fused._k2_operands(bufs, p.device)
+        ops["fscal"] = ops["fscal"].clone(memory_format=torch.contiguous_format)
+        self.ops = ops
+        self.args, self.keep = fused._k2_args(p, ops)
+
+    def stage(self):
+        """Copy the minibatch buffers into K2's operands (on the current
+        stream)."""
+        if self.p.device.type != "cpu":
+            self.fused._k2_operands(self.bufs, self.p.device, out=self.ops)
+
+    def grads(self, mb_index: int):
+        fused = self.fused
+        if self.p.device.type == "cpu":
+            return fused.grads_plain(self.p, self.bufs, mb_index)
+        fused._k2_launch(_lib("k2"), self.args, mb_index, self.p.device)
+        return fused._finalize_grads(self.p, self.keep["g"], self.keep["aux"][:3])
 
 
 class _UpdateGraph:

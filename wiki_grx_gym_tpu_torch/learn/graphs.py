@@ -29,16 +29,35 @@ is a ``torch.cuda.CUDAGraph``:
   ``build.LAUNCHES``. A failed warm-up, capture, instantiation or replay
   raises; nothing runs the body eagerly instead.
 - **The iteration** (:class:`CompiledIteration`, ``OnPolicyRunner._train_iter``):
-  two replays over one static ``RunnerState``. (A) the collection: T x (act
-  -> ``env.step`` -> store), the last values, GAE, the block permutation,
-  the packed shuffle and K3's staging of the update's inputs; the new env
-  state and observations are donated into the static state, the metrics'
-  sums into a static vector. (B) K3's update graph
-  (``FusedPPOGrad.donated_update``) over the static ``PPOState``: p, m and v
-  in place, then the Adam count, the learning rate and the metrics. CUDA
-  events between them time the two; one synchronize ends the iteration. A
-  has one graph per source of draws: the generators (``learn``), or noise,
-  u and a permutation copied into static buffers (the checks).
+  graph replays over one static ``RunnerState``, for every single-process
+  config on K1. (A) the collection: T x (act -> ``env.step`` -> store),
+  the last values, GAE, the permutation and the update's inputs; the new
+  env state, observations and (recurrent) LSTM memory are donated into the
+  static state, the metrics' sums into a static vector. A has one graph per
+  source of draws: the generators (``learn``), or noise, u and a
+  permutation copied into static buffers (the checks). (B) the update over
+  the static ``PPOState`` (p, m, v, count and LR written in place), by
+  path:
+
+  - mega (K3): K3's update graph (``FusedPPOGrad.donated_update``), A
+    staging its inputs (the packed shuffle) into K3's context;
+  - step (K2 a grad step) and xla (autograd of the loss; with an extra
+    loss term such as the symmetry loss, ``remat_update``, the bf16 update
+    dtype): one graph of the whole update, every grad step unrolled with
+    its host minibatch index ``s % MB``, then the metrics; A writes the
+    packed shuffle into static buffers, the step path stages it into K2's
+    persistent context (``FusedPPOGrad.step_context``);
+  - recurrent (``PPO.update_recurrent``, autograd over the LSTM replay):
+    one grad step's graph, replayed epochs x minibatches times (the whole
+    update would be ~1.6M nodes), the step index on the device (minibatch
+    ``index % MB``, the index advanced by the graph), each step's losses
+    into a static (steps, 3) history; then a graph of the metrics. A copies
+    the static memory into a static ``hidden0`` first (the replay's start
+    memory, JAX's ``hidden0 = state.hidden``) and writes the env
+    permutation's columns and the replay's fields into static buffers.
+
+  CUDA events between A and B time the two; one synchronize ends the
+  iteration.
 - **The env step** (:class:`StepGraph`, ``LeggedEnv.step_graph``) and the
   bench's rollout (:meth:`CompiledIteration.rollout`, not donated: each
   replay starts from the static state, as ``rollout_jit`` from its input).
@@ -55,6 +74,7 @@ from typing import Dict, List
 import torch
 
 from wiki_grx_gym_tpu_torch import build as _build
+from wiki_grx_gym_tpu_torch.learn.ppo import PPOState
 
 
 # ---------------------------------------------------------------------------
@@ -281,28 +301,44 @@ def _kernel_nodes(graph):
 class CompiledIteration:
     """``OnPolicyRunner._train_iter``'s graphs and static state (the module
     docstring's "the iteration"). Made from the first state it is given;
-    ``runner.eager_reason`` must be None (the runner checks)."""
+    ``runner.eager_reason`` must be None (the runner checks). ``path``: the
+    update's, ``"mega"``, ``"step"``, ``"xla"`` or ``"recurrent"``."""
 
     def __init__(self, runner, state):
         self.runner = runner
         self.static = make_static(state)
-        env = runner.env
+        env, alg = runner.env, runner.alg
         dev = runner.device
+        self.path = "recurrent" if runner.recurrent else alg.path
+        self.steps = alg.num_learning_epochs * alg.num_mini_batches
         self.sums = torch.zeros(4 + len(env.all_reward_names), device=dev)   # the metrics' sums (A)
         self.collect: Dict[str, Graph] = {}   # "draw" / "inject" -> graph A
-        self.update = None   # K3's donated update context (graph B), made in A's warm-up
+        # graph B: K3's donated update context (mega, made in A's warm-up),
+        # the whole update's Graph (step, xla) or one grad step's (recurrent)
+        self.update = None
+        self.epilogue = None  # recurrent: the metrics after the last grad step (a graph)
         self.fused = None
+        self.k2 = None       # the step path's K2 context (FusedPPOGrad.step_context)
+        self.inputs = None   # the update's inputs in static buffers (step, xla, recurrent), written by A
+        self.dims = None     # step, xla: (rows a minibatch, obs width, action width)
         self.inject = None   # the injected noise, u and perm (static buffers)
         self.metric_keys = None
-        self.metrics = None  # B's (K,) metrics vector
+        self.metrics = None  # the (K,) metrics vector of the last update
         self.last = None     # the last call's collection outputs
         self._rollout = None
+        if self.path == "recurrent":
+            self.hidden0 = make_static(state.hidden)   # the replay's start memory (JAX's hidden0)
+            self.step_index = torch.zeros(1, dtype=torch.long, device=dev)   # the grad step, on the device
+            self.hist = torch.zeros((self.steps, 3), device=dev)   # each step's (value, surrogate, KL)
 
     def reports(self) -> List[dict]:
         out = [g.report() for g in self.collect.values()]
-        if self.update is not None and self.update.graph is not None:
-            out.append({"name": "update (K3, donated)", "capture_ms": self.update.capture_ms,
-                        "instantiate_ms": self.update.instantiate_ms, "nodes": self.update.nodes})
+        if self.path == "mega":
+            if self.update is not None and self.update.graph is not None:
+                out.append({"name": "update (K3, donated)", "capture_ms": self.update.capture_ms,
+                            "instantiate_ms": self.update.instantiate_ms, "nodes": self.update.nodes})
+        else:
+            out += [g.report() for g in (self.update, self.epilogue) if g is not None]
         if self._rollout is not None:
             out.append(self._rollout.report())
         return out
@@ -310,15 +346,41 @@ class CompiledIteration:
     # -- graph A ---------------------------------------------------------------
 
     def _collection_body(self, mode):
-        runner, alg, s = self.runner, self.runner.alg, self.static
+        runner, s = self.runner, self.static
 
         def body():
             inj = self.inject if mode == "inject" else {}
             with torch.no_grad():
+                if self.path == "recurrent":
+                    copy_in(self.hidden0, s.hidden)
                 rs, batch, acc, last_values, returns, adv = runner._collect(
                     s, noise=inj.get("noise"), u=inj.get("u"))
-                shuf_w, shuf_f, rows = alg.prepare_update(batch, returns, adv, generator=s.rng,
-                                                          perm=inj.get("perm"))
+                self._stage_update(batch, returns, adv, inj.get("perm"))
+                self.sums.copy_(runner._collection_sums(rs, acc))
+            out = {"batch": batch, "acc": acc, "last_values": last_values, "returns": returns,
+                   "advantages": adv}
+            return self._collected(rs), out
+
+        return body
+
+    def _collected(self, rs):
+        """The state the collection donates: the rollout's env state,
+        observations, generators and (recurrent) new memory; the PPO state
+        is the update's."""
+        return rs.replace(ppo=self.static.ppo)
+
+    def _stage_update(self, batch, returns, adv, perm):
+        """The update's inputs, from the collection's outputs: the
+        permutation (``perm``, or drawn from the static generator) and the
+        shuffle, staged into K3's context (mega) or into static buffers."""
+        alg, s = self.runner.alg, self.static
+        if self.path == "recurrent":
+            data, cols = alg.recurrent_inputs(batch, returns, adv, generator=s.rng, perm=perm)
+            inputs = {"data": data, "cols": cols}
+            self.step_index.zero_()
+        else:
+            shuf_w, shuf_f, rows = alg.prepare_update(batch, returns, adv, generator=s.rng, perm=perm)
+            if self.path == "mega":
                 fused = alg._get_fused(rows)
                 bufs = fused.split_buffers(shuf_w, shuf_f, batch.obs.shape[-1])
                 if self.update is None:   # the warm-up: K3's context over the static PPOState
@@ -328,12 +390,13 @@ class CompiledIteration:
                 if fused is not self.fused:
                     raise RuntimeError("the update's geometry changed between the collection's calls")
                 self.update.stage_inputs(fused, s.ppo.count, s.ppo.learning_rate, bufs)
-                self.sums.copy_(runner._collection_sums(rs, acc))
-            out = {"batch": batch, "acc": acc, "last_values": last_values, "returns": returns,
-                   "advantages": adv}
-            return rs.replace(ppo=s.ppo, hidden=s.hidden), out
-
-        return body
+                return
+            inputs = {"shuf_w": shuf_w, "shuf_f": shuf_f}
+            self.dims = (rows, batch.obs.shape[-1], batch.actions.shape[-1])
+        if self.inputs is None:   # the warm-up: the static buffers, holding this call's inputs
+            self.inputs = make_static(inputs)
+        else:
+            copy_in(self.inputs, inputs)
 
     def _collection(self, mode) -> Graph:
         if mode not in self.collect:
@@ -343,14 +406,19 @@ class CompiledIteration:
 
     # -- graph B ---------------------------------------------------------------
 
+    def _metrics_vector(self, update_metrics):
+        """The iteration's metrics (``runner._metrics``) as one vector, their
+        keys in ``metric_keys``."""
+        metrics = self.runner._metrics(self.sums, self.static.env_state, update_metrics)
+        self.metric_keys = list(metrics)
+        return torch.stack(list(metrics.values()))
+
     def _epilogue(self, donate: bool):
         """After K3's last step: the metrics vector and, with ``donate``, the
         new Adam count and learning rate written into the static PPOState."""
-        runner, p = self.runner, self.static.ppo
+        p = self.static.ppo
         lr, upd = self.update.outputs()
-        metrics = runner._metrics(self.sums, self.static.env_state, dict(upd, lr=lr))
-        self.metric_keys = list(metrics)
-        self.metrics = torch.stack(list(metrics.values()))
+        self.metrics = self._metrics_vector(dict(upd, lr=lr))
         if donate:
             p.count.add_(self.update.steps)
             p.learning_rate.copy_(lr)
@@ -359,6 +427,76 @@ class CompiledIteration:
         with torch.no_grad():
             self._epilogue(donate=False)   # its kernels run once before the capture
             self.update.capture(self.fused, epilogue=lambda: self._epilogue(donate=True))
+
+    def _grad_step(self, grad_fn, i):
+        """``PPO.grad_step`` on the static PPOState, its result donated into
+        it (the K2 context reads p where it lies). Returns the step's (value
+        loss, surrogate loss, KL)."""
+        st = self.static.ppo
+        p, m, v, count, lr, row = self.runner.alg.grad_step(st.params, st.m, st.v, st.count,
+                                                            st.learning_rate, grad_fn, i)
+        donate(st, PPOState(params=p, m=m, v=v, count=count, learning_rate=lr))
+        return row
+
+    def _means(self, means):
+        lr = self.static.ppo.learning_rate
+        return {"value_loss": means[0], "surrogate_loss": means[1], "kl": means[2], "lr": lr}
+
+    def _update_body(self):
+        """The step and xla paths' update graph: every grad step unrolled,
+        minibatch ``s % MB`` of step s, then the metrics."""
+        alg, st = self.runner.alg, self.static.ppo
+        rows, obs_dim, a = self.dims
+        shuf_w, shuf_f = self.inputs["shuf_w"], self.inputs["shuf_f"]
+        if self.path == "step":
+            if self.k2 is None:   # the warm-up: K2's context over the static params and inputs
+                fused = alg._get_fused(rows)
+                self.k2 = fused.step_context(st.params, fused.split_buffers(shuf_w, shuf_f, obs_dim))
+            self.k2.stage()
+            grad_fn = lambda p, i: self.k2.grads(i)
+        else:
+            grad_fn = lambda p, i: alg.loss_and_grad(p, alg.minibatch(shuf_w, shuf_f, obs_dim, a, i))
+        hist = [self._grad_step(grad_fn, k % alg.num_mini_batches) for k in range(self.steps)]
+        return None, self._metrics_vector(self._means(torch.stack(hist).mean(dim=0)))
+
+    def _recurrent_step_body(self):
+        """The recurrent path's graph of one grad step, replayed ``steps``
+        times an update: minibatch ``index % MB``, its row of the history,
+        the index advanced, all on the device."""
+        alg = self.runner.alg
+        data, cols = self.inputs["data"], self.inputs["cols"]
+        i = torch.remainder(self.step_index, alg.num_mini_batches)
+        grad_fn = lambda p, j: alg.recurrent_grad(p, alg.recurrent_minibatch(data, cols, self.hidden0, j))
+        row = self._grad_step(grad_fn, i)
+        self.hist.index_copy_(0, self.step_index, row[None])
+        self._advance()
+        return None, None
+
+    def _advance(self):
+        self.step_index.add_(1)
+
+    def _update(self):
+        """Graph B, its first call warming up and capturing. Returns the
+        metrics vector."""
+        if self.path == "mega":
+            if self.update.graph is None:
+                self._capture_update()
+            self.update.replay()
+            return self.metrics
+        st = self.static.ppo
+        if self.path != "recurrent":
+            if self.update is None:
+                self.update = Graph(f"update ({self.path})", self._update_body, st, donate=False,
+                                    count_nodes=_kernel_nodes)
+            return self.update()
+        if self.update is None:
+            self.update = Graph("update grad step (recurrent)", self._recurrent_step_body, st, donate=False,
+                                count_nodes=_kernel_nodes)
+            means = lambda: (None, self._metrics_vector(self._means(self.hist.mean(dim=0))))
+            self.epilogue = Graph("update metrics (recurrent)", means, st, donate=False)
+        for _ in range(self.steps):
+            self.update()
+        return self.epilogue()
 
     # -- the calls ---------------------------------------------------------------
 
@@ -389,9 +527,7 @@ class CompiledIteration:
         ev[0].record()
         self.last = self._collection(mode)()
         ev[1].record()
-        if self.update.graph is None:
-            self._capture_update()
-        self.update.replay()
+        self.metrics = self._update()
         ev[2].record()
         ev[2].synchronize()
         runner.last_timing = {"collection_s": ev[0].elapsed_time(ev[1]) / 1e3,

@@ -68,7 +68,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad, _jclip, _jmax
+from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad, _jclip, _jmax, scalar
 from wiki_grx_gym_tpu_torch.learn.networks import compute_dtype_of
 
 _INT32_MAX = 2**31 - 1
@@ -267,7 +267,7 @@ class PPO:
         if not self.adaptive:
             return lr
         lr_down = _jmax(lr / 1.5, self.lr_min)
-        lr_up = torch.minimum(lr * 1.5, torch.tensor(self.lr_max, device=lr.device))
+        lr_up = torch.minimum(lr * 1.5, scalar(self.lr_max, torch.float32, lr.device))
         return torch.where(
             kl_mean > self.desired_kl * 2.0, lr_down,
             torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0), lr_up, lr),
@@ -298,8 +298,8 @@ class PPO:
         m = (1 - self.b1) * g + self.b1 * m
         v = (1 - self.b2) * (g * g) + self.b2 * v
         c = count.to(torch.float32)
-        mu_hat = m / (1 - torch.pow(torch.tensor(self.b1, device=c.device), c))
-        nu_hat = v / (1 - torch.pow(torch.tensor(self.b2, device=c.device), c))
+        mu_hat = m / (1 - torch.pow(scalar(self.b1, torch.float32, c.device), c))
+        nu_hat = v / (1 - torch.pow(scalar(self.b2, torch.float32, c.device), c))
         upd = mu_hat / (torch.sqrt(nu_hat + 0.0) + self.eps)
         return p + upd * (-lr), m, v, count
 
@@ -429,8 +429,10 @@ class PPO:
         with torch.enable_grad():
             pr = p.detach().requires_grad_(True)
             if self.remat_update:
+                # the loss draws no random numbers: no RNG state to keep (reading
+                # the CUDA RNG state is refused inside a CUDA graph's capture)
                 loss, aux = torch.utils.checkpoint.checkpoint(self._minibatch_loss, pr, mb,
-                                                              use_reentrant=False)
+                                                              use_reentrant=False, preserve_rng_state=False)
             else:
                 loss, aux = self._minibatch_loss(pr, mb)
             (g,) = torch.autograd.grad(loss, pr)
@@ -469,22 +471,24 @@ class PPO:
         consulted: the kernels cover the MLP only."""
         minibatch = self.recurrent_minibatches(batch, returns, advantages, hidden0,
                                                generator=generator, perm=perm)
+        return self._run_epochs(ppo_state, lambda p, i: self.recurrent_grad(p, minibatch(i)))
 
-        def grad_fn(p, i):
-            mb = minibatch(i)
-            with torch.enable_grad():
-                pr = p.detach().requires_grad_(True)
-                loss, aux = self._minibatch_loss_recurrent(pr, mb)
-                (g,) = torch.autograd.grad(loss, pr)
-            return loss.detach(), g, aux
+    def recurrent_grad(self, p, mb):
+        """The recurrent update's (loss, flat gradient, aux) of minibatch
+        ``mb`` at ``p`` (autograd over the LSTM replay)."""
+        with torch.enable_grad():
+            pr = p.detach().requires_grad_(True)
+            loss, aux = self._minibatch_loss_recurrent(pr, mb)
+            (g,) = torch.autograd.grad(loss, pr)
+        return loss.detach(), g, aux
 
-        return self._run_epochs(ppo_state, grad_fn)
-
-    def recurrent_minibatches(self, batch, returns, advantages, hidden0,
-                              generator: Optional[torch.Generator] = None, perm=None):
-        """The recurrent update's minibatches: a function of the minibatch
-        index ``i`` to its dict of (T, M, ...) fields and ``hidden0``, M the
-        minibatch's env columns, group by group (ppo.py:789-824)."""
+    def recurrent_inputs(self, batch, returns, advantages, generator: Optional[torch.Generator] = None,
+                         perm=None):
+        """What the recurrent update's minibatches are gathered from, made
+        once an update: the (T, N, ...) fields (obs and critic obs in f32,
+        ``done_prev``: each env's done after the step before) and the env
+        columns of every minibatch, ``(MB, G x M)``, M a minibatch's columns
+        of a group, group by group (ppo.py:789-824). Returns (data, cols)."""
         t, n = batch.rewards.shape
         g, per_group = self._groups(n)
         mb_envs, used = self.recurrent_geometry(per_group)
@@ -503,14 +507,27 @@ class PPO:
                 "actions": batch.actions, "log_prob": batch.log_prob, "mu": batch.mu,
                 "sigma": batch.sigma, "values": batch.values, "returns": returns,
                 "advantages": advantages, "done_prev": done_prev}
+        return data, cols
 
-        def minibatch(i):
-            idx = cols[i]
-            mb = {k: v[:, idx] for k, v in data.items()}
-            mb["hidden0"] = hidden0.select(idx)
-            return mb
+    @staticmethod
+    def recurrent_minibatch(data, cols, hidden0, i):
+        """Minibatch ``i`` of :meth:`recurrent_inputs`: its dict of (T, M,
+        ...) fields and ``hidden0``, the start memory of its columns. ``i``:
+        a host int, or a one-element int64 tensor on the device (a CUDA
+        graph's step index: row ``i`` gathered on the device, nothing read
+        back)."""
+        idx = cols[i] if isinstance(i, int) else cols.index_select(0, i.reshape(1))[0]
+        mb = {k: v.index_select(1, idx) for k, v in data.items()}
+        mb["hidden0"] = hidden0.select(idx)
+        return mb
 
-        return minibatch
+    def recurrent_minibatches(self, batch, returns, advantages, hidden0,
+                              generator: Optional[torch.Generator] = None, perm=None):
+        """The recurrent update's minibatches: a function of the minibatch
+        index ``i`` to :meth:`recurrent_minibatch` over
+        :meth:`recurrent_inputs`."""
+        data, cols = self.recurrent_inputs(batch, returns, advantages, generator=generator, perm=perm)
+        return lambda i: self.recurrent_minibatch(data, cols, hidden0, i)
 
     def _get_fused(self, rows: int) -> FusedPPOGrad:
         if rows not in self._fused_cache:
@@ -529,10 +546,9 @@ class PPO:
         return self._fused_cache[rows]
 
     def _run_epochs(self, ppo_state: PPOState, grad_fn, steps: Optional[int] = None):
-        """The per-grad-step loop of the step and xla paths (ppo.py:600,
-        :664): gradient, with ``dp`` its all-reduced mean (:meth:`reduce`),
-        adaptive-KL LR from this minibatch's KL, NaN-loss skip, clip + Adam,
-        std projection. ``grad_fn(p, i)`` -> (loss, flat gradient, aux) for
+        """The per-grad-step loop of the step, xla and recurrent paths
+        (ppo.py:600, :664): :meth:`grad_step` for minibatch ``s % MB`` of
+        each step. ``grad_fn(p, i)`` -> (loss, flat gradient, aux) for
         minibatch ``i``. ``steps``: stop after that many grad steps (a check
         of the first steps of an update); default all."""
         p, m, v = ppo_state.params, ppo_state.m, ppo_state.v
@@ -540,15 +556,26 @@ class PPO:
         hist = []
         total = self.num_learning_epochs * self.num_mini_batches
         for s in range(total if steps is None else min(int(steps), total)):
-            loss, g, aux = self.reduce(*grad_fn(p, s % self.num_mini_batches))
-            lr = self._adapt_lr(lr, aux["kl"])
-            g = torch.where(torch.isfinite(loss), g, torch.zeros_like(g))   # NaN-loss skip
-            p, m, v, count = self._optax_step(p, m, v, count, lr, g)
-            p = self._project_std(p)
-            hist.append(torch.stack([aux["value_loss"], aux["surrogate_loss"], aux["kl"]]))
+            p, m, v, count, lr, row = self.grad_step(p, m, v, count, lr, grad_fn, s % self.num_mini_batches)
+            hist.append(row)
         means = torch.stack(hist).mean(dim=0)
         metrics = {"value_loss": means[0], "surrogate_loss": means[1], "kl": means[2], "lr": lr}
         return PPOState(params=p, m=m, v=v, count=count, learning_rate=lr), metrics
+
+    def grad_step(self, p, m, v, count, lr, grad_fn, i):
+        """One grad step on minibatch ``i``: the gradient, with ``dp`` its
+        all-reduced mean (:meth:`reduce`), the adaptive-KL LR from this
+        minibatch's KL, the NaN-loss skip, clip + Adam, the std projection.
+        Returns (p, m, v, count, lr, this step's (value loss, surrogate
+        loss, KL)); the inputs are not modified. The eager loop
+        (:meth:`_run_epochs`) and the compiled iteration's update graphs
+        (``learn/graphs.py``) run this same body."""
+        loss, g, aux = self.reduce(*grad_fn(p, i))
+        lr = self._adapt_lr(lr, aux["kl"])
+        g = torch.where(torch.isfinite(loss), g, torch.zeros_like(g))   # NaN-loss skip
+        p, m, v, count = self._optax_step(p, m, v, count, lr, g)
+        p = self._project_std(p)
+        return p, m, v, count, lr, torch.stack([aux["value_loss"], aux["surrogate_loss"], aux["kl"]])
 
     def reduce(self, loss, g, aux):
         """One grad step's (loss, flat gradient, aux) as the mean over the

@@ -6,12 +6,17 @@ a preallocated ``Transition`` buffer and the per-env accumulators), the last
 values, GAE, the PPO update (``learn/ppo.py``; K3 on the default path) and
 the metrics dict with the JAX package's keys. :meth:`OnPolicyRunner._train_iter`
 is the same iteration compiled, the counterpart of JAX's
-``jax.jit(self._iteration, donate_argnums=(0,))``: two CUDA graph replays
-over static, donated buffers (``learn/graphs.py``). The rule for which
-configs take it is static (:attr:`OnPolicyRunner.eager_reason`): a CUDA
-device, K1 as the physics backend, the update on the mega path (K3), no
-data or tensor parallelism, not recurrent, no extra loss. Every other
-config runs ``iteration``, eagerly. ``learn`` runs iterations,
+``jax.jit(self._iteration, donate_argnums=(0,))``: CUDA graph replays over
+static, donated buffers (``learn/graphs.py``): the collection, then the
+update, one graph on the mega path (K3's), the step path (K2 a grad step)
+and the xla path (autograd of the loss, with an extra loss term such as
+the symmetry loss, ``remat_update`` or the bf16 update dtype), and one
+grad step's graph replayed epochs x minibatches times on the recurrent
+path. The rule for which configs take it is static
+(:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 as the physics
+backend, no data or tensor parallelism. Every other config (the CPU, the
+engine and lane backends, dp and mp) runs ``iteration``, eagerly.
+``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
 
@@ -172,20 +177,14 @@ class OnPolicyRunner:
     def eager_reason(self) -> Optional[str]:
         """None where the iteration is compiled (:meth:`_train_iter`),
         else why it runs eagerly. The rule is static: a CUDA device, K1 as
-        the physics backend, the update on the mega path (K3), no data or
-        tensor parallelism, not recurrent, no extra loss term."""
+        the physics backend, no data or tensor parallelism; every update
+        path (mega, step, xla, recurrent; an extra loss term) is compiled."""
         if self.device.type != "cuda":
             return f"device {self.device} (CUDA graphs need a CUDA device)"
         if self.env.backend != "kernel":
             return f"the physics backend is {self.env.backend!r}, not K1"
         if self.dp is not None:
             return "data or tensor parallelism (collectives between the ranks)"
-        if self.recurrent:
-            return "the recurrent policy (its update is autograd over an LSTM replay)"
-        if self.alg.extra_loss_fn is not None:
-            return "an extra loss term (the update's autograd path)"
-        if self.alg.path != "mega":
-            return f"the update's {self.alg.path!r} path, not the mega path (K3)"
         return None
 
     # ------------------------------------------------------------------
@@ -366,9 +365,9 @@ class OnPolicyRunner:
     def _train_iter(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
                     u: Optional[torch.Tensor] = None, perm=None):
         """The iteration compiled (JAX ``runner.py:134``): the collection
-        graph and K3's update graph replayed over the static state
-        (``graphs.CompiledIteration``, made at the first call: its warm-up
-        runs that call's collection eagerly, then captures). ``state`` is
+        graph and the update's graph replayed over the static state
+        (``graphs.CompiledIteration``, made at the first call; each graph's
+        first call is its warm-up, the body run eagerly, then its capture). ``state`` is
         copied in where it is not the static state itself; the returned
         state IS the static state, which the next call overwrites in place
         (donation: clone what must outlive it). ``noise``, ``u`` and
@@ -422,7 +421,7 @@ class OnPolicyRunner:
         or ``chrome://tracing``.
 
         Where :attr:`eager_reason` is None each iteration is
-        :meth:`_train_iter` (two graph replays), else :meth:`iteration`;
+        :meth:`_train_iter` (graph replays), else :meth:`iteration`;
         the first call prints which and why. The metrics leave the device in
         one copy an iteration."""
         if state is None:
@@ -445,9 +444,10 @@ class OnPolicyRunner:
         why = self.eager_reason
         step = self.iteration if why else self._train_iter
         if self.is_lead:
+            path = "recurrent" if self.recurrent else self.alg.path
             print("iteration: " + (f"eager ({why})" if why else
-                                   "compiled, two CUDA graph replays over the static state (_train_iter)"),
-                  flush=True)
+                                   f"compiled, CUDA graph replays over the static state (_train_iter; the "
+                                   f"{path} update)"), flush=True)
         prof = None
         for it in range(start_iter, start_iter + num_learning_iterations):
             rel = it - start_iter

@@ -95,17 +95,38 @@ def build_mirror_spec(env) -> MirrorSpec:
                       obs_sign=np.concatenate(obs_sign).astype(np.float32))
 
 
-def _apply(x: torch.Tensor, perm: np.ndarray, sign: np.ndarray) -> torch.Tensor:
-    return x[..., torch.as_tensor(perm, device=x.device)] * torch.as_tensor(sign, device=x.device,
-                                                                             dtype=x.dtype)
+class _DeviceMirror:
+    """The reflection of a :class:`MirrorSpec` applied to tensors, its
+    permutations and signs moved to the tensors' device at the first call
+    for each device and type and then reused: the loss makes no host copy,
+    which a CUDA graph's capture refuses (its warm-up makes them)."""
+
+    def __init__(self, spec: MirrorSpec):
+        self.spec = spec
+        self._ops = {}
+
+    def _apply(self, x, which):
+        key = (which, x.device, x.dtype)
+        if key not in self._ops:
+            perm, sign = getattr(self.spec, f"{which}_perm"), getattr(self.spec, f"{which}_sign")
+            self._ops[key] = (torch.as_tensor(perm, device=x.device),
+                              torch.as_tensor(sign, device=x.device, dtype=x.dtype))
+        perm, sign = self._ops[key]
+        return x[..., perm] * sign
+
+    def obs(self, obs):
+        return self._apply(obs, "obs")
+
+    def actions(self, actions):
+        return self._apply(actions, "dof")
 
 
 def mirror_obs(spec: MirrorSpec, obs: torch.Tensor) -> torch.Tensor:
-    return _apply(obs, spec.obs_perm, spec.obs_sign)
+    return _DeviceMirror(spec).obs(obs)
 
 
 def mirror_actions(spec: MirrorSpec, actions: torch.Tensor) -> torch.Tensor:
-    return _apply(actions, spec.dof_perm, spec.dof_sign)
+    return _DeviceMirror(spec).actions(actions)
 
 
 def make_mirror_loss(env, net, coef: float):
@@ -113,14 +134,14 @@ def make_mirror_loss(env, net, coef: float):
     distance between the policy mean on mirrored observations and the
     mirrored policy mean, both functions of the flat params ``flat``; zero
     iff the policy is sagittal-plane equivariant on the batch."""
-    spec = build_mirror_spec(env)
+    mirror = _DeviceMirror(build_mirror_spec(env))
     coef = float(coef)
 
     def loss_fn(flat, mb):
         obs = mb["obs"].to(torch.float32)
         mean = net.action_mean(obs, flat=flat)
-        mean_of_mirror = net.action_mean(mirror_obs(spec, obs), flat=flat)
-        return coef * torch.mean(torch.square(mean_of_mirror - mirror_actions(spec, mean)))
+        mean_of_mirror = net.action_mean(mirror.obs(obs), flat=flat)
+        return coef * torch.mean(torch.square(mean_of_mirror - mirror.actions(mean)))
 
     return loss_fn
 
@@ -133,14 +154,14 @@ def make_mirror_loss_recurrent(env, net, coef: float):
     observations and on their mirror (equivariant from the zero state means
     equivariant on every mirrored prefix by induction; the rollout's
     ``hidden0`` would condition the two on different histories)."""
-    spec = build_mirror_spec(env)
+    mirror = _DeviceMirror(build_mirror_spec(env))
     coef = float(coef)
 
     def loss_fn(flat, mb):
         obs, done_prev = mb["obs"].to(torch.float32), mb["done_prev"]
         zero = net.initial_hidden(obs.shape[1], obs.device)
         mean = net.action_mean_seq(obs, done_prev, zero, flat=flat)
-        mean_of_mirror = net.action_mean_seq(mirror_obs(spec, obs), done_prev, zero, flat=flat)
-        return coef * torch.mean(torch.square(mean_of_mirror - mirror_actions(spec, mean)))
+        mean_of_mirror = net.action_mean_seq(mirror.obs(obs), done_prev, zero, flat=flat)
+        return coef * torch.mean(torch.square(mean_of_mirror - mirror.actions(mean)))
 
     return loss_fn

@@ -3347,6 +3347,43 @@ def engine_vs(k, e, p, p64):
     return out
 
 
+def engine_floor_samples(k, e, p64, samples):
+    """ROADMAP queue 3's question, a measurement beside ``engine_vs``'s
+    gate (which stays as it is): each env's float32 floor estimated from
+    several samples of the lane program in float32 (``samples``: the
+    unperturbed run first, then runs on inputs nudged by +-1 ulp), each
+    against the float64 run ``p64``. Per family of ENGINE_GROUPS: (envs
+    whose one-sample floor undershoots the several-sample floor on some
+    output group, envs over the tolerance + 3x the several-sample floor)."""
+    import torch
+
+    out = {}
+    for fam, names in ENGINE_GROUPS.items():
+        rtol, atol = ENGINE_TOL[fam]
+        under = torch.zeros(N_ENVS, dtype=torch.bool, device=k["q"].device)
+        over = torch.zeros_like(under)
+        for name in names:
+            floors = torch.stack([(x[name] - p64[name]).abs().amax(dim=1) for x in samples])
+            one, many = floors[0], floors.amax(dim=0)
+            under |= one < many
+            err = (k[name] - e[name]).abs()
+            stated = atol + rtol * e[name].abs()
+            over |= (err > stated + 3.0 * many[:, None]).any(dim=1) | ~torch.isfinite(err).all(dim=1)
+        out[fam] = (int(under.sum()), int(over.sum()))
+    return out
+
+
+def nudged(tree, sign):
+    """``tree`` with every floating tensor moved by one ulp towards
+    ``sign`` x infinity (integer and boolean tensors kept)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn import graphs
+
+    return graphs.map_tensors(lambda t: torch.nextafter(t, torch.full_like(t, sign * math.inf))
+                              if t.is_floating_point() else t, tree)
+
+
 def engine_phase(dev):
     """Phase 16: the engine path on the card. (a) K1 (the GR1T1 fold
     program) against the batched engine (``sim/engine.physics_step`` under
@@ -3355,12 +3392,18 @@ def engine_phase(dev):
     the physics state at rtol 1e-3 / atol 1e-4, the feet sums, torques and
     point forces at rtol 2e-3 / atol 2e-2, under ``engine_vs``'s two checks;
     the engine with its contact stiffness times 1.05 must fail every
-    check. The engine's policy step is timed (CUDA events) beside
-    K1's, and its device kernels counted under torch.profiler. (b)
-    ``learn(1)`` of GR1T1 at 4096 envs with ``use_pallas = False`` set in
-    the config only: every physics tensor on the card, K1 launched 0
-    times, K2 and K3 as in phase 7, finite losses; its seconds,
-    env-steps/s and peak memory. Returns the phase's numbers."""
+    check. ROADMAP queue 3's measurement (``engine_floor_samples``): the
+    per-env floor from three samples (the lane program on the inputs and on
+    the inputs nudged by +-1 ulp) against the one-sample floor the gate
+    uses, printed beside the gate's counts. The engine's policy step is
+    timed (CUDA events) beside K1's, and its device kernels counted under
+    torch.profiler. (b) ``learn(1)`` of GR1T1 at 4096 envs with
+    ``use_pallas = False`` set in the config only, compiled
+    (``runner.eager_reason`` None: the per-step collection graphs and K3's
+    update graph): every physics tensor on the card, K1 launched 0 times,
+    K2 and K3 as in phase 7, finite losses; its seconds (the captures
+    included), env-steps/s, peak memory and each graph's replays. Returns
+    the phase's numbers."""
     import copy
 
     import torch
@@ -3415,6 +3458,14 @@ def engine_phase(dev):
         ok &= share_ok and widened_ok
     if not ok:
         raise SystemExit("[16a] K1 disagrees with the engine")
+    # ROADMAP queue 3: the per-env floor from three samples (a measurement only)
+    samples = [p] + [physics_groups(op.plain(*nudged(args, sign), **nudged(kw, sign))) for sign in (1.0, -1.0)]
+    floor3 = engine_floor_samples(k, e, p64, samples)
+    for fam, (n_under, n_over3) in floor3.items():
+        log(f"[16a] per-env f32 floor, {fam}: the one-sample floor undershoots the three-sample one (inputs and "
+            f"inputs +-1 ulp, each against float64) in {n_under} of {N_ENVS} envs; {n_over3} envs over the "
+            f"tolerance + 3 x the three-sample floor (the gate's one-sample count: {checks[fam][1]})")
+    del samples
     # the planted fault must fail every check
     bad = copy.copy(eng)
     bad.contact_params = eng.contact_params.replace(stiffness=eng.contact_params.stiffness * ENGINE_FAULT)
@@ -3449,7 +3500,9 @@ def engine_phase(dev):
                 "f32_floor": floor, "fault": ENGINE_FAULT, "fault_envs_over": {f: v[1] for f, v in fault.items()},
                 "fault_checks_failed": caught, "engine_step_ms": engine_ms, "k1_wrapper_ms": k1_wrapper_ms,
                 "engine_kernels_per_step": n_kern / ENGINE_PROFILE_STEPS, "engine_kernels_per_substep": per_substep,
-                "engine_device_ms_per_step": dev_ms}
+                "engine_device_ms_per_step": dev_ms,
+                "floor_three_samples": {f: {"envs_one_sample_undershoots": v[0], "envs_over_three_sample_bound": v[1]}
+                                        for f, v in floor3.items()}}
     del env, state, op, eng, bad, args, kw, args64, kw64, k, e, p, p64, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -3462,6 +3515,8 @@ def engine_phase(dev):
     runner, train_cfg = task_registry.make_alg_runner(
         env, "GR1T1", train_cfg=train_cfg, log_root=os.path.join(THIS, "build", "smoke_train", "GR1T1_engine"))
     steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    if runner.eager_reason is not None:
+        raise SystemExit(f"[16b] the engine's iteration is not compiled: {runner.eager_reason}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -3483,16 +3538,25 @@ def engine_phase(dev):
     if not all(math.isfinite(m[x]) for x in ("value_loss", "surrogate_loss", "kl", "lr", "mean_step_reward")):
         raise SystemExit(f"[16b] non-finite losses {m}")
     card = card_line()
-    log(f"[16b] learn(1) of GR1T1 at {N_ENVS} envs through the engine in {wall:.2f} s: collection "
-        f"{h['collection_s']:.3f} s + update {h['update_s']:.3f} s; {h['fps']:.0f} env-steps/s; launches "
-        f"{launches}; peak memory {peak:.3f} GiB; value loss {m['value_loss']:.4f}, surrogate "
+    ci = runner.compiled
+    # the host's graph launches of this (first) call: A1's replays after its
+    # warm-up and capture, A2 (its warm-up and capture only), K3's update graph
+    replays = {"rollout step (A1)": ci.collect["draw"].replays, "collection tail (A2)": ci.tail["draw"].replays,
+               "update (K3)": launches["k3"]}
+    log(f"[16b] learn(1) of GR1T1 at {N_ENVS} envs through the engine, compiled, in {wall:.2f} s (the graphs' "
+        f"captures included): collection {h['collection_s']:.3f} s + update {h['update_s']:.3f} s (CUDA events); "
+        f"{h['fps']:.0f} env-steps/s; launches {launches}; graph replays {replays} ({sum(replays.values())} "
+        f"graph launches); peak memory {peak:.3f} GiB; value loss {m['value_loss']:.4f}, surrogate "
         f"{m['surrogate_loss']:.5f}, kl {m['kl']:.5f}, reward {m['mean_step_reward']:.4f}; physics on {devices['q']}; "
         f"{card}")
+    for g in ci.reports():
+        log(f"[16b] graph {json.dumps(g)}")
     out["b"] = {"envs": N_ENVS, "wall_s": wall, "collection_s": h["collection_s"], "update_s": h["update_s"],
-                "env_steps_per_s": h["fps"], "peak_mem_gib": peak, "launches": launches, "card": card}
+                "env_steps_per_s": h["fps"], "peak_mem_gib": peak, "launches": launches, "card": card,
+                "compiled": True, "graph_replays": replays, "graphs": ci.reports()}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[time] phase 16 took {out['seconds']:.1f} s")
-    del runner, env, rs
+    del runner, env, rs, ci
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3677,12 +3741,13 @@ def injected_draws(runner, seed, dev):
     return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
 
 
-def compiled_vs_eager(runner, s_e, s_g, calls, draws, dev, tag):
+def compiled_vs_eager(runner, s_e, s_g, calls, draws, dev, tag, phase="19"):
     """``calls`` iterations of the eager ``iteration`` and of ``_train_iter``
     side by side, each fed its own last state; every collection output, the
     env state, the obs, the PPO state and the metrics compared bit for bit
-    (``draws``: "injected" noise, u and perm, or "generators"). Returns
-    (the per-call diff lists, the sampled noise of each graphed call)."""
+    (``draws``: "injected" noise, u and perm, or "generators"; the lines
+    tagged ``[<phase> <tag>]``). Returns (the per-call diff lists, the
+    sampled noise of each graphed call)."""
     import torch
 
     diffs, eps = [], []
@@ -3704,7 +3769,7 @@ def compiled_vs_eager(runner, s_e, s_g, calls, draws, dev, tag):
         b = got["batch"]
         eps.append(((b.actions - b.mu) / b.sigma).clone())
         diffs.append(d)
-        log(f"[19 {tag}] call {it} ({how}, {draws} draws): "
+        log(f"[{phase} {tag}] call {it} ({how}, {draws} draws): "
             f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
     return diffs, eps, s_e, s_g
 
@@ -4235,6 +4300,249 @@ def compiled_update_phase(dev):
     return out
 
 
+# phase 21: the compiled iteration on the engine path (learn/graphs.py: one
+# rollout step's graph replayed T times, then the collection's tail)
+ENGINE_CALLS = 2              # (a): compiled against eager, each source of draws
+# (a) with generator draws: 16 steps an env (T cut from 64; the eager side
+# is host-bound, ~29 s an iteration of 64 steps at any env count)
+ENGINE_GEN_STEPS = 16
+ENGINE_TIMED = 5              # (b): graphed iterations timed
+ENGINE_STEPS_PROFILED = 4     # (b): A1 replays under the profiler (a whole collection is ~1.7M kernels)
+ENGINE_EVAL_ENVS, ENGINE_EVAL_STEPS, ENGINE_EVAL_TIMED = 64, 5, 10   # (d)
+
+
+def engine_compiled_phase(dev):
+    """Phase 21: the compiled iteration on the engine (GR1T1 with
+    ``use_pallas = False``: A1 one rollout step's graph over the static
+    state, buffers and sums, the step index on the device, replayed 64
+    times; A2 the last values, GAE, the update's inputs and the sums; K3's
+    update graph). (a) At 4096 envs, ``ENGINE_CALLS`` ``_train_iter`` calls
+    against as many eager ``iteration`` calls with injected noise, u and
+    perm, each fed its own last state: the collection's outputs (the
+    Transition, the acc sums, last values, returns, advantages), the state
+    and the metrics bit for bit; then the same with generator draws at
+    4096 envs and ``ENGINE_GEN_STEPS`` steps an env. (b) ``ENGINE_TIMED`` graphed iterations at
+    4096 envs (generator draws): min / median / max, the collection and
+    update from the CUDA events, env-steps/s, the launch counts (K1 0, K2
+    200, K3 1 each), each graph's warm-up, capture and instantiate ms and
+    kernel nodes, peak memory; the host's launch calls of one graphed
+    iteration (a CPU-only profile: T + 2 graph launches, and at most 4
+    kernels a graph launch, the registered generators' seed and offset
+    written before a replay); the device time of ``ENGINE_STEPS_PROFILED``
+    A1 replays and of A2 + the update under torch.profiler, and the busy
+    share estimated from them. (c) A planted fault: A1 replayed without
+    advancing its device index must fail (a)'s check against the first
+    eager call. (d) ``env.step_graph`` on the engine at 64 envs (play's
+    config) against ``env.step`` bit for bit over 5 steps; the step timed
+    both ways."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import graphs
+    from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
+    from wiki_grx_gym_tpu_torch.scripts.play import no_randomization
+
+    t21 = time.perf_counter()
+    out = {}
+    ms = lambda xs: [1e3 * x for x in xs]
+    stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+
+    def make(n, steps=None):
+        cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+        cfg.env.num_envs = n
+        if steps is not None:
+            train_cfg.runner.num_steps_per_env = steps
+        engine_path(cfg)
+        env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)
+        runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
+        return env, runner
+
+    env, runner = make(N_ENVS)
+    if env.backend != "engine" or runner.eager_reason is not None:
+        fail(f"phase 21: the engine's iteration is not compiled ({env.backend}: {runner.eager_reason})")
+        return out
+    steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+
+    # ---- (a) injected draws at 4096 envs against eager ----
+    torch.cuda.reset_peak_memory_stats()
+    p0 = runner.net.params_flat.clone()   # (c) starts from these params again
+    s_e, s_g = runner.init_state(), runner.init_state()
+    diffs, eager, first_ms, ref0 = [], [], [], None
+    for it in range(ENGINE_CALLS):
+        kw = dict(zip(("noise", "u", "perm"), injected_draws(runner, 3000 + it, dev)))
+        want = {}
+        t0 = time.perf_counter()
+        s_e, m_e = runner.iteration(s_e, out=want, **kw)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0, dict(runner.last_timing)))
+        if it == 0:
+            ref0 = graphs.map_tensors(torch.clone, {"draws": kw, "out": want, "state": s_e, "metrics": m_e})
+        t0 = time.perf_counter()
+        s_g, m_g = runner._train_iter(s_g, **kw)
+        first_ms.append(1e3 * (time.perf_counter() - t0))
+        d = tree_diffs({k: runner.compiled.last[k] for k in want}, want)
+        d += tree_diffs(s_g, s_e, "state")
+        d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
+        diffs.append(d)
+        how = f"warm-up, capture and {runner.num_steps_per_env - 1} A1 replays" if it == 0 else "replays"
+        log(f"[21 a] call {it} ({how}, injected "
+            f"draws, {N_ENVS} envs): "
+            f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    out["a"] = {"calls": ENGINE_CALLS, "differing": diffs, "graphed_call_ms": first_ms}
+    if any(diffs):
+        fail(f"phase 21 (a): the engine's compiled iteration differs from the eager one: {diffs}")
+    del s_e
+
+    # ---- (b) timed graphed iterations (generator draws) ----
+    torch.cuda.reset_peak_memory_stats()
+    s_g, _ = runner._train_iter(s_g)   # captures the generators' graphs
+    reset_launch_counts()
+    graphed = []
+    for _ in range(ENGINE_TIMED):
+        t0 = time.perf_counter()
+        s_g, metrics = runner._train_iter(s_g)
+        graphed.append((time.perf_counter() - t0, dict(runner.last_timing)))
+    launches = dict(LAUNCHES)
+    want_l = {"k1": 0, "k2": ENGINE_TIMED * steps, "k3": ENGINE_TIMED}
+    finite = all(math.isfinite(float(v)) for v in metrics.values())
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    ci = runner.compiled
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s_g, _ = runner._train_iter(s_g)
+        torch.cuda.synchronize()
+    host = host_calls(prof)
+    t_len = runner.num_steps_per_env
+    n_prof = min(ENGINE_STEPS_PROFILED, t_len)   # the index starts at 0 and must stay below T
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            ci.collect["draw"]()
+        torch.cuda.synchronize()
+    step_ms, step_k, k1_seen = device_kernels(prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ci.tail["draw"]()   # zeroes the step index and the sums: the next call starts a collection
+        ci._update()
+        torch.cuda.synchronize()
+    rest_ms, rest_k, _ = device_kernels(prof)
+    wall = stats(ms([w for w, _ in graphed]))
+    est = t_len * step_ms / n_prof + rest_ms
+    b = {"eager_iteration_ms": stats(ms([w for w, _ in eager])),
+         "eager_collection_ms": stats(ms([t["collection_s"] for _, t in eager])),
+         "eager_update_ms": stats(ms([t["update_s"] for _, t in eager])),
+         "graphed_iteration_ms": wall,
+         "graphed_collection_ms": stats(ms([t["collection_s"] for _, t in graphed])),
+         "graphed_update_ms": stats(ms([t["update_s"] for _, t in graphed])),
+         "env_steps_per_s": t_len * N_ENVS / (wall["median"] / 1e3),
+         "launches": launches, "peak_mem_gib_a": peak_a, "peak_mem_gib_graphed": peak_b,
+         "host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
+         "step_device_ms": step_ms / n_prof, "step_kernels": step_k / n_prof,
+         "step_k1_kernels": k1_seen, "tail_and_update_device_ms": rest_ms, "tail_and_update_kernels": rest_k,
+         "device_ms_estimate": est, "busy_share_estimate": est / wall["median"], "graphs": ci.reports()}
+    log(f"[21 b] GR1T1 on the engine at {N_ENVS} envs: eager iteration ms {b['eager_iteration_ms']} (collection "
+        f"{b['eager_collection_ms']['median']:.2f}, update {b['eager_update_ms']['median']:.2f}); graphed "
+        f"{wall} (collection {b['graphed_collection_ms']['median']:.2f}, update "
+        f"{b['graphed_update_ms']['median']:.2f}, from the events); {b['env_steps_per_s']:.0f} env-steps/s at the "
+        f"median; peak memory {peak_a:.3f} GiB in (a), graphed {peak_b:.3f} GiB; {ENGINE_TIMED} graphed iterations "
+        f"launched {launches} (expected {want_l}); metrics finite {finite}")
+    log(f"[21 b] one graphed iteration's host calls {host}; an A1 replay {b['step_device_ms']:.3f} ms of device "
+        f"time in {b['step_kernels']:.0f} kernels (K1 {k1_seen}); A2 + the update {rest_ms:.3f} ms in {rest_k} "
+        f"kernels; device time an iteration ~{est:.1f} ms, busy ~{100 * est / wall['median']:.1f}% of the median")
+    for g in b["graphs"]:
+        log(f"[21 b] graph {json.dumps(g)}")
+    out["b"] = b
+    if launches != want_l or not finite:
+        fail(f"phase 21 (b): {ENGINE_TIMED} graphed engine iterations launched {launches}, not {want_l}, or "
+             "non-finite metrics")
+    n_graphs = host.get("cudaGraphLaunch", 0)
+    if host and (n_graphs != t_len + 2 or b["host_launch_calls"] - n_graphs > 4 * n_graphs):
+        fail(f"phase 21 (b): a graphed engine iteration made {host}: not {t_len + 2} graph launches and at most "
+             f"4 kernels each")
+    del s_g, ci
+
+    # ---- (c) planted: A1 replayed without advancing its device index ----
+    runner.compiled = None
+    gc.collect()
+    orig = CompiledIteration._advance_rollout
+    CompiledIteration._advance_rollout = lambda self: None
+    try:
+        s0 = runner.init_state()
+        s0 = s0.replace(ppo=s0.ppo.replace(params=p0.clone()))
+        s_p, m_p = runner._train_iter(s0, **ref0["draws"])
+        d = _tensor_diffs({"batch": runner.compiled.last["batch"], "ppo": s_p.ppo, "metrics": m_p},
+                          {"batch": ref0["out"]["batch"], "ppo": ref0["state"].ppo, "metrics": ref0["metrics"]}, "")
+    finally:
+        CompiledIteration._advance_rollout = orig
+    log(f"[21 c] planted: A1's step index not advanced: (a)'s check against the first eager call differs in "
+        f"{d[:8]}: caught {bool(d)}")
+    out["c"] = {"caught": bool(d), "differing": d}
+    if not d:
+        fail("phase 21 (c): A1 without its index advanced passed (a)'s check")
+    del runner, env, s0, s_p, ref0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (a) generator draws, ENGINE_GEN_STEPS steps an env ----
+    env, runner = make(N_ENVS, ENGINE_GEN_STEPS)
+    g_diffs, _, _, _ = compiled_vs_eager(runner, runner.init_state(), runner.init_state(), ENGINE_CALLS,
+                                         "generators", dev, f"a {ENGINE_GEN_STEPS} steps", phase="21")
+    out["a"]["generators"] = {"envs": N_ENVS, "steps": ENGINE_GEN_STEPS, "differing": g_diffs}
+    if any(g_diffs):
+        fail(f"phase 21 (a): generator draws ({ENGINE_GEN_STEPS} steps an env) differ from eager: {g_diffs}")
+    del env, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) step_graph on the engine at play's 64 envs ----
+    cfg, _ = task_registry.get_cfgs("GR1T1")
+    cfg.env.num_envs = ENGINE_EVAL_ENVS
+    engine_path(cfg)
+    no_randomization(cfg)
+    env = task_registry.make_env("GR1T1", env_cfg=cfg, device=dev)[0]
+    if env.step_graph_reason is not None:
+        fail(f"phase 21 (d): the engine's step is not graphed: {env.step_graph_reason}")
+    s_e, s_g = env.init_state(0), env.init_state(0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    e_diffs = []
+    for t in range(ENGINE_EVAL_STEPS):
+        a = 0.3 * torch.randn((ENGINE_EVAL_ENVS, env.num_actions), generator=g, device=dev)
+        s_e, o_e = env.step(s_e, a)
+        s_g, o_g = env.step_graph(s_g, a)
+        d = tree_diffs(s_g, s_e, "state") + tree_diffs({k: getattr(o_g, k) for k in ("obs", "pri_obs", "rew", "reset")},
+                                                       {k: getattr(o_e, k) for k in ("obs", "pri_obs", "rew", "reset")})
+        if d:
+            e_diffs.append((t, d[:8]))
+    sg = next(iter(env._step_graphs.values())).graph
+    timed = {}
+    for name in ("eager", "graphed"):
+        st = env.init_state(0)
+        a = torch.zeros((ENGINE_EVAL_ENVS, env.num_actions), device=dev)
+        fn = env.step if name == "eager" else env.step_graph
+        each = []
+        for _ in range(ENGINE_EVAL_TIMED + 1):
+            t0 = time.perf_counter()
+            st, _ = fn(st, a)
+            torch.cuda.synchronize()
+            each.append(1e3 * (time.perf_counter() - t0))
+        timed[name] = stats(each[1:])
+    log(f"[21 d] step_graph against step on the engine at {ENGINE_EVAL_ENVS} envs, {ENGINE_EVAL_STEPS} steps: "
+        f"{'equal bit for bit' if not e_diffs else e_diffs}; the step graph {json.dumps(sg.report())}; the step ms "
+        f"(host clock, each ended by a synchronize): eager {timed['eager']}, graphed {timed['graphed']}")
+    out["d"] = {"differing": e_diffs, "step_graph": sg.report(), "step_ms": timed}
+    if e_diffs:
+        fail(f"phase 21 (d): the engine's step_graph differs from step: {e_diffs}")
+    del env, s_e, s_g, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card"] = card_line()
+    out["seconds"] = time.perf_counter() - t21
+    log(f"[time] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -4495,6 +4803,11 @@ def main():
     torch.cuda.empty_cache()
     compiled_update = compiled_update_phase(dev)
     phase_done("phase 20")
+    # ---- phase 21: the compiled iteration on the engine (one step's graph replayed 64 times) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_compiled = engine_compiled_phase(dev)
+    phase_done("phase 21")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -4525,6 +4838,13 @@ def main():
     k2_row["step_path_graphed_launches"] = compiled_update.get("step_path", {}).get("b", {}).get("launches", {}).get("k2")
     k2_row["step_path_graphed_launches_from"] = (f"{UPDATE_TIMED} graphed iterations of the step path "
                                                  f"(fused_mega False) at {N_ENVS} envs, replays of its update graph")
+    # phase 21's graphed engine iterations, counted from 0 (K1 0: the engine replaces it)
+    engine_graphed = engine_compiled.get("b", {}).get("launches", {})
+    engine_graphed_from = (f"{ENGINE_TIMED} graphed iterations of GR1T1 on the engine (use_pallas False) at "
+                           f"{N_ENVS} envs: 64 A1 replays, A2 and K3's update graph each")
+    for row, k in ((k2_row, "k2"), (k3_row, "k3")):
+        row["engine_graphed_launches"] = engine_graphed.get(k)
+        row["engine_graphed_launches_from"] = engine_graphed_from
 
     # launches: phase 4's rollout and play, as in every earlier slice; phase
     # 15's runs, each counted from 0, under their own keys
@@ -4539,7 +4859,9 @@ def main():
                   rollout_env_steps_per_s=steps_per_s, rollout_launches=rollout_launches,
                   peak_mem_gib=peak_gib, train_launches=train["launches"]["k1"],
                   graphed_iteration_launches=compiled.get("t", {}).get("launches", {}).get("k1"),
-                  graphed_iteration_launches_from=graphed_from)
+                  graphed_iteration_launches_from=graphed_from,
+                  engine_graphed_launches=engine_graphed.get("k1"),
+                  engine_graphed_launches_from=engine_graphed_from)
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
     k1_no_pairs_row = dict(k1_rows["GR1T1_no_pairs"], launches=no_pairs_launches,
                            launches_from="one 64-step rollout of the no-pairs config")
@@ -4575,6 +4897,7 @@ def main():
     log(json.dumps({"bench": bench18}))
     log(json.dumps({"compiled_iteration": compiled}, default=str))
     log(json.dumps({"compiled_update": compiled_update}, default=str))
+    log(json.dumps({"engine_compiled": engine_compiled}, default=str))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

@@ -6,10 +6,12 @@ callers runs without a card.
    and engine variants, as it reads on a CUDA device: each runner is built
    on the CPU and its device and env backend then set to what the card
    would give (``physics_backend(use_pallas, "cuda")``). Every registry
-   task and every update path is compiled; the CPU, the engine and lane
-   backends, dp and mp keep their reasons.
+   task, every update path and the engine backend are compiled; the CPU,
+   the lane backend (K1's plain version on the card), dp and mp keep their
+   reasons.
 2. Capture hygiene: during ``env.step`` on the plane, heightfield, trimesh,
-   heading and full-body configs, and during ``rollout`` + the last values
+   heading and full-body configs, on K1 and on the engine, during
+   ``spd_solve`` above 48 (``cholesky_ex``), and during ``rollout`` + the last values
    + GAE + ``PPO.prepare_update`` (the block permutation and
    ``_pack_shuffle``), no ``torch.tensor`` / ``torch.as_tensor`` is called
    with a device, no ``torch.from_numpy`` is called, and no ``.item()`` /
@@ -61,6 +63,7 @@ from wiki_grx_gym_tpu_torch.envs.legged_env import LeggedEnv, physics_backend
 from wiki_grx_gym_tpu_torch.learn import graphs
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
+from wiki_grx_gym_tpu_torch.ops import linalg
 from wiki_grx_gym_tpu_torch.sim import cuda_step
 from wiki_grx_gym_tpu_torch.sim.cuda_step import CudaDecimation
 
@@ -142,14 +145,14 @@ def test_rule_per_variant(variant):
         runner.dp = _dp(2, mp=object() if variant == "mp" else None)
     reason = as_on_card(runner)
     want = {"dp": "parallelism", "mp": "parallelism", "symmetry": None, "step_path": None,
-            "xla_path": None, "engine": "'engine'", "lanes": "'lanes'", "bf16": None,
+            "xla_path": None, "engine": None, "lanes": "'lanes'", "bf16": None,
             "fused_trunk": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
-    # the env step's rule: K1 on a CUDA device, no dp
+    # the env step's rule: K1 or the engine on a CUDA device, no dp
     env.device = torch.device("cuda")
     env.dp = runner.dp
     step_reason = env.step_graph_reason
-    assert (step_reason is None) == (variant not in ("dp", "mp", "engine", "lanes")), (variant, step_reason)
+    assert (step_reason is None) == (variant not in ("dp", "mp", "lanes")), (variant, step_reason)
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +226,27 @@ def host_traffic(monkeypatch):
     yield calls
 
 
+def on_engine(mutate=None):
+    """``mutate`` and then the engine backend (``use_pallas = False``)."""
+    def engine(cfg):
+        if mutate is not None:
+            mutate(cfg)
+        cfg.sim.use_pallas = False
+    return engine
+
+
 HYGIENE = {
     "plane": ("GR1T1", None),
     "heightfield": ("GR1T1", cuda_step.terrain_config("heightfield", 2, 2)),
     "trimesh": ("GR1T1", cuda_step.terrain_config("trimesh", 2, 2)),
     "heading": ("GR1T1", cuda_step.heading_config),
     "full_body": ("GR1T1_full", None),
+    # the engine path: no plain version to pause, every op of the substep recorded
+    "engine_plane": ("GR1T1", on_engine()),
+    "engine_heightfield": ("GR1T1", on_engine(cuda_step.terrain_config("heightfield", 2, 2))),
+    "engine_trimesh": ("GR1T1", on_engine(cuda_step.terrain_config("trimesh", 2, 2))),
+    "engine_heading": ("GR1T1", on_engine(cuda_step.heading_config)),
+    "engine_full_body": ("GR1T1_full", on_engine()),
 }
 
 
@@ -250,6 +268,22 @@ def test_env_step_has_no_host_traffic(config, monkeypatch):
             state, out = env.step(state, actions)
     assert calls == [], f"{config}: {sorted(set(calls))}"
     assert torch.isfinite(out.obs).all()
+
+
+def test_large_spd_solve_reads_no_error_code(monkeypatch):
+    """Above 48 ``spd_solve`` factors with ``cholesky_ex`` (its ``info``
+    unread): the same solution as ``cholesky`` + ``cholesky_solve``, and no
+    device value read on the way."""
+    n = 49
+    rng = np.random.RandomState(0)
+    g = rng.randn(3, n, n)
+    a = torch.from_numpy((g @ g.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32))
+    b = torch.from_numpy(rng.randn(3, n).astype(np.float32))
+    want = torch.cholesky_solve(b[..., None], torch.linalg.cholesky(a))[..., 0]
+    with host_traffic(monkeypatch) as calls:
+        got = linalg.spd_solve(a, b)
+    assert calls == [], sorted(set(calls))
+    assert torch.equal(got, want)
 
 
 def test_collection_has_no_host_traffic(monkeypatch):

@@ -3,7 +3,10 @@
 otherwise: GR1T1 (the mega path, K3), GR1T1_lstm (the recurrent update:
 one grad step's graph replayed), and GR1T1 on the step path
 (``fused_mega = False``: K2 a grad step) and the xla path
-(``fused_update = False``), each update one graph.
+(``fused_update = False``), each update one graph; GR1T1 on the engine
+(``use_pallas = False``: the per-step collection, one rollout step's graph
+replayed T times with the step index on the device, then the collection's
+tail).
 
 - ``_train_iter`` against the eager ``iteration`` with injected noise, u
   and permutation, over three calls (the first warms up and captures, the
@@ -15,7 +18,9 @@ one grad step's graph replayed), and GR1T1 on the step path
   fail; the call raises, no graph is kept, and the launch counts show only
   the warm-up's launches. Likewise a host read planted in the recurrent
   grad step: the update's capture raises, no graph is kept, and the grad
-  step ran once (its warm-up).
+  step ran once (its warm-up); and one planted in the engine's env step:
+  the rollout step's capture raises, no graph is kept, and the step ran
+  once (its warm-up).
 
 Needs a CUDA card (a CUDA graph has no CPU mode; on the CPU the graphs'
 bookkeeping is held to the eager path by tests/test_torch_graphs.py).
@@ -42,7 +47,9 @@ CONFIGS = {
     "GR1T1_lstm": ("GR1T1_lstm", None),
     "step_path": ("GR1T1", lambda t: setattr(t.algorithm, "fused_mega", False)),
     "xla_path": ("GR1T1", lambda t: setattr(t.algorithm, "fused_update", False)),
+    "GR1T1_engine": ("GR1T1", None),
 }
+ENGINE = {"GR1T1_engine"}   # use_pallas = False
 
 
 def make_runner(config="GR1T1"):
@@ -52,6 +59,8 @@ def make_runner(config="GR1T1"):
     task, train = CONFIGS[config]
     cfg, train_cfg = task_registry.get_cfgs(task)
     cfg.env.num_envs = N
+    if config in ENGINE:
+        cfg.sim.use_pallas = False
     if train is not None:
         train(train_cfg)
     env, _ = task_registry.make_env(task, env_cfg=cfg, device="cuda")
@@ -104,7 +113,8 @@ def test_train_iter_equals_iteration_bit_for_bit(config):
         assert_same(s_g, s_e, f"call {it} state")
         assert list(m_g) == list(m_e)
         assert all(torch.equal(bits(m_g[k]), bits(m_e[k])) for k in m_e), it
-    assert runner.compiled.collect["inject"].replays == 2
+    per_call = runner.num_steps_per_env if config in ENGINE else 1   # the engine: A1 replayed T times a call
+    assert runner.compiled.collect["inject"].replays == 3 * per_call - 1
 
 
 def test_a_failed_capture_raises_and_nothing_runs_instead(runner, monkeypatch):
@@ -144,3 +154,26 @@ def test_a_failed_update_capture_raises_and_nothing_runs_instead(monkeypatch):
     update = runner.compiled.update
     assert update.graph is None and update.replays == 0
     assert calls == [1, 1]   # the warm-up's grad step, then the capture's (refused), no other
+
+
+def test_a_failed_engine_step_capture_raises_and_nothing_runs_instead(monkeypatch):
+    runner = make_runner("GR1T1_engine")
+    env = runner.env
+    step = env.step
+    calls = []
+
+    def reads_the_device(state, actions, u=None):
+        calls.append(1)
+        state, out = step(state, actions, u=u)
+        out.rew[0].item()   # a host read: refused inside a capture
+        return state, out
+
+    state = runner.init_state()
+    monkeypatch.setattr(env, "step", reads_the_device)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        runner._train_iter(state)
+    graph = runner.compiled.collect["draw"]
+    assert graph.graph is None and graph.replays == 0 and not runner.compiled.tail["draw"].replays
+    assert calls == [1, 1]   # the warm-up's step, then the capture's (refused), no other
+    assert LAUNCHES["k1"] == 0

@@ -578,7 +578,7 @@ class LeggedEnv:
         phys = state.physics
         like = phys.q
         damp = None if self._damping_t is None else self._damping_t.to(like) * state.motor_strength
-        fb = list(self.feet_bodies)
+        fb = self.index_t(self.feet_bodies)
         sum_force = like.new_zeros((n, f))
         sum_vxyz = like.new_zeros((n, f, 3))
         sum_vrpy = like.new_zeros((n, f, 3))
@@ -1113,12 +1113,14 @@ class LeggedEnv:
     @property
     def step_graph_reason(self) -> Optional[str]:
         """None where :meth:`step_graph` replays a CUDA graph, else why it
-        runs :meth:`step`: a CUDA device, K1 as the physics backend and no
-        data parallelism (the command curriculum's all-reduce) are needed."""
+        runs :meth:`step`: a CUDA device, K1 or the engine as the physics
+        backend and no data parallelism (the command curriculum's
+        all-reduce) are needed. The lane program (K1's plain version) is
+        not graphed."""
         if self.device.type != "cuda":
             return f"device {self.device}"
-        if self.backend != "kernel":
-            return f"the physics backend is {self.backend!r}, not K1"
+        if self.backend == "lanes":
+            return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
             return "data parallelism"
         return None

@@ -30,12 +30,28 @@ is a ``torch.cuda.CUDAGraph``:
   raises; nothing runs the body eagerly instead.
 - **The iteration** (:class:`CompiledIteration`, ``OnPolicyRunner._train_iter``):
   graph replays over one static ``RunnerState``, for every single-process
-  config on K1. (A) the collection: T x (act -> ``env.step`` -> store),
-  the last values, GAE, the permutation and the update's inputs; the new
-  env state, observations and (recurrent) LSTM memory are donated into the
-  static state, the metrics' sums into a static vector. A has one graph per
-  source of draws: the generators (``learn``), or noise, u and a
-  permutation copied into static buffers (the checks). (B) the update over
+  config on K1 or the engine. (A) the collection: T x (act -> ``env.step``
+  -> store), the last values, GAE, the permutation and the update's
+  inputs; the new env state, observations and (recurrent) LSTM memory are
+  donated into the static state, the metrics' sums into a static vector.
+  A has one graph per source of draws: the generators (``learn``), or
+  noise, u and a permutation copied into static buffers (the checks). Its
+  form follows a static rule, the env's physics backend:
+
+  - K1 (``"kernel"``): one graph of the whole collection (a step is
+    ~300-1,000 kernels);
+  - the engine (``"engine"``, ``cfg.sim.use_pallas = False``): a step is
+    ~26k kernels, so T steps would be a ~1.7M-node graph. (A1) one rollout
+    step's graph (``OnPolicyRunner.rollout_step``) over the static state, a
+    static ``Transition`` buffer and static ``acc`` sums, the step index on
+    the device: the step's noise and u read at the index (injected), its
+    fields written at it (``index_copy_``), the index advanced; replayed T
+    times. (A2) the collection's tail: the last values, GAE, the update's
+    inputs and the metrics' sums, then the sums and the index zeroed for
+    the next collection. The recurrent start memory (``hidden0``) is
+    copied eagerly before A1's first replay.
+
+  (B) the update over
   the static ``PPOState`` (p, m, v, count and LR written in place), by
   path:
 
@@ -312,7 +328,13 @@ class CompiledIteration:
         self.path = "recurrent" if runner.recurrent else alg.path
         self.steps = alg.num_learning_epochs * alg.num_mini_batches
         self.sums = torch.zeros(4 + len(env.all_reward_names), device=dev)   # the metrics' sums (A)
-        self.collect: Dict[str, Graph] = {}   # "draw" / "inject" -> graph A
+        self.collect: Dict[str, Graph] = {}   # "draw" / "inject" -> graph A (K1) or A1 (the engine)
+        # the engine: A1 a rollout step over these, replayed T times, then A2
+        self.per_step = env.backend == "engine"
+        self.tail: Dict[str, Graph] = {}      # "draw" / "inject" -> graph A2
+        if self.per_step:
+            self.buf, self.acc = runner.rollout_buffers(state)
+            self.rollout_index = torch.zeros(1, dtype=torch.long, device=dev)   # the step, on the device
         # graph B: K3's donated update context (mega, made in A's warm-up),
         # the whole update's Graph (step, xla) or one grad step's (recurrent)
         self.update = None
@@ -332,7 +354,7 @@ class CompiledIteration:
             self.hist = torch.zeros((self.steps, 3), device=dev)   # each step's (value, surrogate, KL)
 
     def reports(self) -> List[dict]:
-        out = [g.report() for g in self.collect.values()]
+        out = [g.report() for g in (*self.collect.values(), *self.tail.values())]
         if self.path == "mega":
             if self.update is not None and self.update.graph is not None:
                 out.append({"name": "update (K3, donated)", "capture_ms": self.update.capture_ms,
@@ -398,11 +420,71 @@ class CompiledIteration:
         else:
             copy_in(self.inputs, inputs)
 
+    def _rollout_step_body(self, mode):
+        """A1: one rollout step at the device index, the index advanced;
+        the new state donated into the static one."""
+        runner, s = self.runner, self.static
+
+        def body():
+            t = self.rollout_index
+            eps = u = None
+            if mode == "inject":
+                eps = self.inject["noise"].index_select(0, t)[0]
+                u = self.inject["u"].index_select(0, t)[0]
+            rs = runner.rollout_step(s, self.buf, self.acc, t, eps, u)
+            self._advance_rollout()
+            return self._collected(rs), None
+
+        return body
+
+    def _advance_rollout(self):
+        self.rollout_index.add_(1)
+
+    def _tail_body(self, mode):
+        """A2: the last values, GAE, the update's inputs and the metrics'
+        sums from the static state and buffers; then the sums (copied out
+        first) and the step index zeroed for the next collection."""
+        runner, s = self.runner, self.static
+
+        def body():
+            perm = self.inject["perm"] if mode == "inject" else None
+            with torch.no_grad():
+                last_values, returns, adv = runner._returns(s, self.buf)
+                self._stage_update(self.buf, returns, adv, perm)
+                self.sums.copy_(runner._collection_sums(s, self.acc))
+                acc = {k: v.clone() for k, v in self.acc.items()}
+                for v in self.acc.values():
+                    v.zero_()
+                self.rollout_index.zero_()
+            out = {"batch": self.buf, "acc": acc, "last_values": last_values, "returns": returns,
+                   "advantages": adv}
+            return None, out
+
+        return body
+
     def _collection(self, mode) -> Graph:
         if mode not in self.collect:
-            self.collect[mode] = Graph(f"collection ({mode})", self._collection_body(mode), self.static,
-                                       count_nodes=_kernel_nodes)
+            if self.per_step:
+                self.collect[mode] = Graph(f"rollout step ({mode})", self._rollout_step_body(mode), self.static,
+                                           count_nodes=_kernel_nodes)
+                self.tail[mode] = Graph(f"collection tail ({mode})", self._tail_body(mode), self.static,
+                                        donate=False, count_nodes=_kernel_nodes)
+            else:
+                self.collect[mode] = Graph(f"collection ({mode})", self._collection_body(mode), self.static,
+                                           count_nodes=_kernel_nodes)
         return self.collect[mode]
+
+    def _collect(self, mode):
+        """Graph A, or on the engine A1 replayed T times and A2. Returns the
+        collection's outputs."""
+        graph = self._collection(mode)
+        if not self.per_step:
+            return graph()
+        if self.path == "recurrent":
+            copy_in(self.hidden0, self.static.hidden)
+        for _ in range(self.runner.num_steps_per_env):
+            graph()
+        return self.tail[mode]()
 
     # -- graph B ---------------------------------------------------------------
 
@@ -525,7 +607,7 @@ class CompiledIteration:
         mode = self._stage_draws(noise, u, perm)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        self.last = self._collection(mode)()
+        self.last = self._collect(mode)
         ev[1].record()
         self.metrics = self._update()
         ev[2].record()
@@ -537,7 +619,12 @@ class CompiledIteration:
     def rollout(self, state):
         """The rollout alone as a graph over the static state, not donated:
         each replay starts from the static state (the generators advance).
-        Returns (new state, Transition, acc) as ``runner.rollout``."""
+        Returns (new state, Transition, acc) as ``runner.rollout``. K1 only:
+        the engine's rollout is A1's replays, which advance the static
+        state (it raises there)."""
+        if self.per_step:
+            raise NotImplementedError("the engine's rollout is not graphed alone (one step's graph replayed T "
+                                      "times donates into the static state); time _train_iter")
         copy_in(self.static, state)
         self.runner.net.bind(self.static.ppo.params)
         if self._rollout is None:

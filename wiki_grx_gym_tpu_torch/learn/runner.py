@@ -12,10 +12,12 @@ update, one graph on the mega path (K3's), the step path (K2 a grad step)
 and the xla path (autograd of the loss, with an extra loss term such as
 the symmetry loss, ``remat_update`` or the bf16 update dtype), and one
 grad step's graph replayed epochs x minibatches times on the recurrent
-path. The rule for which configs take it is static
-(:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 as the physics
-backend, no data or tensor parallelism. Every other config (the CPU, the
-engine and lane backends, dp and mp) runs ``iteration``, eagerly.
+path. On K1 the collection is one graph; on the engine (a step is ~26k
+kernels) one rollout step's graph replayed T times, then a graph of the
+collection's tail. The rule for which configs take it is static
+(:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 or the engine as
+the physics backend, no data or tensor parallelism. Every other config
+(the CPU, the lane backend, dp and mp) runs ``iteration``, eagerly.
 ``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
@@ -176,13 +178,15 @@ class OnPolicyRunner:
     @property
     def eager_reason(self) -> Optional[str]:
         """None where the iteration is compiled (:meth:`_train_iter`),
-        else why it runs eagerly. The rule is static: a CUDA device, K1 as
-        the physics backend, no data or tensor parallelism; every update
-        path (mega, step, xla, recurrent; an extra loss term) is compiled."""
+        else why it runs eagerly. The rule is static: a CUDA device, K1 or
+        the engine as the physics backend, no data or tensor parallelism;
+        every update path (mega, step, xla, recurrent; an extra loss term)
+        is compiled. The lane program (K1's plain version, ~157k single-op
+        launches a policy step on the card) stays eager."""
         if self.device.type != "cuda":
             return f"device {self.device} (CUDA graphs need a CUDA device)"
-        if self.env.backend != "kernel":
-            return f"the physics backend is {self.env.backend!r}, not K1"
+        if self.env.backend == "lanes":
+            return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
             return "data or tensor parallelism (collectives between the ranks)"
         return None
@@ -211,19 +215,10 @@ class OnPolicyRunner:
         return RunnerState(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, rng=g_run, ppo=ppo,
                            hidden=self.net.initial_hidden(env.num_envs) if self.recurrent else None)
 
-    @torch.no_grad()
-    def rollout(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None):
-        """T = num_steps_per_env steps of act -> env.step -> store.
-
-        ``noise``: optional (T, N, A) standard-normal action noise and ``u``:
-        optional (T, N, K) per-step uniform blocks, used instead of drawing
-        from ``state.rng`` and ``env_state.rng``.
-
-        Returns (new state, Transition with (T, N, ...) fields, acc) where acc
-        holds the per-env sums of reward, dones, episode sums at done and
-        episode lengths at done."""
-        env, net = self.env, self.net
+    def rollout_buffers(self, state: RunnerState):
+        """(Transition of empty (T, N, ...) fields, acc of zero per-env sums)
+        for a rollout from ``state``."""
+        env = self.env
         n, a, t_len = env.num_envs, env.num_actions, self.num_steps_per_env
         dev = self.device
         e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
@@ -240,39 +235,69 @@ class OnPolicyRunner:
             "ep_sums": torch.zeros((n, len(env.all_reward_names)), device=dev),
             "ep_len_done": torch.zeros(n, device=dev),
         }
-        env_state, obs, critic_obs, hidden = state.env_state, state.obs, state.critic_obs, state.hidden
-        for t in range(t_len):
-            eps = noise[t] if noise is not None else torch.randn(
-                (n, a), generator=state.rng, device=dev)
-            if self.recurrent:
-                # both memories stepped in one dispatch chain
-                actions, logp, mu, sigma, values, hidden = net.act_evaluate_rnn(
-                    obs, critic_obs, hidden, eps)
-            elif self.fused_trunk:
-                mu, values = net.joint_mean_value(obs, critic_obs)
-                sigma = net.std().expand_as(mu)
-                actions = mu + sigma * eps
-                logp = net.log_prob(mu, sigma, actions)
+        return buf, acc
+
+    @torch.no_grad()
+    def rollout_step(self, state: RunnerState, buf: Transition, acc, t, eps=None, u=None) -> RunnerState:
+        """One rollout step: act -> ``env.step`` -> store at step ``t`` of
+        ``buf`` -> add to ``acc`` (in place); ``t`` is an int (the eager
+        loop) or a (1,) int64 index on the device (the engine's per-step
+        graph, ``learn/graphs.py``). ``eps``: (N, A) action noise instead of
+        a draw from ``state.rng``; ``u``: the step's (N, K) uniform block
+        instead of a draw from the env's generator. Returns the state after
+        the step (the LSTM memory of reset envs zeroed)."""
+        env, net = self.env, self.net
+        obs, critic_obs, hidden = state.obs, state.critic_obs, state.hidden
+        if eps is None:
+            eps = torch.randn((env.num_envs, env.num_actions), generator=state.rng, device=self.device)
+        if self.recurrent:
+            # both memories stepped in one dispatch chain
+            actions, logp, mu, sigma, values, hidden = net.act_evaluate_rnn(obs, critic_obs, hidden, eps)
+        elif self.fused_trunk:
+            mu, values = net.joint_mean_value(obs, critic_obs)
+            sigma = net.std().expand_as(mu)
+            actions = mu + sigma * eps
+            logp = net.log_prob(mu, sigma, actions)
+        else:
+            actions, logp, mu, sigma = net.act(obs, eps)
+            values = net.evaluate(critic_obs)
+        env_state, out = env.step(state.env_state, actions, u=u)
+        # timeout bootstrapping
+        rewards = out.rew + self.gamma * values * out.extras["time_outs"]
+        for field, val in (("obs", obs), ("critic_obs", critic_obs), ("actions", actions),
+                           ("rewards", rewards), ("dones", out.reset), ("values", values),
+                           ("log_prob", logp), ("mu", mu), ("sigma", sigma)):
+            dst = getattr(buf, field)
+            if torch.is_tensor(t):
+                dst.index_copy_(0, t, val[None])
             else:
-                actions, logp, mu, sigma = net.act(obs, eps)
-                values = net.evaluate(critic_obs)
-            env_state, out = env.step(env_state, actions, u=None if u is None else u[t])
-            # timeout bootstrapping
-            rewards = out.rew + self.gamma * values * out.extras["time_outs"]
-            for field, val in (("obs", obs), ("critic_obs", critic_obs), ("actions", actions),
-                               ("rewards", rewards), ("dones", out.reset), ("values", values),
-                               ("log_prob", logp), ("mu", mu), ("sigma", sigma)):
-                getattr(buf, field)[t] = val
-            acc["rew"] += out.rew
-            acc["done"] += out.reset.to(torch.float32)
-            acc["ep_sums"] += out.extras["episode_done_sums"]
-            acc["ep_len_done"] += out.extras["ep_len_done"]
-            obs, critic_obs = out.obs, out.pri_obs
-            if self.recurrent:
-                # the memory of reset envs is zeroed (rsl_rl reset semantics)
-                hidden = hidden.masked(1.0 - out.reset.to(torch.float32))
-        new_state = state.replace(env_state=env_state, obs=obs, critic_obs=critic_obs, hidden=hidden)
-        return new_state, buf, acc
+                dst[t] = val
+        acc["rew"] += out.rew
+        acc["done"] += out.reset.to(torch.float32)
+        acc["ep_sums"] += out.extras["episode_done_sums"]
+        acc["ep_len_done"] += out.extras["ep_len_done"]
+        if self.recurrent:
+            # the memory of reset envs is zeroed (rsl_rl reset semantics)
+            hidden = hidden.masked(1.0 - out.reset.to(torch.float32))
+        return state.replace(env_state=env_state, obs=out.obs, critic_obs=out.pri_obs, hidden=hidden)
+
+    @torch.no_grad()
+    def rollout(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None):
+        """T = num_steps_per_env steps of :meth:`rollout_step`.
+
+        ``noise``: optional (T, N, A) standard-normal action noise and ``u``:
+        optional (T, N, K) per-step uniform blocks, used instead of drawing
+        from ``state.rng`` and ``env_state.rng``.
+
+        Returns (new state, Transition with (T, N, ...) fields, acc) where acc
+        holds the per-env sums of reward, dones, episode sums at done and
+        episode lengths at done."""
+        buf, acc = self.rollout_buffers(state)
+        for t in range(self.num_steps_per_env):
+            state = self.rollout_step(state, buf, acc, t, None if noise is None else noise[t],
+                                      None if u is None else u[t])
+        return state, buf, acc
 
     # ------------------------------------------------------------------
     # one training iteration (the JAX _iteration, runner.py:256)
@@ -282,8 +307,14 @@ class OnPolicyRunner:
         """The iteration up to the update: the rollout, the last values and
         GAE. Returns (rollout state, Transition, acc, last values, returns,
         advantages)."""
-        net = self.net
         rs, batch, acc = self.rollout(state, noise=noise, u=u)
+        last_values, returns, advantages = self._returns(rs, batch)
+        return rs, batch, acc, last_values, returns, advantages
+
+    def _returns(self, rs: RunnerState, batch: Transition):
+        """The collection's tail after the rollout: (last values, returns,
+        advantages) by GAE."""
+        net = self.net
         with torch.no_grad():
             if self.recurrent:
                 # the critic's memory after the rollout
@@ -291,7 +322,7 @@ class OnPolicyRunner:
             else:
                 last_values = net.evaluate(rs.critic_obs)
         returns, advantages = self.alg.compute_returns(batch, last_values)
-        return rs, batch, acc, last_values, returns, advantages
+        return last_values, returns, advantages
 
     def iteration(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
                   u: Optional[torch.Tensor] = None, perm=None, out: Optional[dict] = None):
@@ -365,7 +396,8 @@ class OnPolicyRunner:
     def _train_iter(self, state: RunnerState, noise: Optional[torch.Tensor] = None,
                     u: Optional[torch.Tensor] = None, perm=None):
         """The iteration compiled (JAX ``runner.py:134``): the collection
-        graph and the update's graph replayed over the static state
+        graph (on the engine one rollout step's graph replayed T times, then
+        the collection's tail) and the update's graph replayed over the static state
         (``graphs.CompiledIteration``, made at the first call; each graph's
         first call is its warm-up, the body run eagerly, then its capture). ``state`` is
         copied in where it is not the static state itself; the returned
@@ -390,7 +422,8 @@ class OnPolicyRunner:
     def _rollout_graph(self, state: RunnerState):
         """The rollout alone as a CUDA graph over the compiled iteration's
         static state (not donated; the bench's counterpart of JAX's
-        ``rollout_jit``). Returns (state, Transition, acc) as :meth:`rollout`."""
+        ``rollout_jit``). Returns (state, Transition, acc) as :meth:`rollout`.
+        On K1 only: on the engine it raises (``CompiledIteration.rollout``)."""
         why = self.eager_reason
         if why is not None:
             raise ValueError(f"this config's rollout is not compiled: {why}")

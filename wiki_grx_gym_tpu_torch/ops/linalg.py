@@ -11,8 +11,11 @@ rounds as it does; the backward solve subtracts them in the reverse
 order.
 
 Used by the articulated-body solve (``sim/dynamics.py``). Matrices larger
-than 48 take ``torch.linalg.cholesky`` and ``torch.cholesky_solve``, as the
-JAX package takes ``jax.scipy.linalg.cho_factor`` there.
+than 48 take ``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve``, as
+the JAX package takes ``jax.scipy.linalg.cho_factor`` there. Its ``info`` is
+not read: a failed factorization does not raise, as JAX's does not, and
+nothing waits for the device to check the error code (a CUDA graph's
+capture cannot).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``a x = b`` for SPD ``a`` (..., n, n) and right-hand side (..., n)."""
     n = a.shape[-1]
     if n > 48:
-        c = torch.linalg.cholesky(a)
+        c, _ = torch.linalg.cholesky_ex(a)
         return torch.cholesky_solve(b[..., None], c)[..., 0]
     l = cholesky_unrolled(a)
     return solve_upper_t(l, solve_lower(l, b))

@@ -29,7 +29,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from wiki_grx_gym_tpu_torch.sim.kinematics import model_const
+from wiki_grx_gym_tpu_torch.sim.kinematics import model_const, static_index
 from wiki_grx_gym_tpu_torch.utils.maths import _cross, _div
 
 # height_fn: (x, y) -> height; world frame, broadcasts over point batches
@@ -234,7 +234,10 @@ def body_wrenches(
     point_force: torch.Tensor,     # (..., P, 3)
 ) -> torch.Tensor:
     """Per-body spatial wrenches (..., B, 6) at the reference origin: each
-    body's points summed in a fixed order over static index lists."""
+    body's points summed in a fixed order over static index lists (a body
+    whose points are not contiguous gathers them through a cached device
+    index, never a Python list, whose host copy a CUDA graph's capture
+    refuses)."""
     tau = _cross(point_pos_rel, point_force)
     wrench_p = torch.cat([tau, point_force], dim=-1)        # (..., P, 6)
     zero = wrench_p.new_zeros(wrench_p.shape[:-2] + (6,))
@@ -248,5 +251,6 @@ def body_wrenches(
         elif idx == list(range(idx[0], idx[-1] + 1)):
             per_body.append(torch.sum(wrench_p[..., idx[0]: idx[-1] + 1, :], dim=-2))
         else:
-            per_body.append(torch.sum(wrench_p[..., idx, :], dim=-2))
+            rows = model_const(static_index(tuple(idx)), wrench_p, torch.int64)
+            per_body.append(torch.sum(wrench_p[..., rows, :], dim=-2))
     return torch.stack(per_body, dim=-2)                     # (..., B, 6)

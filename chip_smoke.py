@@ -241,9 +241,13 @@ together after phase 9):
    each update, the checkpoint from rank 0 only; the gloo all-reduce of the
    gradient timed alone. The ranks are joined within ``DP_JOIN_S`` or
    killed. Rank 0 also times K2's plain version and the cuBLAS yardstick
-   (phase 8's) at its 5,232 rows. (e) ``torchrun --nproc_per_node=1 -m
+   (phase 8's) at its 5,232 rows, and K2's eager step-path call both ways:
+   with its context built anew (``grads()``) and through
+   ``step_context`` (made once an update, as the step path now calls it).
+   (e) ``torchrun --nproc_per_node=1 -m
    wiki_grx_gym_tpu_torch.scripts.train --distributed`` with NCCL, one
-   iteration, exit 0. Each of phases 13 and 14 prints its seconds.
+   iteration, exit 0, its printed iteration line "compiled" (NCCL's
+   collectives are captured). Each of phases 13 and 14 prints its seconds.
 15. Eval and deploy (``eval_deploy_phase``), the launch counts set to 0
    just before each part and read just after: (a) ``play --record`` of
    GR1T1 from phase 7's ``model_2.pt`` (50 envs, 100 steps; K1 once a step
@@ -339,7 +343,9 @@ together after phase 9):
    the xla path. (a) Two ``_train_iter`` calls against two eager
    iterations with injected noise, u and perm: every collection output,
    the state (the LSTM memory included), the PPO state and the metrics bit
-   for bit. (b) Five graphed iterations (generator draws): min / median /
+   for bit (GR1T1_lstm at 16 steps an env, ``UPDATE_CHECK_STEPS``: its
+   eager iteration scales with T). (b) Five graphed iterations (generator
+   draws, 64 steps an env): min / median /
    max, collection and update from the CUDA events, beside (a)'s eager
    times; launch counts (K1 64, K2 200 on the step path, each); the
    graphs' warm-up, capture and instantiate ms and kernel nodes; peak
@@ -348,14 +354,49 @@ together after phase 9):
    grad-step replays). (c) GR1T1_lstm: a grad-step graph whose step index
    does not advance and a collection that keeps the old memory must each
    fail (a)'s check.
+21. The compiled iteration on the engine (``engine_compiled_phase``,
+   ``use_pallas = False``: one rollout step's graph replayed 64 times, then
+   the collection's tail, then K3's update graph) at 4096 envs: (a) two
+   calls against eager with injected draws and two with generator draws,
+   16 steps an env (the eager engine is host-bound, ~29 s an iteration of
+   64 steps), bit for bit; (b) five graphed iterations of 64 steps timed,
+   launch counts, host calls, the device time of A1 and A2 + the update;
+   (c) A1 without its index advanced must fail (a)'s check; (d)
+   ``step_graph`` on the engine at 64 envs, bit for bit, timed.
+22. The compiled iteration over NCCL (``nccl_phase``: ``nccl_worker`` on
+   each world the cards hold, one rank a card, GR1T1 with the all-terms
+   fold and the command curriculum on, which all-reduces in every env step
+   only with the fold's tracking_lin_vel term): (a) one rank of a world-1
+   NCCL group at 4096 envs (the mega path; its collectives, the
+   curriculum's all-reduce in each env step and the metric sums' in K3's
+   graph, captured; at one rank NCCL launches no kernel, so (a) holds the
+   rule and the capture's plumbing, not NCCL's kernels in a graph); (b)
+   with two cards dp2 on the step path at 4096 envs a card (across ranks
+   the rule compiles data parallelism with K1 on the step path alone:
+   ``mesh.COMPILED_ACROSS_RANKS``). Each rank: the rule compiles it;
+   two ``_train_iter`` calls against two eager iterations with injected
+   draws and two with generator draws, bit for bit; each graph's nodes by
+   kind (NCCL's kernels counted apart) and the collectives it captured;
+   five graphed iterations timed with their launch counts (K1 64 each; K2
+   200 on the step and mega paths; K3 1 on the mega path); one under
+   torch.profiler (host launch calls, device time, busy share);
+   ``learn(1)`` printing "iteration: compiled" with the ranks' digests
+   equal; a planted fault that must be caught: at world 1 the metric
+   sums' all-reduce captured ahead of the collection that writes them
+   (the metrics differ from eager's), at two ranks rank 1's update with
+   ``PPO.reduce``'s result dropped (the all-reduce still issued, so no
+   rank waits): ``learn``'s digest check must raise. Prints the worlds run,
+   ``nccl_cards`` and what was skipped for want of cards.
    Prints the kernels' JSON line (K1 for each program, its main-path count
    from phase 4 with phase 15's, 16's and 17's counts beside it under their
    own keys, the viscous program's from phase 18's ``ref_equiv_subset``
    cell, the trimesh viscous program's from phase 11's rollout, GR1T1's at
    8192 envs from phase 18, K2 at both widths with its data-parallel use
    under ``dp`` and at 20,960 rows from phase 18, K3; K1, K2 and K3 also
-   with phase 19's graphed iterations' counts; K2 with phase 20's graphed
-   step path's), the card line, and the final ok line.
+   with phase 19's graphed iterations' counts, phase 21's on the engine
+   and phase 22's per NCCL world and rank (``dp_graphed_launches``); K2
+   with phase 20's graphed step path's), the card line, and the final ok
+   line.
 """
 
 import copy
@@ -2506,9 +2547,11 @@ def dp_worker(rank, world, init_method, out_dir, device, num_envs):
             except RuntimeError:
                 caught[tag] = True
         # K2 at this rank's rows (rank 0 times it while rank 1 waits): its
-        # launch on a prepared context, as phase 8 times it, and the step
-        # path's whole grads() call (the context built anew each grad step)
-        k2_ms = grads_ms = plain_ms = library_ms = None
+        # launch on a prepared context, as phase 8 times it; a grads() call
+        # (the context built anew each call, as the eager step path made it
+        # before); and the eager step path's call now (its context made once
+        # an update, the step's params copied in)
+        k2_ms = grads_ms = ctx_ms = plain_ms = library_ms = None
         if rank == 0 and dev.type == "cuda":
             from wiki_grx_gym_tpu_torch.learn import fused_update
 
@@ -2516,12 +2559,15 @@ def dp_worker(rank, world, init_method, out_dir, device, num_envs):
             lib = fused_update._lib("k2")
             k2_ms = cuda_ms(lambda: fused._k2_launch(lib, args, 0, dev), reps=50, warmup=3)
             grads_ms = cuda_ms(lambda: fused.grads(p, bufs, 0), reps=20, warmup=2)
+            ctx = fused.step_context(p.clone(), bufs)
+            ctx_ms = cuda_ms(lambda: ctx.grads(0, p), reps=20, warmup=2)
             # K2's plain version and the cuBLAS yardstick at this rank's rows
             plain_ms = cuda_ms(lambda: fused.grads_plain(p, bufs, 0), reps=5, warmup=1)
             library_ms = cublas_yardstick(fused, dev)
         dp.all_reduce_sum(torch.zeros(1, device=dev))
         ops, nbytes = k2_work(fused, 2)
-        res.update(rows=rows, k2_ms=k2_ms, k2_grads_call_ms=grads_ms, k2_plain_ms=plain_ms,
+        res.update(rows=rows, k2_ms=k2_ms, k2_grads_call_ms=grads_ms, k2_step_context_call_ms=ctx_ms,
+                   k2_plain_ms=plain_ms,
                    k2_library_ms=library_ms,
                    k2_bound_ms=max(ops / BF16_TC_PEAK, nbytes / HBM_RATE) * 1e3, flips=flips, rows_taken_out=taken, k2_rank_ok=bool(rank_ok),
                    k2_rank_worst={k: d / max(lim, 1e-30) for k, (d, lim) in diffs.items()},
@@ -2602,8 +2648,11 @@ def dp_phase(dev):
             f"{max(r['k2_mean_worst'].values()):.3f} of its limit: {r['k2_mean_ok']}; rank 1's {r['fault_leaf']} "
             f"x{FAULT_SCALE} fault at {r['fault_ratio']:.2f}x the limit, caught {r['fault_caught']}; identity "
             f"check {r['identity_check']}" + (f"; K2 {r['k2_ms']:.4f} ms a launch on a prepared context at "
-                                               f"{r['rows']} rows (bound {r['k2_bound_ms']:.4f} ms), the step "
-                                               f"path's grads() call {r['k2_grads_call_ms']:.4f} ms, its "
+                                               f"{r['rows']} rows (bound {r['k2_bound_ms']:.4f} ms), a "
+                                               f"grads() call (its context built anew) "
+                                               f"{r['k2_grads_call_ms']:.4f} ms, the eager step path's call "
+                                               f"(step_context, made once an update) "
+                                               f"{r['k2_step_context_call_ms']:.4f} ms, its "
                                                f"plain version {r['k2_plain_ms']:.3f} ms, the cuBLAS "
                                                f"yardstick (22 bf16 products, one graph) "
                                                f"{r['k2_library_ms']:.4f} ms"
@@ -2633,11 +2682,15 @@ def dp_phase(dev):
     res = subprocess.run(cmd, capture_output=True, text=True, cwd=THIS, timeout=DP_JOIN_S)
     torchrun_s = time.perf_counter() - t0
     it_lines = [line for line in res.stdout.splitlines() if line.startswith("it ")]
-    log(f"[dp torchrun] {' '.join(cmd[2:])}: exit {res.returncode} in {torchrun_s:.1f} s; {it_lines}")
+    how = [line for line in res.stdout.splitlines() if line.startswith("iteration: ")]
+    log(f"[dp torchrun] {' '.join(cmd[2:])}: exit {res.returncode} in {torchrun_s:.1f} s; {how}; {it_lines}")
     if res.returncode != 0 or len(it_lines) != 1:
         log(res.stdout[-3000:])
         log(res.stderr[-3000:])
         fail(f"torchrun with NCCL at world size 1 exited {res.returncode} with {len(it_lines)} iteration lines")
+    # over NCCL the iteration is compiled, the collectives captured in its graphs
+    if dev.type == "cuda" and not (how and how[0].startswith("iteration: compiled")):
+        fail(f"torchrun with NCCL at world size 1 did not run the compiled iteration: {how}")
     return {"world": DP_WORLD, "backend": "gloo", "device": ranks[0]["device"], "path": ranks[0]["path"],
             "rows_per_rank": ranks[0]["rows"], "launches_per_rank": [r["launches"] for r in ranks],
             "k2_ms_at_rows_per_rank": ranks[0]["k2_ms"], "k2_grads_call_ms": ranks[0]["k2_grads_call_ms"],
@@ -2647,8 +2700,9 @@ def dp_phase(dev):
             "iteration_s": ranks[0]["iteration_s"], "collection_s": ranks[0]["collection_s"],
             "update_s": ranks[0]["update_s"], "env_steps_per_s": ranks[0]["env_steps_per_s"],
             "one_process_step_update_s": one["update_s"], "one_process_step_iteration_s": one["elapsed_s"],
+            "k2_step_context_call_ms": ranks[0]["k2_step_context_call_ms"],
             "spawn_s": spawn_s, "torchrun_nccl_world1": {"exit": res.returncode, "seconds": torchrun_s,
-                                                         "iteration": it_lines}}
+                                                         "how": how, "iteration": it_lines}}
 
 
 # phase 15: eval and deploy
@@ -4084,6 +4138,9 @@ UPDATE_CONFIGS = {   # name: (task, algorithm settings)
     "xla_path": ("GR1T1", {"fused_update": False}),
 }
 UPDATE_CALLS = 2    # (a): compiled against eager, injected draws
+# (a) and (c) of GR1T1_lstm at 16 steps an env (T cut from 64: its eager
+# iteration, ~28-32 s at 64 steps, scales with T); (b) at the task's 64
+UPDATE_CHECK_STEPS = {"GR1T1_lstm": 16}
 UPDATE_TIMED = 5    # (b): graphed iterations timed (generator draws), after one that captures their collection
 STEP_PROFILED = 10  # (b), GR1T1_lstm: grad-step replays under the profiler (a whole update is ~1.6M kernels)
 
@@ -4115,12 +4172,19 @@ def update_config_check(dev, name, task, alg_kw):
     ms = lambda xs: [1e3 * x for x in xs]
     stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
     t_cfg = time.perf_counter()
-    cfg, train_cfg = task_registry.get_cfgs(task)
-    cfg.env.num_envs = N_ENVS
-    for k, v in alg_kw.items():
-        setattr(train_cfg.algorithm, k, v)
-    env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
-    runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)
+
+    def make(steps=None):
+        cfg, train_cfg = task_registry.get_cfgs(task)
+        cfg.env.num_envs = N_ENVS
+        if steps is not None:
+            train_cfg.runner.num_steps_per_env = steps
+        for k, v in alg_kw.items():
+            setattr(train_cfg.algorithm, k, v)
+        env, _ = task_registry.make_env(task, env_cfg=cfg, device=dev)
+        return task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None)[0]
+
+    check_steps = UPDATE_CHECK_STEPS.get(name)
+    runner = make(check_steps)
     path = "recurrent" if runner.recurrent else runner.alg.path
     if runner.eager_reason is not None:
         fail(f"phase 20: {name} is not compiled: {runner.eager_reason}")
@@ -4150,14 +4214,20 @@ def update_config_check(dev, name, task, alg_kw):
         d += tree_diffs(s_g, s_e, "state")
         d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
         diffs.append(d)
-        log(f"[20 a {name}] call {it} ({path} update; {'warm-up and capture' if it == 0 else 'replay'}): "
+        log(f"[20 a {name}] call {it} ({path} update; {'warm-up and capture' if it == 0 else 'replay'}; "
+            f"{runner.num_steps_per_env} steps an env): "
             f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
     peak_a = torch.cuda.max_memory_allocated() / 2**30
-    res = {"path": path, "a": {"calls": UPDATE_CALLS, "differing": diffs,
+    res = {"path": path, "a": {"calls": UPDATE_CALLS, "steps": runner.num_steps_per_env, "differing": diffs,
                                "graphed_call_ms": first_ms}}
     if any(diffs):
         fail(f"phase 20 (a): {name}'s compiled iteration differs from the eager one: {diffs}")
     del s_e
+    checked = runner   # (c) plants its faults in (a)'s config
+    if check_steps is not None:   # (b) at the task's own depth
+        checked.compiled = None
+        runner = make()
+        s_g = runner.init_state()
 
     # ---- (b) timed graphed iterations (generator draws) ----
     torch.cuda.reset_peak_memory_stats()
@@ -4176,14 +4246,16 @@ def update_config_check(dev, name, task, alg_kw):
     b = {"eager_iteration_ms": stats(ms([w for w, _ in eager])),
          "eager_collection_ms": stats(ms([t["collection_s"] for _, t in eager])),
          "eager_update_ms": stats(ms([t["update_s"] for _, t in eager])),
+         "eager_steps": checked.num_steps_per_env, "graphed_steps": runner.num_steps_per_env,
          "graphed_iteration_ms": stats(ms([w for w, _ in graphed])),
          "graphed_collection_ms": stats(ms([t["collection_s"] for _, t in graphed])),
          "graphed_update_ms": stats(ms([t["update_s"] for _, t in graphed])),
          "launches": launches, "base_mem_gib": base, "peak_mem_gib_a": peak_a, "peak_mem_gib_graphed": peak_b,
          "peak_reserved_gib_graphed": reserved_b, "graphs": runner.compiled.reports()}
-    log(f"[20 b {name}] eager iteration ms {b['eager_iteration_ms']} (collection "
+    log(f"[20 b {name}] eager iteration ({checked.num_steps_per_env} steps) ms {b['eager_iteration_ms']} (collection "
         f"{b['eager_collection_ms']['median']:.2f}, update {b['eager_update_ms']['median']:.2f}); graphed "
-        f"{b['graphed_iteration_ms']} (collection {b['graphed_collection_ms']['median']:.2f}, update "
+        f"({runner.num_steps_per_env} steps) {b['graphed_iteration_ms']} (collection "
+        f"{b['graphed_collection_ms']['median']:.2f}, update "
         f"{b['graphed_update_ms']['median']:.2f}, from the events); peak memory {peak_a:.3f} GiB in (a), from "
         f"{base:.3f} GiB allocated before it, "
         f"graphed {peak_b:.3f} GiB (reserved {reserved_b:.3f}); {UPDATE_TIMED} graphed iterations launched "
@@ -4229,6 +4301,9 @@ def update_config_check(dev, name, task, alg_kw):
     res["b"] = b
 
     # ---- (c) planted faults must fail (a)'s check ----
+    if checked is not runner:
+        runner.compiled = None
+        del runner
     if path == "recurrent":
         from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
 
@@ -4237,14 +4312,14 @@ def update_config_check(dev, name, task, alg_kw):
                       "_collected", lambda self, rs: rs.replace(ppo=self.static.ppo, hidden=self.static.hidden))}
         res["c"] = {}
         for plant, (attr, fn) in plants.items():
-            runner.compiled = None
+            checked.compiled = None
             gc.collect()
             orig = getattr(CompiledIteration, attr)
             setattr(CompiledIteration, attr, fn)
             try:
-                s0 = runner.init_state()
+                s0 = checked.init_state()
                 s0 = s0.replace(ppo=s0.ppo.replace(params=p0.clone()))
-                s_p, m_p = runner._train_iter(s0, **ref0["draws"])
+                s_p, m_p = checked._train_iter(s0, **ref0["draws"])
                 d = _tensor_diffs({"ppo": s_p.ppo, "hidden": s_p.hidden, "metrics": m_p},
                                   {"ppo": ref0["state"].ppo, "hidden": ref0["state"].hidden,
                                    "metrics": ref0["metrics"]}, "")
@@ -4303,8 +4378,8 @@ def compiled_update_phase(dev):
 # phase 21: the compiled iteration on the engine path (learn/graphs.py: one
 # rollout step's graph replayed T times, then the collection's tail)
 ENGINE_CALLS = 2              # (a): compiled against eager, each source of draws
-# (a) with generator draws: 16 steps an env (T cut from 64; the eager side
-# is host-bound, ~29 s an iteration of 64 steps at any env count)
+# (a) and (c): 16 steps an env (T cut from 64; the eager side is
+# host-bound, ~29 s an iteration of 64 steps at any env count); (b) at 64
 ENGINE_GEN_STEPS = 16
 ENGINE_TIMED = 5              # (b): graphed iterations timed
 ENGINE_STEPS_PROFILED = 4     # (b): A1 replays under the profiler (a whole collection is ~1.7M kernels)
@@ -4361,11 +4436,12 @@ def engine_compiled_phase(dev):
         runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None)
         return env, runner
 
-    env, runner = make(N_ENVS)
+    env, runner = make(N_ENVS, ENGINE_GEN_STEPS)
     if env.backend != "engine" or runner.eager_reason is not None:
         fail(f"phase 21: the engine's iteration is not compiled ({env.backend}: {runner.eager_reason})")
         return out
     steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+    checked = runner   # (a) and (c) at ENGINE_GEN_STEPS steps an env
 
     # ---- (a) injected draws at 4096 envs against eager ----
     torch.cuda.reset_peak_memory_stats()
@@ -4390,7 +4466,7 @@ def engine_compiled_phase(dev):
         diffs.append(d)
         how = f"warm-up, capture and {runner.num_steps_per_env - 1} A1 replays" if it == 0 else "replays"
         log(f"[21 a] call {it} ({how}, injected "
-            f"draws, {N_ENVS} envs): "
+            f"draws, {N_ENVS} envs, {runner.num_steps_per_env} steps an env): "
             f"{'every output, the state and the metrics equal bit for bit' if not d else f'{len(d)} differ: {d[:12]}'}")
     peak_a = torch.cuda.max_memory_allocated() / 2**30
     out["a"] = {"calls": ENGINE_CALLS, "differing": diffs, "graphed_call_ms": first_ms}
@@ -4398,9 +4474,11 @@ def engine_compiled_phase(dev):
         fail(f"phase 21 (a): the engine's compiled iteration differs from the eager one: {diffs}")
     del s_e
 
-    # ---- (b) timed graphed iterations (generator draws) ----
+    # ---- (b) timed graphed iterations (generator draws), 64 steps an env ----
+    checked.compiled = None
+    env, runner = make(N_ENVS)
     torch.cuda.reset_peak_memory_stats()
-    s_g, _ = runner._train_iter(s_g)   # captures the generators' graphs
+    s_g, _ = runner._train_iter(runner.init_state())   # warms up and captures the generators' graphs
     reset_launch_counts()
     graphed = []
     for _ in range(ENGINE_TIMED):
@@ -4433,6 +4511,7 @@ def engine_compiled_phase(dev):
     b = {"eager_iteration_ms": stats(ms([w for w, _ in eager])),
          "eager_collection_ms": stats(ms([t["collection_s"] for _, t in eager])),
          "eager_update_ms": stats(ms([t["update_s"] for _, t in eager])),
+         "eager_steps": checked.num_steps_per_env, "graphed_steps": t_len,
          "graphed_iteration_ms": wall,
          "graphed_collection_ms": stats(ms([t["collection_s"] for _, t in graphed])),
          "graphed_update_ms": stats(ms([t["update_s"] for _, t in graphed])),
@@ -4442,9 +4521,10 @@ def engine_compiled_phase(dev):
          "step_device_ms": step_ms / n_prof, "step_kernels": step_k / n_prof,
          "step_k1_kernels": k1_seen, "tail_and_update_device_ms": rest_ms, "tail_and_update_kernels": rest_k,
          "device_ms_estimate": est, "busy_share_estimate": est / wall["median"], "graphs": ci.reports()}
-    log(f"[21 b] GR1T1 on the engine at {N_ENVS} envs: eager iteration ms {b['eager_iteration_ms']} (collection "
+    log(f"[21 b] GR1T1 on the engine at {N_ENVS} envs: eager iteration ({checked.num_steps_per_env} steps) ms "
+        f"{b['eager_iteration_ms']} (collection "
         f"{b['eager_collection_ms']['median']:.2f}, update {b['eager_update_ms']['median']:.2f}); graphed "
-        f"{wall} (collection {b['graphed_collection_ms']['median']:.2f}, update "
+        f"({t_len} steps) {wall} (collection {b['graphed_collection_ms']['median']:.2f}, update "
         f"{b['graphed_update_ms']['median']:.2f}, from the events); {b['env_steps_per_s']:.0f} env-steps/s at the "
         f"median; peak memory {peak_a:.3f} GiB in (a), graphed {peak_b:.3f} GiB; {ENGINE_TIMED} graphed iterations "
         f"launched {launches} (expected {want_l}); metrics finite {finite}")
@@ -4461,10 +4541,10 @@ def engine_compiled_phase(dev):
     if host and (n_graphs != t_len + 2 or b["host_launch_calls"] - n_graphs > 4 * n_graphs):
         fail(f"phase 21 (b): a graphed engine iteration made {host}: not {t_len + 2} graph launches and at most "
              f"4 kernels each")
-    del s_g, ci
+    del s_g, ci, runner, env
 
     # ---- (c) planted: A1 replayed without advancing its device index ----
-    runner.compiled = None
+    runner = checked
     gc.collect()
     orig = CompiledIteration._advance_rollout
     CompiledIteration._advance_rollout = lambda self: None
@@ -4481,7 +4561,7 @@ def engine_compiled_phase(dev):
     out["c"] = {"caught": bool(d), "differing": d}
     if not d:
         fail("phase 21 (c): A1 without its index advanced passed (a)'s check")
-    del runner, env, s0, s_p, ref0
+    del runner, checked, s0, s_p, ref0
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4540,6 +4620,281 @@ def engine_compiled_phase(dev):
     out["card"] = card_line()
     out["seconds"] = time.perf_counter() - t21
     log(f"[time] phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+# phase 22: the compiled iteration over NCCL (learn/graphs.py under
+# parallel/mesh.py's groups; the collectives captured in the graphs)
+NCCL_CALLS = 2        # compiled against eager, each source of draws
+NCCL_TIMED = 5        # graphed iterations timed
+NCCL_JOIN_S = 600.0   # each world's ranks; past it all are killed and the phase fails
+# name: (cards, num_mp, algorithm settings, envs in all); GR1T1 with the
+# all-terms fold and the command curriculum on: the curriculum runs only
+# with the tracking_lin_vel term (GR1T1's own reward set has none), and
+# then all-reduces in every env step
+NCCL_WORLDS = {
+    "world1": (1, 1, {}, N_ENVS),                            # (a): the mega path (K3)
+    "dp2_step": (2, 1, {"fused_mega": False}, 2 * N_ENVS),   # (b): K2 per shard, 4096 envs a card
+}
+
+
+def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_envs):
+    """Phase 22, one rank of an NCCL group (``cuda:<rank>``): GR1T1 at
+    ``num_envs`` envs in all, with the all-terms fold
+    (``cuda_step.all_terms_config``: its tracking_lin_vel term) and the
+    command curriculum on (its all-reduce in every env step), through the
+    entry points a user calls with ``dp`` (``make_mesh(num_mp)``). The
+    rule must compile it. ``NCCL_CALLS`` ``_train_iter`` calls against as
+    many eager ``iteration`` calls, injected draws then generator draws
+    (each rank's own, the permutation rank 0's), bit for bit; every graph's
+    nodes (NCCL's kernels apart) and the collectives it captured;
+    ``NCCL_TIMED`` graphed iterations timed, their launch counts set to 0
+    just before and read just after; one graphed iteration under
+    torch.profiler (host launch calls, device time, busy share, NCCL
+    kernels); ``learn(1)`` (its printed iteration line, the digest check).
+    Then the planted fault: at one rank (``world1``) the metric sums'
+    all-reduce captured ahead of the collection that writes them: the
+    metrics must differ from the first eager call's; at two, rank 1's
+    update captured with ``PPO.reduce``'s result dropped (the all-reduce
+    still issued): ``learn(1)``'s digest check must raise. Results go to
+    ``out_dir/<name>_rank<r>.json``."""
+    import contextlib
+    import io
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
+    from wiki_grx_gym_tpu_torch.envs import task_registry
+    from wiki_grx_gym_tpu_torch.learn import fused_update, graphs
+    from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
+    from wiki_grx_gym_tpu_torch.parallel import mesh
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    whole = mesh.init_distributed(backend="nccl", init_method=init_method, world_size=world, rank=rank,
+                                  device="cuda", timeout_s=NCCL_JOIN_S)
+    dp = mesh.make_mesh(num_mp, whole)
+    dev = dp.device
+    ms = lambda xs: [1e3 * x for x in xs]
+    stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+    t_w = time.perf_counter()
+    try:
+        def make():
+            cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+            cfg.env.num_envs = num_envs
+            cuda_step.all_terms_config(cfg)
+            cfg.commands.curriculum = True
+            for k, v in alg_kw.items():
+                setattr(train_cfg.algorithm, k, v)
+            env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, dp=dp)
+            return task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None, dp=dp)[0]
+
+        runner = make()
+        path = runner.alg.path
+        res = {"name": name, "rank": rank, "world": world, "dp": dp.world, "mp": num_mp, "device": str(dev),
+               "card": torch.cuda.get_device_name(dev), "backend": dp.backend, "envs": runner.env.num_envs,
+               "envs_in_all": num_envs, "path": path, "eager_reason": runner.eager_reason,
+               "capture_mode": fused_update.CAPTURE_ERROR_MODE}
+        if runner.eager_reason is not None:
+            raise RuntimeError(f"phase 22 {name}: not compiled: {runner.eager_reason}")
+        steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+        p0 = runner.net.params_flat.clone()   # the fault's start
+        # ---- compiled against eager: injected draws, then generator draws ----
+        diffs, eager, ref0 = {}, [], None
+        s_e, s_g = runner.init_state(), runner.init_state()
+        for draws in ("injected", "generators"):
+            if draws == "generators":
+                s_e, s_g = runner.init_state(), runner.init_state()
+            d_all = []
+            for it in range(NCCL_CALLS):
+                kw = (dict(zip(("noise", "u", "perm"), injected_draws(runner, 4000 + 10 * it + rank, dev)))
+                      if draws == "injected" else {})
+                want = {}
+                t0 = time.perf_counter()
+                s_e, m_e = runner.iteration(s_e, out=want, **kw)
+                torch.cuda.synchronize()
+                eager.append((time.perf_counter() - t0, dict(runner.last_timing)))
+                if ref0 is None:
+                    ref0 = graphs.map_tensors(torch.clone, {"draws": kw, "metrics": m_e})
+                s_g, m_g = runner._train_iter(s_g, **kw)
+                d = tree_diffs({k: runner.compiled.last[k] for k in want}, want)
+                d += tree_diffs(s_g, s_e, "state")
+                d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
+                d_all.append(d)
+            diffs[draws] = d_all
+        res["differing"] = diffs
+        del s_e
+        # ---- the graphs: nodes by kind, the collectives captured ----
+        ci = runner.compiled
+        res["graphs"] = ci.reports()
+        nodes = {}
+        for mode, g in ci.collect.items():
+            nodes[f"collection ({mode})"] = graphs.node_kinds(g.graph)
+        upd = ci.update
+        nodes["update"] = graphs.node_kinds(upd.graph)
+        res["nodes"] = nodes
+        # ---- timed graphed iterations (generator draws) ----
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        graphed = []
+        for _ in range(NCCL_TIMED):
+            t0 = time.perf_counter()
+            s_g, metrics = runner._train_iter(s_g)
+            graphed.append((time.perf_counter() - t0, dict(runner.last_timing)))
+        res["launches"] = dict(LAUNCHES)
+        res["launches_expected"] = {"k1": NCCL_TIMED * ROLLOUT_STEPS,
+                                    "k2": NCCL_TIMED * (steps if path in ("step", "mega") else 0),
+                                    "k3": NCCL_TIMED * (path == "mega")}
+        res["finite"] = all(math.isfinite(float(v)) for v in metrics.values())
+        wall = stats(ms([w for w, _ in graphed]))
+        res["eager_iteration_ms"] = stats(ms([w for w, _ in eager]))
+        res["graphed_iteration_ms"] = wall
+        res["graphed_collection_ms"] = stats(ms([t["collection_s"] for _, t in graphed]))
+        res["graphed_update_ms"] = stats(ms([t["update_s"] for _, t in graphed]))
+        res["env_steps_per_s"] = ROLLOUT_STEPS * num_envs / (wall["median"] / 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            s_g, _ = runner._train_iter(s_g)
+            torch.cuda.synchronize()
+        host = host_calls(prof)
+        dev_ms, kernels, _ = device_kernels(prof)
+        from torch.autograd import DeviceType
+
+        nccl_seen = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
+        res["profile"] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
+                          "device_ms": dev_ms, "device_kernels": kernels, "nccl_kernels": nccl_seen,
+                          "busy_share": dev_ms / wall["median"]}
+        del s_g
+        # ---- learn(1): the printed line, the digest check between replays ----
+        runner.compiled = None
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            runner.learn(1)
+        res["learn_lines"] = [ln for ln in out.getvalue().splitlines() if ln.startswith(("iteration:", "it "))]
+        res["digests"] = [[str(int(x)) for x in d] for d in runner.replica_digests]
+
+        # ---- the planted fault ----
+        runner.compiled = None
+        gc.collect()
+        if world == 1:
+            stale = {}
+            orig_body, orig_sums = CompiledIteration._collection_body, runner.global_sums
+
+            def early(self, mode):
+                body = orig_body(self, mode)
+
+                def run():
+                    buf = stale.setdefault("sums", torch.zeros_like(self.sums))
+                    buf.copy_(self.sums)
+                    dp.all_reduce_sum(buf)   # captured ahead of the collection that writes the sums
+                    return body()
+                return run
+
+            CompiledIteration._collection_body = early
+            runner.global_sums = lambda sums: stale["sums"]
+            try:
+                s0 = runner.init_state()
+                s0 = s0.replace(ppo=s0.ppo.replace(params=p0.clone()))
+                _, m_p = runner._train_iter(s0, **ref0["draws"])
+                d = [k for k in ref0["metrics"] if not torch.equal(_bits(m_p[k]), _bits(ref0["metrics"][k]))]
+            finally:
+                CompiledIteration._collection_body = orig_body
+                runner.global_sums = orig_sums
+            res["fault"] = {"plant": "the metric sums' all-reduce captured ahead of the collection that writes "
+                                     "them", "differing": d, "caught": bool(d)}
+        else:
+            alg = runner.alg
+            plant = "rank 1's update graph with PPO.reduce's result dropped (the all-reduce still issued)"
+            if dp.rank == 1:
+                reduce = alg.reduce
+                alg.reduce = lambda loss, g, aux: (reduce(loss, g, aux), (loss, g, aux))[1]
+            caught, why = False, ""
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runner.learn(1)
+            except RuntimeError as e:
+                caught, why = "differ" in str(e), str(e)[:300]
+            res["fault"] = {"plant": plant, "caught": caught, "error": why}
+        res["seconds"] = time.perf_counter() - t_w
+        with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as fh:
+            json.dump(res, fh, default=str)
+    finally:
+        mesh.destroy(whole)
+
+
+def nccl_phase(dev):
+    """Phase 22: the compiled iteration over NCCL (``nccl_worker`` for each
+    world of ``NCCL_WORLDS`` that this machine's cards hold; NCCL takes one
+    rank a card): (a) one rank of a world-1 NCCL group on every machine;
+    (b) dp2 on the step path where there are two cards. Each world's ranks are
+    joined within ``NCCL_JOIN_S`` or killed. Returns the phase's results:
+    the worlds run, ``nccl_cards``, what was skipped and why, and each
+    rank's launch counts (the kernels line's ``dp_graphed_launches``)."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.parallel.launch import spawn
+
+    t22 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    out = {"nccl_cards": cards, "worlds_run": [], "skipped": {}, "worlds": {}}
+    out_dir = os.path.join(THIS, "build", "smoke_nccl")
+    os.makedirs(out_dir, exist_ok=True)
+    for name, (world, num_mp, alg_kw, envs) in NCCL_WORLDS.items():
+        if world > cards:
+            out["skipped"][name] = f"needs {world} cards, the machine has {cards} (NCCL takes one rank a card)"
+            continue
+        for r in range(world):
+            if os.path.exists(os.path.join(out_dir, f"{name}_rank{r}.json")):
+                os.remove(os.path.join(out_dir, f"{name}_rank{r}.json"))
+        t0 = time.perf_counter()
+        spawn(nccl_worker, world, args=(out_dir, name, num_mp, alg_kw, envs), rendezvous_dir=out_dir,
+              timeout_s=NCCL_JOIN_S)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"{name}_rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        tag = "22 a" if world == 1 else "22 b"
+        for r in ranks:
+            log(f"[{tag} {name}] rank {r['rank']} on {r['device']} ({r['card']}) over {r['backend']}, dp "
+                f"{r['dp']} x mp {r['mp']}, {r['envs']} envs of {r['envs_in_all']}, the {r['path']} update, "
+                f"capture mode {r['capture_mode']}: compiled against eager "
+                + "; ".join(f"{draws} {['equal bit for bit' if not d else d[:8] for d in ds]}"
+                            for draws, ds in r["differing"].items()))
+            log(f"[{tag} {name}] rank {r['rank']}: eager iteration ms {r['eager_iteration_ms']}; graphed "
+                f"{r['graphed_iteration_ms']} (collection {r['graphed_collection_ms']['median']:.2f}, update "
+                f"{r['graphed_update_ms']['median']:.2f}, from the events); {r['env_steps_per_s']:.0f} env-steps/s "
+                f"in all at the median; {NCCL_TIMED} graphed iterations launched {r['launches']} (expected "
+                f"{r['launches_expected']}); metrics finite {r['finite']}")
+            log(f"[{tag} {name}] rank {r['rank']}: graph nodes {json.dumps(r['nodes'])}; collectives captured "
+                + json.dumps({g['name']: g.get('collectives') for g in r['graphs']}))
+            log(f"[{tag} {name}] rank {r['rank']}: one graphed iteration's profile {json.dumps(r['profile'])}; "
+                f"learn(1) {r['learn_lines']}; digests {r['digests']}; planted: {r['fault']['plant']}: caught "
+                f"{r['fault']['caught']} {r['fault'].get('differing', r['fault'].get('error', ''))}; "
+                f"{r['seconds']:.1f} s")
+            if any(d for ds in r["differing"].values() for d in ds):
+                fail(f"phase 22 {name} rank {r['rank']}: the compiled iteration differs from eager: {r['differing']}")
+            if r["launches"] != r["launches_expected"] or not r["finite"]:
+                fail(f"phase 22 {name} rank {r['rank']}: launched {r['launches']}, expected "
+                     f"{r['launches_expected']}, or non-finite metrics")
+            if r["rank"] == 0 and not (r["learn_lines"] and "iteration: compiled" in r["learn_lines"][0]):
+                fail(f"phase 22 {name}: learn(1) did not print a compiled iteration: {r['learn_lines']}")
+            if len(r["digests"]) != 1 or len(set(r["digests"][0])) != 1:
+                fail(f"phase 22 {name} rank {r['rank']}: the ranks' digests {r['digests']}")
+            if not r["fault"]["caught"]:
+                fail(f"phase 22 {name} rank {r['rank']}: the planted fault passed: {r['fault']}")
+            captured = sum(n for g in r["graphs"] for n in (g.get("collectives") or {}).values())
+            nccl_nodes = sum(v.get("nccl_kernels", 0) for v in r["nodes"].values())
+            if not captured or (world > 1 and not nccl_nodes):
+                fail(f"phase 22 {name} rank {r['rank']}: {captured} collectives captured, {nccl_nodes} NCCL "
+                     "kernel nodes in the graphs")
+        out["worlds_run"].append(name)
+        out["worlds"][name] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t22
+    log(json.dumps({"nccl": {"worlds_run": out["worlds_run"], "nccl_cards": cards, "skipped": out["skipped"]}}))
+    log(f"[time] phase 22 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4808,6 +5163,11 @@ def main():
     torch.cuda.empty_cache()
     engine_compiled = engine_compiled_phase(dev)
     phase_done("phase 21")
+    # ---- phase 22: the compiled iteration over NCCL (world 1; dp2 where cards allow) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl = nccl_phase(dev)
+    phase_done("phase 22")
 
     k2_row, k3_row = ppo_rows
     k2_row["launches"] = train["launches"]["k2"]
@@ -4845,6 +5205,15 @@ def main():
     for row, k in ((k2_row, "k2"), (k3_row, "k3")):
         row["engine_graphed_launches"] = engine_graphed.get(k)
         row["engine_graphed_launches_from"] = engine_graphed_from
+    # phase 22's graphed iterations over NCCL, per world and rank, counted from 0
+    dp_graphed_from = (f"{NCCL_TIMED} graphed iterations of GR1T1 (the all-terms fold, the command curriculum "
+                       f"on) on each rank of "
+                       f"each NCCL world run: {', '.join(nccl['worlds_run'])}")
+    dp_graphed = {k: {name: [r["launches"][k] for r in w["ranks"]] for name, w in nccl["worlds"].items()}
+                  for k in ("k1", "k2", "k3")}
+    for row, k in ((k2_row, "k2"), (k3_row, "k3")):
+        row["dp_graphed_launches"] = dp_graphed[k]
+        row["dp_graphed_launches_from"] = dp_graphed_from
 
     # launches: phase 4's rollout and play, as in every earlier slice; phase
     # 15's runs, each counted from 0, under their own keys
@@ -4861,7 +5230,8 @@ def main():
                   graphed_iteration_launches=compiled.get("t", {}).get("launches", {}).get("k1"),
                   graphed_iteration_launches_from=graphed_from,
                   engine_graphed_launches=engine_graphed.get("k1"),
-                  engine_graphed_launches_from=engine_graphed_from)
+                  engine_graphed_launches_from=engine_graphed_from,
+                  dp_graphed_launches=dp_graphed["k1"], dp_graphed_launches_from=dp_graphed_from)
     k1_full_row = dict(k1_rows["GR1T1_full"], launches=train_full["launches"]["k1"])
     k1_no_pairs_row = dict(k1_rows["GR1T1_no_pairs"], launches=no_pairs_launches,
                            launches_from="one 64-step rollout of the no-pairs config")
@@ -4898,6 +5268,7 @@ def main():
     log(json.dumps({"compiled_iteration": compiled}, default=str))
     log(json.dumps({"compiled_update": compiled_update}, default=str))
     log(json.dumps({"engine_compiled": engine_compiled}, default=str))
+    log(json.dumps({"nccl_compiled": {k: v for k, v in nccl.items() if k != "worlds"}}, default=str))
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
         return 1

@@ -6,9 +6,10 @@ callers runs without a card.
    and engine variants, as it reads on a CUDA device: each runner is built
    on the CPU and its device and env backend then set to what the card
    would give (``physics_backend(use_pallas, "cuda")``). Every registry
-   task, every update path and the engine backend are compiled; the CPU,
-   the lane backend (K1's plain version on the card), dp and mp keep their
-   reasons.
+   task, every update path and the engine backend are compiled, and so
+   is dp over NCCL with K1 across ranks; the CPU, the lane backend (K1's
+   plain version on the card), dp and mp over gloo, and mp over NCCL
+   across ranks keep their reasons.
 2. Capture hygiene: during ``env.step`` on the plane, heightfield, trimesh,
    heading and full-body configs, on K1 and on the engine, during
    ``spd_solve`` above 48 (``cholesky_ex``), and during ``rollout`` + the last values
@@ -64,6 +65,7 @@ from wiki_grx_gym_tpu_torch.learn import graphs
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 from wiki_grx_gym_tpu_torch.ops import linalg
+from wiki_grx_gym_tpu_torch.parallel import mesh
 from wiki_grx_gym_tpu_torch.sim import cuda_step
 from wiki_grx_gym_tpu_torch.sim.cuda_step import CudaDecimation
 
@@ -114,17 +116,16 @@ def test_rule_per_registry_task(task):
     assert (reason is None) if want is None else (want in reason), (task, reason)
 
 
-def _dp(world, mp=None):
-    class DP:
-        pass
+def _dp(world, mp=False, backend="gloo"):
+    """A rank's dp view (with an mp view of 2 if ``mp``) whose groups'
+    backend reads ``backend``, on the card."""
+    dev = torch.device("cuda")
+    tp = mesh.TensorParallel(world=2, rank=0, device=dev, backend=backend) if mp else None
+    return mesh.DataParallel(world=world, rank=0, device=dev, mp=tp, backend=backend)
 
-    d = DP()
-    d.world, d.rank, d.mp, d.device = world, 0, mp, torch.device("cuda")
-    return d
 
-
-@pytest.mark.parametrize("variant", ["cpu", "dp", "mp", "symmetry", "step_path", "xla_path", "engine", "lanes",
-                                     "bf16", "fused_trunk"])
+@pytest.mark.parametrize("variant", ["cpu", "dp", "mp", "dp_nccl", "mp_nccl", "symmetry", "step_path", "xla_path",
+                                     "engine", "lanes", "bf16", "fused_trunk"])
 def test_rule_per_variant(variant):
     train = {
         "symmetry": lambda t: setattr(t.algorithm, "symmetry_coef", 0.5),
@@ -133,6 +134,8 @@ def test_rule_per_variant(variant):
         "bf16": lambda t: (setattr(t.policy, "compute_dtype", "bfloat16"),
                            setattr(t.algorithm, "update_dtype", "bfloat16")),
         "fused_trunk": lambda t: setattr(t.algorithm, "fused_trunk", True),
+        # the path a dp mesh selects (it turns the mega path off)
+        "dp_nccl": lambda t: setattr(t.algorithm, "fused_mega", False),
     }.get(variant)
     sim = {"engine": False, "lanes": "lanes"}.get(variant)
     mutate = (lambda c: setattr(c.sim, "use_pallas", sim)) if sim is not None else None
@@ -141,18 +144,22 @@ def test_rule_per_variant(variant):
         reason = runner.eager_reason
         assert "cpu" in reason and env.step_graph_reason is not None
         return
-    if variant in ("dp", "mp"):
-        runner.dp = _dp(2, mp=object() if variant == "mp" else None)
+    if variant in ("dp", "mp", "dp_nccl", "mp_nccl"):
+        runner.dp = _dp(2, mp=variant.startswith("mp"), backend="nccl" if variant.endswith("nccl") else "gloo")
     reason = as_on_card(runner)
-    want = {"dp": "parallelism", "mp": "parallelism", "symmetry": None, "step_path": None,
-            "xla_path": None, "engine": None, "lanes": "'lanes'", "bf16": None,
-            "fused_trunk": None}[variant]
+    # gloo's collectives run on the host: only NCCL's are captured, and
+    # across ranks only data parallelism with K1 on the step path
+    want = {"dp": "parallelism over gloo", "mp": "parallelism over gloo", "dp_nccl": None,
+            "mp_nccl": "tensor parallelism across ranks",
+            "symmetry": None, "step_path": None, "xla_path": None, "engine": None, "lanes": "'lanes'",
+            "bf16": None, "fused_trunk": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
-    # the env step's rule: K1 or the engine on a CUDA device, no dp
+    # the env step's rule: K1 or the engine on a CUDA device, dp only over
+    # NCCL, across ranks with K1 only
     env.device = torch.device("cuda")
     env.dp = runner.dp
     step_reason = env.step_graph_reason
-    assert (step_reason is None) == (variant not in ("dp", "mp", "lanes")), (variant, step_reason)
+    assert (step_reason is None) == (variant not in ("dp", "mp", "mp_nccl", "lanes")), (variant, step_reason)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,237 @@
+"""The compiled iteration over NCCL on the card (``learn/graphs.py`` under
+``parallel/mesh.py``'s groups: the collectives captured in the graphs).
+
+- One rank of a world-1 NCCL group made in this process, GR1T1 at 64 envs
+  with the all-terms fold (``cuda_step.all_terms_config``: the curriculum
+  runs only with its tracking_lin_vel term) and the command curriculum on,
+  on the mega path (K3) and the xla path:
+  the rule compiles it; ``_train_iter`` equals ``iteration`` bit for bit
+  over three calls with injected draws and two with generator draws; the
+  collection graph captured the curriculum's all-reduce of every env step
+  and the update graph the metric sums' all-reduce. At one rank NCCL runs
+  an in-place sum without a kernel, so the graphs' NCCL kernel nodes are
+  counted only where there are two ranks.
+- Two ranks on two cards (skipped where ``torch.cuda.device_count()`` is
+  below 2: NCCL takes one rank a card): dp2 on the step path at 64 envs a
+  rank, each rank bit for bit against its eager iteration over three
+  calls, the ranks' learner states equal, and the collection and update
+  graphs holding NCCL kernel nodes. Across ranks this is the one case the
+  rule compiles (``mesh.COMPILED_ACROSS_RANKS``).
+- The cases the rule keeps eager across ranks, with the rule opened in
+  each rank (:data:`HELD_OPEN`: dp2 on the xla path, on the engine and on
+  GR1T1_lstm, and mp2 on the xla path, NCCL launched from autograd's
+  backward inside the capture): the same checks, so that a run on two
+  cards can show which may join ``COMPILED_ACROSS_RANKS``.
+
+Needs a CUDA card; marked ``gpu``, elsewhere each test skips. On the card,
+from the checkout's root:
+
+    python -m pytest --noconftest -m gpu -q tests/test_torch_graphs_nccl_cuda.py
+"""
+
+import json
+import os
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from wiki_grx_gym_tpu_torch.envs import task_registry
+from wiki_grx_gym_tpu_torch.learn import graphs
+from wiki_grx_gym_tpu_torch.parallel import mesh
+from wiki_grx_gym_tpu_torch.parallel.launch import file_init_method, spawn
+from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+pytestmark = pytest.mark.gpu
+
+N, T = 64, 4
+JOIN_S = 300.0
+PATHS = {"mega": {}, "xla": {"fused_update": False}, "step": {"fused_mega": False}}
+
+
+def _need_cards(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs, NCCL and K1-K3 have no CPU mode")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards (NCCL takes one rank a card), the machine has "
+                    f"{torch.cuda.device_count()}")
+
+
+def make_runner(dp, path, n=N, task="GR1T1", sim=None):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, train_cfg = task_registry.get_cfgs(task)
+    cfg.env.num_envs = n
+    cuda_step.all_terms_config(cfg)
+    cfg.commands.curriculum = True
+    for k, v in (sim or {}).items():
+        setattr(cfg.sim, k, v)
+    train_cfg.runner.num_steps_per_env = T
+    for k, v in PATHS[path].items():
+        setattr(train_cfg.algorithm, k, v)
+    env, _ = task_registry.make_env(task, env_cfg=cfg, dp=dp)
+    runner, _ = task_registry.make_alg_runner(env, task, train_cfg=train_cfg, log_root=None, dp=dp)
+    assert runner.eager_reason is None and env.step_graph_reason is None
+    return runner
+
+
+def draws(runner, seed):
+    env, t, dev = runner.env, runner.num_steps_per_env, runner.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = env.num_envs
+    noise = torch.randn((t, n, env.num_actions), generator=g, device=dev)
+    u = torch.rand((t, n, env._step_u_cols[1]), generator=g, device=dev)
+    per_group = n // runner.alg.local_groups
+    if runner.recurrent:   # env columns of a group
+        n_blocks, used = per_group, runner.alg.recurrent_geometry(per_group)[1]
+    else:
+        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, per_group)
+    return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
+
+
+def bits(x):
+    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]) \
+        if x.is_floating_point() else x
+
+
+def differing(got, want, prefix=""):
+    out = []
+    for (path, x), (_, y) in zip(graphs.leaves(got, prefix), graphs.leaves(want, prefix)):
+        if torch.is_tensor(x):
+            if x.dtype != y.dtype or not torch.equal(bits(x), bits(y)):
+                out.append(path)
+        elif isinstance(x, torch.Generator) and not torch.equal(x.get_state(), y.get_state()):
+            out.append(path)
+    return out
+
+
+def compiled_vs_eager(runner, calls, injected, seed=100):
+    """The leaves that differ in each of ``calls`` compiled calls against
+    the eager ones, each fed its own last state."""
+    s_e, s_g = runner.init_state(), runner.init_state()
+    out = []
+    for it in range(calls):
+        kw = dict(zip(("noise", "u", "perm"), draws(runner, seed + it))) if injected else {}
+        want = {}
+        s_e, m_e = runner.iteration(s_e, out=want, **kw)
+        s_g, m_g = runner._train_iter(s_g, **kw)
+        d = differing({k: runner.compiled.last[k] for k in want}, want)
+        d += differing(s_g, s_e, "state")
+        d += [f"metric {k}" for k in m_e if not torch.equal(bits(m_g[k]), bits(m_e[k]))]
+        out.append(d)
+    return out, s_g
+
+
+@pytest.fixture
+def world1(tmp_path):
+    _need_cards(1)
+    dp = mesh.init_distributed(backend="nccl", init_method=file_init_method(str(tmp_path)), world_size=1,
+                               rank=0, device="cuda:0", timeout_s=120)
+    try:
+        yield dp
+    finally:
+        mesh.destroy(dp)
+
+
+@pytest.mark.parametrize("path", ["mega", "xla"])
+def test_world1_nccl_compiled_equals_eager(world1, path):
+    assert world1.backend == "nccl" and world1.capturable
+    runner = make_runner(world1, path)
+    assert runner.alg.path == path
+    injected, _ = compiled_vs_eager(runner, 3, injected=True)
+    assert injected == [[], [], []], injected
+    generated, _ = compiled_vs_eager(runner, 2, injected=False)
+    assert generated == [[], []], generated
+    ci = runner.compiled
+    collect = ci.collect["inject"]
+    # the curriculum's all-reduce of every env step, captured in the collection
+    assert collect.collectives == {"all_reduce": T}, collect.collectives
+    update = ci.update_collectives if path == "mega" else ci.update.collectives
+    assert update == {"all_reduce": 1}, update   # the metric sums'
+    kinds = graphs.node_kinds(collect.graph)
+    assert kinds["kernels"] > 0 and kinds["cooperative"] == 0 and kinds["nccl_kernels"] == 0, kinds
+
+
+def dp2_worker(rank, world, init, out_dir):
+    dp = mesh.init_distributed(backend="nccl", init_method=init, world_size=world, rank=rank, device="cuda",
+                               timeout_s=JOIN_S)
+    try:
+        runner = make_runner(dp, "step", n=N * world)
+        assert runner.alg.path == "step"
+        diffs, s_g = compiled_vs_eager(runner, 3, injected=True)
+        ci = runner.compiled
+        from wiki_grx_gym_tpu_torch.parallel import sharding
+
+        digests = sharding.check_replicas_identical(dp, s_g.ppo, "compiled iterations")
+        res = {"diffs": diffs, "digests": [int(x) for x in digests],
+               "collection": graphs.node_kinds(ci.collect["inject"].graph),
+               "update": graphs.node_kinds(ci.update.graph),
+               "collectives": {"collection": ci.collect["inject"].collectives,
+                               "update": ci.update.collectives}}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        mesh.destroy(dp)
+
+
+def test_dp2_nccl_on_two_cards_compiled_equals_eager(tmp_path):
+    _need_cards(2)
+    spawn(dp2_worker, 2, args=(str(tmp_path),), rendezvous_dir=str(tmp_path), timeout_s=JOIN_S)
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    for r in ranks:
+        assert r["diffs"] == [[], [], []], r["diffs"]
+        assert r["collection"]["nccl_kernels"] > 0 and r["update"]["nccl_kernels"] > 0, r
+        # GAE's two all-reduces, the permutation's broadcast, the curriculum's T
+        assert r["collectives"]["collection"] == {"all_reduce": T + 2, "broadcast": 1}, r["collectives"]
+    assert ranks[0]["digests"] == ranks[1]["digests"]
+    assert not dist.is_initialized()
+
+
+# name: (task, num_mp, update path settings, sim settings); two ranks, the
+# rule opened: across ranks it keeps each of these eager
+HELD_OPEN = {
+    "dp2_xla": ("GR1T1", 1, "xla", None),
+    "dp2_engine": ("GR1T1", 1, "step", {"use_pallas": False}),
+    "dp2_lstm": ("GR1T1_lstm", 1, "mega", None),
+    "mp2_xla": ("GR1T1", 2, "mega", None),
+}
+
+
+def held_open_worker(rank, world, init, out_dir, name):
+    from wiki_grx_gym_tpu_torch.parallel import sharding
+
+    task, num_mp, path, sim = HELD_OPEN[name]
+    whole = mesh.init_distributed(backend="nccl", init_method=init, world_size=world, rank=rank, device="cuda",
+                                  timeout_s=JOIN_S)
+    try:
+        dp = mesh.make_mesh(num_mp, whole)
+        rule_of = mesh.DataParallel.eager_reason
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mesh.DataParallel, "eager_reason", lambda self, physics, path=None: None)
+            runner = make_runner(dp, path, n=N * world // num_mp, task=task, sim=sim)
+            rule = rule_of(dp, runner.env.backend, "recurrent" if runner.recurrent else runner.alg.path)
+            diffs, s_g = compiled_vs_eager(runner, 3, injected=True)
+        ci = runner.compiled
+        digests = sharding.check_replicas_identical(
+            dp, s_g.ppo, "compiled iterations", net=runner.net,
+            replicated=(s_g.env_state,) if dp.mp is not None else None)
+        res = {"rule": rule, "diffs": diffs, "digests": [int(x) for x in digests],
+               "collection": graphs.node_kinds(ci.collect["inject"].graph),
+               "update": graphs.node_kinds(ci.update.graph)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        mesh.destroy(whole)
+
+
+@pytest.mark.parametrize("name", sorted(HELD_OPEN))
+def test_two_cards_held_open_compiled_equals_eager(tmp_path, name):
+    _need_cards(2)
+    spawn(held_open_worker, 2, args=(str(tmp_path), name), rendezvous_dir=str(tmp_path), timeout_s=JOIN_S)
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    for r in ranks:
+        assert r["rule"] is not None, r["rule"]   # the rule keeps it eager across ranks
+        assert r["diffs"] == [[], [], []], (name, r["diffs"])
+        assert r["collection"]["nccl_kernels"] > 0 and r["update"]["nccl_kernels"] > 0, (name, r)
+    if HELD_OPEN[name][1] == 1:
+        assert ranks[0]["digests"] == ranks[1]["digests"]
+    assert not dist.is_initialized()

@@ -16,6 +16,7 @@ capture of a CUDA graph nothing runs: there the launch goes to the capture's
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import os
 import re
@@ -76,6 +77,23 @@ def capture_tally():
         yield tally
     finally:
         _TALLIES.remove(tally)
+
+
+@contextmanager
+def gc_held():
+    """Python's cyclic garbage collector run once, then held off inside the
+    block (a CUDA graph's capture): a collection there could free a graph
+    captured before (a dropped ``learn/graphs.CompiledIteration`` is a
+    reference cycle), and a capture refuses that graph's
+    ``cudaGraphExecDestroy`` and ends failed."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def current_tally():

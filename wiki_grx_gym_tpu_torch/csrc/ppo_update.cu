@@ -59,9 +59,7 @@
 //
 // Host interface (ctypes): k3_args_size(), k3_coresident(int*),
 // k3_step(const K3Args*, int step, cudaStream_t) (the fused step),
-// k3_step_ref(...) (the reference pair) and k3_graph_nodes(cudaGraph_t,
-// int* kernels, int* cooperative) (a captured update's kernel nodes), each
-// -> cudaError_t.
+// k3_step_ref(...) (the reference pair), each -> cudaError_t.
 // csrc/host/k3_host.cpp compiles the kernels for the CPU (K3_SMEM and the
 // grid barrier from csrc/host/).
 
@@ -378,29 +376,6 @@ extern "C" int k3_step_ref(const K3Args* a, int s, cudaStream_t st) {
     k3_norm<<<a->nblocks, THREADS, 0, st>>>(*a);
     k3_adam<<<a->nblocks, THREADS, 0, st>>>(*a, s);
     return (int)cudaGetLastError();
-}
-
-// the kernel nodes of a captured graph, and those among them launched
-// cooperatively (the fused steps)
-extern "C" int k3_graph_nodes(cudaGraph_t g, int* kernels, int* cooperative) {
-    size_t n = 0;
-    cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
-    if (e) return (int)e;
-    cudaGraphNode_t* nodes = new (std::nothrow) cudaGraphNode_t[n ? n : 1];
-    if (!nodes) return (int)cudaErrorMemoryAllocation;
-    e = cudaGraphGetNodes(g, nodes, &n);
-    *kernels = *cooperative = 0;
-    for (size_t i = 0; i < n && !e; ++i) {
-        cudaGraphNodeType type;
-        e = cudaGraphNodeGetType(nodes[i], &type);
-        if (e || type != cudaGraphNodeTypeKernel) continue;
-        ++*kernels;
-        cudaLaunchAttributeValue v = {};
-        e = cudaGraphKernelNodeGetAttribute(nodes[i], cudaLaunchAttributeCooperative, &v);
-        if (!e && v.cooperative) ++*cooperative;
-    }
-    delete[] nodes;
-    return (int)e;
 }
 
 #endif  // K3_KERNELS_ONLY

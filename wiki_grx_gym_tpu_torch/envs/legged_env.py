@@ -170,6 +170,8 @@ class LeggedEnv:
         self.shard = (0, self.num_envs_global) if shard is None else (int(shard[0]), int(shard[1]))
         if not 0 <= self.shard[0] < self.shard[1] <= self.num_envs_global:
             raise ValueError(f"shard {self.shard} outside {self.num_envs_global} envs")
+        if dp is not None and dp.device != self.device:
+            raise ValueError(f"rank {dp.rank} runs on {dp.device}, the env on {self.device}")
         self.dp = dp
         self.num_envs = self.shard[1] - self.shard[0]
         self.num_actions = int(c.env.num_actions)
@@ -1114,15 +1116,16 @@ class LeggedEnv:
     def step_graph_reason(self) -> Optional[str]:
         """None where :meth:`step_graph` replays a CUDA graph, else why it
         runs :meth:`step`: a CUDA device, K1 or the engine as the physics
-        backend and no data parallelism (the command curriculum's
-        all-reduce) are needed. The lane program (K1's plain version) is
-        not graphed."""
+        backend, and under data parallelism a group whose collectives a
+        CUDA graph captures (NCCL's: the command curriculum's all-reduce;
+        across ranks with K1 only, ``DataParallel.eager_reason``) are
+        needed. The lane program (K1's plain version) is not graphed."""
         if self.device.type != "cuda":
             return f"device {self.device}"
         if self.backend == "lanes":
             return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
-            return "data parallelism"
+            return self.dp.eager_reason(self.backend)
         return None
 
     def step_graph(self, state: EnvState, actions: torch.Tensor) -> Tuple[EnvState, StepOutput]:
@@ -1254,7 +1257,7 @@ class LeggedEnv:
             # the mean over the resetting envs of every rank (one all-reduce)
             sums = torch.stack([torch.sum(state.episode_sums[:, i] * done), torch.sum(done.to(torch.float32))])
             if self.dp is not None:
-                sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+                sums = self.dp.all_reduce_sum(sums)
             cnt = torch.clamp(sums[1], min=1.0)
             mean_track = sums[0] / cnt / self.max_episode_length
             grow = mean_track > 0.8 * self.reward_scales["tracking_lin_vel"]

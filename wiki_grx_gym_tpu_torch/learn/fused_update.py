@@ -85,6 +85,12 @@ K3_BLOCKS = 216    # blocks of K3's step over the flat vector (all co-resident)
 # into FMA (their plain version on the card is GPU PyTorch, which does)
 FLAGS = list(_build.BASE_FLAGS)
 K2_SOURCE = _build.CSRC / "ppo_grads.cu"
+# every CUDA graph capture of the port (here and in learn/graphs.py): unsafe
+# calls are refused on the capturing thread only. Other threads of the
+# process (NCCL's watchdog querying its eager collectives' events, the
+# autograd engine's) may then make theirs without ending the capture, as
+# "global" would end it.
+CAPTURE_ERROR_MODE = "thread_local"
 K3_SOURCE = _build.CSRC / "ppo_update.cu"
 
 
@@ -201,7 +207,6 @@ def _lib(name: str) -> ctypes.CDLL:
             else:
                 lib.k3_step_ref.argtypes, lib.k3_step_ref.restype = [_P, _I, _P], _I
                 lib.k3_coresident.argtypes, lib.k3_coresident.restype = [_P], _I
-                lib.k3_graph_nodes.argtypes, lib.k3_graph_nodes.restype = [_P, _P, _P], _I
             if size() != ctypes.sizeof(struct):
                 raise RuntimeError(f"{name} argument struct: kernel {size()} bytes, "
                                    f"wrapper {ctypes.sizeof(struct)}")
@@ -257,16 +262,6 @@ def k3_step_once(fused, p, m, v, g, aux, count, lr, s=0, reference=False):
                "K3 reference pair" if reference else "K3 step")
     return {"p": out["p"], "m": out["m"], "v": out["v"], "g": out["g"], "state": out["state"],
             "part": out["k3_part"], "step": out["k3_step"]}
-
-
-def graph_kernel_nodes(graph) -> Dict[str, int]:
-    """The kernel nodes of a captured ``torch.cuda.CUDAGraph`` (made with
-    ``keep_graph=True``): all of them, and the cooperative ones (K3's
-    steps; K2's chain launches none)."""
-    kernels, coop = ctypes.c_int(0), ctypes.c_int(0)
-    _check(_lib("k3").k3_graph_nodes(graph.raw_cuda_graph(), ctypes.addressof(kernels), ctypes.addressof(coop)),
-           "counting the graph's nodes")
-    return {"kernels": kernels.value, "cooperative": coop.value}
 
 
 class _Plan:
@@ -1018,8 +1013,12 @@ class _StepContext:
         if self.p.device.type != "cpu":
             self.fused._k2_operands(self.bufs, self.p.device, out=self.ops)
 
-    def grads(self, mb_index: int):
+    def grads(self, mb_index: int, p=None):
+        """``p``: params copied into the context's first (the eager loop,
+        whose params are a new tensor each step); default: as they lie."""
         fused = self.fused
+        if p is not None and p is not self.p:
+            self.p.copy_(p)
         if self.p.device.type == "cpu":
             return fused.grads_plain(self.p, self.bufs, mb_index)
         fused._k2_launch(_lib("k2"), self.args, mb_index, self.p.device)
@@ -1054,7 +1053,7 @@ class _UpdateGraph:
         self.args3 = fused._k3_context(self.p, self.m, self.v, self.keep)
         self.graph = None
         self.capture_ms = self.instantiate_ms = None
-        self.nodes = None   # the captured graph's kernel nodes (graph_kernel_nodes)
+        self.nodes = None   # the captured graph's nodes (graphs.node_kinds: K3's steps are the cooperative ones)
 
     def stage(self, fused, p, m, v, count, lr, bufs):
         """Copy one update's inputs into the context (on the current stream)."""
@@ -1086,7 +1085,7 @@ class _UpdateGraph:
         # step was loaded by k3_coresident)
         _check(lib2.k2_load(), "loading K2's kernels")
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with _build.gc_held(), torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
             t0 = time.perf_counter()
             stream = torch.cuda.current_stream(self.dev).cuda_stream   # the capture stream
             for s in range(self.steps):
@@ -1098,7 +1097,9 @@ class _UpdateGraph:
         graph.instantiate()
         t2 = time.perf_counter()
         self.capture_ms, self.instantiate_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1)
-        self.nodes = graph_kernel_nodes(graph)
+        from wiki_grx_gym_tpu_torch.learn.graphs import node_kinds   # graphs imports this module
+
+        self.nodes = node_kinds(graph)
         self.graph = graph
 
     def replay(self):

@@ -29,8 +29,13 @@ is a ``torch.cuda.CUDAGraph``:
   ``build.LAUNCHES``. A failed warm-up, capture, instantiation or replay
   raises; nothing runs the body eagerly instead.
 - **The iteration** (:class:`CompiledIteration`, ``OnPolicyRunner._train_iter``):
-  graph replays over one static ``RunnerState``, for every single-process
-  config on K1 or the engine. (A) the collection: T x (act -> ``env.step``
+  graph replays over one static ``RunnerState``, for every config on K1 or
+  the engine in one process, and under data and tensor parallelism over
+  NCCL (JAX's ``jit(_iteration)`` on its ``("dp", "mp")`` mesh, the
+  collectives compiled into the program; across ranks the rule takes
+  data parallelism with K1 on the step path alone,
+  ``mesh.COMPILED_ACROSS_RANKS``, though the graphs capture every path's
+  collectives). (A) the collection: T x (act -> ``env.step``
   -> store), the last values, GAE, the permutation and the update's
   inputs; the new env state, observations and (recurrent) LSTM memory are
   donated into the static state, the metrics' sums into a static vector.
@@ -74,6 +79,20 @@ is a ``torch.cuda.CUDAGraph``:
 
   CUDA events between A and B time the two; one synchronize ends the
   iteration.
+
+  **Collectives** (``parallel/mesh.py``, NCCL): each graph captures the
+  collectives its body issues, on every rank in the same order as the
+  eager ``iteration``: the command curriculum's all-reduce in the env
+  step (A, A1), GAE's two all-reduces and the broadcast of rank 0's block
+  permutation (A, A2), and in B each grad step's all-reduce of (gradient,
+  loss, metrics) (``PPO.reduce``), under mp the forward's and backward's
+  all-reduces (``learn/networks.py``) and the clip norm's, then the metric
+  sums' all-reduce ahead of the metrics vector (``runner.global_sums``).
+  The warm-up's collectives make every group's communicator before its
+  capture. The ranks' digest check (``learn``) runs eagerly between the
+  replays, on the same communicators. Every capture runs in the
+  ``"thread_local"`` error mode (``fused_update.CAPTURE_ERROR_MODE``), and
+  Python's garbage collector is held off during it (``build.gc_held``).
 - **The env step** (:class:`StepGraph`, ``LeggedEnv.step_graph``) and the
   bench's rollout (:meth:`CompiledIteration.rollout`, not donated: each
   replay starts from the static state, as ``rollout_jit`` from its input).
@@ -90,7 +109,9 @@ from typing import Dict, List
 import torch
 
 from wiki_grx_gym_tpu_torch import build as _build
+from wiki_grx_gym_tpu_torch.learn.fused_update import CAPTURE_ERROR_MODE
 from wiki_grx_gym_tpu_torch.learn.ppo import PPOState
+from wiki_grx_gym_tpu_torch.parallel import mesh as _mesh
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +250,10 @@ class Graph:
     later call replays. ``body() -> (new state or None, outputs)``; with
     ``donate`` the new state is copied into ``static`` at the end of each
     run. ``count_nodes``: optional ``fn(CUDAGraph) -> dict`` recording the
-    captured graph's size. Records ``warmup_ms``, ``capture_ms``,
-    ``instantiate_ms``, ``replays``, the warm-up's kernel launches and the
-    capture's tally."""
+    captured graph's size. The capture's error mode is
+    ``fused_update.CAPTURE_ERROR_MODE``. Records ``warmup_ms``, ``capture_ms``,
+    ``instantiate_ms``, ``replays``, the warm-up's kernel launches, the
+    capture's tally and the collectives it captured (``parallel.mesh.CAPTURED``)."""
 
     def __init__(self, name: str, body, static, donate: bool = True, count_nodes=None):
         self.name, self.body, self.static, self.donate = name, body, static, donate
@@ -241,6 +263,7 @@ class Graph:
         self.outputs = None
         self.tally = None
         self.nodes = None
+        self.collectives = None
         self.replays = 0
         self.warmup_ms = self.capture_ms = self.instantiate_ms = None
         self.warmup_launches = None
@@ -282,17 +305,24 @@ class Graph:
                                "(CUDAGraph.register_generator_state): the graph would replay the same draws")
         for g in self.generators:
             graph.register_generator_state(g)
-        with _build.capture_tally() as tally:
-            with torch.cuda.graph(graph):
+        before = dict(_mesh.CAPTURED)
+        with _build.capture_tally() as tally, _build.gc_held():
+            with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
                 t0 = time.perf_counter()
                 out = self._run()
                 t1 = time.perf_counter()
         graph.instantiate()
         self.instantiate_ms = 1e3 * (time.perf_counter() - t1)
         self.capture_ms = 1e3 * (t1 - t0)
+        self.collectives = _captured_since(before)
         self.graph, self.tally, self.outputs = graph, tally, out
         if self.count_nodes is not None:
             self.nodes = self.count_nodes(graph)
+
+    def release(self):
+        """Destroy the captured graph (the next call warms up and captures
+        again)."""
+        _release(self)
 
     def report(self) -> dict:
         """What the graph cost to make and what it holds."""
@@ -300,13 +330,78 @@ class Graph:
                 "instantiate_ms": self.instantiate_ms, "replays": self.replays,
                 "warmup_launches": self.warmup_launches,
                 "launches_per_replay": None if self.tally is None else dict(self.tally.counts),
-                "nodes": self.nodes}
+                "nodes": self.nodes, "collectives": self.collectives}
 
 
-def _kernel_nodes(graph):
-    from wiki_grx_gym_tpu_torch.learn.fused_update import graph_kernel_nodes
+def _release(holder):
+    """Destroy ``holder.graph`` (a ``torch.cuda.CUDAGraph`` or None)."""
+    if holder is not None and holder.graph is not None:
+        holder.graph.reset()
+        holder.graph = None
 
-    return graph_kernel_nodes(graph)
+
+def _captured_since(before) -> Dict[str, int]:
+    """The collectives captured since ``before`` (a copy of ``CAPTURED``)."""
+    return {k: n - before.get(k, 0) for k, n in _mesh.CAPTURED.items() if n != before.get(k, 0)}
+
+
+# CUgraphNodeType (cuda.h)
+_NODE_TYPES = {0: "kernels", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty", 6: "wait_event",
+               7: "event_record", 8: "semaphore_signal", 9: "semaphore_wait", 10: "mem_alloc",
+               11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+_COOPERATIVE = 2   # CU_LAUNCH_ATTRIBUTE_COOPERATIVE (cuda.h)
+
+
+def node_kinds(graph) -> Dict[str, int]:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) by type, child graphs' included, and among the
+    kernel nodes those launched cooperatively (``cooperative``: K3's steps)
+    and those of NCCL (``nccl_kernels``: a function name holding ``nccl``),
+    read through the CUDA driver (``cuGraphGetNodes``,
+    ``cuGraphKernelNodeGetAttribute``, ``cuFuncGetName``). Raises if the
+    driver refuses a call."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or cu.cuGraphKernelNodeGetParams
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"node_kinds: {what} returned CUresult {err}")
+
+    out: Dict[str, int] = {"kernels": 0, "cooperative": 0, "nccl_kernels": 0}
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        for node in nodes:
+            t = ctypes.c_int(0)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
+            kind = _NODE_TYPES.get(t.value, f"type {t.value}")
+            out[kind] = out.get(kind, 0) + 1
+            if kind == "kernels":
+                attr = ctypes.c_int * 16   # CUlaunchAttributeValue (64 bytes), .cooperative first
+                coop = attr()
+                check(cu.cuGraphKernelNodeGetAttribute(ctypes.c_void_p(node), _COOPERATIVE, coop),
+                      "cuGraphKernelNodeGetAttribute")
+                out["cooperative"] += bool(coop[0])
+                buf = (ctypes.c_char * 256)()   # CUDA_KERNEL_NODE_PARAMS: the CUfunction first
+                check(params(ctypes.c_void_p(node), buf), "cuGraphKernelNodeGetParams")
+                name = ctypes.c_char_p()
+                func = ctypes.c_void_p.from_buffer(buf).value
+                if func and cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) == 0 and name.value \
+                        and b"nccl" in name.value.lower():
+                    out["nccl_kernels"] += 1
+            elif kind == "graph":
+                child = ctypes.c_void_p()
+                check(cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node), ctypes.byref(child)),
+                      "cuGraphChildGraphNodeGetGraph")
+                walk(child)
+
+    walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -346,19 +441,28 @@ class CompiledIteration:
         self.inject = None   # the injected noise, u and perm (static buffers)
         self.metric_keys = None
         self.metrics = None  # the (K,) metrics vector of the last update
+        self.update_collectives = None   # mega: the collectives K3's graph captured (its epilogue's)
         self.last = None     # the last call's collection outputs
         self._rollout = None
+        if runner.dp is not None and dev.type == "cuda":   # the graphs go before the group (mesh.destroy)
+            _mesh.hold(self)
         if self.path == "recurrent":
             self.hidden0 = make_static(state.hidden)   # the replay's start memory (JAX's hidden0)
             self.step_index = torch.zeros(1, dtype=torch.long, device=dev)   # the grad step, on the device
             self.hist = torch.zeros((self.steps, 3), device=dev)   # each step's (value, surrogate, KL)
+
+    def release(self):
+        """Destroy every captured graph (a later call captures again)."""
+        for g in (*self.collect.values(), *self.tail.values(), self.update, self.epilogue, self._rollout):
+            _release(g)
 
     def reports(self) -> List[dict]:
         out = [g.report() for g in (*self.collect.values(), *self.tail.values())]
         if self.path == "mega":
             if self.update is not None and self.update.graph is not None:
                 out.append({"name": "update (K3, donated)", "capture_ms": self.update.capture_ms,
-                            "instantiate_ms": self.update.instantiate_ms, "nodes": self.update.nodes})
+                            "instantiate_ms": self.update.instantiate_ms, "nodes": self.update.nodes,
+                            "collectives": self.update_collectives})
         else:
             out += [g.report() for g in (self.update, self.epilogue) if g is not None]
         if self._rollout is not None:
@@ -464,14 +568,15 @@ class CompiledIteration:
 
     def _collection(self, mode) -> Graph:
         if mode not in self.collect:
+            kw = dict(count_nodes=node_kinds)
             if self.per_step:
                 self.collect[mode] = Graph(f"rollout step ({mode})", self._rollout_step_body(mode), self.static,
-                                           count_nodes=_kernel_nodes)
+                                           **kw)
                 self.tail[mode] = Graph(f"collection tail ({mode})", self._tail_body(mode), self.static,
-                                        donate=False, count_nodes=_kernel_nodes)
+                                        donate=False, **kw)
             else:
                 self.collect[mode] = Graph(f"collection ({mode})", self._collection_body(mode), self.static,
-                                           count_nodes=_kernel_nodes)
+                                           **kw)
         return self.collect[mode]
 
     def _collect(self, mode):
@@ -490,8 +595,11 @@ class CompiledIteration:
 
     def _metrics_vector(self, update_metrics):
         """The iteration's metrics (``runner._metrics``) as one vector, their
-        keys in ``metric_keys``."""
-        metrics = self.runner._metrics(self.sums, self.static.env_state, update_metrics)
+        keys in ``metric_keys``; with dp the sums all-reduced first
+        (``runner.global_sums``: captured after the update's collectives,
+        where the eager iteration runs it)."""
+        metrics = self.runner._metrics(self.runner.global_sums(self.sums), self.static.env_state,
+                                       update_metrics)
         self.metric_keys = list(metrics)
         return torch.stack(list(metrics.values()))
 
@@ -507,8 +615,10 @@ class CompiledIteration:
 
     def _capture_update(self):
         with torch.no_grad():
-            self._epilogue(donate=False)   # its kernels run once before the capture
+            self._epilogue(donate=False)   # its kernels (and collectives) run once before the capture
+            before = dict(_mesh.CAPTURED)
             self.update.capture(self.fused, epilogue=lambda: self._epilogue(donate=True))
+            self.update_collectives = _captured_since(before)
 
     def _grad_step(self, grad_fn, i):
         """``PPO.grad_step`` on the static PPOState, its result donated into
@@ -569,11 +679,11 @@ class CompiledIteration:
         if self.path != "recurrent":
             if self.update is None:
                 self.update = Graph(f"update ({self.path})", self._update_body, st, donate=False,
-                                    count_nodes=_kernel_nodes)
+                                    count_nodes=node_kinds)
             return self.update()
         if self.update is None:
             self.update = Graph("update grad step (recurrent)", self._recurrent_step_body, st, donate=False,
-                                count_nodes=_kernel_nodes)
+                                count_nodes=node_kinds)
             means = lambda: (None, self._metrics_vector(self._means(self.hist.mean(dim=0))))
             self.epilogue = Graph("update metrics (recurrent)", means, st, donate=False)
         for _ in range(self.steps):
@@ -654,6 +764,8 @@ class StepGraph:
                 return env.step(self.static, self.actions)
 
         self.graph = Graph("env.step", body, self.static)
+        if env.dp is not None and env.device.type == "cuda":   # the graph goes before the group (mesh.destroy)
+            _mesh.hold(self.graph)
 
     def __call__(self, state, actions):
         copy_in(self.static, state)

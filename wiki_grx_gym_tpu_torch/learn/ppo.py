@@ -12,8 +12,9 @@ LSTM replay of whole env columns):
 
 - **mega** (``fused_mega=True``, the default): the whole update as K3
   (``FusedPPOGrad.update_scan``, ``learn/fused_update.py``);
-- **step** (``fused_mega=False``): K2 per grad step
-  (``FusedPPOGrad.grads``), then clip and Adam in plain torch;
+- **step** (``fused_mega=False``): K2 per grad step (through
+  ``FusedPPOGrad.step_context``, K2's context made once an update), then
+  clip and Adam in plain torch;
 - **xla** (``fused_update=False``): ``torch.autograd`` of
   :meth:`PPO._minibatch_loss`, with the same clip and Adam. The loss runs
   the MLPs in ``algorithm.update_dtype`` (bf16 under JAX's contract,
@@ -117,7 +118,12 @@ class PPO:
         self.update_dtype = compute_dtype_of(getattr(alg_cfg, "update_dtype", "float32"))
         self.remat_update = bool(getattr(alg_cfg, "remat_update", False))
         self.fused_trunk = bool(getattr(alg_cfg, "fused_trunk", False))
-        self._split = None if self.mp is None else net.split_mask()
+        # under mp: the flat entries of the split leaves and of the replicated
+        # ones, as index vectors on the net's device (gathered with no host read)
+        self._split = None
+        if self.mp is not None:
+            split = net.split_mask()
+            self._split = (torch.nonzero(split).flatten(), torch.nonzero(~split).flatten())
         self.extra_loss_fn = extra_loss_fn
         self.perm_groups = int(perm_groups)
         self.local_groups = self.perm_groups // world
@@ -289,10 +295,9 @@ class PPO:
         if self.mp is None:
             gnorm = torch.sqrt(torch.sum(g * g))
         else:
-            split = self._split.to(g.device)
-            sq = torch.sum(torch.square(g[split])).reshape(1).to(self.mp.device)
-            sq = self.mp.all_reduce_sum(sq).to(g.device)[0]
-            gnorm = torch.sqrt(sq + torch.sum(torch.square(g[~split])))
+            split, replicated = self._split
+            sq = self.mp.all_reduce_sum(torch.sum(torch.square(g.index_select(0, split))).reshape(1))[0]
+            gnorm = torch.sqrt(sq + torch.sum(torch.square(g.index_select(0, replicated))))
         g = torch.where(gnorm < self.max_grad_norm, g, (g / gnorm) * self.max_grad_norm)
         count = torch.where(count < _INT32_MAX, count + 1, count)
         m = (1 - self.b1) * g + self.b1 * m
@@ -374,7 +379,7 @@ class PPO:
             perm = draw(generator)
         perm = _long_on(perm, device)
         if self.dp is not None:
-            perm = self.dp.broadcast(perm.to(self.dp.device).contiguous()).to(device)
+            perm = self.dp.broadcast(perm.contiguous())
         return perm
 
     def prepare_update(self, batch, returns, advantages, generator: Optional[torch.Generator] = None,
@@ -406,7 +411,9 @@ class PPO:
                 steps = self.num_learning_epochs * self.num_mini_batches
                 return PPOState(params=p2, m=m2, v=v2, count=s.count + steps,
                                 learning_rate=lr), metrics
-            return self._run_epochs(ppo_state, lambda p, i: fused.grads(p, bufs, i))
+            # K2's context made once an update; each step's params copied into it
+            ctx = fused.step_context(ppo_state.params.clone(memory_format=torch.contiguous_format), bufs)
+            return self._run_epochs(ppo_state, lambda p, i: ctx.grads(i, p))
 
         a = batch.actions.shape[-1]
         return self._run_epochs(
@@ -585,8 +592,7 @@ class PPO:
         if self.dp is None:
             return loss, g, aux
         keys = ("value_loss", "surrogate_loss", "kl")
-        buf = torch.cat([g.reshape(-1), torch.stack([loss.detach(), *(aux[k] for k in keys)])
-                         .to(g.dtype)]).to(self.dp.device)
-        buf = self.dp.all_reduce_sum(buf).to(g.device) / self.dp.world
+        buf = torch.cat([g.reshape(-1), torch.stack([loss.detach(), *(aux[k] for k in keys)]).to(g.dtype)])
+        buf = self.dp.all_reduce_sum(buf) / self.dp.world
         n = g.numel()
         return buf[n], buf[:n].reshape(g.shape), dict(zip(keys, buf[n + 1:]))

@@ -16,8 +16,11 @@ path. On K1 the collection is one graph; on the engine (a step is ~26k
 kernels) one rollout step's graph replayed T times, then a graph of the
 collection's tail. The rule for which configs take it is static
 (:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 or the engine as
-the physics backend, no data or tensor parallelism. Every other config
-(the CPU, the lane backend, dp and mp) runs ``iteration``, eagerly.
+the physics backend, and data or tensor parallelism only over NCCL, whose
+collectives the graphs capture (across ranks, data parallelism with K1 on
+the step path). Every other config (the CPU, the lane backend, dp and mp
+over gloo, tensor parallelism and the other dp runs across ranks) runs
+``iteration``, eagerly.
 ``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
@@ -36,8 +39,9 @@ update replays whole env columns from the memory at the rollout's start
 this rank's shard of the envs (``parallel.sharding.shard_bounds``), its
 generators are seeded from ``(seed, rank)``, the learner state is broadcast
 from rank 0 at init and after a load and is checked bit-identical on every
-rank after every update, the iteration's metric sums are all-reduced once,
-and only rank 0 writes TensorBoard events and checkpoints (JAX
+rank after every update (eagerly, between the compiled iteration's
+replays too), the iteration's metric sums are all-reduced once
+(:meth:`OnPolicyRunner.global_sums`), and only rank 0 writes TensorBoard events and checkpoints (JAX
 ``runner.py:326-356``). ``permutation_groups = 0`` resolves to the group's
 size, as JAX's does to the dp mesh size (``runner.py:99-108``).
 """
@@ -179,16 +183,20 @@ class OnPolicyRunner:
     def eager_reason(self) -> Optional[str]:
         """None where the iteration is compiled (:meth:`_train_iter`),
         else why it runs eagerly. The rule is static: a CUDA device, K1 or
-        the engine as the physics backend, no data or tensor parallelism;
-        every update path (mega, step, xla, recurrent; an extra loss term)
-        is compiled. The lane program (K1's plain version, ~157k single-op
-        launches a policy step on the card) stays eager."""
+        the engine as the physics backend, and under data or tensor
+        parallelism process groups whose collectives a CUDA graph captures
+        (NCCL's), across ranks only data parallelism with K1 on the step
+        path (``DataParallel.eager_reason``); in one process every update
+        path (mega, step, xla, recurrent; an extra loss term) is compiled.
+        The lane program (K1's plain version, ~157k single-op launches a
+        policy step on the card) stays eager, and so do groups over gloo,
+        whose collectives run on the host."""
         if self.device.type != "cuda":
             return f"device {self.device} (CUDA graphs need a CUDA device)"
         if self.env.backend == "lanes":
             return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
-            return "data or tensor parallelism (collectives between the ranks)"
+            return self.dp.eager_reason(self.env.backend, "recurrent" if self.recurrent else self.alg.path)
         return None
 
     # ------------------------------------------------------------------
@@ -351,10 +359,7 @@ class OnPolicyRunner:
         net.bind(ppo.params)
         self._sync()
         self.last_timing = {"collection_s": t1 - t0, "update_s": time.perf_counter() - t1}
-        sums = self._collection_sums(rs, acc)
-        if self.dp is not None:
-            # over every rank's envs (one all-reduce)
-            sums = self.dp.all_reduce_sum(sums.to(self.dp.device)).to(self.device)
+        sums = self.global_sums(self._collection_sums(rs, acc))
         return rs.replace(ppo=ppo), self._metrics(sums, rs.env_state, update_metrics)
 
     def _collection_sums(self, rs: RunnerState, acc) -> torch.Tensor:
@@ -365,6 +370,14 @@ class OnPolicyRunner:
                                        torch.sum(acc["ep_len_done"]),
                                        torch.sum(rs.env_state.terrain_levels.to(torch.float32))]),
                           torch.sum(acc["ep_sums"], dim=0)])
+
+    def global_sums(self, sums: torch.Tensor) -> torch.Tensor:
+        """The collection's sums over every rank's envs: with ``dp`` one
+        all-reduce of a copy (after the update's collectives, in the eager
+        iteration and in the compiled one alike); ``sums`` otherwise."""
+        if self.dp is None:
+            return sums
+        return self.dp.all_reduce_sum(sums.clone())
 
     def _metrics(self, sums: torch.Tensor, env_state, update_metrics) -> Dict[str, torch.Tensor]:
         """The iteration's metrics dict from the (global) sums, the env state
@@ -478,9 +491,12 @@ class OnPolicyRunner:
         step = self.iteration if why else self._train_iter
         if self.is_lead:
             path = "recurrent" if self.recurrent else self.alg.path
+            mesh = ("" if self.dp is None else
+                    f"; dp {self.dp.world} x mp {1 if self.mp is None else self.mp.world} over "
+                    f"{self.dp.backend}, the collectives captured")
             print("iteration: " + (f"eager ({why})" if why else
                                    f"compiled, CUDA graph replays over the static state (_train_iter; the "
-                                   f"{path} update)"), flush=True)
+                                   f"{path} update{mesh})"), flush=True)
         prof = None
         for it in range(start_iter, start_iter + num_learning_iterations):
             rel = it - start_iter

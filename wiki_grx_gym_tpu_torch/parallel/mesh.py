@@ -21,13 +21,26 @@ hold the same shard and average their gradients). It returns this rank's
 :class:`DataParallel` over the dp group, which carries its
 :class:`TensorParallel` as ``mp``; with ``num_mp = 1`` the data-parallel
 layout is unchanged. mp peers step the same env shard.
+
+**Captured collectives.** A group's backend is read once, when its view is
+made (``dist.get_backend``), and kept as ``backend``. NCCL's collectives
+are kernels on the card that a CUDA graph captures
+(``learn/graphs.py``); gloo's run on the host and cannot be captured, so
+``capturable`` is true for ``nccl`` alone, and a run over any other backend
+keeps its iteration eager. Across ranks, only what a run on several cards
+has held against the eager iteration is compiled
+(:data:`COMPILED_ACROSS_RANKS`, :meth:`DataParallel.eager_reason`). Each collective issued while the current CUDA
+stream is capturing adds one to ``CAPTURED`` (the graphs report how many
+each capture holds).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
+import weakref
 from typing import Optional
 
 import torch
@@ -39,6 +52,13 @@ from wiki_grx_gym_tpu_torch.device import resolve_device
 # process is one rank of a launched group
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 DEFAULT_TIMEOUT_S = 600.0
+# the backends whose collectives a CUDA graph can capture
+CAPTURABLE_BACKENDS = ("nccl",)
+# collectives issued during a CUDA graph's capture, by operation
+CAPTURED = collections.Counter()
+# what holds CUDA graphs that may launch a group's collectives (each has a
+# release()): :func:`destroy` releases them before the group
+_HOLDERS = weakref.WeakSet()
 
 
 def launched_by_torchrun() -> bool:
@@ -50,67 +70,118 @@ def _src(group, src: int) -> int:
     return src if group is None else dist.get_global_rank(group, src)
 
 
+def _noted(op: str, x: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        CAPTURED[op] += 1
+    return x
+
+
+class _Group:
+    """The collectives over ``group`` (None: the default group) that the
+    views share (each has ``group`` and ``backend``)."""
+
+    def __post_init__(self):
+        # the backend read from the group once, where a process group exists
+        # and the view was made without one
+        if self.backend is None and dist.is_available() and dist.is_initialized():
+            object.__setattr__(self, "backend", str(dist.get_backend(self.group)))
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this group's collectives."""
+        return self.backend in CAPTURABLE_BACKENDS
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group, in place; returns ``x``."""
+        dist.all_reduce(_noted("all_reduce", x), op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Group rank ``src``'s ``x`` on every rank, in place; returns ``x``."""
+        dist.broadcast(_noted("broadcast", x), src=_src(self.group, src), group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every group rank's ``x`` stacked in rank order: ``(world,
+        *x.shape)``, gathered into one buffer (no list of outputs to copy
+        from)."""
+        out = torch.empty(self.world * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, _noted("all_gather", x.contiguous()).reshape(-1), group=self.group)
+        return out.view(self.world, *x.shape)
+
+
 @dataclasses.dataclass(frozen=True)
-class TensorParallel:
+class TensorParallel(_Group):
     """This rank's place in its mp group: the group's size (``num_mp``), this
-    rank's mp index, its device and the process group."""
+    rank's mp index, its device, the process group and its backend."""
 
     world: int
     rank: int
     device: torch.device
     group: Optional[object] = None
-
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the mp group, in place; returns ``x``."""
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
-        return x
-
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every mp rank's ``x`` stacked in mp order: ``(world, *x.shape)``."""
-        out = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(out, x.contiguous(), group=self.group)
-        return torch.stack(out)
-
-    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """mp rank ``src``'s ``x`` on every mp rank, in place; returns ``x``."""
-        dist.broadcast(x, src=_src(self.group, src), group=self.group)
-        return x
+    backend: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
-class DataParallel:
+class DataParallel(_Group):
     """One rank of a data-parallel group: the group's size, this rank, this
-    rank's device, and the process group (None: the default group). Under
-    tensor parallelism (:func:`make_mesh`) the group is the dp group of this
-    rank's mp index and ``mp`` its :class:`TensorParallel`."""
+    rank's device, the process group (None: the default group) and its
+    backend. Under tensor parallelism (:func:`make_mesh`) the group is the
+    dp group of this rank's mp index and ``mp`` its :class:`TensorParallel`."""
 
     world: int
     rank: int
     device: torch.device
     group: Optional[object] = None
     mp: Optional[TensorParallel] = None
+    backend: Optional[str] = None
 
     @property
     def is_lead(self) -> bool:
         """Global rank 0: the rank that writes logs and checkpoints."""
         return self.rank == 0 and (self.mp is None or self.mp.rank == 0)
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the ranks, in place; returns ``x``."""
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
-        return x
+    @property
+    def uncapturable_backend(self) -> Optional[str]:
+        """The backend of this rank's dp or mp group that a CUDA graph
+        cannot capture (None: both are NCCL)."""
+        for view in (self, self.mp):
+            if view is not None and not view.capturable:
+                return view.backend or "an unknown backend"
+        return None
 
-    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s ``x`` on every rank, in place; returns ``x``."""
-        dist.broadcast(x, src=_src(self.group, src), group=self.group)
-        return x
+    def eager_reason(self, physics: str, path: Optional[str] = None) -> Optional[str]:
+        """Why a run over this rank's groups keeps its iteration (or, with
+        ``path`` None, its env step) eager; None where the graphs capture
+        its collectives. ``physics``: the env's backend; ``path``: the
+        update's (``"recurrent"`` for the recurrent update). Every group
+        must be NCCL's, and across ranks only :data:`COMPILED_ACROSS_RANKS`
+        is compiled."""
+        backend = self.uncapturable_backend
+        if backend is not None:
+            return (f"data or tensor parallelism over {backend} (its collectives run on the host and "
+                    "cannot be captured: only NCCL's can)")
+        if self.mp is not None and self.mp.world > 1:
+            return ("tensor parallelism across ranks (NCCL's collectives launched from autograd's "
+                    f"backward inside a capture): {_NOT_HELD}")
+        if self.world > 1 and (physics, path) not in COMPILED_ACROSS_RANKS:
+            what = f"the {physics} physics backend" if path is None else f"{physics} on the {path} path"
+            return f"data parallelism across ranks with {what}: {_NOT_HELD}"
+        return None
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` stacked in rank order: ``(world, *x.shape)``,
-        as one all-reduce of the ranks' rows (exact for integer tensors)."""
-        out = torch.zeros((self.world, *x.shape), dtype=x.dtype, device=x.device)
-        out[self.rank] = x
-        return self.all_reduce_sum(out)
+
+# Across ranks over NCCL, the runs whose compiled iteration a run on two
+# cards has held bit for bit against the eager one
+# (tests/test_torch_graphs_nccl_cuda.py), as (physics backend, update
+# path), with path None for the env step alone: data parallelism with K1 on
+# the step path, the path a dp mesh selects for an MLP policy without an
+# extra loss term. Tensor
+# parallelism, the engine, and the xla and recurrent updates across ranks
+# are held against eager on the CPU (gloo, the graphs stood in:
+# tests/test_torch_graphs_parallel*.py) and at one rank on the card, and
+# stay eager across ranks until a run on several cards holds them too.
+COMPILED_ACROSS_RANKS = frozenset({("kernel", None), ("kernel", "step")})
+_NOT_HELD = "its graphs are not yet held against the eager iteration on several cards"
 
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
@@ -192,7 +263,22 @@ def make_mesh(num_mp: int = 1, dp: Optional[DataParallel] = None) -> Optional[Da
     return DataParallel(world=n_dp, rank=dp_index, device=dp.device, group=dp_group, mp=mp)
 
 
+def hold(graphs) -> None:
+    """Register ``graphs`` (anything with a ``release()`` that destroys its
+    CUDA graphs) as a holder of graphs that launch this process's
+    collectives: :func:`destroy` releases it first."""
+    _HOLDERS.add(graphs)
+
+
 def destroy(dp: Optional[DataParallel]) -> None:
-    """Tear down the process group that :func:`init_distributed` made."""
+    """Tear down the process group that :func:`init_distributed` made. The
+    registered graphs (:func:`hold`) are released first: NCCL's
+    communicators must outlive the CUDA graphs that launch their kernels,
+    and destroying a communicator under a live graph does not return."""
     if dp is not None and dist.is_initialized():
+        for holder in list(_HOLDERS):
+            holder.release()
+        _HOLDERS.clear()
+        if dp.device.type == "cuda":
+            torch.cuda.synchronize(dp.device)
         dist.destroy_process_group()

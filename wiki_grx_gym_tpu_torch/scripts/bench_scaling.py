@@ -9,11 +9,15 @@ training env-steps/s per GPU as the data-parallel group grows.
 For each group size K in 1, 2, 4, 8 up to the GPUs the machine has (or
 ``--max_procs`` CPU processes), K ranks (NCCL, one GPU each; gloo on the
 CPU) train GR1T1 with ``envs_per_dev`` envs each: one warm-up iteration
-(the first update captures its CUDA graph), then ``--iters`` timed ones.
-Prints one JSON line per K: the device, env-steps/s in all and per rank,
-and the per-rank rate over K = 1's (scaling efficiency). The envs need no
-collective; the update all-reduces the gradient once a grad step (K2 per
-shard at K > 1, K3's whole update at K = 1).
+(over NCCL the compiled iteration's warm-up and captures), then
+``--iters`` timed ones. Prints one JSON line per K: the device, the
+iteration (``compiled``, CUDA graph replays with the collectives captured,
+over NCCL: GR1T1 takes the step path at K > 1; ``eager`` and why over gloo
+or on the CPU), the update path,
+env-steps/s in all and per rank, and the per-rank rate over K = 1's
+(scaling efficiency). The envs need no collective; the update all-reduces
+the gradient once a grad step (K2 per shard at K > 1, K3's whole update at
+K = 1).
 """
 
 from __future__ import annotations
@@ -48,8 +52,10 @@ def worker(rank, world, init_method, args, out_path):
         if dp.is_lead:
             fps = args.iters * args.steps * env.num_envs_global / dt
             kind = torch.cuda.get_device_name(dp.device) if dp.device.type == "cuda" else "cpu"
+            why = runner.eager_reason
             with open(out_path, "w") as f:
-                json.dump({"devices": world, "device": kind, "path": runner.alg.path,
+                json.dump({"devices": world, "device": kind, "backend": dp.backend,
+                           "iteration": "compiled" if why is None else f"eager ({why})", "path": runner.alg.path,
                            "envs": env.num_envs_global, "env_steps_per_s": fps,
                            "per_device": fps / world}, f)
     finally:

@@ -16,6 +16,13 @@ envs and all-reducing the gradient once a grad step:
     torchrun --nproc_per_node=K -m wiki_grx_gym_tpu_torch.scripts.train --distributed ...
         [--dist_backend nccl|gloo]
 
+Over NCCL (the default on GPUs) the iteration is compiled: CUDA graph
+replays with the collectives captured (``learn/graphs.py``), across ranks
+for data parallelism with K1 on the step path (GR1T1's MLP configs); over
+gloo, under tensor parallelism across ranks, and on the other paths
+across ranks it runs eagerly (``OnPolicyRunner.eager_reason``). ``learn``
+prints which, and the update path, before the first iteration.
+
 Tensor parallel: ``--num_mp M`` splits the MLP hidden layers over M
 consecutive ranks (Megatron, as JAX's ``shard_params``) and data-parallels
 over the ``K / M`` groups of them:

@@ -5,6 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+Phase 22 alone, on the worlds of ``NCCL_WORLDS`` named (default every one
+the machine's cards hold: one rank a card), after building the libraries
+they load; it prints no result line:
+
+    python3 chip_smoke.py --phase22 [WORLD ...]
+
 Phases (any failure exits non-zero and prints no result; no phase's
 exception is swallowed; the checks of phases 5-9 are collected and reported
 together after phase 9):
@@ -343,7 +349,7 @@ together after phase 9):
    the xla path. (a) Two ``_train_iter`` calls against two eager
    iterations with injected noise, u and perm: every collection output,
    the state (the LSTM memory included), the PPO state and the metrics bit
-   for bit (GR1T1_lstm at 16 steps an env, ``UPDATE_CHECK_STEPS``: its
+   for bit (GR1T1_lstm at 8 steps an env, ``UPDATE_CHECK_STEPS``: its
    eager iteration scales with T). (b) Five graphed iterations (generator
    draws, 64 steps an env): min / median /
    max, collection and update from the CUDA events, beside (a)'s eager
@@ -358,35 +364,43 @@ together after phase 9):
    ``use_pallas = False``: one rollout step's graph replayed 64 times, then
    the collection's tail, then K3's update graph) at 4096 envs: (a) two
    calls against eager with injected draws and two with generator draws,
-   16 steps an env (the eager engine is host-bound, ~29 s an iteration of
+   8 steps an env (the eager engine is host-bound, ~29 s an iteration of
    64 steps), bit for bit; (b) five graphed iterations of 64 steps timed,
    launch counts, host calls, the device time of A1 and A2 + the update;
    (c) A1 without its index advanced must fail (a)'s check; (d)
    ``step_graph`` on the engine at 64 envs, bit for bit, timed.
 22. The compiled iteration over NCCL (``nccl_phase``: ``nccl_worker`` on
-   each world the cards hold, one rank a card, GR1T1 with the all-terms
-   fold and the command curriculum on, which all-reduces in every env step
-   only with the fold's tracking_lin_vel term): (a) one rank of a world-1
-   NCCL group at 4096 envs (the mega path; its collectives, the
-   curriculum's all-reduce in each env step and the metric sums' in K3's
-   graph, captured; at one rank NCCL launches no kernel, so (a) holds the
-   rule and the capture's plumbing, not NCCL's kernels in a graph); (b)
-   with two cards dp2 on the step path at 4096 envs a card (across ranks
-   the rule compiles data parallelism with K1 on the step path alone:
-   ``mesh.COMPILED_ACROSS_RANKS``). Each rank: the rule compiles it;
-   two ``_train_iter`` calls against two eager iterations with injected
-   draws and two with generator draws, bit for bit; each graph's nodes by
-   kind (NCCL's kernels counted apart) and the collectives it captured;
-   five graphed iterations timed with their launch counts (K1 64 each; K2
-   200 on the step and mega paths; K3 1 on the mega path); one under
-   torch.profiler (host launch calls, device time, busy share);
+   each world of ``NCCL_WORLDS`` the cards hold, one rank a card, 4096
+   envs a dp rank, GR1T1 (or GR1T1_lstm) with the all-terms fold and the
+   command curriculum on, which all-reduces in every env step only with
+   the fold's tracking_lin_vel term): (a) one rank of a world-1 NCCL group
+   (the mega path; its collectives, the curriculum's all-reduce in each
+   env step and the metric sums' in K3's graph, captured; at one rank NCCL
+   launches no kernel, so (a) holds the rule and the capture's plumbing,
+   not NCCL's kernels in a graph); (b) with two cards dp2 on the step
+   path; (c) with two cards dp2 on the xla path, with the symmetry loss,
+   on the engine and on GR1T1_lstm (these two at 16 steps an env: their
+   eager iterations take ~29 s at 64) and mp2 on the xla path, with four
+   dp2 x mp2 on the xla path and dp4 on the step path: every case that
+   ``mesh.COMPILED_ACROSS_RANKS`` admits. Each rank: the rule compiles it;
+   ``_train_iter`` calls against eager iterations with injected draws and
+   with generator draws, bit for bit; each graph's nodes by kind (NCCL's
+   kernels counted apart: across ranks the collection and the update hold
+   some) and the collectives it captured; five graphed iterations timed
+   with their launch counts (K1 one a step on K1; K2 200 on the step and
+   mega paths; K3 1 on the mega path); one under torch.profiler (host
+   launch calls, and on the MLP worlds device time and busy share);
    ``learn(1)`` printing "iteration: compiled" with the ranks' digests
    equal; a planted fault that must be caught: at world 1 the metric
    sums' all-reduce captured ahead of the collection that writes them
-   (the metrics differ from eager's), at two ranks rank 1's update with
-   ``PPO.reduce``'s result dropped (the all-reduce still issued, so no
-   rank waits): ``learn``'s digest check must raise. Prints the worlds run,
-   ``nccl_cards`` and what was skipped for want of cards.
+   (the metrics differ from eager's); under dp alone rank 1's update with
+   ``PPO.reduce``'s result dropped, under mp mp rank 1's
+   ``_CopyToMP`` backward result dropped (the collective still issued,
+   so no rank waits): ``learn``'s digest check must raise. Each world ends
+   within its own deadline or its ranks are killed and the phase fails
+   naming where each rank stopped; one world's failure does not stop the
+   next. Prints the worlds run, ``nccl_cards`` and what was skipped for
+   want of cards.
    Prints the kernels' JSON line (K1 for each program, its main-path count
    from phase 4 with phase 15's, 16's and 17's counts beside it under their
    own keys, the viscous program's from phase 18's ``ref_equiv_subset``
@@ -408,6 +422,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 THIS = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
@@ -1935,7 +1950,30 @@ def k1_set_mutate(name):
 TERRAIN_STEPS = 16   # phase 3's policy steps from init on terrain (the drop from 0.3 m lands)
 
 
-def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=None):
+def _plain_ops_of_set(name):
+    """:func:`count_plain_ops` of K1 program ``name`` (``K1_SETS``), in a
+    worker process of :func:`plain_op_counts`."""
+    import torch
+
+    torch.set_num_threads(1)
+    return count_plain_ops(K1_SETS[name][0], k1_set_mutate(name))
+
+
+def plain_op_counts(names, workers=4):
+    """Start :func:`count_plain_ops` for each of the K1 programs ``names`` in
+    ``workers`` spawned processes (each count runs the lane program at N=1
+    under a dispatch mode: seconds of host time) while phase 3 works the
+    card. Returns (the pool, {name: future}); shut the pool down after."""
+    import importlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    module = importlib.import_module("chip_smoke")   # pickled by this name, also when run as a script
+    pool = ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(module._plain_ops_of_set, name) for name in names}
+
+
+def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=None, plain_ops=None):
     """Phase 3 for one K1 program: the kernel against its plain version on
     4096 reachable envs of ``task``'s training config (``mutate`` applied;
     on terrain the ground lanes the env samples), or on ``run``, an (env,
@@ -1947,7 +1985,9 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=
     for the all-terms fold the states are planted
     (``cuda_step.planted_all_terms``) and each term of ``NEW_TERMS`` must
     be non-zero in some env (``collision`` non-zero where the penalized
-    count is). Any failure stops the script. Returns the numbers of the
+    count is). ``plain_ops``: the program's :func:`count_plain_ops`, a
+    count or a future of one (None: counted here). Any failure stops the
+    script. Returns the numbers of the
     kernels' JSON row."""
     import torch
 
@@ -2103,7 +2143,10 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=
     # the plain version ran twice above (against the kernel, and in float64):
     # one timed call, no warm-up
     plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=1, warmup=0)
-    ops_per_env = count_plain_ops(task, mutate)
+    if plain_ops is None:
+        ops_per_env = count_plain_ops(task, mutate)
+    else:
+        ops_per_env = plain_ops.result() if hasattr(plain_ops, "result") else int(plain_ops)
     bytes_moved = (op.c_in + op.c_out) * 4 * n_envs
     ops_ms = ops_per_env * n_envs / FP32_PEAK * 1e3
     bytes_ms = bytes_moved / HBM_RATE * 1e3
@@ -3624,8 +3667,10 @@ BENCH_CELLS = ("main", "ref_equiv_subset", "envs8192")
 BIG_ENVS = 8192      # the reference's default env count (envs/gr1t1_config.py)
 
 
-def bench_phase(dev):
-    """Phase 18: the port's bench at the reference's default sizes. (a)
+def bench_phase(dev, plain_ops=None):
+    """Phase 18: the port's bench at the reference's default sizes
+    (``plain_ops``: GR1T1's :func:`count_plain_ops` from phase 3, None to
+    count it here). (a)
     Each of ``BENCH_CELLS`` through ``bench.build_run`` and
     ``bench.time_run`` at ``BENCH_ITERS`` timed iterations, the launch
     counts set to 0 just before and read just after (K1 once for
@@ -3698,7 +3743,7 @@ def bench_phase(dev):
         fail(f"phase 18: one {BIG_ENVS}-env iteration launched {one} (finite metrics {finite})")
     _, _, label, _ = K1_SETS["GR1T1"]
     k1_row = k1_phase(dev, "GR1T1", None, f"{label}, {BIG_ENVS} envs", None, require_faster=False,
-                      run=(env, state.env_state))
+                      run=(env, state.env_state), plain_ops=plain_ops)
     k1_row["launches"] = one["k1"]
     k1_row["launches_from"] = "one iteration of the bench's envs8192 cell, counted alone"
     rs, batch, acc = runner.rollout(state)
@@ -4138,9 +4183,10 @@ UPDATE_CONFIGS = {   # name: (task, algorithm settings)
     "xla_path": ("GR1T1", {"fused_update": False}),
 }
 UPDATE_CALLS = 2    # (a): compiled against eager, injected draws
-# (a) and (c) of GR1T1_lstm at 16 steps an env (T cut from 64: its eager
-# iteration, ~28-32 s at 64 steps, scales with T); (b) at the task's 64
-UPDATE_CHECK_STEPS = {"GR1T1_lstm": 16}
+# (a) and (c) of GR1T1_lstm at 8 steps an env (T cut from 64: its eager
+# iteration, ~28-32 s at 64 steps and 15 s at 16 on a slow host, scales
+# with T); (b) at the task's 64
+UPDATE_CHECK_STEPS = {"GR1T1_lstm": 8}
 UPDATE_TIMED = 5    # (b): graphed iterations timed (generator draws), after one that captures their collection
 STEP_PROFILED = 10  # (b), GR1T1_lstm: grad-step replays under the profiler (a whole update is ~1.6M kernels)
 
@@ -4378,9 +4424,9 @@ def compiled_update_phase(dev):
 # phase 21: the compiled iteration on the engine path (learn/graphs.py: one
 # rollout step's graph replayed T times, then the collection's tail)
 ENGINE_CALLS = 2              # (a): compiled against eager, each source of draws
-# (a) and (c): 16 steps an env (T cut from 64; the eager side is
+# (a) and (c): 8 steps an env (T cut from 64; the eager side is
 # host-bound, ~29 s an iteration of 64 steps at any env count); (b) at 64
-ENGINE_GEN_STEPS = 16
+ENGINE_GEN_STEPS = 8
 ENGINE_TIMED = 5              # (b): graphed iterations timed
 ENGINE_STEPS_PROFILED = 4     # (b): A1 replays under the profiler (a whole collection is ~1.7M kernels)
 ENGINE_EVAL_ENVS, ENGINE_EVAL_STEPS, ENGINE_EVAL_TIMED = 64, 5, 10   # (d)
@@ -4627,37 +4673,68 @@ def engine_compiled_phase(dev):
 # parallel/mesh.py's groups; the collectives captured in the graphs)
 NCCL_CALLS = 2        # compiled against eager, each source of draws
 NCCL_TIMED = 5        # graphed iterations timed
-NCCL_JOIN_S = 600.0   # each world's ranks; past it all are killed and the phase fails
-# name: (cards, num_mp, algorithm settings, envs in all); GR1T1 with the
-# all-terms fold and the command curriculum on: the curriculum runs only
-# with the tracking_lin_vel term (GR1T1's own reward set has none), and
-# then all-reduces in every env step
+
+
+class NcclWorld(NamedTuple):
+    """One world of phase 22: its part ("a", "b" or "c"), its cards (one
+    rank a card), num_mp, the task, algorithm and sim settings, the steps
+    an env (None: the task's), the world's deadline, and whether one
+    graphed iteration is profiled on the device too (else on the host
+    alone)."""
+
+    part: str
+    cards: int
+    num_mp: int = 1
+    task: str = "GR1T1"
+    alg: dict = {}
+    sim: dict = {}
+    steps: Optional[int] = None
+    deadline_s: float = 300.0
+    device_profile: bool = True
+
+
+# GR1T1 (GR1T1_lstm) with the all-terms fold and the command curriculum on:
+# the curriculum runs only with the tracking_lin_vel term (GR1T1's own
+# reward set has none), and then all-reduces in every env step. The engine
+# and the LSTM at 16 steps an env (their eager iterations, host-bound, take
+# ~29 s at 64 steps), a whole engine or LSTM iteration under the device
+# profiler is ~0.4-1.7M kernel records: profiled on the host alone
 NCCL_WORLDS = {
-    "world1": (1, 1, {}, N_ENVS),                            # (a): the mega path (K3)
-    "dp2_step": (2, 1, {"fused_mega": False}, 2 * N_ENVS),   # (b): K2 per shard, 4096 envs a card
+    "world1": NcclWorld("a", 1),                                            # the mega path (K3)
+    "dp2_step": NcclWorld("b", 2, alg={"fused_mega": False}),               # K2 per shard
+    "dp2_xla": NcclWorld("c", 2, alg={"fused_update": False}),
+    "dp2_symmetry": NcclWorld("c", 2, alg={"symmetry_coef": SYMMETRY_COEF}),
+    "dp2_engine": NcclWorld("c", 2, sim={"use_pallas": False}, steps=16, deadline_s=420.0, device_profile=False),
+    "dp2_lstm": NcclWorld("c", 2, task="GR1T1_lstm", steps=16, deadline_s=420.0, device_profile=False),
+    "mp2_xla": NcclWorld("c", 2, num_mp=2),
+    "dp2_mp2_xla": NcclWorld("c", 4, num_mp=2),
+    "dp4_step": NcclWorld("c", 4, alg={"fused_mega": False}),
 }
 
 
-def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_envs):
-    """Phase 22, one rank of an NCCL group (``cuda:<rank>``): GR1T1 at
-    ``num_envs`` envs in all, with the all-terms fold
-    (``cuda_step.all_terms_config``: its tracking_lin_vel term) and the
-    command curriculum on (its all-reduce in every env step), through the
-    entry points a user calls with ``dp`` (``make_mesh(num_mp)``). The
-    rule must compile it. ``NCCL_CALLS`` ``_train_iter`` calls against as
-    many eager ``iteration`` calls, injected draws then generator draws
-    (each rank's own, the permutation rank 0's), bit for bit; every graph's
-    nodes (NCCL's kernels apart) and the collectives it captured;
-    ``NCCL_TIMED`` graphed iterations timed, their launch counts set to 0
-    just before and read just after; one graphed iteration under
-    torch.profiler (host launch calls, device time, busy share, NCCL
-    kernels); ``learn(1)`` (its printed iteration line, the digest check).
-    Then the planted fault: at one rank (``world1``) the metric sums'
-    all-reduce captured ahead of the collection that writes them: the
-    metrics must differ from the first eager call's; at two, rank 1's
-    update captured with ``PPO.reduce``'s result dropped (the all-reduce
-    still issued): ``learn(1)``'s digest check must raise. Results go to
-    ``out_dir/<name>_rank<r>.json``."""
+def nccl_worker(rank, world, init_method, out_dir, name):
+    """Phase 22, one rank of the NCCL group of world ``name`` of
+    ``NCCL_WORLDS`` (``cuda:<rank>``): its task at 4096 envs a dp rank, with
+    the all-terms fold (``cuda_step.all_terms_config``: its tracking_lin_vel
+    term) and the command curriculum on (its all-reduce in every env step),
+    through the entry points a user calls with ``dp``
+    (``make_mesh(num_mp)``). The rule must compile it. ``NCCL_CALLS``
+    ``_train_iter`` calls against as many eager ``iteration`` calls,
+    injected draws then generator draws (each dp rank's own, the
+    permutation dp rank 0's), bit for bit; every graph's nodes (NCCL's kernels apart) and
+    the collectives it captured; ``NCCL_TIMED`` graphed iterations timed,
+    their launch counts set to 0 just before and read just after; one
+    graphed iteration under torch.profiler (host launch calls; with
+    ``device_profile`` device time, NCCL's kernels and their time, the busy
+    share without them); ``learn(1)``
+    (its printed iteration line, the digest check). Then the planted fault:
+    at one rank (``world1``) the metric sums' all-reduce captured ahead of
+    the collection that writes them: the metrics must differ from the first
+    eager call's; under dp alone, rank 1's update captured with
+    ``PPO.reduce``'s result dropped (the all-reduce still issued); under mp,
+    mp rank 1's ``_CopyToMP`` backward result dropped (the all-reduce still
+    issued): ``learn(1)``'s digest check must raise. Each step is named
+    with ``launch.stage``. Results go to ``out_dir/<name>_rank<r>.json``."""
     import contextlib
     import io
     import statistics
@@ -4667,37 +4744,47 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
 
     from wiki_grx_gym_tpu_torch.build import LAUNCHES, reset_launch_counts
     from wiki_grx_gym_tpu_torch.envs import task_registry
-    from wiki_grx_gym_tpu_torch.learn import fused_update, graphs
+    from wiki_grx_gym_tpu_torch.learn import fused_update, graphs, networks
     from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
     from wiki_grx_gym_tpu_torch.parallel import mesh
+    from wiki_grx_gym_tpu_torch.parallel.launch import stage
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
+    w = NCCL_WORLDS[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    stage("init_distributed")
     whole = mesh.init_distributed(backend="nccl", init_method=init_method, world_size=world, rank=rank,
-                                  device="cuda", timeout_s=NCCL_JOIN_S)
-    dp = mesh.make_mesh(num_mp, whole)
+                                  device="cuda", timeout_s=w.deadline_s)
+    dp = mesh.make_mesh(w.num_mp, whole)
     dev = dp.device
+    num_envs = N_ENVS * dp.world
     ms = lambda xs: [1e3 * x for x in xs]
     stats = lambda xs: {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
     t_w = time.perf_counter()
     try:
         def make():
-            cfg, train_cfg = task_registry.get_cfgs("GR1T1")
+            cfg, train_cfg = task_registry.get_cfgs(w.task)
             cfg.env.num_envs = num_envs
             cuda_step.all_terms_config(cfg)
             cfg.commands.curriculum = True
-            for k, v in alg_kw.items():
+            for k, v in w.sim.items():
+                setattr(cfg.sim, k, v)
+            if w.steps is not None:
+                train_cfg.runner.num_steps_per_env = w.steps
+            for k, v in w.alg.items():
                 setattr(train_cfg.algorithm, k, v)
-            env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, dp=dp)
-            return task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None, dp=dp)[0]
+            env, _ = task_registry.make_env(w.task, env_cfg=cfg, dp=dp)
+            return task_registry.make_alg_runner(env, w.task, train_cfg=train_cfg, log_root=None, dp=dp)[0]
 
+        stage("building the runner")
         runner = make()
-        path = runner.alg.path
-        res = {"name": name, "rank": rank, "world": world, "dp": dp.world, "mp": num_mp, "device": str(dev),
-               "card": torch.cuda.get_device_name(dev), "backend": dp.backend, "envs": runner.env.num_envs,
-               "envs_in_all": num_envs, "path": path, "eager_reason": runner.eager_reason,
-               "capture_mode": fused_update.CAPTURE_ERROR_MODE}
+        path, steps_an_env = runner.rule_path, runner.num_steps_per_env
+        res = {"name": name, "part": w.part, "rank": rank, "world": world, "dp": dp.world, "mp": w.num_mp,
+               "device": str(dev), "card": torch.cuda.get_device_name(dev), "backend": dp.backend,
+               "task": w.task, "physics": runner.env.backend, "envs": runner.env.num_envs,
+               "envs_in_all": num_envs, "steps_an_env": steps_an_env, "path": path,
+               "eager_reason": runner.eager_reason, "capture_mode": fused_update.CAPTURE_ERROR_MODE}
         if runner.eager_reason is not None:
             raise RuntimeError(f"phase 22 {name}: not compiled: {runner.eager_reason}")
         steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
@@ -4710,15 +4797,18 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
                 s_e, s_g = runner.init_state(), runner.init_state()
             d_all = []
             for it in range(NCCL_CALLS):
-                kw = (dict(zip(("noise", "u", "perm"), injected_draws(runner, 4000 + 10 * it + rank, dev)))
+                # each dp rank its own draws; mp peers step one env shard and draw alike
+                kw = (dict(zip(("noise", "u", "perm"), injected_draws(runner, 4000 + 10 * it + dp.rank, dev)))
                       if draws == "injected" else {})
                 want = {}
+                stage(f"eager iteration {it}, {draws} draws")
                 t0 = time.perf_counter()
                 s_e, m_e = runner.iteration(s_e, out=want, **kw)
                 torch.cuda.synchronize()
                 eager.append((time.perf_counter() - t0, dict(runner.last_timing)))
                 if ref0 is None:
                     ref0 = graphs.map_tensors(torch.clone, {"draws": kw, "metrics": m_e})
+                stage(f"compiled iteration {it}, {draws} draws")
                 s_g, m_g = runner._train_iter(s_g, **kw)
                 d = tree_diffs({k: runner.compiled.last[k] for k in want}, want)
                 d += tree_diffs(s_g, s_e, "state")
@@ -4728,15 +4818,20 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
         res["differing"] = diffs
         del s_e
         # ---- the graphs: nodes by kind, the collectives captured ----
+        stage("counting the graphs' nodes")
         ci = runner.compiled
         res["graphs"] = ci.reports()
         nodes = {}
         for mode, g in ci.collect.items():
             nodes[f"collection ({mode})"] = graphs.node_kinds(g.graph)
-        upd = ci.update
-        nodes["update"] = graphs.node_kinds(upd.graph)
+        for mode, g in ci.tail.items():
+            nodes[f"collection tail ({mode})"] = graphs.node_kinds(g.graph)
+        nodes["update"] = graphs.node_kinds(ci.update.graph)
+        if ci.epilogue is not None:
+            nodes["update metrics"] = graphs.node_kinds(ci.epilogue.graph)
         res["nodes"] = nodes
         # ---- timed graphed iterations (generator draws) ----
+        stage("timed graphed iterations")
         torch.cuda.synchronize()
         reset_launch_counts()
         graphed = []
@@ -4745,30 +4840,38 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
             s_g, metrics = runner._train_iter(s_g)
             graphed.append((time.perf_counter() - t0, dict(runner.last_timing)))
         res["launches"] = dict(LAUNCHES)
-        res["launches_expected"] = {"k1": NCCL_TIMED * ROLLOUT_STEPS,
-                                    "k2": NCCL_TIMED * (steps if path in ("step", "mega") else 0),
-                                    "k3": NCCL_TIMED * (path == "mega")}
+        base = path.split("+")[0]
+        res["launches_expected"] = {"k1": NCCL_TIMED * steps_an_env * (runner.env.backend == "kernel"),
+                                    "k2": NCCL_TIMED * (steps if base in ("step", "mega") else 0),
+                                    "k3": NCCL_TIMED * (base == "mega")}
         res["finite"] = all(math.isfinite(float(v)) for v in metrics.values())
-        wall = stats(ms([w for w, _ in graphed]))
-        res["eager_iteration_ms"] = stats(ms([w for w, _ in eager]))
+        wall = stats(ms([t for t, _ in graphed]))
+        res["eager_iteration_ms"] = stats(ms([t for t, _ in eager]))
         res["graphed_iteration_ms"] = wall
         res["graphed_collection_ms"] = stats(ms([t["collection_s"] for _, t in graphed]))
         res["graphed_update_ms"] = stats(ms([t["update_s"] for _, t in graphed]))
-        res["env_steps_per_s"] = ROLLOUT_STEPS * num_envs / (wall["median"] / 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res["env_steps_per_s"] = steps_an_env * num_envs / (wall["median"] / 1e3)
+        stage("one graphed iteration under torch.profiler")
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if w.device_profile else [])
+        with profile(activities=activities) as prof:
             s_g, _ = runner._train_iter(s_g)
             torch.cuda.synchronize()
         host = host_calls(prof)
-        dev_ms, kernels, _ = device_kernels(prof)
-        from torch.autograd import DeviceType
+        res["profile"] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k)}
+        if w.device_profile:
+            from torch.autograd import DeviceType
 
-        nccl_seen = sum(e.count for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
-        res["profile"] = {"host_calls": host, "host_launch_calls": sum(v for k, v in host.items() if "Launch" in k),
-                          "device_ms": dev_ms, "device_kernels": kernels, "nccl_kernels": nccl_seen,
-                          "busy_share": dev_ms / wall["median"]}
-        del s_g
+            dev_ms, kernels, _ = device_kernels(prof)
+            nccl = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+            # an NCCL kernel's time includes its wait for the peers (and it
+            # runs beside the compute stream): the busy share leaves it out
+            nccl_ms = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                          for e in nccl) / 1e3
+            res["profile"].update(device_ms=dev_ms, device_kernels=kernels, nccl_kernels=sum(e.count for e in nccl),
+                                  nccl_ms=nccl_ms, busy_share=(dev_ms - nccl_ms) / wall["median"])
+        del s_g, prof
         # ---- learn(1): the printed line, the digest check between replays ----
+        stage("learn(1)")
         runner.compiled = None
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -4777,6 +4880,7 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
         res["digests"] = [[str(int(x)) for x in d] for d in runner.replica_digests]
 
         # ---- the planted fault ----
+        stage("the planted fault")
         runner.compiled = None
         gc.collect()
         if world == 1:
@@ -4806,11 +4910,17 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
             res["fault"] = {"plant": "the metric sums' all-reduce captured ahead of the collection that writes "
                                      "them", "differing": d, "caught": bool(d)}
         else:
-            alg = runner.alg
-            plant = "rank 1's update graph with PPO.reduce's result dropped (the all-reduce still issued)"
-            if dp.rank == 1:
-                reduce = alg.reduce
-                alg.reduce = lambda loss, g, aux: (reduce(loss, g, aux), (loss, g, aux))[1]
+            if w.num_mp == 1:
+                plant = "rank 1's update graph with PPO.reduce's result dropped (the all-reduce still issued)"
+                if dp.rank == 1:
+                    alg, reduce = runner.alg, runner.alg.reduce
+                    alg.reduce = lambda loss, g, aux: (reduce(loss, g, aux), (loss, g, aux))[1]
+            else:
+                plant = ("mp rank 1's graphs with _CopyToMP's backward result dropped (the all-reduce still "
+                         "issued)")
+                if dp.mp.rank == 1:
+                    copy_back = networks._CopyToMP.backward
+                    networks._CopyToMP.backward = staticmethod(lambda ctx, g: (copy_back(ctx, g), (g, None))[1])
             caught, why = False, ""
             try:
                 with contextlib.redirect_stdout(io.StringIO()):
@@ -4821,56 +4931,71 @@ def nccl_worker(rank, world, init_method, out_dir, name, num_mp, alg_kw, num_env
         res["seconds"] = time.perf_counter() - t_w
         with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as fh:
             json.dump(res, fh, default=str)
+        stage("teardown")
     finally:
         mesh.destroy(whole)
 
 
-def nccl_phase(dev):
+def nccl_phase(dev, only=None):
     """Phase 22: the compiled iteration over NCCL (``nccl_worker`` for each
     world of ``NCCL_WORLDS`` that this machine's cards hold; NCCL takes one
-    rank a card): (a) one rank of a world-1 NCCL group on every machine;
-    (b) dp2 on the step path where there are two cards. Each world's ranks are
-    joined within ``NCCL_JOIN_S`` or killed. Returns the phase's results:
-    the worlds run, ``nccl_cards``, what was skipped and why, and each
-    rank's launch counts (the kernels line's ``dp_graphed_launches``)."""
+    rank a card; ``only``: the names of the worlds to run, None for all):
+    (a) one rank of a world-1 NCCL group on every machine; (b) dp2 on the
+    step path and (c) the other cases across ranks where there are two or
+    four cards. Each world's ranks are joined within its deadline or
+    killed; a world that fails is reported and the next one runs. Returns
+    the phase's results: the worlds run, ``nccl_cards``, what was skipped
+    and why, and each rank's launch counts (the kernels line's
+    ``dp_graphed_launches``)."""
     import torch
 
     from wiki_grx_gym_tpu_torch.parallel.launch import spawn
 
     t22 = time.perf_counter()
     cards = torch.cuda.device_count()
-    out = {"nccl_cards": cards, "worlds_run": [], "skipped": {}, "worlds": {}}
+    out = {"nccl_cards": cards, "worlds_run": [], "skipped": {}, "failed": {}, "worlds": {}}
     out_dir = os.path.join(THIS, "build", "smoke_nccl")
     os.makedirs(out_dir, exist_ok=True)
-    for name, (world, num_mp, alg_kw, envs) in NCCL_WORLDS.items():
-        if world > cards:
-            out["skipped"][name] = f"needs {world} cards, the machine has {cards} (NCCL takes one rank a card)"
+    for name, w in NCCL_WORLDS.items():
+        tag = f"22 {w.part} {name}"
+        if only is not None and name not in only:
             continue
-        for r in range(world):
+        if w.cards > cards:
+            out["skipped"][name] = f"needs {w.cards} cards, the machine has {cards} (NCCL takes one rank a card)"
+            log(f"[{tag}] skipped: {out['skipped'][name]}")
+            continue
+        for r in range(w.cards):
             if os.path.exists(os.path.join(out_dir, f"{name}_rank{r}.json")):
                 os.remove(os.path.join(out_dir, f"{name}_rank{r}.json"))
+        rendezvous = os.path.join(out_dir, name)   # the world's own (two worlds may run at once)
+        os.makedirs(rendezvous, exist_ok=True)
         t0 = time.perf_counter()
-        spawn(nccl_worker, world, args=(out_dir, name, num_mp, alg_kw, envs), rendezvous_dir=out_dir,
-              timeout_s=NCCL_JOIN_S)
+        try:
+            spawn(nccl_worker, w.cards, args=(out_dir, name), rendezvous_dir=rendezvous, timeout_s=w.deadline_s)
+        except Exception as e:   # reported as the world's failure; the next world runs
+            out["failed"][name] = f"{type(e).__name__}: {str(e)[-1500:]}"
+            fail(f"phase 22 {name}: the world failed after {time.perf_counter() - t0:.1f} s: "
+                 f"{out['failed'][name]}")
+            continue
         ranks = []
-        for r in range(world):
+        for r in range(w.cards):
             with open(os.path.join(out_dir, f"{name}_rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
-        tag = "22 a" if world == 1 else "22 b"
         for r in ranks:
-            log(f"[{tag} {name}] rank {r['rank']} on {r['device']} ({r['card']}) over {r['backend']}, dp "
-                f"{r['dp']} x mp {r['mp']}, {r['envs']} envs of {r['envs_in_all']}, the {r['path']} update, "
-                f"capture mode {r['capture_mode']}: compiled against eager "
+            log(f"[{tag}] rank {r['rank']} on {r['device']} ({r['card']}) over {r['backend']}, dp "
+                f"{r['dp']} x mp {r['mp']}, {r['task']} on {r['physics']}, {r['envs']} envs of {r['envs_in_all']}, "
+                f"{r['steps_an_env']} steps an env, the {r['path']} update, capture mode {r['capture_mode']}: "
+                "compiled against eager "
                 + "; ".join(f"{draws} {['equal bit for bit' if not d else d[:8] for d in ds]}"
                             for draws, ds in r["differing"].items()))
-            log(f"[{tag} {name}] rank {r['rank']}: eager iteration ms {r['eager_iteration_ms']}; graphed "
+            log(f"[{tag}] rank {r['rank']}: eager iteration ms {r['eager_iteration_ms']}; graphed "
                 f"{r['graphed_iteration_ms']} (collection {r['graphed_collection_ms']['median']:.2f}, update "
                 f"{r['graphed_update_ms']['median']:.2f}, from the events); {r['env_steps_per_s']:.0f} env-steps/s "
                 f"in all at the median; {NCCL_TIMED} graphed iterations launched {r['launches']} (expected "
                 f"{r['launches_expected']}); metrics finite {r['finite']}")
-            log(f"[{tag} {name}] rank {r['rank']}: graph nodes {json.dumps(r['nodes'])}; collectives captured "
+            log(f"[{tag}] rank {r['rank']}: graph nodes {json.dumps(r['nodes'])}; collectives captured "
                 + json.dumps({g['name']: g.get('collectives') for g in r['graphs']}))
-            log(f"[{tag} {name}] rank {r['rank']}: one graphed iteration's profile {json.dumps(r['profile'])}; "
+            log(f"[{tag}] rank {r['rank']}: one graphed iteration's profile {json.dumps(r['profile'])}; "
                 f"learn(1) {r['learn_lines']}; digests {r['digests']}; planted: {r['fault']['plant']}: caught "
                 f"{r['fault']['caught']} {r['fault'].get('differing', r['fault'].get('error', ''))}; "
                 f"{r['seconds']:.1f} s")
@@ -4886,21 +5011,84 @@ def nccl_phase(dev):
             if not r["fault"]["caught"]:
                 fail(f"phase 22 {name} rank {r['rank']}: the planted fault passed: {r['fault']}")
             captured = sum(n for g in r["graphs"] for n in (g.get("collectives") or {}).values())
-            nccl_nodes = sum(v.get("nccl_kernels", 0) for v in r["nodes"].values())
-            if not captured or (world > 1 and not nccl_nodes):
-                fail(f"phase 22 {name} rank {r['rank']}: {captured} collectives captured, {nccl_nodes} NCCL "
-                     "kernel nodes in the graphs")
+            nccl = {k: v.get("nccl_kernels", 0) for k, v in r["nodes"].items()}
+            if not captured or (w.cards > 1 and not (nccl["collection (inject)"] and nccl["update"])):
+                fail(f"phase 22 {name} rank {r['rank']}: {captured} collectives captured, NCCL kernel nodes "
+                     f"{nccl} (across ranks the collection and the update must hold some)")
         out["worlds_run"].append(name)
         out["worlds"][name] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+        log(f"[{tag}] the world took {out['worlds'][name]['seconds']:.1f} s")
     out["seconds"] = time.perf_counter() - t22
-    log(json.dumps({"nccl": {"worlds_run": out["worlds_run"], "nccl_cards": cards, "skipped": out["skipped"]}}))
+    log(json.dumps({"nccl": {"worlds_run": out["worlds_run"], "nccl_cards": cards, "skipped": out["skipped"],
+                             "failed": out["failed"]}}))
     log(f"[time] phase 22 took {out['seconds']:.1f} s")
     return out
+
+
+def build_libraries(k1_sets):
+    """Build K1 for each K1_SETS name in ``k1_sets``, K2 and K3 (a library
+    already built is kept): one nvcc per library, all started together.
+    Returns ({set name: its K1 op}, {library name: (source, flags)},
+    seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from wiki_grx_gym_tpu_torch import build as kbuild
+    from wiki_grx_gym_tpu_torch.learn import fused_update
+    from wiki_grx_gym_tpu_torch.sim import cuda_step
+
+    t0 = time.perf_counter()
+    k1_ops = {name: cuda_step.task_env(K1_SETS[name][0], 1, "cpu", k1_set_mutate(name)).decimation_op
+              for name in k1_sets}
+    jobs = {cuda_step.library_name(op.sizes): (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes))
+            for op in k1_ops.values()}
+    jobs.update({
+        "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
+        "k3_ppo_update": (fused_update.K3_SOURCE, fused_update.FLAGS),
+    })
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for f in [ex.submit(kbuild.build, name, src, flags) for name, (src, flags) in jobs.items()]:
+            f.result()
+    return k1_ops, jobs, time.perf_counter() - t0
+
+
+# the K1 programs phase 22's worlds load (GR1T1's for bench_scaling beside them)
+PHASE22_K1_SETS = ("GR1T1", "GR1T1_all_terms")
+
+
+def phase22_main(names):
+    """``python3 chip_smoke.py --phase22 [WORLD ...]``: phase 22 alone, on
+    the worlds of ``NCCL_WORLDS`` named (default every one the cards hold),
+    after building the libraries they load. Prints the card line and what
+    failed; exits 0 only if every world run passed. The full run (no
+    arguments) is the one that prints the kernels' and the final line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card", file=sys.stderr)
+        return 2
+    unknown = [n for n in names if n not in NCCL_WORLDS]
+    if unknown:
+        print(f"chip_smoke: no phase 22 world {unknown}; the worlds: {sorted(NCCL_WORLDS)}", file=sys.stderr)
+        return 2
+    log("card:", card_line())
+    sys.path.insert(0, THIS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, jobs, build_s = build_libraries(PHASE22_K1_SETS)
+    log(f"[build] {len(jobs)} libraries in {build_s:.1f} s: {sorted(jobs)}")
+    nccl_phase(torch.device("cuda"), only=names or None)
+    if FAILURES:
+        log(f"chip_smoke: {len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
+        return 1
+    log(f"chip_smoke --phase22: every world run passed in {time.perf_counter() - T0:.1f} s")
+    return 0
 
 
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--phase22"]:
+        return phase22_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
               file=sys.stderr)
@@ -4917,26 +5105,10 @@ def main():
     dev = torch.device("cuda")
 
     # ---- phase 2: build K1, K2, K3: one nvcc per source, all started together ----
-    from concurrent.futures import ThreadPoolExecutor
-
     from wiki_grx_gym_tpu_torch import build as kbuild
     from wiki_grx_gym_tpu_torch.learn import fused_update
 
-    t0 = time.perf_counter()
-    jobs = {}
-    k1_ops = {name: cuda_step.task_env(task, 1, "cpu", k1_set_mutate(name)).decimation_op
-              for name, (task, _, _, _) in K1_SETS.items()}
-    for op in k1_ops.values():
-        jobs[cuda_step.library_name(op.sizes)] = (cuda_step._SOURCE, cuda_step.nvcc_flags(op.sizes))
-    jobs.update({
-        "k2_ppo_grads": (fused_update.K2_SOURCE, fused_update.FLAGS),
-        "k3_ppo_update": (fused_update.K3_SOURCE, fused_update.FLAGS),
-    })
-    with ThreadPoolExecutor(len(jobs)) as ex:
-        futs = {name: ex.submit(kbuild.build, name, src, flags) for name, (src, flags) in jobs.items()}
-        for f in futs.values():
-            f.result()
-    build_s = time.perf_counter() - t0
+    k1_ops, jobs, build_s = build_libraries(K1_SETS)
     for name in jobs:
         info = kbuild.BUILD_INFO[name]
         log(f"[build] {name}: nvcc {info.get('seconds', 0.0):.1f} s")
@@ -4973,9 +5145,11 @@ def main():
     phase_done("phase 2")
     # ---- phase 3: K1 against its plain version, 4096 envs, each size set ----
     k1_rows = {}
-    for name, (task, _, label, spread) in K1_SETS.items():
-        k1_rows[name] = k1_phase(dev, task, k1_set_mutate(name), label, spread, require_faster=name == "GR1T1",
-                                 exact=name in K1_EXACT)
+    pool, plain_ops = plain_op_counts(K1_SETS)
+    with pool:
+        for name, (task, _, label, spread) in K1_SETS.items():
+            k1_rows[name] = k1_phase(dev, task, k1_set_mutate(name), label, spread, require_faster=name == "GR1T1",
+                                     exact=name in K1_EXACT, plain_ops=plain_ops[name])
     del k1_ops
 
     phase_done("phase 3")
@@ -5146,7 +5320,7 @@ def main():
     # ---- phase 18: the port's bench at 4096 and 8192 envs; K2 and K3 at 8192 ----
     gc.collect()
     torch.cuda.empty_cache()
-    bench18, k1_big_row, k2_big_row = bench_phase(dev)
+    bench18, k1_big_row, k2_big_row = bench_phase(dev, k1_rows["GR1T1"]["ops_per_env_step"])
     phase_done("phase 18")
     # ---- phase 19: the compiled iteration (the collection and update graphs; step_graph) ----
     gc.collect()

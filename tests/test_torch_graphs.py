@@ -8,8 +8,9 @@ callers runs without a card.
    would give (``physics_backend(use_pallas, "cuda")``). Every registry
    task, every update path and the engine backend are compiled, and so
    is dp over NCCL with K1 across ranks; the CPU, the lane backend (K1's
-   plain version on the card), dp and mp over gloo, and mp over NCCL
-   across ranks keep their reasons.
+   plain version on the card), dp and mp over gloo keep their reasons,
+   and so does dp x mp over NCCL across ranks on the mega path (not a
+   path of tensor parallelism), though its env step is graphed.
 2. Capture hygiene: during ``env.step`` on the plane, heightfield, trimesh,
    heading and full-body configs, on K1 and on the engine, during
    ``spd_solve`` above 48 (``cholesky_ex``), and during ``rollout`` + the last values
@@ -148,18 +149,19 @@ def test_rule_per_variant(variant):
         runner.dp = _dp(2, mp=variant.startswith("mp"), backend="nccl" if variant.endswith("nccl") else "gloo")
     reason = as_on_card(runner)
     # gloo's collectives run on the host: only NCCL's are captured, and
-    # across ranks only data parallelism with K1 on the step path
+    # across ranks what mesh.COMPILED_ACROSS_RANKS admits (the runner is
+    # built in one process: mp_nccl keeps the mega path, which it does not)
     want = {"dp": "parallelism over gloo", "mp": "parallelism over gloo", "dp_nccl": None,
             "mp_nccl": "tensor parallelism across ranks",
             "symmetry": None, "step_path": None, "xla_path": None, "engine": None, "lanes": "'lanes'",
             "bf16": None, "fused_trunk": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
-    # the env step's rule: K1 or the engine on a CUDA device, dp only over
-    # NCCL, across ranks with K1 only
+    # the env step's rule: K1 or the engine on a CUDA device, dp and mp
+    # only over NCCL, across ranks K1's step under dp, mp and dp x mp
     env.device = torch.device("cuda")
     env.dp = runner.dp
     step_reason = env.step_graph_reason
-    assert (step_reason is None) == (variant not in ("dp", "mp", "mp_nccl", "lanes")), (variant, step_reason)
+    assert (step_reason is None) == (variant not in ("dp", "mp", "lanes")), (variant, step_reason)
 
 
 # ---------------------------------------------------------------------------

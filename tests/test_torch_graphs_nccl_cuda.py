@@ -11,17 +11,21 @@
   and the update graph the metric sums' all-reduce. At one rank NCCL runs
   an in-place sum without a kernel, so the graphs' NCCL kernel nodes are
   counted only where there are two ranks.
-- Two ranks on two cards (skipped where ``torch.cuda.device_count()`` is
-  below 2: NCCL takes one rank a card): dp2 on the step path at 64 envs a
-  rank, each rank bit for bit against its eager iteration over three
-  calls, the ranks' learner states equal, and the collection and update
-  graphs holding NCCL kernel nodes. Across ranks this is the one case the
-  rule compiles (``mesh.COMPILED_ACROSS_RANKS``).
-- The cases the rule keeps eager across ranks, with the rule opened in
-  each rank (:data:`HELD_OPEN`: dp2 on the xla path, on the engine and on
-  GR1T1_lstm, and mp2 on the xla path, NCCL launched from autograd's
-  backward inside the capture): the same checks, so that a run on two
-  cards can show which may join ``COMPILED_ACROSS_RANKS``.
+- Across ranks (:data:`ACROSS`: one rank a card, each case skipped where
+  ``torch.cuda.device_count()`` is below its ranks, since NCCL takes one
+  rank a card), each case at 64 envs a dp rank with the rule as shipped:
+  dp2 on the step path, on the xla path, with the symmetry loss, on the
+  engine and on GR1T1_lstm; mp2 on the xla path (NCCL launched from
+  autograd's backward inside the capture); on four cards dp2 x mp2 on the
+  xla path (two communicators a rank) and dp4 on the step path. Each
+  rank is compiled (``eager_reason`` None), bit for bit against its eager
+  iteration over three calls, its collection and update graphs hold NCCL
+  kernel nodes, and every dp group's ranks end with one learner state.
+  These are the cases ``mesh.COMPILED_ACROSS_RANKS`` admits: a new case
+  is held here (with the rule opened in each rank) before it joins them.
+
+Each world ends within ``JOIN_S`` (``parallel.launch.spawn``); past it
+every rank is killed and the error names where each stopped.
 
 Needs a CUDA card; marked ``gpu``, elsewhere each test skips. On the card,
 from the checkout's root:
@@ -45,8 +49,9 @@ from wiki_grx_gym_tpu_torch.sim import cuda_step
 pytestmark = pytest.mark.gpu
 
 N, T = 64, 4
-JOIN_S = 300.0
-PATHS = {"mega": {}, "xla": {"fused_update": False}, "step": {"fused_mega": False}}
+JOIN_S = 240.0   # a world's deadline (its ranks are killed past it)
+PATHS = {"mega": {}, "xla": {"fused_update": False}, "step": {"fused_mega": False},
+         "symmetry": {"symmetry_coef": 0.5}}
 
 
 def _need_cards(n):
@@ -151,17 +156,38 @@ def test_world1_nccl_compiled_equals_eager(world1, path):
     assert kinds["kernels"] > 0 and kinds["cooperative"] == 0 and kinds["nccl_kernels"] == 0, kinds
 
 
-def dp2_worker(rank, world, init, out_dir):
-    dp = mesh.init_distributed(backend="nccl", init_method=init, world_size=world, rank=rank, device="cuda",
-                               timeout_s=JOIN_S)
+# name: (task, num_mp, PATHS key, sim settings, cards); ranks = cards, one a
+# card, each dp rank N envs
+ACROSS = {
+    "dp2_step": ("GR1T1", 1, "step", None, 2),
+    "dp2_xla": ("GR1T1", 1, "xla", None, 2),
+    "dp2_symmetry": ("GR1T1", 1, "symmetry", None, 2),
+    "dp2_engine": ("GR1T1", 1, "step", {"use_pallas": False}, 2),
+    "dp2_lstm": ("GR1T1_lstm", 1, "mega", None, 2),
+    "mp2_xla": ("GR1T1", 2, "mega", None, 2),
+    "dp2_mp2_xla": ("GR1T1", 2, "mega", None, 4),
+    "dp4_step": ("GR1T1", 1, "step", None, 4),
+}
+
+
+def across_worker(rank, world, init, out_dir, name):
+    from wiki_grx_gym_tpu_torch.parallel import sharding
+    from wiki_grx_gym_tpu_torch.parallel.launch import stage
+
+    task, num_mp, path, sim, _ = ACROSS[name]
+    whole = mesh.init_distributed(backend="nccl", init_method=init, world_size=world, rank=rank, device="cuda",
+                                  timeout_s=JOIN_S)
     try:
-        runner = make_runner(dp, "step", n=N * world)
-        assert runner.alg.path == "step"
+        dp = mesh.make_mesh(num_mp, whole)
+        stage("building the runner")
+        runner = make_runner(dp, path, n=N * world // num_mp, task=task, sim=sim)   # the rule compiles it
+        stage("compiled against eager")
         diffs, s_g = compiled_vs_eager(runner, 3, injected=True)
         ci = runner.compiled
-        from wiki_grx_gym_tpu_torch.parallel import sharding
-
-        digests = sharding.check_replicas_identical(dp, s_g.ppo, "compiled iterations")
+        stage("the digest check")
+        digests = sharding.check_replicas_identical(
+            dp, s_g.ppo, "compiled iterations", net=runner.net,
+            replicated=(s_g.env_state,) if dp.mp is not None else None)
         res = {"diffs": diffs, "digests": [int(x) for x in digests],
                "collection": graphs.node_kinds(ci.collect["inject"].graph),
                "update": graphs.node_kinds(ci.update.graph),
@@ -169,69 +195,27 @@ def dp2_worker(rank, world, init, out_dir):
                                "update": ci.update.collectives}}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
-    finally:
-        mesh.destroy(dp)
-
-
-def test_dp2_nccl_on_two_cards_compiled_equals_eager(tmp_path):
-    _need_cards(2)
-    spawn(dp2_worker, 2, args=(str(tmp_path),), rendezvous_dir=str(tmp_path), timeout_s=JOIN_S)
-    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
-    for r in ranks:
-        assert r["diffs"] == [[], [], []], r["diffs"]
-        assert r["collection"]["nccl_kernels"] > 0 and r["update"]["nccl_kernels"] > 0, r
-        # GAE's two all-reduces, the permutation's broadcast, the curriculum's T
-        assert r["collectives"]["collection"] == {"all_reduce": T + 2, "broadcast": 1}, r["collectives"]
-    assert ranks[0]["digests"] == ranks[1]["digests"]
-    assert not dist.is_initialized()
-
-
-# name: (task, num_mp, update path settings, sim settings); two ranks, the
-# rule opened: across ranks it keeps each of these eager
-HELD_OPEN = {
-    "dp2_xla": ("GR1T1", 1, "xla", None),
-    "dp2_engine": ("GR1T1", 1, "step", {"use_pallas": False}),
-    "dp2_lstm": ("GR1T1_lstm", 1, "mega", None),
-    "mp2_xla": ("GR1T1", 2, "mega", None),
-}
-
-
-def held_open_worker(rank, world, init, out_dir, name):
-    from wiki_grx_gym_tpu_torch.parallel import sharding
-
-    task, num_mp, path, sim = HELD_OPEN[name]
-    whole = mesh.init_distributed(backend="nccl", init_method=init, world_size=world, rank=rank, device="cuda",
-                                  timeout_s=JOIN_S)
-    try:
-        dp = mesh.make_mesh(num_mp, whole)
-        rule_of = mesh.DataParallel.eager_reason
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(mesh.DataParallel, "eager_reason", lambda self, physics, path=None: None)
-            runner = make_runner(dp, path, n=N * world // num_mp, task=task, sim=sim)
-            rule = rule_of(dp, runner.env.backend, "recurrent" if runner.recurrent else runner.alg.path)
-            diffs, s_g = compiled_vs_eager(runner, 3, injected=True)
-        ci = runner.compiled
-        digests = sharding.check_replicas_identical(
-            dp, s_g.ppo, "compiled iterations", net=runner.net,
-            replicated=(s_g.env_state,) if dp.mp is not None else None)
-        res = {"rule": rule, "diffs": diffs, "digests": [int(x) for x in digests],
-               "collection": graphs.node_kinds(ci.collect["inject"].graph),
-               "update": graphs.node_kinds(ci.update.graph)}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
-            json.dump(res, fh)
+        stage("teardown")
     finally:
         mesh.destroy(whole)
 
 
-@pytest.mark.parametrize("name", sorted(HELD_OPEN))
-def test_two_cards_held_open_compiled_equals_eager(tmp_path, name):
-    _need_cards(2)
-    spawn(held_open_worker, 2, args=(str(tmp_path), name), rendezvous_dir=str(tmp_path), timeout_s=JOIN_S)
-    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+@pytest.mark.parametrize("name", list(ACROSS))
+def test_across_ranks_compiled_equals_eager(tmp_path, name):
+    """A case of :data:`ACROSS` on as many cards as it has ranks: compiled
+    with the rule as shipped, bit for bit against eager over three calls,
+    NCCL kernel nodes in the collection and update graphs, the ranks'
+    learner states equal."""
+    task, num_mp, _, _, cards = ACROSS[name]
+    _need_cards(cards)
+    spawn(across_worker, cards, args=(str(tmp_path), name), rendezvous_dir=str(tmp_path), timeout_s=JOIN_S)
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(cards)]
     for r in ranks:
-        assert r["rule"] is not None, r["rule"]   # the rule keeps it eager across ranks
         assert r["diffs"] == [[], [], []], (name, r["diffs"])
         assert r["collection"]["nccl_kernels"] > 0 and r["update"]["nccl_kernels"] > 0, (name, r)
-    if HELD_OPEN[name][1] == 1:
-        assert ranks[0]["digests"] == ranks[1]["digests"]
+        # every rank gathered its dp group's digests: one learner state
+        assert len(r["digests"]) == cards // num_mp and len(set(r["digests"])) == 1, (name, r["digests"])
+        if name == "dp2_step":
+            # GAE's two all-reduces, the permutation's broadcast, the curriculum's T
+            assert r["collectives"]["collection"] == {"all_reduce": T + 2, "broadcast": 1}, r["collectives"]
     assert not dist.is_initialized()

@@ -13,15 +13,13 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     both are None, on K1 and on the engine, on every update path (mega,
     step, xla, the symmetry loss, the recurrent update). The CPU and the
     ``"lanes"`` backend keep their reasons. Across ranks over NCCL (views
-    of two ranks, no group needed to read the rule) only data parallelism
-    with K1 on the step path is compiled, the path a dp mesh selects for
-    the MLP configs (``mesh.COMPILED_ACROSS_RANKS``: what a run on two
-    cards has held against eager); tensor parallelism, the engine and the
-    xla and recurrent updates keep a reason.
+    of two ranks, no group needed to read the rule) the rule compiles what
+    runs on several cards have held (``mesh.COMPILED_ACROSS_RANKS``): dp on
+    K1 on the step, xla, symmetry and recurrent paths and on the engine,
+    mp on the xla path; every other layout and path keeps a reason.
 (b) Bit for bit: two spawned gloo ranks, the rule opened as (a) opens it
-    (the eager reason left is the CPU's; the cases the rule keeps eager
-    across ranks on the card are held here all the same, ready for a run
-    on several cards), the CUDA graphs stood in
+    (the eager reason left is the CPU's; a case is held here before a run
+    on several cards may admit it to the rule), the CUDA graphs stood in
     (tests/test_torch_graphs.py's ``stand_in_graphs``: a replay runs the
     graph's body again). On each rank ``_train_iter`` equals ``iteration``
     bit for bit over two iterations, with injected noise, u and
@@ -31,7 +29,9 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     path with the command curriculum on, and in
     tests/test_torch_graphs_parallel_paths.py mp2 on the xla path, dp2 on
     GR1T1_lstm, dp2 on the engine (``use_pallas = False``) and dp2 x mp2
-    on the xla path over four gloo ranks. The ranks end with bit-identical
+    on the xla path over four gloo ranks, and in
+    tests/test_torch_graphs_parallel_symmetry.py dp2 with the symmetry loss
+    (the xla path with an extra loss term). The ranks end with bit-identical
     learner states (their digests).
 (c) Hygiene: on each rank the host-traffic recorder of
     tests/test_torch_graphs.py records nothing during a third compiled
@@ -108,6 +108,7 @@ CASES = {
     "dp2_lstm": ("GR1T1_lstm", _env(), _train(), 1, "recurrent"),
     "dp2_engine": ("GR1T1", _env(True, sim__use_pallas=False, commands__curriculum=True), _train(), 1, "step"),
     "dp2_mp2_xla": ("GR1T1", _env(True, commands__curriculum=True), _train(hidden=(32, 16, 8)), 2, "xla"),
+    "dp2_symmetry": ("GR1T1", _env(), _train(symmetry_coef=0.5), 1, "xla"),
 }
 WORLDS = {"dp2_mp2_xla": 4}
 
@@ -192,12 +193,18 @@ def test_rule_reads_the_groups_backend(one_rank_gloo, config, backend, layout):
         assert reason is None and step_reason is None, (config, reason, step_reason)
 
 
-# config: whether the runner's iteration and the env's step are compiled
-# with a dp view of two ranks over NCCL on the card (built with the view:
-# a dp mesh turns the mega path off, the MLP configs without an extra loss
-# term take the step path there)
-ACROSS_RANKS = {"mega": (True, True), "step": (True, True), "xla": (False, True), "symmetry": (False, True),
-                "recurrent": (False, True), "engine": (False, False), "lanes": (False, False)}
+# (layout, config): whether the runner's iteration and the env's step are
+# compiled with a view of two ranks over NCCL on the card. dp2 builds with
+# the view (a dp mesh turns the mega path off: the MLP configs without an
+# extra loss term, the engine's too, take the step path there); mp2 sets
+# the mp view after a one-process build, so each config keeps its own path
+# (the mega path is not a path of tensor parallelism)
+ACROSS_RANKS = {
+    "dp2": {"mega": (True, True), "step": (True, True), "xla": (True, True), "symmetry": (True, True),
+            "recurrent": (True, True), "engine": (True, True), "lanes": (False, False)},
+    "mp2": {"mega": (False, True), "step": (False, True), "xla": (True, True), "symmetry": (False, True),
+            "recurrent": (False, True), "engine": (False, False), "lanes": (False, False)},
+}
 
 
 @pytest.mark.parametrize("layout", ["dp2", "mp2"])
@@ -206,21 +213,23 @@ def test_rule_across_ranks_over_nccl(config, layout):
     dev = torch.device("cpu")
     tp = mesh.TensorParallel(world=2, rank=0, device=dev, backend="nccl") if layout == "mp2" else None
     dp = mesh.DataParallel(world=2 if layout == "dp2" else 1, rank=0, device=dev, mp=tp, backend="nccl")
-    assert dp.uncapturable_backend is None
+    assert dp.uncapturable_backend is None and dp.layout == layout[:2]
     task, env_mutate, train_mutate = RULE_CONFIGS[config]
     # the mp view is set after the build: (32, 32) cannot be split in two
     # (the critic's output layer has width 1)
     env, runner = build(task, env_mutate, train_mutate, n=8, dp=dp if layout == "dp2" else None)
     runner.dp = env.dp = dp
     reason, step_reason = as_on_card(env, runner)
-    compiled, step_graphed = ACROSS_RANKS[config] if layout == "dp2" else (False, False)
+    compiled, step_graphed = ACROSS_RANKS[layout][config]
     assert (reason is None) == compiled and (step_reason is None) == step_graphed, (reason, step_reason)
+    words = {"dp2": "data parallelism across ranks", "mp2": "tensor parallelism across ranks"}[layout]
     if config == "lanes":
         assert "'lanes'" in reason and "'lanes'" in step_reason
-    elif layout == "mp2":
-        assert "tensor parallelism across ranks" in reason and "tensor parallelism" in step_reason
-    elif not compiled:
-        assert "data parallelism across ranks" in reason and "not yet held" in reason, reason
+    else:
+        for why in (reason, step_reason):
+            assert why is None or (words in why and "not yet held" in why), why
+    if config == "symmetry" and layout == "mp2":
+        assert "xla+symmetry path" in reason, reason
 
 
 def test_a_capture_holds_the_garbage_collector():
@@ -271,6 +280,28 @@ def test_destroy_releases_the_graphs_first(tmp_path):
     mesh.hold(holder)
     mesh.destroy(dp)
     assert seen == [True] and not dist.is_initialized()
+
+
+def hang_worker(rank, world, init):
+    from wiki_grx_gym_tpu_torch.parallel.launch import stage
+
+    stage("done" if rank == 0 else "hung on purpose")
+    if rank == 1:
+        import time
+
+        time.sleep(600)
+
+
+def test_a_world_past_its_deadline_names_where_each_rank_stopped(tmp_path):
+    """``launch.spawn``: a world that misses its deadline is killed, and
+    the error names each rank's last ``launch.stage``."""
+    import time
+
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError) as err:
+        spawn(hang_worker, 2, rendezvous_dir=str(tmp_path), timeout_s=25.0)
+    assert time.monotonic() - t0 < 60
+    assert "rank 0 at 'done'" in str(err.value) and "rank 1 at 'hung on purpose'" in str(err.value), err.value
 
 
 def test_views_made_without_a_group_read_no_backend():

@@ -1118,7 +1118,7 @@ class LeggedEnv:
         runs :meth:`step`: a CUDA device, K1 or the engine as the physics
         backend, and under data parallelism a group whose collectives a
         CUDA graph captures (NCCL's: the command curriculum's all-reduce;
-        across ranks with K1 only, ``DataParallel.eager_reason``) are
+        across ranks what ``DataParallel.eager_reason`` admits) are
         needed. The lane program (K1's plain version) is not graphed."""
         if self.device.type != "cuda":
             return f"device {self.device}"

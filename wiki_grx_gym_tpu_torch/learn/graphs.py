@@ -33,9 +33,8 @@ is a ``torch.cuda.CUDAGraph``:
   the engine in one process, and under data and tensor parallelism over
   NCCL (JAX's ``jit(_iteration)`` on its ``("dp", "mp")`` mesh, the
   collectives compiled into the program; across ranks the rule takes
-  data parallelism with K1 on the step path alone,
-  ``mesh.COMPILED_ACROSS_RANKS``, though the graphs capture every path's
-  collectives). (A) the collection: T x (act -> ``env.step``
+  what runs on several cards have held, ``mesh.COMPILED_ACROSS_RANKS``,
+  though the graphs capture every path's collectives). (A) the collection: T x (act -> ``env.step``
   -> store), the last values, GAE, the permutation and the update's
   inputs; the new env state, observations and (recurrent) LSTM memory are
   donated into the static state, the metrics' sums into a static vector.

@@ -17,10 +17,10 @@ kernels) one rollout step's graph replayed T times, then a graph of the
 collection's tail. The rule for which configs take it is static
 (:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 or the engine as
 the physics backend, and data or tensor parallelism only over NCCL, whose
-collectives the graphs capture (across ranks, data parallelism with K1 on
-the step path). Every other config (the CPU, the lane backend, dp and mp
-over gloo, tensor parallelism and the other dp runs across ranks) runs
-``iteration``, eagerly.
+collectives the graphs capture (across ranks, the layouts and paths a
+run on several cards has held: ``parallel/mesh.COMPILED_ACROSS_RANKS``).
+Every other config (the CPU, the lane backend, dp and mp over gloo, the
+runs across ranks outside that set) runs ``iteration``, eagerly.
 ``learn`` runs iterations,
 logs the reference's scalars and writes ``model_<it>.pt`` checkpoints into
 the reference's run-dir layout; ``load`` restores one exactly.
@@ -185,9 +185,10 @@ class OnPolicyRunner:
         else why it runs eagerly. The rule is static: a CUDA device, K1 or
         the engine as the physics backend, and under data or tensor
         parallelism process groups whose collectives a CUDA graph captures
-        (NCCL's), across ranks only data parallelism with K1 on the step
-        path (``DataParallel.eager_reason``); in one process every update
-        path (mega, step, xla, recurrent; an extra loss term) is compiled.
+        (NCCL's), across ranks the layouts, backends and paths a run on
+        several cards has held (``DataParallel.eager_reason`` over
+        :attr:`rule_path`); in one process every update path (mega, step,
+        xla, recurrent; an extra loss term) is compiled.
         The lane program (K1's plain version, ~157k single-op launches a
         policy step on the card) stays eager, and so do groups over gloo,
         whose collectives run on the host."""
@@ -196,8 +197,17 @@ class OnPolicyRunner:
         if self.env.backend == "lanes":
             return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
-            return self.dp.eager_reason(self.env.backend, "recurrent" if self.recurrent else self.alg.path)
+            return self.dp.eager_reason(self.env.backend, self.rule_path)
         return None
+
+    @property
+    def rule_path(self) -> str:
+        """The update's path as the rule across ranks names it
+        (``parallel/mesh.COMPILED_ACROSS_RANKS``): ``"recurrent"`` or PPO's
+        (``"mega"``, ``"step"``, ``"xla"``), with ``"+symmetry"`` where the
+        symmetry loss is an extra loss term."""
+        path = "recurrent" if self.recurrent else self.alg.path
+        return path + ("+symmetry" if self.alg.extra_loss_fn is not None else "")
 
     # ------------------------------------------------------------------
 

@@ -29,9 +29,10 @@ are kernels on the card that a CUDA graph captures
 ``capturable`` is true for ``nccl`` alone, and a run over any other backend
 keeps its iteration eager. Across ranks, only what a run on several cards
 has held against the eager iteration is compiled
-(:data:`COMPILED_ACROSS_RANKS`, :meth:`DataParallel.eager_reason`). Each collective issued while the current CUDA
-stream is capturing adds one to ``CAPTURED`` (the graphs report how many
-each capture holds).
+(:data:`COMPILED_ACROSS_RANKS`, keyed by the layout, the physics backend
+and the update path; :meth:`DataParallel.eager_reason`). Each collective
+issued while the current CUDA stream is capturing adds one to ``CAPTURED``
+(the graphs report how many each capture holds).
 """
 
 from __future__ import annotations
@@ -150,37 +151,47 @@ class DataParallel(_Group):
                 return view.backend or "an unknown backend"
         return None
 
+    @property
+    def layout(self) -> Optional[str]:
+        """``"dp"``, ``"mp"`` or ``"dp x mp"``: which of this rank's groups
+        span more than one rank (None: neither)."""
+        dp, mp = self.world > 1, self.mp is not None and self.mp.world > 1
+        return {(True, False): "dp", (False, True): "mp", (True, True): "dp x mp"}.get((dp, mp))
+
     def eager_reason(self, physics: str, path: Optional[str] = None) -> Optional[str]:
         """Why a run over this rank's groups keeps its iteration (or, with
         ``path`` None, its env step) eager; None where the graphs capture
         its collectives. ``physics``: the env's backend; ``path``: the
-        update's (``"recurrent"`` for the recurrent update). Every group
-        must be NCCL's, and across ranks only :data:`COMPILED_ACROSS_RANKS`
-        is compiled."""
+        update's as ``OnPolicyRunner.rule_path`` names it. Every group must
+        be NCCL's, and across ranks only :data:`COMPILED_ACROSS_RANKS` is
+        compiled."""
         backend = self.uncapturable_backend
         if backend is not None:
             return (f"data or tensor parallelism over {backend} (its collectives run on the host and "
                     "cannot be captured: only NCCL's can)")
-        if self.mp is not None and self.mp.world > 1:
-            return ("tensor parallelism across ranks (NCCL's collectives launched from autograd's "
-                    f"backward inside a capture): {_NOT_HELD}")
-        if self.world > 1 and (physics, path) not in COMPILED_ACROSS_RANKS:
+        layout = self.layout
+        if layout is not None and (layout, physics, path) not in COMPILED_ACROSS_RANKS:
             what = f"the {physics} physics backend" if path is None else f"{physics} on the {path} path"
-            return f"data parallelism across ranks with {what}: {_NOT_HELD}"
+            return f"{_LAYOUT_WORDS[layout]} across ranks with {what}: {_NOT_HELD}"
         return None
 
 
-# Across ranks over NCCL, the runs whose compiled iteration a run on two
-# cards has held bit for bit against the eager one
-# (tests/test_torch_graphs_nccl_cuda.py), as (physics backend, update
-# path), with path None for the env step alone: data parallelism with K1 on
-# the step path, the path a dp mesh selects for an MLP policy without an
-# extra loss term. Tensor
-# parallelism, the engine, and the xla and recurrent updates across ranks
-# are held against eager on the CPU (gloo, the graphs stood in:
-# tests/test_torch_graphs_parallel*.py) and at one rank on the card, and
-# stay eager across ranks until a run on several cards holds them too.
-COMPILED_ACROSS_RANKS = frozenset({("kernel", None), ("kernel", "step")})
+# Across ranks over NCCL, the runs whose compiled iteration a run on four
+# cards has held bit for bit against the eager one, with NCCL kernel nodes
+# in its graphs (tests/test_torch_graphs_nccl_cuda.py, chip_smoke.py phase
+# 22), as (layout, physics backend, update path), with path None for the env
+# step alone (its graph is a piece of the held collection). The path is
+# OnPolicyRunner.rule_path's: PPO's ("step" is the path a dp mesh selects
+# for an MLP policy without an extra loss term, "xla" the path of tensor
+# parallelism), "recurrent", and "+symmetry" where the symmetry loss is on.
+# Held: dp2 and dp4 on the step path, dp2 on the xla path, with the symmetry
+# loss, on the engine and on GR1T1_lstm; mp2 and dp2 x mp2 on the xla path.
+COMPILED_ACROSS_RANKS = frozenset({
+    ("dp", "kernel", None), ("dp", "kernel", "step"), ("dp", "kernel", "xla"), ("dp", "kernel", "xla+symmetry"),
+    ("dp", "kernel", "recurrent"), ("dp", "engine", None), ("dp", "engine", "step"),
+    ("mp", "kernel", None), ("mp", "kernel", "xla"), ("dp x mp", "kernel", None), ("dp x mp", "kernel", "xla"),
+})
+_LAYOUT_WORDS = {"dp": "data parallelism", "mp": "tensor parallelism", "dp x mp": "data and tensor parallelism"}
 _NOT_HELD = "its graphs are not yet held against the eager iteration on several cards"
 
 

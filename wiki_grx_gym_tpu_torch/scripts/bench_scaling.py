@@ -35,6 +35,7 @@ def worker(rank, world, init_method, args, out_path):
 
     from wiki_grx_gym_tpu_torch.envs import task_registry
     from wiki_grx_gym_tpu_torch.parallel import mesh
+    from wiki_grx_gym_tpu_torch.parallel.launch import stage
 
     if args.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -45,10 +46,13 @@ def worker(rank, world, init_method, args, out_path):
         train_cfg.runner.num_steps_per_env = args.steps
         env, _ = task_registry.make_env("GR1T1", env_cfg=env_cfg, dp=dp)
         runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None, dp=dp)
+        stage("the warm-up iteration")
         state = runner.learn(1)   # warm-up
+        stage("the timed iterations")
         t0 = time.perf_counter()
         runner.learn(args.iters, state=state)
         dt = time.perf_counter() - t0
+        stage("teardown")
         if dp.is_lead:
             fps = args.iters * args.steps * env.num_envs_global / dt
             kind = torch.cuda.get_device_name(dp.device) if dp.device.type == "cuda" else "cpu"
@@ -69,7 +73,9 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--max_procs", type=int, default=None, help="largest group (default: every GPU)")
-    ap.add_argument("--timeout", type=float, default=900.0, help="seconds for each group size")
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds for each group size (past it its ranks are killed and the run fails, naming "
+                         "where each rank stopped)")
     args = ap.parse_args(argv)
 
     import torch

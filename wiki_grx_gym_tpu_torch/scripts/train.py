@@ -17,11 +17,15 @@ envs and all-reducing the gradient once a grad step:
         [--dist_backend nccl|gloo]
 
 Over NCCL (the default on GPUs) the iteration is compiled: CUDA graph
-replays with the collectives captured (``learn/graphs.py``), across ranks
-for data parallelism with K1 on the step path (GR1T1's MLP configs); over
-gloo, under tensor parallelism across ranks, and on the other paths
-across ranks it runs eagerly (``OnPolicyRunner.eager_reason``). ``learn``
-prints which, and the update path, before the first iteration.
+replays with the collectives captured (``learn/graphs.py``). Across ranks
+that holds for what runs on several cards have held against the eager
+iteration (``parallel/mesh.COMPILED_ACROSS_RANKS``): data parallelism with
+K1 on the step and xla paths, with the symmetry loss and on GR1T1_lstm,
+on the engine (``use_pallas = False``) on the step path, and tensor
+parallelism (``--num_mp``, alone or under dp) on the xla path. Over gloo,
+and for any other layout, backend or path across ranks, it runs eagerly
+(``OnPolicyRunner.eager_reason``). ``learn`` prints which, and the update
+path, before the first iteration.
 
 Tensor parallel: ``--num_mp M`` splits the MLP hidden layers over M
 consecutive ranks (Megatron, as JAX's ``shard_params``) and data-parallels

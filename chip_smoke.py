@@ -132,9 +132,9 @@ together after phase 9):
    stays exactly the same. (c) The whole bf16 update (8 epochs, 200 steps,
    adaptive LR on), which two correct programs cannot share (their
    trajectories drift ~10-20% apart), is checked step by step from the
-   kernel's own state (``whole_update_check``): at every 4th step and the
+   kernel's own state (``whole_update_check``): at every 8th step and the
    last, the plain version runs the kernel's step from the same params,
-   moments, count and LR, in bf16 within 6b's limits and, every 4th step,
+   moments, count and LR, in bf16 within 6b's limits and, every 8th step,
    in float32 operands leaf by leaf (``f32_step_check``: in each actor and
    critic weight and bias and in ``std``, update, m and v within 1e-4 of
    the step in L2 plus 3x the plain version's spread in that leaf over row
@@ -302,7 +302,7 @@ together after phase 9):
    (the last layer accumulated in bf16) reported against both. (c,
    ``tp_phase``) ``tp_worker`` on two gloo ranks at ``--num_mp 2``: each
    rank's parameter count, an mp1 checkpoint loaded as the shards,
-   ``learn(1)`` (K1 64, the xla path), the peers bit-identical, the gathered
+   ``learn(1)`` at 16 steps an env (K1 16, the xla path), the peers bit-identical, the gathered
    gradient against one process's (1e-4 of each leaf's largest), two planted
    faults failing that check, 4 grad steps against one process's, the mp2
    checkpoint loaded at mp1; then four ranks at dp2 x mp2 (2 x 2048 envs)
@@ -349,8 +349,8 @@ together after phase 9):
    the xla path. (a) Two ``_train_iter`` calls against two eager
    iterations with injected noise, u and perm: every collection output,
    the state (the LSTM memory included), the PPO state and the metrics bit
-   for bit (GR1T1_lstm at 8 steps an env, ``UPDATE_CHECK_STEPS``: its
-   eager iteration scales with T). (b) Five graphed iterations (generator
+   for bit (GR1T1_lstm at 4 steps an env, ``UPDATE_CHECK_STEPS``: its
+   eager iteration scales with T). (b) Three graphed iterations (generator
    draws, 64 steps an env): min / median /
    max, collection and update from the CUDA events, beside (a)'s eager
    times; launch counts (K1 64, K2 200 on the step path, each); the
@@ -364,8 +364,8 @@ together after phase 9):
    ``use_pallas = False``: one rollout step's graph replayed 64 times, then
    the collection's tail, then K3's update graph) at 4096 envs: (a) two
    calls against eager with injected draws and two with generator draws,
-   8 steps an env (the eager engine is host-bound, ~29 s an iteration of
-   64 steps), bit for bit; (b) five graphed iterations of 64 steps timed,
+   4 steps an env (the eager engine is host-bound, ~29 s an iteration of
+   64 steps), bit for bit; (b) three graphed iterations of 64 steps timed,
    launch counts, host calls, the device time of A1 and A2 + the update;
    (c) A1 without its index advanced must fail (a)'s check; (d)
    ``step_graph`` on the engine at 64 envs, bit for bit, timed.
@@ -381,8 +381,15 @@ together after phase 9):
    path; (c) with two cards dp2 on the xla path, with the symmetry loss,
    on the engine and on GR1T1_lstm (these two at 16 steps an env: their
    eager iterations take ~29 s at 64) and mp2 on the xla path, with four
-   dp2 x mp2 on the xla path and dp4 on the step path: every case that
-   ``mesh.COMPILED_ACROSS_RANKS`` admits. Each rank: the rule compiles it;
+   dp2 x mp2 on the xla path and dp4 on the step path; (d) the global
+   shuffle (``permutation_groups`` the dp group does not divide, every
+   rank updating on the gathered global batch) with two cards dp2 on the
+   mega path (K3), on the step path (K2) and on GR1T1_lstm on the engine,
+   with four dp4 with ``permutation_groups = 2`` on the xla path; mp2 (two
+   cards) and dp2 x mp2 (four) with the symmetry loss on the engine and on
+   GR1T1_lstm (the engine and LSTM worlds at 16 steps an env): together
+   every key of ``mesh.COMPILED_COLLECTIONS`` and ``COMPILED_UPDATES``.
+   Each rank: the rule compiles it;
    ``_train_iter`` calls against eager iterations with injected draws and
    with generator draws, bit for bit; each graph's nodes by kind (NCCL's
    kernels counted apart: across ranks the collection and the update hold
@@ -396,7 +403,14 @@ together after phase 9):
    (the metrics differ from eager's); under dp alone rank 1's update with
    ``PPO.reduce``'s result dropped, under mp mp rank 1's
    ``_CopyToMP`` backward result dropped (the collective still issued,
-   so no rank waits): ``learn``'s digest check must raise. Each world ends
+   so no rank waits): ``learn``'s digest check must raise; under the
+   global shuffle the first injected call's update must equal the
+   one-process update (a PPO without dp) of the true global batch
+   (``true_global``: gathered apart, into a list) with dp rank 0's
+   permutation, within ``GLOBAL_TOL``, its one all-gather captured in the
+   graph that stages the update, and the planted fault is that batch
+   gathered in rotated rank order (every rank's slice one place late: the
+   ranks stay equal to each other), which must fail that check. Each world ends
    within its own deadline or its ranks are killed and the phase fails
    naming where each rank stopped; one world's failure does not stop the
    next. Prints the worlds run, ``nccl_cards`` and what was skipped for
@@ -462,6 +476,9 @@ def plain_variants(fused):
     return out
 # 6c, float32 operands: one grad step's update, m and v within this share in L2
 F32_STEP_TOL = 1e-4
+# 6c: the steps of the whole update checked against the plain version (every
+# this many, and the last; each check is host-bound plain-version work)
+STEP_CHECK_STRIDE = 8
 # the kernels of K2's chain and of K3's step (csrc/ppo_grads.cu, csrc/ppo_update.cu)
 # (the main path's bf16 chain; the f32 chain's SIMT kernels run only in checks)
 KERNEL_NAMES = {"K1": ("decimation_team_kernel",),
@@ -909,10 +926,10 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     minibatch, adaptive LR on) one grad step at a time: a one-step
     ``FusedPPOGrad`` fed minibatch ``s % MB``'s slice, Adam count
     ``count0 + s`` and the LR the kernel carried out of step s - 1. At every
-    4th step and the last, the plain version runs the same step from the
+    ``STEP_CHECK_STRIDE``-th step and the last, the plain version runs the same step from the
     kernel's state: in bf16 within the stated tolerance plus 3x the plain
     version's own one-step spread (``plain_variants``, as in 6b), and at
-    every 4th step also in float32 operands, sharply (update, m and v 1e-4
+    every ``STEP_CHECK_STRIDE``-th step also in float32 operands, sharply (update, m and v 1e-4
     in L2, the same LR). In both, the rows that take another branch of the
     loss in the two are taken out of both (``neutralize_flips``, as in
     phase 5). Then the whole-update call must equal the composition of its
@@ -925,7 +942,7 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
     one16, one32 = one_step(fused16), one_step(fused32)
     sl = lambda bufs, k: {key: x[k:k + 1] for key, x in bufs.items()}
     p, m, v, count0, lr = args0
-    sampled = sorted(set(range(0, steps, 4)) | {steps - 1})
+    sampled = sorted(set(range(0, steps, STEP_CHECK_STRIDE)) | {steps - 1})
     worst16 = {"update": 0.0, "m": 0.0, "v": 0.0, "pmax_lr": 0.0}
     worst32 = {"share": 0.0, "leaf": None}
     bad16, bad32 = [], []
@@ -963,7 +980,7 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
                 f"{key} {d[key]:.3e} (limit {lim[key]:.3e}, spread {floor[key]:.3e})" for key in lim)
                 + f"; lr {float(ks[3]):.6e} vs {lr_p:.6e}; rows on another branch {flips} (taken out, "
                 f"with the row tiles' {taken}); {ok}")
-            if s % 4 == 0:
+            if s % STEP_CHECK_STRIDE == 0:
                 used32, flips32, _ = neutralize_flips(one32, p, sl(bufs32, k), 0, plain_variants(one32))
                 ok32, _, share32, leaf32, _ = f32_step_check(one32, (p, m, v, cnt, lr), used32,
                                                              f"6c GR1T1 step {s} mb {k}")
@@ -978,7 +995,7 @@ def whole_update_check(fused16, fused32, bufs16, bufs32, args0, k3_err):
         + ", ".join(f"{key} {val:.3f}" for key, val in worst16.items() if key != "pmax_lr")
         + f"; largest param diff {worst16['pmax_lr']:.2f} x LR; at most {max_flips} rows on another branch "
         f"of the loss (limit {MAX_FLIPS}); failed at steps {bad16}")
-    log(f"[6c] {len([s for s in sampled if s % 4 == 0])} f32 steps checked leaf by leaf, worst "
+    log(f"[6c] {len([s for s in sampled if s % STEP_CHECK_STRIDE == 0])} f32 steps checked leaf by leaf, worst "
         f"{worst32['share']:.3f} of a limit (in {worst32['leaf']}); at most {max_flips32} rows on another branch "
         f"of the loss; failed at steps {bad32}")
     if bad16:
@@ -2027,7 +2044,11 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=
     gen_in.manual_seed(1)
     args64, kw64 = cuda_step.decimation_inputs(env, state, gen_in, dtype=torch.float64)
     k = groups(op(*args, **kw))
+    # the plain version's call against the kernel is the one timed (CUDA events)
+    plain_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    plain_ev[0].record()
     p = groups(op.plain(*args, **kw))
+    plain_ev[1].record()
     p64 = groups(op.plain(*args64, **kw64))
     torch.cuda.synchronize()
     flips = torch.zeros(n_envs, dtype=torch.bool, device=dev)
@@ -2140,9 +2161,7 @@ def k1_phase(dev, task, mutate, label, spread, require_faster, exact=False, run=
     thread_ms = cuda_ms(thread, reps=50, warmup=3)
     turns = [cuda_ms(thread, reps=50, warmup=1), cuda_ms(team, reps=50, warmup=1)]
     wrapper_ms = cuda_ms(lambda: op(*args, **kw), reps=20, warmup=2)
-    # the plain version ran twice above (against the kernel, and in float64):
-    # one timed call, no warm-up
-    plain_ms = cuda_ms(lambda: op.plain(*args, **kw), reps=1, warmup=0)
+    plain_ms = plain_ev[0].elapsed_time(plain_ev[1])   # the call against the kernel, above
     if plain_ops is None:
         ops_per_env = count_plain_ops(task, mutate)
     else:
@@ -3002,6 +3021,9 @@ TRUNK_GRAD_TOL = 1e-4  # 17b: the stacked trunk's f32 gradient vs the two stacks
 TP_GRAD_TOL = 1e-4     # 17c: the gathered mp2 gradient vs one process, likewise
 TP_STEP_TOL = 1e-3     # 17c: 4 grad steps' update, per leaf, L2 share of the one-process update
 TP_STEPS = 4
+# 17c's steps an env (T cut from 64): the eager mp update over gloo is
+# host-bound, and its all-reduces of the activations scale with the rows
+TP_ENV_STEPS = 16
 
 
 def dtype_cfgs(update="bfloat16", compute="bfloat16", storage="float32", **alg):
@@ -3181,17 +3203,18 @@ def dtype_phase(dev):
 
 def tp_worker(rank, world, init_method, out_dir, device, num_mp, num_envs, full_checks):
     """Phase 17c, one rank of a gloo group on the one card at ``num_mp``:
-    GR1T1 at full width through the entry points a user calls with the
-    mesh. With ``full_checks`` (mp2, dp1): the mp1 checkpoint ``mp1.pt``
-    loaded as this rank's shard; ``learn(1)`` with the counts set to 0 just
-    before (K1 64 from the loaded state, K2 and K3 never: the xla path), the
+    GR1T1 at full width, ``TP_ENV_STEPS`` steps an env, through the entry
+    points a user calls with the mesh. With ``full_checks`` (mp2, dp1): the
+    mp1 checkpoint ``mp1.pt`` loaded as this rank's shard; ``learn(1)`` with
+    the counts set to 0 just before (K1 16 from the loaded state, K2 and K3
+    never: the xla path), the
     peers held bit-identical by the runner after the update; the gathered
     checkpoint ``mp2.pt`` from rank 0; on a new rollout, minibatch 0's
     gathered gradient against the one-process xla gradient (rank 0) leaf by
     leaf; two planted faults (rank 1's shard of the first actor layer x1.05;
     the forward's row-parallel all-reduce skipped) against the same check;
     the first TP_STEPS grad steps of an update against one process's.
-    Without: ``learn(1)`` (K1 65) and the peers' identity. Results go to
+    Without: ``learn(1)`` (K1 17) and the peers' identity. Results go to
     ``out_dir/tp<world>_rank<r>.json``."""
     import torch
 
@@ -3211,6 +3234,7 @@ def tp_worker(rank, world, init_method, out_dir, device, num_mp, num_envs, full_
         mp, dev = dp.mp, dp.device
         cfg, train_cfg = task_registry.get_cfgs("GR1T1")
         cfg.env.num_envs = num_envs
+        train_cfg.runner.num_steps_per_env = TP_ENV_STEPS
         env, _ = task_registry.make_env("GR1T1", env_cfg=cfg, dp=dp)
         runner, _ = task_registry.make_alg_runner(env, "GR1T1", train_cfg=train_cfg, log_root=None, dp=dp)
         alg, net = runner.alg, runner.net
@@ -3341,7 +3365,7 @@ def tp_phase(dev, runner1, state1):
         + f"; {TP_STEPS} grad steps' update against one process's (L2 share per leaf, limit {TP_STEP_TOL}): "
         f"{r0['steps_l2_share']}, metrics {r0['steps_metrics']} (one process {r0['one_process_grad_step_ms']:.1f} "
         f"ms a grad step); the mp2 checkpoint loads at mp1 {mp2_loads}")
-    want = {"k1": ROLLOUT_STEPS, "k2": 0, "k3": 0}
+    want = {"k1": TP_ENV_STEPS, "k2": 0, "k3": 0}
     checks = r0["grad_checks"]
     for r in ranks:
         if r["path"] != "xla" or r["launches"] != want or r["params"] >= r["full_params"]:
@@ -3371,7 +3395,7 @@ def tp_phase(dev, runner1, state1):
                 f"envs {r['shard']}; learn(1) in {r['learn_s']:.2f} s: {r['iteration_s']:.3f} s = collection "
                 f"{r['collection_s']:.3f} + update {r['update_s']:.3f} s, {r['env_steps_per_s']:.0f} env-steps/s "
                 f"in all; launches {r['launches']}; digests {r['digests']}")
-            if r["launches"] != {"k1": ROLLOUT_STEPS + 1, "k2": 0, "k3": 0} or r["path"] != "xla":
+            if r["launches"] != {"k1": TP_ENV_STEPS + 1, "k2": 0, "k3": 0} or r["path"] != "xla":
                 fail(f"17c dp2 x mp2 rank {r['rank']}: launches {r['launches']}, path {r['path']}")
         # dp peers (ranks 0 and 2, 1 and 3) hold the same shard; mp peers the same envs
         if any(x["metrics"] != q[0]["metrics"] for x in q) or q[0]["digests"] != q[2]["digests"] \
@@ -3833,10 +3857,9 @@ def injected_draws(runner, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     noise = torch.randn((t, env.num_envs, env.num_actions), generator=g, device=dev)
     u = torch.rand((t, env.num_envs, env._step_u_cols[1]), generator=g, device=dev)
-    if runner.recurrent:   # the recurrent update's env columns
-        n_blocks, used = env.num_envs, runner.alg.recurrent_geometry(env.num_envs)[1]
-    else:
-        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, env.num_envs)
+    # the update's blocks (the recurrent update's env columns), of the global
+    # batch under the global shuffle
+    n_blocks, used = runner.alg.perm_size(t, env.num_envs, recurrent=runner.recurrent)
     return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
 
 
@@ -4183,11 +4206,11 @@ UPDATE_CONFIGS = {   # name: (task, algorithm settings)
     "xla_path": ("GR1T1", {"fused_update": False}),
 }
 UPDATE_CALLS = 2    # (a): compiled against eager, injected draws
-# (a) and (c) of GR1T1_lstm at 8 steps an env (T cut from 64: its eager
+# (a) and (c) of GR1T1_lstm at 4 steps an env (T cut from 64: its eager
 # iteration, ~28-32 s at 64 steps and 15 s at 16 on a slow host, scales
 # with T); (b) at the task's 64
-UPDATE_CHECK_STEPS = {"GR1T1_lstm": 8}
-UPDATE_TIMED = 5    # (b): graphed iterations timed (generator draws), after one that captures their collection
+UPDATE_CHECK_STEPS = {"GR1T1_lstm": 4}
+UPDATE_TIMED = 3    # (b): graphed iterations timed (generator draws), after one that captures their collection
 STEP_PROFILED = 10  # (b), GR1T1_lstm: grad-step replays under the profiler (a whole update is ~1.6M kernels)
 
 
@@ -4424,10 +4447,10 @@ def compiled_update_phase(dev):
 # phase 21: the compiled iteration on the engine path (learn/graphs.py: one
 # rollout step's graph replayed T times, then the collection's tail)
 ENGINE_CALLS = 2              # (a): compiled against eager, each source of draws
-# (a) and (c): 8 steps an env (T cut from 64; the eager side is
+# (a) and (c): 4 steps an env (T cut from 64; the eager side is
 # host-bound, ~29 s an iteration of 64 steps at any env count); (b) at 64
-ENGINE_GEN_STEPS = 8
-ENGINE_TIMED = 5              # (b): graphed iterations timed
+ENGINE_GEN_STEPS = 4
+ENGINE_TIMED = 3              # (b): graphed iterations timed
 ENGINE_STEPS_PROFILED = 4     # (b): A1 replays under the profiler (a whole collection is ~1.7M kernels)
 ENGINE_EVAL_ENVS, ENGINE_EVAL_STEPS, ENGINE_EVAL_TIMED = 64, 5, 10   # (d)
 
@@ -4676,7 +4699,7 @@ NCCL_TIMED = 5        # graphed iterations timed
 
 
 class NcclWorld(NamedTuple):
-    """One world of phase 22: its part ("a", "b" or "c"), its cards (one
+    """One world of phase 22: its part ("a" to "d"), its cards (one
     rank a card), num_mp, the task, algorithm and sim settings, the steps
     an env (None: the task's), the world's deadline, and whether one
     graphed iteration is profiled on the device too (else on the host
@@ -4709,7 +4732,98 @@ NCCL_WORLDS = {
     "mp2_xla": NcclWorld("c", 2, num_mp=2),
     "dp2_mp2_xla": NcclWorld("c", 4, num_mp=2),
     "dp4_step": NcclWorld("c", 4, alg={"fused_mega": False}),
+    # (d) the global shuffle (permutation_groups the dp group does not
+    # divide: every rank updates on the gathered global batch), and mp with
+    # the symmetry loss, the LSTM and the engine; each world holds one
+    # collection key and one update key of mesh.COMPILED_COLLECTIONS /
+    # COMPILED_UPDATES
+    "dp2_global_mega": NcclWorld("d", 2, alg={"permutation_groups": 1}),                         # K3
+    "dp2_global_step": NcclWorld("d", 2, alg={"permutation_groups": 1, "fused_mega": False}),   # K2
+    "dp2_global_lstm_engine": NcclWorld("d", 2, task="GR1T1_lstm", alg={"permutation_groups": 1},
+                                        sim={"use_pallas": False}, steps=16, deadline_s=600.0,
+                                        device_profile=False),
+    "dp4_global_xla": NcclWorld("d", 4, alg={"permutation_groups": 2}),
+    "mp2_symmetry_engine": NcclWorld("d", 2, num_mp=2, alg={"symmetry_coef": SYMMETRY_COEF},
+                                     sim={"use_pallas": False}, steps=16, deadline_s=480.0, device_profile=False),
+    "mp2_lstm": NcclWorld("d", 2, num_mp=2, task="GR1T1_lstm", steps=16, deadline_s=480.0, device_profile=False),
+    "dp2_mp2_symmetry_engine": NcclWorld("d", 4, num_mp=2, alg={"symmetry_coef": SYMMETRY_COEF},
+                                         sim={"use_pallas": False}, steps=16, deadline_s=480.0,
+                                         device_profile=False),
+    "dp2_mp2_lstm": NcclWorld("d", 4, num_mp=2, task="GR1T1_lstm", steps=16, deadline_s=480.0,
+                              device_profile=False),
 }
+# (d): the gathered update against the one-process update of the true global
+# batch (its own all-gather into a list, the same permutation): the largest L2
+# share of the difference, in the params over the update's own step and in
+# Adam's moments over their size (Adam's early steps move the params by about
+# the LR whatever the minibatch; the moments follow the minibatches' gradients)
+GLOBAL_TOL = 1e-6
+
+
+class _Rotated:
+    """A dp view whose all-gather returns the ranks' parts in rotated rank
+    order (phase 22 (d)'s planted fault: every rank's slice one place late)."""
+
+    def __init__(self, view):
+        self.view, self.world = view, view.world
+
+    def all_gather(self, x):
+        import torch
+
+        return torch.roll(self.view.all_gather(x), 1, 0)
+
+
+def true_global(dp, tensors):
+    """Each of this rank's (T, n, ...) or (L, n, H) ``tensors`` joined with
+    every dp rank's along dim 1 in dp rank order, through
+    ``torch.distributed.all_gather`` into a list, apart from the port's
+    ``sharding.gather_envs``."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for x in tensors:
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+        parts = [torch.empty_like(y) for _ in range(dp.world)]
+        dist.all_gather(parts, y, group=dp.group)
+        out.append(torch.cat(parts, dim=1).to(x.dtype))
+    return out
+
+
+def global_check(runner, dp, before, hidden0, last, perm, after):
+    """Phase 22 (d): the gathered update's result ``after`` (a PPOState)
+    against the one-process update (a PPO without ``dp``, the same config
+    and path) of the true global batch (:func:`true_global` of ``last``,
+    the iteration's collection outputs, and of the start memories
+    ``hidden0``) from ``before`` with dp rank 0's permutation ``perm``.
+    Returns the largest L2 share of the difference (the params' over the
+    update's own step, m's and v's over their own norms), whether every
+    leaf is equal bit for bit, and the path."""
+    import torch
+
+    from wiki_grx_gym_tpu_torch.learn.ppo import PPO
+    from wiki_grx_gym_tpu_torch.learn.recurrent import Hidden
+
+    alg = runner.alg
+    ref = PPO(runner.net, runner.alg_cfg, extra_loss_fn=alg.extra_loss_fn, perm_groups=alg.perm_groups,
+              shuffle_block=alg.shuffle_block)
+    perm = dp.broadcast(perm.clone())
+    b = last["batch"]
+    k = len(b)
+    mine = list(b) + [last["returns"], last["advantages"]] + ([] if hidden0 is None else list(hidden0))
+    g = true_global(dp, mine)
+    batch, ret, adv = type(b)(*g[:k]), g[k], g[k + 1]
+    if runner.recurrent:
+        want, _ = ref.update_recurrent(before, batch, ret, adv, Hidden(*g[k + 2:]), perm=perm)
+    else:
+        want, _ = ref.update(before, batch, ret, adv, perm=perm)
+    norm = lambda x: float(torch.linalg.vector_norm(x))
+    share = max(norm(after.params - want.params) / max(norm(want.params - before.params), 1e-30),
+                norm(after.m - want.m) / max(norm(want.m), 1e-30), norm(after.v - want.v) / max(norm(want.v), 1e-30))
+    equal = all(torch.equal(_bits(getattr(after, f)), _bits(getattr(want, f)))
+                for f in ("params", "m", "v", "count", "learning_rate"))
+    return {"share": share, "equal_bits": equal, "path": ref.path, "gathered_path": alg.path,
+            "global_envs": int(ret.shape[1])}
 
 
 def nccl_worker(rank, world, init_method, out_dir, name):
@@ -4746,7 +4860,7 @@ def nccl_worker(rank, world, init_method, out_dir, name):
     from wiki_grx_gym_tpu_torch.envs import task_registry
     from wiki_grx_gym_tpu_torch.learn import fused_update, graphs, networks
     from wiki_grx_gym_tpu_torch.learn.graphs import CompiledIteration
-    from wiki_grx_gym_tpu_torch.parallel import mesh
+    from wiki_grx_gym_tpu_torch.parallel import mesh, sharding
     from wiki_grx_gym_tpu_torch.parallel.launch import stage
     from wiki_grx_gym_tpu_torch.sim import cuda_step
 
@@ -4788,6 +4902,8 @@ def nccl_worker(rank, world, init_method, out_dir, name):
         if runner.eager_reason is not None:
             raise RuntimeError(f"phase 22 {name}: not compiled: {runner.eager_reason}")
         steps = runner.alg.num_learning_epochs * runner.alg.num_mini_batches
+        gathered = runner.alg.gathered   # the global shuffle
+        res["gathered"] = gathered
         p0 = runner.net.params_flat.clone()   # the fault's start
         # ---- compiled against eager: injected draws, then generator draws ----
         diffs, eager, ref0 = {}, [], None
@@ -4809,7 +4925,14 @@ def nccl_worker(rank, world, init_method, out_dir, name):
                 if ref0 is None:
                     ref0 = graphs.map_tensors(torch.clone, {"draws": kw, "metrics": m_e})
                 stage(f"compiled iteration {it}, {draws} draws")
+                check = gathered and draws == "injected" and it == 0
+                if check:   # (d): the state and the start memories before the call
+                    before = graphs.map_tensors(torch.clone, (s_g.ppo, s_g.hidden))
                 s_g, m_g = runner._train_iter(s_g, **kw)
+                if check:
+                    stage("the global check")
+                    res["global_check"] = global_check(runner, dp, *before, runner.compiled.last, kw["perm"],
+                                                       s_g.ppo)
                 d = tree_diffs({k: runner.compiled.last[k] for k in want}, want)
                 d += tree_diffs(s_g, s_e, "state")
                 d += [f"metric {k}" for k in m_e if not torch.equal(_bits(m_g[k]), _bits(m_e[k]))]
@@ -4909,6 +5032,22 @@ def nccl_worker(rank, world, init_method, out_dir, name):
                 runner.global_sums = orig_sums
             res["fault"] = {"plant": "the metric sums' all-reduce captured ahead of the collection that writes "
                                      "them", "differing": d, "caught": bool(d)}
+        elif gathered:
+            # every rank's slice one place late in the gathered batch: the
+            # ranks stay equal to each other, so only the check against the
+            # one-process update of the true global batch can see it
+            orig_gather = sharding.gather_envs
+            sharding.gather_envs = lambda view, xs: orig_gather(_Rotated(view), xs)
+            try:
+                s0 = runner.init_state()
+                s0 = s0.replace(ppo=s0.ppo.replace(params=p0.clone()))
+                before = graphs.map_tensors(torch.clone, (s0.ppo, s0.hidden))
+                s_p, _ = runner._train_iter(s0, **ref0["draws"])
+                got = global_check(runner, dp, *before, runner.compiled.last, ref0["draws"]["perm"], s_p.ppo)
+            finally:
+                sharding.gather_envs = orig_gather
+            res["fault"] = {"plant": "the gathered batch in rotated rank order (each rank's slice one place late)",
+                            "global_check": got, "caught": got["share"] > GLOBAL_TOL and not got["equal_bits"]}
         else:
             if w.num_mp == 1:
                 plant = "rank 1's update graph with PPO.reduce's result dropped (the all-reduce still issued)"
@@ -4995,10 +5134,11 @@ def nccl_phase(dev, only=None):
                 f"{r['launches_expected']}); metrics finite {r['finite']}")
             log(f"[{tag}] rank {r['rank']}: graph nodes {json.dumps(r['nodes'])}; collectives captured "
                 + json.dumps({g['name']: g.get('collectives') for g in r['graphs']}))
+            fault = r["fault"]
+            seen = fault.get("differing", fault.get("error", fault.get("global_check", "")))
             log(f"[{tag}] rank {r['rank']}: one graphed iteration's profile {json.dumps(r['profile'])}; "
-                f"learn(1) {r['learn_lines']}; digests {r['digests']}; planted: {r['fault']['plant']}: caught "
-                f"{r['fault']['caught']} {r['fault'].get('differing', r['fault'].get('error', ''))}; "
-                f"{r['seconds']:.1f} s")
+                f"learn(1) {r['learn_lines']}; digests {r['digests']}; planted: {fault['plant']}: caught "
+                f"{fault['caught']} {seen}; {r['seconds']:.1f} s")
             if any(d for ds in r["differing"].values() for d in ds):
                 fail(f"phase 22 {name} rank {r['rank']}: the compiled iteration differs from eager: {r['differing']}")
             if r["launches"] != r["launches_expected"] or not r["finite"]:
@@ -5012,9 +5152,26 @@ def nccl_phase(dev, only=None):
                 fail(f"phase 22 {name} rank {r['rank']}: the planted fault passed: {r['fault']}")
             captured = sum(n for g in r["graphs"] for n in (g.get("collectives") or {}).values())
             nccl = {k: v.get("nccl_kernels", 0) for k, v in r["nodes"].items()}
-            if not captured or (w.cards > 1 and not (nccl["collection (inject)"] and nccl["update"])):
+            # the update's NCCL kernels: under the global shuffle with no mp
+            # group the recurrent grad step holds none (no gradient
+            # all-reduce), its metrics graph the metric sums'
+            update_nccl = nccl["update"] + nccl.get("update metrics", 0)
+            if not captured or (w.cards > 1 and not (nccl["collection (inject)"] and update_nccl)):
                 fail(f"phase 22 {name} rank {r['rank']}: {captured} collectives captured, NCCL kernel nodes "
                      f"{nccl} (across ranks the collection and the update must hold some)")
+            if r["gathered"]:
+                # the global shuffle's one all-gather, in the graph that stages the update
+                gathers = {g["name"]: (g.get("collectives") or {}).get("all_gather", 0) for g in r["graphs"]
+                           if g["name"].startswith(("collection (", "collection tail ("))}
+                chk = r.get("global_check", {})
+                log(f"[{tag}] rank {r['rank']}: the all-gathers captured {gathers}; the gathered update against "
+                    f"the one-process update of the true global batch ({chk.get('global_envs')} envs, the "
+                    f"{chk.get('path')} path): L2 share {chk.get('share')} (limit {GLOBAL_TOL}), bit for bit "
+                    f"{chk.get('equal_bits')}")
+                if sorted(set(gathers.values())) != [1] or not chk or chk["share"] > GLOBAL_TOL \
+                        or chk["path"] != chk["gathered_path"]:
+                    fail(f"phase 22 {name} rank {r['rank']}: the global shuffle: all-gathers {gathers}, the check "
+                         f"against the one-process update {chk}")
         out["worlds_run"].append(name)
         out["worlds"][name] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
         log(f"[{tag}] the world took {out['worlds'][name]['seconds']:.1f} s")

@@ -7,10 +7,13 @@ callers runs without a card.
    on the CPU and its device and env backend then set to what the card
    would give (``physics_backend(use_pallas, "cuda")``). Every registry
    task, every update path and the engine backend are compiled, and so
-   is dp over NCCL with K1 across ranks; the CPU, the lane backend (K1's
-   plain version on the card), dp and mp over gloo keep their reasons,
-   and so does dp x mp over NCCL across ranks on the mega path (not a
-   path of tensor parallelism), though its env step is graphed.
+   is dp over NCCL with K1 across ranks, also under the global shuffle
+   (``permutation_groups = 1``), and mp with the symmetry loss and on the
+   engine's xla path; the CPU, the lane backend (K1's plain version on the
+   card), dp and mp over gloo keep their reasons, and so do mp over NCCL
+   across ranks on the mega path (not a path of tensor parallelism),
+   though its env step is graphed, and the global shuffle with the
+   symmetry loss (no run on several cards has held it).
 2. Capture hygiene: during ``env.step`` on the plane, heightfield, trimesh,
    heading and full-body configs, on K1 and on the engine, during
    ``spd_solve`` above 48 (``cholesky_ex``), and during ``rollout`` + the last values
@@ -64,6 +67,7 @@ from wiki_grx_gym_tpu_torch.envs import task_registry
 from wiki_grx_gym_tpu_torch.envs.legged_env import LeggedEnv, physics_backend
 from wiki_grx_gym_tpu_torch.learn import graphs
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad
+from wiki_grx_gym_tpu_torch.learn.ppo import PPO
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
 from wiki_grx_gym_tpu_torch.ops import linalg
 from wiki_grx_gym_tpu_torch.parallel import mesh
@@ -126,10 +130,14 @@ def _dp(world, mp=False, backend="gloo"):
 
 
 @pytest.mark.parametrize("variant", ["cpu", "dp", "mp", "dp_nccl", "mp_nccl", "symmetry", "step_path", "xla_path",
-                                     "engine", "lanes", "bf16", "fused_trunk"])
+                                     "engine", "lanes", "bf16", "fused_trunk", "dp_nccl_global",
+                                     "dp_nccl_symmetry_global", "mp_nccl_symmetry", "mp_nccl_engine_xla"])
 def test_rule_per_variant(variant):
     train = {
         "symmetry": lambda t: setattr(t.algorithm, "symmetry_coef", 0.5),
+        "dp_nccl_symmetry_global": lambda t: setattr(t.algorithm, "symmetry_coef", 0.5),
+        "mp_nccl_symmetry": lambda t: setattr(t.algorithm, "symmetry_coef", 0.5),
+        "mp_nccl_engine_xla": lambda t: setattr(t.algorithm, "fused_update", False),
         "step_path": lambda t: setattr(t.algorithm, "fused_mega", False),
         "xla_path": lambda t: setattr(t.algorithm, "fused_update", False),
         "bf16": lambda t: (setattr(t.policy, "compute_dtype", "bfloat16"),
@@ -138,26 +146,36 @@ def test_rule_per_variant(variant):
         # the path a dp mesh selects (it turns the mega path off)
         "dp_nccl": lambda t: setattr(t.algorithm, "fused_mega", False),
     }.get(variant)
-    sim = {"engine": False, "lanes": "lanes"}.get(variant)
+    sim = {"engine": False, "lanes": "lanes", "mp_nccl_engine_xla": False}.get(variant)
     mutate = (lambda c: setattr(c.sim, "use_pallas", sim)) if sim is not None else None
     env, runner = small(mutate=mutate, train_mutate=train, n=4)
     if variant == "cpu":
         reason = runner.eager_reason
         assert "cpu" in reason and env.step_graph_reason is not None
         return
-    if variant in ("dp", "mp", "dp_nccl", "mp_nccl"):
-        runner.dp = _dp(2, mp=variant.startswith("mp"), backend="nccl" if variant.endswith("nccl") else "gloo")
+    if variant.startswith(("dp", "mp")):
+        runner.dp = _dp(2, mp=variant.startswith("mp"), backend="gloo" if variant in ("dp", "mp") else "nccl")
+    if variant.endswith("_global"):
+        # the global shuffle (permutation_groups = 1), PPO built with the
+        # dp view as the runner builds it under dp
+        runner.alg = PPO(runner.net, runner.alg_cfg, extra_loss_fn=runner.alg.extra_loss_fn, perm_groups=1,
+                         dp=runner.dp)
+        assert runner.alg.gathered and runner.rule_path.endswith("+global")
     reason = as_on_card(runner)
     # gloo's collectives run on the host: only NCCL's are captured, and
-    # across ranks what mesh.COMPILED_ACROSS_RANKS admits (the runner is
-    # built in one process: mp_nccl keeps the mega path, which it does not)
+    # across ranks what mesh.COMPILED_COLLECTIONS and COMPILED_UPDATES admit
+    # (the runner is built in one process: mp_nccl keeps the mega path,
+    # which they do not; the global shuffle with the symmetry loss is not held)
     want = {"dp": "parallelism over gloo", "mp": "parallelism over gloo", "dp_nccl": None,
-            "mp_nccl": "tensor parallelism across ranks",
+            "mp_nccl": "tensor parallelism across ranks on the mega path",
             "symmetry": None, "step_path": None, "xla_path": None, "engine": None, "lanes": "'lanes'",
-            "bf16": None, "fused_trunk": None}[variant]
+            "bf16": None, "fused_trunk": None, "dp_nccl_global": None,
+            "dp_nccl_symmetry_global": "on the xla+symmetry+global path", "mp_nccl_symmetry": None,
+            "mp_nccl_engine_xla": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
     # the env step's rule: K1 or the engine on a CUDA device, dp and mp
-    # only over NCCL, across ranks K1's step under dp, mp and dp x mp
+    # only over NCCL, across ranks where a collection of its layout and
+    # backend is held
     env.device = torch.device("cuda")
     env.dp = runner.dp
     step_reason = env.step_graph_reason

@@ -17,12 +17,19 @@
   dp2 on the step path, on the xla path, with the symmetry loss, on the
   engine and on GR1T1_lstm; mp2 on the xla path (NCCL launched from
   autograd's backward inside the capture); on four cards dp2 x mp2 on the
-  xla path (two communicators a rank) and dp4 on the step path. Each
+  xla path (two communicators a rank) and dp4 on the step path; the
+  global shuffle (every rank updating on the gathered global batch): dp2
+  with ``permutation_groups = 1`` on the mega path (K3 over the gathered
+  batch), on the step path and on GR1T1_lstm on the engine, dp4 with
+  ``permutation_groups = 2`` on the xla path; mp2 and, on four cards,
+  dp2 x mp2 with the symmetry loss on the engine and on GR1T1_lstm. Each
   rank is compiled (``eager_reason`` None), bit for bit against its eager
   iteration over three calls, its collection and update graphs hold NCCL
-  kernel nodes, and every dp group's ranks end with one learner state.
-  These are the cases ``mesh.COMPILED_ACROSS_RANKS`` admits: a new case
-  is held here (with the rule opened in each rank) before it joins them.
+  kernel nodes (the gather's among them under the global shuffle), and
+  every dp group's ranks end with one learner state. Together they hold
+  every key of ``mesh.COMPILED_COLLECTIONS`` and ``COMPILED_UPDATES``: a
+  new key is held here (with the rule opened in each rank) before it
+  joins them.
 
 Each world ends within ``JOIN_S`` (``parallel.launch.spawn``); past it
 every rank is killed and the error names where each stopped.
@@ -51,7 +58,10 @@ pytestmark = pytest.mark.gpu
 N, T = 64, 4
 JOIN_S = 240.0   # a world's deadline (its ranks are killed past it)
 PATHS = {"mega": {}, "xla": {"fused_update": False}, "step": {"fused_mega": False},
-         "symmetry": {"symmetry_coef": 0.5}}
+         "symmetry": {"symmetry_coef": 0.5},
+         # the global shuffle: permutation_groups that the dp group does not divide
+         "mega_global": {"permutation_groups": 1}, "step_global": {"permutation_groups": 1, "fused_mega": False},
+         "groups2": {"permutation_groups": 2}}
 
 
 def _need_cards(n):
@@ -85,11 +95,8 @@ def draws(runner, seed):
     n = env.num_envs
     noise = torch.randn((t, n, env.num_actions), generator=g, device=dev)
     u = torch.rand((t, n, env._step_u_cols[1]), generator=g, device=dev)
-    per_group = n // runner.alg.local_groups
-    if runner.recurrent:   # env columns of a group
-        n_blocks, used = per_group, runner.alg.recurrent_geometry(per_group)[1]
-    else:
-        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, per_group)
+    # a group's blocks (env columns if recurrent), of the global batch under the global shuffle
+    n_blocks, used = runner.alg.perm_size(t, n, recurrent=runner.recurrent)
     return noise, u, torch.randperm(n_blocks, generator=g, device=dev)[:used]
 
 
@@ -167,6 +174,14 @@ ACROSS = {
     "mp2_xla": ("GR1T1", 2, "mega", None, 2),
     "dp2_mp2_xla": ("GR1T1", 2, "mega", None, 4),
     "dp4_step": ("GR1T1", 1, "step", None, 4),
+    "dp2_global_mega": ("GR1T1", 1, "mega_global", None, 2),
+    "dp2_global_step": ("GR1T1", 1, "step_global", None, 2),
+    "dp2_global_lstm_engine": ("GR1T1_lstm", 1, "mega_global", {"use_pallas": False}, 2),
+    "mp2_symmetry_engine": ("GR1T1", 2, "symmetry", {"use_pallas": False}, 2),
+    "mp2_lstm": ("GR1T1_lstm", 2, "mega", None, 2),
+    "dp4_global_xla": ("GR1T1", 1, "groups2", None, 4),
+    "dp2_mp2_symmetry_engine": ("GR1T1", 2, "symmetry", {"use_pallas": False}, 4),
+    "dp2_mp2_lstm": ("GR1T1_lstm", 2, "mega", None, 4),
 }
 
 
@@ -188,11 +203,15 @@ def across_worker(rank, world, init, out_dir, name):
         digests = sharding.check_replicas_identical(
             dp, s_g.ppo, "compiled iterations", net=runner.net,
             replicated=(s_g.env_state,) if dp.mp is not None else None)
-        res = {"diffs": diffs, "digests": [int(x) for x in digests],
+        # the update's graphs: K3's (mega) or the update's, and the recurrent
+        # path's metrics graph (which holds the metric sums' all-reduce)
+        update = [ci.update.graph] + ([ci.epilogue.graph] if ci.epilogue is not None else [])
+        staging = ci.tail["inject"] if ci.per_step else ci.collect["inject"]
+        res = {"diffs": diffs, "digests": [int(x) for x in digests], "gathered": runner.alg.gathered,
                "collection": graphs.node_kinds(ci.collect["inject"].graph),
-               "update": graphs.node_kinds(ci.update.graph),
-               "collectives": {"collection": ci.collect["inject"].collectives,
-                               "update": ci.update.collectives}}
+               "update": {"nccl_kernels": sum(graphs.node_kinds(g)["nccl_kernels"] for g in update)},
+               "collectives": {"collection": ci.collect["inject"].collectives, "staging": staging.collectives,
+                               "update": ci.update_collectives if ci.path == "mega" else ci.update.collectives}}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
         stage("teardown")
@@ -218,4 +237,7 @@ def test_across_ranks_compiled_equals_eager(tmp_path, name):
         if name == "dp2_step":
             # GAE's two all-reduces, the permutation's broadcast, the curriculum's T
             assert r["collectives"]["collection"] == {"all_reduce": T + 2, "broadcast": 1}, r["collectives"]
+        # the global shuffle's one all-gather, in the graph that stages the update
+        assert r["gathered"] == ("global" in name)
+        assert (r["collectives"]["staging"] or {}).get("all_gather", 0) == r["gathered"], (name, r["collectives"])
     assert not dist.is_initialized()

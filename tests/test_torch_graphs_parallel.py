@@ -13,10 +13,16 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     both are None, on K1 and on the engine, on every update path (mega,
     step, xla, the symmetry loss, the recurrent update). The CPU and the
     ``"lanes"`` backend keep their reasons. Across ranks over NCCL (views
-    of two ranks, no group needed to read the rule) the rule compiles what
-    runs on several cards have held (``mesh.COMPILED_ACROSS_RANKS``): dp on
-    K1 on the step, xla, symmetry and recurrent paths and on the engine,
-    mp on the xla path; every other layout and path keeps a reason.
+    of two ranks, no group needed to read the rule) the rule compiles the
+    graphs runs on several cards have held (``mesh.COMPILED_COLLECTIONS``
+    by layout, physics and policy net; ``mesh.COMPILED_UPDATES`` by layout
+    and path): dp on K1 and on the engine, with the MLP and the LSTM, on the
+    step, xla, symmetry and recurrent paths and under the global shuffle
+    (``permutation_groups = 1``: ``"+global"``) on the mega, step, xla and
+    recurrent paths; mp on K1 on the xla, symmetry and recurrent paths and
+    on the engine with the MLP; everything else (the global shuffle with the
+    symmetry loss, mp's mega and step paths, which a mesh never selects, mp
+    on the engine with the LSTM) keeps a reason naming what is not held.
 (b) Bit for bit: two spawned gloo ranks, the rule opened as (a) opens it
     (the eager reason left is the CPU's; a case is held here before a run
     on several cards may admit it to the rule), the CUDA graphs stood in
@@ -31,8 +37,16 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     GR1T1_lstm, dp2 on the engine (``use_pallas = False``) and dp2 x mp2
     on the xla path over four gloo ranks, and in
     tests/test_torch_graphs_parallel_symmetry.py dp2 with the symmetry loss
-    (the xla path with an extra loss term). The ranks end with bit-identical
-    learner states (their digests).
+    (the xla path with an extra loss term); the global shuffle
+    (``permutation_groups = 1``, every rank updating on the gathered global
+    batch) in tests/test_torch_graphs_parallel_global.py: dp2 on the mega
+    path (K3's plain version) and on the step path, dp4 with
+    ``permutation_groups = 2`` on the xla path, dp2 on GR1T1_lstm on the
+    engine; mp with the symmetry loss, the LSTM and the engine in
+    tests/test_torch_graphs_parallel_mp.py: mp2 with the symmetry loss on
+    the engine, mp2 on GR1T1_lstm, and the same two at dp2 x mp2 over four
+    ranks. The ranks end with bit-identical learner states (their
+    digests).
 (c) Hygiene: on each rank the host-traffic recorder of
     tests/test_torch_graphs.py records nothing during a third compiled
     iteration (every graph's body run again): the collection with the
@@ -42,7 +56,8 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     ``_ReduceFromMP`` and the clip norm's all-reduce, and the metric
     sums' all-reduce. That iteration issues the same collectives, in the
     same order and at the same shapes, as an eager ``iteration`` (every
-    rank must capture the same sequence).
+    rank must capture the same sequence); under the global shuffle one
+    all-gather of the update's inputs and no gradient all-reduce.
 
 The curriculum's cases run GR1T1 with the all-terms fold
 (``cuda_step.all_terms_config``): the command curriculum runs only with
@@ -109,8 +124,21 @@ CASES = {
     "dp2_engine": ("GR1T1", _env(True, sim__use_pallas=False, commands__curriculum=True), _train(), 1, "step"),
     "dp2_mp2_xla": ("GR1T1", _env(True, commands__curriculum=True), _train(hidden=(32, 16, 8)), 2, "xla"),
     "dp2_symmetry": ("GR1T1", _env(), _train(symmetry_coef=0.5), 1, "xla"),
+    # the global shuffle: every rank updates on the gathered global batch
+    "dp2_global_mega": ("GR1T1", _env(True, commands__curriculum=True), _train(permutation_groups=1), 1, "mega"),
+    "dp2_global_step": ("GR1T1", _env(), _train(permutation_groups=1, fused_mega=False), 1, "step"),
+    "dp4_global_xla": ("GR1T1", _env(), _train(permutation_groups=2), 1, "xla"),
+    "dp2_global_lstm_engine": ("GR1T1_lstm", _env(True, sim__use_pallas=False, commands__curriculum=True),
+                               _train(permutation_groups=1), 1, "recurrent"),
+    # tensor parallelism with the symmetry loss, the LSTM and the engine
+    "mp2_symmetry_engine": ("GR1T1", _env(sim__use_pallas=False), _train(hidden=(32, 16, 8), symmetry_coef=0.5),
+                            2, "xla"),
+    "mp2_lstm": ("GR1T1_lstm", _env(), _train(hidden=(32, 16, 8)), 2, "recurrent"),
+    "dp2_mp2_symmetry_engine": ("GR1T1", _env(True, sim__use_pallas=False, commands__curriculum=True),
+                                _train(hidden=(32, 16, 8), symmetry_coef=0.5), 2, "xla"),
+    "dp2_mp2_lstm": ("GR1T1_lstm", _env(), _train(hidden=(32, 16, 8)), 2, "recurrent"),
 }
-WORLDS = {"dp2_mp2_xla": 4}
+WORLDS = {"dp2_mp2_xla": 4, "dp4_global_xla": 4, "dp2_mp2_symmetry_engine": 4, "dp2_mp2_lstm": 4}
 
 
 def build(task, env_mutate, train_mutate, n=N_ENVS, dp=None):
@@ -167,6 +195,15 @@ RULE_CONFIGS = {
     "recurrent": ("GR1T1_lstm", _env(), _train()),
     "engine": ("GR1T1", _env(sim__use_pallas=False), _train()),
     "lanes": ("GR1T1", _env(sim__use_pallas="lanes"), _train()),
+    "engine_xla": ("GR1T1", _env(sim__use_pallas=False), _train(fused_update=False)),
+    "engine_symmetry": ("GR1T1", _env(sim__use_pallas=False), _train(symmetry_coef=0.5)),
+    "engine_recurrent": ("GR1T1_lstm", _env(sim__use_pallas=False), _train()),
+    # the global shuffle under dp (permutation_groups = 1: JAX's CLI run)
+    "mega_global": ("GR1T1", _env(), _train(permutation_groups=1)),
+    "step_global": ("GR1T1", _env(), _train(permutation_groups=1, fused_mega=False)),
+    "xla_global": ("GR1T1", _env(), _train(permutation_groups=1, fused_update=False)),
+    "symmetry_global": ("GR1T1", _env(), _train(permutation_groups=1, symmetry_coef=0.5)),
+    "recurrent_global": ("GR1T1_lstm", _env(), _train(permutation_groups=1)),
 }
 
 
@@ -196,15 +233,27 @@ def test_rule_reads_the_groups_backend(one_rank_gloo, config, backend, layout):
 # (layout, config): whether the runner's iteration and the env's step are
 # compiled with a view of two ranks over NCCL on the card. dp2 builds with
 # the view (a dp mesh turns the mega path off: the MLP configs without an
-# extra loss term, the engine's too, take the step path there); mp2 sets
-# the mp view after a one-process build, so each config keeps its own path
-# (the mega path is not a path of tensor parallelism)
+# extra loss term, the engine's too, take the step path there; with
+# permutation_groups = 1 the global shuffle keeps the one-process rule);
+# mp2 sets the mp view after a one-process build, so each config keeps its
+# own path (the mega and step paths are not paths of tensor parallelism,
+# and one process has no global shuffle)
 ACROSS_RANKS = {
     "dp2": {"mega": (True, True), "step": (True, True), "xla": (True, True), "symmetry": (True, True),
-            "recurrent": (True, True), "engine": (True, True), "lanes": (False, False)},
-    "mp2": {"mega": (False, True), "step": (False, True), "xla": (True, True), "symmetry": (False, True),
-            "recurrent": (False, True), "engine": (False, False), "lanes": (False, False)},
+            "recurrent": (True, True), "engine": (True, True), "lanes": (False, False),
+            "engine_xla": (True, True), "engine_symmetry": (True, True), "engine_recurrent": (True, True),
+            "mega_global": (True, True), "step_global": (True, True), "xla_global": (True, True),
+            "symmetry_global": (False, True), "recurrent_global": (True, True)},
+    "mp2": {"mega": (False, True), "step": (False, True), "xla": (True, True), "symmetry": (True, True),
+            "recurrent": (True, True), "engine": (False, True), "lanes": (False, False),
+            "engine_xla": (True, True), "engine_symmetry": (True, True), "engine_recurrent": (False, True),
+            "mega_global": (False, True), "step_global": (False, True), "xla_global": (True, True),
+            "symmetry_global": (True, True), "recurrent_global": (True, True)},
 }
+# (layout, config): the words of the reason where the rule keeps it eager
+UNHELD = {("dp2", "symmetry_global"): "on the xla+symmetry+global path",
+          ("mp2", "mega"): "on the mega path", ("mp2", "engine"): "on the mega path",
+          ("mp2", "engine_recurrent"): "the lstm policy's collection on engine"}
 
 
 @pytest.mark.parametrize("layout", ["dp2", "mp2"])
@@ -228,8 +277,8 @@ def test_rule_across_ranks_over_nccl(config, layout):
     else:
         for why in (reason, step_reason):
             assert why is None or (words in why and "not yet held" in why), why
-    if config == "symmetry" and layout == "mp2":
-        assert "xla+symmetry path" in reason, reason
+    if (layout, config) in UNHELD:
+        assert UNHELD[layout, config] in reason, reason
 
 
 def test_a_capture_holds_the_garbage_collector():
@@ -351,11 +400,7 @@ def _draws(env, runner, it, rank):
     noise = torch.from_numpy(rng.randn(t, n, a).astype(np.float32))
     u = torch.from_numpy(rng.rand(t, n, env._step_u_cols[1]).astype(np.float32))
     prng = np.random.RandomState(7 + it)
-    per_group = n // runner.alg.local_groups
-    if runner.recurrent:   # env columns of a group
-        n_blocks, used = per_group, runner.alg.recurrent_geometry(per_group)[1]
-    else:
-        _, n_blocks, used, _ = runner.alg.shuffle_geometry(t, per_group)
+    n_blocks, used = runner.alg.perm_size(t, n, recurrent=runner.recurrent)   # env columns if recurrent
     perm = torch.from_numpy(prng.permutation(n_blocks)[:used])
     return noise, u, perm
 
@@ -438,7 +483,7 @@ def check_case(ranks, name):
     num_mp = CASES[name][3]
     # the first call warmed up and captured, the second replayed; on the
     # engine the rollout step's graph A1 is called T times a call
-    replays = 2 * STEPS - 1 if name == "dp2_engine" else 1
+    replays = 2 * STEPS - 1 if "engine" in name else 1
     for r, res in enumerate(ranks):
         assert res["mismatches"] == [], (name, r, res["mismatches"])
         assert res["injected_replays"] == replays and res["generators_replays"] == replays, (name, r)
@@ -446,6 +491,10 @@ def check_case(ranks, name):
         assert res["finite"], (name, r)
         seq = res["collectives"]
         assert seq["compiled"] == seq["eager"] and seq["eager"], (name, r, seq)
+        # the global shuffle: one all-gather of the update's inputs over the
+        # dp group an iteration, and no other all-gather
+        gathers = [c for c in seq["compiled"] if c[0] == "all_gather"]
+        assert len(gathers) == ("global" in name) and all(c[1] == "dp" for c in gathers), (name, r, gathers)
     # every dp rank's digest, gathered on each: the same learner state (mp
     # peers hold their shards; check_replicas_identical held their
     # replicated leaves and env states equal)

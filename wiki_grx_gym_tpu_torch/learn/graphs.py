@@ -33,8 +33,9 @@ is a ``torch.cuda.CUDAGraph``:
   the engine in one process, and under data and tensor parallelism over
   NCCL (JAX's ``jit(_iteration)`` on its ``("dp", "mp")`` mesh, the
   collectives compiled into the program; across ranks the rule takes
-  what runs on several cards have held, ``mesh.COMPILED_ACROSS_RANKS``,
-  though the graphs capture every path's collectives). (A) the collection: T x (act -> ``env.step``
+  the graphs runs on several cards have held, ``mesh.COMPILED_COLLECTIONS``
+  and ``COMPILED_UPDATES``, though the graphs capture every path's
+  collectives). (A) the collection: T x (act -> ``env.step``
   -> store), the last values, GAE, the permutation and the update's
   inputs; the new env state, observations and (recurrent) LSTM memory are
   donated into the static state, the metrics' sums into a static vector.
@@ -82,10 +83,13 @@ is a ``torch.cuda.CUDAGraph``:
   **Collectives** (``parallel/mesh.py``, NCCL): each graph captures the
   collectives its body issues, on every rank in the same order as the
   eager ``iteration``: the command curriculum's all-reduce in the env
-  step (A, A1), GAE's two all-reduces and the broadcast of rank 0's block
-  permutation (A, A2), and in B each grad step's all-reduce of (gradient,
-  loss, metrics) (``PPO.reduce``), under mp the forward's and backward's
-  all-reduces (``learn/networks.py``) and the clip norm's, then the metric
+  step (A, A1), GAE's two all-reduces, under the global shuffle the
+  all-gather of the update's inputs (``PPO._gather``: K3's and K2's
+  contexts, the static buffers and the recurrent start memories are then
+  the global batch's) and the broadcast of rank 0's block permutation (A,
+  A2), and in B each grad step's all-reduce of (gradient, loss, metrics)
+  (``PPO.reduce``; none under the global shuffle), under mp the forward's
+  and backward's all-reduces (``learn/networks.py``) and the clip norm's, then the metric
   sums' all-reduce ahead of the metrics vector (``runner.global_sums``).
   The warm-up's collectives make every group's communicator before its
   capture. The ranks' digest check (``learn``) runs eagerly between the
@@ -500,8 +504,11 @@ class CompiledIteration:
         shuffle, staged into K3's context (mega) or into static buffers."""
         alg, s = self.runner.alg, self.static
         if self.path == "recurrent":
-            data, cols = alg.recurrent_inputs(batch, returns, adv, generator=s.rng, perm=perm)
+            data, cols, hidden0 = alg.recurrent_inputs(batch, returns, adv, self.hidden0, generator=s.rng,
+                                                       perm=perm)
             inputs = {"data": data, "cols": cols}
+            if hidden0 is not self.hidden0:   # the global shuffle's gathered start memories
+                inputs["hidden0"] = hidden0
             self.step_index.zero_()
         else:
             shuf_w, shuf_f, rows = alg.prepare_update(batch, returns, adv, generator=s.rng, perm=perm)
@@ -656,8 +663,9 @@ class CompiledIteration:
         the index advanced, all on the device."""
         alg = self.runner.alg
         data, cols = self.inputs["data"], self.inputs["cols"]
+        hidden0 = self.inputs.get("hidden0", self.hidden0)
         i = torch.remainder(self.step_index, alg.num_mini_batches)
-        grad_fn = lambda p, j: alg.recurrent_grad(p, alg.recurrent_minibatch(data, cols, self.hidden0, j))
+        grad_fn = lambda p, j: alg.recurrent_grad(p, alg.recurrent_minibatch(data, cols, hidden0, j))
         row = self._grad_step(grad_fn, i)
         self.hist.index_copy_(0, self.step_index, row[None])
         self._advance()

@@ -42,10 +42,25 @@ gradient, loss and metrics are all-reduced to their mean once a grad step,
 between the gradient and the adaptive LR, the NaN skip, clip and Adam
 (``ppo.py:600-640``), so every rank takes the same step. GAE's advantage
 mean and std are over the global batch, and every rank uses rank 0's block
-permutation. With ``perm_groups`` equal to the group's size the step path
-runs K2 per shard (JAX turns the mega path off on a dp mesh,
-``ppo.py:172-174``); ``perm_groups > 1`` otherwise selects the xla path, as
-in JAX (``ppo.py:166-169``).
+permutation. With ``perm_groups`` a multiple of the group's size each rank
+shuffles its own groups; at the group's size the step path runs K2 per
+shard (JAX turns the mega path off on a dp mesh, ``ppo.py:172-174``), and
+``perm_groups > 1`` otherwise selects the xla path, as in JAX
+(``ppo.py:166-169``).
+
+**The global shuffle** (``perm_groups`` that the group's size does not
+divide; 1 is the reference's shuffle, ``base_storage.py:157-198``, and the
+run JAX's CLI makes on a mesh, ``scripts/train.py:25-26``): the update
+first all-gathers its inputs over the dp group in global env order
+(``parallel.sharding.gather_envs``, one buffer: the rollout fields, returns
+and advantages, on the recurrent path also the dones and the start
+memories), then every rank runs the one-process update on the global batch
+with rank 0's permutation and no gradient all-reduce: every rank holds the
+whole gradient, so the ranks stay bit-identical. This is what XLA does for
+JAX: the kernels, which have no sharding rule, run on gathered operands on
+every device. The paths are JAX's one-process rule: ``perm_groups == 1``
+takes the kernels (mega, or step with ``fused_mega = False``), any other
+count the xla path.
 
 **Tensor parallel** (``dp.mp``, ``parallel.mesh.make_mesh``): the xla path
 only, as JAX keeps its XLA update under mp (``ppo.py:153``); the flat
@@ -71,6 +86,7 @@ import torch.utils.checkpoint
 
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad, _jclip, _jmax, scalar
 from wiki_grx_gym_tpu_torch.learn.networks import compute_dtype_of
+from wiki_grx_gym_tpu_torch.parallel import sharding
 
 _INT32_MAX = 2**31 - 1
 
@@ -102,12 +118,16 @@ class PPO:
                  shuffle_block: int = 16, dp=None):
         """``perm_groups``: env groups the block shuffle is local to, each
         minibatch drawing equally from every group (``ppo.py:61-67``); with
-        ``dp`` each rank holds ``perm_groups / world`` of them. ``dp``: the
+        ``dp`` each rank holds ``perm_groups / world`` of them where the
+        group's size divides ``perm_groups``, else the update gathers the
+        global batch (the module docstring's global shuffle). ``dp``: the
         run's ``DataParallel`` (its dp view and ``mp`` under tensor
         parallelism; ``net`` is then the rank's tensor-parallel net)."""
         world = 1 if dp is None else dp.world
-        if int(perm_groups) < 1 or int(perm_groups) % world:
-            raise ValueError(f"perm_groups {perm_groups} is not a positive multiple of the {world} ranks")
+        if int(perm_groups) < 1:
+            raise ValueError(f"perm_groups must be >= 1, got {perm_groups}")
+        # the global shuffle: every rank updates on the gathered global batch
+        self.gathered = bool(int(perm_groups) % world)
         self.mp = None if dp is None else dp.mp
         if (self.mp is None) != (getattr(net, "mp", None) is None):
             raise ValueError("a tensor-parallel run needs the rank's tensor-parallel net, and only it")
@@ -126,7 +146,7 @@ class PPO:
             self._split = (torch.nonzero(split).flatten(), torch.nonzero(~split).flatten())
         self.extra_loss_fn = extra_loss_fn
         self.perm_groups = int(perm_groups)
-        self.local_groups = self.perm_groups // world
+        self.local_groups = self.perm_groups if self.gathered else self.perm_groups // world
         self.std_floor = 0.0 if net.fixed_std else float(net.noise_std_floor)
         self.shuffle_block = int(shuffle_block)
         self.gamma = float(alg_cfg.gamma)
@@ -149,8 +169,9 @@ class PPO:
         fu = getattr(alg_cfg, "fused_update", "auto")
         if fu == "auto" or fu:
             fu = FusedPPOGrad.supported(net, extra_loss_fn)
-        # K2 per shard with the gradient mean between it and Adam
-        dp_kernel = world > 1 and self.perm_groups == world
+        # K2 per shard with the gradient mean between it and Adam (gathered:
+        # the one-process rule on the global batch)
+        dp_kernel = world > 1 and self.perm_groups == world and not self.gathered
         # under mp the xla update (ppo.py:153; runner.py:112 turns the flat
         # optimizer, and with it the kernels, off)
         self.fused_update = bool(fu) and (self.perm_groups == 1 or dp_kernel) and self.mp is None
@@ -329,7 +350,7 @@ class PPO:
         """(groups, envs a group) of a batch of ``n`` envs on this rank."""
         g = self.local_groups
         if n % g:
-            raise ValueError(f"num_envs {n} not divisible by the {g} permutation groups of this rank")
+            raise ValueError(f"num_envs {n} not divisible by the {g} permutation groups of this rank's update")
         return g, n // g
 
     def _pack_shuffle(self, batch, returns, advantages, perm):
@@ -363,12 +384,37 @@ class PPO:
 
         return shuffle(wide), shuffle(f32), g * rows
 
+    def perm_size(self, t: int, n: int, recurrent: bool = False) -> Tuple[int, int]:
+        """(n, used) of the update's permutation ``randperm(n)[:used]`` for
+        a rank of ``n`` envs and ``t`` steps: a group's blocks
+        (:meth:`shuffle_geometry`), or with ``recurrent`` a group's env
+        columns (:meth:`recurrent_geometry`), of the global batch under the
+        global shuffle."""
+        per_group = self._groups(n * self.dp.world if self.gathered else n)[1]
+        if recurrent:
+            return per_group, self.recurrent_geometry(per_group)[1]
+        _, n_blocks, used, _ = self.shuffle_geometry(t, per_group)
+        return n_blocks, used
+
     def draw_perm(self, t: int, n: int, generator: torch.Generator, device) -> torch.Tensor:
         """One block permutation per update (base_storage.py:169) of a
         group's blocks, cut to the used blocks: ``randperm(n_blocks)[:used]``
-        (``n``: this rank's envs)."""
+        (``n``: the envs the update shuffles)."""
         _, n_blocks, used, _ = self.shuffle_geometry(t, self._groups(n)[1])
         return torch.randperm(n_blocks, generator=generator, device=device)[:used]
+
+    def _gather(self, batch, returns, advantages, hidden0=None):
+        """The global shuffle's inputs: ``batch`` (the nine fields),
+        ``returns``, ``advantages`` and ``hidden0`` (a ``recurrent.Hidden``,
+        or None) of every dp rank in global env order, in one all-gather
+        (``sharding.gather_envs``); as given where the update is not
+        gathered."""
+        if not self.gathered:
+            return batch, returns, advantages, hidden0
+        out = sharding.gather_envs(self.dp, [*batch, returns, advantages, *(hidden0 or ())])
+        k = len(batch)
+        return (type(batch)(*out[:k]), out[k], out[k + 1],
+                None if hidden0 is None else type(hidden0)(*out[k + 2:]))
 
     def _shared_perm(self, perm, generator, draw, device) -> torch.Tensor:
         """The update's permutation: ``perm`` if given, else ``draw(generator)``;
@@ -386,7 +432,9 @@ class PPO:
                        perm=None):
         """The update's inputs: the block permutation (``perm``, or drawn
         from ``generator``) and the packed, shuffled buffers. Returns
-        ``(shuf_w, shuf_f, rows)`` (:meth:`_pack_shuffle`)."""
+        ``(shuf_w, shuf_f, rows)`` (:meth:`_pack_shuffle`), of the global
+        batch under the global shuffle (gathered first)."""
+        batch, returns, advantages, _ = self._gather(batch, returns, advantages)
         t, n = batch.rewards.shape
         dev = batch.rewards.device
         perm = self._shared_perm(perm, generator, lambda gen: self.draw_perm(t, n, gen, dev), dev)
@@ -489,13 +537,16 @@ class PPO:
             (g,) = torch.autograd.grad(loss, pr)
         return loss.detach(), g, aux
 
-    def recurrent_inputs(self, batch, returns, advantages, generator: Optional[torch.Generator] = None,
-                         perm=None):
+    def recurrent_inputs(self, batch, returns, advantages, hidden0,
+                         generator: Optional[torch.Generator] = None, perm=None):
         """What the recurrent update's minibatches are gathered from, made
         once an update: the (T, N, ...) fields (obs and critic obs in f32,
-        ``done_prev``: each env's done after the step before) and the env
+        ``done_prev``: each env's done after the step before), the env
         columns of every minibatch, ``(MB, G x M)``, M a minibatch's columns
-        of a group, group by group (ppo.py:789-824). Returns (data, cols)."""
+        of a group, group by group (ppo.py:789-824), and the start memories
+        ``hidden0``; under the global shuffle all of the global batch
+        (gathered first). Returns (data, cols, hidden0)."""
+        batch, returns, advantages, hidden0 = self._gather(batch, returns, advantages, hidden0)
         t, n = batch.rewards.shape
         g, per_group = self._groups(n)
         mb_envs, used = self.recurrent_geometry(per_group)
@@ -514,7 +565,7 @@ class PPO:
                 "actions": batch.actions, "log_prob": batch.log_prob, "mu": batch.mu,
                 "sigma": batch.sigma, "values": batch.values, "returns": returns,
                 "advantages": advantages, "done_prev": done_prev}
-        return data, cols
+        return data, cols, hidden0
 
     @staticmethod
     def recurrent_minibatch(data, cols, hidden0, i):
@@ -533,7 +584,8 @@ class PPO:
         """The recurrent update's minibatches: a function of the minibatch
         index ``i`` to :meth:`recurrent_minibatch` over
         :meth:`recurrent_inputs`."""
-        data, cols = self.recurrent_inputs(batch, returns, advantages, generator=generator, perm=perm)
+        data, cols, hidden0 = self.recurrent_inputs(batch, returns, advantages, hidden0,
+                                                    generator=generator, perm=perm)
         return lambda i: self.recurrent_minibatch(data, cols, hidden0, i)
 
     def _get_fused(self, rows: int) -> FusedPPOGrad:
@@ -588,8 +640,9 @@ class PPO:
         """One grad step's (loss, flat gradient, aux) as the mean over the
         ranks, in one all-reduce (the pmean of ppo.py:617; every rank holds as
         many rows, so it is the global minibatch's mean); unchanged without
-        ``dp``."""
-        if self.dp is None:
+        ``dp`` and under the global shuffle (every rank's is the global
+        minibatch's already)."""
+        if self.dp is None or self.gathered:
             return loss, g, aux
         keys = ("value_loss", "surrogate_loss", "kl")
         buf = torch.cat([g.reshape(-1), torch.stack([loss.detach(), *(aux[k] for k in keys)]).to(g.dtype)])

@@ -17,8 +17,9 @@ kernels) one rollout step's graph replayed T times, then a graph of the
 collection's tail. The rule for which configs take it is static
 (:attr:`OnPolicyRunner.eager_reason`): a CUDA device, K1 or the engine as
 the physics backend, and data or tensor parallelism only over NCCL, whose
-collectives the graphs capture (across ranks, the layouts and paths a
-run on several cards has held: ``parallel/mesh.COMPILED_ACROSS_RANKS``).
+collectives the graphs capture (across ranks, the collections and updates
+runs on several cards have held: ``parallel/mesh.COMPILED_COLLECTIONS``,
+``COMPILED_UPDATES``).
 Every other config (the CPU, the lane backend, dp and mp over gloo, the
 runs across ranks outside that set) runs ``iteration``, eagerly.
 ``learn`` runs iterations,
@@ -43,7 +44,9 @@ rank after every update (eagerly, between the compiled iteration's
 replays too), the iteration's metric sums are all-reduced once
 (:meth:`OnPolicyRunner.global_sums`), and only rank 0 writes TensorBoard events and checkpoints (JAX
 ``runner.py:326-356``). ``permutation_groups = 0`` resolves to the group's
-size, as JAX's does to the dp mesh size (``runner.py:99-108``).
+size, as JAX's does to the dp mesh size (``runner.py:99-108``); a count
+the group's size does not divide (1: JAX's CLI run, which sets the mesh
+after the runner) takes the global shuffle (``learn/ppo.py``).
 """
 
 from __future__ import annotations
@@ -185,9 +188,9 @@ class OnPolicyRunner:
         else why it runs eagerly. The rule is static: a CUDA device, K1 or
         the engine as the physics backend, and under data or tensor
         parallelism process groups whose collectives a CUDA graph captures
-        (NCCL's), across ranks the layouts, backends and paths a run on
-        several cards has held (``DataParallel.eager_reason`` over
-        :attr:`rule_path`); in one process every update path (mega, step,
+        (NCCL's), across ranks the collections and updates runs on several
+        cards have held (``DataParallel.eager_reason`` over the policy net
+        and :attr:`rule_path`); in one process every update path (mega, step,
         xla, recurrent; an extra loss term) is compiled.
         The lane program (K1's plain version, ~157k single-op launches a
         policy step on the card) stays eager, and so do groups over gloo,
@@ -197,17 +200,19 @@ class OnPolicyRunner:
         if self.env.backend == "lanes":
             return "the physics backend is 'lanes' (K1's plain version), not K1 or the engine"
         if self.dp is not None:
-            return self.dp.eager_reason(self.env.backend, self.rule_path)
+            return self.dp.eager_reason(self.env.backend, "lstm" if self.recurrent else "mlp", self.rule_path)
         return None
 
     @property
     def rule_path(self) -> str:
         """The update's path as the rule across ranks names it
-        (``parallel/mesh.COMPILED_ACROSS_RANKS``): ``"recurrent"`` or PPO's
+        (``parallel/mesh.COMPILED_UPDATES``): ``"recurrent"`` or PPO's
         (``"mega"``, ``"step"``, ``"xla"``), with ``"+symmetry"`` where the
-        symmetry loss is an extra loss term."""
+        symmetry loss is an extra loss term and ``"+global"`` under the
+        global shuffle (``PPO.gathered``)."""
         path = "recurrent" if self.recurrent else self.alg.path
-        return path + ("+symmetry" if self.alg.extra_loss_fn is not None else "")
+        return (path + ("+symmetry" if self.alg.extra_loss_fn is not None else "")
+                + ("+global" if self.alg.gathered else ""))
 
     # ------------------------------------------------------------------
 

@@ -28,11 +28,13 @@ are kernels on the card that a CUDA graph captures
 (``learn/graphs.py``); gloo's run on the host and cannot be captured, so
 ``capturable`` is true for ``nccl`` alone, and a run over any other backend
 keeps its iteration eager. Across ranks, only what a run on several cards
-has held against the eager iteration is compiled
-(:data:`COMPILED_ACROSS_RANKS`, keyed by the layout, the physics backend
-and the update path; :meth:`DataParallel.eager_reason`). Each collective
-issued while the current CUDA stream is capturing adds one to ``CAPTURED``
-(the graphs report how many each capture holds).
+has held against the eager iteration is compiled, keyed by graph
+(:meth:`DataParallel.eager_reason`): the collection by the layout, the
+physics backend and the policy net (:data:`COMPILED_COLLECTIONS`), the
+update, with the staging of its inputs, by the layout and the update path
+(:data:`COMPILED_UPDATES`). Each collective issued while the current CUDA
+stream is capturing adds one to ``CAPTURED`` (the graphs report how many
+each capture holds).
 """
 
 from __future__ import annotations
@@ -158,38 +160,57 @@ class DataParallel(_Group):
         dp, mp = self.world > 1, self.mp is not None and self.mp.world > 1
         return {(True, False): "dp", (False, True): "mp", (True, True): "dp x mp"}.get((dp, mp))
 
-    def eager_reason(self, physics: str, path: Optional[str] = None) -> Optional[str]:
+    def eager_reason(self, physics: str, net: Optional[str] = None, path: Optional[str] = None) -> Optional[str]:
         """Why a run over this rank's groups keeps its iteration (or, with
         ``path`` None, its env step) eager; None where the graphs capture
-        its collectives. ``physics``: the env's backend; ``path``: the
-        update's as ``OnPolicyRunner.rule_path`` names it. Every group must
-        be NCCL's, and across ranks only :data:`COMPILED_ACROSS_RANKS` is
-        compiled."""
+        its collectives. ``physics``: the env's backend; ``net``: the policy
+        net, ``"mlp"`` or ``"lstm"``; ``path``: the update's as
+        ``OnPolicyRunner.rule_path`` names it. Every group must be NCCL's,
+        and across ranks the collection must be in
+        :data:`COMPILED_COLLECTIONS` and the update in
+        :data:`COMPILED_UPDATES` (the env step alone: some held collection
+        of its layout and backend)."""
         backend = self.uncapturable_backend
         if backend is not None:
             return (f"data or tensor parallelism over {backend} (its collectives run on the host and "
                     "cannot be captured: only NCCL's can)")
         layout = self.layout
-        if layout is not None and (layout, physics, path) not in COMPILED_ACROSS_RANKS:
-            what = f"the {physics} physics backend" if path is None else f"{physics} on the {path} path"
-            return f"{_LAYOUT_WORDS[layout]} across ranks with {what}: {_NOT_HELD}"
+        if layout is None:
+            return None
+        words = _LAYOUT_WORDS[layout]
+        if path is None:
+            if not any(key[:2] == (layout, physics) for key in COMPILED_COLLECTIONS):
+                return f"{words} across ranks with the {physics} physics backend: {_NOT_HELD}"
+            return None
+        if (layout, physics, net) not in COMPILED_COLLECTIONS:
+            return f"{words} across ranks, the {net} policy's collection on {physics}: {_NOT_HELD}"
+        if (layout, path) not in COMPILED_UPDATES:
+            return f"{words} across ranks on the {path} path: {_NOT_HELD}"
         return None
 
 
-# Across ranks over NCCL, the runs whose compiled iteration a run on four
-# cards has held bit for bit against the eager one, with NCCL kernel nodes
-# in its graphs (tests/test_torch_graphs_nccl_cuda.py, chip_smoke.py phase
-# 22), as (layout, physics backend, update path), with path None for the env
-# step alone (its graph is a piece of the held collection). The path is
-# OnPolicyRunner.rule_path's: PPO's ("step" is the path a dp mesh selects
-# for an MLP policy without an extra loss term, "xla" the path of tensor
-# parallelism), "recurrent", and "+symmetry" where the symmetry loss is on.
-# Held: dp2 and dp4 on the step path, dp2 on the xla path, with the symmetry
-# loss, on the engine and on GR1T1_lstm; mp2 and dp2 x mp2 on the xla path.
-COMPILED_ACROSS_RANKS = frozenset({
-    ("dp", "kernel", None), ("dp", "kernel", "step"), ("dp", "kernel", "xla"), ("dp", "kernel", "xla+symmetry"),
-    ("dp", "kernel", "recurrent"), ("dp", "engine", None), ("dp", "engine", "step"),
-    ("mp", "kernel", None), ("mp", "kernel", "xla"), ("dp x mp", "kernel", None), ("dp x mp", "kernel", "xla"),
+# Across ranks over NCCL, the graphs a run on four cards has held bit for
+# bit against the eager iteration, with NCCL kernel nodes in them and a
+# planted fault caught (tests/test_torch_graphs_nccl_cuda.py, chip_smoke.py
+# phase 22; PERF.md names the world that holds each key). The collection
+# (the rollout, GAE) by (layout, physics backend, policy net): its
+# collectives are the env step's, GAE's and, under mp, the policy's
+# forward. The update with the staging of its inputs (the permutation's
+# broadcast, the global shuffle's gather, the pack) by (layout, path), the
+# path OnPolicyRunner.rule_path's: PPO's ("step" is the path a dp mesh
+# selects for an MLP policy without an extra loss term, "xla" the path of
+# tensor parallelism), "recurrent", "+symmetry" where the symmetry loss is
+# on, "+global" under the global shuffle.
+COMPILED_COLLECTIONS = frozenset({
+    ("dp", "kernel", "mlp"), ("dp", "kernel", "lstm"), ("dp", "engine", "mlp"), ("dp", "engine", "lstm"),
+    ("mp", "kernel", "mlp"), ("mp", "kernel", "lstm"), ("mp", "engine", "mlp"),
+    ("dp x mp", "kernel", "mlp"), ("dp x mp", "kernel", "lstm"), ("dp x mp", "engine", "mlp"),
+})
+COMPILED_UPDATES = frozenset({
+    ("dp", "step"), ("dp", "xla"), ("dp", "xla+symmetry"), ("dp", "recurrent"),
+    ("dp", "mega+global"), ("dp", "step+global"), ("dp", "xla+global"), ("dp", "recurrent+global"),
+    ("mp", "xla"), ("mp", "xla+symmetry"), ("mp", "recurrent"),
+    ("dp x mp", "xla"), ("dp x mp", "xla+symmetry"), ("dp x mp", "recurrent"),
 })
 _LAYOUT_WORDS = {"dp": "data parallelism", "mp": "tensor parallelism", "dp x mp": "data and tensor parallelism"}
 _NOT_HELD = "its graphs are not yet held against the eager iteration on several cards"

@@ -54,6 +54,23 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(seed) + int(rank) * RANK_SEED_STRIDE
 
 
+def gather_envs(dp, tensors):
+    """Every dp rank's ``tensors``, each (T, n, ...) or (L, n, ...) with
+    this rank's n envs on dim 1, joined along dim 1 in global env order
+    (:func:`shard_bounds`: rank r's envs after rank r - 1's), what XLA
+    moves across devices for JAX's global shuffle. One all-gather of one
+    float32 buffer packing every tensor (bool and float32 tensors come back
+    bit for bit). Returns the joined tensors, each in its own dtype."""
+    packed = torch.cat([x.reshape(-1).to(torch.float32) for x in tensors])
+    parts = dp.all_gather(packed)   # (world, packed size), in dp rank order
+    out, off = [], 0
+    for x in tensors:
+        n = x.numel()
+        out.append(torch.cat(parts[:, off: off + n].unflatten(1, x.shape).unbind(0), dim=1).to(x.dtype))
+        off += n
+    return out
+
+
 def shard_env_state(tree, lo: int, hi: int, num_envs: int):
     """``tree`` (a dataclass, named tuple, tuple or dict of tensors, as the
     env and runner states are) with every tensor whose leading dimension is

@@ -18,12 +18,14 @@ envs and all-reducing the gradient once a grad step:
 
 Over NCCL (the default on GPUs) the iteration is compiled: CUDA graph
 replays with the collectives captured (``learn/graphs.py``). Across ranks
-that holds for what runs on several cards have held against the eager
-iteration (``parallel/mesh.COMPILED_ACROSS_RANKS``): data parallelism with
-K1 on the step and xla paths, with the symmetry loss and on GR1T1_lstm,
-on the engine (``use_pallas = False``) on the step path, and tensor
-parallelism (``--num_mp``, alone or under dp) on the xla path. Over gloo,
-and for any other layout, backend or path across ranks, it runs eagerly
+that holds for the graphs that runs on several cards have held against the
+eager iteration (``parallel/mesh.COMPILED_COLLECTIONS`` and
+``COMPILED_UPDATES``): data parallelism (``--num_mp`` 1) on K1 and on the
+engine (``use_pallas = False``), with the MLP or the LSTM, on the step,
+xla, symmetry and recurrent paths and under the global shuffle; tensor
+parallelism (alone or under dp) on the xla path, with the symmetry loss
+and on the LSTM, on K1 and, with the MLP, on the engine. Over gloo, and
+for any other combination across ranks, it runs eagerly
 (``OnPolicyRunner.eager_reason``). ``learn`` prints which, and the update
 path, before the first iteration.
 
@@ -38,7 +40,10 @@ the environment, and ``--num_mp`` > 1, are refused. Unlike JAX's CLI, which
 sets ``runner.mesh`` after building the runner (so its PPO keeps
 ``perm_groups = 1`` and its flat optimizer), the mesh here is built before
 the runner and passed at construction: ``permutation_groups = 0`` resolves
-to the dp group's size, and under mp PPO takes the xla path.
+to the dp group's size, and under mp PPO takes the xla path. JAX's CLI run,
+the reference's global shuffle across ranks, is ``algorithm.permutation_groups
+= 1`` (``learn/ppo.py``'s global shuffle: each rank updates on the gathered
+global batch, on the kernels' paths).
 """
 
 from __future__ import annotations

@@ -387,8 +387,18 @@ together after phase 9):
    mega path (K3), on the step path (K2) and on GR1T1_lstm on the engine,
    with four dp4 with ``permutation_groups = 2`` on the xla path; mp2 (two
    cards) and dp2 x mp2 (four) with the symmetry loss on the engine and on
-   GR1T1_lstm (the engine and LSTM worlds at 16 steps an env): together
-   every key of ``mesh.COMPILED_COLLECTIONS`` and ``COMPILED_UPDATES``.
+   GR1T1_lstm (the engine and LSTM worlds at 16 steps an env); (e) the
+   last runs JAX jits across ranks: with two cards dp2
+   ``permutation_groups = 1`` with the symmetry loss, dp2 GR1T1_lstm with
+   the symmetry loss (alone and under the global shuffle) and mp2
+   GR1T1_lstm with the symmetry loss on the engine, with four dp2 x mp2
+   ``permutation_groups = 1`` on the xla path (JAX's own CLI run, ``train
+   --num_mp 2`` on four devices), with the symmetry loss, on GR1T1_lstm on
+   the engine and on GR1T1_lstm with the symmetry loss, and dp2 x mp2
+   GR1T1_lstm with the symmetry loss; and at one rank GR1T1_lstm with the
+   symmetry loss (the recurrent mirror loss's update graph), run only
+   under ``--phase22``: together every key of ``mesh.COMPILED_COLLECTIONS``
+   and ``COMPILED_UPDATES``.
    Each rank: the rule compiles it;
    ``_train_iter`` calls against eager iterations with injected draws and
    with generator draws, bit for bit; each graph's nodes by kind (NCCL's
@@ -410,7 +420,9 @@ together after phase 9):
    permutation, within ``GLOBAL_TOL``, its one all-gather captured in the
    graph that stages the update, and the planted fault is that batch
    gathered in rotated rank order (every rank's slice one place late: the
-   ranks stay equal to each other), which must fail that check. Each world ends
+   ranks stay equal to each other), which must fail that check (under dp
+   x mp the global shuffle's worlds plant both faults, the rotation
+   first). Each world ends
    within its own deadline or its ranks are killed and the phase fails
    naming where each rank stopped; one world's failure does not stop the
    next. Prints the worlds run, ``nccl_cards`` and what was skipped for
@@ -4751,6 +4763,33 @@ NCCL_WORLDS = {
                                          device_profile=False),
     "dp2_mp2_lstm": NcclWorld("d", 4, num_mp=2, task="GR1T1_lstm", steps=16, deadline_s=480.0,
                               device_profile=False),
+    # (e) the last runs JAX jits across ranks: the global shuffle with the
+    # symmetry loss and under dp x mp (dp2_mp2_global_xla is JAX's own CLI
+    # run, `train --num_mp 2` on four devices), the LSTM with the symmetry
+    # loss, mp on the engine with the LSTM; and the recurrent mirror loss's
+    # update graph in one process
+    "dp2_global_symmetry": NcclWorld("e", 2, alg={"permutation_groups": 1, "symmetry_coef": SYMMETRY_COEF}),
+    "dp2_lstm_symmetry": NcclWorld("e", 2, task="GR1T1_lstm", alg={"symmetry_coef": SYMMETRY_COEF}, steps=16,
+                                   deadline_s=480.0, device_profile=False),
+    "dp2_global_lstm_symmetry": NcclWorld("e", 2, task="GR1T1_lstm",
+                                          alg={"permutation_groups": 1, "symmetry_coef": SYMMETRY_COEF},
+                                          steps=16, deadline_s=480.0, device_profile=False),
+    "mp2_lstm_symmetry_engine": NcclWorld("e", 2, num_mp=2, task="GR1T1_lstm", alg={"symmetry_coef": SYMMETRY_COEF},
+                                          sim={"use_pallas": False}, steps=16, deadline_s=600.0,
+                                          device_profile=False),
+    "dp2_mp2_global_xla": NcclWorld("e", 4, num_mp=2, alg={"permutation_groups": 1}),
+    "dp2_mp2_global_symmetry": NcclWorld("e", 4, num_mp=2,
+                                         alg={"permutation_groups": 1, "symmetry_coef": SYMMETRY_COEF}),
+    "dp2_mp2_global_lstm_engine": NcclWorld("e", 4, num_mp=2, task="GR1T1_lstm", alg={"permutation_groups": 1},
+                                            sim={"use_pallas": False}, steps=16, deadline_s=600.0,
+                                            device_profile=False),
+    "dp2_mp2_lstm_symmetry": NcclWorld("e", 4, num_mp=2, task="GR1T1_lstm", alg={"symmetry_coef": SYMMETRY_COEF},
+                                       steps=16, deadline_s=480.0, device_profile=False),
+    "dp2_mp2_global_lstm_symmetry": NcclWorld("e", 4, num_mp=2, task="GR1T1_lstm",
+                                              alg={"permutation_groups": 1, "symmetry_coef": SYMMETRY_COEF},
+                                              steps=16, deadline_s=480.0, device_profile=False),
+    "world1_lstm_symmetry": NcclWorld("e", 1, task="GR1T1_lstm", alg={"symmetry_coef": SYMMETRY_COEF}, steps=16,
+                                      deadline_s=420.0, device_profile=False),
 }
 # (d): the gathered update against the one-process update of the true global
 # batch (its own all-gather into a list, the same permutation): the largest L2
@@ -4803,10 +4842,15 @@ def global_check(runner, dp, before, hidden0, last, perm, after):
 
     from wiki_grx_gym_tpu_torch.learn.ppo import PPO
     from wiki_grx_gym_tpu_torch.learn.recurrent import Hidden
+    from wiki_grx_gym_tpu_torch.parallel.mesh import DataParallel
 
     alg = runner.alg
+    # under dp x mp the one-process update of the rank's shard: a dp view of
+    # one rank that carries this rank's mp view (its collectives over the mp
+    # group, which every mp peer runs alike)
+    one = None if dp.mp is None else DataParallel(world=1, rank=0, device=dp.device, mp=dp.mp, backend=dp.backend)
     ref = PPO(runner.net, runner.alg_cfg, extra_loss_fn=alg.extra_loss_fn, perm_groups=alg.perm_groups,
-              shuffle_block=alg.shuffle_block)
+              shuffle_block=alg.shuffle_block, dp=one)
     perm = dp.broadcast(perm.clone())
     b = last["batch"]
     k = len(b)
@@ -5006,6 +5050,7 @@ def nccl_worker(rank, world, init_method, out_dir, name):
         stage("the planted fault")
         runner.compiled = None
         gc.collect()
+        faults = []   # under dp x mp with the global shuffle two, planted in turn
         if world == 1:
             stale = {}
             orig_body, orig_sums = CompiledIteration._collection_body, runner.global_sums
@@ -5030,9 +5075,9 @@ def nccl_worker(rank, world, init_method, out_dir, name):
             finally:
                 CompiledIteration._collection_body = orig_body
                 runner.global_sums = orig_sums
-            res["fault"] = {"plant": "the metric sums' all-reduce captured ahead of the collection that writes "
-                                     "them", "differing": d, "caught": bool(d)}
-        elif gathered:
+            faults.append({"plant": "the metric sums' all-reduce captured ahead of the collection that writes "
+                                    "them", "differing": d, "caught": bool(d)})
+        if gathered:
             # every rank's slice one place late in the gathered batch: the
             # ranks stay equal to each other, so only the check against the
             # one-process update of the true global batch can see it
@@ -5046,9 +5091,11 @@ def nccl_worker(rank, world, init_method, out_dir, name):
                 got = global_check(runner, dp, *before, runner.compiled.last, ref0["draws"]["perm"], s_p.ppo)
             finally:
                 sharding.gather_envs = orig_gather
-            res["fault"] = {"plant": "the gathered batch in rotated rank order (each rank's slice one place late)",
-                            "global_check": got, "caught": got["share"] > GLOBAL_TOL and not got["equal_bits"]}
-        else:
+            faults.append({"plant": "the gathered batch in rotated rank order (each rank's slice one place late)",
+                           "global_check": got, "caught": got["share"] > GLOBAL_TOL and not got["equal_bits"]})
+        if world > 1 and (not gathered or w.num_mp > 1):
+            runner.compiled = None
+            gc.collect()
             if w.num_mp == 1:
                 plant = "rank 1's update graph with PPO.reduce's result dropped (the all-reduce still issued)"
                 if dp.rank == 1:
@@ -5066,7 +5113,9 @@ def nccl_worker(rank, world, init_method, out_dir, name):
                     runner.learn(1)
             except RuntimeError as e:
                 caught, why = "differ" in str(e), str(e)[:300]
-            res["fault"] = {"plant": plant, "caught": caught, "error": why}
+            faults.append({"plant": plant, "caught": caught, "error": why})
+        res["fault"] = {k: v for f in faults for k, v in f.items()}
+        res["fault"].update(plant="; then ".join(f["plant"] for f in faults), caught=all(f["caught"] for f in faults))
         res["seconds"] = time.perf_counter() - t_w
         with open(os.path.join(out_dir, f"{name}_rank{rank}.json"), "w") as fh:
             json.dump(res, fh, default=str)
@@ -5135,7 +5184,7 @@ def nccl_phase(dev, only=None):
             log(f"[{tag}] rank {r['rank']}: graph nodes {json.dumps(r['nodes'])}; collectives captured "
                 + json.dumps({g['name']: g.get('collectives') for g in r['graphs']}))
             fault = r["fault"]
-            seen = fault.get("differing", fault.get("error", fault.get("global_check", "")))
+            seen = {k: fault[k] for k in ("differing", "error", "global_check") if k in fault}
             log(f"[{tag}] rank {r['rank']}: one graphed iteration's profile {json.dumps(r['profile'])}; "
                 f"learn(1) {r['learn_lines']}; digests {r['digests']}; planted: {fault['plant']}: caught "
                 f"{fault['caught']} {seen}; {r['seconds']:.1f} s")
@@ -5497,7 +5546,8 @@ def main():
     # ---- phase 22: the compiled iteration over NCCL (world 1; dp2 where cards allow) ----
     gc.collect()
     torch.cuda.empty_cache()
-    nccl = nccl_phase(dev)
+    # parts (a)-(d); part (e) runs only under --phase22
+    nccl = nccl_phase(dev, only=[name for name, w in NCCL_WORLDS.items() if w.part != "e"])
     phase_done("phase 22")
 
     k2_row, k3_row = ppo_rows

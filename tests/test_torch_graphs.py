@@ -165,12 +165,12 @@ def test_rule_per_variant(variant):
     # gloo's collectives run on the host: only NCCL's are captured, and
     # across ranks what mesh.COMPILED_COLLECTIONS and COMPILED_UPDATES admit
     # (the runner is built in one process: mp_nccl keeps the mega path,
-    # which they do not; the global shuffle with the symmetry loss is not held)
+    # which they do not)
     want = {"dp": "parallelism over gloo", "mp": "parallelism over gloo", "dp_nccl": None,
             "mp_nccl": "tensor parallelism across ranks on the mega path",
             "symmetry": None, "step_path": None, "xla_path": None, "engine": None, "lanes": "'lanes'",
             "bf16": None, "fused_trunk": None, "dp_nccl_global": None,
-            "dp_nccl_symmetry_global": "on the xla+symmetry+global path", "mp_nccl_symmetry": None,
+            "dp_nccl_symmetry_global": None, "mp_nccl_symmetry": None,
             "mp_nccl_engine_xla": None}[variant]
     assert (reason is None) if want is None else (want in reason), (variant, reason)
     # the env step's rule: K1 or the engine on a CUDA device, dp and mp

@@ -22,7 +22,14 @@
   with ``permutation_groups = 1`` on the mega path (K3 over the gathered
   batch), on the step path and on GR1T1_lstm on the engine, dp4 with
   ``permutation_groups = 2`` on the xla path; mp2 and, on four cards,
-  dp2 x mp2 with the symmetry loss on the engine and on GR1T1_lstm. Each
+  dp2 x mp2 with the symmetry loss on the engine and on GR1T1_lstm; dp2
+  with ``permutation_groups = 1`` and the symmetry loss, dp2 GR1T1_lstm
+  with the symmetry loss alone and under the global shuffle, mp2
+  GR1T1_lstm with the symmetry loss on the engine, and on four cards dp2
+  x mp2 with ``permutation_groups = 1`` on the xla path (JAX's own CLI
+  run, ``train --num_mp 2`` on four devices), with the symmetry loss, on
+  GR1T1_lstm on the engine and on GR1T1_lstm with the symmetry loss, and
+  dp2 x mp2 GR1T1_lstm with the symmetry loss. Each
   rank is compiled (``eager_reason`` None), bit for bit against its eager
   iteration over three calls, its collection and update graphs hold NCCL
   kernel nodes (the gather's among them under the global shuffle), and
@@ -61,7 +68,8 @@ PATHS = {"mega": {}, "xla": {"fused_update": False}, "step": {"fused_mega": Fals
          "symmetry": {"symmetry_coef": 0.5},
          # the global shuffle: permutation_groups that the dp group does not divide
          "mega_global": {"permutation_groups": 1}, "step_global": {"permutation_groups": 1, "fused_mega": False},
-         "groups2": {"permutation_groups": 2}}
+         "groups2": {"permutation_groups": 2},
+         "symmetry_global": {"permutation_groups": 1, "symmetry_coef": 0.5}}
 
 
 def _need_cards(n):
@@ -182,6 +190,18 @@ ACROSS = {
     "dp4_global_xla": ("GR1T1", 1, "groups2", None, 4),
     "dp2_mp2_symmetry_engine": ("GR1T1", 2, "symmetry", {"use_pallas": False}, 4),
     "dp2_mp2_lstm": ("GR1T1_lstm", 2, "mega", None, 4),
+    # the global shuffle with the symmetry loss and under dp x mp
+    # (dp2_mp2_global_xla: JAX's own CLI run on a dp x mp mesh), the LSTM with
+    # the symmetry loss, mp on the engine with the LSTM
+    "dp2_global_symmetry": ("GR1T1", 1, "symmetry_global", None, 2),
+    "dp2_lstm_symmetry": ("GR1T1_lstm", 1, "symmetry", None, 2),
+    "dp2_global_lstm_symmetry": ("GR1T1_lstm", 1, "symmetry_global", None, 2),
+    "mp2_lstm_symmetry_engine": ("GR1T1_lstm", 2, "symmetry", {"use_pallas": False}, 2),
+    "dp2_mp2_global_xla": ("GR1T1", 2, "mega_global", None, 4),
+    "dp2_mp2_global_symmetry": ("GR1T1", 2, "symmetry_global", None, 4),
+    "dp2_mp2_global_lstm_engine": ("GR1T1_lstm", 2, "mega_global", {"use_pallas": False}, 4),
+    "dp2_mp2_lstm_symmetry": ("GR1T1_lstm", 2, "symmetry", None, 4),
+    "dp2_mp2_global_lstm_symmetry": ("GR1T1_lstm", 2, "symmetry_global", None, 4),
 }
 
 

@@ -13,16 +13,19 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     both are None, on K1 and on the engine, on every update path (mega,
     step, xla, the symmetry loss, the recurrent update). The CPU and the
     ``"lanes"`` backend keep their reasons. Across ranks over NCCL (views
-    of two ranks, no group needed to read the rule) the rule compiles the
-    graphs runs on several cards have held (``mesh.COMPILED_COLLECTIONS``
-    by layout, physics and policy net; ``mesh.COMPILED_UPDATES`` by layout
-    and path): dp on K1 and on the engine, with the MLP and the LSTM, on the
-    step, xla, symmetry and recurrent paths and under the global shuffle
-    (``permutation_groups = 1``: ``"+global"``) on the mega, step, xla and
-    recurrent paths; mp on K1 on the xla, symmetry and recurrent paths and
-    on the engine with the MLP; everything else (the global shuffle with the
-    symmetry loss, mp's mega and step paths, which a mesh never selects, mp
-    on the engine with the LSTM) keeps a reason naming what is not held.
+    of two ranks, four at dp2 x mp2, no group needed to read the rule) the
+    rule compiles the graphs runs on several cards have held
+    (``mesh.COMPILED_COLLECTIONS`` by layout, physics and policy net;
+    ``mesh.COMPILED_UPDATES`` by layout and path): dp, mp and dp x mp on
+    K1 and on the engine, with the MLP and the LSTM, on every path a mesh
+    selects, with and without the symmetry loss and the global shuffle
+    (``permutation_groups = 1``: ``"+global"``); only the ``"lanes"``
+    backend and mp's mega and step paths (which a mesh never selects: an
+    mp view set after a one-process build keeps them) keep a reason. A walk
+    over every config knob that picks the path (the task, the physics
+    backend, ``permutation_groups`` 0, 1 and 4, the kernel switches, the
+    symmetry loss), each built as a mesh builds it, compiles everywhere and
+    reaches every key of both sets.
 (b) Bit for bit: two spawned gloo ranks, the rule opened as (a) opens it
     (the eager reason left is the CPU's; a case is held here before a run
     on several cards may admit it to the rule), the CUDA graphs stood in
@@ -45,8 +48,17 @@ collectives a CUDA graph captures; gloo's run on the host and cannot be.
     engine; mp with the symmetry loss, the LSTM and the engine in
     tests/test_torch_graphs_parallel_mp.py: mp2 with the symmetry loss on
     the engine, mp2 on GR1T1_lstm, and the same two at dp2 x mp2 over four
-    ranks. The ranks end with bit-identical learner states (their
-    digests).
+    ranks; the last runs JAX jits across ranks in
+    tests/test_torch_graphs_parallel_last.py (dp2 ``permutation_groups =
+    1`` with the symmetry loss, dp2 GR1T1_lstm with the symmetry loss alone
+    and under the global shuffle, mp2 GR1T1_lstm with the symmetry loss on
+    the engine, and GR1T1_lstm with the symmetry loss over one rank),
+    tests/test_torch_mesh_compiled_global.py (dp2 x mp2
+    ``permutation_groups = 1`` on the xla path, JAX's CLI run on a dp x mp
+    mesh, with the symmetry loss and on GR1T1_lstm on the engine) and
+    tests/test_torch_mesh_compiled_lstm.py (dp2 x mp2 GR1T1_lstm
+    with the symmetry loss, alone and under the global shuffle). The ranks
+    end with bit-identical learner states (their digests).
 (c) Hygiene: on each rank the host-traffic recorder of
     tests/test_torch_graphs.py records nothing during a third compiled
     iteration (every graph's body run again): the collection with the
@@ -137,8 +149,30 @@ CASES = {
     "dp2_mp2_symmetry_engine": ("GR1T1", _env(True, sim__use_pallas=False, commands__curriculum=True),
                                 _train(hidden=(32, 16, 8), symmetry_coef=0.5), 2, "xla"),
     "dp2_mp2_lstm": ("GR1T1_lstm", _env(), _train(hidden=(32, 16, 8)), 2, "recurrent"),
+    # the global shuffle with the symmetry loss and under dp x mp (JAX's CLI
+    # run on a mesh: permutation_groups 1), the LSTM with the symmetry loss,
+    # mp on the engine with the LSTM, the recurrent mirror loss in one process
+    "dp2_global_symmetry": ("GR1T1", _env(), _train(permutation_groups=1, symmetry_coef=0.5), 1, "xla"),
+    "dp2_lstm_symmetry": ("GR1T1_lstm", _env(), _train(symmetry_coef=0.5), 1, "recurrent"),
+    "dp2_global_lstm_symmetry": ("GR1T1_lstm", _env(), _train(permutation_groups=1, symmetry_coef=0.5), 1,
+                                 "recurrent"),
+    "mp2_lstm_symmetry_engine": ("GR1T1_lstm", _env(sim__use_pallas=False),
+                                 _train(hidden=(32, 16, 8), symmetry_coef=0.5), 2, "recurrent"),
+    "dp2_mp2_global_xla": ("GR1T1", _env(True, commands__curriculum=True),
+                           _train(hidden=(32, 16, 8), permutation_groups=1), 2, "xla"),
+    "dp2_mp2_global_symmetry": ("GR1T1", _env(), _train(hidden=(32, 16, 8), permutation_groups=1,
+                                                       symmetry_coef=0.5), 2, "xla"),
+    "dp2_mp2_global_lstm_engine": ("GR1T1_lstm", _env(True, sim__use_pallas=False, commands__curriculum=True),
+                                   _train(hidden=(32, 16, 8), permutation_groups=1), 2, "recurrent"),
+    "dp2_mp2_lstm_symmetry": ("GR1T1_lstm", _env(), _train(hidden=(32, 16, 8), symmetry_coef=0.5), 2,
+                              "recurrent"),
+    "dp2_mp2_global_lstm_symmetry": ("GR1T1_lstm", _env(), _train(hidden=(32, 16, 8), permutation_groups=1,
+                                                                symmetry_coef=0.5), 2, "recurrent"),
+    "world1_lstm_symmetry": ("GR1T1_lstm", _env(), _train(symmetry_coef=0.5), 1, "recurrent"),
 }
-WORLDS = {"dp2_mp2_xla": 4, "dp4_global_xla": 4, "dp2_mp2_symmetry_engine": 4, "dp2_mp2_lstm": 4}
+WORLDS = {"dp2_mp2_xla": 4, "dp4_global_xla": 4, "dp2_mp2_symmetry_engine": 4, "dp2_mp2_lstm": 4,
+          "dp2_mp2_global_xla": 4, "dp2_mp2_global_symmetry": 4, "dp2_mp2_global_lstm_engine": 4,
+          "dp2_mp2_lstm_symmetry": 4, "dp2_mp2_global_lstm_symmetry": 4, "world1_lstm_symmetry": 1}
 
 
 def build(task, env_mutate, train_mutate, n=N_ENVS, dp=None):
@@ -204,6 +238,11 @@ RULE_CONFIGS = {
     "xla_global": ("GR1T1", _env(), _train(permutation_groups=1, fused_update=False)),
     "symmetry_global": ("GR1T1", _env(), _train(permutation_groups=1, symmetry_coef=0.5)),
     "recurrent_global": ("GR1T1_lstm", _env(), _train(permutation_groups=1)),
+    # the LSTM with the symmetry loss (make_mirror_loss_recurrent), alone and
+    # under the global shuffle; the LSTM on the engine under the global shuffle
+    "recurrent_symmetry": ("GR1T1_lstm", _env(), _train(symmetry_coef=0.5)),
+    "recurrent_symmetry_global": ("GR1T1_lstm", _env(), _train(permutation_groups=1, symmetry_coef=0.5)),
+    "engine_recurrent_global": ("GR1T1_lstm", _env(sim__use_pallas=False), _train(permutation_groups=1)),
 }
 
 
@@ -231,54 +270,111 @@ def test_rule_reads_the_groups_backend(one_rank_gloo, config, backend, layout):
 
 
 # (layout, config): whether the runner's iteration and the env's step are
-# compiled with a view of two ranks over NCCL on the card. dp2 builds with
-# the view (a dp mesh turns the mega path off: the MLP configs without an
-# extra loss term, the engine's too, take the step path there; with
-# permutation_groups = 1 the global shuffle keeps the one-process rule);
-# mp2 sets the mp view after a one-process build, so each config keeps its
-# own path (the mega and step paths are not paths of tensor parallelism,
-# and one process has no global shuffle)
+# compiled with a view of two ranks (four at dp2 x mp2) over NCCL on the
+# card. dp2 builds with the view (a dp mesh turns the mega path off: the MLP
+# configs without an extra loss term, the engine's too, take the step path
+# there; with permutation_groups = 1 the global shuffle keeps the
+# one-process rule), and so does dp2 x mp2 (hidden (32, 16, 8): every MLP
+# config takes the xla path, as under mp); mp2 sets the mp view after a
+# one-process build, so each config keeps its own path (the mega and step
+# paths are not paths of tensor parallelism, and one process has no global
+# shuffle). Across ranks over NCCL only the "lanes" backend and the paths
+# a mesh never selects keep a reason.
+_ALL = {config: (True, True) for config in RULE_CONFIGS}
+_ALL["lanes"] = (False, False)
 ACROSS_RANKS = {
-    "dp2": {"mega": (True, True), "step": (True, True), "xla": (True, True), "symmetry": (True, True),
-            "recurrent": (True, True), "engine": (True, True), "lanes": (False, False),
-            "engine_xla": (True, True), "engine_symmetry": (True, True), "engine_recurrent": (True, True),
-            "mega_global": (True, True), "step_global": (True, True), "xla_global": (True, True),
-            "symmetry_global": (False, True), "recurrent_global": (True, True)},
-    "mp2": {"mega": (False, True), "step": (False, True), "xla": (True, True), "symmetry": (True, True),
-            "recurrent": (True, True), "engine": (False, True), "lanes": (False, False),
-            "engine_xla": (True, True), "engine_symmetry": (True, True), "engine_recurrent": (False, True),
-            "mega_global": (False, True), "step_global": (False, True), "xla_global": (True, True),
-            "symmetry_global": (True, True), "recurrent_global": (True, True)},
+    "dp2": dict(_ALL),
+    "mp2": {**_ALL, "mega": (False, True), "step": (False, True), "engine": (False, True),
+            "mega_global": (False, True), "step_global": (False, True)},
+    "dp2_mp2": dict(_ALL),
 }
 # (layout, config): the words of the reason where the rule keeps it eager
-UNHELD = {("dp2", "symmetry_global"): "on the xla+symmetry+global path",
-          ("mp2", "mega"): "on the mega path", ("mp2", "engine"): "on the mega path",
-          ("mp2", "engine_recurrent"): "the lstm policy's collection on engine"}
+UNHELD = {("mp2", "mega"): "on the mega path", ("mp2", "engine"): "on the mega path",
+          ("mp2", "step"): "on the step path", ("mp2", "mega_global"): "on the mega path",
+          ("mp2", "step_global"): "on the step path"}
+LAYOUT_WORDS = {"dp2": "data parallelism across ranks", "mp2": "tensor parallelism across ranks",
+                "dp2_mp2": "data and tensor parallelism across ranks"}
 
 
-@pytest.mark.parametrize("layout", ["dp2", "mp2"])
+def views_over_nccl(layout, rank=0):
+    """This rank's dp view (with its mp view) of ``layout`` over NCCL, made
+    without a group (the rule reads only the views)."""
+    dev = torch.device("cpu")
+    num_mp = 2 if "mp2" in layout else 1
+    tp = mesh.TensorParallel(world=2, rank=rank % 2, device=dev, backend="nccl") if num_mp > 1 else None
+    world = 2 if layout.startswith("dp2") else 1
+    return mesh.DataParallel(world=world, rank=rank // num_mp, device=dev, mp=tp, backend="nccl")
+
+
+@pytest.mark.parametrize("layout", ["dp2", "mp2", "dp2_mp2"])
 @pytest.mark.parametrize("config", sorted(RULE_CONFIGS))
 def test_rule_across_ranks_over_nccl(config, layout):
-    dev = torch.device("cpu")
-    tp = mesh.TensorParallel(world=2, rank=0, device=dev, backend="nccl") if layout == "mp2" else None
-    dp = mesh.DataParallel(world=2 if layout == "dp2" else 1, rank=0, device=dev, mp=tp, backend="nccl")
-    assert dp.uncapturable_backend is None and dp.layout == layout[:2]
+    dp = views_over_nccl(layout)
+    assert dp.uncapturable_backend is None and dp.layout == {"dp2": "dp", "mp2": "mp", "dp2_mp2": "dp x mp"}[layout]
     task, env_mutate, train_mutate = RULE_CONFIGS[config]
-    # the mp view is set after the build: (32, 32) cannot be split in two
-    # (the critic's output layer has width 1)
-    env, runner = build(task, env_mutate, train_mutate, n=8, dp=dp if layout == "dp2" else None)
-    runner.dp = env.dp = dp
+    if layout == "dp2_mp2":
+        # built with the views: the net split in two ((32, 32) cannot be:
+        # the critic's output layer has width 1)
+        env, runner = build(task, env_mutate, lambda t: (train_mutate(t), _train(hidden=(32, 16, 8))(t)), n=8,
+                            dp=dp)
+    else:
+        # the mp view is set after the build
+        env, runner = build(task, env_mutate, train_mutate, n=8, dp=dp if layout == "dp2" else None)
+        runner.dp = env.dp = dp
     reason, step_reason = as_on_card(env, runner)
     compiled, step_graphed = ACROSS_RANKS[layout][config]
     assert (reason is None) == compiled and (step_reason is None) == step_graphed, (reason, step_reason)
-    words = {"dp2": "data parallelism across ranks", "mp2": "tensor parallelism across ranks"}[layout]
     if config == "lanes":
         assert "'lanes'" in reason and "'lanes'" in step_reason
     else:
         for why in (reason, step_reason):
-            assert why is None or (words in why and "not yet held" in why), why
+            assert why is None or (LAYOUT_WORDS[layout] in why and "not yet held" in why), why
     if (layout, config) in UNHELD:
         assert UNHELD[layout, config] in reason, reason
+
+
+# every config knob that picks the update's path or the collection's graph:
+# the task (the policy net), the physics backend, permutation_groups (0
+# resolves to the dp group's size; 1 and 4 against dp2: the global shuffle
+# and a multiple of the group), the kernel paths' switches and the symmetry
+# loss
+WALK_TASKS = ("GR1T1", "GR1T1_lstm")
+WALK_PHYSICS = {"kernel": {}, "engine": {"sim__use_pallas": False}}
+WALK_GROUPS = (0, 1, 4)
+WALK_ALG = {"default": {}, "step": {"fused_mega": False}, "xla": {"fused_update": False},
+            "symmetry": {"symmetry_coef": 0.5}}
+
+
+@pytest.mark.parametrize("layout", ["dp2", "mp2", "dp2_mp2"])
+def test_every_selectable_combination_across_ranks_compiles(layout):
+    """Over NCCL across ranks, every (layout, physics, policy net, update
+    path) a mesh selects compiles: each config of the walk, built with the
+    layout's views as a mesh builds it, has ``eager_reason`` None on the
+    card (and so does its env step), and the walk reaches every key of
+    ``mesh.COMPILED_COLLECTIONS`` and ``COMPILED_UPDATES`` of the layout. A
+    key missing from the rule fails here rather than leaving its runs
+    eager. Kept out of the walk: the ``"lanes"`` backend (K1's plain
+    version; test_rule_across_ranks_over_nccl holds its reason) and gloo
+    (test_rule_reads_the_groups_backend)."""
+    dp = views_over_nccl(layout)
+    hidden = (32, 16, 8) if "mp2" in layout else (32, 32)
+    # permutation_groups 1 and 4 are the same path as the group's own at mp2 (no dp group)
+    groups = WALK_GROUPS if layout != "mp2" else (0,)
+    seen = set()
+    for task in WALK_TASKS:
+        for physics, sim in WALK_PHYSICS.items():
+            for pg in groups:
+                for alg in WALK_ALG.values():
+                    env, runner = build(task, _env(**sim), _train(hidden=hidden, permutation_groups=pg, **alg),
+                                        n=8, dp=dp)
+                    reason, step_reason = as_on_card(env, runner)
+                    combo = (dp.layout, env.backend, "lstm" if runner.recurrent else "mlp", runner.rule_path)
+                    assert reason is None and step_reason is None, (combo, reason, step_reason)
+                    seen.add(combo)
+    collections = {c for c in mesh.COMPILED_COLLECTIONS if c[0] == dp.layout}
+    updates = {u for u in mesh.COMPILED_UPDATES if u[0] == dp.layout}
+    assert {c[:3] for c in seen} == collections, sorted(collections - {c[:3] for c in seen})
+    assert {(c[0], c[3]) for c in seen} == updates, sorted(updates ^ {(c[0], c[3]) for c in seen})
 
 
 def test_a_capture_holds_the_garbage_collector():
@@ -422,7 +518,9 @@ def record_collectives(mp):
 
 
 def case_worker(rank, world, init, name, out_dir):
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # one thread a rank: at these sizes more threads make no case faster,
+    # and the spawned ranks of several test files share the machine's cores
+    torch.set_num_threads(1)
     from test_torch_graphs import host_traffic, stand_in_graphs
 
     task, env_mutate, train_mutate, num_mp, path = CASES[name]
@@ -500,7 +598,7 @@ def check_case(ranks, name):
     # replicated leaves and env states equal)
     for res in ranks:
         assert len(res["digests"]) == len(ranks) // num_mp and len(set(res["digests"].tolist())) == 1
-    if num_mp == 1:
+    if num_mp == 1 and len(ranks) > 1:
         assert torch.equal(ranks[0]["digests"], ranks[1]["digests"])
 
 

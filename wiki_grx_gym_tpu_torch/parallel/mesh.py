@@ -200,17 +200,23 @@ class DataParallel(_Group):
 # path OnPolicyRunner.rule_path's: PPO's ("step" is the path a dp mesh
 # selects for an MLP policy without an extra loss term, "xla" the path of
 # tensor parallelism), "recurrent", "+symmetry" where the symmetry loss is
-# on, "+global" under the global shuffle.
+# on, "+global" under the global shuffle. Together the two sets hold every
+# combination a mesh over NCCL selects (a mesh never selects mp's mega and
+# step paths): across ranks only the "lanes" backend and gloo stay eager.
 COMPILED_COLLECTIONS = frozenset({
     ("dp", "kernel", "mlp"), ("dp", "kernel", "lstm"), ("dp", "engine", "mlp"), ("dp", "engine", "lstm"),
-    ("mp", "kernel", "mlp"), ("mp", "kernel", "lstm"), ("mp", "engine", "mlp"),
+    ("mp", "kernel", "mlp"), ("mp", "kernel", "lstm"), ("mp", "engine", "mlp"), ("mp", "engine", "lstm"),
     ("dp x mp", "kernel", "mlp"), ("dp x mp", "kernel", "lstm"), ("dp x mp", "engine", "mlp"),
+    ("dp x mp", "engine", "lstm"),
 })
 COMPILED_UPDATES = frozenset({
-    ("dp", "step"), ("dp", "xla"), ("dp", "xla+symmetry"), ("dp", "recurrent"),
-    ("dp", "mega+global"), ("dp", "step+global"), ("dp", "xla+global"), ("dp", "recurrent+global"),
-    ("mp", "xla"), ("mp", "xla+symmetry"), ("mp", "recurrent"),
-    ("dp x mp", "xla"), ("dp x mp", "xla+symmetry"), ("dp x mp", "recurrent"),
+    ("dp", "step"), ("dp", "xla"), ("dp", "xla+symmetry"), ("dp", "recurrent"), ("dp", "recurrent+symmetry"),
+    ("dp", "mega+global"), ("dp", "step+global"), ("dp", "xla+global"), ("dp", "xla+symmetry+global"),
+    ("dp", "recurrent+global"), ("dp", "recurrent+symmetry+global"),
+    ("mp", "xla"), ("mp", "xla+symmetry"), ("mp", "recurrent"), ("mp", "recurrent+symmetry"),
+    ("dp x mp", "xla"), ("dp x mp", "xla+symmetry"), ("dp x mp", "recurrent"), ("dp x mp", "recurrent+symmetry"),
+    ("dp x mp", "xla+global"), ("dp x mp", "xla+symmetry+global"), ("dp x mp", "recurrent+global"),
+    ("dp x mp", "recurrent+symmetry+global"),
 })
 _LAYOUT_WORDS = {"dp": "data parallelism", "mp": "tensor parallelism", "dp x mp": "data and tensor parallelism"}
 _NOT_HELD = "its graphs are not yet held against the eager iteration on several cards"

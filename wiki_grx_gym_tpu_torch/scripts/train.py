@@ -20,12 +20,11 @@ Over NCCL (the default on GPUs) the iteration is compiled: CUDA graph
 replays with the collectives captured (``learn/graphs.py``). Across ranks
 that holds for the graphs that runs on several cards have held against the
 eager iteration (``parallel/mesh.COMPILED_COLLECTIONS`` and
-``COMPILED_UPDATES``): data parallelism (``--num_mp`` 1) on K1 and on the
-engine (``use_pallas = False``), with the MLP or the LSTM, on the step,
-xla, symmetry and recurrent paths and under the global shuffle; tensor
-parallelism (alone or under dp) on the xla path, with the symmetry loss
-and on the LSTM, on K1 and, with the MLP, on the engine. Over gloo, and
-for any other combination across ranks, it runs eagerly
+``COMPILED_UPDATES``), which is every run a mesh selects: data
+parallelism, tensor parallelism (``--num_mp``) and both, on K1 and on the
+engine (``use_pallas = False``), with the MLP or the LSTM, on every update
+path, with or without the symmetry loss and the global shuffle. Over
+gloo, and with the ``"lanes"`` physics backend, it runs eagerly
 (``OnPolicyRunner.eager_reason``). ``learn`` prints which, and the update
 path, before the first iteration.
 
@@ -43,7 +42,7 @@ the runner and passed at construction: ``permutation_groups = 0`` resolves
 to the dp group's size, and under mp PPO takes the xla path. JAX's CLI run,
 the reference's global shuffle across ranks, is ``algorithm.permutation_groups
 = 1`` (``learn/ppo.py``'s global shuffle: each rank updates on the gathered
-global batch, on the kernels' paths).
+global batch, on the kernels' paths; under ``--num_mp`` on the xla path).
 """
 
 from __future__ import annotations

@@ -31,8 +31,10 @@ callers runs without a card.
    ``RunnerState`` (its ``EnvState`` and ``PPOState``) round trip exactly;
    ``copy_in`` and ``donate`` refuse a mismatched or aliased leaf.
 4. The iteration and the env step with the CUDA graphs stood in for: the
-   capture records nothing and each replay runs the graph's body again
-   (``Graph._capture`` patched), K3's donated update runs its plain
+   capture records nothing and each replay runs the graph's body again,
+   with the graph's spans installed as its capture would record them
+   (``Graph._capture`` patched; a mark writes the host's clock,
+   ``spans.stamp`` patched), K3's donated update runs its plain
    version over the static state, and the streams, events and synchronize
    are no-ops. This holds the static-state bookkeeping (the copy in, the
    donation, the metrics, the launch tally) to the eager path:
@@ -53,6 +55,7 @@ callers runs without a card.
 """
 
 import contextlib
+import time
 
 import jax
 import numpy as np
@@ -65,7 +68,7 @@ from wiki_grx_gym_tpu_torch import build
 from wiki_grx_gym_tpu_torch.convert import env_state_from_numpy
 from wiki_grx_gym_tpu_torch.envs import task_registry
 from wiki_grx_gym_tpu_torch.envs.legged_env import LeggedEnv, physics_backend
-from wiki_grx_gym_tpu_torch.learn import graphs
+from wiki_grx_gym_tpu_torch.learn import graphs, spans
 from wiki_grx_gym_tpu_torch.learn.fused_update import FusedPPOGrad
 from wiki_grx_gym_tpu_torch.learn.ppo import PPO
 from wiki_grx_gym_tpu_torch.learn.runner import OnPolicyRunner
@@ -405,7 +408,13 @@ class _Replayer:
         self.g = g
 
     def replay(self):
-        self.g.outputs = self.g._run()
+        with self.g.recording():
+            self.g.outputs = self.g._run()
+
+
+def host_stamp(slots, i):
+    """The stand-in of a span's mark: the host's clock (ns) into the slot."""
+    slots[i] = time.perf_counter_ns()
 
 
 class _PlainUpdate:
@@ -466,6 +475,7 @@ def stand_in_graphs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    monkeypatch.setattr(spans, "stamp", host_stamp)
 
     def capture(self):
         self.tally, self.graph = build.LaunchTally(), _Replayer(self)

@@ -140,6 +140,8 @@ class LeggedEnv:
     checks happen here, once, on the host. Host constants are numpy float32
     arrays (as the JAX env's); their device copies carry a ``_t`` suffix."""
 
+    spans = None   # the collection graph's marks while it is captured (learn/spans.py), else None
+
     def __init__(self, cfg, model: RobotModel, terrain=None, device="cuda", shard=None, dp=None):
         """``terrain``: a ``terrain.composer.Terrain`` on ``device`` (the
         registry builds it for mesh_type heightfield/trimesh), or None for
@@ -566,9 +568,13 @@ class LeggedEnv:
         args = (state.physics, actions, state.last_actions, state.motor_strength, delay[:, 0], state.rand)
         kw = dict(last_qd=state.last_dof_vel, plane=state.ground_plane,
                   extra=self.post_extra(state, commands) if self._post_fold else None)
-        if self.backend == "lanes":
-            return op.plain(*args, **kw)
-        return op(*args, **kw)
+        spans = self.spans
+        if spans is not None:
+            spans("k1")
+        out = op.plain(*args, **kw) if self.backend == "lanes" else op(*args, **kw)
+        if spans is not None:
+            spans("env")
+        return out
 
     def _decimation_scan(self, state: "EnvState", actions, delay):
         """The engine's decimation loop (JAX's ``lax.scan`` of the vmapped
@@ -860,6 +866,8 @@ class LeggedEnv:
              ) -> Tuple[EnvState, StepOutput]:
         """One policy step. ``u``: optional (n, K) U[0,1) block to use instead
         of drawing it from ``state.rng`` (K from ``_step_u_cols``)."""
+        if self.spans is not None:
+            self.spans("env")
         c = self.cfg
         n = self.num_envs
         cols, k_width = self._step_u_cols

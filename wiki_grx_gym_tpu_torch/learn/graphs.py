@@ -78,7 +78,11 @@ is a ``torch.cuda.CUDAGraph``:
     permutation's columns and the replay's fields into static buffers.
 
   CUDA events between A and B time the two; one synchronize ends the
-  iteration.
+  iteration. On K1, marks captured in A split its time into the actor, the
+  env, K1, GAE and the shuffle (``learn/spans.py``); ``last_timing`` is read
+  lazily, after the call. The host's steps are ``torch.profiler`` ranges
+  (``CompiledIteration.copy_in``, ``stage_draws``, ``launch_collection``,
+  ``launch_update``, ``wait``, ``read_spans``).
 
   **Collectives** (``parallel/mesh.py``, NCCL): each graph captures the
   collectives its body issues, on every rank in the same order as the
@@ -105,15 +109,19 @@ This module imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 from typing import Dict, List
 
 import torch
+from torch.profiler import record_function
 
 from wiki_grx_gym_tpu_torch import build as _build
 from wiki_grx_gym_tpu_torch.learn.fused_update import CAPTURE_ERROR_MODE
 from wiki_grx_gym_tpu_torch.learn.ppo import PPOState
+from wiki_grx_gym_tpu_torch.learn.spans import Spans, Timing
 from wiki_grx_gym_tpu_torch.parallel import mesh as _mesh
 
 
@@ -256,10 +264,13 @@ class Graph:
     captured graph's size. The capture's error mode is
     ``fused_update.CAPTURE_ERROR_MODE``. Records ``warmup_ms``, ``capture_ms``,
     ``instantiate_ms``, ``replays``, the warm-up's kernel launches, the
-    capture's tally and the collectives it captured (``parallel.mesh.CAPTURED``)."""
+    capture's tally and the collectives it captured (``parallel.mesh.CAPTURED``).
+    ``spans``: a ``spans.Spans`` installed while the body is captured (its
+    marks then replay with the graph), or None."""
 
-    def __init__(self, name: str, body, static, donate: bool = True, count_nodes=None):
+    def __init__(self, name: str, body, static, donate: bool = True, count_nodes=None, spans=None):
         self.name, self.body, self.static, self.donate = name, body, static, donate
+        self.spans = spans
         self.generators = generators(static)
         self.count_nodes = count_nodes
         self.graph = None
@@ -270,6 +281,10 @@ class Graph:
         self.replays = 0
         self.warmup_ms = self.capture_ms = self.instantiate_ms = None
         self.warmup_launches = None
+
+    def recording(self):
+        """The context of the run the graph keeps: its spans installed."""
+        return contextlib.nullcontext() if self.spans is None else self.spans.recording()
 
     def _run(self):
         new, out = self.body()
@@ -310,7 +325,7 @@ class Graph:
             graph.register_generator_state(g)
         before = dict(_mesh.CAPTURED)
         with _build.capture_tally() as tally, _build.gc_held():
-            with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
+            with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE), self.recording():
                 t0 = time.perf_counter()
                 out = self._run()
                 t1 = time.perf_counter()
@@ -446,6 +461,7 @@ class CompiledIteration:
         self.metrics = None  # the (K,) metrics vector of the last update
         self.update_collectives = None   # mega: the collectives K3's graph captured (its epilogue's)
         self.last = None     # the last call's collection outputs
+        self.calls = 0       # the calls made (last_timing reads its own call's marks)
         self._rollout = None
         if runner.dp is not None and dev.type == "cuda":   # the graphs go before the group (mesh.destroy)
             _mesh.hold(self)
@@ -479,6 +495,8 @@ class CompiledIteration:
 
         def body():
             inj = self.inject if mode == "inject" else {}
+            if runner.spans is not None:
+                runner.spans("actor")
             with torch.no_grad():
                 if self.path == "recurrent":
                     copy_in(self.hidden0, s.hidden)
@@ -503,6 +521,8 @@ class CompiledIteration:
         permutation (``perm``, or drawn from the static generator) and the
         shuffle, staged into K3's context (mega) or into static buffers."""
         alg, s = self.runner.alg, self.static
+        if self.runner.spans is not None:
+            self.runner.spans("stage")
         if self.path == "recurrent":
             data, cols, hidden0 = alg.recurrent_inputs(batch, returns, adv, self.hidden0, generator=s.rng,
                                                        perm=perm)
@@ -580,9 +600,11 @@ class CompiledIteration:
                                            **kw)
                 self.tail[mode] = Graph(f"collection tail ({mode})", self._tail_body(mode), self.static,
                                         donate=False, **kw)
-            else:
+            else:   # marks: 4 a step at most, the tail's 2, the stamps around the launch
+                spans = Spans(4 * self.runner.num_steps_per_env + 8, self.runner.device,
+                              (self.runner, self.runner.env))
                 self.collect[mode] = Graph(f"collection ({mode})", self._collection_body(mode), self.static,
-                                           **kw)
+                                           spans=spans, **kw)
         return self.collect[mode]
 
     def _collect(self, mode):
@@ -718,20 +740,54 @@ class CompiledIteration:
         return "inject"
 
     def __call__(self, state, noise=None, u=None, perm=None):
+        """One iteration. ``runner.last_timing`` (a ``spans.Timing``, read
+        lazily and valid until the next call): ``collection_s`` and
+        ``update_s`` from CUDA events, on K1 from the collection graph's
+        second call on the six phases of ``learn/spans.py``, and ``launch_s``,
+        the host's seconds in the graphs' launch calls (at the first call
+        their warm-ups and captures)."""
         runner, s = self.runner, self.static
-        copy_in(s, state)
-        runner.net.bind(s.ppo.params)
-        mode = self._stage_draws(noise, u, perm)
+        with record_function("CompiledIteration.copy_in"):
+            copy_in(s, state)
+            runner.net.bind(s.ppo.params)
+        with record_function("CompiledIteration.stage_draws"):
+            mode = self._stage_draws(noise, u, perm)
+        graph = self._collection(mode)
+        spans = graph.spans if graph.graph is not None else None   # its marks run in a replay
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        self.last = self._collect(mode)
+        with record_function("CompiledIteration.launch_collection"):
+            if spans is not None:
+                spans.start()
+            t0 = time.perf_counter()
+            self.last = self._collect(mode)
+            launch_s = time.perf_counter() - t0
+            if spans is not None:
+                spans.end()
         ev[1].record()
-        self.metrics = self._update()
+        with record_function("CompiledIteration.launch_update"):
+            t0 = time.perf_counter()
+            self.metrics = self._update()
+            launch_s += time.perf_counter() - t0
         ev[2].record()
-        ev[2].synchronize()
-        runner.last_timing = {"collection_s": ev[0].elapsed_time(ev[1]) / 1e3,
-                              "update_s": ev[1].elapsed_time(ev[2]) / 1e3}
+        with record_function("CompiledIteration.wait"):
+            ev[2].synchronize()
+        self.calls += 1
+        runner.last_timing = Timing(functools.partial(self._timing, self.calls, ev, spans, launch_s))
         return s, {k: self.metrics[i] for i, k in enumerate(self.metric_keys)}
+
+    def _timing(self, call, ev, spans, launch_s) -> Dict[str, float]:
+        """``last_timing``'s values of call ``call`` (the readout of its
+        events and marks)."""
+        if call != self.calls:
+            raise RuntimeError(f"last_timing of call {call} read after call {self.calls}: the graph's marks "
+                               "were written again")
+        with record_function("CompiledIteration.read_spans"):
+            out = {"collection_s": ev[0].elapsed_time(ev[1]) / 1e3, "update_s": ev[1].elapsed_time(ev[2]) / 1e3}
+            if spans is not None:
+                out.update(spans.read())
+            out["launch_s"] = launch_s
+        return out
 
     def rollout(self, state):
         """The rollout alone as a graph over the static state, not donated:

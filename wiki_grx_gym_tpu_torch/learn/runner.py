@@ -67,6 +67,14 @@ from wiki_grx_gym_tpu_torch.learn.recurrent import ActorCriticRecurrent, Hidden
 from wiki_grx_gym_tpu_torch.parallel import sharding
 
 
+# the compiled iteration's spans and launch time (learn/spans.py, CompiledIteration):
+# (last_timing key, TensorBoard tag under Perf/)
+PERF_SPANS = (("entry_s", "collection_entry_time"), ("actor_s", "collection_actor_time"),
+              ("env_s", "collection_env_time"), ("k1_s", "collection_k1_time"),
+              ("gae_s", "collection_gae_time"), ("stage_s", "collection_stage_time"),
+              ("launch_s", "graph_launch_time"))
+
+
 class Transition(NamedTuple):
     """Rollout storage, (T, N, ...) per field."""
 
@@ -95,6 +103,8 @@ class RunnerState:
 
 
 class OnPolicyRunner:
+    spans = None   # the collection graph's marks while it is captured (learn/spans.py), else None
+
     def __init__(self, env, train_cfg, device="cuda", log_dir: Optional[str] = None, dp=None):
         self.device = resolve_device(device)
         if env.device != self.device:
@@ -269,7 +279,9 @@ class OnPolicyRunner:
         a draw from ``state.rng``; ``u``: the step's (N, K) uniform block
         instead of a draw from the env's generator. Returns the state after
         the step (the LSTM memory of reset envs zeroed)."""
-        env, net = self.env, self.net
+        env, net, spans = self.env, self.net, self.spans
+        if spans is not None:
+            spans("actor")
         obs, critic_obs, hidden = state.obs, state.critic_obs, state.hidden
         if eps is None:
             eps = torch.randn((env.num_envs, env.num_actions), generator=state.rng, device=self.device)
@@ -285,6 +297,8 @@ class OnPolicyRunner:
             actions, logp, mu, sigma = net.act(obs, eps)
             values = net.evaluate(critic_obs)
         env_state, out = env.step(state.env_state, actions, u=u)
+        if spans is not None:
+            spans("actor")
         # timeout bootstrapping
         rewards = out.rew + self.gamma * values * out.extras["time_outs"]
         for field, val in (("obs", obs), ("critic_obs", critic_obs), ("actions", actions),
@@ -338,6 +352,8 @@ class OnPolicyRunner:
         """The collection's tail after the rollout: (last values, returns,
         advantages) by GAE."""
         net = self.net
+        if self.spans is not None:
+            self.spans("gae")
         with torch.no_grad():
             if self.recurrent:
                 # the critic's memory after the rollout
@@ -579,6 +595,9 @@ class OnPolicyRunner:
             w.add_scalar("Perf/iteration_time", elapsed, it)
             w.add_scalar("Perf/collection_time", self.last_timing["collection_s"], it)
             w.add_scalar("Perf/learning_time", self.last_timing["update_s"], it)
+            for key, tag in PERF_SPANS:
+                if key in self.last_timing:
+                    w.add_scalar(f"Perf/{tag}", self.last_timing[key], it)
             w.add_scalar("Train/mean_reward", m["mean_step_reward"], it)
             if self.lenbuffer:
                 w.add_scalar("Train/mean_episode_length", statistics.mean(self.lenbuffer), it)

@@ -13,7 +13,11 @@ missing ``__syncwarp``), and the team kernel must equal the one-thread
 kernel in every output bit (both from one compiler, without contraction).
 At 1, 8 and 61 envs: one team alone in a block, one full block, and eight
 blocks of which the last holds 5 envs (a half-used warp). A copy with the
-barrier before the back substitution taken out must be caught.
+barrier before the back substitution taken out must be caught, and so must
+one without the barrier between the fill of the mass matrix's rows (which
+reads the dynamics arrays) and the first write of its factor: the programs
+whose factor shares the dynamics arrays' memory (``team_shared_ls``: the
+32-DOF body) have it, so that copy runs GR1T1_full's sizes, one env.
 
 Needs g++ with ThreadSanitizer; no card.
 """
@@ -29,8 +33,8 @@ from wiki_grx_gym_tpu_torch.sim import cuda_step
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++")
 
 
-def run_case(exe, out_dir, n):
-    const, inp, c_out = sanitize_k1.write_case(n, out_dir)
+def run_case(exe, out_dir, n, task="GR1T1", steps=8):
+    const, inp, c_out = sanitize_k1.write_case(n, out_dir, task=task, steps=steps)
     rc, text = sanitize_k1.run([exe, const, inp, n, c_out], timeout=600)
     if any("FATAL: ThreadSanitizer" in line for line in text):
         pytest.skip("ThreadSanitizer cannot start here: " + " ".join(text[:3]))
@@ -53,13 +57,26 @@ def test_team_kernel_has_no_race_and_equals_the_thread_kernel(host, n):
     assert f"{n} envs, 301 x {n} output lanes, 0 differ" in report, report[-2000:]
 
 
-def test_a_missing_barrier_is_caught(tmp_path):
+def assert_caught_without(tmp_path, barrier, kept, task="GR1T1", n=8, steps=8):
+    """A copy of the sources with ``barrier`` replaced by ``kept`` (the
+    barrier's line taken out) must report a race at ``n`` envs of ``task``
+    (``steps`` policy steps after init)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kbuild.CSRC, csrc)
     src = (csrc / "decimation.cu").read_text()
-    barrier = "    __syncwarp(mask);\n    // back substitution on one lane\n"
     assert src.count(barrier) == 1
-    (csrc / "decimation.cu").write_text(src.replace(barrier, "    // back substitution on one lane\n"))
-    op = cuda_step.task_env("GR1T1", 1, "cpu").decimation_op
-    rc, text = run_case(sanitize_k1.build_host(op, tmp_path, csrc), tmp_path, 8)
+    (csrc / "decimation.cu").write_text(src.replace(barrier, kept))
+    op = cuda_step.task_env(task, 1, "cpu").decimation_op
+    rc, text = run_case(sanitize_k1.build_host(op, tmp_path, csrc), tmp_path, n, task, steps)
     assert rc != 0 and any("WARNING: ThreadSanitizer: data race" in line for line in text), "\n".join(text)
+
+
+def test_a_missing_barrier_is_caught(tmp_path):
+    assert_caught_without(tmp_path, "    __syncwarp(mask);\n    // back substitution on one lane\n",
+                          "    // back substitution on one lane\n")
+
+
+def test_a_missing_barrier_before_the_factor_is_caught(tmp_path):
+    comment = "        // the factor overwrites the dynamics arrays the fill has read\n"
+    assert_caught_without(tmp_path, comment + "        __syncwarp(mask);\n", comment, task="GR1T1_full", n=1,
+                          steps=4)

@@ -34,7 +34,12 @@ and counts one launch. The lane program's division by a Python float
 (``scalarized._div``) rounds on the card as on the CPU.
 
 Needs a CUDA card (the kernels have no CPU mode). Marked ``gpu``; elsewhere
-each test skips. On the card, from the checkout's root:
+each test skips. Beside the sets above, at the main path's size: the
+full body's team kernel equals the one-thread kernel bit for bit at 1,
+E - 1, E, E + 1, 4,097 and 8,192 envs (E its envs a block), and an SM
+holds 16 of its envs (its working set shares the Cholesky factor with the
+dynamics arrays, ``team_shared_ls``) and 32 of the lower limb's. On the
+card, from the checkout's root:
 
     python -m pytest --noconftest -m gpu -q tests/test_torch_decimation_sizes_cuda.py
 """
@@ -196,3 +201,34 @@ def test_lane_division_rounds_as_on_the_cpu(c):
     want = (x / c).view(torch.int32)
     assert torch.equal(_div(x.cuda(), c).cpu().view(torch.int32), want)
     assert torch.equal(_div(x, c).view(torch.int32), want)
+
+
+FULL_BODY_ENVS_PER_SM = 16   # 2 blocks of 32 x 8
+LOWER_LIMB_ENVS_PER_SM = 32  # 4 blocks of 16 x 8
+
+
+@pytest.fixture(scope="module")
+def full_body_8192():
+    """(decimation op, packed (C_in, 8192) input) of GR1T1_full."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+    op, comp, _, _ = cuda_step.reachable_case(8192, torch.device("cuda"), task="GR1T1_full")
+    return op, comp
+
+
+def test_full_body_team_kernel_equals_the_thread_kernel_at_every_block_fill(full_body_8192):
+    op, comp = full_body_8192
+    e = op.team[1]
+    differ = {n: int((run(op, comp[:, :n]).view(torch.int32)
+                      != run(op, comp[:, :n], kernel="thread").view(torch.int32)).sum())
+              for n in (1, e - 1, e, e + 1, 4097, 8192)}
+    assert not any(differ.values()), differ
+
+
+def test_envs_an_sm(full_body_8192):
+    op, _ = full_body_8192
+    occ = cuda_step.team_occupancy(op)
+    assert occ["blocks_per_sm"] * occ["envs_per_block"] >= FULL_BODY_ENVS_PER_SM, occ
+    lower = cuda_step.task_env("GR1T1", 8, torch.device("cuda")).decimation_op
+    occ = cuda_step.team_occupancy(lower)
+    assert occ["blocks_per_sm"] * occ["envs_per_block"] == LOWER_LIMB_ENVS_PER_SM, occ

@@ -44,17 +44,18 @@
 //
 // - Lane mapping. One env runs on a team of T lanes of one warp (the only
 //   barrier is __syncwarp on the team's lanes), E envs a block: 16 x 8 for
-//   the 10-DOF lower limb, 32 x 4 for the 32-DOF body (sim/cuda_step.py:
+//   the 10-DOF lower limb, 32 x 8 for the 32-DOF body (sim/cuda_step.py:
 //   team_shape; PERF.md records the shapes measured). Lane l takes dofs l,
 //   l + T, ... (torques, joint limits, the joint update), contact points and
 //   self-collision pairs l, l + T, ..., bodies l, l + T, ... (the contact
 //   wrench over its points, world inertia, gravity wrench, body force),
-//   rows l, l + T, ... of the (6+D)^2 mass matrix, which it keeps in
-//   registers through the Cholesky (other rows' entries by shuffle), and
-//   reward terms l, l + T, .... FK and the bias recursion go down the tree
-//   level by level or one component a lane, the sums to the root one
-//   component a lane; the back substitution, the base's integration and the
-//   post stage's scalars run on lane 0.
+//   row l of the (6+D)^2 mass matrix, which it keeps in registers through
+//   the Cholesky (the rows past T, the full body's 6, one column a lane;
+//   other lanes' entries by shuffle), and reward terms l, l + T, .... FK
+//   and the bias recursion go down the tree level by level or one
+//   component a lane, the sums to the root one component a lane; the back
+//   substitution, the base's integration and the post stage's scalars run
+//   on lane 0.
 // - Shared memory. Each block copies the model constants (5.4 KB for the
 //   lower limb, 13 KB for the full body) into shared memory once, since
 //   lanes read them at different indices, and stages its envs' inputs and
@@ -64,10 +65,12 @@
 //   5.3 KB for the lower limb, padded to 16 (mod 32) words so that the two
 //   teams of a warp read a field 16 banks apart (8 envs and the constants:
 //   48 KB, 4 blocks or 16 warps an SM, the main path's 4096 envs in one
-//   wave), and 14 KB for the full body (4 envs and the constants: 69 KB, 3
-//   blocks or 12 warps an SM).
-//   The launch bounds ask for the blocks that shared memory allows
-//   (team_min_blocks), which sets the registers a thread may take.
+//   wave), and 11.2 KB for the full body, whose Cholesky factor shares the
+//   union with the dynamics arrays (team_shared_ls; 14.2 KB apart): 8 envs
+//   and the constants take 103 KB, 2 blocks or 16 warps an SM.
+//   The launch bounds ask for the blocks that warps and shared memory allow
+//   (team_min_blocks), which sets the registers a thread may take: 128 for
+//   both.
 // - What bounds it: one env's chain of dependent steps, not FP32 throughput
 //   or bytes. 4096 envs fill at most 16 warps an SM, so little latency is
 //   hidden; the tree (5 levels for the lower limb), the 6 + D Cholesky
@@ -1349,17 +1352,21 @@ decimation_kernel(const float* __restrict__ in, float* __restrict__ out, int n) 
 // One env's working set. Odd row strides (5, 3, 7, 9 floats) put the rows
 // that the lanes of a team read at once in different banks. `u` holds what
 // lives in one phase only: FK's joint quaternions, the contact phase's point
-// velocities and pair forces, the dynamics arrays, the staged outputs.
-template <class S>
+// velocities and pair forces, the dynamics arrays, the staged outputs, and
+// where SHARED_LS (team_shared_ls) the factor of the mass matrix, which is
+// written once the matrix rows are filled from the dynamics arrays and read
+// by the back substitution; otherwise the factor has its own array.
+template <class S, bool SHARED>
 struct TeamEnvBody {
-  static constexpr int N6 = 6 + S::ND;
+  static constexpr bool SHARED_LS = SHARED;
+  static constexpr int N6 = 6 + S::ND, NLS = N6 * (N6 + 1) / 2;
   static constexpr int INP = (S::NIN + 15) / 32 * 32 + 16;  // = 16 (mod 32) words
   float in[INP];  // the inputs; the state (pos ... anchor) is updated in place
   float taus[S::ND], tau[S::ND], damp[S::ND];
   float quats[S::NB][5], pos_rel[S::NB][3], sub[S::NB][7], tw[S::NB][7];
   float pts_pos[S::NP][3], forces[S::NP][3];
   float force_sum[S::NF], vxyz[S::NF][3], vrpy[S::NF][3];
-  float Ls[N6 * (N6 + 1) / 2], yacc[N6], y[N6], x[N6];
+  float Ls[SHARED ? 1 : NLS], yacc[N6], y[N6], x[N6];
   PostVals<S> post;
   union {
     float qj[S::NB][5];
@@ -1368,46 +1375,86 @@ struct TeamEnvBody {
       float e_ang[S::NB][3], e_lin[S::NB][3], h[S::NB][3], io[S::NB][9], bias[S::NB][7],
           f_acc[S::NB][7], f_crb[S::ND][7];
     } d;
+    float Ls[SHARED ? NLS : 1];
     float outb[S::NOUT];
   } u;
+  __host__ __device__ float* factor() { return SHARED ? u.Ls : Ls; }
 };
 
 // Where two or more teams share a warp (T < 32), consecutive envs' working
 // sets start 16 words apart mod 32, so that the teams of a warp reading the
 // same field hit different banks: the body is padded to 16 (mod 32) words.
 // (Measured with scripts/time_k1.py on GR1T1, PERF.md section 6.)
-template <class S>
+template <class S, bool SHARED>
 constexpr int team_env_pad() {
-  constexpr int words = (int)(sizeof(TeamEnvBody<S>) / 4);
+  constexpr int words = (int)(sizeof(TeamEnvBody<S, SHARED>) / 4);
   constexpr int pad = ((16 - words % 32) % 32 + 32) % 32;
   return pad == 0 ? 32 : pad;
 }
-template <class S, bool PAD>
-struct TeamEnvPadded : TeamEnvBody<S> {
-  float pad_[team_env_pad<S>()];
+template <class S, bool SHARED, bool PAD>
+struct TeamEnvPadded : TeamEnvBody<S, SHARED> {
+  float pad_[team_env_pad<S, SHARED>()];
 };
-template <class S>
-struct TeamEnvPadded<S, false> : TeamEnvBody<S> {};
-template <class S>
-using TeamEnv = TeamEnvPadded<S, (TEAM_T < 32)>;
+template <class S, bool SHARED>
+struct TeamEnvPadded<S, SHARED, false> : TeamEnvBody<S, SHARED> {};
+template <class S, bool SHARED>
+using TeamEnvOf = TeamEnvPadded<S, SHARED, (TEAM_T < 32)>;
 
 template <class S>
 __host__ __device__ constexpr int team_const_bytes() { return (int)((sizeof(ModelConst<S>) + 15) / 16 * 16); }
+// The blocks an SM can hold: at most 16 warps, and as many as its 228 KB of
+// shared memory hold (1 KB of it reserved a block).
+template <class S, int T, int E, bool SHARED>
+__host__ __device__ constexpr int team_blocks() {
+  constexpr int smem = team_const_bytes<S>() + E * (int)sizeof(TeamEnvOf<S, SHARED>);
+  return 233472 / (smem + 1024) < 512 / (T * E) ? 233472 / (smem + 1024) : 512 / (T * E);
+}
+// The factor shares the union only where that lets an SM hold more blocks
+// (the 32-DOF body at 32 x 8: 2 blocks instead of 1). Where warps, not
+// shared memory, bound the blocks (the 16 x 8 programs), it keeps its own
+// array: the lower limb's K1 measured 3% slower with it shared (PERF.md
+// section 6).
+template <class S, int T, int E>
+__host__ __device__ constexpr bool team_shared_ls() {
+  return team_blocks<S, T, E, true>() > team_blocks<S, T, E, false>();
+}
+template <class S>
+using TeamEnv = TeamEnvOf<S, team_shared_ls<S, TEAM_T, TEAM_E>()>;
+
 template <class S, int E>
 __host__ __device__ constexpr int team_smem_bytes() { return team_const_bytes<S>() + E * (int)sizeof(TeamEnv<S>); }
-// The blocks an SM can hold: at most 16 warps, and as many as its 228 KB of
-// shared memory hold (1 KB of it reserved a block). The launch bounds ask
-// for that many, so the registers a thread may take follow the size set.
+// The launch bounds ask for the blocks an SM holds, so the registers a
+// thread may take follow the size set.
 template <class S, int T, int E>
 __host__ __device__ constexpr int team_min_blocks() {
-  return 233472 / (team_smem_bytes<S, E>() + 1024) < 512 / (T * E)
-             ? 233472 / (team_smem_bytes<S, E>() + 1024)
-             : 512 / (T * E);
+  return team_blocks<S, T, E, TeamEnv<S>::SHARED_LS>();
 }
 
 // m3vec on a row-major 3x3 stored as 9 floats
 __device__ __forceinline__ void m3vec9(const float* m, const float* v, float* o) {
   for (int r = 0; r < 3; ++r) o[r] = m[3 * r] * v[0] + m[3 * r + 1] * v[1] + m[3 * r + 2] * v[2];
+}
+
+// v[l] for l < N, else 0: a chain of selects (no local memory)
+template <int N>
+__device__ __forceinline__ float pick(const float* v, int l) {
+  float r = 0.0f;
+#pragma unroll
+  for (int m = 0; m < N; ++m) r = l == m ? v[m] : r;
+  return r;
+}
+
+// The serial fill's entry of the mass matrix in dof row jr, column 6 + jj
+// (dof jj): fc is the row's f_crb, anc its anc_mask, s dof jj's motion
+// subspace, dd dt times the row's damping.
+template <class S>
+__device__ __forceinline__ float dof_entry(const ModelConst<S>& K, int jr, unsigned anc, const float* fc,
+                                           const float* s, int jj, float dd) {
+  float dot = 0.0f;
+  for (int k = 0; k < 6; ++k) dot = dot + fc[k] * s[k];
+  const float g = ((anc >> jj) & 1u) ? dot : 0.0f;
+  const float gd = (g + K.armature[jr]) + dd;
+  return jr == jj ? gd : g;
 }
 
 // FK over the static tree (fk<S> above), by the team: joint quaternions per
@@ -1449,7 +1496,8 @@ __device__ __forceinline__ unsigned team_mask(int tid) {
 
 // Launch bounds: T * E threads, and the blocks an SM holds by warps and by
 // shared memory (team_min_blocks): the GR1T1 lower limb at 16 x 8 gets 4
-// blocks (16 warps), so at most 128 registers a thread.
+// blocks (16 warps), the 32-DOF body at 32 x 8 2 (16 warps), so at most 128
+// registers a thread.
 template <class S, int T, int E>
 __global__ void __launch_bounds__(T * E, team_min_blocks<S, T, E>())
 decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __restrict__ in,
@@ -1494,7 +1542,7 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
   const float* const plane = V.in + K.in_off[IN_PLANE];  // the ground lanes (terrain modes)
   const float* const last_qd = V.in + K.in_off[IN_LAST_QD];  // (WITH_LAST_QD)
   const float dt = K.dt;
-#define TLS(i, j) V.Ls[(i) * ((i) + 1) / 2 + (j)]
+#define TLS(i, j) V.factor()[(i) * ((i) + 1) / 2 + (j)]
 
   for (int g = l; g < NF; g += T) {
     V.force_sum[g] = 0.0f;
@@ -1780,30 +1828,34 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
     __syncwarp(mask);
 
     // The lower triangle of M + ridge, and its Cholesky factorisation with
-    // the forward substitution folded in. Lane l holds rows i = l + r T in
-    // registers (row[r][k] = L(i, k)) and reads another row's column entry
-    // with a shuffle. At column j every lane takes d and 1/d from the
-    // column's diagonal, scales its own entry (raw times 1/d, as the serial
-    // loop does) and updates L(i, k) for j < k <= i with the other rows'
-    // scaled entries, which they share by shuffle: each entry sees
-    // the same subtractions, of the same products, in the same order as in
-    // the serial loops. The factor goes to Ls for the back substitution.
+    // the forward substitution folded in. Lane l holds row l (l < NO: the
+    // team's width, or N6 where that is less) in registers, columns 0 to
+    // NO - 1 (row[k] = L(l, k)). The NX rows past them are held by column:
+    // lane l holds their entries in column l (xb[m] = L(NO + m, l)) and in
+    // column NO + l (xc[m] = L(NO + m, NO + l)), and row NO + l's right-hand
+    // side. Another lane's entry is read by shuffle. At column j every lane
+    // takes d and 1/d from the column's diagonal, scales the column's entries
+    // (raw times 1/d, as the serial loop does) and updates its entries L(i, k)
+    // for j < k by L(i, j) L(k, j): each entry sees the same subtractions, of
+    // the same products, in the same order as in the serial loops. Entries
+    // above the diagonal (k > i) are updated too but never read. The factor
+    // goes to Ls for the back substitution.
     {
-      constexpr int RPL = (N6 + T - 1) / T;
-      float row[RPL][N6], yacc[RPL];
+      constexpr int NO = N6 < T ? N6 : T, NX = N6 - NO;
+      static_assert(NX <= T, "the rows past the team's width are held one column a lane");
+      float row[NO], yacc, xb[cap(NX)], xc[cap(NX)], yx = 0.0f;
       // each entry as in the serial fill, by selects (every lane runs every
       // row kind's code for its own row, clamped, and keeps its own kind's)
       const float* ch0 = V.u.d.h[0];
-#pragma unroll
-      for (int r = 0; r < RPL; ++r) {
-        const int i = l + r * T;
+      {
+        const int i = l;
         const int i3 = i < 3 ? i : 2, ii = i < 3 ? 0 : i < 6 ? i - 3 : 2;
         const int jr = i < 6 ? 0 : i < N6 ? i - 6 : ND - 1;  // this row's dof
         float fc[6];
         for (int k = 0; k < 6; ++k) fc[k] = V.u.d.f_crb[jr][k];
         const unsigned anc = K.anc_mask[jr];
 #pragma unroll
-        for (int j = 0; j < N6; ++j) {
+        for (int j = 0; j < NO; ++j) {
           float v;
           if (j < 3) {
             const float nh = j == 0 ? (ii == 0 ? -0.0f : ii == 1 ? -ch0[2] : ch0[1])
@@ -1813,43 +1865,87 @@ decimation_team_kernel(const ModelConst<S>* __restrict__ model, const float* __r
           } else if (j < 6) {
             v = i < 6 ? (ii == j - 3 ? cm0 : 0.0f) + 0.0f : fc[j];
           } else {
-            const int jj = j - 6;
-            float dot = 0.0f;
-            for (int k = 0; k < 6; ++k) dot = dot + fc[k] * V.sub[jj + 1][k];
-            float g = ((anc >> jj) & 1u) ? dot : 0.0f;
-            const float gd = (g + K.armature[jr]) + dt * V.damp[jr];
-            v = jr == jj ? gd : g;
+            v = dof_entry<S>(K, jr, anc, fc, V.sub[j - 5], j - 6, dt * V.damp[jr]);
           }
           if (i == j) v = v + 1e-6f;
-          row[r][j] = (i < N6 && j <= i) ? v : 0.0f;
+          row[j] = (i < N6 && j <= i) ? v : 0.0f;
         }
-        yacc[r] = i < N6 ? V.yacc[i] : 0.0f;
+        yacc = i < N6 ? V.yacc[i] : 0.0f;
+      }
+      if constexpr (NX > 0) {
+        // rows NO + m, dof rows (NO >= 8): lane l fills their entries in
+        // columns l and NO + l (none past the last column)
+        const int jc = NO + (l < NX ? l : 0);
+#pragma unroll
+        for (int m = 0; m < NX; ++m) {
+          const int jr = NO + m - 6;
+          const float* fc = V.u.d.f_crb[jr];
+          const unsigned anc = K.anc_mask[jr];
+          const float dd = dt * V.damp[jr];
+          float vb = l < 6 ? fc[l] : dof_entry<S>(K, jr, anc, fc, V.sub[l < 6 ? 1 : l - 5], l - 6, dd);
+          float vc = dof_entry<S>(K, jr, anc, fc, V.sub[jc - 5], jc - 6, dd);
+          if (NO + m == jc) vc = vc + 1e-6f;
+          xb[m] = vb;
+          xc[m] = (l < NX && jc <= NO + m) ? vc : 0.0f;
+        }
+        yx = l < NX ? V.yacc[NO + l] : 0.0f;
+      }
+      if constexpr (TeamEnv<S>::SHARED_LS) {
+        // the factor overwrites the dynamics arrays the fill has read
+        __syncwarp(mask);
       }
 #pragma unroll
       for (int j = 0; j < N6; ++j) {
-        const float d = sqrtf(nmax(__shfl_sync(mask, row[j / T][j], j % T, T), 1e-12f));
-        const float inv_d = 1.0f / d;
-        const float yj = __shfl_sync(mask, yacc[j / T], j % T, T) / d;
-        float lij[RPL];
+        if (j < NO) {
+          const float d = sqrtf(nmax(__shfl_sync(mask, row[j], j, T), 1e-12f));
+          const float inv_d = 1.0f / d;
+          const float yj = __shfl_sync(mask, yacc, j, T) / d;
+          const float lij = row[j] * inv_d;
+          // L(NO + m, j), from lane j; lane l < NX keeps L(NO + l, j)
+          float lx[cap(NX)];
 #pragma unroll
-        for (int r = 0; r < RPL; ++r) lij[r] = row[r][j] * inv_d;
-        // L(k, j) is lane k's own scaled entry. Entries above the diagonal
-        // (k > i) are updated too but never read.
+          for (int m = 0; m < NX; ++m) lx[m] = __shfl_sync(mask, xb[m], j, T) * inv_d;
+          const float lxl = pick<NX>(lx, l);
+          // L(k, j) is lane k's own scaled entry
 #pragma unroll
-        for (int k = j + 1; k < N6; ++k) {
-          const float lkj = __shfl_sync(mask, lij[k / T], k % T, T);
+          for (int k = j + 1; k < NO; ++k) {
+            const float lkj = __shfl_sync(mask, lij, k, T);
+            row[k] = row[k] - lij * lkj;
+          }
 #pragma unroll
-          for (int r = 0; r < RPL; ++r) row[r][k] = row[r][k] - lij[r] * lkj;
-        }
-#pragma unroll
-        for (int r = 0; r < RPL; ++r) {
-          const int i = l + r * T;
-          if (i == j) {
+          for (int m = 0; m < NX; ++m) {
+            xb[m] = xb[m] - lx[m] * lij;
+            xc[m] = xc[m] - lx[m] * lxl;
+          }
+          if (l == j) {
             TLS(j, j) = d;
             V.y[j] = yj;
-          } else if (i > j && i < N6) {
-            TLS(i, j) = lij[r];
-            yacc[r] = yacc[r] - lij[r] * yj;
+          } else if (l > j && l < NO) {
+            TLS(l, j) = lij;
+            yacc = yacc - lij * yj;
+          }
+          if (l < NX) {
+            TLS(NO + l, j) = lxl;
+            yx = yx - lxl * yj;
+          }
+        } else {
+          // column NO + p: its entries are lane p's
+          const int p = j - NO;
+          const float d = sqrtf(nmax(__shfl_sync(mask, xc[p], p, T), 1e-12f));
+          const float inv_d = 1.0f / d;
+          const float yj = __shfl_sync(mask, yx, p, T) / d;
+          float lc[cap(NX)];
+#pragma unroll
+          for (int m = 0; m < NX; ++m) lc[m] = m > p ? __shfl_sync(mask, xc[m], p, T) * inv_d : 0.0f;
+          const float lcl = pick<NX>(lc, l);
+#pragma unroll
+          for (int m = p + 1; m < NX; ++m) xc[m] = xc[m] - lc[m] * lcl;
+          if (l == p) {
+            TLS(j, j) = d;
+            V.y[j] = yj;
+          } else if (l > p && l < NX) {
+            TLS(NO + l, j) = lcl;
+            yx = yx - lcl * yj;
           }
         }
       }

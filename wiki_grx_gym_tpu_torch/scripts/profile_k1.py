@@ -2,8 +2,9 @@
 
 Builds a copy of ``csrc/decimation.cu`` into ``build/kernels`` in which
 thread 0 of block 0 reads ``clock64()`` after every team barrier and adds
-the cycles since the previous reading to that barrier's line. One launch of
-the team kernel (the main path's shape) then gives, per phase (named by
+the cycles since the previous reading to that barrier's line. The library is
+built for ``--task``'s program (its sizes and team shape, as the wrapper
+builds it). One launch of the team kernel then gives, per phase (named by
 the comment above it in the source, summed over the substeps), the cycles
 of one env's team from start to end. At a few envs the team runs alone and
 the sum is the length of its dependent chain; at 4096 envs the SM's other
@@ -14,6 +15,7 @@ to more than the SM clock gives in the instrumented launch's own time (CUDA
 events) stops the script.
 
     python -m wiki_grx_gym_tpu_torch.scripts.profile_k1 --envs 8 1056 4096
+    python -m wiki_grx_gym_tpu_torch.scripts.profile_k1 --task GR1T1_full --envs 8 2112 4096 8192
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ def cuda_ms(fn, reps=20):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="GR1T1")
     ap.add_argument("--envs", type=int, nargs="+", default=[8, 1056, 4096])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -116,11 +119,12 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print("card:", card)
+    print("task:", args.task)
     src, labels = instrumented_source()
     kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = kbuild.BUILD_DIR / "decimation_profiled.cu"
     path.write_text(src)
-    op, comp_all, _, _ = cuda_step.reachable_case(max(args.envs), dev)
+    op, comp_all, _, _ = cuda_step.reachable_case(max(args.envs), dev, task=args.task)
     lib = load_instrumented(path, op)
     khz = _INT()
     check(lib.k1p_clock_khz, ctypes.byref(khz))

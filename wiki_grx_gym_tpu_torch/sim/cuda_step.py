@@ -97,10 +97,10 @@ class K1Sizes(NamedTuple):
 TERRAIN_MODES = {"plane": 0, "local_plane": 1, "local_plane_walls": 2}
 
 # the team kernel's shape (lanes an env, envs a block) per model: 16 x 8 up
-# to 16 dofs; for the 32-DOF body the fastest of the shapes measured on the
-# H100 (PERF.md section 6)
+# to 16 dofs; 32 x 8 above, where an env's working set and registers let
+# two blocks (16 envs) share an SM (PERF.md section 6)
 TEAM_SHAPE_SMALL = (16, 8)
-TEAM_SHAPE_FULL_BODY = (32, 4)
+TEAM_SHAPE_FULL_BODY = (32, 8)
 MAX_DOF = 32   # anc_mask holds one bit a dof
 
 
